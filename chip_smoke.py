@@ -8,21 +8,28 @@ but the sources in the checkout.  Phases, in order; any failure exits
 non-zero and prints no result:
 
 1. device: require CUDA, print the card's name and power limit;
-2. build: compile every kernel of the serving path with nvcc (sm_90a);
+2. build: compile every kernel of the serving paths with nvcc (sm_90a),
+   one nvcc per source, all started together;
 3. kernels: hold each kernel against its plain torch version on the card
    at the main-path shape and at edge shapes, elementwise and row by row,
-   and time the kernel, the plain version and a PyTorch library call as
-   a yardstick;
-4. main path: mistral-nemo-12b at full width (40 layers, d_model 5120,
-   bf16, seeded random weights) served through the port's rFaaS stack
+   show that a deliberately wrong result would fail the checks, and time
+   the kernel, the plain version and (where one exists) a PyTorch
+   library call as a yardstick: flash attention (K1), then WKV6 (K2);
+4. main paths, each with every kernel's launch count set to 0 just
+   before it and read just after, served through the port's rFaaS stack
    (ModelServer, ServeEngine, Invoker, ResourceManager, BatchSystem,
-   Ledger): 8 requests, batch 4, prompts of 256-1024 tokens, 16 new tokens
-   each, max_len 2048; checks that every request gets its tokens, every
-   logit is finite and the flash kernel ran 40 times per prefill wave.
-   With --profile, then one prefill wave and three decode steps outside
-   the engine, timed and traced with torch.profiler;
-5. decode vs prefill: a 2-layer full-width f32 mistral-nemo-12b,
-   teacher-forced decode against a cache-free forward;
+   Ledger) at full width and depth in bf16 with seeded random weights:
+   8 requests, batch 4, prompts of 256-1024 tokens, 16 new tokens each;
+   each checks that every request gets its tokens, every logit is finite
+   and its kernel ran once per layer per prefill wave (and no other
+   kernel ran):
+   a. mistral-nemo-12b (40 layers, d_model 5120; max_len 2048), K1;
+   b. rwkv6-1.6b (24 layers, d_model 2048), K2; the mistral model is
+      freed first.
+   With --profile, after each, one prefill wave and three decode steps
+   outside the engine, timed and traced with torch.profiler;
+5. decode vs prefill: 2-layer full-width f32 models of both paths,
+   teacher-forced decode against one forward over the whole sequence;
 6. the kernels line, the card line and the result line, last.
 
 It imports nothing of JAX or of the JAX package.
@@ -30,11 +37,13 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -42,7 +51,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-ARCH = "mistral-nemo-12b"
+# each main path and the kernel it must run once per layer per wave
+MAIN_PATHS = {"mistral-nemo-12b": "flash_attention", "rwkv6-1.6b": "wkv6"}
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor cores
               torch.float32: 67e12}            # CUDA cores, no TF32
@@ -106,18 +116,35 @@ def time_ms(fn, iters=10, warmup=2):
 # ------------------------------------------------------------------ phases
 
 
+def kernel_ops():
+    """The dispatcher module of every kernel, by name; each counts its
+    launches in ``launches``."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    return {"flash_attention": flash_ops, "wkv6": wkv_ops}
+
+
 def phase_build():
+    """One nvcc per kernel source, all started together (each module's
+    ``build()`` in a thread of its own), then each library loaded."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+    modules = (flash_kernel, wkv_kernel)
     t0 = time.perf_counter()
-    so = flash_kernel.build()
-    flash_kernel.library()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        paths = list(pool.map(lambda m: m.build(), modules))
+    for m in modules:
+        m.library()
     dt = time.perf_counter() - t0
-    print(f"[build] flash_attention -> {so.relative_to(ROOT)} in {dt:.1f} s")
-    log = (so.parent / "build.log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+    print(f"[build] {', '.join(m.NAME for m in modules)} (in parallel) in "
+          f"{dt:.1f} s")
+    for m, so in zip(modules, paths):
+        print(f"[build] {m.NAME} -> {so.relative_to(ROOT)}")
+        log = so.parent / "build.log"
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build]   {line.strip()}")
 
 
 def _flash_inputs(shape, dtype, strided, gen):
@@ -167,9 +194,9 @@ def flash_bound(shape, dtype, causal, window):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels():
-    """Each case: kernel vs plain version, tolerance by dtype.  Returns
-    the kernels-line entry (numbers at the main-path case)."""
+def phase_flash():
+    """K1, each case: kernel vs plain version, tolerance by dtype.
+    Returns the kernels-line entry (numbers at the main-path case)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -234,6 +261,120 @@ def phase_kernels():
     return entry
 
 
+# WKV6 (K2): inputs and limits from repro_torch.kernels.rwkv6.checks.
+# name, (b, s, H, hd), dtype, strided, scale of the initial state
+WKV_CASES = [
+    ("main-path", (4, 1024, 32, 64), torch.bfloat16, False, 0.0),
+    ("s1", (2, 1, 32, 64), torch.float32, False, 10.0),
+    ("s37-hd16-strided", (2, 37, 4, 16), torch.float32, True, 10.0),
+    ("s37-hd16", (3, 37, 4, 16), torch.bfloat16, False, 10.0),
+    ("s1000-strided", (2, 1000, 8, 64), torch.bfloat16, True, 10.0),
+    ("s1024-f32", (1, 1024, 8, 64), torch.float32, False, 10.0),
+    ("s100-hd24", (2, 100, 4, 24), torch.float32, False, 10.0),
+]
+
+
+def wkv_bound(shape, dtype):
+    """Least time for the function: bytes (r, k, v in ``dtype``, w f32
+    and the state read once; y and the state written once) over HBM
+    bandwidth, or its f32 operations over the f32 peak, whichever is
+    larger.  Operations per (b, h, step): 4 hd^2 + 5 hd.  With the state
+    kept scaled by the running product of the decays (rescaled once per
+    chunk, a cost that vanishes with the chunk's length), S += k^T v is
+    one FMA per entry and y = (r*D).S one more: 2 hd^2 each; the u term
+    and the decay products are O(hd)."""
+    b, s, h, hd = shape
+    size = torch.finfo(dtype).bits // 8
+    n = b * s * h * hd
+    nbytes = 4 * n * size + 4 * n + h * hd * size + 2 * b * h * hd * hd * 4
+    flops = b * h * s * (4 * hd * hd + 5 * hd)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _close(out, ref, tol, row_tol, what):
+    """Elementwise and row checks; returns (max_abs_err, worst row)."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs().max().item()
+    rerr = row_err(out, ref)
+    check(math.isfinite(err), f"{what}: non-finite")
+    scale = ref.pow(2).mean().sqrt().item()
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol * scale)
+    check(rerr <= row_tol, f"{what}: worst row rel err {rerr:.3e} > "
+                           f"{row_tol:g}")
+    return err, rerr
+
+
+def phase_wkv6():
+    """K2, each case: kernel vs plain version, y and the final state.
+    Returns the kernels-line entry (numbers at the main-path case)."""
+    from repro_torch.kernels.rwkv6 import checks
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    entry = None
+    for name, shape, dtype, strided, state_scale in WKV_CASES:
+        args = checks.inputs(shape, dtype, gen, strided, state_scale)
+        with torch.inference_mode():
+            y, S = wkv_ops.wkv6(*args)
+            torch.cuda.synchronize()
+            y_ref, S_ref = wkv6_ref(*args)
+        check(y.dtype == dtype and S.dtype == torch.float32,
+              f"wkv6 {name}: dtypes {y.dtype}, {S.dtype}")
+        tol, rtol = checks.TOL[dtype], checks.ROW_TOL[dtype]
+        err, rerr = _close(y, y_ref, tol, rtol, f"wkv6 {name} y")
+        s_err, s_rerr = _close(S, S_ref, checks.STATE_TOL,
+                               checks.STATE_ROW_TOL,
+                               f"wkv6 {name} state")
+        print(f"[kernels] wkv6 {name} {tuple(shape)} {str(dtype)[6:]} "
+              f"strided={strided} state x{state_scale:g}: y max_abs_err "
+              f"{err:.3e} (limit {tol:g} x (rms + |ref|), rms "
+              f"{y_ref.float().pow(2).mean().sqrt().item():.3g}), worst row "
+              f"{rerr:.3e} (tol {rtol:g}); state max_abs_err {s_err:.3e}, "
+              f"worst row {s_rerr:.3e} (tol {checks.STATE_ROW_TOL:g})")
+        if name != "main-path":
+            continue
+        # The checks can fail here: the plain version with the update at
+        # t = s/2 dropped (k = 0, w = 1 there: the state skips the step,
+        # as a kernel that lost it would) must be far outside the limits.
+        r, k, v, w, u, state = args
+        half = shape[1] // 2
+        with torch.inference_mode():
+            k_drop, w_drop = k.clone(), w.clone()
+            k_drop[:, half] = 0
+            w_drop[:, half] = 1
+            y_drop, S_drop = wkv6_ref(r, k_drop, v, w_drop, u, state)
+            lost, s_lost = row_err(y_drop, y_ref), row_err(S_drop, S_ref)
+            del k_drop, w_drop, y_drop, S_drop
+        print(f"[kernels] wkv6 main-path: the update at t = {half} dropped "
+              f"gives worst row rel err {lost:.3e} in y (limit {rtol:g}) "
+              f"and {s_lost:.3e} in the state (limit "
+              f"{checks.STATE_ROW_TOL:g})")
+        check(lost > 10 * rtol and s_lost > 10 * checks.STATE_ROW_TOL,
+              f"a dropped update gives only {lost:.3e} / {s_lost:.3e}: the "
+              f"check cannot see it")
+        with torch.inference_mode():
+            ms = time_ms(lambda: wkv_ops.wkv6(*args))
+            plain_ms = time_ms(lambda: wkv6_ref(*args), iters=2, warmup=1)
+        bound_ms, bound_by = wkv_bound(shape, dtype)
+        print(f"[kernels] wkv6 main-path: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, no library call, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        entry = {
+            "name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:49",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+        }
+        del args, y, S, y_ref, S_ref
+    torch.cuda.empty_cache()
+    return entry
+
+
 class StepProbe:
     """Wraps a model: counts non-finite logits of every step and times
     each step on the host clock, up to the card finishing it."""
@@ -262,23 +403,25 @@ class StepProbe:
                            tokens, length)
 
 
-def phase_main_path(card, profile):
+def phase_main_path(arch, card, profile):
+    """Serves ``arch``'s smoke traffic; returns each kernel's launches in
+    that run (counts set to 0 just before it, read just after)."""
     from repro_torch.configs import get_config
     from repro_torch.core import (BatchSystem, Invoker, Ledger,
                                   ResourceManager)
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models.factory import build_model
     from repro_torch.serving import ModelServer, ServeEngine
 
+    ops = kernel_ops()
     n_req, batch, new_tokens, max_len = 8, 4, 16, 2048
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
                         "cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[main] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"[main] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.2f} B params in {str(model.dtype)[6:]} "
           f"initialised in {time.perf_counter() - t0:.1f} s")
     probe = StepProbe(model)
@@ -307,21 +450,22 @@ def phase_main_path(card, profile):
         probe.reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flash_ops.launches = 0
+        for mod in ops.values():
+            mod.launches = 0
         done = engine.run()
-        launches = flash_ops.launches
+        launches = {name: mod.launches for name, mod in ops.items()}
         m = engine.metrics()
     finally:
         invoker.deallocate()
         rm.stop()
     waves = -(-n_req // batch)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    cache_gb = (2 * cfg.n_layers * batch * max_len * cfg.n_kv_heads
-                * cfg.resolved_head_dim * 2) / 1e9
+    cache_gb = sum(t.numel() * t.element_size() for t in _leaves(
+        model.init_cache(batch, max_len, "meta"))) / 1e9
     prefill_ms = [t * 1e3 for t in probe.seconds["prefill"]]
     decode_ms = float(np.median(probe.seconds["decode"])) * 1e3
     print(f"[main] prompts {[len(p) for p in prompts]}, {waves} waves; "
-          f"flash_attention launches {launches}; "
+          f"kernel launches {launches}; "
           f"{len(probe.seconds['decode'])} decode steps; "
           f"{probe.nonfinite} non-finite logits")
     print(f"[main] step times on the host clock: prefill per wave "
@@ -331,35 +475,44 @@ def phase_main_path(card, profile):
     check(all(len(r.tokens_out) == new_tokens for r in done),
           "a request got the wrong number of tokens")
     check(probe.nonfinite == 0, f"{probe.nonfinite} non-finite logits")
-    check(launches == cfg.n_layers * waves,
-          f"flash_attention launched {launches} times, expected "
-          f"{cfg.n_layers * waves}")
+    want = {name: cfg.n_layers * waves if name == MAIN_PATHS[arch] else 0
+            for name in ops}
+    check(launches == want, f"kernel launches {launches}, expected {want}")
     max_latency = max(r.latency for r in done)
     result = {
-        "arch": ARCH, "requests": m["requests"], "tokens": m["tokens"],
+        "arch": arch, "requests": m["requests"], "tokens": m["tokens"],
         "throughput_tok_s": m["throughput_tok_s"],
         "p50_ttft_s": m["p50_ttft_s"], "p50_latency_s": m["p50_latency_s"],
         "p99_latency_s": m["p99_latency_s"], "max_latency_s": max_latency,
         "peak_memory_gb": peak_gb,
         "prefill_ms": prefill_ms, "decode_step_ms_median": decode_ms,
-        "kv_cache_gb": cache_gb, "bill_invocations":
+        "cache_gb": cache_gb, "bill_invocations":
             ledger.bill("serve").invocations, "card": card,
     }
     # 8 requests in 2 waves: a smoke of the path, not a serving
-    # measurement; the p99 of 8 latencies is all but their maximum.
+    # measurement; of 8 latencies the maximum is reported, not a p99.
     print(f"[main] smoke of {n_req} requests in {waves} waves: "
           f"{m['tokens']} tokens, {m['throughput_tok_s']:.2f} tok/s, "
           f"p50 TTFT {m['p50_ttft_s'] * 1e3:.1f} ms, p50 latency "
-          f"{m['p50_latency_s'] * 1e3:.1f} ms, p99 latency "
-          f"{m['p99_latency_s'] * 1e3:.1f} ms (max "
-          f"{max_latency * 1e3:.1f} ms), peak memory {peak_gb:.2f} GB "
-          f"| {card}")
+          f"{m['p50_latency_s'] * 1e3:.1f} ms, max latency "
+          f"{max_latency * 1e3:.1f} ms, peak memory {peak_gb:.2f} GB, "
+          f"cache {cache_gb:.3f} GB | {card}")
     print("main_path " + json.dumps(result))
     if profile:
         profile_steps(model, params, max_len)
-    del server, params, probe, model
-    torch.cuda.empty_cache()
     return launches
+
+
+def free_device_memory(what):
+    """Frees what the previous phase left: the serving stack holds the
+    model's params in reference cycles (server, library, invoker), which
+    only the cycle collector breaks.  Fails if more than 1 GB is still
+    allocated, so the next model's peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"[memory] after {what}: {left / 1e9:.3f} GB still allocated")
+    check(left < 1e9, f"{left / 1e9:.2f} GB still allocated after {what}")
 
 
 def profile_steps(model, params, max_len, batch=4, seq=1024, steps=3):
@@ -424,16 +577,36 @@ def _leaves(tree):
             yield v
 
 
-def phase_decode_vs_prefill():
-    """Teacher-forced decode reproduces a cache-free forward's logits.
-    f32 at 1e-3: both paths are f32 (TF32 off) but reduce over 5120 and
-    14336 terms in different orders (CUDA kernel vs plain torch)."""
-    from repro_torch.configs import get_config
+def full_logits(model, params, toks):
+    """Logits at every position from one forward over the whole
+    sequence: cache-free for the dense model; for RWKV the same layers
+    prefill runs (the kernel for the whole sequence), every position
+    kept."""
     from repro_torch.models import common as C
     from repro_torch.models import layers as L
+    from repro_torch.models.rwkv_lm import RWKVLM
+    cfg = model.cfg
+    if isinstance(model, RWKVLM):
+        x = model._embed(params, toks)
+        x = model._run_layers(x, params, model.init_cache(
+            toks.shape[0], 0, toks.device))
+    else:
+        x = C.embed(toks, params["embed"], cfg)
+        pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
+        x = model._run_layers(x, params, pos, None, None, "train")
+    return C.lm_logits(L.apply_norm(x, params["final_norm"], cfg),
+                       params["embed"], cfg)
+
+
+def phase_decode_vs_prefill(arch):
+    """Teacher-forced decode reproduces the logits of one forward over the
+    whole sequence.  f32 at 1e-3: both paths are f32 (TF32 off) but
+    reduce over the model's widths in different orders (a CUDA kernel
+    against plain torch: attention, or the recurrence's step path)."""
+    from repro_torch.configs import get_config
     from repro_torch.models.factory import build_model
 
-    cfg = get_config(ARCH).replace(n_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = model.init(gen, "cuda")
@@ -441,11 +614,7 @@ def phase_decode_vs_prefill():
                          device="cuda")
     tol, worst = 1e-3, 0.0
     with torch.inference_mode():
-        x = C.embed(toks, params["embed"], cfg)
-        pos = torch.arange(12, device="cuda")[None, :]
-        x = model._run_layers(x, params, pos, None, None, "train")
-        ref = C.lm_logits(L.apply_norm(x, params["final_norm"], cfg),
-                          params["embed"], cfg)
+        ref = full_logits(model, params, toks)
         logits, cache, length = model.prefill(params, toks[:, :6], 16)
         got = [(logits[:, 0], ref[:, 5])]
         for i in range(6, 11):
@@ -455,8 +624,8 @@ def phase_decode_vs_prefill():
         for a, b in got:
             worst = max(worst, (a - b).abs().max().item())
             torch.testing.assert_close(a, b, rtol=tol, atol=tol)
-    print(f"[decode] {ARCH} 2 layers f32 full width: teacher-forced decode "
-          f"vs full forward over 6 positions, max_abs_err {worst:.3e} "
+    print(f"[decode] {arch} 2 layers f32 full width: teacher-forced decode "
+          f"vs one forward over 6 positions, max_abs_err {worst:.3e} "
           f"(tol {tol:g})")
     del params, cache
     torch.cuda.empty_cache()
@@ -465,7 +634,7 @@ def phase_decode_vs_prefill():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, profile one prefill wave "
+                    help="after each main path, profile one prefill wave "
                          "and three decode steps with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -488,11 +657,16 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     print(card)
     phase_build()
-    entry = phase_kernels()
-    check(entry is not None, "no main-path kernel measurement")
-    entry["launches"] = phase_main_path(card, args.profile)
-    phase_decode_vs_prefill()
-    print(json.dumps({"kernels": [entry]}))
+    entries = {"flash_attention": phase_flash(), "wkv6": phase_wkv6()}
+    check(all(entries.values()), "no main-path kernel measurement")
+    for arch, kernel in MAIN_PATHS.items():
+        free_device_memory("the previous phase")
+        entries[kernel]["launches"] = phase_main_path(arch, card,
+                                                      args.profile)[kernel]
+    for arch in MAIN_PATHS:
+        free_device_memory("the previous phase")
+        phase_decode_vs_prefill(arch)
+    print(json.dumps({"kernels": list(entries.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,60 +23,36 @@ inputs (the parity checks, not the serving path) use f32 FMAs on the
 CUDA cores (67 TFLOP/s), because TF32 would not meet f32's tolerance.
 Measured times stand in PERF.md.
 
-The library is built at first use with nvcc into ``build/repro_torch/`` at
-the repository root, keyed by a hash of the source, and loaded with
-ctypes.  Nothing here runs at import time.
+The library is built at first use with nvcc (``kernels/_build.py``) into
+``build/repro_torch/`` at the repository root, keyed by a hash of the
+source, and loaded with ctypes.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
+
+NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_ROOT = _build.BUILD_ROOT
+NVCC_FLAGS = _build.NVCC_FLAGS
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-
-
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_ROOT / f"flash_attention-{digest}" / "libflash_attention.so"
+    return _build.library_path(SOURCE, NAME)
 
 
 def build() -> Path:
     """Compiles the source unless a library of the same source hash is
-    already built.  nvcc's output (ptxas register and spill counts) is
-    kept beside the library as ``build.log``."""
-    so = library_path()
-    if so.exists():
-        return so
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (so.parent / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
-    return so
+    already built."""
+    return _build.build(SOURCE, NAME)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,127 @@
+"""RWKV6 LM assembly, attention-free: the port of
+``repro.models.rwkv_lm``.
+
+The per-layer state (the WKV matrix and the two token-shift carries)
+plays the role the KV cache plays for transformers: it is what a hot
+rFaaS executor keeps resident between invocations, and its size does not
+grow with the sequence.  Params keep the reference's layout, every
+per-layer weight stacked on a leading (L, ...) dim; the reference's
+``lax.scan`` over layers becomes a Python loop that indexes the stacked
+params and state as views.
+
+The state keeps the reference's layout, ``{"wkv": (L, b, H, hd, hd) f32,
+"tm_x", "cm_x": (L, b, d)}``, and ``prefill``/``decode`` write it in
+place, layer by layer (the counterpart of the reference's donated cache
+buffer): the state passed to ``decode`` is the one it returns.  Prefill
+runs the WKV6 kernel's dispatcher once per layer; decode takes the plain
+one-step path.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import common as C
+from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as R
+
+
+class RWKVLM:
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
+                      else torch.float32)
+
+    # ------------------------------------------------------------------ init
+
+    def _init_layer(self, generator, device):
+        cfg, dt = self.cfg, self.dtype
+        return {
+            "ln1": L.init_norm(cfg, dt, device),
+            "ln2": L.init_norm(cfg, dt, device),
+            "tm": R.init_time_mix(generator, cfg, dt, device),
+            "cm": R.init_channel_mix(generator, cfg, dt, device),
+        }
+
+    def init(self, generator, device=None):
+        """Random params drawn from ``generator`` (which must live on
+        ``device``; the card by default), one layer at a time."""
+        device = resolve_device(device)
+        cfg = self.cfg
+        layers = C.stack_layers(lambda: self._init_layer(generator, device),
+                                cfg.n_layers)
+        return {
+            "embed": C.init_embedding(generator, cfg, self.dtype, device),
+            "ln0": L.init_norm(cfg, self.dtype, device),
+            "layers": layers,
+            "final_norm": L.init_norm(cfg, self.dtype, device),
+        }
+
+    # --------------------------------------------------------------- forward
+
+    def _layer(self, x, lp, state):
+        """One layer; ``state`` holds this layer's views of the state,
+        overwritten with the new state."""
+        cfg = self.cfg
+        h = L.apply_norm(x, lp["ln1"], cfg)
+        y, (wkv, tm_x) = R.time_mix(h, lp["tm"], cfg, state["wkv"],
+                                    state["tm_x"])
+        x = x + y
+        h = L.apply_norm(x, lp["ln2"], cfg)
+        y, cm_x = R.channel_mix(h, lp["cm"], state["cm_x"])
+        state["wkv"].copy_(wkv)
+        state["tm_x"].copy_(tm_x)
+        state["cm_x"].copy_(cm_x)
+        return x + y
+
+    def _run_layers(self, x, params, cache):
+        for l in range(self.cfg.n_layers):
+            x = self._layer(x, C.index_layer(params["layers"], l),
+                            C.index_layer(cache, l))
+        return x
+
+    def _embed(self, params, tokens):
+        x = C.embed(tokens, params["embed"], self.cfg)
+        return L.apply_norm(x, params["ln0"], self.cfg)
+
+    def loss(self, params, batch):
+        raise NotImplementedError("training (loss, remat): ROADMAP Queue 1 "
+                                  "item 6")
+
+    def prefill(self, params, tokens, max_len, patch_embeds=None):
+        """tokens (b, s) -> (last-position logits (b, 1, V), state, s).
+        The state has O(1) size, so ``max_len`` (and, as in the reference,
+        ``patch_embeds``) is ignored."""
+        del max_len, patch_embeds
+        x = self._embed(params, tokens)
+        cache = self.init_cache(tokens.shape[0], 0, x.device)
+        x = self._run_layers(x, params, cache)
+        x = L.apply_norm(x[:, -1:], params["final_norm"], self.cfg)
+        logits = C.lm_logits(x, params["embed"], self.cfg)
+        return logits, cache, tokens.shape[1]
+
+    def decode(self, params, cache, tokens, length):
+        """tokens (b, 1).  Updates ``cache`` in place and returns (logits
+        (b, 1, V), cache, length + 1)."""
+        x = self._embed(params, tokens)
+        x = self._run_layers(x, params, cache)
+        x = L.apply_norm(x, params["final_norm"], self.cfg)
+        logits = C.lm_logits(x, params["embed"], self.cfg)
+        return logits, cache, length + 1
+
+    # --------------------------------------------------------------- caches
+
+    def init_cache(self, batch, max_len, device):
+        del max_len
+        cfg = self.cfg
+        hd = cfg.rwkv.head_dim
+        H = cfg.d_model // hd
+        Ln = cfg.n_layers
+        return {
+            "wkv": torch.zeros((Ln, batch, H, hd, hd), dtype=torch.float32,
+                               device=device),
+            "tm_x": torch.zeros((Ln, batch, cfg.d_model), dtype=self.dtype,
+                                device=device),
+            "cm_x": torch.zeros((Ln, batch, cfg.d_model), dtype=self.dtype,
+                                device=device),
+        }

@@ -39,11 +39,6 @@ def layer_scalars(cfg):
     return win, theta
 
 
-def _index(tree, l):
-    return {k: _index(v, l) if isinstance(v, dict) else v[l]
-            for k, v in tree.items()}
-
-
 class DecoderLM:
     """Dense decoder LM over a dict of stacked params; methods are pure
     apart from the in-place cache update in ``decode``."""
@@ -81,15 +76,11 @@ class DecoderLM:
         above the model's size."""
         device = resolve_device(device)
         cfg = self.cfg
-        stacked = None
-        for l in range(cfg.n_layers):
-            layer = self._init_layer(generator, device)
-            if stacked is None:
-                stacked = _alloc_stacked(layer, cfg.n_layers)
-            _copy_layer(stacked, layer, l)
+        layers = C.stack_layers(lambda: self._init_layer(generator, device),
+                                cfg.n_layers)
         return {
             "embed": C.init_embedding(generator, cfg, self.dtype, device),
-            "layers": stacked,
+            "layers": layers,
             "final_norm": L.init_norm(cfg, self.dtype, device),
         }
 
@@ -157,8 +148,8 @@ class DecoderLM:
         for l in range(self.cfg.n_layers):
             ce = None if cache is None else {"k": cache["k"][l],
                                              "v": cache["v"][l]}
-            x = self._layer(x, _index(params["layers"], l), win[l], theta[l],
-                            positions, ce, length, mode)
+            x = self._layer(x, C.index_layer(params["layers"], l), win[l],
+                            theta[l], positions, ce, length, mode)
         return x
 
     def loss(self, params, batch):
@@ -197,16 +188,3 @@ class DecoderLM:
                  cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=device)}
-
-
-def _alloc_stacked(layer, n):
-    return {k: _alloc_stacked(v, n) if isinstance(v, dict)
-            else v.new_empty((n, *v.shape)) for k, v in layer.items()}
-
-
-def _copy_layer(stacked, layer, l):
-    for k, v in layer.items():
-        if isinstance(v, dict):
-            _copy_layer(stacked[k], v, l)
-        else:
-            stacked[k][l].copy_(v)

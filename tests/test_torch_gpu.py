@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA flash attention kernel against its plain
-version, the dispatcher's rules for CUDA tensors, and DecoderLM prefill
-through the kernel against the same model on the CPU.
+"""The port on the card: the CUDA flash attention (K1) and WKV6 (K2)
+kernels against their plain versions, the dispatchers' rules for CUDA
+tensors, and DecoderLM and RWKVLM prefill through the kernels against the
+same models on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one.  On a machine
 with a card, from the repository root:
@@ -18,6 +19,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import checks  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -142,3 +146,102 @@ def test_prefill_on_the_card_matches_cpu(cuda, arch):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got_cache["k"].cpu(), want_cache["k"],
                                rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ WKV6 (K2)
+
+# inputs and limits: repro_torch.kernels.rwkv6.checks, as chip_smoke.py
+
+
+def _wkv_inputs(b, s, h, hd, dtype, strided=False, state_scale=0.0,
+                seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return checks.inputs((b, s, h, hd), dtype, gen, strided, state_scale)
+
+
+def _assert_close(out, ref, tol, row_tol):
+    out, ref = out.float(), ref.float()
+    scale = ref.pow(2).mean().sqrt().item()
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol * scale)
+    row = (out - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+    assert row.max().item() <= row_tol
+
+
+# (b, s, h, hd), strided, scale of the initial state
+WKV_CASES = [
+    ((2, 1, 4, 64), False, 10.0),
+    ((2, 37, 4, 16), True, 10.0),
+    ((1, 100, 3, 24), False, 0.0),
+    ((2, 300, 4, 64), True, 10.0),
+    ((1, 1000, 2, 32), False, 10.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,strided,state_scale", WKV_CASES)
+def test_wkv6_kernel_matches_plain(cuda, shape, strided, state_scale,
+                                   dtype):
+    args = _wkv_inputs(*shape, dtype, strided, state_scale)
+    before = wkv_ops.launches
+    with torch.inference_mode():
+        y, S = wkv_ops.wkv6(*args)
+        y_ref, S_ref = wkv6_ref(*args)
+    assert wkv_ops.launches == before + 1
+    b, s, h, hd = shape
+    assert y.shape == (b, s, h, hd) and y.dtype == dtype
+    assert S.shape == (b, h, hd, hd) and S.dtype == torch.float32
+    _assert_close(y, y_ref, checks.TOL[dtype], checks.ROW_TOL[dtype])
+    _assert_close(S, S_ref, checks.STATE_TOL, checks.STATE_ROW_TOL)
+
+
+def test_wkv6_cuda_grad_raises(cuda):
+    r, k, v, w, u, s0 = _wkv_inputs(1, 8, 1, 16, torch.float32)
+    r.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        wkv_ops.wkv6(r, k, v, w, u, s0)
+    with torch.no_grad():
+        wkv_ops.wkv6(r, k, v, w, u, s0)
+
+
+def test_wkv6_cuda_rejects_what_the_kernel_does_not_take(cuda):
+    r, k, v, w, u, s0 = _wkv_inputs(1, 8, 2, 16, torch.float32)
+    before = wkv_ops.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        wkv_ops.wkv6(r.half(), k.half(), v.half(), w, u, s0)
+    with pytest.raises(TypeError, match="float32 w and state"):
+        wkv_ops.wkv6(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(TypeError, match="float32 w and state"):
+        wkv_ops.wkv6(r, k, v, w, u, s0.bfloat16())
+    with pytest.raises(TypeError, match="u in float32 or bfloat16"):
+        wkv_ops.wkv6(r, k, v, w, u.half(), s0)
+    big = _wkv_inputs(1, 4, 1, 128, torch.float32)
+    with pytest.raises(ValueError, match="head dim 128"):
+        wkv_ops.wkv6(*big)
+    with pytest.raises(ValueError, match="stride 1"):
+        wkv_ops.wkv6(*(t.transpose(2, 3).contiguous().transpose(2, 3)
+                       for t in (r, k, v, w)), u, s0)
+    assert wkv_ops.launches == before
+
+
+def test_rwkv_prefill_on_the_card_matches_cpu(cuda):
+    """Prefill runs K2 once per layer; its f32 logits and state equal the
+    same model's on the CPU (the plain recurrence there).  1e-4, not 2e-5:
+    every product and reduction sums in another order on the card."""
+    cfg = get_smoke("rwkv6-1.6b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(1, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    on_card = _to(params, cuda)
+    with torch.inference_mode():
+        want, want_state, _ = model.prefill(params, tokens, 0)
+        before = wkv_ops.launches
+        got, got_state, length = model.prefill(on_card, tokens.to(cuda), 0)
+        torch.cuda.synchronize()
+    assert wkv_ops.launches == before + cfg.n_layers
+    assert length == 40
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for key in ("wkv", "tm_x", "cm_x"):
+        torch.testing.assert_close(got_state[key].cpu(), want_state[key],
+                                   rtol=1e-4, atol=1e-4)

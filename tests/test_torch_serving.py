@@ -29,8 +29,8 @@ from repro_torch.serving.engine import backup_submit  # noqa: E402
 ARCH = "mistral-nemo-12b"
 
 
-def jax_params(dtype="float32"):
-    model = jax_build(get_smoke(ARCH).replace(dtype=dtype))
+def jax_params(dtype="float32", arch=ARCH):
+    model = jax_build(get_smoke(arch).replace(dtype=dtype))
     return model, model.init(jax.random.PRNGKey(0))
 
 
@@ -47,9 +47,9 @@ def stack(core, server, *, workers=1, **kw):
     return inv, ledger
 
 
-def torch_stack(**kw):
-    jm, jp = jax_params()
-    model = torch_build(torch_smoke(ARCH).replace(dtype="float32"))
+def torch_stack(arch=ARCH, **kw):
+    jm, jp = jax_params(arch=arch)
+    model = torch_build(torch_smoke(arch).replace(dtype="float32"))
     params = params_from_flat({k: np.asarray(v) for k, v in _flatten(jp)})
     server = ModelServer(model, params, max_len=48)
     inv, ledger = stack(tcore, server, **kw)
@@ -62,11 +62,14 @@ def requests(cfg, n=5, seed=0):
             for _ in range(n)]
 
 
-def test_greedy_tokens_identical_to_reference_engine():
-    jm, jp = jax_params()
+@pytest.mark.parametrize("arch", [ARCH, "rwkv6-1.6b"])
+def test_greedy_tokens_identical_to_reference_engine(arch):
+    """Left-padded waves of prompts of 3-8 tokens: the pad tokens (0) run
+    through attention and through RWKV's recurrence alike in both."""
+    jm, jp = jax_params(arch=arch)
     jserver = jserving.ModelServer(jm, jp, max_len=32)
     jinv, _ = stack(jcore, jserver)
-    tm = torch_build(torch_smoke(ARCH).replace(dtype="float32"))
+    tm = torch_build(torch_smoke(arch).replace(dtype="float32"))
     tserver = ModelServer(tm, params_from_flat(
         {k: np.asarray(v) for k, v in _flatten(jp)}), max_len=32)
     tinv, _ = stack(tcore, tserver)
@@ -119,6 +122,28 @@ def test_session_residency_is_server_side():
     assert server._sessions[sid][0]["k"] is cache["k"]    # updated in place
     inv.invoke("close_session", {"sid": sid})
     assert sid not in server._sessions
+    inv.deallocate()
+
+
+def test_rwkv_session_state_is_resident_and_updated_in_place():
+    """For RWKV the session holds the O(1) recurrent state; max_len does
+    not size it, and decode writes it in place."""
+    cfg, server, inv, _ = torch_stack("rwkv6-1.6b")
+    out = inv.invoke("prefill", {"tokens": np.ones((2, 5), np.int32)})
+    sid = out["sid"]
+    state, length = server._sessions[sid]
+    hd = cfg.rwkv.head_dim
+    assert length == 5
+    assert state["wkv"].shape == (cfg.n_layers, 2, cfg.d_model // hd, hd,
+                                  hd)
+    before = state["wkv"].clone()
+    res = inv.submit("decode", {"sid": sid,
+                                "tokens": out["next_token"][:, None]}).get()
+    assert res["next_token"].shape == (2,)
+    assert server._sessions[sid][0]["wkv"] is state["wkv"]
+    assert server._sessions[sid][1] == 6
+    assert not torch.equal(state["wkv"], before)
+    inv.invoke("close_session", {"sid": sid})
     inv.deallocate()
 
 

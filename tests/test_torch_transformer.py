@@ -124,7 +124,7 @@ def test_softcap_and_window_path():
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("rwkv6-1.6b", "RWKV6"), ("whisper-tiny", "Whisper"),
+    ("whisper-tiny", "Whisper"),
     ("jamba-1.5-large-398b", "Jamba"), ("mixtral-8x7b", "MoE"),
     ("deepseek-v3-671b", "MoE|MLA"), ("h2o-danube-3-4b", "sliding"),
 ])
