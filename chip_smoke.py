@@ -14,21 +14,30 @@ non-zero and prints no result:
    at the main-path shape and at edge shapes, elementwise and row by row,
    show that a deliberately wrong result would fail the checks, and time
    the kernel, the plain version and (where one exists) a PyTorch
-   library call as a yardstick: flash attention (K1), then WKV6 (K2);
+   library call as a yardstick: flash attention (K1), WKV6 (K2), then
+   the Mamba selective scan (K3);
 4. main paths, each with every kernel's launch count set to 0 just
    before it and read just after, served through the port's rFaaS stack
    (ModelServer, ServeEngine, Invoker, ResourceManager, BatchSystem,
-   Ledger) at full width and depth in bf16 with seeded random weights:
-   8 requests, batch 4, prompts of 256-1024 tokens, 16 new tokens each;
-   each checks that every request gets its tokens, every logit is finite
-   and its kernel ran once per layer per prefill wave (and no other
-   kernel ran):
-   a. mistral-nemo-12b (40 layers, d_model 5120; max_len 2048), K1;
-   b. rwkv6-1.6b (24 layers, d_model 2048), K2; the mistral model is
-      freed first.
+   Ledger) at full width in bf16 with seeded random weights: 8 requests,
+   batch 4, prompts of 256-1024 tokens, 16 new tokens each, max_len
+   2048; each checks that every request gets its tokens, every logit is
+   finite and each of its kernels ran as often per prefill wave as the
+   path has layers that run it (and no other kernel ran); the device
+   memory of the path before is freed first:
+   a. mistral-nemo-12b (40 layers, d_model 5120): K1 40 times a wave;
+   b. rwkv6-1.6b (24 layers, d_model 2048): K2 24 times a wave;
+   c. jamba-1.5-large-398b cut in depth to 4 layers, every width as
+      published (d_model 8192, 16 experts of 24576, d_inner 16384):
+      layers 4-7 of a published period (attention + MLP, Mamba + MoE,
+      Mamba + MLP, Mamba + MoE), 23.0 B params; K1 once and K3 3 times
+      a wave.  One period (8 layers) would be 45.2 B params, 90.4 GB in
+      bf16: more than the card holds.
    With --profile, after each, one prefill wave and three decode steps
    outside the engine, timed and traced with torch.profiler;
-5. decode vs prefill: 2-layer full-width f32 models of both paths,
+5. decode vs prefill: full-width f32 models of each path, cut to 2
+   layers (Jamba: layers 4-5 of a period, attention + MLP then Mamba +
+   MoE with all 16 experts, capacity factor 16 so that no token drops),
    teacher-forced decode against one forward over the whole sequence;
 6. the kernels line, the card line and the result line, last.
 
@@ -37,6 +46,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -51,11 +61,36 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-# each main path and the kernel it must run once per layer per wave
-MAIN_PATHS = {"mistral-nemo-12b": "flash_attention", "rwkv6-1.6b": "wkv6"}
+JAMBA = "jamba-1.5-large-398b"
+# Depth cuts of the published configs; every width stays as published.
+# Jamba's main path: layers 4-7 of a period (one attention layer, then
+# three Mamba layers, MoE on the 2nd and 4th).
+PATH_CUTS = {JAMBA: dict(n_layers=4, attn_layer_period=4,
+                         attn_layer_offset=0)}
+# Decode-vs-prefill models: 2 layers each; Jamba's are layers 4-5 of a
+# period (attention + MLP, Mamba + MoE).
+DECODE_CUTS = {"mistral-nemo-12b": dict(n_layers=2),
+               "rwkv6-1.6b": dict(n_layers=2),
+               JAMBA: dict(n_layers=2, attn_layer_period=2,
+                           attn_layer_offset=0)}
+# each main path and the launches of each kernel per prefill wave: one
+# per layer that runs it
+MAIN_PATHS = {"mistral-nemo-12b": {"flash_attention": 40},
+              "rwkv6-1.6b": {"wkv6": 24},
+              JAMBA: {"flash_attention": 1, "selective_scan": 3}}
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor cores
               torch.float32: 67e12}            # CUDA cores, no TF32
+# exp2 on the SFUs: 16 results a clock per SM (CUDA C++ programming
+# guide, arithmetic instruction throughput, compute capability 9.0), at
+# 132 SMs and the 1.98 GHz boost clock of the H100 SXM
+PEAK_EXP_PER_S = 16 * 132 * 1.98e9
+# f32 FMA-pipe instructions: 128 a clock per SM; and what one exp2 costs
+# there as a polynomial (range reduction and a degree-3 polynomial with
+# the exponent added to the bits, as FlashAttention-4 does), to state
+# the floor when part of the exponentials leave the SFUs
+PEAK_FMA_INSTR_PER_S = 128 * 132 * 1.98e9
+POLY_EXP2_INSTR = 6
 # Elementwise limit (atol = rtol).  f32: the kernel tests' 2e-5.  bf16:
 # both sides round the output to bf16, and at |out| ~ 1-4 one bf16 ulp is
 # 0.008-0.03, so an absolute 1e-2 plus 1e-2 of |ref|.
@@ -120,16 +155,19 @@ def kernel_ops():
     """The dispatcher module of every kernel, by name; each counts its
     launches in ``launches``."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
-    return {"flash_attention": flash_ops, "wkv6": wkv_ops}
+    return {"flash_attention": flash_ops, "wkv6": wkv_ops,
+            "selective_scan": scan_ops}
 
 
 def phase_build():
     """One nvcc per kernel source, all started together (each module's
     ``build()`` in a thread of its own), then each library loaded."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
-    modules = (flash_kernel, wkv_kernel)
+    modules = (flash_kernel, wkv_kernel, scan_kernel)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         paths = list(pool.map(lambda m: m.build(), modules))
@@ -375,6 +413,120 @@ def phase_wkv6():
     return entry
 
 
+# Selective scan (K3): inputs and limits from
+# repro_torch.kernels.mamba_scan.checks.
+# name, (b, s, di, N), dtype, scale of the initial state
+SCAN_CASES = [
+    ("main-path", (4, 1024, 16384, 16), torch.bfloat16, 0.0),
+    ("f32", (2, 1024, 2048, 16), torch.float32, 10.0),
+    ("s33-di1000", (2, 33, 1000, 16), torch.bfloat16, 10.0),
+    ("s2", (2, 2, 16384, 16), torch.float32, 10.0),
+    ("n8", (2, 100, 512, 8), torch.float32, 10.0),
+    ("n4-di200", (3, 37, 200, 4), torch.bfloat16, 10.0),
+    ("state-f32", (1, 64, 16384, 16), torch.float32, 10.0),
+]
+
+
+def scan_bound(shape, dtype):
+    """Least time for the function, the largest of three: bytes (x, B, C
+    in ``dtype``, dt f32, A, D and the state read once; y and the state
+    written once) over HBM bandwidth; its exponentials, one per state
+    entry and step, over the SFUs' exp2 rate; its f32 operations, 6 per
+    state entry and step (dt*A, dx*B, the state's FMA, the y FMA) and 3
+    per channel and step (dt*x, D*x + y), over the f32 peak."""
+    b, s, di, n = shape
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * s * di * size + 4 * b * s * di + 2 * b * s * n * size
+              + 4 * (di * n + di) + 2 * 4 * b * di * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_exp = b * s * di * n / PEAK_EXP_PER_S
+    t_flops = b * s * di * (6 * n + 3) / PEAK_FLOPS[torch.float32]
+    t_ops = max(t_exp, t_flops)
+    # the same work with x of the exponentials as polynomials on the FMA
+    # pipe, x chosen so that both pipes take equally long; not the bound
+    # (the SFU-only rate is what the kernel's design uses), but the floor
+    # a later speed change can aim for
+    n_exp, n_fma = b * s * di * n, b * s * di * (4 * n + 2)
+    moved = max(0.0, (n_exp * PEAK_FMA_INSTR_PER_S
+                      - n_fma * PEAK_EXP_PER_S)
+                / (PEAK_FMA_INSTR_PER_S + POLY_EXP2_INSTR * PEAK_EXP_PER_S))
+    t_mixed = max((n_exp - moved) / PEAK_EXP_PER_S, t_flops)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            {"bytes": nbytes, "exp": n_exp,
+             "flops": b * s * di * (6 * n + 3), "t_bytes_ms": t_bytes * 1e3,
+             "t_exp_ms": t_exp * 1e3, "t_flops_ms": t_flops * 1e3,
+             "t_ops_sfu_and_fma_ms": t_mixed * 1e3})
+
+
+def phase_scan():
+    """K3, each case: kernel vs plain version, y and the final state.
+    Returns the kernels-line entry (numbers at the main-path case)."""
+    from repro_torch.kernels.mamba_scan import checks
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    entry = None
+    for name, shape, dtype, state_scale in SCAN_CASES:
+        args = checks.inputs(shape, dtype, gen, state_scale)
+        with torch.inference_mode():
+            y, h = scan_ops.selective_scan(*args)
+            torch.cuda.synchronize()
+            y_ref, h_ref = selective_scan_ref(*args)
+        check(y.dtype == dtype and h.dtype == torch.float32,
+              f"selective_scan {name}: dtypes {y.dtype}, {h.dtype}")
+        tol, rtol = checks.TOL[dtype], checks.ROW_TOL[dtype]
+        err, rerr = _close(y, y_ref, tol, rtol, f"selective_scan {name} y")
+        h_err, h_rerr = _close(h, h_ref, checks.STATE_TOL,
+                               checks.STATE_ROW_TOL,
+                               f"selective_scan {name} state")
+        print(f"[kernels] selective_scan {name} {tuple(shape)} "
+              f"{str(dtype)[6:]} state x{state_scale:g}: y max_abs_err "
+              f"{err:.3e} (limit {tol:g} x (rms + |ref|), rms "
+              f"{y_ref.float().pow(2).mean().sqrt().item():.3g}), worst row "
+              f"{rerr:.3e} (tol {rtol:g}); state max_abs_err {h_err:.3e}, "
+              f"worst row {h_rerr:.3e} (tol {checks.STATE_ROW_TOL:g})")
+        if name != "main-path":
+            continue
+        # The checks can fail here: the plain version with the update at
+        # t = s/2 dropped (dt = 0 there: the state skips the step, as a
+        # kernel that lost it would) must be far outside the y row limit.
+        # The final state has forgotten the step by t = s (checks.py).
+        x, dt, A, B, C, D, state = args
+        half = shape[1] // 2
+        with torch.inference_mode():
+            dt_drop = dt.clone()
+            dt_drop[:, half] = 0
+            y_drop, h_drop = selective_scan_ref(x, dt_drop, A, B, C, D, state)
+            lost, h_lost = row_err(y_drop, y_ref), row_err(h_drop, h_ref)
+            del dt_drop, y_drop, h_drop
+        print(f"[kernels] selective_scan main-path: the update at t = "
+              f"{half} dropped gives worst row rel err {lost:.3e} in y "
+              f"(limit {rtol:g}) and {h_lost:.3e} in the final state")
+        check(lost > 10 * rtol, f"a dropped update gives only {lost:.3e}: "
+                                f"the check cannot see it")
+        with torch.inference_mode():
+            ms = time_ms(lambda: scan_ops.selective_scan(*args))
+            plain_ms = time_ms(lambda: selective_scan_ref(*args), iters=2,
+                               warmup=1)
+        bound_ms, bound_by, count = scan_bound(shape, dtype)
+        print(f"[kernels] selective_scan main-path: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, no library call, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {json.dumps(count)})")
+        entry = {
+            "name": "selective_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/"
+                      "selective_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan/kernel.py:51",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+        }
+        del args, y, h, y_ref, h_ref
+    torch.cuda.empty_cache()
+    return entry
+
+
 class StepProbe:
     """Wraps a model: counts non-finite logits of every step and times
     each step on the host clock, up to the card finishing it."""
@@ -414,16 +566,30 @@ def phase_main_path(arch, card, profile):
 
     ops = kernel_ops()
     n_req, batch, new_tokens, max_len = 8, 4, 16, 2048
-    cfg = get_config(arch)
+    published = get_config(arch)
+    cfg = published.replace(**PATH_CUTS.get(arch, {}))
+    if cfg != published:
+        print(f"[main] {arch} cut in depth, every width as published: "
+              f"{PATH_CUTS[arch]} ({published.n_layers} layers, "
+              f"{published.param_counts()['total'] / 1e9:.2f} B params "
+              f"published; {cfg.param_counts()['total'] / 1e9:.2f} B in "
+              f"the cut)")
     model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
                         "cuda")
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(t.numel() for t in _leaves(params))
+    params_gb = sum(t.numel() * t.element_size()
+                    for t in _leaves(params)) / 1e9
     print(f"[main] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e9:.2f} B params in {str(model.dtype)[6:]} "
-          f"initialised in {time.perf_counter() - t0:.1f} s")
+          f"{n_params / 1e9:.2f} B params ({params_gb:.2f} GB) in "
+          f"{str(model.dtype)[6:]} initialised in {init_s:.1f} s, init "
+          f"peak {init_peak_gb:.2f} GB")
     probe = StepProbe(model)
     server = ModelServer(probe, params, max_len=max_len)
     ledger = Ledger()
@@ -475,8 +641,7 @@ def phase_main_path(arch, card, profile):
     check(all(len(r.tokens_out) == new_tokens for r in done),
           "a request got the wrong number of tokens")
     check(probe.nonfinite == 0, f"{probe.nonfinite} non-finite logits")
-    want = {name: cfg.n_layers * waves if name == MAIN_PATHS[arch] else 0
-            for name in ops}
+    want = {name: MAIN_PATHS[arch].get(name, 0) * waves for name in ops}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     max_latency = max(r.latency for r in done)
     result = {
@@ -484,7 +649,8 @@ def phase_main_path(arch, card, profile):
         "throughput_tok_s": m["throughput_tok_s"],
         "p50_ttft_s": m["p50_ttft_s"], "p50_latency_s": m["p50_latency_s"],
         "p99_latency_s": m["p99_latency_s"], "max_latency_s": max_latency,
-        "peak_memory_gb": peak_gb,
+        "peak_memory_gb": peak_gb, "init_peak_memory_gb": init_peak_gb,
+        "init_s": init_s, "params_gb": params_gb,
         "prefill_ms": prefill_ms, "decode_step_ms_median": decode_ms,
         "cache_gb": cache_gb, "bill_invocations":
             ledger.bill("serve").invocations, "card": card,
@@ -495,8 +661,9 @@ def phase_main_path(arch, card, profile):
           f"{m['tokens']} tokens, {m['throughput_tok_s']:.2f} tok/s, "
           f"p50 TTFT {m['p50_ttft_s'] * 1e3:.1f} ms, p50 latency "
           f"{m['p50_latency_s'] * 1e3:.1f} ms, max latency "
-          f"{max_latency * 1e3:.1f} ms, peak memory {peak_gb:.2f} GB, "
-          f"cache {cache_gb:.3f} GB | {card}")
+          f"{max_latency * 1e3:.1f} ms, peak memory {peak_gb:.2f} GB "
+          f"serving, {init_peak_gb:.2f} GB at init, cache {cache_gb:.3f} "
+          f"GB | {card}")
     print("main_path " + json.dumps(result))
     if profile:
         profile_steps(model, params, max_len)
@@ -579,7 +746,8 @@ def _leaves(tree):
 
 def full_logits(model, params, toks):
     """Logits at every position from one forward over the whole
-    sequence: cache-free for the dense model; for RWKV the same layers
+    sequence: cache-free for the dense and Jamba models (Jamba's Mamba
+    layers from a zero state, through K3); for RWKV the same layers
     prefill runs (the kernel for the whole sequence), every position
     kept."""
     from repro_torch.models import common as C
@@ -606,7 +774,10 @@ def phase_decode_vs_prefill(arch):
     from repro_torch.configs import get_config
     from repro_torch.models.factory import build_model
 
-    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(dtype="float32", **DECODE_CUTS[arch])
+    if cfg.moe is not None:           # no drops on either side
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=16.0))
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = model.init(gen, "cuda")
@@ -624,9 +795,9 @@ def phase_decode_vs_prefill(arch):
         for a, b in got:
             worst = max(worst, (a - b).abs().max().item())
             torch.testing.assert_close(a, b, rtol=tol, atol=tol)
-    print(f"[decode] {arch} 2 layers f32 full width: teacher-forced decode "
-          f"vs one forward over 6 positions, max_abs_err {worst:.3e} "
-          f"(tol {tol:g})")
+    print(f"[decode] {arch} {DECODE_CUTS[arch]} f32 full width: "
+          f"teacher-forced decode vs one forward over 6 positions, "
+          f"max_abs_err {worst:.3e} (tol {tol:g})")
     del params, cache
     torch.cuda.empty_cache()
 
@@ -657,12 +828,17 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     print(card)
     phase_build()
-    entries = {"flash_attention": phase_flash(), "wkv6": phase_wkv6()}
+    entries = {"flash_attention": phase_flash(), "wkv6": phase_wkv6(),
+               "selective_scan": phase_scan()}
     check(all(entries.values()), "no main-path kernel measurement")
-    for arch, kernel in MAIN_PATHS.items():
+    for entry in entries.values():
+        entry["launches"], entry["launches_by_path"] = 0, {}
+    for arch, per_wave in MAIN_PATHS.items():
         free_device_memory("the previous phase")
-        entries[kernel]["launches"] = phase_main_path(arch, card,
-                                                      args.profile)[kernel]
+        launches = phase_main_path(arch, card, args.profile)
+        for name in per_wave:
+            entries[name]["launches"] += launches[name]
+            entries[name]["launches_by_path"][arch] = launches[name]
     for arch in MAIN_PATHS:
         free_device_memory("the previous phase")
         phase_decode_vs_prefill(arch)

@@ -31,18 +31,19 @@ def _softcap(x, cap):
 # params
 
 
-def init_attention(generator, cfg, dtype, device):
+def init_attention(generator, cfg, dtype, device, lead=()):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    kw = dict(lead=lead)
     p = {
-        "wq": L.dense_init(generator, (d, nq * hd), dtype, device),
-        "wk": L.dense_init(generator, (d, nkv * hd), dtype, device),
-        "wv": L.dense_init(generator, (d, nkv * hd), dtype, device),
-        "wo": L.dense_init(generator, (nq * hd, d), dtype, device),
+        "wq": L.dense_init(generator, (d, nq * hd), dtype, device, **kw),
+        "wk": L.dense_init(generator, (d, nkv * hd), dtype, device, **kw),
+        "wv": L.dense_init(generator, (d, nkv * hd), dtype, device, **kw),
+        "wo": L.dense_init(generator, (nq * hd, d), dtype, device, **kw),
     }
     if cfg.qk_norm:
-        p["q_scale"] = torch.ones((hd,), dtype=dtype, device=device)
-        p["k_scale"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["q_scale"] = torch.ones((*lead, hd), dtype=dtype, device=device)
+        p["k_scale"] = torch.ones((*lead, hd), dtype=dtype, device=device)
     return p
 
 

@@ -52,33 +52,7 @@ def residual_scale(cfg) -> float:
 # vmapped init and lax.scan over layers keep them
 
 
-def stack_layers(draw, n):
-    """Calls ``draw()`` ``n`` times and copies each layer's dict of
-    tensors into tensors stacked on a new leading dim, so the peak is one
-    layer above the stack's size."""
-    stacked = None
-    for l in range(n):
-        layer = draw()
-        if stacked is None:
-            stacked = _alloc_stacked(layer, n)
-        _copy_layer(stacked, layer, l)
-    return stacked
-
-
 def index_layer(tree, l):
     """Layer ``l``'s params as views of the stacked tensors."""
     return {k: index_layer(v, l) if isinstance(v, dict) else v[l]
             for k, v in tree.items()}
-
-
-def _alloc_stacked(layer, n):
-    return {k: _alloc_stacked(v, n) if isinstance(v, dict)
-            else v.new_empty((n, *v.shape)) for k, v in layer.items()}
-
-
-def _copy_layer(stacked, layer, l):
-    for k, v in layer.items():
-        if isinstance(v, dict):
-            _copy_layer(stacked[k], v, l)
-        else:
-            stacked[k][l].copy_(v)

@@ -18,26 +18,45 @@ import torch.nn.functional as F
 # live on ``device``)
 
 
-def dense_init(generator, shape, dtype, device, fan_in=None):
+# Drawn in row blocks of at most DRAW_BLOCK elements, straight into the
+# tensor's storage in ``dtype``, so that no f32 copy of a whole large
+# tensor exists (a stacked (E, d, d_e) expert weight of Jamba-1.5-Large
+# is 12.9 GB in f32).  A tensor of at most DRAW_BLOCK elements is one
+# block, the same draw as one ``torch.randn`` of its shape.
+DRAW_BLOCK = 1 << 28
+
+
+def _normal(generator, shape, std, dtype, device):
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.view(-1, shape[-1])
+    step = max(1, DRAW_BLOCK // shape[-1])
+    for r0 in range(0, rows.shape[0], step):
+        blk = rows[r0:r0 + step]
+        blk.copy_(torch.randn(blk.shape, generator=generator, device=device,
+                              dtype=torch.float32).mul_(std))
+    return out
+
+
+def dense_init(generator, shape, dtype, device, fan_in=None, lead=()):
+    """N(0, 1/fan_in) of ``(*lead, *shape)``; ``fan_in`` defaults to
+    ``shape[0]``.  ``lead`` stacks independent draws on leading dims, as
+    the reference's vmapped initialisers do."""
     fan_in = fan_in if fan_in is not None else shape[0]
-    std = 1.0 / math.sqrt(max(1, fan_in))
-    x = torch.randn(shape, generator=generator, device=device,
-                    dtype=torch.float32)
-    return (x * std).to(dtype)
+    return _normal(generator, (*lead, *shape),
+                   1.0 / math.sqrt(max(1, fan_in)), dtype, device)
 
 
 def embed_init(generator, shape, dtype, device):
-    x = torch.randn(shape, generator=generator, device=device,
-                    dtype=torch.float32)
-    return (x * 0.02).to(dtype)
+    return _normal(generator, shape, 0.02, dtype, device)
 
 
 # ---------------------------------------------------------------------------
 # norms
 
 
-def init_norm(cfg, dtype, device):
-    return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+def init_norm(cfg, dtype, device, lead=()):
+    return {"scale": torch.ones((*lead, cfg.d_model), dtype=dtype,
+                                device=device)}
 
 
 def rmsnorm(x, params, eps):
@@ -72,13 +91,26 @@ def head_rmsnorm(x, eps=1e-6):
 # MLP (gated or plain)
 
 
-def init_mlp(generator, d_model, d_ff, act, dtype, device):
+def init_mlp(generator, d_model, d_ff, act, dtype, device, lead=()):
     p = {}
     if act in ("silu", "geglu"):
-        p["gate"] = dense_init(generator, (d_model, d_ff), dtype, device)
-    p["up"] = dense_init(generator, (d_model, d_ff), dtype, device)
-    p["down"] = dense_init(generator, (d_ff, d_model), dtype, device)
+        p["gate"] = dense_init(generator, (d_model, d_ff), dtype, device,
+                               lead=lead)
+    p["up"] = dense_init(generator, (d_model, d_ff), dtype, device,
+                         lead=lead)
+    p["down"] = dense_init(generator, (d_ff, d_model), dtype, device,
+                           lead=lead)
     return p
+
+
+def silu(x):
+    """``jax.nn.silu`` as the reference computes it: x * (1 / (1 +
+    exp(-x))), each op rounded to x's dtype.  In bf16, ``F.silu``'s single
+    rounding differs from that in many elements; in f32 the two differ
+    in the last ulp, so f32 takes ``F.silu``'s one kernel."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1 + torch.exp(-x))
 
 
 def _gelu(x):
@@ -87,7 +119,7 @@ def _gelu(x):
 
 def apply_mlp(x, p, act):
     if "gate" in p:
-        fn = F.silu if act == "silu" else _gelu
+        fn = silu if act == "silu" else _gelu
         h = fn(x @ p["gate"]) * (x @ p["up"])
     else:
         h = _gelu(x @ p["up"])

@@ -14,7 +14,6 @@ a one-token input takes the step path even in prefill.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.models import layers as L
@@ -22,19 +21,21 @@ from repro_torch.models import layers as L
 MIX_KEYS = ("r", "k", "v", "w", "g")
 
 
-def init_time_mix(generator, cfg, dtype, device):
+def init_time_mix(generator, cfg, dtype, device, lead=()):
     d = cfg.d_model
     rw = cfg.rwkv
     dense = lambda shape, fan_in=None: L.dense_init(  # noqa: E731
-        generator, shape, dtype, device, fan_in=fan_in)
-    u = torch.randn((d,), generator=generator, device=device,
+        generator, shape, dtype, device, fan_in=fan_in, lead=lead)
+    full = lambda shape, v: torch.full(  # noqa: E731
+        (*lead, *shape), v, dtype=dtype, device=device)
+    u = torch.randn((*lead, d), generator=generator, device=device,
                     dtype=torch.float32) * 0.1
     return {
-        "mu_x": torch.zeros((d,), dtype=dtype, device=device),
-        "mu": torch.zeros((5, d), dtype=dtype, device=device),
+        "mu_x": full((d,), 0.0),
+        "mu": full((5, d), 0.0),
         "mix_w1": dense((d, 5 * rw.mix_lora)),
         "mix_w2": dense((5, rw.mix_lora, d), fan_in=rw.mix_lora),
-        "w0": torch.full((d,), -6.0, dtype=dtype, device=device),
+        "w0": full((d,), -6.0),
         "decay_w1": dense((d, rw.decay_lora)),
         "decay_w2": dense((rw.decay_lora, d), fan_in=rw.decay_lora),
         "u": u.to(dtype),
@@ -43,18 +44,19 @@ def init_time_mix(generator, cfg, dtype, device):
         "wv": dense((d, d)),
         "wg": dense((d, d)),
         "wo": dense((d, d)),
-        "ln_scale": torch.ones((d,), dtype=dtype, device=device),
+        "ln_scale": full((d,), 1.0),
     }
 
 
-def init_channel_mix(generator, cfg, dtype, device):
+def init_channel_mix(generator, cfg, dtype, device, lead=()):
     d, ff = cfg.d_model, cfg.d_ff
+    zeros = torch.zeros((*lead, d), dtype=dtype, device=device)
     return {
-        "mu_k": torch.zeros((d,), dtype=dtype, device=device),
-        "mu_r": torch.zeros((d,), dtype=dtype, device=device),
-        "wk": L.dense_init(generator, (d, ff), dtype, device),
-        "wv": L.dense_init(generator, (ff, d), dtype, device),
-        "wr": L.dense_init(generator, (d, d), dtype, device),
+        "mu_k": zeros,
+        "mu_r": zeros.clone(),
+        "wk": L.dense_init(generator, (d, ff), dtype, device, lead=lead),
+        "wv": L.dense_init(generator, (ff, d), dtype, device, lead=lead),
+        "wr": L.dense_init(generator, (d, d), dtype, device, lead=lead),
     }
 
 
@@ -80,7 +82,7 @@ def time_mix(x, p, cfg, state, last_x):
     r = (mixed["r"] @ p["wr"]).reshape(b, s, H, hd)
     k = (mixed["k"] @ p["wk"]).reshape(b, s, H, hd)
     v = (mixed["v"] @ p["wv"]).reshape(b, s, H, hd)
-    g = F.silu(mixed["g"] @ p["wg"])
+    g = L.silu(mixed["g"] @ p["wg"])
 
     dw = torch.tanh(mixed["w"] @ p["decay_w1"]) @ p["decay_w2"]
     w = torch.exp(-torch.exp(p["w0"].float() + dw.float()))

@@ -34,22 +34,18 @@ class RWKVLM:
 
     # ------------------------------------------------------------------ init
 
-    def _init_layer(self, generator, device):
-        cfg, dt = self.cfg, self.dtype
-        return {
-            "ln1": L.init_norm(cfg, dt, device),
-            "ln2": L.init_norm(cfg, dt, device),
-            "tm": R.init_time_mix(generator, cfg, dt, device),
-            "cm": R.init_channel_mix(generator, cfg, dt, device),
-        }
-
     def init(self, generator, device=None):
         """Random params drawn from ``generator`` (which must live on
-        ``device``; the card by default), one layer at a time."""
+        ``device``; the card by default), each weight drawn straight into
+        its (L, ...) stacked tensor."""
         device = resolve_device(device)
-        cfg = self.cfg
-        layers = C.stack_layers(lambda: self._init_layer(generator, device),
-                                cfg.n_layers)
+        cfg, dt, lead = self.cfg, self.dtype, (self.cfg.n_layers,)
+        layers = {
+            "ln1": L.init_norm(cfg, dt, device, lead=lead),
+            "ln2": L.init_norm(cfg, dt, device, lead=lead),
+            "tm": R.init_time_mix(generator, cfg, dt, device, lead=lead),
+            "cm": R.init_channel_mix(generator, cfg, dt, device, lead=lead),
+        }
         return {
             "embed": C.init_embedding(generator, cfg, self.dtype, device),
             "ln0": L.init_norm(cfg, self.dtype, device),

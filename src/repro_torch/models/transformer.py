@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense part: the port of ``repro.models.transformer``.
+"""Decoder-only LM, dense and single-device MoE: the port of
+``repro.models.transformer``.
 
 Params keep the reference's pytree layout, with every per-layer weight
 stacked on a leading (L, ...) dim and matrices oriented ``x @ W`` as
@@ -9,7 +10,10 @@ window and rope theta) rides along as per-layer Python ints and floats.
 
 Prefill attention goes through the flash attention kernel's dispatcher;
 decode attention is plain torch.  The KV cache has layout
-(L, b, S, n_kv, hd) and is updated in place.
+(L, b, S, n_kv, hd) and is updated in place.  The FFN of a MoE layer is
+``models/moe.py::apply_moe`` on one device (the reference's
+``not dist.active`` branch); its aux loss is computed and dropped, since
+nothing here trains.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def layer_scalars(cfg):
@@ -40,12 +45,10 @@ def layer_scalars(cfg):
 
 
 class DecoderLM:
-    """Dense decoder LM over a dict of stacked params; methods are pure
-    apart from the in-place cache update in ``decode``."""
+    """Decoder LM over a dict of stacked params; methods are pure apart
+    from the in-place cache updates of ``prefill`` and ``decode``."""
 
     def __init__(self, cfg):
-        if cfg.moe is not None:
-            raise NotImplementedError("MoE: ROADMAP Queue 1 item 8")
         if cfg.mla is not None or cfg.mtp_depth:
             raise NotImplementedError("MLA/MTP: ROADMAP Queue 1 item 10")
         if cfg.sliding_window and not cfg.local_global_period:
@@ -56,28 +59,27 @@ class DecoderLM:
         self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                       else torch.float32)
         self.residual_scale = C.residual_scale(cfg)
+        self.router_mode = ("sigmoid" if cfg.moe and cfg.moe.n_experts >= 64
+                            else "softmax_topk")
 
     # ------------------------------------------------------------------ init
 
-    def _init_layer(self, generator, device):
-        cfg, dt = self.cfg, self.dtype
-        return {
-            "ln1": L.init_norm(cfg, dt, device),
-            "ln2": L.init_norm(cfg, dt, device),
-            "attn": A.init_attention(generator, cfg, dt, device),
-            "ffn": L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt,
-                              device),
-        }
-
     def init(self, generator, device=None):
         """Random params drawn from ``generator`` (which must live on
-        ``device``; the card by default).  Layers are drawn one at a time
-        and copied into the stacked tensors, so the peak is one layer
-        above the model's size."""
+        ``device``; the card by default), each weight drawn straight into
+        its (L, ...) stacked tensor: the peak is the model's size and one
+        draw block (``layers.DRAW_BLOCK``)."""
         device = resolve_device(device)
-        cfg = self.cfg
-        layers = C.stack_layers(lambda: self._init_layer(generator, device),
-                                cfg.n_layers)
+        cfg, dt, lead = self.cfg, self.dtype, (self.cfg.n_layers,)
+        layers = {
+            "ln1": L.init_norm(cfg, dt, device, lead=lead),
+            "ln2": L.init_norm(cfg, dt, device, lead=lead),
+            "attn": A.init_attention(generator, cfg, dt, device, lead=lead),
+            "ffn": (M.init_moe(generator, cfg, dt, device, lead=lead)
+                    if cfg.moe is not None and cfg.layer_is_moe(0) else
+                    L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt,
+                               device, lead=lead)),
+        }
         return {
             "embed": C.init_embedding(generator, cfg, self.dtype, device),
             "layers": layers,
@@ -124,6 +126,14 @@ class DecoderLM:
                                softcap=cfg.attn_logit_softcap)
         return o.reshape(x.shape[0], 1, -1) @ ap["wo"]
 
+    def _moe(self, x, mp):
+        return M.apply_moe(x, mp, self.cfg, router_mode=self.router_mode)[0]
+
+    def _ffn(self, x, fp):
+        if self.cfg.moe is not None:
+            return self._moe(x, fp)
+        return L.apply_mlp(x, fp, self.cfg.act)
+
     def _layer(self, x, lp, win, theta, positions, cache_entry, length,
                mode):
         cfg = self.cfg
@@ -136,8 +146,7 @@ class DecoderLM:
                                         positions, cache_entry)
         x = x + C.mul_scalar(attn, self.residual_scale)
         h = L.apply_norm(x, lp["ln2"], cfg)
-        return x + C.mul_scalar(L.apply_mlp(h, lp["ffn"], cfg.act),
-                                self.residual_scale)
+        return x + C.mul_scalar(self._ffn(h, lp["ffn"]), self.residual_scale)
 
     # ------------------------------------------------------------- forwards
 

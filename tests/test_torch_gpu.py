@@ -1,7 +1,7 @@
-"""The port on the card: the CUDA flash attention (K1) and WKV6 (K2)
-kernels against their plain versions, the dispatchers' rules for CUDA
-tensors, and DecoderLM and RWKVLM prefill through the kernels against the
-same models on the CPU.
+"""The port on the card: the CUDA flash attention (K1), WKV6 (K2) and
+selective scan (K3) kernels against their plain versions, the
+dispatchers' rules for CUDA tensors, and DecoderLM, RWKVLM and JambaLM
+prefill through the kernels against the same models on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one.  On a machine
 with a card, from the repository root:
@@ -19,6 +19,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import checks as scan_checks  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import checks  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
@@ -245,3 +248,129 @@ def test_rwkv_prefill_on_the_card_matches_cpu(cuda):
     for key in ("wkv", "tm_x", "cm_x"):
         torch.testing.assert_close(got_state[key].cpu(), want_state[key],
                                    rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------- selective scan (K3)
+
+# inputs and limits: repro_torch.kernels.mamba_scan.checks, as
+# chip_smoke.py
+
+
+def _scan_inputs(b, s, di, n, dtype, state_scale=0.0, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return scan_checks.inputs((b, s, di, n), dtype, gen, state_scale)
+
+
+# (b, s, di, N), scale of the initial state
+SCAN_CASES = [
+    ((2, 2, 256, 16), 10.0),
+    ((2, 33, 200, 16), 10.0),
+    ((1, 100, 130, 8), 0.0),
+    ((3, 37, 64, 4), 10.0),
+    ((1, 1, 128, 16), 10.0),
+    ((2, 700, 512, 16), 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,state_scale", SCAN_CASES)
+def test_selective_scan_kernel_matches_plain(cuda, shape, state_scale,
+                                             dtype):
+    args = _scan_inputs(*shape, dtype, state_scale)
+    before = scan_ops.launches
+    with torch.inference_mode():
+        y, h = scan_ops.selective_scan(*args)
+        y_ref, h_ref = selective_scan_ref(*args)
+    assert scan_ops.launches == before + 1
+    b, s, di, n = shape
+    assert y.shape == (b, s, di) and y.dtype == dtype
+    assert h.shape == (b, di, n) and h.dtype == torch.float32
+    _assert_close(y, y_ref, scan_checks.TOL[dtype],
+                  scan_checks.ROW_TOL[dtype])
+    _assert_close(h, h_ref, scan_checks.STATE_TOL,
+                  scan_checks.STATE_ROW_TOL)
+
+
+def test_selective_scan_cuda_grad_raises(cuda):
+    x, dt, A, B, C, D, h0 = _scan_inputs(1, 8, 16, 4, torch.float32)
+    x.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        scan_ops.selective_scan(x, dt, A, B, C, D, h0)
+    with torch.no_grad():
+        scan_ops.selective_scan(x, dt, A, B, C, D, h0)
+
+
+def test_selective_scan_cuda_rejects_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C, D, h0 = _scan_inputs(1, 8, 16, 4, torch.float32)
+    before = scan_ops.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        scan_ops.selective_scan(x.half(), dt, A, B.half(), C.half(), D, h0)
+    with pytest.raises(TypeError, match="of one dtype"):
+        scan_ops.selective_scan(x, dt, A, B.bfloat16(), C, D, h0)
+    for i, name in ((1, "dt"), (2, "A"), (5, "D"), (6, "state")):
+        args = [x, dt, A, B, C, D, h0]
+        args[i] = args[i].bfloat16()
+        with pytest.raises(TypeError, match="float32 dt, A, D and state"):
+            scan_ops.selective_scan(*args)
+    big = _scan_inputs(1, 4, 16, 32, torch.float32)
+    with pytest.raises(ValueError, match="state size 32"):
+        scan_ops.selective_scan(*big)
+    with pytest.raises(ValueError, match="stride 1"):
+        scan_ops.selective_scan(x.transpose(1, 2).contiguous().transpose(
+            1, 2), dt, A, B, C, D, h0)
+    with pytest.raises(ValueError, match="different devices"):
+        scan_ops.selective_scan(x, dt, A.cpu(), B, C, D, h0)
+    assert scan_ops.launches == before
+
+
+def test_jamba_prefill_on_the_card_matches_cpu(cuda):
+    """Prefill runs K1 once per period and K3 once per Mamba layer; its
+    f32 logits and cache equal the same model's on the CPU (the plain
+    versions there).  1e-4, not 2e-5: every product and reduction sums in
+    another order on the card."""
+    cfg = get_smoke("jamba-1.5-large-398b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(1, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    on_card = _to(params, cuda)
+    with torch.inference_mode():
+        want, want_cache, _ = model.prefill(params, tokens, 48)
+        k1, k3 = ops.launches, scan_ops.launches
+        got, got_cache, length = model.prefill(on_card, tokens.to(cuda), 48)
+        torch.cuda.synchronize()
+    assert ops.launches == k1 + model.n_periods
+    assert scan_ops.launches == k3 + model.n_periods * model.n_mamba
+    assert length == 40
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for kind, key in (("attn", "k"), ("attn", "v"), ("mamba", "ssm"),
+                      ("mamba", "conv")):
+        torch.testing.assert_close(got_cache[kind][key].cpu(),
+                                   want_cache[kind][key], rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_moe_bf16_expert_products_write_f32_on_the_card(cuda):
+    """bf16 expert weights give f32 products on the card without being
+    converted, equal to the CPU's product of converted operands up to the
+    order of the f32 sums; a bf16 ``apply_moe`` on the card agrees with
+    the CPU's at the bf16 limit."""
+    from repro_torch.models import moe as M
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn((4, 24, 64), generator=gen).bfloat16()
+    w = (torch.randn((4, 64, 96), generator=gen) * 0.125).bfloat16()
+    got = M._bmm_f32(a.to(cuda), w.to(cuda))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), M._bmm_f32(a, w), rtol=1e-5,
+                               atol=1e-5)
+    cfg = get_smoke("mixtral-8x7b")
+    assert cfg.dtype == "bfloat16"
+    p = M.init_moe(torch.Generator().manual_seed(6), cfg, torch.bfloat16,
+                   "cpu")
+    x = torch.randn((2, 12, cfg.d_model), generator=gen).bfloat16()
+    want, _ = M.apply_moe(x, p, cfg)
+    with torch.inference_mode():
+        got, _ = M.apply_moe(x.to(cuda), _to(p, cuda), cfg)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)

@@ -67,6 +67,19 @@ def test_head_rmsnorm():
     close(jL.head_rmsnorm(jx), tL.head_rmsnorm(tx))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_silu_rounds_like_the_reference(dtype):
+    """bf16: every element equals ``jax.nn.silu``'s, which rounds each of
+    its ops (exp, 1 +, 1 /, x *) to bf16; f32 at 2e-5."""
+    jx, tx = both(arr(7, (40_000,), 3.0), dtype)
+    j, t = jax.nn.silu(jx), tL.silu(tx)
+    assert t.dtype == TDT[dtype]
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(np.asarray(j, np.float32),
+                                      t.float().numpy())
+    close(j, t, dtype)
+
+
 @pytest.mark.parametrize("act", ["silu", "geglu", "gelu"])
 def test_apply_mlp(act):
     d, ff = 24, 40

@@ -62,10 +62,12 @@ def requests(cfg, n=5, seed=0):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("arch", [ARCH, "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", [ARCH, "rwkv6-1.6b",
+                                  "jamba-1.5-large-398b"])
 def test_greedy_tokens_identical_to_reference_engine(arch):
     """Left-padded waves of prompts of 3-8 tokens: the pad tokens (0) run
-    through attention and through RWKV's recurrence alike in both."""
+    through attention and through the RWKV and Mamba recurrences alike in
+    both."""
     jm, jp = jax_params(arch=arch)
     jserver = jserving.ModelServer(jm, jp, max_len=32)
     jinv, _ = stack(jcore, jserver)
@@ -143,6 +145,34 @@ def test_rwkv_session_state_is_resident_and_updated_in_place():
     assert server._sessions[sid][0]["wkv"] is state["wkv"]
     assert server._sessions[sid][1] == 6
     assert not torch.equal(state["wkv"], before)
+    inv.invoke("close_session", {"sid": sid})
+    inv.deallocate()
+
+
+def test_jamba_session_cache_is_resident_and_updated_in_place():
+    """For Jamba the session holds the attention cache and the Mamba
+    states as one tree; the engine never looks inside it, and decode
+    writes every part in place."""
+    cfg, server, inv, _ = torch_stack("jamba-1.5-large-398b")
+    out = inv.invoke("prefill", {"tokens": np.ones((2, 5), np.int32)})
+    sid = out["sid"]
+    cache, length = server._sessions[sid]
+    P = cfg.n_layers // cfg.attn_layer_period
+    nm = cfg.attn_layer_period - 1
+    di = cfg.mamba.expand * cfg.d_model
+    assert length == 5
+    assert cache["attn"]["k"].shape[:3] == (P, 2, 48)
+    assert cache["mamba"]["ssm"].shape == (P, nm, 2, di, cfg.mamba.d_state)
+    before = cache["mamba"]["ssm"].clone()
+    res = inv.submit("decode", {"sid": sid,
+                                "tokens": out["next_token"][:, None]}).get()
+    assert res["next_token"].shape == (2,)
+    after, length = server._sessions[sid]
+    assert length == 6
+    for path in (("attn", "k"), ("mamba", "ssm"), ("mamba", "conv")):
+        assert after[path[0]][path[1]] is cache[path[0]][path[1]]
+    assert not torch.equal(cache["mamba"]["ssm"], before)
+    assert cache["attn"]["k"][:, :, 5].abs().sum() > 0
     inv.invoke("close_session", {"sid": sid})
     inv.deallocate()
 
