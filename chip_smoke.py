@@ -15,7 +15,10 @@ non-zero and prints no result:
    show that a deliberately wrong result would fail the checks, and time
    the kernel, the plain version and (where one exists) a PyTorch
    library call as a yardstick: flash attention (K1), WKV6 (K2), then
-   the Mamba selective scan (K3);
+   the Mamba selective scan (K3); K1's two variants (the Hopper one
+   that the serving shapes take, and the general one) in turns at the
+   main-path shape and at Jamba's 64 heads, each case checked for the
+   variant it took;
 4. main paths, each with every kernel's launch count set to 0 just
    before it and read just after, served through the port's rFaaS stack
    (ModelServer, ServeEngine, Invoker, ResourceManager, BatchSystem,
@@ -23,7 +26,8 @@ non-zero and prints no result:
    batch 4, prompts of 256-1024 tokens, 16 new tokens each, max_len
    2048; each checks that every request gets its tokens, every logit is
    finite and each of its kernels ran as often per prefill wave as the
-   path has layers that run it (and no other kernel ran); the device
+   path has layers that run it (and no other kernel ran), every K1
+   launch through the Hopper variant; the device
    memory of the path before is freed first:
    a. mistral-nemo-12b (40 layers, d_model 5120): K1 40 times a wave;
    b. rwkv6-1.6b (24 layers, d_model 2048): K2 24 times a wave;
@@ -50,6 +54,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -100,19 +105,35 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # so ~3e-3 at most.  A row that loses the key it attends to errs by O(1).
 ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
-# name, (b, sq, skv, h, hd), dtype, causal, window, softcap, strided
+# name, (b, sq, skv, h, hd), dtype, causal, window, softcap, strided, the
+# variant kernel.plan must pick
 FLASH_CASES = [
     ("main-path", (4, 1024, 1024, 32, 128), torch.bfloat16, True, 0, 0.0,
-     False),
-    ("window", (1, 257, 257, 4, 64), torch.float32, True, 64, 0.0, False),
+     False, "hopper"),
+    ("window", (1, 257, 257, 4, 64), torch.float32, True, 64, 0.0, False,
+     "general"),
     ("minicpm-hd12", (2, 100, 100, 6, 12), torch.float32, True, 0, 0.0,
-     False),
+     False, "general"),
     ("softcap-hd256", (1, 96, 96, 2, 256), torch.bfloat16, True, 0, 30.0,
-     False),
+     False, "general"),
     ("ragged-noncausal", (1, 64, 192, 2, 64), torch.float32, False, 0, 0.0,
-     False),
+     False, "general"),
     ("strided-gemma-hd16", (2, 130, 130, 4, 16), torch.float32, True, 16,
-     0.0, True),
+     0.0, True, "general"),
+    ("ragged-wave", (4, 916, 916, 32, 128), torch.bfloat16, True, 0, 0.0,
+     False, "hopper"),
+    ("window-257", (2, 700, 700, 8, 128), torch.bfloat16, True, 257, 0.0,
+     False, "hopper"),
+    ("window-64", (1, 257, 257, 4, 64), torch.bfloat16, True, 64, 0.0,
+     False, "hopper"),
+    ("noncausal-hd64", (1, 200, 333, 4, 64), torch.bfloat16, False, 0, 0.0,
+     False, "hopper"),
+    ("softcap-30", (1, 300, 300, 4, 128), torch.bfloat16, True, 0, 30.0,
+     False, "hopper"),
+    ("strided-hd128", (1, 300, 300, 4, 128), torch.bfloat16, True, 0, 0.0,
+     True, "hopper"),
+    ("jamba-64-heads", (4, 1024, 1024, 64, 128), torch.bfloat16, True, 0,
+     0.0, False, "hopper"),
 ]
 
 
@@ -180,9 +201,39 @@ def phase_build():
         print(f"[build] {m.NAME} -> {so.relative_to(ROOT)}")
         log = so.parent / "build.log"
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build]   {line.strip()}")
+            for line in ptxas_summary(log.read_text()):
+                print(f"[build]   {line}")
+
+
+def _demangle(mangled):
+    """`flash_fwd_hopper_kernel<128, 0>` from the mangled name of a kernel
+    template in a namespace (its last name and its integer arguments)."""
+    rest, names = mangled.strip()[3:], []       # after "_ZN"
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group(0)
+        rest = rest[len(n):]
+        names.append(rest[:int(n)])
+        rest = rest[int(n):]
+    args = re.findall(r"L[a-z](\d+)E", rest)
+    return f"{names[-1]}<{', '.join(args)}>" if names else mangled.strip()
+
+
+def ptxas_summary(log):
+    """One line per kernel of nvcc's -Xptxas -v output: the kernel (its
+    template arguments), registers, spills, static shared memory, and any
+    performance warning of ptxas."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            name = _demangle(line.split("Function properties for ")[1])
+        elif "spill" in line and name:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+        elif "Performance Loss" in line:
+            out.append(line.strip().split(" in the function")[0])
+    return out
 
 
 def _flash_inputs(shape, dtype, strided, gen):
@@ -233,70 +284,126 @@ def flash_bound(shape, dtype, causal, window):
 
 
 def phase_flash():
-    """K1, each case: kernel vs plain version, tolerance by dtype.
-    Returns the kernels-line entry (numbers at the main-path case)."""
+    """K1, each case: kernel vs plain version, tolerance by dtype, and the
+    variant the dispatcher took.  Returns the kernels-line entry (numbers
+    at the main-path case, the 64-head case's beside them)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    entry = None
-    for name, shape, dtype, causal, window, softcap, strided in FLASH_CASES:
+    entry, jamba = None, None
+    for (name, shape, dtype, causal, window, softcap, strided,
+         variant) in FLASH_CASES:
         q, k, v = _flash_inputs(shape, dtype, strided, gen)
         kw = dict(causal=causal, window=window, softcap=softcap)
+        before = dict(flash_ops.launches_by_variant)
         with torch.inference_mode():
             out = flash_ops.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             ref = attention_ref(q, k, v, **kw)
+        took = [vt for vt, n in flash_ops.launches_by_variant.items()
+                if n != before[vt]]
         err = (out.float() - ref.float()).abs().max().item()
         rerr = row_err(out, ref)
         tol, rtol = TOL[dtype], ROW_TOL[dtype]
         print(f"[kernels] flash_attention {name} {tuple(shape)} "
               f"{str(dtype)[6:]} causal={causal} window={window} "
-              f"softcap={softcap}: max_abs_err {err:.3e} (limit {tol:g} + "
-              f"{tol:g} x |ref|), "
+              f"softcap={softcap} strided={strided}, variant {took}: "
+              f"max_abs_err {err:.3e} (limit {tol:g} + {tol:g} x |ref|), "
               f"worst row rel err {rerr:.3e} (tol {rtol:g})")
+        check(took == [variant], f"flash_attention {name}: took {took}, "
+                                 f"expected [{variant!r}]")
         check(math.isfinite(err), f"flash_attention {name}: non-finite")
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
         check(rerr <= rtol, f"flash_attention {name}: worst row rel err "
                             f"{rerr:.3e} > {rtol:g}")
+        if name == "jamba-64-heads":
+            jamba = _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw,
+                                name)
         if name != "main-path":
+            del q, k, v, out, ref
             continue
         # The checks can fail here: the plain version with the values of
         # one middle kv tile zeroed (what a kernel that lost the tile
-        # would return) must be far outside the row limit.
+        # would return), and with kv rows [512, 640) replaced by rows
+        # [384, 512) (what a ring stage read with a stale phase would
+        # hold), must each be far outside the row limit.
         with torch.inference_mode():
             v_lost = v.clone()
             v_lost[:, 512:576] = 0
             lost = row_err(attention_ref(q, k, v_lost, **kw), ref)
             del v_lost
+            k_stale, v_stale = k.clone(), v.clone()
+            k_stale[:, 512:640] = k[:, 384:512]
+            v_stale[:, 512:640] = v[:, 384:512]
+            stale = row_err(attention_ref(q, k_stale, v_stale, **kw), ref)
+            del k_stale, v_stale
         print(f"[kernels] flash_attention main-path: a lost kv tile "
-              f"[512, 576) gives worst row rel err {lost:.3e}")
+              f"[512, 576) gives worst row rel err {lost:.3e}; a stale "
+              f"stage (kv [512, 640) read as [384, 512)) {stale:.3e} (limit "
+              f"{rtol:g})")
         check(lost > 10 * rtol, f"a lost kv tile gives only {lost:.3e}: "
                                 f"the check cannot see it")
-        with torch.inference_mode():
-            ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, **kw))
-            plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), iters=3)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))
-        bound_ms, bound_by = flash_bound(shape, dtype, causal, window)
-        print(f"[kernels] flash_attention main-path: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+        check(stale > 10 * rtol, f"a stale stage gives only {stale:.3e}: "
+                                 f"the check cannot see it")
         entry = {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "launches": None, "max_abs_err": err,
+            **_time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name,
+                          plain=lambda: attention_ref(q, k, v, **kw)),
         }
         del q, k, v, out, ref
+    check(entry is not None and jamba is not None,
+          "flash_attention: a timed case did not run")
+    entry["jamba_64_heads"] = jamba
     torch.cuda.empty_cache()
     return entry
+
+
+def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name,
+                plain=None):
+    """Times both variants of K1 in turns (general, hopper, hopper,
+    general) through the kernel module (no launch counted), SDPA on the
+    same inputs, and the plain version if given; prints them beside the
+    bound and returns the kernels-line numbers (``ms`` is the Hopper
+    variant's, which the main paths take)."""
+    turns = []
+    with torch.inference_mode():
+        for variant in ("general", "hopper", "hopper", "general"):
+            turns.append((variant, time_ms(
+                lambda: flash_kernel.flash_attention_cuda(q, k, v, variant,
+                                                          **kw))))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=kw["causal"]))
+        plain_ms = time_ms(plain, iters=3) if plain is not None else None
+    by_variant = {vt: [t for u, t in turns if u == vt]
+                  for vt in ("hopper", "general")}
+    ms_by_variant = {vt: float(np.mean(ts)) for vt, ts in by_variant.items()}
+    bound_ms, bound_by = flash_bound(shape, dtype, kw["causal"],
+                                     kw["window"])
+    plain_txt = f", plain {plain_ms:.4f} ms" if plain is not None else ""
+    print(f"[kernels] flash_attention {name}: in turns "
+          f"{', '.join(f'{u} {t:.4f}' for u, t in turns)} ms; hopper "
+          f"{ms_by_variant['hopper']:.4f} ms, general "
+          f"{ms_by_variant['general']:.4f} ms{plain_txt}, sdpa "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"hopper / sdpa {ms_by_variant['hopper'] / library_ms:.2f}, "
+          f"general / hopper "
+          f"{ms_by_variant['general'] / ms_by_variant['hopper']:.2f}")
+    out = {"ms": ms_by_variant["hopper"], "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "ms_by_variant": ms_by_variant,
+           "ms_turns": turns}
+    if plain is None:
+        del out["plain_ms"]
+    return out
 
 
 # WKV6 (K2): inputs and limits from repro_torch.kernels.rwkv6.checks.
@@ -618,8 +725,12 @@ def phase_main_path(arch, card, profile):
         torch.cuda.reset_peak_memory_stats()
         for mod in ops.values():
             mod.launches = 0
+        flash_variants = ops["flash_attention"].launches_by_variant
+        for variant in flash_variants:
+            flash_variants[variant] = 0
         done = engine.run()
         launches = {name: mod.launches for name, mod in ops.items()}
+        launches["flash_attention_by_variant"] = dict(flash_variants)
         m = engine.metrics()
     finally:
         invoker.deallocate()
@@ -642,6 +753,9 @@ def phase_main_path(arch, card, profile):
           "a request got the wrong number of tokens")
     check(probe.nonfinite == 0, f"{probe.nonfinite} non-finite logits")
     want = {name: MAIN_PATHS[arch].get(name, 0) * waves for name in ops}
+    # every K1 launch of a main path takes the Hopper variant
+    want["flash_attention_by_variant"] = {
+        "hopper": want["flash_attention"], "general": 0}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     max_latency = max(r.latency for r in done)
     result = {
@@ -833,12 +947,16 @@ def main() -> int:
     check(all(entries.values()), "no main-path kernel measurement")
     for entry in entries.values():
         entry["launches"], entry["launches_by_path"] = 0, {}
+    flash = entries["flash_attention"]
+    flash["launches_by_variant"] = {"hopper": 0, "general": 0}
     for arch, per_wave in MAIN_PATHS.items():
         free_device_memory("the previous phase")
         launches = phase_main_path(arch, card, args.profile)
         for name in per_wave:
             entries[name]["launches"] += launches[name]
             entries[name]["launches_by_path"][arch] = launches[name]
+        for variant, n in launches["flash_attention_by_variant"].items():
+            flash["launches_by_variant"][variant] += n
     for arch in MAIN_PATHS:
         free_device_memory("the previous phase")
         phase_decode_vs_prefill(arch)

@@ -5,7 +5,11 @@ Each library goes into ``build/repro_torch/<name>-<hash of its source>/``
 at the repository root, so an edited source gets a new directory and is
 rebuilt, and an unchanged one is built once.  nvcc's output (ptxas
 register and spill counts) is kept beside the library as ``build.log``.
-Nothing here runs at import time.
+Nothing is linked beyond what nvcc links by default (the CUDA runtime,
+statically): flash attention's Hopper variant looks up libcuda's
+``cuTensorMapEncodeTiled`` at run time through the CUDA runtime's entry
+point query, not through ``-lcuda``.  Nothing
+here runs at import time.
 """
 from __future__ import annotations
 

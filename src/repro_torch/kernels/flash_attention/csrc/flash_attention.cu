@@ -7,7 +7,35 @@
 // position 0, a sliding window, f32 statistics and accumulator, a finite
 // -1e30 mask value, the denominator clamped at 1e-30, output in q's type.
 //
-// Shared by both paths (see kernel.py for what bounds them):
+// What bounds it: at the serving shape, (4, <=1024, 32 or 64, 128) bf16
+// causal, reading q, k, v and writing o once takes about as long at 3.35
+// TB/s as the products of the unmasked (query, key) pairs at the 989
+// TFLOP/s of the bf16 tensor cores (0.040 against 0.035 ms at 32 heads
+// and s = 1024).  Only wgmma reaches that tensor-core rate, and only
+// loads that overlap the products keep both near their bounds.  Two
+// variants; kernel.py::plan picks one before launch from the dtype, the
+// head dim and the strides, and neither falls back to the other.
+//
+// Hopper variant (bf16, hd 64 or 128, TMA-compatible strides: every
+// serving call).  Persistent blocks, one per SM, each with a producer
+// warpgroup and two consumer warpgroups of 64 query rows; units of 128
+// query rows are handed out by an atomic counter, longest first within
+// groups of heads whose K and V stay in L2 (taking the longest tiles of
+// all heads first streamed K and V from device memory once per q tile,
+// which bounded the whole kernel).  Q, K and V arrive by TMA into double
+// buffers guarded by mbarriers while the consumers multiply; S = Q K^T
+// and O += P V are wgmma (m64n128k16, P from registers), tile i's S
+// started beside tile i-1's P V and the two consumers taking turns, so
+// the softmax overlaps products; the softmax is in the log2 domain (one
+// FMA and one ex2 a score) and takes masks only on tiles that cross the
+// diagonal, the window's edge or the end of kv; 128-row kv tiles halve
+// the re-reads of K and V against 64-row ones.  What still bounds it
+// (PERF.md): its products run at about half the tensor cores' peak, and
+// the softmax is not wholly hidden behind them.  Details above its code,
+// below.
+//
+// General variant (every other call: f32, bf16 with other head dims or
+// strides TMA refuses).  Shared by its two paths:
 //   * one thread block per (q tile of 64 rows, head, batch); the TPU's
 //     sequential kv grid dimension becomes a loop over 64-row kv tiles
 //     inside the block; tiles wholly above the causal diagonal or wholly
@@ -20,26 +48,32 @@
 //   * q/k/v/o are read and written through their strides (innermost
 //     stride 1), so the caller makes no transpose copy.
 //
-// bf16 path (the serving path): tensor cores through mma.sync m16n8k16,
-// bf16 operands, f32 accumulators.  4 warps, each owning 16 query rows:
-// S = Q K^T from fragments of the bf16 Q/K tiles in shared memory, the
-// online softmax on the S fragments in registers, then P (rounded to
-// bf16, as the tensor cores take it) times V with V's fragments read by
+// General bf16 path: tensor cores through mma.sync m16n8k16, bf16
+// operands, f32 accumulators.  4 warps, each owning 16 query rows: S = Q
+// K^T from fragments of the bf16 Q/K tiles in shared memory, the online
+// softmax on the S fragments in registers, then P (rounded to bf16, as
+// the tensor cores take it) times V with V's fragments read by
 // ldmatrix.trans.  Tiles are loaded with 16-byte vector loads where
-// pointers and strides allow.
+// pointers and strides allow, between two barriers: no overlap of loads
+// and products.
 //
-// f32 path: f32 FMAs on the CUDA cores (the tensor cores' TF32 would not
-// hold f32 to its tolerance).  256 threads as a 16 x 16 grid, each owning
-// 4 query rows x 4 keys of the score tile and 4 rows x hd/16 columns of
-// the output; Q (scaled) and K staged transposed so the score loop reads
-// float4s; V row-major; P transposed.
+// General f32 path: f32 FMAs on the CUDA cores (the tensor cores' TF32
+// would not hold f32 to its tolerance).  256 threads as a 16 x 16 grid,
+// each owning 4 query rows x 4 keys of the score tile and 4 rows x hd/16
+// columns of the output; Q (scaled) and K staged transposed so the score
+// loop reads float4s; V row-major; P transposed.
 //
 // Built with nvcc into a shared library with a plain C interface, loaded
-// with ctypes; the entry point returns cudaGetLastError().
+// with ctypes; each entry point returns a cudaError_t (the Hopper one
+// also the codes of a failed tensor-map encode).  Measured times stand in
+// PERF.md.
 
+#include <cuda.h>   // CUtensorMap and its enums; no libcuda is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -87,7 +121,7 @@ __device__ __forceinline__ float masked_score(const Params& p, float x,
   return ok ? x : NEG_INF;
 }
 
-// ------------------------------------------------------------ f32 path
+// -------------------------------------------- f32, general variant
 
 constexpr int FMA_THREADS = 256;  // 16 x 16
 constexpr int TS = BQ + 4;        // stride of transposed tiles (float4-aligned)
@@ -234,7 +268,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
   }
 }
 
-// ----------------------------------------------------------- bf16 path
+// ------------------------------------------- bf16, general variant
 
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
 
@@ -493,6 +527,797 @@ bool aligned16(const void* ptr, long long sb, long long ss, long long sh) {
          ss % 8 == 0 && sh % 8 == 0;
 }
 
+// ------------------------------------------------ bf16, Hopper variant
+//
+// Block: 3 warpgroups, one block per SM, persistent (see the kernel).
+// Warpgroup 0 is the producer: after giving up registers (setmaxnreg) one
+// thread starts every TMA load of the block.  Warpgroups 1 and 2 are
+// consumers, each owning 64 query rows of a unit's 128 (BQ), with 232
+// registers a thread for the S and O accumulators and P; they take turns
+// at issuing their products (ping-pong, named barriers 1 and 2), so one's
+// softmax runs while the other's products do.  Shared memory (192 KB at
+// hd 128): two Q tiles (this unit's and the next's), then rings of
+// STAGES K and STAGES V tiles of 128 rows (BK).  Each K and V stage has a
+// "full" barrier (the TMA bytes landed) and an "empty" one that every
+// consumer thread arrives on once the product that read it has completed
+// (K after S, V after P V).  A third stage measured no faster, and does
+// not fit beside the second Q tile.
+//
+// Tiles are TMA boxes of 64 columns (128 bytes, the widest swizzle) by
+// 128 rows, swizzled 128B; hd 128 is two boxes side by side, each box
+// 16 KB and 1024-byte aligned.  The wgmma descriptors use the same
+// 128B swizzle mode (bits 62-63 = 1):
+//   * Q and K, K-major: SBO 1024 bytes (8 rows of 128 bytes), LBO unused
+//     (16); one k step of 16 columns moves the start address by 32
+//     bytes inside a box, and the 5th k step starts on the second box.
+//     The swizzle is a function of the address bits, so a start 32, 64
+//     or 96 bytes into a 1024-byte-aligned box reads the right columns.
+//   * V, read MN-major (transposed B, the (kv, hd) layout as loaded):
+//     SBO 1024 bytes (8 kv rows), LBO the distance between the two
+//     64-column boxes (BK x 128 bytes); one k step of 16 kv rows moves
+//     the start by 2048 bytes.
+// Phase bits: the i-th kv tile of the block uses stage i % STAGES in
+// round r = i / STAGES (unit j's Q buffer j % 2 in round j / 2).  A
+// consumer waits on full barriers with parity r & 1; the producer waits
+// on empty barriers with parity (r & 1) ^ 1, which passes at once in
+// round 0 (no consumer has arrived yet).  A stale parity would read the
+// previous round's tile without an error, which chip_smoke.py's
+// stale-stage check is there to catch.
+// Ordering of wgmma: wgmma.fence before each batch of products (the
+// accumulators and P were written by ordinary instructions since),
+// commit_group, then wait_group 1 before the softmax reads S (the P V
+// started after it may still run) and wait_group 0 before O is rescaled
+// and the V stage released; ptxas tracks the registers an in-flight
+// wgmma reads.  What makes ptxas serialise every wgmma of the kernel
+// (its warning C7520) instead: a C++ loop around mbarrier.try_wait (the
+// wait is a loop inside its asm), and a branch whose condition depends on
+// the thread index (the mask test uses the unit's rows, not the
+// consumer's).
+// Out-of-bounds rows of a box (the ragged ends of q and kv) are filled
+// with zeros by TMA; the kv ones are masked in the softmax, the q ones
+// are never stored.
+// TMA preconditions (kernel.py::plan routes calls that miss them to the
+// general variant): base address 16-byte aligned, every (batch, seq,
+// head) stride a multiple of 16 bytes, rank 4 with dims {hd, h, s, b}.
+
+namespace hopper {
+
+constexpr int BQ = 128;
+constexpr int BK = 128;
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;
+constexpr int BOX = 64;                  // columns of a TMA box
+constexpr int BOX_ROW_BYTES = BOX * 2;   // 128: the swizzle width
+constexpr int PRODUCER_REGS = 40;        // 128 x 40 + 256 x 232 = 384 x 168
+constexpr int CONSUMER_REGS = 232;
+constexpr float LOG2E = 1.4426950408889634f;
+// K and V bytes of the (batch, head) pairs whose units run together: 8 MB
+// (16 pairs at s = 1024, hd 128); 4 and 16 measured no faster, 64 slower
+constexpr long long GROUP_KV_BYTES = 8ll << 20;
+
+template <int HD>
+struct Smem {
+  static constexpr int NB = HD / BOX;                  // boxes per row
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;         // one K or V tile
+  static constexpr int K_OFF = 2 * Q_BYTES;           // two Q buffers
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // barriers: Q full and Q empty x 2, then full K, full V, empty K and
+  // empty V x STAGES; then the numbers of the units whose Q is loaded
+  static constexpr int WORK_OFF = BAR_OFF + 8 * (4 + 4 * STAGES);
+  static constexpr int BYTES = WORK_OFF + 16
+                               + 1024;                 // alignment slack
+};
+
+struct Params {
+  __nv_bfloat16* o;
+  int* counter;       // next unit of work, 0 at launch
+  long long o_sb, o_ss, o_sh;
+  int b, sq, skv, h, causal, window;
+  int group;          // (batch, head) pairs whose units go together
+  float scale_log2;   // scale x log2(e): exp2 of scaled scores
+  float cap_in;       // softcap: tanh(s x scale / cap) x cap x log2(e)
+  float cap_out;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.  The
+// spin is a loop inside the asm: a loop in C++ around try_wait made ptxas
+// spill and serialise every wgmma of the kernel.  A wait that lasts 2^34
+// clocks (about 10 s) can only be a fault of the kernel (a lost arrival,
+// a wrong byte count or phase): it traps, so the launch fails with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 17179869184;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a rank-4 {hd, h, s, b} tensor map into shared memory; the
+// barrier's transaction count drops by the box's bytes when it lands.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c_hd, int c_h, int c_s, int c_b,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c_hd), "r"(c_h), "r"(c_s),
+      "r"(c_b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128B swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of wgmma are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator
+// across the asm statements that start and wait for a wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Named barriers 1 and 2 order the two consumers' products (ping-pong):
+// consumer c starts its wgmma batch after bar.sync on 1 + c and then
+// arrives on 2 - c, handing the tensor cores to the other consumer while
+// it runs its softmax.
+__device__ __forceinline__ void wait_turn(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory");
+}
+
+__device__ __forceinline__ void pass_turn(int c) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - c) : "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), A and B from shared
+// memory through descriptors, both K-major; scale_d = 0 zeroes D first.
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) B (16 x 128), B
+// from shared memory MN-major (transposed: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64), B
+// from shared memory MN-major (transposed: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n128(d, a, db);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_m64n64(d, a, db);
+}
+
+// Softcap, masks and the online softmax of one 64 x 128 score tile held
+// as a wgmma accumulator: this thread's rows are row0 and row0 + 8 (s[4j
+// + 2h + e] is row row0 + 8h, key k0 + 8j + 2t + e), and each row is
+// spread over the 4 lanes of a quad.  The maxima m are kept in the log2
+// domain (scores x scale x log2 e), so each probability is one FMA and
+// one ex2.  On a tile without masks or softcap, the raw scores' maximum
+// is scaled once and the scale folded into the FMA.  With softcap,
+// tanh(s x scale / cap) x cap x log2 e comes first; on a masked tile the
+// scores are scaled first, then masked to -1e30.  MASK: the tile crosses
+// the causal diagonal, the window's edge or the end of kv; tiles wholly
+// inside take no comparisons.  On return s holds the probabilities, m
+// the running maxima, l this thread's partial row sums, and corr the
+// factor by which O must be rescaled (once the P V product in flight has
+// landed in it).  A row with no unmasked key in the tile gets
+// probabilities of exactly 1 against a maximum of -1e30; its first
+// unmasked key's corr of 0 wipes them, as in the TPU kernel (every row
+// has such a key).  That needs -1e30 - m to be exactly 0 there, which the
+// folded FMA would not give (it keeps the rounding error of -1e30 x
+// scale, up to 2^73, and ex2 of it is infinite): hence no fold on masked
+// tiles.
+template <bool MASK, bool SOFTCAP>
+__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&corr)[2],
+                                               const Params& p, int row0,
+                                               int k0, int t) {
+  const float mul = SOFTCAP || MASK ? 1.f : p.scale_log2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = row0 + 8 * h;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = s[4 * j + 2 * h + e];
+        if (SOFTCAP)
+          x = tanhf(x * p.cap_in) * p.cap_out;
+        else if (MASK)
+          x *= p.scale_log2;
+        if (MASK) {
+          const int kp = k0 + 8 * j + 2 * t + e;
+          bool ok = kp < p.skv;
+          if (p.causal) ok = ok && qp >= kp;
+          if (p.window > 0) ok = ok && qp - kp < p.window;
+          x = ok ? x : NEG_INF;
+        }
+        s[4 * j + 2 * h + e] = x;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx * mul);
+    corr[h] = fast_exp2(m[h] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        x = fast_exp2(fmaf(x, mul, -m_new));
+        rs += x;
+      }
+    l[h] = l[h] * corr[h] + rs;
+    m[h] = m_new;
+  }
+}
+
+// online_softmax of the tile at k0 in the block whose rows start at q0,
+// with masks only if the tile crosses the causal diagonal, the window's
+// edge or the end of kv.  The test uses the block's rows, not the
+// consumer's: a branch on a value that depends on the thread index made
+// ptxas serialise the wgmma in flight across it.  (For tiles of 128 rows
+// it differs from the consumer's own test only at a window's edge.)
+template <bool SOFTCAP>
+__device__ __forceinline__ void softmax_scores(float (&s)[64], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&corr)[2],
+                                               const Params& p, int row0,
+                                               int q0, int k0, int t) {
+  const bool mask = k0 + BK > p.skv || (p.causal && k0 + BK - 1 > q0) ||
+                    (p.window > 0 && q0 + BQ - 1 - k0 >= p.window);
+  if (mask)
+    online_softmax<true, SOFTCAP>(s, m, l, corr, p, row0, k0, t);
+  else
+    online_softmax<false, SOFTCAP>(s, m, l, corr, p, row0, k0, t);
+}
+
+template <int HD>
+__device__ __forceinline__ void rescale(float (&o)[HD / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      o[4 * n + 2 * h] *= corr[h];
+      o[4 * n + 2 * h + 1] *= corr[h];
+    }
+}
+
+// The first tile: no P V in flight, so O is rescaled at once.
+template <bool SOFTCAP, int HD>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+                                             float (&l)[2],
+                                             float (&o)[HD / 2],
+                                             const Params& p, int row0,
+                                             int q0, int k0, int t) {
+  float corr[2];
+  softmax_scores<SOFTCAP>(s, m, l, corr, p, row0, q0, k0, t);
+  rescale<HD>(o, corr);
+}
+
+// S = Q K^T for this consumer's 64 rows and one K stage: HD / 16 k steps;
+// each moves 32 bytes along a 128-byte box row, and every 4th starts the
+// next 64-column box.
+template <int HD>
+__device__ __forceinline__ void qk_product(float (&sacc)[64], uint32_t q_rows,
+                                           uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t da =
+        sw128_desc(q_rows + (kk / 4) * BQ * BOX_ROW_BYTES + off, 16, 1024);
+    const uint64_t db =
+        sw128_desc(k_tile + (kk / 4) * BK * BOX_ROW_BYTES + off, 16, 1024);
+    wgmma_ss_m64n128(sacc, da, db, kk > 0);
+  }
+}
+
+// O += P V for one V stage: BK / 16 k steps of 16 kv rows (2048 bytes).
+template <int HD>
+__device__ __forceinline__ void pv_product(float (&o)[HD / 2],
+                                           const uint32_t (&pa)[BK / 16][4],
+                                           uint32_t v_tile) {
+#pragma unroll
+  for (int jj = 0; jj < BK / 16; ++jj)
+    wgmma_rs<HD>(o, pa[jj],
+                 sw128_desc(v_tile + jj * 16 * BOX_ROW_BYTES,
+                            BK * BOX_ROW_BYTES, 1024));
+}
+
+// The probabilities as the A operand of P V's k step jj (keys 16 jj .. 16
+// jj + 15): the accumulator's n-tiles 2 jj and 2 jj + 1, rounded to bf16.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
+                                       const float (&s)[64]) {
+#pragma unroll
+  for (int jj = 0; jj < BK / 16; ++jj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[jj][r] = pack_bf16(s[8 * jj + 2 * r], s[8 * jj + 2 * r + 1]);
+}
+
+// One unit of work: a q tile of 128 rows of one (batch, head), and the
+// kv tiles that hold an unmasked key for one of its rows.  Units are
+// numbered group by group: a group is `p.group` (batch, head) pairs,
+// chosen on the host so that their K and V (read by every q tile of the
+// pair) stay in L2 while the group runs; inside a group, the longest q
+// tiles come first, so the blocks that take the last units of a group
+// take short ones.  Taking the longest tiles of all heads first instead
+// streamed K and V from device memory again for every q tile.
+struct Work {
+  int q0, hh, bb, kt_begin, kt_end;
+};
+
+__device__ __forceinline__ Work work_item(const Params& p, int w) {
+  const int n_qt = (p.sq + BQ - 1) / BQ;
+  const int n_bh = p.b * p.h;
+  const int group = w / (p.group * n_qt);
+  const int first = group * p.group;
+  const int size = min(p.group, n_bh - first);
+  const int idx = w - group * p.group * n_qt;
+  const int bh = first + idx % size;
+  Work wk;
+  wk.q0 = (n_qt - 1 - idx / size) * BQ;
+  wk.hh = bh % p.h;
+  wk.bb = bh / p.h;
+  const int q_last = min(wk.q0 + BQ, p.sq) - 1;
+  wk.kt_end = (p.skv + BK - 1) / BK;
+  if (p.causal) wk.kt_end = min(wk.kt_end, q_last / BK + 1);
+  wk.kt_begin = 0;
+  if (p.window > 0 && wk.q0 - p.window + 1 > 0)
+    wk.kt_begin = (wk.q0 - p.window + 1) / BK;
+  return wk;
+}
+
+// Persistent: one block per SM.  The producer takes the next unit from
+// a counter in device memory (atomicAdd; a block that finishes early
+// takes more), writes its number to shared memory and loads its Q into
+// the other of two Q buffers (unit j uses buffer j % 2) as soon as the
+// consumers are done with the unit before, then its K and V as the ring
+// frees: the next unit's Q lands while the current one's last tiles run,
+// and its first K and V while the last P V products and the stores run.
+// The consumers read the number once Q has landed; a number past the
+// last unit ends the block.  Ring stages and phases run on across units
+// (`it` counts the kv tiles of the block so far).
+template <int HD, bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const Params p) {
+  using L = Smem<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // 128B swizzle
+  const uint32_t bars = base + L::BAR_OFF;
+  auto q_s = [&](int qb) { return base + qb * L::Q_BYTES; };
+  auto q_full = [&](int qb) { return bars + 8 * qb; };
+  auto q_empty = [&](int qb) { return bars + 8 * (2 + qb); };
+  auto k_s = [&](int s) { return base + L::K_OFF + s * L::KV_BYTES; };
+  auto v_s = [&](int s) { return base + L::V_OFF + s * L::KV_BYTES; };
+  auto full_k = [&](int s) { return bars + 8 * (4 + s); };
+  auto full_v = [&](int s) { return bars + 8 * (4 + STAGES + s); };
+  auto empty_k = [&](int s) { return bars + 8 * (4 + 2 * STAGES + s); };
+  auto empty_v = [&](int s) { return bars + 8 * (4 + 3 * STAGES + s); };
+  volatile int* const work_slot = reinterpret_cast<volatile int*>(
+      smem_raw + (base - smem_u32(smem_raw)) + L::WORK_OFF);
+  const int n_work = (p.sq + BQ - 1) / BQ * p.b * p.h;
+
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), 256);   // every consumer thread arrives
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 256);
+      mbar_init(empty_v(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      uint32_t it = 0;
+      for (uint32_t j = 0;; ++j) {
+        const int w = atomicAdd(p.counter, 1);
+        const int qb = j & 1;   // Q buffer of unit j
+        mbar_wait(q_empty(qb), ((j >> 1) & 1) ^ 1);
+        work_slot[qb] = w;   // ordered before the arrival below (release)
+        if (w >= n_work) {
+          mbar_arrive(q_full(qb));
+          break;
+        }
+        const Work wk = work_item(p, w);
+        mbar_expect_tx(q_full(qb), L::Q_BYTES);
+#pragma unroll
+        for (int b = 0; b < L::NB; ++b)
+          tma_load(q_s(qb) + b * BQ * BOX_ROW_BYTES, &map_q, b * BOX, wk.hh,
+                   wk.q0, wk.bb, q_full(qb));
+        // K of tile i, then V of tile i - 1: the order the consumers read
+        // them in (S of tile i beside P V of tile i - 1)
+        auto load_k = [&](uint32_t n, int kt) {
+          const int s = n % STAGES;
+          mbar_wait(empty_k(s), ((n / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full_k(s), L::KV_BYTES);
+#pragma unroll
+          for (int b = 0; b < L::NB; ++b)
+            tma_load(k_s(s) + b * BK * BOX_ROW_BYTES, &map_k, b * BOX, wk.hh,
+                     kt * BK, wk.bb, full_k(s));
+        };
+        auto load_v = [&](uint32_t n, int kt) {
+          const int s = n % STAGES;
+          mbar_wait(empty_v(s), ((n / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full_v(s), L::KV_BYTES);
+#pragma unroll
+          for (int b = 0; b < L::NB; ++b)
+            tma_load(v_s(s) + b * BK * BOX_ROW_BYTES, &map_v, b * BOX, wk.hh,
+                     kt * BK, wk.bb, full_v(s));
+        };
+        for (int kt = wk.kt_begin; kt < wk.kt_end; ++kt, ++it) {
+          load_k(it, kt);
+          if (kt > wk.kt_begin) load_v(it - 1, kt - 1);
+        }
+        load_v(it - 1, wk.kt_end - 1);
+      }
+    }
+  } else {
+    // ------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int c = threadIdx.x / 128 - 1;       // consumer 0 or 1
+    const int lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    // Consumer 0 takes the first turn.  Both run the same units and tiles,
+    // so each passes as many turns as the other waits for, but for this
+    // first one, which consumer 0 absorbs at the end.
+    if (c == 1) pass_turn(c);
+    uint32_t it = 0;
+    for (uint32_t j = 0;; ++j) {
+      const int qb = j & 1;
+      mbar_wait(q_full(qb), (j >> 1) & 1);
+      const int w = work_slot[qb];
+      if (w >= n_work) break;
+      // this consumer's Q rows, box 0
+      const uint32_t q_rows = q_s(qb) + 64 * c * BOX_ROW_BYTES;
+      const Work wk = work_item(p, w);
+      const int row0 = wk.q0 + 64 * c + 16 * warp + g;   // this thread's
+      const int n_tiles = wk.kt_end - wk.kt_begin;        // >= 1
+      float o[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF};
+      float l[2] = {0.f, 0.f};
+
+      // Tile i's S = Q K^T is started before tile i-1's O += P V, so that
+      // the softmax of tile i runs while the tensor cores do P V of tile
+      // i-1.  K of tile i goes back to the producer as soon as S has
+      // landed; V of tile i-1 and the rescale of O wait for P V.  The
+      // first S and the last P V are peeled off the loop: a wgmma under a
+      // branch makes ptxas serialise every wgmma of the kernel.  Every
+      // unit has at least one kv tile (the entry point refuses calls that
+      // leave a row without a key).
+      uint32_t pa[BK / 16][4];
+      {
+        const int s = it % STAGES;
+        float sacc[64];   // written by the first k step (scale_d = 0)
+        mbar_wait(full_k(s), (it / STAGES) & 1);
+        wait_turn(c);
+        wgmma_fence();
+        qk_product<HD>(sacc, q_rows, k_s(s));
+        wgmma_commit();
+        pass_turn(c);
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        mbar_arrive(empty_k(s));
+        softmax_tile<SOFTCAP, HD>(sacc, m, l, o, p, row0, wk.q0,
+                                  wk.kt_begin * BK, t);
+        pack_p(pa, sacc);
+      }
+      for (int i = 1; i < n_tiles; ++i) {
+        const uint32_t cur = it + i;
+        const int s = cur % STAGES;
+        const int ps = (cur - 1) % STAGES;   // stage of tile i-1
+        float sacc[64];
+        mbar_wait(full_k(s), (cur / STAGES) & 1);
+        mbar_wait(full_v(ps), ((cur - 1) / STAGES) & 1);
+        wait_turn(c);
+        wgmma_fence();
+        qk_product<HD>(sacc, q_rows, k_s(s));
+        wgmma_commit();
+        pv_product<HD>(o, pa, v_s(ps));
+        wgmma_commit();
+        pass_turn(c);
+        wgmma_wait<1>();   // S of tile i has landed; P V may still run
+        fence_regs(sacc);
+        mbar_arrive(empty_k(s));
+        float corr[2];
+        softmax_scores<SOFTCAP>(sacc, m, l, corr, p, row0, wk.q0,
+                                (wk.kt_begin + i) * BK, t);
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(empty_v(ps));
+        rescale<HD>(o, corr);
+        pack_p(pa, sacc);
+      }
+      mbar_arrive(q_empty(qb));   // every S of this unit has landed
+      {
+        const uint32_t last = it + n_tiles - 1;
+        const int s = last % STAGES;
+        mbar_wait(full_v(s), (last / STAGES) & 1);
+        wait_turn(c);
+        wgmma_fence();
+        pv_product<HD>(o, pa, v_s(s));
+        wgmma_commit();
+        pass_turn(c);
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(empty_v(s));
+      }
+      it += n_tiles;
+
+      // Epilogue: o / max(l, 1e-30) rounded to bf16, stored from the
+      // accumulator's layout (rows row0 and row0 + 8, two columns a
+      // store) through the output's strides; rows past sq are dropped.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        l[h] = 1.f / fmaxf(l[h], 1e-30f);
+      }
+      __nv_bfloat16* og = p.o + wk.bb * p.o_sb + wk.hh * p.o_sh;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row < p.sq) {
+          __nv_bfloat16* orow = og + row * p.o_ss + 2 * t;
+#pragma unroll
+          for (int n = 0; n < HD / 8; ++n)
+            *reinterpret_cast<uint32_t*>(orow + 8 * n) = pack_bf16(
+                o[4 * n + 2 * h] * l[h], o[4 * n + 2 * h + 1] * l[h]);
+        }
+      }
+    }
+    if (c == 0) wait_turn(c);   // consumer 1's last pass
+  }
+}
+
+// Tensor map of a (b, s, h, hd) bf16 tensor with element strides sb, ss,
+// sh (hd stride 1): rank 4, dims {hd, h, s, b}, boxes of 64 x 1 x rows x
+// 1, 128B swizzle, zero fill out of bounds.  cuTensorMapEncodeTiled is a
+// libcuda function; it is looked up at run time through the CUDA
+// runtime's entry point query, so the library links no libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+CUresult make_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr,
+                  int b, int s, int h, int hd, long long sb, long long ss,
+                  long long sh, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {BOX, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int HD, bool SOFTCAP>
+cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
+                   const CUtensorMap& mv, const Params& p, int b,
+                   cudaStream_t stream) {
+  const int smem = Smem<HD>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_hopper_kernel<HD, SOFTCAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0;
+  int n_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  const int n_work = (p.sq + BQ - 1) / BQ * b * p.h;
+  flash_fwd_hopper_kernel<HD, SOFTCAP>
+      <<<min(n_work, n_sm), THREADS, smem, stream>>>(mq, mk, mv, p);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, the
@@ -541,5 +1366,65 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     err = launch_for_head_dim<true>(p, s);
   else
     err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The Hopper variant, bf16 only: hd 64 or 128; q/k/v 16-byte aligned with
+// (batch, seq, head) strides that are multiples of 8 elements; o
+// contiguous.  strides as above.  counter: one int in device memory, 0.  Returns a cudaError_t (0 = launched),
+// or 1000 + the CUresult of a tensor map that failed to encode, or 2000
+// if libcuda has no cuTensorMapEncodeTiled.
+extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
+                                          const void* v, void* o, int b,
+                                          int sq, int skv, int h, int hd,
+                                          const long long* strides,
+                                          float scale, int causal,
+                                          int window, float softcap,
+                                          int* counter, void* stream) {
+  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  // every row needs a key (each block then has a kv tile to wait for)
+  if (b < 1 || sq < 1 || skv < 1 || (window > 0 && sq > skv + window - 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  hopper::EncodeTiledFn encode = hopper::encode_tiled();
+  if (encode == nullptr) return 2000;
+  CUtensorMap mq, mk, mv;
+  CUresult res = hopper::make_map(&mq, encode, q, b, sq, h, hd, strides[0],
+                                  strides[1], strides[2], hopper::BQ);
+  if (res == CUDA_SUCCESS)
+    res = hopper::make_map(&mk, encode, k, b, skv, h, hd, strides[3],
+                           strides[4], strides[5], hopper::BK);
+  if (res == CUDA_SUCCESS)
+    res = hopper::make_map(&mv, encode, v, b, skv, h, hd, strides[6],
+                           strides[7], strides[8], hopper::BK);
+  if (res != CUDA_SUCCESS) return 1000 + static_cast<int>(res);
+  hopper::Params p;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.counter = counter;
+  // (batch, head) pairs a group: their K and V together about
+  // GROUP_KV_BYTES, which L2 (50 MB) holds with room to spare
+  const long long kv_bytes = 4ll * skv * hd;
+  p.group = static_cast<int>(
+      std::max(1ll, std::min(static_cast<long long>(b) * h,
+                             hopper::GROUP_KV_BYTES / kv_bytes)));
+  p.o_sb = strides[9];
+  p.o_ss = strides[10];
+  p.o_sh = strides[11];
+  p.b = b;
+  p.sq = sq;
+  p.skv = skv;
+  p.h = h;
+  p.causal = causal;
+  p.window = window;
+  p.scale_log2 = scale * hopper::LOG2E;
+  p.cap_in = softcap != 0.f ? scale / softcap : 0.f;
+  p.cap_out = softcap * hopper::LOG2E;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (hd == 64)
+    err = softcap != 0.f ? hopper::launch<64, true>(mq, mk, mv, p, b, s)
+                         : hopper::launch<64, false>(mq, mk, mv, p, b, s);
+  else
+    err = softcap != 0.f ? hopper::launch<128, true>(mq, mk, mv, p, b, s)
+                         : hopper::launch<128, false>(mq, mk, mv, p, b, s);
   return static_cast<int>(err);
 }

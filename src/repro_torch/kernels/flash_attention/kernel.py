@@ -6,22 +6,37 @@ online-softmax attention, on (b, s, h, hd) tensors with GQA heads already
 repeated.  The source is ``csrc/flash_attention.cu``.
 
 What bounds it on an H100 at the main-path shapes.  Prefill of
-mistral-nemo-12b calls it with q/k/v (4, <=1024, 32, 128) in bf16, causal.
-Each call reads q, k, v and writes o once: 4 x 32 MiB, about 40 us at
-3.35 TB/s.  Its products are 4 x hd FLOPs per unmasked (query, key) pair,
-34 GFLOP at s = 1024, about 35 us at the 989 TFLOP/s bf16 tensor-core
-peak.  So the function is bound by bytes and by the tensor cores about
-equally, and only tensor-core products can come near that bound.  What
-the design does about it: bf16 inputs go through mma.sync tensor-core
-products with f32 accumulators, the probabilities never leave registers
-(the score fragments are reused as the next product's operand), tiles
-above the causal diagonal or before the window are skipped (half the
-work at s = 1024), tiles are loaded with 16-byte vector loads, and the
-longest q tiles are scheduled first.  What it does not do yet: overlap
-loads with products (cp.async/TMA), wgmma, warp specialisation.  f32
-inputs (the parity checks, not the serving path) use f32 FMAs on the
-CUDA cores (67 TFLOP/s), because TF32 would not meet f32's tolerance.
-Measured times stand in PERF.md.
+mistral-nemo-12b calls it with q/k/v (4, <=1024, 32, 128) in bf16, causal;
+the Jamba cut's with 64 heads.  Each call reads q, k, v and writes o
+once: 4 x 32 MiB, about 40 us at 3.35 TB/s.  Its products are 4 x hd
+FLOPs per unmasked (query, key) pair, 34 GFLOP at s = 1024, about 35 us
+at the 989 TFLOP/s bf16 tensor-core peak.  So the function is bound by
+bytes and by the tensor cores about equally, and only wgmma products fed
+by loads that overlap them can come near that bound.
+
+Two variants, chosen before launch by ``plan`` from the dtype, the head
+dim and the strides (a dispatch by shape; neither is a fallback for the
+other, and a failed build, tensor-map encode or launch raises):
+
+* ``"hopper"``: bf16 with hd 64 or 128 and strides TMA takes (every
+  serving call).  Persistent blocks of one producer warpgroup, which
+  streams Q, K and V by TMA into double-buffered shared memory guarded by
+  mbarriers, and two consumer warpgroups of 64 query rows each, which
+  take turns at S = Q K^T and O += P V as wgmma (P from registers) and
+  run the softmax in the log2 domain, with masks only on the tiles that
+  cross the diagonal, the window's edge or the end of kv; units of 128 q
+  by 128 kv rows come from an atomic counter, longest first within
+  groups of heads whose K and V stay in L2.
+* ``"general"``: everything else (f32, other head dims up to 256, bf16
+  strides TMA refuses).  bf16 goes through mma.sync tensor-core products
+  from 4 warps, f32 through FMAs on the CUDA cores (67 TFLOP/s; TF32
+  would miss f32's tolerance); 64-row tiles loaded between barriers,
+  without overlap.  It is what every call took before the Hopper variant
+  was added.
+
+Both skip tiles above the causal diagonal or before the window (half the
+work at s = 1024) and schedule the longest q tiles first.  Measured times
+stand in PERF.md.
 
 The library is built at first use with nvcc (``kernels/_build.py``) into
 ``build/repro_torch/`` at the repository root, keyed by a hash of the
@@ -43,6 +58,9 @@ BUILD_ROOT = _build.BUILD_ROOT
 NVCC_FLAGS = _build.NVCC_FLAGS
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("hopper", "general")
+HOPPER_HEAD_DIMS = (64, 128)
+HOPPER_BQ = 128   # query rows of a Hopper unit of work
 
 
 def library_path() -> Path:
@@ -57,31 +75,79 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library():
+    """The built library with both entry points typed: general
+    (``flash_attention_fwd``) and Hopper (``flash_attention_fwd_hopper``)."""
     lib = ctypes.CDLL(str(build()))
-    fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    common = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                    ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_float,
+                                    ctypes.c_void_p])
+    lib.flash_attention_fwd.argtypes = ([ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] + common)
+    lib.flash_attention_fwd_hopper.argtypes = (
+        [ctypes.c_void_p] * 4 + common[:-1] + [ctypes.c_void_p] * 2)
+    for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_hopper):
+        fn.restype = ctypes.c_int
+    return lib
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """Launches the kernel on the current stream and returns o (b, sq, h,
-    hd) in q.dtype.  The caller has checked device, dtype and shapes."""
+def _tma_ok(t) -> bool:
+    """TMA's preconditions for one (b, s, h, hd) bf16 operand: head-dim
+    stride 1, base address and (batch, seq, head) strides multiples of 16
+    bytes, strides below 2^40 bytes."""
+    size = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all((t.stride(i) * size) % 16 == 0
+                    and t.stride(i) * size < 2 ** 40 for i in range(3)))
+
+
+def plan(q, k, v) -> str:
+    """Which variant a call takes, from what the tensors are (dtype, head
+    dim, strides, alignment), before any launch: "hopper" for bf16 with hd
+    in ``HOPPER_HEAD_DIMS`` whose q/k/v TMA can read and whose units of
+    work (q tiles x batch x heads) an int counts; "general" for everything
+    else.  Works on tensors of any device, the meta device included."""
+    b, sq, h, hd = q.shape
+    hopper = (all(t.dtype == torch.bfloat16 for t in (q, k, v))
+              and hd in HOPPER_HEAD_DIMS
+              and -(-sq // HOPPER_BQ) * b * h < 2 ** 31
+              and all(_tma_ok(t) for t in (q, k, v)))
+    return "hopper" if hopper else "general"
+
+
+def flash_attention_cuda(q, k, v, variant, *, causal=True, window=0,
+                         softcap=0.0):
+    """Launches ``variant`` of the kernel on the current stream and returns
+    o (b, sq, h, hd) in q.dtype.  The caller has checked device, dtype and
+    shapes and chosen the variant (``plan``); the Hopper variant raises on
+    what it does not take rather than run another."""
+    if variant not in VARIANTS:
+        raise ValueError(f"no flash attention variant {variant!r}")
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, o) for i in range(3)))
+    args = (b, sq, skv, h, hd, strides, 1.0 / (hd ** 0.5), int(causal),
+            int(window), float(softcap))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with torch.cuda.device(q.device):
-        err = library()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            DTYPES[q.dtype], b, sq, skv, h, hd, strides,
-            1.0 / (hd ** 0.5), int(causal), int(window), float(softcap),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if variant == "hopper":
+            # the persistent blocks' work counter
+            counter = torch.zeros(1, dtype=torch.int32, device=q.device)
+            err = library().flash_attention_fwd_hopper(
+                *ptrs, *args, counter.data_ptr(), stream)
+        else:
+            err = library().flash_attention_fwd(*ptrs, DTYPES[q.dtype],
+                                                *args, stream)
+    if err == 2000:
+        raise RuntimeError("flash_attention_fwd_hopper: libcuda has no "
+                           "cuTensorMapEncodeTiled")
+    if 1000 <= err < 2000:
+        raise RuntimeError(f"flash_attention_fwd_hopper: a tensor map "
+                           f"failed to encode (CUresult {err - 1000})")
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_attention {variant} launch failed: CUDA "
+                           f"error {err}")
     return o

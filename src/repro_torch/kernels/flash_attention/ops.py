@@ -3,7 +3,10 @@ card, the plain torch version (ref.py) for tensors on the CPU.
 
 There is no fallback: a CUDA tensor launches the kernel or raises.  There
 is no backward kernel yet, so a CUDA call that would need a gradient
-raises too.  ``launches`` counts kernel launches and nothing else.
+raises too.  The kernel has two variants; ``kernel.plan`` picks one
+before launch from dtype, head dim and strides.  ``launches`` counts
+kernel launches and nothing else; ``launches_by_variant`` counts the same
+launches by the variant each took.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
+launches_by_variant = dict.fromkeys(kernel.VARIANTS, 0)
 
 
 def _check(q, k, v, window):
@@ -65,8 +69,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
                          f"{tuple(q.shape)}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q/k/v must have stride 1")
-    out = kernel.flash_attention_cuda(q, k, v, causal=causal,
+    variant = kernel.plan(q, k, v)
+    out = kernel.flash_attention_cuda(q, k, v, variant, causal=causal,
                                       window=int(window),
                                       softcap=float(softcap))
     launches += 1
+    launches_by_variant[variant] += 1
     return out

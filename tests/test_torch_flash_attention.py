@@ -2,8 +2,10 @@
 one its dispatcher takes for CPU tensors, and the one the CUDA kernel is
 held against on the card) against the reference Pallas kernel run in
 interpret mode, against the reference oracle, and the port's blockwise
-model twin against the reference's.  The CUDA kernel itself runs only on
-the card (chip_smoke.py)."""
+model twin against the reference's; and ``kernel.plan``, which picks the
+CUDA kernel's variant from shapes, strides and dtype, on meta tensors.
+The CUDA kernel itself runs only on the card (chip_smoke.py,
+tests/test_torch_gpu.py)."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -16,10 +18,12 @@ from repro.kernels.flash_attention.kernel import \
     flash_attention_pallas  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: E402
 from repro.models import attention as jA  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as tK  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as tops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.models import attention as tA  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=5e-2, atol=5e-2)}
@@ -155,3 +159,109 @@ def test_build_is_keyed_by_source_and_lazy():
     assert path.parent.parent == tK.BUILD_ROOT
     assert tK.library.cache_info().currsize == 0
     assert "arch=compute_90a,code=sm_90a" in tK.NVCC_FLAGS
+
+
+# ------------------------------------------------ kernel.plan (variants)
+
+
+def meta(shape, strides=None, dtype=torch.bfloat16, offset=0):
+    """A tensor with a shape and strides and no data, on no card."""
+    if strides is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return torch.empty_strided(shape, strides, dtype=dtype,
+                               device="meta").as_strided(shape, strides,
+                                                         offset)
+
+
+@pytest.mark.parametrize("b,s,h", [
+    (4, 1024, 32), (4, 916, 32), (1, 7, 32),       # mistral-nemo-12b
+    (4, 1024, 64), (4, 365, 64),                   # the Jamba cut
+])
+def test_plan_main_path_shapes_pick_hopper(b, s, h):
+    q = meta((b, s, h, 128))
+    assert q.stride() == (s * h * 128, h * 128, 128, 1)
+    assert tK.plan(q, meta((b, s, h, 128)), meta((b, s, h, 128))) == "hopper"
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "jamba-1.5-large-398b"])
+def test_plan_of_the_models_own_qkv_is_hopper(arch):
+    """q, k, v as DecoderLM/JambaLM prefill builds them at full width (the
+    projections' reshape, RoPE where the model has it, the GQA repeat),
+    on the meta device: the serving path's strides go to the Hopper
+    variant."""
+    cfg = get_config(arch)
+    hd = cfg.resolved_head_dim
+    d, nq, nkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    ap = {name: meta(shape) for name, shape in (
+        ("wq", (d, nq * hd)), ("wk", (d, nkv * hd)), ("wv", (d, nkv * hd)))}
+    x = meta((4, 916, d))
+    q, k, v = tA.project_qkv(x, ap, cfg)
+    if not cfg.no_rope:
+        pos = torch.arange(916, device="meta")[None, :].expand(4, 916)
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+    k, v = tA.repeat_kv(k, nq), tA.repeat_kv(v, nq)
+    assert q.shape == k.shape == v.shape == (4, 916, nq, hd)
+    assert tK.plan(q, k, v) == "hopper"
+
+
+@pytest.mark.parametrize("case", [
+    "f32", "hd12", "hd16", "hd32", "hd256", "head-stride-not-16-bytes",
+    "seq-stride-not-16-bytes", "base-not-16-bytes", "hd-stride-not-1",
+    "f32-k",
+])
+def test_plan_picks_general_for_what_tma_or_wgmma_refuse(case):
+    b, s, h, hd = 2, 64, 4, 128
+    q = k = v = meta((b, s, h, hd))
+    if case == "f32":
+        q = k = v = meta((b, s, h, hd), dtype=torch.float32)
+    elif case.startswith("hd"):
+        if case == "hd-stride-not-1":
+            q = meta((b, s, h, hd), (s * h * hd * 2, h * hd * 2, hd * 2, 2))
+        else:
+            n = int(case[2:])
+            q = k = v = meta((b, s, h, n))
+    elif case == "head-stride-not-16-bytes":      # 132 x 2 bytes a head
+        q = meta((b, s, h, hd), (s * h * 132, h * 132, 132, 1))
+    elif case == "seq-stride-not-16-bytes":
+        k = meta((b, s, h, hd), (s * (h * hd + 4), h * hd + 4, hd, 1))
+    elif case == "base-not-16-bytes":
+        v = meta((b, s, h, hd), (s * h * hd, h * hd, hd, 1), offset=3)
+    elif case == "f32-k":
+        k = meta((b, s, h, hd), dtype=torch.float32)
+    assert tK.plan(q, k, v) == "general"
+
+
+def test_plan_takes_strided_views_tma_can_read():
+    """(b, h, s, hd) storage seen as (b, s, h, hd): TMA reads it through
+    its strides (checked on the card by chip_smoke.py's strided-hd128
+    case), and hd 64 goes to the Hopper variant too."""
+    b, s, h = 1, 300, 4
+    for hd in (64, 128):
+        t = meta((b, h, s, hd)).transpose(1, 2)
+        assert t.stride() == (h * s * hd, hd, s * hd, 1)
+        assert tK.plan(t, t, t) == "hopper"
+
+
+def test_plan_mirrors_the_kernel_source():
+    """The constants plan() uses are the ones the .cu compiles with."""
+    src = tK.SOURCE.read_text()
+    hopper = src[src.index("namespace hopper {"):]
+    assert "constexpr int BQ = %d;" % tK.HOPPER_BQ in hopper
+    assert "if (hd != 64 && hd != 128)" in hopper
+    assert tK.HOPPER_HEAD_DIMS == (64, 128)
+    assert set(tK.VARIANTS) == set(tops.launches_by_variant)
+
+
+def test_cpu_calls_count_no_variant():
+    before = dict(tops.launches_by_variant)
+    _, (tq, tk, tv) = qkv((1, 16, 2, 64), dtype="bfloat16")
+    tops.flash_attention(tq, tk, tv)
+    assert tops.launches_by_variant == before
+
+
+def test_cuda_call_needs_a_known_variant():
+    _, (tq, tk, tv) = qkv((1, 16, 2, 64), dtype="bfloat16")
+    with pytest.raises(ValueError, match="no flash attention variant"):
+        tK.flash_attention_cuda(tq, tk, tv, "fastest")
+    assert tK.library.cache_info().currsize == 0

@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import checks as scan_checks  # noqa: E402
@@ -65,7 +66,8 @@ def _qkv(b, sq, skv, h, hd, dtype, strided=False, seed=0):
     return randn(sq, 2.0), randn(skv, 2.0), randn(skv, 1.0)
 
 
-# (b, sq, skv, h, hd), causal, window, softcap, strided
+# (b, sq, skv, h, hd), causal, window, softcap, strided; each in f32 and
+# in bf16
 CASES = [
     ((2, 100, 100, 6, 12), True, 0, 0.0, False),
     ((2, 130, 130, 4, 16), True, 16, 0.0, True),
@@ -75,20 +77,44 @@ CASES = [
     ((1, 96, 96, 2, 256), True, 0, 30.0, False),
     ((1, 1, 1, 1, 32), True, 0, 0.0, False),
 ]
+# the Hopper variant's cases, in bf16 only (it takes no f32): the ragged
+# length of a real wave, a window wider than a kv tile, sq != skv without
+# the causal mask, a softcap, a (b, h, s, hd) storage, and Jamba's 64
+# heads
+HOPPER_CASES = [
+    ((4, 916, 916, 32, 128), True, 0, 0.0, False),
+    ((2, 700, 700, 8, 128), True, 257, 0.0, False),
+    ((1, 200, 333, 4, 64), False, 0, 0.0, False),
+    ((1, 300, 300, 4, 128), True, 0, 30.0, False),
+    ((1, 300, 300, 4, 128), True, 0, 0.0, True),
+    ((2, 1024, 1024, 64, 128), True, 0, 0.0, False),
+]
+KERNEL_CASES = (
+    [pytest.param(*case, dtype, id=f"case{i}-{name}")
+     for i, case in enumerate(CASES)
+     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))]
+    + [pytest.param(*case, torch.bfloat16, id=f"hopper{i}-bf16")
+       for i, case in enumerate(HOPPER_CASES)])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape,causal,window,softcap,strided", CASES)
+@pytest.mark.parametrize("shape,causal,window,softcap,strided,dtype",
+                         KERNEL_CASES)
 def test_kernel_matches_plain(cuda, shape, causal, window, softcap, strided,
                               dtype):
     q, k, v = _qkv(*shape, dtype, strided=strided)
     kw = dict(causal=causal, window=window, softcap=softcap)
+    # the Hopper variant takes every bf16 call with hd 64 or 128 here
+    variant = ("hopper" if dtype == torch.bfloat16 and shape[4] in (64, 128)
+               else "general")
+    assert kernel.plan(q, k, v) == variant
     before = ops.launches
+    by_variant = dict(ops.launches_by_variant)
     with torch.inference_mode():
         out = ops.flash_attention(q, k, v, **kw)
         ref = attention_ref(q, k, v, **kw)
     assert ops.launches == before + 1
+    by_variant[variant] += 1
+    assert ops.launches_by_variant == by_variant
     b, sq, _, h, hd = shape
     assert out.shape == (b, sq, h, hd) and out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
@@ -113,6 +139,25 @@ def test_cuda_rejects_rows_without_a_key(cuda):
     with pytest.raises(ValueError, match="no key"):
         ops.flash_attention(q, k, v, window=8)
     assert ops.launches == before
+
+
+def test_hopper_variant_raises_on_what_it_does_not_take(cuda):
+    """Called directly with a head dim, a dtype or a window it does not
+    take, the Hopper variant raises; nothing runs the general one in its
+    place, and nothing counts a launch."""
+    before = ops.launches
+    q, k, v = _qkv(1, 64, 64, 2, 32, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernel.flash_attention_cuda(q, k, v, "hopper")
+    q, k, v = _qkv(1, 24, 16, 1, 64, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernel.flash_attention_cuda(q, k, v, "hopper", window=8)
+    q, k, v = _qkv(1, 64, 64, 2, 64, torch.bfloat16)
+    q = q[:, :, :, :60]   # a 120-byte head: no tensor map
+    with pytest.raises(RuntimeError, match="CUDA error|tensor map"):
+        kernel.flash_attention_cuda(q, k[..., :60], v[..., :60], "hopper")
+    assert ops.launches == before
+    torch.cuda.synchronize()
 
 
 def test_cuda_rejects_other_dtypes(cuda):
