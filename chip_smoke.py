@@ -9,7 +9,8 @@ non-zero and prints no result:
 
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile every kernel of the serving paths with nvcc (sm_90a),
-   one nvcc per source, all started together;
+   and K2's sweep library of candidate plans, one nvcc per library, all
+   started together;
 3. kernels: hold each kernel against its plain torch version on the card
    at the main-path shape and at edge shapes, elementwise and row by row,
    show that a deliberately wrong result would fail the checks, and time
@@ -18,7 +19,10 @@ non-zero and prints no result:
    the Mamba selective scan (K3); K1's two variants (the Hopper one
    that the serving shapes take, and the general one) in turns at the
    main-path shape and at Jamba's 64 heads, each case checked for the
-   variant it took;
+   variant it took; K2 through its dispatcher, and its candidate plans
+   (G, C, CB, double buffer) in two passes at the main-path shape, each
+   case checked for the plan it took, and a stale chunk and a lost row
+   group shown to fail;
 4. main paths, each with every kernel's launch count set to 0 just
    before it and read just after, served through the port's rFaaS stack
    (ModelServer, ServeEngine, Invoker, ResourceManager, BatchSystem,
@@ -30,7 +34,8 @@ non-zero and prints no result:
    launch through the Hopper variant; the device
    memory of the path before is freed first:
    a. mistral-nemo-12b (40 layers, d_model 5120): K1 40 times a wave;
-   b. rwkv6-1.6b (24 layers, d_model 2048): K2 24 times a wave;
+   b. rwkv6-1.6b (24 layers, d_model 2048): K2 24 times a wave, every
+      launch under kernel.plan's (G, C, CB);
    c. jamba-1.5-large-398b cut in depth to 4 layers, every width as
       published (d_model 8192, 16 experts of 24576, d_inner 16384):
       layers 4-7 of a published period (attention + MLP, Mamba + MoE,
@@ -183,22 +188,27 @@ def kernel_ops():
 
 
 def phase_build():
-    """One nvcc per kernel source, all started together (each module's
-    ``build()`` in a thread of its own), then each library loaded."""
+    """One nvcc per kernel library, all started together (each ``build``
+    in a thread of its own), then each library loaded: every kernel
+    module's serving library, and K2's sweep library, which holds the
+    candidate plans that phase_wkv6 times."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
-    modules = (flash_kernel, wkv_kernel, scan_kernel)
+    libs = [(m.NAME, m.build, m.library)
+            for m in (flash_kernel, wkv_kernel, scan_kernel)]
+    libs.append((wkv_kernel.SWEEP_NAME, lambda: wkv_kernel.build(True),
+                 lambda: wkv_kernel.library(True)))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(modules)) as pool:
-        paths = list(pool.map(lambda m: m.build(), modules))
-    for m in modules:
-        m.library()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        paths = list(pool.map(lambda lib: lib[1](), libs))
+    for _, _, load in libs:
+        load()
     dt = time.perf_counter() - t0
-    print(f"[build] {', '.join(m.NAME for m in modules)} (in parallel) in "
-          f"{dt:.1f} s")
-    for m, so in zip(modules, paths):
-        print(f"[build] {m.NAME} -> {so.relative_to(ROOT)}")
+    print(f"[build] {', '.join(name for name, _, _ in libs)} (in "
+          f"parallel) in {dt:.1f} s")
+    for (name, _, _), so in zip(libs, paths):
+        print(f"[build] {name} -> {so.relative_to(ROOT)}")
         log = so.parent / "build.log"
         if log.exists():
             for line in ptxas_summary(log.read_text()):
@@ -416,6 +426,8 @@ WKV_CASES = [
     ("s1000-strided", (2, 1000, 8, 64), torch.bfloat16, True, 10.0),
     ("s1024-f32", (1, 1024, 8, 64), torch.float32, False, 10.0),
     ("s100-hd24", (2, 100, 4, 24), torch.float32, False, 10.0),
+    ("s33", (2, 33, 32, 64), torch.bfloat16, False, 10.0),
+    ("s1024-f32-main-width", (4, 1024, 32, 64), torch.float32, False, 10.0),
 ]
 
 
@@ -439,6 +451,19 @@ def wkv_bound(shape, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def wkv_floor(shape):
+    """The kernel design's own floor: 3 f32 FMA-pipe instructions per
+    state entry and step (k v, the state's FMA, y's FMA), against the
+    bound's 2, at the FMA pipe's peak instruction rate."""
+    b, s, h, hd = shape
+    return 3 * b * h * s * hd * hd / PEAK_FMA_INSTR_PER_S * 1e3
+
+
+def _plan_name(groups, cols, col_blocks, pipelined=True):
+    return (f"G{groups}-C{cols}-CB{col_blocks}"
+            + ("" if pipelined else "-nopipe"))
+
+
 def _close(out, ref, tol, row_tol, what):
     """Elementwise and row checks; returns (max_abs_err, worst row)."""
     out, ref = out.float(), ref.float()
@@ -453,19 +478,27 @@ def _close(out, ref, tol, row_tol, what):
 
 
 def phase_wkv6():
-    """K2, each case: kernel vs plain version, y and the final state.
-    Returns the kernels-line entry (numbers at the main-path case)."""
+    """K2, each case: kernel vs plain version, y and the final state, and
+    the (G, C, CB) that kernel.plan chose.  Returns the kernels-line entry
+    (numbers at the main-path case)."""
     from repro_torch.kernels.rwkv6 import checks
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     entry = None
     for name, shape, dtype, strided, state_scale in WKV_CASES:
         args = checks.inputs(shape, dtype, gen, strided, state_scale)
+        before = dict(wkv_ops.launches_by_plan)
         with torch.inference_mode():
             y, S = wkv_ops.wkv6(*args)
             torch.cuda.synchronize()
             y_ref, S_ref = wkv6_ref(*args)
+        took = [pl for pl, n in wkv_ops.launches_by_plan.items()
+                if n != before.get(pl, 0)]
+        plan = wkv_kernel.plan(shape, dtype)
+        check(took == [plan], f"wkv6 {name}: took {took}, expected "
+                              f"[{plan}]")
         check(y.dtype == dtype and S.dtype == torch.float32,
               f"wkv6 {name}: dtypes {y.dtype}, {S.dtype}")
         tol, rtol = checks.TOL[dtype], checks.ROW_TOL[dtype]
@@ -474,50 +507,120 @@ def phase_wkv6():
                                checks.STATE_ROW_TOL,
                                f"wkv6 {name} state")
         print(f"[kernels] wkv6 {name} {tuple(shape)} {str(dtype)[6:]} "
-              f"strided={strided} state x{state_scale:g}: y max_abs_err "
+              f"strided={strided} state x{state_scale:g}, plan (G, C, CB) "
+              f"{plan}: y max_abs_err "
               f"{err:.3e} (limit {tol:g} x (rms + |ref|), rms "
               f"{y_ref.float().pow(2).mean().sqrt().item():.3g}), worst row "
               f"{rerr:.3e} (tol {rtol:g}); state max_abs_err {s_err:.3e}, "
               f"worst row {s_rerr:.3e} (tol {checks.STATE_ROW_TOL:g})")
         if name != "main-path":
+            del args, y, S, y_ref, S_ref
             continue
-        # The checks can fail here: the plain version with the update at
-        # t = s/2 dropped (k = 0, w = 1 there: the state skips the step,
-        # as a kernel that lost it would) must be far outside the limits.
-        r, k, v, w, u, state = args
-        half = shape[1] // 2
-        with torch.inference_mode():
-            k_drop, w_drop = k.clone(), w.clone()
-            k_drop[:, half] = 0
-            w_drop[:, half] = 1
-            y_drop, S_drop = wkv6_ref(r, k_drop, v, w_drop, u, state)
-            lost, s_lost = row_err(y_drop, y_ref), row_err(S_drop, S_ref)
-            del k_drop, w_drop, y_drop, S_drop
-        print(f"[kernels] wkv6 main-path: the update at t = {half} dropped "
-              f"gives worst row rel err {lost:.3e} in y (limit {rtol:g}) "
-              f"and {s_lost:.3e} in the state (limit "
-              f"{checks.STATE_ROW_TOL:g})")
-        check(lost > 10 * rtol and s_lost > 10 * checks.STATE_ROW_TOL,
-              f"a dropped update gives only {lost:.3e} / {s_lost:.3e}: the "
-              f"check cannot see it")
-        with torch.inference_mode():
-            ms = time_ms(lambda: wkv_ops.wkv6(*args))
-            plain_ms = time_ms(lambda: wkv6_ref(*args), iters=2, warmup=1)
-        bound_ms, bound_by = wkv_bound(shape, dtype)
-        print(f"[kernels] wkv6 main-path: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, no library call, bound {bound_ms:.4f} ms "
-              f"({bound_by})")
+        _wkv_checks_can_fail(wkv6_ref, args, y_ref, S_ref, rtol,
+                             checks.STATE_ROW_TOL,
+                             wkv_kernel.chunk_steps(shape[3], dtype, plan))
         entry = {
             "name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/rwkv6/kernel.py:49",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "launches": None, "max_abs_err": err,
+            **_time_wkv(wkv_kernel, wkv_ops, wkv6_ref, args, shape, dtype,
+                        plan),
         }
         del args, y, S, y_ref, S_ref
     torch.cuda.empty_cache()
     return entry
+
+
+def _wkv_checks_can_fail(wkv6_ref, args, y_ref, S_ref, rtol, s_rtol, chunk):
+    """The plain version with three faults, each of which must land far
+    outside the limits: the update at t = s/2 dropped (k = 0, w = 1 there:
+    the state skips the step, as a kernel that lost it would); a stale
+    chunk (the steps of chunk 2 replaced by those of chunk 1, what a
+    missed cp.async wait reads); a lost row group (r's rows [16, 32) of
+    every head zeroed, what a row group's partial dropped from the sum
+    of y loses; which quarter of the rows a group holds depends on the
+    layout, how far y moves does not)."""
+    r, k, v, w, u, state = args
+    half = r.shape[1] // 2
+    c1, c2 = slice(chunk, 2 * chunk), slice(2 * chunk, 3 * chunk)
+    with torch.inference_mode():
+        k_drop, w_drop = k.clone(), w.clone()
+        k_drop[:, half] = 0
+        w_drop[:, half] = 1
+        y_f, S_f = wkv6_ref(r, k_drop, v, w_drop, u, state)
+        lost, s_lost = row_err(y_f, y_ref), row_err(S_f, S_ref)
+        del k_drop, w_drop
+        stale_in = [t.clone() for t in (r, k, v, w)]
+        for t in stale_in:
+            t[:, c2] = t[:, c1]
+        y_f, S_f = wkv6_ref(*stale_in, u, state)
+        stale, s_stale = row_err(y_f, y_ref), row_err(S_f, S_ref)
+        del stale_in
+        r_lost = r.clone()
+        r_lost[..., 16:32] = 0
+        y_f, _ = wkv6_ref(r_lost, k, v, w, u, state)
+        group = row_err(y_f, y_ref)
+        del r_lost, y_f, S_f
+    print(f"[kernels] wkv6 main-path: the update at t = {half} dropped "
+          f"gives worst row rel err {lost:.3e} in y (limit {rtol:g}) and "
+          f"{s_lost:.3e} in the state (limit {s_rtol:g}); a stale chunk "
+          f"(steps [{c2.start}, {c2.stop}) read as [{c1.start}, "
+          f"{c1.stop})) {stale:.3e} in y and {s_stale:.3e} in the state; a "
+          f"lost row group (r rows [16, 32) zeroed) {group:.3e} in y")
+    check(lost > 10 * rtol and s_lost > 10 * s_rtol,
+          f"a dropped update gives only {lost:.3e} / {s_lost:.3e}: the "
+          f"check cannot see it")
+    check(stale > 10 * rtol or s_stale > 10 * s_rtol,
+          f"a stale chunk gives only {stale:.3e} / {s_stale:.3e}: the "
+          f"check cannot see it")
+    check(group > 10 * rtol, f"a lost row group gives only {group:.3e}: "
+                             f"the check cannot see it")
+
+
+def _time_wkv(wkv_kernel, wkv_ops, wkv6_ref, args, shape, dtype, plan):
+    """Times the dispatcher (``ms``: what the main path calls, u's cast
+    included), every candidate (G, C, CB, overlapped
+    copies) through the sweep library (no launch counted) in two passes,
+    the second in reverse order (``ms_by_plan``), and the plain version;
+    prints them beside the bound and the design's floor and returns the
+    kernels-line numbers."""
+    r, k, v, w, u, state = args
+    uf = u.float()
+    turns = {}
+    order = list(wkv_kernel.CANDIDATES)
+    with torch.inference_mode():
+        ms = time_ms(lambda: wkv_ops.wkv6(*args))
+        for cand in order + order[::-1]:
+            turns.setdefault(_plan_name(*cand), []).append(time_ms(
+                lambda: wkv_kernel.wkv6_cuda(r, k, v, w, uf, state,
+                                             cand[:3], cand[3], sweep=True),
+                iters=20))
+        plain_ms = time_ms(lambda: wkv6_ref(*args), iters=2, warmup=1)
+    ms_by_plan = {name: float(np.mean(ts)) for name, ts in turns.items()}
+    bound_ms, bound_by = wkv_bound(shape, dtype)
+    floor_ms = wkv_floor(shape)
+    chosen = _plan_name(*plan)
+    check(chosen in ms_by_plan, f"wkv6: plan {chosen} is not a candidate")
+    fastest = min(ms_by_plan, key=ms_by_plan.get)
+    for name, ts in turns.items():
+        print(f"[kernels] wkv6 main-path {name}: "
+              f"{', '.join(f'{t:.4f}' for t in ts)} ms, mean "
+              f"{ms_by_plan[name]:.4f} ms = {ms_by_plan[name] / bound_ms:.2f}"
+              f" x bound, {ms_by_plan[name] / floor_ms:.2f} x floor")
+    yard = ms_by_plan[_plan_name(1, 1, 1, False)]
+    print(f"[kernels] wkv6 main-path: through the dispatcher {ms:.4f} ms "
+          f"({ms / bound_ms:.2f} x bound), plan {chosen} "
+          f"{ms_by_plan[chosen]:.4f} ms in the sweep, fastest {fastest} "
+          f"{ms_by_plan[fastest]:.4f} ms, G1-C1-CB1-nopipe (one thread per "
+          f"column) {yard:.4f} ms ({yard / ms_by_plan[chosen]:.2f} x the "
+          f"plan), plain {plain_ms:.4f} ms, no library call, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), design floor {floor_ms:.4f} ms "
+          f"(3 f32 instructions per entry)")
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "plan": list(plan), "ms_by_plan": ms_by_plan,
+            "fastest": fastest}
 
 
 # Selective scan (K3): inputs and limits from
@@ -728,9 +831,12 @@ def phase_main_path(arch, card, profile):
         flash_variants = ops["flash_attention"].launches_by_variant
         for variant in flash_variants:
             flash_variants[variant] = 0
+        ops["wkv6"].launches_by_plan.clear()
         done = engine.run()
         launches = {name: mod.launches for name, mod in ops.items()}
         launches["flash_attention_by_variant"] = dict(flash_variants)
+        launches["wkv6_by_plan"] = {_plan_name(*pl): n for pl, n in
+                                    ops["wkv6"].launches_by_plan.items()}
         m = engine.metrics()
     finally:
         invoker.deallocate()
@@ -756,6 +862,14 @@ def phase_main_path(arch, card, profile):
     # every K1 launch of a main path takes the Hopper variant
     want["flash_attention_by_variant"] = {
         "hopper": want["flash_attention"], "general": 0}
+    # every K2 launch takes kernel.plan's (G, C, CB) for the model's head dim
+    want["wkv6_by_plan"] = {}
+    if want["wkv6"]:
+        from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+        hd = cfg.rwkv.head_dim
+        wkv_plan = wkv_kernel.plan((batch, 1, cfg.d_model // hd, hd),
+                                   model.dtype)
+        want["wkv6_by_plan"] = {_plan_name(*wkv_plan): want["wkv6"]}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     max_latency = max(r.latency for r in done)
     result = {
@@ -949,6 +1063,7 @@ def main() -> int:
         entry["launches"], entry["launches_by_path"] = 0, {}
     flash = entries["flash_attention"]
     flash["launches_by_variant"] = {"hopper": 0, "general": 0}
+    entries["wkv6"]["launches_by_plan"] = {}
     for arch, per_wave in MAIN_PATHS.items():
         free_device_memory("the previous phase")
         launches = phase_main_path(arch, card, args.profile)
@@ -957,6 +1072,9 @@ def main() -> int:
             entries[name]["launches_by_path"][arch] = launches[name]
         for variant, n in launches["flash_attention_by_variant"].items():
             flash["launches_by_variant"][variant] += n
+        for pl, n in launches["wkv6_by_plan"].items():
+            by_plan = entries["wkv6"]["launches_by_plan"]
+            by_plan[pl] = by_plan.get(pl, 0) + n
     for arch in MAIN_PATHS:
         free_device_memory("the previous phase")
         phase_decode_vs_prefill(arch)

@@ -37,16 +37,18 @@ def library_path(source: Path, name: str) -> Path:
     return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 
 
-def build(source: Path, name: str) -> Path:
-    """Compiles ``source`` unless a library of the same source hash is
-    already built; returns the library's path.  A failed build raises
-    with nvcc's output and leaves no library behind."""
+def build(source: Path, name: str, flags=()) -> Path:
+    """Compiles ``source`` with nvcc's ``flags`` beside ``NVCC_FLAGS``
+    unless a library of the same name and source hash is already built;
+    returns the library's path.  One name stands for one set of flags.
+    A failed build raises with nvcc's output and leaves no library
+    behind."""
     so = library_path(source, name)
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     (so.parent / "build.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:

@@ -3,7 +3,9 @@ card, the plain torch version (ref.py) for tensors on the CPU.
 
 There is no fallback: a CUDA tensor launches the kernel or raises.  There
 is no backward kernel yet, so a CUDA call that would need a gradient
-raises too.  ``launches`` counts kernel launches and nothing else.
+raises too.  ``launches`` counts kernel launches and nothing else;
+``launches_by_plan`` counts them by the (G, C, CB) that ``kernel.plan``
+chose.
 
 ``wkv6_step`` (one token, the decode path) is plain torch ops on every
 device, as the reference's is jnp.
@@ -16,6 +18,7 @@ from repro_torch.kernels.rwkv6 import kernel
 from repro_torch.kernels.rwkv6.ref import step, wkv6_ref
 
 launches = 0
+launches_by_plan: dict = {}
 
 
 def _check(r, k, v, w, u, state):
@@ -67,9 +70,11 @@ def wkv6(r, k, v, w, u, state):
         raise ValueError(f"batch too large for the grid: {tuple(r.shape)}")
     if any(t.stride(3) != 1 for t in (r, k, v, w)):
         raise ValueError("the head dim of r/k/v/w must have stride 1")
+    plan = kernel.plan(r.shape, r.dtype)
     out = kernel.wkv6_cuda(r, k, v, w, u.float().contiguous(),
-                           state.contiguous())
+                           state.contiguous(), plan)
     launches += 1
+    launches_by_plan[plan] = launches_by_plan.get(plan, 0) + 1
     return out
 
 

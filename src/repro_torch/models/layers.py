@@ -8,6 +8,7 @@ GELU, population variance, RoPE over split halves.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -113,16 +114,37 @@ def silu(x):
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
-def _gelu(x):
-    return F.gelu(x, approximate="tanh")      # jax.nn.gelu's default
+@functools.lru_cache(maxsize=None)
+def _gelu_constants(dtype):
+    """sqrt(2 / pi) and 0.044715 rounded to ``dtype``, as Python floats:
+    a scalar that ``dtype`` holds exactly, times a tensor of ``dtype``,
+    rounds as the product of two such tensors does, and costs no copy to
+    the device."""
+    return tuple(torch.tensor(c, dtype=dtype).item()
+                 for c in (math.sqrt(2 / math.pi), 0.044715))
+
+
+def gelu(x):
+    """``jax.nn.gelu`` (its default tanh form) as the reference computes
+    it: x * (0.5 * (1 + tanh(c * (x + k * (x * x * x))))), each op
+    rounded to x's dtype, with c = sqrt(2 / pi) and k = 0.044715 rounded
+    to x's dtype first (JAX's weakly typed constants take the array's
+    dtype).  In bf16, ``F.gelu``'s single rounding differs from that in
+    many elements; in f32 the two differ in the last ulp, so f32 takes
+    ``F.gelu``'s one kernel."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c, k = _gelu_constants(x.dtype)
+    inner = c * (x + k * (x * x * x))
+    return x * (0.5 * (1 + torch.tanh(inner)))
 
 
 def apply_mlp(x, p, act):
     if "gate" in p:
-        fn = silu if act == "silu" else _gelu
+        fn = silu if act == "silu" else gelu
         h = fn(x @ p["gate"]) * (x @ p["up"])
     else:
-        h = _gelu(x @ p["up"])
+        h = gelu(x @ p["up"])
     return h @ p["down"]
 
 

@@ -133,7 +133,7 @@ def apply_moe(x, p, cfg, *, router_mode="softmax_topk", ep_axis=None,
     buf.index_copy_(0, slot, xf[tok_idx])
     ebuf = buf[:E * C].view(E, C, d)
 
-    act = L.silu if cfg.act == "silu" else L._gelu
+    act = L.silu if cfg.act == "silu" else L.gelu
     h = act(_bmm_f32(ebuf, p["gate"])) * _bmm_f32(ebuf, p["up"])
     y_e = _bmm_f32(h.to(x.dtype), p["down"])                   # (E, C, d)
 

@@ -117,9 +117,13 @@ class DecoderLM:
             k = L.apply_rope(k, positions, theta)
         k_c, v_c = cache_entry["k"], cache_entry["v"]
         # in place: the counterpart of the reference's donated cache
-        # buffer (jax.jit(decode, donate_argnums=(1,)))
-        k_c[:, length] = k[:, 0]
-        v_c[:, length] = v[:, 0]
+        # buffer (jax.jit(decode, donate_argnums=(1,))).  Past the
+        # cache's end the write lands on its last slot, as the
+        # reference's dynamic_update_slice clamps it, and the mask below
+        # (length + 1 > S) then admits every slot.
+        write_at = min(length, k_c.shape[1] - 1)
+        k_c[:, write_at] = k[:, 0]
+        v_c[:, write_at] = v[:, 0]
         kk = A.repeat_kv(k_c, cfg.n_heads)
         vv = A.repeat_kv(v_c, cfg.n_heads)
         o = A.decode_attention(q, kk, vv, length + 1, window=win,

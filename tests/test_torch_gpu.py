@@ -24,6 +24,7 @@ from repro_torch.kernels.mamba_scan import checks as scan_checks  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import checks  # noqa: E402
+from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
@@ -222,25 +223,91 @@ WKV_CASES = [
     ((1, 100, 3, 24), False, 0.0),
     ((2, 300, 4, 64), True, 10.0),
     ((1, 1000, 2, 32), False, 10.0),
+    ((2, 33, 4, 64), False, 10.0),       # one ragged chunk after two
+    ((2, 33, 3, 24), True, 10.0),
 ]
 
 
+def _plan_id(candidate):
+    groups, cols, col_blocks, pipelined = candidate
+    return (f"G{groups}-C{cols}-CB{col_blocks}"
+            + ("" if pipelined else "-nopipe"))
+
+
+@pytest.mark.parametrize("candidate", wkv_kernel.CANDIDATES, ids=_plan_id)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape,strided,state_scale", WKV_CASES)
 def test_wkv6_kernel_matches_plain(cuda, shape, strided, state_scale,
-                                   dtype):
+                                   dtype, candidate):
+    """Every timed (G, C, CB) with and without the overlapped copies,
+    through the sweep library with an explicit plan, at every case (hd 16
+    and 24 with every G, so G > 1 on padded lanes too) where the plan has
+    an instantiation."""
+    plan, pipelined = candidate[:3], candidate[3]
+    if not wkv_kernel.fits(shape[3], plan, sweep=True):
+        with pytest.raises(ValueError, match="no WKV6 plan"):
+            wkv_kernel.wkv6_cuda(*_wkv_inputs(*shape, dtype), plan,
+                                 sweep=True)
+        return
     args = _wkv_inputs(*shape, dtype, strided, state_scale)
-    before = wkv_ops.launches
+    r, k, v, w, u, s0 = args
     with torch.inference_mode():
-        y, S = wkv_ops.wkv6(*args)
+        y, S = wkv_kernel.wkv6_cuda(r, k, v, w, u.float(), s0, plan,
+                                    pipelined, sweep=True)
         y_ref, S_ref = wkv6_ref(*args)
-    assert wkv_ops.launches == before + 1
     b, s, h, hd = shape
     assert y.shape == (b, s, h, hd) and y.dtype == dtype
     assert S.shape == (b, h, hd, hd) and S.dtype == torch.float32
     _assert_close(y, y_ref, checks.TOL[dtype], checks.ROW_TOL[dtype])
     _assert_close(S, S_ref, checks.STATE_TOL, checks.STATE_ROW_TOL)
+
+
+@pytest.mark.parametrize("shape,strided,state_scale", WKV_CASES[:3])
+def test_wkv6_dispatch_launches_the_plan(cuda, shape, strided,
+                                         state_scale):
+    """ops.wkv6 launches once, under kernel.plan's (G, C, CB), and returns
+    what the kernel module returns for that plan, from the serving
+    library and from the sweep library alike."""
+    args = _wkv_inputs(*shape, torch.bfloat16, strided, state_scale)
+    plan = wkv_kernel.plan(shape, torch.bfloat16)
+    before = wkv_ops.launches
+    by_plan = dict(wkv_ops.launches_by_plan)
+    with torch.inference_mode():
+        y, S = wkv_ops.wkv6(*args)
+        r, k, v, w, u, s0 = args
+        y2, S2 = wkv_kernel.wkv6_cuda(r, k, v, w, u.float(), s0, plan)
+        y3, S3 = wkv_kernel.wkv6_cuda(r, k, v, w, u.float(), s0, plan,
+                                      sweep=True)
+    assert wkv_ops.launches == before + 1
+    assert wkv_ops.launches_by_plan[plan] == by_plan.get(plan, 0) + 1
+    assert torch.equal(y, y2) and torch.equal(S, S2)
+    assert torch.equal(y, y3) and torch.equal(S, S3)
+
+
+def test_wkv6_copies_rows_at_any_alignment(cuda):
+    """Rows that are 2, 4 or 8 bytes aligned (views at an odd element
+    offset) take the smaller copies and still match the plain version."""
+    b, s, h, hd = 2, 40, 3, 24
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    # rows 448 (bf16) and 304 (f32) bytes apart: the offset sets the
+    # alignment (bf16 at 1, 2, 4 elements: 2, 4, 8 bytes; f32: 4, 8, 16)
+    for off in (1, 2, 4):
+        base = torch.randn((b, s, 3 * h * hd + 8), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        r, k, v = (base[..., off + i * h * hd:off + (i + 1) * h * hd]
+                   .view(b, s, h, hd) for i in range(3))
+        wbase = torch.rand((b, s, h * hd + 4), generator=gen,
+                           device="cuda") * 0.1 + 0.9
+        w = wbase[..., off:off + h * hd].view(b, s, h, hd)
+        u = torch.randn((h, hd), generator=gen, device="cuda") * 0.1
+        s0 = torch.randn((b, h, hd, hd), generator=gen, device="cuda")
+        with torch.inference_mode():
+            y, S = wkv_ops.wkv6(r, k, v, w, u, s0)
+            y_ref, S_ref = wkv6_ref(r, k, v, w, u, s0)
+        _assert_close(y, y_ref, checks.TOL[torch.bfloat16],
+                      checks.ROW_TOL[torch.bfloat16])
+        _assert_close(S, S_ref, checks.STATE_TOL, checks.STATE_ROW_TOL)
 
 
 def test_wkv6_cuda_grad_raises(cuda):

@@ -317,6 +317,31 @@ def test_prefill_decode_match_reference(replace):
     close_cache(jcache, tcache, TOL["float32"])
 
 
+def test_decode_past_max_len_matches_reference():
+    """An 8-token prompt into a cache of max_len 8, then two decode steps
+    past its end: the attention layer's writes clamp to the last slot as
+    the reference's dynamic_update_slice does; logits, lengths and the
+    whole cache match, f32 at 2e-5."""
+    jm, jp, tm, tp = model_pair(seed=3)
+    toks = np.random.default_rng(4).integers(
+        0, jm.cfg.vocab_size, (2, 8)).astype(np.int32)
+    jl, jcache, jlen = jm.prefill(jp, jnp.asarray(toks), 8)
+    with torch.inference_mode():
+        tl, tcache, tlen = tm.prefill(tp, torch.from_numpy(toks), 8)
+    close(jl, tl, TOL["float32"])
+    nxt = np.array([[3], [11]], np.int32)
+    for want in (9, 10):
+        jl, jcache, jlen = jm.decode(jp, jcache, jnp.asarray(nxt), jlen)
+        with torch.inference_mode():
+            tl, tcache, tlen = tm.decode(tp, tcache, torch.from_numpy(nxt),
+                                         tlen)
+        assert tlen == int(jlen) == want
+        assert torch.isfinite(tl).all()
+        close(jl, tl, TOL["float32"])
+        nxt = nxt + 1
+    close_cache(jcache, tcache, TOL["float32"])
+
+
 def test_one_token_prompt_takes_the_step_path():
     jm, jp, tm, tp = model_pair(seed=2, **CUT)
     toks = np.array([[5], [9]], np.int32)

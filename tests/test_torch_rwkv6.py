@@ -11,6 +11,7 @@ numpy seeds.  The CUDA kernel itself runs only on the card
 from __future__ import annotations
 
 import hashlib
+import re
 import stat
 
 import jax
@@ -167,6 +168,141 @@ def test_cpu_grad_takes_plain_version():
     y, S = tops.wkv6(r, k, v, w, u, s0)
     (y.sum() + S.sum()).backward()
     assert r.grad is not None and torch.isfinite(r.grad).all()
+
+
+# ------------------------------------------------- the kernel's plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 24, 32, 64])
+def test_plan_fits_the_kernel(hd, dtype):
+    """The plan for every head dim the models use: an instantiated (G, C),
+    a block of at most 1024 threads, G, C and CB dividing the padded head
+    dim, and the G lanes of a column inside one warp."""
+    groups, cols, col_blocks = tK.plan((2, 100, 4, hd), dtype)
+    hdp = tK.padded_head_dim(hd)
+    assert hdp == {16: 16, 24: 32, 32: 32, 64: 64}[hd]
+    assert (groups, cols) in tK.TILES and col_blocks in tK.COL_BLOCKS
+    assert hdp % groups == 0 and (hdp // col_blocks) % cols == 0
+    assert 32 % groups == 0
+    assert tK.threads(hd, (groups, cols, col_blocks)) <= 1024
+    assert tK.fits(hd, (groups, cols, col_blocks))
+
+
+def test_plan_at_the_main_path_shape():
+    """rwkv6-1.6b's prefill shape takes the (G, C, CB) that PERF.md
+    records as the fastest candidate on the card."""
+    assert tK.plan((4, 1024, 32, 64), torch.bfloat16) == (8, 4, 1)
+    assert tK.plan((4, 257, 32, 64), torch.bfloat16) == (8, 4, 1)
+
+
+def test_every_candidate_fits_the_main_path_head_dim():
+    """45 candidates, none twice, each with an instantiation at hd 64 in
+    the sweep library; the one-column-a-thread grid (G x CB,
+    double-buffered) is all there but G = 16, CB = 1, whose 1024
+    consumers leave no room for producers; the plan and the yardstick (G
+    = C = CB = 1 without the double buffer) are among them."""
+    assert len(tK.CANDIDATES) == len(set(tK.CANDIDATES)) == 45
+    for groups, cols, col_blocks, _ in tK.CANDIDATES:
+        assert tK.fits(64, (groups, cols, col_blocks), sweep=True)
+    assert {(g, cb) for g, c, cb, pipe in tK.CANDIDATES
+            if c == 1 and pipe} == {(g, cb) for g in (1, 2, 4, 8, 16)
+                                    for cb in tK.COL_BLOCKS} - {(16, 1)}
+    assert (*tK.PLAN, True) in tK.CANDIDATES
+    assert (1, 1, 1, False) in tK.CANDIDATES
+    assert tK.threads(64, (16, 1, 1)) == 1024 + tK.PRODUCERS
+    assert not tK.fits(64, (16, 1, 1), sweep=True)
+    assert tK.fits(32, (16, 1, 1), sweep=True)
+
+
+def test_serving_library_holds_the_plan_alone():
+    """The serving library instantiates the plan's tile and no other; the
+    sweep library every tile of ``SWEEP_TILES``; both lists are the
+    source's ``WKV6_PLANS``."""
+    assert tK.TILES == (tK.PLAN[:2],)
+    assert tK.PLAN[:2] in tK.SWEEP_TILES
+    assert tK.fits(64, tK.PLAN) and tK.fits(64, tK.PLAN, sweep=True)
+    assert not tK.fits(64, (1, 1, 1)) and tK.fits(64, (1, 1, 1), sweep=True)
+    src = tK.SOURCE.read_text()
+    sweep, serving = re.search(
+        r"#ifdef WKV6_SWEEP\n#define WKV6_PLANS\(X\)(.*?)#else\n"
+        r"#define WKV6_PLANS\(X\)(.*?)#endif", src, re.S).groups()
+
+    def tiles(text):
+        return tuple((int(g), int(c))
+                     for g, c in re.findall(r"X\((\d+), (\d+)\)", text))
+    assert tiles(sweep) == tK.SWEEP_TILES
+    assert tiles(serving) == tK.TILES
+
+
+def test_sweep_library_is_its_own_build(fake_nvcc):
+    """The sweep library has a name of its own beside the serving one,
+    keyed by the same source, and only its build passes -DWKV6_SWEEP."""
+    digest = hashlib.sha256(tK.SOURCE.read_bytes()).hexdigest()[:16]
+    assert tK.library_path(sweep=True) == (
+        _build.BUILD_ROOT / f"wkv6_sweep-{digest}" / "libwkv6_sweep.so")
+    assert tK.build() == tK.library_path()
+    assert tK.build(sweep=True) == tK.library_path(sweep=True)
+    serving, sweep = fake_nvcc.read_text().splitlines()
+    assert "-DWKV6_SWEEP" not in serving and "-DWKV6_SWEEP" in sweep
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_chunk_steps_fill_the_shared_memory_budget(dtype):
+    """Every candidate's chunk fits its share of the budget and is as long
+    as fits, up to 64 steps; the main path's plan stages 64 bf16 steps."""
+    size = torch.finfo(dtype).bits // 8
+    for groups, cols, col_blocks, _ in tK.CANDIDATES:
+        plan = (groups, cols, col_blocks)
+        ch = tK.chunk_steps(64, dtype, plan)
+        step = 2 * (64 * (4 + 3 * size) + 4) + groups * 68 * 4
+        assert 1 <= ch <= tK.MAX_CHUNK
+        assert ch * step <= tK.SMEM_BUDGET // col_blocks
+        assert ch == tK.MAX_CHUNK or (ch + 1) * step > (
+            tK.SMEM_BUDGET // col_blocks)
+    assert tK.chunk_steps(64, torch.bfloat16, (8, 4, 1)) == 64
+
+
+def test_plan_raises_past_head_dim_64():
+    with pytest.raises(ValueError, match="head dim 128"):
+        tK.plan((1, 4, 1, 128), torch.float32)
+    with pytest.raises(ValueError, match="head dim 65"):
+        tK.padded_head_dim(65)
+
+
+@pytest.mark.parametrize("sweep", [False, True], ids=["serving", "sweep"])
+@pytest.mark.parametrize("plan,hd", [
+    ((3, 1, 1), 64), ((4, 1, 3), 64), ((32, 1, 1), 64), ((1, 2, 1), 64),
+    ((8, 8, 4), 16), ((16, 1, 1), 128)])
+def test_wkv6_cuda_rejects_plans_it_has_no_kernel_for(plan, hd, sweep):
+    """Before any launch (and so on CPU tensors, with no library), in
+    either library: (G, C) instantiated, CB in (1, 2, 4), C dividing a
+    block's columns (8 do not divide 16 / 4), at most 64 head dims."""
+    r = torch.zeros((1, 2, 1, hd))
+    state = torch.zeros((1, 1, hd, hd))
+    with pytest.raises(ValueError, match="head dim 128|no WKV6 plan"):
+        tK.wkv6_cuda(r, r, r, r, torch.zeros((1, hd)), state, plan,
+                     sweep=sweep)
+    assert tK.library.cache_info().currsize == 0
+
+
+@pytest.mark.parametrize("plan", [(1, 1, 1), (4, 1, 1), (16, 8, 1),
+                                  (8, 4, 2)])
+def test_serving_library_rejects_a_sweep_plan(plan):
+    """A candidate that only the sweep library instantiates raises before
+    any launch when the serving library is asked for it; CB 2 needs no
+    other tile, so (8, 4, 2) passes the check."""
+    r = torch.zeros((1, 2, 1, 64))
+    state = torch.zeros((1, 1, 64, 64))
+    assert tK.fits(64, plan, sweep=True)
+    if plan[:2] == tK.PLAN[:2]:
+        assert tK.fits(64, plan)
+        return
+    with pytest.raises(ValueError, match="in the serving library"):
+        tK.wkv6_cuda(r, r, r, r, torch.zeros((1, 64)), state, plan)
+    assert tK.library.cache_info().currsize == 0
 
 
 def test_build_is_keyed_by_source_and_lazy():

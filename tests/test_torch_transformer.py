@@ -72,6 +72,31 @@ def test_prefill_decode_match_reference(arch, dtype):
     close(jcache["k"], tcache["k"], dtype)
 
 
+def test_decode_past_max_len_matches_reference():
+    """An 8-token prompt into a cache of max_len 8, then two decode steps:
+    the reference clamps each write to the cache's last slot
+    (dynamic_update_slice) and attends over every slot; the port does the
+    same, with the same logits and lengths, f32 at 2e-5."""
+    jm, jp, tm, tp = pair("mistral-nemo-12b", "float32")
+    toks = tokens(jm.cfg, 2, 8, seed=4)
+    jl, jcache, jlen = jm.prefill(jp, jnp.asarray(toks), 8)
+    with torch.inference_mode():
+        tl, tcache, tlen = tm.prefill(tp, torch.from_numpy(toks), 8)
+    close(jl, tl, "float32")
+    nxt = np.array([[3], [11]], np.int32)
+    for want in (9, 10):
+        jl, jcache, jlen = jm.decode(jp, jcache, jnp.asarray(nxt), jlen)
+        with torch.inference_mode():
+            tl, tcache, tlen = tm.decode(tp, tcache, torch.from_numpy(nxt),
+                                         tlen)
+        assert tlen == int(jlen) == want
+        assert torch.isfinite(tl).all()
+        close(jl, tl, "float32")
+        nxt = nxt + 1
+    close(jcache["k"], tcache["k"], "float32")
+    close(jcache["v"], tcache["v"], "float32")
+
+
 def full_logits(model, params, toks):
     """Logits at every position from one cache-free forward."""
     x = tC.embed(toks, params["embed"], model.cfg)
