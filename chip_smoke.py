@@ -9,8 +9,10 @@ non-zero and prints no result:
 
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile every kernel of the serving paths with nvcc (sm_90a),
-   and K2's sweep library of candidate plans, one nvcc per library, all
-   started together;
+   and the sweep libraries of K2's candidate plans and of K3's yardstick
+   designs, one nvcc per library, all started together; then the SASS
+   of K3's design and its yardsticks (cuobjdump): instructions per state
+   entry in the scan loop;
 3. kernels: hold each kernel against its plain torch version on the card
    at the main-path shape and at edge shapes, elementwise and row by row,
    show that a deliberately wrong result would fail the checks, and time
@@ -22,7 +24,11 @@ non-zero and prints no result:
    variant it took; K2 through its dispatcher, and its candidate plans
    (G, C, CB, double buffer) in two passes at the main-path shape, each
    case checked for the plan it took, and a stale chunk and a lost row
-   group shown to fail;
+   group shown to fail; the SFUs' ex2 rate measured on every SM, alone
+   and beside FFMAs; K3 through its dispatcher, and its first design
+   (the yardstick), the same with ex2.approx and the serving design
+   checked and timed in two passes at the main-path shape, beside its
+   bound and its design's floor;
 4. main paths, each with every kernel's launch count set to 0 just
    before it and read just after, served through the port's rFaaS stack
    (ModelServer, ServeEngine, Invoker, ResourceManager, BatchSystem,
@@ -56,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -91,16 +98,16 @@ MAIN_PATHS = {"mistral-nemo-12b": {"flash_attention": 40},
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor cores
               torch.float32: 67e12}            # CUDA cores, no TF32
+SMS, BOOST_HZ = 132, 1.98e9                    # H100 SXM
 # exp2 on the SFUs: 16 results a clock per SM (CUDA C++ programming
-# guide, arithmetic instruction throughput, compute capability 9.0), at
-# 132 SMs and the 1.98 GHz boost clock of the H100 SXM
-PEAK_EXP_PER_S = 16 * 132 * 1.98e9
-# f32 FMA-pipe instructions: 128 a clock per SM; and what one exp2 costs
-# there as a polynomial (range reduction and a degree-3 polynomial with
-# the exponent added to the bits, as FlashAttention-4 does), to state
-# the floor when part of the exponentials leave the SFUs
-PEAK_FMA_INSTR_PER_S = 128 * 132 * 1.98e9
-POLY_EXP2_INSTR = 6
+# guide, arithmetic instruction throughput, compute capability 9.0).  K3's
+# bound takes the larger of this and the rate phase_ex2_rate measures, at
+# 132 SMs and the 1.98 GHz boost clock.
+GUIDE_EX2_PER_CLOCK = 16
+# f32 FMA-pipe instructions: 128 a clock per SM, as many as the four
+# schedulers dispatch (one warp instruction a clock each), so an
+# instruction of any pipe takes a dispatch slot of this rate
+PEAK_FMA_INSTR_PER_S = 128 * SMS * BOOST_HZ
 # Elementwise limit (atol = rtol).  f32: the kernel tests' 2e-5.  bf16:
 # both sides round the output to bf16, and at |out| ~ 1-4 one bf16 ulp is
 # 0.008-0.03, so an absolute 1e-2 plus 1e-2 of |ref|.
@@ -190,15 +197,17 @@ def kernel_ops():
 def phase_build():
     """One nvcc per kernel library, all started together (each ``build``
     in a thread of its own), then each library loaded: every kernel
-    module's serving library, and K2's sweep library, which holds the
-    candidate plans that phase_wkv6 times."""
+    module's serving library, and the sweep libraries of K2 and K3, which
+    hold the candidates that phase_wkv6 and phase_scan time.  Returns the
+    libraries' paths by name."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     libs = [(m.NAME, m.build, m.library)
             for m in (flash_kernel, wkv_kernel, scan_kernel)]
-    libs.append((wkv_kernel.SWEEP_NAME, lambda: wkv_kernel.build(True),
-                 lambda: wkv_kernel.library(True)))
+    for m in (wkv_kernel, scan_kernel):
+        libs.append((m.SWEEP_NAME, functools.partial(m.build, True),
+                     functools.partial(m.library, True)))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: lib[1](), libs))
@@ -213,6 +222,99 @@ def phase_build():
         if log.exists():
             for line in ptxas_summary(log.read_text()):
                 print(f"[build]   {line}")
+    return {name: so for (name, _, _), so in zip(libs, paths)}
+
+
+def phase_sass(paths):
+    """K3's instructions per state entry, from the SASS of its serving
+    design and its two yardsticks at the main-path types (bf16 x, N =
+    16): cuobjdump's listing of the kernel, its innermost loop that holds
+    MUFU.EX2 instructions (the unrolled one, if the compiler split the
+    loop), that loop's instructions (NOPs left out) over the entries it
+    updates.  Printed only: a static count, not a check."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    check(tool.exists(), f"no cuobjdump beside nvcc ({tool})")
+    # design: (library, a fragment of its mangled name)
+    kernels = {
+        "first": (scan_kernel.SWEEP_NAME,
+                  "11scan_kernelI13__nv_bfloat16Li16ELb0E"),
+        "first-ex2": (scan_kernel.SWEEP_NAME,
+                      "11scan_kernelI13__nv_bfloat16Li16ELb1E"),
+        scan_kernel.DESIGN: (scan_kernel.NAME,
+                             "16scan_pipe_kernelI13__nv_bfloat16Li16EE")}
+    listings = {}
+    for name, (lib, frag) in kernels.items():
+        if lib not in listings:
+            proc = subprocess.run([str(tool), "-sass", str(paths[lib])],
+                                  capture_output=True, text=True, timeout=300)
+            check(proc.returncode == 0, f"cuobjdump failed on {lib}: "
+                                        f"{proc.stderr[-2000:]}")
+            listings[lib] = sass_functions(proc.stdout)
+        found = [body for fn, body in listings[lib].items() if frag in fn]
+        check(len(found) == 1, f"sass: {len(found)} functions match {name}")
+        count = sass_loop_count(found[0], 16)
+        print(f"[sass] selective_scan {name} ({lib}): scan loop of "
+              f"{count['instr']} instructions for {count['entries']:g} "
+              f"entries ({count['steps']:g} steps x 16): "
+              f"{count['per_entry']:.3f} an entry; opcodes "
+              f"{json.dumps(count['opcodes'])}")
+
+
+def sass_functions(listing):
+    """{mangled name: [(address, opcode), ...]} from ``cuobjdump -sass``
+    output; a branch's opcode carries its target address, ``BRA->N``."""
+    funcs, body = {}, None
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            body = funcs[m.group(1)] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if body is None or not m:
+            continue
+        addr, op, args = int(m.group(1), 16), m.group(2), m.group(3)
+        target = re.search(r"0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and target:
+            op = f"BRA->{int(target.group(1), 16)}"
+        body.append((addr, op))
+    return funcs
+
+
+def sass_loop_count(body, n_state):
+    """Instructions of the innermost loop that holds MUFU.EX2 (the one
+    with the most of them, if several), NOPs left out, and per state
+    entry: each entry's update takes one MUFU.EX2, so the loop runs
+    (MUFU.EX2 count) / ``n_state`` steps of ``n_state`` entries."""
+    loops = []
+    for addr, op in body:
+        if op.startswith("BRA->"):
+            target = int(op[5:])
+            if 0 <= target <= addr:
+                loops.append((target, addr))
+
+    def ops_in(lo, hi):
+        return [op for a, op in body if lo <= a <= hi and op != "NOP"]
+
+    with_exp = [(lo, hi) for lo, hi in loops
+                if any(op.startswith("MUFU.EX2") for op in ops_in(lo, hi))]
+    check(with_exp, "sass: no loop holds MUFU.EX2")
+    inner = [(lo, hi) for lo, hi in with_exp
+             if not any((lo2, hi2) != (lo, hi) and lo <= lo2 and hi2 <= hi
+                        for lo2, hi2 in with_exp)]
+    lo, hi = max(inner, key=lambda r: sum(
+        op.startswith("MUFU.EX2") for op in ops_in(*r)))
+    ops = ops_in(lo, hi)
+    entries = sum(op.startswith("MUFU.EX2") for op in ops)
+    hist = {}
+    for op in ops:
+        key = "BRA" if op.startswith("BRA") else op.split(".")[0]
+        hist[key] = hist.get(key, 0) + 1
+    return {"instr": len(ops), "steps": entries / n_state,
+            "entries": entries, "per_entry": len(ops) / entries,
+            "opcodes": dict(sorted(hist.items(), key=lambda kv: -kv[1]))}
 
 
 def _demangle(mangled):
@@ -625,60 +727,122 @@ def _time_wkv(wkv_kernel, wkv_ops, wkv6_ref, args, shape, dtype, plan):
 
 # Selective scan (K3): inputs and limits from
 # repro_torch.kernels.mamba_scan.checks.
-# name, (b, s, di, N), dtype, scale of the initial state
+# name, (b, s, di, N), dtype, scale of the initial state, options of
+# checks.inputs
 SCAN_CASES = [
-    ("main-path", (4, 1024, 16384, 16), torch.bfloat16, 0.0),
-    ("f32", (2, 1024, 2048, 16), torch.float32, 10.0),
-    ("s33-di1000", (2, 33, 1000, 16), torch.bfloat16, 10.0),
-    ("s2", (2, 2, 16384, 16), torch.float32, 10.0),
-    ("n8", (2, 100, 512, 8), torch.float32, 10.0),
-    ("n4-di200", (3, 37, 200, 4), torch.bfloat16, 10.0),
-    ("state-f32", (1, 64, 16384, 16), torch.float32, 10.0),
+    ("main-path", (4, 1024, 16384, 16), torch.bfloat16, 0.0, {}),
+    ("f32", (2, 1024, 2048, 16), torch.float32, 10.0, {}),
+    ("s33-di1000", (2, 33, 1000, 16), torch.bfloat16, 10.0, {}),
+    ("s2", (2, 2, 16384, 16), torch.float32, 10.0, {}),
+    ("n8", (2, 100, 512, 8), torch.float32, 10.0, {}),
+    ("n4-di200", (3, 37, 200, 4), torch.bfloat16, 10.0, {}),
+    ("state-f32", (1, 64, 16384, 16), torch.float32, 10.0, {}),
+    # s = 31 chunks of 32 steps and 8: a ragged last chunk in the double
+    # buffer at the main width
+    ("s1000-ragged", (4, 1000, 16384, 16), torch.bfloat16, 10.0, {}),
+    # dt ~ softplus(2 N(0, 1) + 6): dt A log2 e < -150 on many entries, so
+    # both exponentials must give 0 there
+    ("large-dt", (2, 256, 4096, 16), torch.bfloat16, 10.0,
+     dict(dt_bias=6.0, dt_scale=2.0)),
+    # every row of A a random order of -(1..N), each entry times U(1, 2)
+    ("shuffled-A", (2, 512, 4096, 16), torch.float32, 10.0,
+     dict(A_kind="shuffled")),
+    # A = -exp(N(0, 1.5^2)): decays that remember thousands of steps, held
+    # to an f64 scan (checks.py)
+    ("long-memory", (2, 512, 4096, 16), torch.float32, 10.0,
+     dict(A_kind="long-memory")),
+    # x's rows 1998 bytes apart: bf16 staged by plain 2-byte copies
+    ("odd-di-bf16", (2, 65, 999, 16), torch.bfloat16, 10.0, {}),
 ]
 
 
-def scan_bound(shape, dtype):
+def scan_bound(shape, dtype, ex2_per_s):
     """Least time for the function, the largest of three: bytes (x, B, C
     in ``dtype``, dt f32, A, D and the state read once; y and the state
     written once) over HBM bandwidth; its exponentials, one per state
-    entry and step, over the SFUs' exp2 rate; its f32 operations, 6 per
-    state entry and step (dt*A, dx*B, the state's FMA, the y FMA) and 3
-    per channel and step (dt*x, D*x + y), over the f32 peak."""
+    entry and step, over the SFUs' exp2 rate ``ex2_per_s``; its f32
+    operations, 6 per state entry and step (dt*A, dx*B, the state's FMA,
+    the y FMA) and 3 per channel and step (dt*x, D*x + y), over the f32
+    peak."""
     b, s, di, n = shape
     size = torch.finfo(dtype).bits // 8
     nbytes = (2 * b * s * di * size + 4 * b * s * di + 2 * b * s * n * size
               + 4 * (di * n + di) + 2 * 4 * b * di * n)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_exp = b * s * di * n / PEAK_EXP_PER_S
+    t_exp = b * s * di * n / ex2_per_s
     t_flops = b * s * di * (6 * n + 3) / PEAK_FLOPS[torch.float32]
     t_ops = max(t_exp, t_flops)
-    # the same work with x of the exponentials as polynomials on the FMA
-    # pipe, x chosen so that both pipes take equally long; not the bound
-    # (the SFU-only rate is what the kernel's design uses), but the floor
-    # a later speed change can aim for
-    n_exp, n_fma = b * s * di * n, b * s * di * (4 * n + 2)
-    moved = max(0.0, (n_exp * PEAK_FMA_INSTR_PER_S
-                      - n_fma * PEAK_EXP_PER_S)
-                / (PEAK_FMA_INSTR_PER_S + POLY_EXP2_INSTR * PEAK_EXP_PER_S))
-    t_mixed = max((n_exp - moved) / PEAK_EXP_PER_S, t_flops)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
-            {"bytes": nbytes, "exp": n_exp,
+            {"bytes": nbytes, "exp": b * s * di * n,
              "flops": b * s * di * (6 * n + 3), "t_bytes_ms": t_bytes * 1e3,
-             "t_exp_ms": t_exp * 1e3, "t_flops_ms": t_flops * 1e3,
-             "t_ops_sfu_and_fma_ms": t_mixed * 1e3})
+             "t_exp_ms": t_exp * 1e3, "t_flops_ms": t_flops * 1e3})
 
 
-def phase_scan():
-    """K3, each case: kernel vs plain version, y and the final state.
-    Returns the kernels-line entry (numbers at the main-path case)."""
+def scan_floor(shape, ex2_per_s, mufu_slots):
+    """The floor of the kernel's design: its dispatch slots or its
+    exponentials on the SFUs, whichever take longer.  Per state entry and
+    step it dispatches 4 FMA-pipe instructions (dt*A, dx*B, the state's
+    FMA, y's FMA) and one MUFU.EX2, which takes ``mufu_slots`` dispatch
+    slots (what phase_ex2_rate measures); per channel and step 3 more
+    (dt*x, acc0 + acc1, D*x + y).  While the slots take longer, moving
+    exponentials to an FMA-pipe polynomial (a range reduction and a
+    polynomial: more instructions than a MUFU's slots) can only add
+    time, so this is that split's floor too."""
+    b, s, di, n = shape
+    n_exp = b * s * di * n
+    t_sfu = n_exp / ex2_per_s
+    t_dispatch = (b * s * di * (4 * n + 3) + mufu_slots * n_exp) \
+        / PEAK_FMA_INSTR_PER_S
+    return max(t_sfu, t_dispatch) * 1e3
+
+
+def phase_ex2_rate():
+    """The SFUs' ex2.approx rate on this card (the sweep library's probe,
+    kernel.ex2_rate): per SM per clock from the SMs' cycle counters,
+    beside the programming guide's 16; then beside 8 FFMAs an ex2, which
+    gives the dispatch slots a MUFU.EX2 takes.  Returns the ex2 rate K3's
+    bound takes (the larger of the guide's and the measured one, at 132
+    SMs and the 1.98 GHz boost clock) and the slots."""
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    rates = {}
+    for fmas, lds in scan_kernel.PROBES:
+        r = scan_kernel.ex2_rate(fmas=fmas, lds=lds)
+        check(r["finite"], f"ex2 probe ({fmas}, {lds}): non-finite results")
+        check(r["distinct_sms"] == r["sms"],
+              f"ex2 probe ({fmas}, {lds}): {r['sms']} blocks ran on "
+              f"{r['distinct_sms']} SMs")
+        rates[fmas] = r
+    alone, mixed = rates[0], rates[8]["per_sm_per_clock"]
+    per_clock = max(GUIDE_EX2_PER_CLOCK, alone["per_sm_per_clock"])
+    # a scheduler holds 8 warps of the probe; with 8 FFMAs beside each ex2
+    # it spends 128 / rate clocks a warp ex2, 8 of them on the FFMAs (one
+    # a clock) and the rest on the MUFU's dispatch
+    mufu_slots = 128 / mixed - 8
+    print(f"[kernels] ex2 rate: {alone['per_sm_per_clock']:.3f} ex2.approx "
+          f"a clock per SM (the SMs' mean; the programming guide's "
+          f"{GUIDE_EX2_PER_CLOCK}), {alone['per_s'] / 1e12:.3f} T/s on "
+          f"{alone['sms']} SMs at {alone['clock_ghz']:.3f} GHz "
+          f"({alone['ms']:.3f} ms); K3's bound takes {per_clock:.3f} x "
+          f"{SMS} SMs x {BOOST_HZ / 1e9:g} GHz.  Beside 8 FFMAs an ex2: "
+          f"{mixed:.3f} a clock, so a warp's MUFU.EX2 holds its scheduler "
+          f"{mufu_slots:.2f} clocks (1 if the pipes overlapped fully)")
+    return per_clock * SMS * BOOST_HZ, mufu_slots
+
+
+def phase_scan(ex2_per_s, mufu_slots):
+    """K3, each case: kernel vs plain version, y and the final state; at
+    the main-path case every design of the sweep library too, then the
+    timings.  Returns the kernels-line entry (numbers at the main-path
+    case)."""
     from repro_torch.kernels.mamba_scan import checks
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     entry = None
-    for name, shape, dtype, state_scale in SCAN_CASES:
-        args = checks.inputs(shape, dtype, gen, state_scale)
+    for name, shape, dtype, state_scale, opts in SCAN_CASES:
+        args = checks.inputs(shape, dtype, gen, state_scale, **opts)
         with torch.inference_mode():
             y, h = scan_ops.selective_scan(*args)
             torch.cuda.synchronize()
@@ -686,23 +850,42 @@ def phase_scan():
         check(y.dtype == dtype and h.dtype == torch.float32,
               f"selective_scan {name}: dtypes {y.dtype}, {h.dtype}")
         tol, rtol = checks.TOL[dtype], checks.ROW_TOL[dtype]
+        if opts.get("A_kind") == "long-memory":
+            _scan_long_memory(checks, args, (y, h), (y_ref, h_ref), name)
+            del args, y, h, y_ref, h_ref
+            continue
         err, rerr = _close(y, y_ref, tol, rtol, f"selective_scan {name} y")
         h_err, h_rerr = _close(h, h_ref, checks.STATE_TOL,
                                checks.STATE_ROW_TOL,
                                f"selective_scan {name} state")
+        x, dt, A = args[:3]
+        extra = ""
+        if name == "large-dt":
+            arg = dt[..., None] * (A * math.log2(math.e))
+            deep = (arg < -150).float().mean().item()
+            extra = (f", dt A log2 e < -150 on {100 * deep:.1f}% of the "
+                     f"entries")
+            check(deep > 0.01, f"large-dt: only {deep:.4f} of the entries "
+                               f"below -150")
+            del arg
         print(f"[kernels] selective_scan {name} {tuple(shape)} "
-              f"{str(dtype)[6:]} state x{state_scale:g}: y max_abs_err "
+              f"{str(dtype)[6:]} state x{state_scale:g}, copy widths x "
+              f"{scan_kernel.copy_width(x)} B, dt "
+              f"{scan_kernel.copy_width(dt)} B{extra}: y max_abs_err "
               f"{err:.3e} (limit {tol:g} x (rms + |ref|), rms "
               f"{y_ref.float().pow(2).mean().sqrt().item():.3g}), worst row "
               f"{rerr:.3e} (tol {rtol:g}); state max_abs_err {h_err:.3e}, "
               f"worst row {h_rerr:.3e} (tol {checks.STATE_ROW_TOL:g})")
         if name != "main-path":
+            del args, x, dt, A, y, h, y_ref, h_ref
             continue
+        _scan_candidates_close(scan_kernel, args, y_ref, h_ref, tol, rtol,
+                               checks)
         # The checks can fail here: the plain version with the update at
         # t = s/2 dropped (dt = 0 there: the state skips the step, as a
         # kernel that lost it would) must be far outside the y row limit.
         # The final state has forgotten the step by t = s (checks.py).
-        x, dt, A, B, C, D, state = args
+        B, C, D, state = args[3:]
         half = shape[1] // 2
         with torch.inference_mode():
             dt_drop = dt.clone()
@@ -715,26 +898,97 @@ def phase_scan():
               f"(limit {rtol:g}) and {h_lost:.3e} in the final state")
         check(lost > 10 * rtol, f"a dropped update gives only {lost:.3e}: "
                                 f"the check cannot see it")
-        with torch.inference_mode():
-            ms = time_ms(lambda: scan_ops.selective_scan(*args))
-            plain_ms = time_ms(lambda: selective_scan_ref(*args), iters=2,
-                               warmup=1)
-        bound_ms, bound_by, count = scan_bound(shape, dtype)
-        print(f"[kernels] selective_scan main-path: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, no library call, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {json.dumps(count)})")
         entry = {
             "name": "selective_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/mamba_scan/csrc/"
                       "selective_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan/kernel.py:51",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "launches": None, "max_abs_err": err,
+            **_time_scan(scan_kernel, scan_ops, selective_scan_ref, args,
+                         shape, dtype, ex2_per_s, mufu_slots),
         }
-        del args, y, h, y_ref, h_ref
+        del args, x, dt, A, B, C, D, state, y, h, y_ref, h_ref
     torch.cuda.empty_cache()
     return entry
+
+
+def _scan_long_memory(checks, args, out, ref, name):
+    """Long memory: the kernel's y and final state no further from an f64
+    scan, row by row, than ``checks.LONG_MEMORY_RATIO`` times the plain
+    version's (checks.py says why the f32 limits do not apply)."""
+    with torch.inference_mode():
+        exact = checks.f64_scan(*args)
+    ratio = checks.LONG_MEMORY_RATIO
+    parts = []
+    for what, got, plain, want in zip(("y", "state"), out, ref, exact):
+        k_err, p_err = row_err(got, want), row_err(plain, want)
+        parts.append(f"{what}: kernel {k_err:.3e}, plain {p_err:.3e} from "
+                     f"f64, {row_err(got, plain):.3e} apart")
+        check(math.isfinite(k_err) and k_err <= ratio * p_err,
+              f"selective_scan {name} {what}: {k_err:.3e} from the f64 scan, "
+              f"more than {ratio:g} x the plain version's {p_err:.3e}")
+    print(f"[kernels] selective_scan {name} {tuple(args[0].shape)} + N = "
+          f"{args[2].shape[1]} {str(args[0].dtype)[6:]}, A = -exp(N(0, "
+          f"1.5^2)), worst rows {'; '.join(parts)} (limit: kernel <= "
+          f"{ratio:g} x plain)")
+
+
+def _scan_candidates_close(scan_kernel, args, y_ref, h_ref, tol, rtol,
+                           checks):
+    """Every design of the sweep library within the limits at the
+    main-path case, before any of them is timed."""
+    worst = []
+    for cand in scan_kernel.CANDIDATES:
+        with torch.inference_mode():
+            y, h = scan_kernel.selective_scan_cuda(*args, design=cand,
+                                                   sweep=True)
+            torch.cuda.synchronize()
+        _, rerr = _close(y, y_ref, tol, rtol, f"selective_scan {cand} y")
+        _, h_rerr = _close(h, h_ref, checks.STATE_TOL, checks.STATE_ROW_TOL,
+                           f"selective_scan {cand} state")
+        worst.append(f"{cand} {rerr:.2e}/{h_rerr:.2e}")
+        del y, h
+    print(f"[kernels] selective_scan main-path, every design of the sweep "
+          f"library, worst y row / state row: {', '.join(worst)}")
+
+
+def _time_scan(scan_kernel, scan_ops, selective_scan_ref, args, shape,
+               dtype, ex2_per_s, mufu_slots):
+    """Times the dispatcher (``ms``: what the main path calls), every
+    design of the sweep library (no launch counted) in two passes, the
+    second in reverse order (``ms_by_design``), and the plain version;
+    prints them beside the bound and the floor and returns the
+    kernels-line numbers."""
+    turns = {}
+    order = list(scan_kernel.CANDIDATES)
+    with torch.inference_mode():
+        ms = time_ms(lambda: scan_ops.selective_scan(*args), iters=20)
+        for cand in order + order[::-1]:
+            turns.setdefault(cand, []).append(
+                time_ms(lambda: scan_kernel.selective_scan_cuda(
+                    *args, design=cand, sweep=True), iters=20))
+        plain_ms = time_ms(lambda: selective_scan_ref(*args), iters=2,
+                           warmup=1)
+    ms_by_design = {name: float(np.mean(ts)) for name, ts in turns.items()}
+    bound_ms, bound_by, count = scan_bound(shape, dtype, ex2_per_s)
+    floor_ms = scan_floor(shape, ex2_per_s, mufu_slots)
+    for name, ts in turns.items():
+        print(f"[kernels] selective_scan main-path {name}: "
+              f"{', '.join(f'{t:.4f}' for t in ts)} ms, mean "
+              f"{ms_by_design[name]:.4f} ms = "
+              f"{ms_by_design[name] / bound_ms:.2f} x bound, "
+              f"{ms_by_design[name] / floor_ms:.2f} x floor")
+    yard = ms_by_design["first"]
+    print(f"[kernels] selective_scan main-path: through the dispatcher "
+          f"{ms:.4f} ms ({ms / bound_ms:.2f} x bound, {ms / floor_ms:.2f} x "
+          f"floor), the first design {yard:.4f} ms ({yard / ms:.2f} x), "
+          f"plain {plain_ms:.4f} ms, no library call; bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {json.dumps(count)}); floor "
+          f"{floor_ms:.4f} ms (4 FMA-pipe instructions and a MUFU.EX2 of "
+          f"{mufu_slots:.2f} dispatch slots an entry)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "ms_by_design": ms_by_design}
 
 
 class StepProbe:
@@ -1055,9 +1309,10 @@ def main() -> int:
           f"{torch.cuda.device_count()}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     print(card)
-    phase_build()
+    phase_sass(phase_build())
+    ex2_per_s, mufu_slots = phase_ex2_rate()
     entries = {"flash_attention": phase_flash(), "wkv6": phase_wkv6(),
-               "selective_scan": phase_scan()}
+               "selective_scan": phase_scan(ex2_per_s, mufu_slots)}
     check(all(entries.values()), "no main-path kernel measurement")
     for entry in entries.values():
         entry["launches"], entry["launches_by_path"] = 0, {}

@@ -21,6 +21,7 @@ from repro_torch.kernels.flash_attention import kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import checks as scan_checks  # noqa: E402
+from repro_torch.kernels.mamba_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import checks  # noqa: E402
@@ -216,6 +217,13 @@ def _assert_close(out, ref, tol, row_tol):
     assert row.max().item() <= row_tol
 
 
+def _row_err(out, ref):
+    """Worst ||out - ref|| / ||ref|| over the rows (the last dim), in f64."""
+    out, ref = out.double(), ref.double()
+    return ((out - ref).norm(dim=-1)
+            / ref.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
 # (b, s, h, hd), strided, scale of the initial state
 WKV_CASES = [
     ((2, 1, 4, 64), False, 10.0),
@@ -368,28 +376,47 @@ def test_rwkv_prefill_on_the_card_matches_cpu(cuda):
 # chip_smoke.py
 
 
-def _scan_inputs(b, s, di, n, dtype, state_scale=0.0, seed=0):
+def _scan_inputs(b, s, di, n, dtype, state_scale=0.0, seed=0, **opts):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return scan_checks.inputs((b, s, di, n), dtype, gen, state_scale)
+    return scan_checks.inputs((b, s, di, n), dtype, gen, state_scale,
+                              **opts)
 
 
-# (b, s, di, N), scale of the initial state
+# (b, s, di, N), scale of the initial state, options of checks.inputs
+LARGE_DT = dict(dt_bias=6.0, dt_scale=2.0)    # dt A log2 e < -150 often
 SCAN_CASES = [
-    ((2, 2, 256, 16), 10.0),
-    ((2, 33, 200, 16), 10.0),
-    ((1, 100, 130, 8), 0.0),
-    ((3, 37, 64, 4), 10.0),
-    ((1, 1, 128, 16), 10.0),
-    ((2, 700, 512, 16), 0.0),
+    ((2, 2, 256, 16), 10.0, {}),
+    ((2, 33, 200, 16), 10.0, {}),
+    ((1, 100, 130, 8), 0.0, {}),
+    ((3, 37, 64, 4), 10.0, {}),
+    ((1, 1, 128, 16), 10.0, {}),
+    ((2, 700, 512, 16), 0.0, {}),
+    ((2, 100, 640, 16), 10.0, LARGE_DT),
+    ((2, 1000, 384, 16), 10.0, {}),           # 31 chunks of 32 and 8
+    ((2, 47, 333, 8), 10.0, dict(A_kind="shuffled")),
+    ((2, 65, 999, 16), 10.0, {}),             # bf16 rows 1998 B apart
+    ((2, 40, 1002, 16), 10.0, {}),            # 4-byte copies in bf16
+    ((2, 40, 1004, 4), 10.0, {}),             # 8-byte copies in bf16
 ]
+SCAN_IDS = [f"{'x'.join(map(str, shape))}" + "".join(
+    f"-{k}" for k in opts) for shape, _, opts in SCAN_CASES]
+
+
+def _scan_check(out, ref, dtype):
+    (y, h), (y_ref, h_ref) = out, ref
+    _assert_close(y, y_ref, scan_checks.TOL[dtype],
+                  scan_checks.ROW_TOL[dtype])
+    _assert_close(h, h_ref, scan_checks.STATE_TOL,
+                  scan_checks.STATE_ROW_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape,state_scale", SCAN_CASES)
-def test_selective_scan_kernel_matches_plain(cuda, shape, state_scale,
+@pytest.mark.parametrize("shape,state_scale,opts", SCAN_CASES, ids=SCAN_IDS)
+def test_selective_scan_kernel_matches_plain(cuda, shape, state_scale, opts,
                                              dtype):
-    args = _scan_inputs(*shape, dtype, state_scale)
+    """Through the dispatcher: one launch."""
+    args = _scan_inputs(*shape, dtype, state_scale, **opts)
     before = scan_ops.launches
     with torch.inference_mode():
         y, h = scan_ops.selective_scan(*args)
@@ -398,10 +425,61 @@ def test_selective_scan_kernel_matches_plain(cuda, shape, state_scale,
     b, s, di, n = shape
     assert y.shape == (b, s, di) and y.dtype == dtype
     assert h.shape == (b, di, n) and h.dtype == torch.float32
-    _assert_close(y, y_ref, scan_checks.TOL[dtype],
-                  scan_checks.ROW_TOL[dtype])
-    _assert_close(h, h_ref, scan_checks.STATE_TOL,
-                  scan_checks.STATE_ROW_TOL)
+    _scan_check((y, h), (y_ref, h_ref), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,state_scale,opts", SCAN_CASES, ids=SCAN_IDS)
+@pytest.mark.parametrize("design", scan_kernel.CANDIDATES)
+def test_selective_scan_candidates_match_plain(cuda, design, shape,
+                                               state_scale, opts, dtype):
+    """Every design of the sweep library, the first design included, at
+    every case, through the kernel module (no launch counted)."""
+    args = _scan_inputs(*shape, dtype, state_scale, **opts)
+    before = scan_ops.launches
+    with torch.inference_mode():
+        out = scan_kernel.selective_scan_cuda(*args, design=design,
+                                              sweep=True)
+        ref = selective_scan_ref(*args)
+    assert scan_ops.launches == before
+    _scan_check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_selective_scan_libraries_agree(cuda, dtype):
+    """The serving and the sweep library run the same code for
+    ``DESIGN``: bit for bit the same y and state."""
+    args = _scan_inputs(2, 100, 640, 16, dtype, 10.0)
+    with torch.inference_mode():
+        y1, h1 = scan_kernel.selective_scan_cuda(*args)
+        y2, h2 = scan_kernel.selective_scan_cuda(*args, sweep=True)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_selective_scan_long_memory_holds_to_f64(cuda, dtype):
+    """Decays that remember thousands of steps: the kernel's y and final
+    state no further from an f64 scan, row by row, than
+    ``LONG_MEMORY_RATIO`` times the plain version's (checks.py)."""
+    args = _scan_inputs(2, 400, 1024, 16, dtype, 10.0, A_kind="long-memory")
+    with torch.inference_mode():
+        out = scan_ops.selective_scan(*args)
+        plain = selective_scan_ref(*args)
+        exact = scan_checks.f64_scan(*args)
+    for got, ref, want in zip(out, plain, exact):
+        k_err, p_err = _row_err(got, want), _row_err(ref, want)
+        assert k_err <= scan_checks.LONG_MEMORY_RATIO * p_err, (k_err, p_err)
+
+
+def test_ex2_rate_probe_fills_every_sm(cuda):
+    """The probe of the SFUs' ex2 rate runs one block on every SM and
+    finds a rate within 2% of the programming guide's 16."""
+    r = scan_kernel.ex2_rate()
+    assert r["finite"] and r["distinct_sms"] == r["sms"]
+    assert r["per_sm_per_clock"] == pytest.approx(16, rel=0.02)
 
 
 def test_selective_scan_cuda_grad_raises(cuda):

@@ -10,11 +10,18 @@ structure of the 4-layer cut that ``chip_smoke.py`` serves (layers 4-7 of
 a published period: attention + MLP, Mamba + MoE, Mamba + MLP, Mamba +
 MoE); a mirror of the decode-vs-prefill checks; and the dispatcher's
 rules.  Inputs come from numpy seeds.  The CUDA kernel itself runs only
-on the card (``chip_smoke.py``, ``tests/test_torch_gpu.py``)."""
+on the card (``chip_smoke.py``, ``tests/test_torch_gpu.py``); here, what
+surrounds it: a plain scan that forms its exponentials as the kernel
+does against an f64 scan at the card checks' limits, its copy widths and
+shared memory on meta tensors, its designs against the source, and its
+two libraries' builds."""
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
+import re
+import stat
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +40,7 @@ from repro.models.factory import build_model as jax_build  # noqa: E402
 from repro_torch.bridge import params_from_flat  # noqa: E402
 from repro_torch.configs import get_smoke as torch_smoke  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.mamba_scan import checks  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as tK  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as tops  # noqa: E402
 from repro_torch.models import mamba as tMB  # noqa: E402
@@ -186,6 +194,216 @@ def test_build_is_keyed_by_source_and_lazy():
                                  / "libselective_scan.so")
     assert tK.library.cache_info().currsize == 0
     assert tK.SOURCE.name == "selective_scan.cu" and tK.SOURCE.exists()
+
+
+# ------------------------------------------ the kernel's exponentials
+
+
+def _close_like_the_card(out, ref, tol, row_tol):
+    """chip_smoke.py's and the card tests' checks: elementwise |out - ref|
+    <= tol x (rms of ref + |ref|), and ||out - ref|| / ||ref|| of every
+    row (the last dim) <= row_tol."""
+    out, ref = out.float(), ref.float()
+    scale = ref.pow(2).mean().sqrt().item()
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol * scale)
+    rows = ((out - ref).norm(dim=-1)
+            / ref.norm(dim=-1).clamp_min(1e-30)).max().item()
+    assert rows <= row_tol, rows
+    return rows
+
+
+def _ex2_ftz(x):
+    """2^x in f32 with results below 2^-126 flushed to 0, as
+    ``ex2.approx.ftz.f32`` gives them (to within its 2 ulp)."""
+    y = torch.exp2(x)
+    return torch.where(y < 2.0 ** -126, torch.zeros_like(y), y)
+
+
+def _scan(x, dt, A, B, C, D, h):
+    """A plain step loop in f32 with the kernel's factor: A scaled by
+    log2 e once, its product with dt and the exponential of that in f32;
+    returns (y rounded to x's dtype, final state)."""
+    xf, dtf, Bf, Cf, Df = (t.float() for t in (x, dt, B, C, D))
+    a2 = A.float() * torch.tensor(math.log2(math.e), dtype=torch.float32)
+    h = h.float()
+    ys = []
+    for t in range(x.shape[1]):
+        e = _ex2_ftz(dtf[:, t, :, None] * a2[None])
+        h = e * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]) + Df * xf[:, t])
+    return torch.stack(ys, 1).to(x.dtype), h
+
+
+@pytest.mark.parametrize("opts", [{}, dict(dt_bias=6.0, dt_scale=2.0),
+                                  dict(A_kind="shuffled"),
+                                  dict(A_kind="long-memory")],
+                         ids=["layer-init", "large-dt", "shuffled-A",
+                              "long-memory"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_plain_scan_with_the_kernels_exponential_matches_an_f64_scan(
+        dtype, opts):
+    """The scan with each factor formed as the kernel forms it (2^(dt x
+    (A log2 e)) in f32, flushed to 0 below 2^-126) against an f64 scan, at
+    (2, 1024, 512, 16): inside every limit of checks.py (y by dtype; the
+    f32 state 1e-4 elementwise, 1e-5 by row).  At large dt the flush
+    takes effect on more than 1% of the entries."""
+    gen = torch.Generator().manual_seed(11)
+    args = checks.inputs((2, 1024, 512, 16), dtype, gen, 10.0, **opts)
+    y, h = _scan(*args)
+    y64, h64 = checks.f64_scan(*args)
+    _close_like_the_card(y, y64.to(dtype), checks.TOL[dtype],
+                         checks.ROW_TOL[dtype])
+    _close_like_the_card(h, h64, checks.STATE_TOL, checks.STATE_ROW_TOL)
+    if opts.get("dt_bias"):
+        x, dt, A = args[:3]
+        assert (dt[..., None] * A * math.log2(math.e) < -126).float() \
+            .mean() > 0.01
+
+
+# ------------------------------------------------ the kernel's designs
+
+
+def _outside_sweep_blocks(src):
+    """The source with its comments and its ``#ifdef SCAN_SWEEP ...
+    #endif`` blocks cut out: what the serving library compiles."""
+    code = re.sub(r"//[^\n]*", "", src)
+    return re.sub(r"#ifdef SCAN_SWEEP\n.*?#endif", "", code, flags=re.S)
+
+
+def test_serving_library_holds_the_design_alone():
+    """The serving library holds ``DESIGN``, the pipelined kernel, and
+    neither the first design nor the ex2 probe: those are compiled only
+    with -DSCAN_SWEEP.  The C entry's design numbers are ``KINDS``'."""
+    assert tK.DESIGN == "pipe" and tK.fits(tK.DESIGN)
+    assert tK.fits(tK.DESIGN, sweep=True)
+    for yard in ("first", "first-ex2"):
+        assert not tK.fits(yard) and tK.fits(yard, sweep=True)
+    src = tK.SOURCE.read_text()
+    serving = _outside_sweep_blocks(src)
+    assert "scan_pipe_kernel" in serving
+    for name in ("scan_kernel", "launch_first", "ex2_probe_kernel",
+                 "ex2_rate_probe"):
+        assert name in src and name not in serving, name
+    assert f"design == {tK.KINDS['pipe']}" in serving
+    assert f"design == {tK.KINDS['first']} || design == " \
+        f"{tK.KINDS['first-ex2']}" in src
+
+
+def test_ex2_probes_match_the_source():
+    """The ex2 probe's (FFMAs, LDS.128) pairs are the source's
+    ``SCAN_PROBES``: the SFU alone, then with 8 FFMAs beside each ex2
+    (chip_smoke.py fits a MUFU's dispatch slots from it); a pair it lacks
+    raises before any launch."""
+    found = re.search(r"#define SCAN_PROBES\(X\)(.*)",
+                      tK.SOURCE.read_text()).group(1)
+    assert tuple((int(f), int(ld)) for f, ld in re.findall(
+        r"X\((\d+), (\d+)\)", found)) == tK.PROBES
+    assert tK.PROBES == ((0, 0), (8, 0))
+    with pytest.raises(ValueError, match="no ex2 probe with 3 FFMAs"):
+        tK.ex2_rate(fmas=3)
+    assert tK.library.cache_info().currsize == 0
+
+
+def test_candidates_are_the_yardsticks_then_the_design():
+    """chip_smoke.py times the first design, the same with ex2.approx,
+    then ``DESIGN``, each in the sweep library and none twice."""
+    assert tK.CANDIDATES == ("first", "first-ex2", tK.DESIGN)
+    assert set(tK.CANDIDATES) == set(tK.KINDS)
+    assert all(tK.fits(c, sweep=True) for c in tK.CANDIDATES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_shared_memory_keeps_the_blocks_resident(n, dtype):
+    """A block fits the 227 KB a block may have; at the main path's types
+    (bf16, N = 16) a block is 56 KB, so 4 blocks (and their 1 KB of
+    reserved shared memory each) fit an SM's 228 KB: the main path's 512
+    blocks of 128 channels in one wave on 132 SMs."""
+    size = tK.smem_bytes(dtype, n)
+    assert size % 16 == 0 and size <= 227 * 1024
+    if dtype == torch.bfloat16 and n == 16:
+        assert size == 57344
+        assert 4 * (size + 1024) <= 228 * 1024
+        assert 4 * 132 >= 4 * -(-16384 // tK.CHANNELS)
+
+
+@pytest.mark.parametrize("shape,dtype,view,width", [
+    ((4, 1024, 16384), torch.bfloat16, None, 16),     # the main path's x
+    ((4, 1024, 16384), torch.float32, None, 16),      # and dt
+    ((2, 33, 1000), torch.bfloat16, None, 16),
+    ((2, 33, 1004), torch.bfloat16, None, 8),
+    ((2, 33, 1002), torch.bfloat16, None, 4),
+    ((2, 65, 999), torch.bfloat16, None, 2),
+    ((1, 100, 130), torch.float32, None, 8),
+    ((3, 37, 201), torch.float32, None, 4),
+    ((2, 40, 64), torch.bfloat16, "offset", 2),       # a view 1 element in
+    ((2, 40, 64), torch.float32, "offset", 4),
+    ((2, 40, 64), torch.bfloat16, "columns", 16),     # x[..., :32] of 64
+])
+def test_copy_width_on_meta_tensors(shape, dtype, view, width):
+    """The bytes of each cp.async unit, before any launch: the largest of
+    16, 8, 4 that divides the address and the batch and step strides; 2
+    for bf16 that 4 does not divide; never less than the element."""
+    t = torch.empty(shape, dtype=dtype, device="meta")
+    if view == "offset":
+        t = torch.empty(t.numel() + 1, dtype=dtype, device="meta")[1:] \
+            .view(shape)
+    elif view == "columns":
+        t = t[..., :32]
+    assert t.stride(-1) == 1
+    assert tK.copy_width(t) == width
+
+
+@pytest.mark.parametrize("sweep", [False, True], ids=["serving", "sweep"])
+@pytest.mark.parametrize("design", ["other", "pipe-c16", "", "PIPE",
+                                    "first-exp2", 2])
+def test_selective_scan_cuda_rejects_designs_it_has_no_kernel_for(design,
+                                                                  sweep):
+    """Before any launch (on CPU tensors, with no library built), a
+    design outside the library raises, in both libraries; the first design
+    is not in the serving library."""
+    _, tin = scan_inputs(1, 8, 16, 4)
+    with pytest.raises(ValueError, match="no selective_scan design"):
+        tK.selective_scan_cuda(*tin, design=design, sweep=sweep)
+    if not sweep:
+        with pytest.raises(ValueError, match="in the serving library"):
+            tK.selective_scan_cuda(*tin, design="first")
+    assert tK.library.cache_info().currsize == 0
+
+
+FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: logs its call and writes the file after -o
+echo "$@" >> "{log}"
+while [ "$#" -gt 0 ]; do
+  if [ "$1" = "-o" ]; then echo lib > "$2"; fi
+  shift
+done
+echo "ptxas info    : Used 40 registers"
+"""
+
+
+def test_sweep_library_is_its_own_build(tmp_path, monkeypatch):
+    """The sweep library has a name of its own beside the serving one,
+    keyed by the same source, and only its build passes -DSCAN_SWEEP."""
+    log = tmp_path / "calls.log"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(FAKE_NVCC.format(log=log))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("PATH", "/usr/bin:/bin")
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    digest = hashlib.sha256(tK.SOURCE.read_bytes()).hexdigest()[:16]
+    assert tK.library_path(sweep=True) == (
+        _build.BUILD_ROOT / f"selective_scan_sweep-{digest}"
+        / "libselective_scan_sweep.so")
+    assert tK.build() == tK.library_path()
+    assert tK.build(sweep=True) == tK.library_path(sweep=True)
+    serving, sweep = log.read_text().splitlines()
+    assert "-DSCAN_SWEEP" not in serving and "-DSCAN_SWEEP" in sweep
+    assert tK.library.cache_info().currsize == 0
 
 
 # ------------------------------------------------------------ the mixer
