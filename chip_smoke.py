@@ -21,7 +21,11 @@ non-zero and prints no result:
    the Mamba selective scan (K3); K1's two variants (the Hopper one
    that the serving shapes take, and the general one) in turns at the
    main-path shape and at Jamba's 64 heads, each case checked for the
-   variant it took; K2 through its dispatcher, and its candidate plans
+   variant it took, and at a wave of the sliding-window paths (4 x 6144
+   rows, window 4096: the general variant at danube's hd 120, both at
+   mixtral's hd 128) beside SDPA with a band mask, held to the O(s·w)
+   sliding_window_attention, with a window one kv tile shorter or longer
+   shown to fail; K2 through its dispatcher, and its candidate plans
    (G, C, CB, double buffer) in two passes at the main-path shape, each
    case checked for the plan it took, and a stale chunk and a lost row
    group shown to fail; the SFUs' ex2 rate measured on every SM, alone
@@ -33,12 +37,14 @@ non-zero and prints no result:
    before it and read just after, served through the port's rFaaS stack
    (ModelServer, ServeEngine, Invoker, ResourceManager, BatchSystem,
    Ledger) at full width in bf16 with seeded random weights: 8 requests,
-   batch 4, prompts of 256-1024 tokens, 16 new tokens each, max_len
-   2048; each checks that every request gets its tokens, every logit is
-   finite and each of its kernels ran as often per prefill wave as the
-   path has layers that run it (and no other kernel ran), every K1
-   launch through the Hopper variant; the device
-   memory of the path before is freed first:
+   batch 4, 16 new tokens each; prompts of 256-1024 tokens and max_len
+   2048 (a-c), 4097-6144 tokens and max_len 6160 (d, e: past the
+   4096-token window); each checks that every request gets its tokens,
+   every logit is finite and each of its kernels ran as often per
+   prefill wave as the path has layers that run it (and no other kernel
+   ran), every K1 launch through the path's variant (``K1_VARIANT``:
+   Hopper but on danube); the device memory of the path before is freed
+   first:
    a. mistral-nemo-12b (40 layers, d_model 5120): K1 40 times a wave;
    b. rwkv6-1.6b (24 layers, d_model 2048): K2 24 times a wave, every
       launch under kernel.plan's (G, C, CB);
@@ -47,13 +53,23 @@ non-zero and prints no result:
       layers 4-7 of a published period (attention + MLP, Mamba + MoE,
       Mamba + MLP, Mamba + MoE), 23.0 B params; K1 once and K3 3 times
       a wave.  One period (8 layers) would be 45.2 B params, 90.4 GB in
-      bf16: more than the card holds.
-   With --profile, after each, one prefill wave and three decode steps
-   outside the engine, timed and traced with torch.profiler;
-5. decode vs prefill: full-width f32 models of each path, cut to 2
-   layers (Jamba: layers 4-5 of a period, attention + MLP then Mamba +
-   MoE with all 16 experts, capacity factor 16 so that no token drops),
-   teacher-forced decode against one forward over the whole sequence;
+      bf16: more than the card holds;
+   d. h2o-danube-3-4b (24 layers, d_model 3840, hd 120, window 4096 on
+      every layer, 3.96 B params): K1 24 times a wave, general variant;
+   e. mixtral-8x7b cut in depth to its first 8 layers, every width as
+      published (window 4096, 8 experts top-2 of 14336), 11.87 B params:
+      K1 8 times a wave, Hopper variant.
+   With --profile, after each, one prefill wave (at the path's longest
+   prompt) and three decode steps outside the engine, timed and traced
+   with torch.profiler;
+5. decode vs prefill: full-width f32 models cut to 2 layers (Jamba:
+   layers 4-5 of a period, attention + MLP then Mamba + MoE with all 16
+   experts, capacity factor 16 so that no token drops), teacher-forced
+   decode against one forward over the whole sequence: the three paths
+   above; h2o-danube-3-4b across its window's edge (a 4090-token
+   prompt, 12 steps), with the full cache and with the ring buffer of
+   4096 slots (window_cache); internvl2-76b (d_model 8192) with 256
+   patch embeddings in front of the prompt;
 6. the kernels line, the card line and the result line, last.
 
 It imports nothing of JAX or of the JAX package.
@@ -79,22 +95,46 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 JAMBA = "jamba-1.5-large-398b"
+DANUBE = "h2o-danube-3-4b"
+MIXTRAL = "mixtral-8x7b"
+INTERNVL = "internvl2-76b"
 # Depth cuts of the published configs; every width stays as published.
 # Jamba's main path: layers 4-7 of a period (one attention layer, then
-# three Mamba layers, MoE on the 2nd and 4th).
+# three Mamba layers, MoE on the 2nd and 4th).  Mixtral's: its first 8
+# of 32 layers (11.87 B params; all 32 are 46.7 B, 93 GB in bf16).
 PATH_CUTS = {JAMBA: dict(n_layers=4, attn_layer_period=4,
-                         attn_layer_offset=0)}
+                         attn_layer_offset=0),
+             MIXTRAL: dict(n_layers=8)}
 # Decode-vs-prefill models: 2 layers each; Jamba's are layers 4-5 of a
 # period (attention + MLP, Mamba + MoE).
 DECODE_CUTS = {"mistral-nemo-12b": dict(n_layers=2),
                "rwkv6-1.6b": dict(n_layers=2),
                JAMBA: dict(n_layers=2, attn_layer_period=2,
-                           attn_layer_offset=0)}
+                           attn_layer_offset=0),
+               DANUBE: dict(n_layers=2),
+               INTERNVL: dict(n_layers=2)}
+# Decode-vs-prefill traffic where it is not a 6-token prompt and 5 steps:
+# danube's 4090-token prompt and 12 steps cross its 4096-token window in
+# decode, with the full cache and again with the ring buffer of 4096
+# slots (window_cache), which wraps; internvl2's prompt follows 256 patch
+# embeddings (its published n_vision_patches).
+DECODE_TRAFFIC = {DANUBE: dict(prompt=4090, steps=12, ring=True),
+                  INTERNVL: dict(patches=256)}
 # each main path and the launches of each kernel per prefill wave: one
 # per layer that runs it
 MAIN_PATHS = {"mistral-nemo-12b": {"flash_attention": 40},
               "rwkv6-1.6b": {"wkv6": 24},
-              JAMBA: {"flash_attention": 1, "selective_scan": 3}}
+              JAMBA: {"flash_attention": 1, "selective_scan": 3},
+              DANUBE: {"flash_attention": 24},
+              MIXTRAL: {"flash_attention": 8}}
+# each main path's traffic: prompt lengths drawn from seed 0 in [lo, hi]
+# and max_len; the sliding-window paths' prompts all pass their 4096-token
+# window, so it bites in prefill and in every decode step
+SHORT_TRAFFIC = ((256, 1024), 2048)
+TRAFFIC = {DANUBE: ((4097, 6144), 6160), MIXTRAL: ((4097, 6144), 6160)}
+# the K1 variant every launch of a main path takes: hd 128 takes the
+# Hopper variant, danube's hd 120 the general one (kernel.plan)
+K1_VARIANT = {DANUBE: "general"}
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor cores
               torch.float32: 67e12}            # CUDA cores, no TF32
@@ -146,7 +186,19 @@ FLASH_CASES = [
      True, "hopper"),
     ("jamba-64-heads", (4, 1024, 1024, 64, 128), torch.bfloat16, True, 0,
      0.0, False, "hopper"),
+    # a wave of the sliding-window paths: 4 prompts padded to 6144, window
+    # 4096, hd 120 (danube) and 128 (mixtral)
+    ("danube-window-4096", (4, 6144, 6144, 32, 120), torch.bfloat16, True,
+     4096, 0.0, False, "general"),
+    ("mixtral-window-4096", (4, 6144, 6144, 32, 128), torch.bfloat16, True,
+     4096, 0.0, False, "hopper"),
 ]
+# the cases timed beside the main-path case, each under its own key of
+# the kernels line
+TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
+                     "mixtral-window-4096")
+# the most bytes of f32 scores attention_ref may build as a plain version
+PLAIN_SCORES_BYTES = 2 ** 32
 
 
 class SmokeFailure(RuntimeError):
@@ -395,26 +447,42 @@ def flash_bound(shape, dtype, causal, window):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_plain(shape, kw):
+    """The plain version a K1 case is held to: ``attention_ref``, which
+    builds the (sq, skv) f32 scores, or, where those would pass 4 GiB
+    (the sliding-window paths' 6144-row waves: 19 GB), the model's
+    ``sliding_window_attention``, the same function in O(s·w) memory."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.attention import sliding_window_attention
+    b, sq, skv, h, _ = shape
+    if b * h * sq * skv * 4 <= PLAIN_SCORES_BYTES:
+        return functools.partial(attention_ref, **kw)
+    check(kw["causal"] and kw["window"] and sq == skv,
+          f"no plain version fits for {shape} {kw}")
+    return functools.partial(sliding_window_attention, window=kw["window"],
+                             softcap=kw["softcap"])
+
+
 def phase_flash():
     """K1, each case: kernel vs plain version, tolerance by dtype, and the
     variant the dispatcher took.  Returns the kernels-line entry (numbers
-    at the main-path case, the 64-head case's beside them)."""
+    at the main-path case; those of ``TIMED_FLASH_CASES`` beside them)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    entry, jamba = None, None
+    entry, timed = None, {}
     for (name, shape, dtype, causal, window, softcap, strided,
          variant) in FLASH_CASES:
         q, k, v = _flash_inputs(shape, dtype, strided, gen)
         kw = dict(causal=causal, window=window, softcap=softcap)
+        plain = flash_plain(shape, kw)
         before = dict(flash_ops.launches_by_variant)
         with torch.inference_mode():
             out = flash_ops.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            ref = attention_ref(q, k, v, **kw)
+            ref = plain(q, k, v)
         took = [vt for vt, n in flash_ops.launches_by_variant.items()
                 if n != before[vt]]
         err = (out.float() - ref.float()).abs().max().item()
@@ -424,7 +492,8 @@ def phase_flash():
               f"{str(dtype)[6:]} causal={causal} window={window} "
               f"softcap={softcap} strided={strided}, variant {took}: "
               f"max_abs_err {err:.3e} (limit {tol:g} + {tol:g} x |ref|), "
-              f"worst row rel err {rerr:.3e} (tol {rtol:g})")
+              f"worst row rel err {rerr:.3e} (tol {rtol:g}) against "
+              f"{plain.func.__name__}")
         check(took == [variant], f"flash_attention {name}: took {took}, "
                                  f"expected [{variant!r}]")
         check(math.isfinite(err), f"flash_attention {name}: non-finite")
@@ -432,9 +501,13 @@ def phase_flash():
                                    atol=tol)
         check(rerr <= rtol, f"flash_attention {name}: worst row rel err "
                             f"{rerr:.3e} > {rtol:g}")
-        if name == "jamba-64-heads":
-            jamba = _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw,
-                                name)
+        if window >= 1024:
+            _window_checks_can_fail(plain, q, k, v, ref, rtol, name)
+        if name in TIMED_FLASH_CASES:
+            timed[name] = {"variant": variant, "max_abs_err": err,
+                           **_time_flash(flash_kernel, F, q, k, v, shape,
+                                         dtype, kw, name, variant,
+                                         lambda: plain(q, k, v))}
         if name != "main-path":
             del q, k, v, out, ref
             continue
@@ -446,12 +519,12 @@ def phase_flash():
         with torch.inference_mode():
             v_lost = v.clone()
             v_lost[:, 512:576] = 0
-            lost = row_err(attention_ref(q, k, v_lost, **kw), ref)
+            lost = row_err(plain(q, k, v_lost), ref)
             del v_lost
             k_stale, v_stale = k.clone(), v.clone()
             k_stale[:, 512:640] = k[:, 384:512]
             v_stale[:, 512:640] = v[:, 384:512]
-            stale = row_err(attention_ref(q, k_stale, v_stale, **kw), ref)
+            stale = row_err(plain(q, k_stale, v_stale), ref)
             del k_stale, v_stale
         print(f"[kernels] flash_attention main-path: a lost kv tile "
               f"[512, 576) gives worst row rel err {lost:.3e}; a stale "
@@ -468,54 +541,83 @@ def phase_flash():
             "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
             "launches": None, "max_abs_err": err,
             **_time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name,
-                          plain=lambda: attention_ref(q, k, v, **kw)),
+                          variant, lambda: plain(q, k, v)),
         }
         del q, k, v, out, ref
-    check(entry is not None and jamba is not None,
+    check(entry is not None and set(timed) == set(TIMED_FLASH_CASES),
           "flash_attention: a timed case did not run")
-    entry["jamba_64_heads"] = jamba
+    for name, numbers in timed.items():
+        entry[name.replace("-", "_")] = numbers
     torch.cuda.empty_cache()
     return entry
 
 
-def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name,
-                plain=None):
-    """Times both variants of K1 in turns (general, hopper, hopper,
-    general) through the kernel module (no launch counted), SDPA on the
-    same inputs, and the plain version if given; prints them beside the
-    bound and returns the kernels-line numbers (``ms`` is the Hopper
-    variant's, which the main paths take)."""
+def _window_checks_can_fail(plain, q, k, v, ref, rtol, name):
+    """A long window's checks can fail: the plain version with the window
+    one kv tile (64 keys) shorter, what a kernel that skipped one tile too
+    many before the window would return, and one tile longer, what a
+    kernel that kept a tile from past the window's edge would, must each
+    land far outside the row limit."""
+    w = plain.keywords["window"]
+    with torch.inference_mode():
+        errs = {dw: row_err(plain.func(q, k, v, **{**plain.keywords,
+                                                   "window": w + dw}), ref)
+                for dw in (-64, 64)}
+    print(f"[kernels] flash_attention {name}: the window {w - 64} (a kv "
+          f"tile lost at its edge) gives worst row rel err {errs[-64]:.3e}, "
+          f"the window {w + 64} (a tile kept past it) {errs[64]:.3e} "
+          f"(limit {rtol:g})")
+    for dw, e in errs.items():
+        check(e > 10 * rtol, f"{name}: the window {w + dw} gives only "
+                             f"{e:.3e}: the check cannot see it")
+
+
+def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
+                plain):
+    """Times K1 through the kernel module (no launch counted): both
+    variants in turns (general, hopper, hopper, general) where ``plan``
+    takes the Hopper one, else the general one twice; SDPA on the same
+    inputs (with a boolean band mask for a window); and the plain
+    version.  Prints them beside the bound and returns the kernels-line
+    numbers (``ms`` is that of ``variant``, the one the dispatcher
+    takes)."""
+    order = (("general", "hopper", "hopper", "general")
+             if variant == "hopper" else ("general", "general"))
     turns = []
     with torch.inference_mode():
-        for variant in ("general", "hopper", "hopper", "general"):
-            turns.append((variant, time_ms(
-                lambda: flash_kernel.flash_attention_cuda(q, k, v, variant,
+        for vt in order:
+            turns.append((vt, time_ms(
+                lambda: flash_kernel.flash_attention_cuda(q, k, v, vt,
                                                           **kw))))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=kw["causal"]))
-        plain_ms = time_ms(plain, iters=3) if plain is not None else None
-    by_variant = {vt: [t for u, t in turns if u == vt]
-                  for vt in ("hopper", "general")}
-    ms_by_variant = {vt: float(np.mean(ts)) for vt, ts in by_variant.items()}
+        qt, kt, vt_ = (t.transpose(1, 2) for t in (q, k, v))
+        if kw["window"]:
+            i = torch.arange(q.shape[1], device=q.device)[:, None]
+            j = torch.arange(k.shape[1], device=q.device)[None, :]
+            band = (i >= j) & (i - j < kw["window"])
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt_, attn_mask=band), iters=3)
+            del band
+        else:
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt_, is_causal=kw["causal"]))
+        plain_ms = time_ms(plain, iters=3)
+    ms_by_variant = {u: float(np.mean([t for w, t in turns if w == u]))
+                     for u in dict(turns)}
+    ms = ms_by_variant[variant]
     bound_ms, bound_by = flash_bound(shape, dtype, kw["causal"],
                                      kw["window"])
-    plain_txt = f", plain {plain_ms:.4f} ms" if plain is not None else ""
+    ratio = ("" if len(ms_by_variant) == 1 else
+             f", general / hopper "
+             f"{ms_by_variant['general'] / ms_by_variant['hopper']:.2f}")
     print(f"[kernels] flash_attention {name}: in turns "
-          f"{', '.join(f'{u} {t:.4f}' for u, t in turns)} ms; hopper "
-          f"{ms_by_variant['hopper']:.4f} ms, general "
-          f"{ms_by_variant['general']:.4f} ms{plain_txt}, sdpa "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"hopper / sdpa {ms_by_variant['hopper'] / library_ms:.2f}, "
-          f"general / hopper "
-          f"{ms_by_variant['general'] / ms_by_variant['hopper']:.2f}")
-    out = {"ms": ms_by_variant["hopper"], "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms, "ms_by_variant": ms_by_variant,
-           "ms_turns": turns}
-    if plain is None:
-        del out["plain_ms"]
-    return out
+          f"{', '.join(f'{u} {t:.4f}' for u, t in turns)} ms; "
+          f"{', '.join(f'{u} {t:.4f} ms' for u, t in ms_by_variant.items())}"
+          f", plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); {variant} / sdpa {ms / library_ms:.2f}, "
+          f"{variant} / bound {ms / bound_ms:.2f}{ratio}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "ms_by_variant": ms_by_variant, "ms_turns": turns}
 
 
 # WKV6 (K2): inputs and limits from repro_torch.kernels.rwkv6.checks.
@@ -1020,8 +1122,9 @@ class StepProbe:
 
 
 def phase_main_path(arch, card, profile):
-    """Serves ``arch``'s smoke traffic; returns each kernel's launches in
-    that run (counts set to 0 just before it, read just after)."""
+    """Serves ``arch``'s smoke traffic (``TRAFFIC``); returns each
+    kernel's launches in that run (counts set to 0 just before it, read
+    just after)."""
     from repro_torch.configs import get_config
     from repro_torch.core import (BatchSystem, Invoker, Ledger,
                                   ResourceManager)
@@ -1029,7 +1132,8 @@ def phase_main_path(arch, card, profile):
     from repro_torch.serving import ModelServer, ServeEngine
 
     ops = kernel_ops()
-    n_req, batch, new_tokens, max_len = 8, 4, 16, 2048
+    n_req, batch, new_tokens = 8, 4, 16
+    (lo, hi), max_len = TRAFFIC.get(arch, SHORT_TRAFFIC)
     published = get_config(arch)
     cfg = published.replace(**PATH_CUTS.get(arch, {}))
     if cfg != published:
@@ -1072,8 +1176,12 @@ def phase_main_path(arch, card, profile):
 
         rng = np.random.default_rng(SEED)
         prompts = [rng.integers(1, cfg.vocab_size,
-                                size=int(rng.integers(256, 1025)))
+                                size=int(rng.integers(lo, hi + 1)))
                    for _ in range(n_req)]
+        window = getattr(model, "static_window", 0)
+        if window:
+            check(min(map(len, prompts)) > window,
+                  f"a prompt within the {window}-token window")
         engine = ServeEngine(invoker, batch_size=batch)
         for p in prompts:
             engine.enqueue(p, max_new_tokens=new_tokens)
@@ -1101,7 +1209,9 @@ def phase_main_path(arch, card, profile):
         model.init_cache(batch, max_len, "meta"))) / 1e9
     prefill_ms = [t * 1e3 for t in probe.seconds["prefill"]]
     decode_ms = float(np.median(probe.seconds["decode"])) * 1e3
-    print(f"[main] prompts {[len(p) for p in prompts]}, {waves} waves; "
+    print(f"[main] prompts {[len(p) for p in prompts]}"
+          f"{f', window {window}' if window else ''}, max_len "
+          f"{max_len}, {waves} waves; "
           f"kernel launches {launches}; "
           f"{len(probe.seconds['decode'])} decode steps; "
           f"{probe.nonfinite} non-finite logits")
@@ -1113,9 +1223,10 @@ def phase_main_path(arch, card, profile):
           "a request got the wrong number of tokens")
     check(probe.nonfinite == 0, f"{probe.nonfinite} non-finite logits")
     want = {name: MAIN_PATHS[arch].get(name, 0) * waves for name in ops}
-    # every K1 launch of a main path takes the Hopper variant
-    want["flash_attention_by_variant"] = {
-        "hopper": want["flash_attention"], "general": 0}
+    # every K1 launch of a main path takes the path's variant
+    want["flash_attention_by_variant"] = {"hopper": 0, "general": 0}
+    want["flash_attention_by_variant"][K1_VARIANT.get(arch, "hopper")] = \
+        want["flash_attention"]
     # every K2 launch takes kernel.plan's (G, C, CB) for the model's head dim
     want["wkv6_by_plan"] = {}
     if want["wkv6"]:
@@ -1127,7 +1238,8 @@ def phase_main_path(arch, card, profile):
     check(launches == want, f"kernel launches {launches}, expected {want}")
     max_latency = max(r.latency for r in done)
     result = {
-        "arch": arch, "requests": m["requests"], "tokens": m["tokens"],
+        "arch": arch, "prompt_lengths": [len(p) for p in prompts],
+        "max_len": max_len, "requests": m["requests"], "tokens": m["tokens"],
         "throughput_tok_s": m["throughput_tok_s"],
         "p50_ttft_s": m["p50_ttft_s"], "p50_latency_s": m["p50_latency_s"],
         "p99_latency_s": m["p99_latency_s"], "max_latency_s": max_latency,
@@ -1148,7 +1260,7 @@ def phase_main_path(arch, card, profile):
           f"GB | {card}")
     print("main_path " + json.dumps(result))
     if profile:
-        profile_steps(model, params, max_len)
+        profile_steps(model, params, max_len, seq=hi)
     return launches
 
 
@@ -1164,7 +1276,7 @@ def free_device_memory(what):
     check(left < 1e9, f"{left / 1e9:.2f} GB still allocated after {what}")
 
 
-def profile_steps(model, params, max_len, batch=4, seq=1024, steps=3):
+def profile_steps(model, params, max_len, seq, batch=4, steps=3):
     """Where a step's time goes: one prefill wave (batch x seq) and
     ``steps`` decode steps, each timed on the host clock without the
     profiler, then run again under torch.profiler for the device time of
@@ -1226,12 +1338,12 @@ def _leaves(tree):
             yield v
 
 
-def full_logits(model, params, toks):
-    """Logits at every position from one forward over the whole
+def full_logits(model, params, toks, patch_embeds=None):
+    """Logits at every token position from one forward over the whole
     sequence: cache-free for the dense and Jamba models (Jamba's Mamba
-    layers from a zero state, through K3); for RWKV the same layers
-    prefill runs (the kernel for the whole sequence), every position
-    kept."""
+    layers from a zero state, through K3), with ``patch_embeds`` in front
+    of the tokens; for RWKV the same layers prefill runs (the kernel for
+    the whole sequence), every position kept."""
     from repro_torch.models import common as C
     from repro_torch.models import layers as L
     from repro_torch.models.rwkv_lm import RWKVLM
@@ -1241,18 +1353,24 @@ def full_logits(model, params, toks):
         x = model._run_layers(x, params, model.init_cache(
             toks.shape[0], 0, toks.device))
     else:
-        x = C.embed(toks, params["embed"], cfg)
-        pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
+        x = model._embed_inputs(params, toks, patch_embeds)
+        pos = torch.arange(x.shape[1], device=toks.device)[None, :]
         x = model._run_layers(x, params, pos, None, None, "train")
+        x = x[:, x.shape[1] - toks.shape[1]:]
     return C.lm_logits(L.apply_norm(x, params["final_norm"], cfg),
                        params["embed"], cfg)
 
 
-def phase_decode_vs_prefill(arch):
+def phase_decode_vs_prefill(arch, prompt=6, steps=5, patches=0, ring=False):
     """Teacher-forced decode reproduces the logits of one forward over the
-    whole sequence.  f32 at 1e-3: both paths are f32 (TF32 off) but
-    reduce over the model's widths in different orders (a CUDA kernel
-    against plain torch: attention, or the recurrence's step path)."""
+    whole sequence: a ``prompt``-token prefill (after ``patches`` random
+    patch embeddings), then ``steps`` decode steps, with a cache of
+    prompt + steps + 5 slots; with ``ring``, again through the ring
+    buffer (``window_cache``) of the window's slots, held to the forward
+    and to the full cache's logits.  f32 at 1e-3: both paths are f32
+    (TF32 off) but reduce over the model's widths in different orders (a
+    CUDA kernel against plain torch: attention, or the recurrence's step
+    path)."""
     from repro_torch.configs import get_config
     from repro_torch.models.factory import build_model
 
@@ -1263,24 +1381,57 @@ def phase_decode_vs_prefill(arch):
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = model.init(gen, "cuda")
-    toks = torch.randint(0, cfg.vocab_size, (1, 12), generator=gen,
-                         device="cuda")
-    tol, worst = 1e-3, 0.0
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt + steps),
+                         generator=gen, device="cuda")
+    patch = (torch.randn((1, patches, cfg.d_model), generator=gen,
+                         device="cuda") if patches else None)
+    tol, worst = 1e-3, {}
+    window = getattr(model, "static_window", 0)
+    runs = {"full cache": prompt + steps + 5}
+    if ring:
+        check(prompt <= window < prompt + steps,
+              f"{arch}: a ring of {window} slots would not take the prompt "
+              f"or would not wrap")
+        runs["ring"] = window
     with torch.inference_mode():
-        ref = full_logits(model, params, toks)
-        logits, cache, length = model.prefill(params, toks[:, :6], 16)
-        got = [(logits[:, 0], ref[:, 5])]
-        for i in range(6, 11):
-            logits, cache, length = model.decode(params, cache,
-                                                 toks[:, i:i + 1], length)
-            got.append((logits[:, 0], ref[:, i]))
-        for a, b in got:
-            worst = max(worst, (a - b).abs().max().item())
-            torch.testing.assert_close(a, b, rtol=tol, atol=tol)
-    print(f"[decode] {arch} {DECODE_CUTS[arch]} f32 full width: "
-          f"teacher-forced decode vs one forward over 6 positions, "
-          f"max_abs_err {worst:.3e} (tol {tol:g})")
-    del params, cache
+        ref = full_logits(model, params, toks, patch)
+        got = {}
+        for run, slots in runs.items():
+            if ring:
+                model.window_cache = run == "ring"
+            logits, cache, length = model.prefill(params, toks[:, :prompt],
+                                                  slots, patch)
+            if patches:
+                check(cache["k"].shape[2] == slots + patches,
+                      f"{arch}: {cache['k'].shape[2]} cache slots")
+            got[run] = [logits[:, 0]]
+            for i in range(prompt, prompt + steps):
+                logits, cache, length = model.decode(
+                    params, cache, toks[:, i:i + 1], length)
+                got[run].append(logits[:, 0])
+            check(length == patches + prompt + steps,
+                  f"{arch} {run}: length {length}")
+            del cache
+            pairs = [(a, ref[:, prompt - 1 + n])
+                     for n, a in enumerate(got[run])]
+            if run == "ring":
+                pairs += list(zip(got[run], got["full cache"]))
+            worst[run] = 0.0
+            for a, b in pairs:
+                worst[run] = max(worst[run], (a - b).abs().max().item())
+                torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    what = f"{patches} patch embeddings, then " if patches else ""
+    where = (f"; window {window}, positions {prompt}-{prompt + steps - 1} "
+             f"decoded" if window else "")
+    ring_txt = "; the ring also against the full cache's logits" if ring \
+        else ""
+    print(f"[decode] {arch} {DECODE_CUTS[arch]} f32 full width: {what}"
+          f"{prompt}-token prefill and {steps} teacher-forced decode "
+          f"steps vs one forward over {patches + prompt + steps} positions"
+          f"{where}: max_abs_err "
+          f"{', '.join(f'{r} {e:.3e}' for r, e in worst.items())} (tol "
+          f"{tol:g}{ring_txt})")
+    del params
     torch.cuda.empty_cache()
 
 
@@ -1318,6 +1469,7 @@ def main() -> int:
         entry["launches"], entry["launches_by_path"] = 0, {}
     flash = entries["flash_attention"]
     flash["launches_by_variant"] = {"hopper": 0, "general": 0}
+    flash["launches_by_path_and_variant"] = {}
     entries["wkv6"]["launches_by_plan"] = {}
     for arch, per_wave in MAIN_PATHS.items():
         free_device_memory("the previous phase")
@@ -1327,12 +1479,15 @@ def main() -> int:
             entries[name]["launches_by_path"][arch] = launches[name]
         for variant, n in launches["flash_attention_by_variant"].items():
             flash["launches_by_variant"][variant] += n
+        if "flash_attention" in per_wave:
+            flash["launches_by_path_and_variant"][arch] = \
+                launches["flash_attention_by_variant"]
         for pl, n in launches["wkv6_by_plan"].items():
             by_plan = entries["wkv6"]["launches_by_plan"]
             by_plan[pl] = by_plan.get(pl, 0) + n
-    for arch in MAIN_PATHS:
+    for arch in DECODE_CUTS:
         free_device_memory("the previous phase")
-        phase_decode_vs_prefill(arch)
+        phase_decode_vs_prefill(arch, **DECODE_TRAFFIC.get(arch, {}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

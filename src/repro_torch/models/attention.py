@@ -1,20 +1,25 @@
 """Attention, dense GQA part: projections, GQA repeat, blockwise flash
-attention and single-step decode attention, mirroring
-``repro.models.attention``.
+attention, the O(s·w) static sliding-window attention and single-step
+decode attention, mirroring ``repro.models.attention``.
 
 ``flash_attention`` here is the plain blockwise online-softmax form of the
 reference, with its ``q_offset``, finite -1e30 mask value and 1e-30 clamp
 of the denominator.  ``DecoderLM`` prefill does not call it: prefill goes
 through ``repro_torch.kernels.flash_attention.ops``, whose CUDA kernel
 computes the same function (``q_offset`` is 0 and ``sq == skv`` there, so
-the two causal alignments agree).  Decode attention is plain torch, as it
-is plain jnp in the reference.
+the two causal alignments agree).  Nor does it call
+``sliding_window_attention``, which the reference's prefill takes for a
+static window: K1's window mask is the same, so prefill sends the window
+to K1, and ``sliding_window_attention`` is the O(s·w) yardstick that
+K1's windowed output is held to at full width.  Decode attention is
+plain torch, as it is plain jnp in the reference.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 
@@ -108,6 +113,44 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def sliding_window_attention(q, k, v, *, window, softcap=0.0, block_q=512):
+    """O(seq·window) attention for a static python-int window: each q
+    block of ``block_q`` rows attends a kv slice of ``window + block_q``
+    rows ending at the block's last row.  q (b,sq,h,hd), k/v
+    (b,skv,h,hd) -> (b,sq,h,hd); scores and softmax in f32, output in
+    q.dtype.  Masks: in range, causal, ``q_pos - k_pos < window``."""
+    if not (isinstance(window, int) and window > 0):
+        raise ValueError(f"window must be a positive int, got {window!r}")
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    nb = -(-sq // block_q)
+    pad_q = nb * block_q - sq
+    span = window + block_q
+    # pad q's end, and kv's front (history) and end (q padding), so that
+    # every slice has the same length
+    q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    kp = F.pad(k, (0, 0, 0, 0, span, pad_q))
+    vp = F.pad(v, (0, 0, 0, 0, span, pad_q))
+    scale = 1.0 / math.sqrt(hd)
+    blocks = []
+    for i in range(nb):
+        q0 = i * block_q
+        start = q0 + block_q                 # in padded coordinates
+        q_blk = q[:, q0:q0 + block_q].float() * scale
+        k_blk = kp[:, start:start + span].float()
+        v_blk = vp[:, start:start + span].float()
+        q_pos = q0 + torch.arange(block_q, device=q.device)
+        k_pos = start - span + torch.arange(span, device=q.device)
+        s = _softcap(torch.einsum("bqhd,bkhd->bhqk", q_blk, k_blk), softcap)
+        mask = ((k_pos[None, :] >= 0) & (k_pos[None, :] < skv)
+                & (q_pos[:, None] >= k_pos[None, :])
+                & (q_pos[:, None] - k_pos[None, :] < window))
+        s = torch.where(mask, s, NEG_INF)
+        blocks.append(torch.einsum("bhqk,bkhd->bqhd",
+                                   torch.softmax(s, dim=-1), v_blk))
+    return torch.cat(blocks, dim=1)[:, :sq].to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, length, *, window=0, softcap=0.0):

@@ -126,12 +126,18 @@ class JambaLM(DecoderLM):
 
     # -------------------------------------------------------------- caches
 
-    def init_cache(self, batch, max_len, device):
+    def prefill(self, params, tokens, max_len, patch_embeds=None):
+        """As the reference's JambaLM.prefill, which takes
+        ``patch_embeds`` and drops it."""
+        return super().prefill(params, tokens, max_len)
+
+    def init_cache(self, batch, max_len, device, extra=0):
         cfg = self.cfg
         mc = cfg.mamba
         di = mc.expand * cfg.d_model
         P, nm = self.n_periods, self.n_mamba
-        kv = (P, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        kv = (P, batch, max_len + extra, cfg.n_kv_heads,
+              cfg.resolved_head_dim)
         return {
             "attn": {"k": torch.zeros(kv, dtype=self.dtype, device=device),
                      "v": torch.zeros(kv, dtype=self.dtype, device=device)},

@@ -8,9 +8,13 @@ stacked on a leading (L, ...) dim and matrices oriented ``x @ W`` as
 views.  Layer heterogeneity that only changes numbers (gemma3's per-layer
 window and rope theta) rides along as per-layer Python ints and floats.
 
-Prefill attention goes through the flash attention kernel's dispatcher;
-decode attention is plain torch.  The KV cache has layout
-(L, b, S, n_kv, hd) and is updated in place.  The FFN of a MoE layer is
+Prefill attention goes through the flash attention kernel's dispatcher,
+a static sliding window (mixtral, h2o-danube) included: K1's window mask
+is that of the reference's ``sliding_window_attention``.  Decode
+attention is plain torch.  The KV cache has layout (L, b, S, n_kv, hd)
+and is updated in place; with ``window_cache`` on, decode uses it as the
+reference's ring buffer.  A vision prefix (internvl2's patch embeddings)
+goes in front of the prompt's token embeddings.  The FFN of a MoE layer is
 ``models/moe.py::apply_moe`` on one device (the reference's
 ``not dist.active`` branch); its aux loss is computed and dropped, since
 nothing here trains.
@@ -51,16 +55,19 @@ class DecoderLM:
     def __init__(self, cfg):
         if cfg.mla is not None or cfg.mtp_depth:
             raise NotImplementedError("MLA/MTP: ROADMAP Queue 1 item 10")
-        if cfg.sliding_window and not cfg.local_global_period:
-            raise NotImplementedError(
-                "static sliding-window attention path: ROADMAP Queue 1 "
-                "item 4")
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                       else torch.float32)
         self.residual_scale = C.residual_scale(cfg)
         self.router_mode = ("sigmoid" if cfg.moe and cfg.moe.n_experts >= 64
                             else "softmax_topk")
+        # uniform static window (every layer's, from layer_scalars)
+        self.static_window = (cfg.sliding_window if cfg.sliding_window and
+                              not cfg.local_global_period else 0)
+        # the reference's ring-buffer KV cache for sliding-window decode:
+        # right only for a cache of exactly the window's slots and a
+        # prompt no longer than that
+        self.window_cache = False
 
     # ------------------------------------------------------------------ init
 
@@ -116,17 +123,23 @@ class DecoderLM:
             q = L.apply_rope(q, positions, theta)
             k = L.apply_rope(k, positions, theta)
         k_c, v_c = cache_entry["k"], cache_entry["v"]
+        S = k_c.shape[1]
+        if self.window_cache:
+            # ring buffer: slot length % S; keys are stored rotated, so
+            # attention over the slots needs no order and no window mask
+            write_at, n_valid, win = length % S, min(length + 1, S), 0
+        else:
+            # Past the cache's end the write lands on its last slot, as
+            # the reference's dynamic_update_slice clamps it, and the
+            # mask (length + 1 > S) then admits every slot.
+            write_at, n_valid = min(length, S - 1), length + 1
         # in place: the counterpart of the reference's donated cache
-        # buffer (jax.jit(decode, donate_argnums=(1,))).  Past the
-        # cache's end the write lands on its last slot, as the
-        # reference's dynamic_update_slice clamps it, and the mask below
-        # (length + 1 > S) then admits every slot.
-        write_at = min(length, k_c.shape[1] - 1)
+        # buffer (jax.jit(decode, donate_argnums=(1,)))
         k_c[:, write_at] = k[:, 0]
         v_c[:, write_at] = v[:, 0]
         kk = A.repeat_kv(k_c, cfg.n_heads)
         vv = A.repeat_kv(v_c, cfg.n_heads)
-        o = A.decode_attention(q, kk, vv, length + 1, window=win,
+        o = A.decode_attention(q, kk, vv, n_valid, window=win,
                                softcap=cfg.attn_logit_softcap)
         return o.reshape(x.shape[0], 1, -1) @ ap["wo"]
 
@@ -169,25 +182,31 @@ class DecoderLM:
         raise NotImplementedError("training (loss, remat): ROADMAP Queue 1 "
                                   "item 6")
 
-    def prefill(self, params, tokens, max_len, patch_embeds=None):
-        """tokens (b, s) -> (last-position logits (b, 1, V), cache,
-        length s).  The cache is allocated at max_len and filled."""
-        if patch_embeds is not None:
-            raise NotImplementedError("patch-embed prefix: ROADMAP Queue 1 "
-                                      "item 4")
+    def _embed_inputs(self, params, tokens, patch_embeds=None):
+        """Token embeddings, with ``patch_embeds`` (b, P, d) in front."""
         x = C.embed(tokens, params["embed"], self.cfg)
+        if patch_embeds is not None:
+            x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+        return x
+
+    def prefill(self, params, tokens, max_len, patch_embeds=None):
+        """tokens (b, s) and optional patch_embeds (b, P, d) -> (last-
+        position logits (b, 1, V), cache, length P + s).  The cache is
+        allocated at max_len + P slots and filled."""
+        x = self._embed_inputs(params, tokens, patch_embeds)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        cache = self.init_cache(tokens.shape[0], max_len, x.device)
+        cache = self.init_cache(tokens.shape[0], max_len, x.device,
+                                extra=x.shape[1] - tokens.shape[1])
         x = self._run_layers(x, params, positions, cache, None, "prefill")
         x = L.apply_norm(x[:, -1:], params["final_norm"], self.cfg)
         logits = C.lm_logits(x, params["embed"], self.cfg)
-        return logits, cache, tokens.shape[1]
+        return logits, cache, positions.shape[1]
 
     def decode(self, params, cache, tokens, length):
         """tokens (b, 1); ``length`` = number of valid cache entries (a
         Python int).  Writes the cache in place and returns (logits
         (b, 1, V), cache, length + 1)."""
-        x = C.embed(tokens, params["embed"], self.cfg)
+        x = self._embed_inputs(params, tokens)
         x = self._run_layers(x, params, None, cache, length, "decode")
         x = L.apply_norm(x, params["final_norm"], self.cfg)
         logits = C.lm_logits(x, params["embed"], self.cfg)
@@ -195,9 +214,11 @@ class DecoderLM:
 
     # -------------------------------------------------------------- caches
 
-    def init_cache(self, batch, max_len, device):
+    def init_cache(self, batch, max_len, device, extra=0):
+        """Zero caches of max_len + extra slots (extra: a vision
+        prefix's patches)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+        shape = (cfg.n_layers, batch, max_len + extra, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=device)}

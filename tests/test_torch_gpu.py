@@ -91,12 +91,26 @@ HOPPER_CASES = [
     ((1, 300, 300, 4, 128), True, 0, 0.0, True),
     ((2, 1024, 1024, 64, 128), True, 0, 0.0, False),
 ]
+# long windows, in bf16: hd 120 (h2o-danube-3-4b; the general variant, hd
+# padded to 128) and hd 128 (mixtral-8x7b; the Hopper variant), rows past
+# the window, a window that is no multiple of a kv tile, a window longer
+# than the sequence, and a ragged last tile
+WINDOW_CASES = [
+    ((1, 1500, 1500, 4, 120), True, 1024, 0.0, False),
+    ((2, 1100, 1100, 2, 120), True, 1000, 0.0, False),
+    ((1, 2100, 2100, 2, 120), True, 4096, 0.0, False),
+    ((1, 1500, 1500, 4, 128), True, 1024, 0.0, False),
+    ((2, 2300, 2300, 2, 128), True, 1100, 0.0, False),
+    ((1, 3000, 3000, 2, 128), True, 2048, 0.0, False),
+]
 KERNEL_CASES = (
     [pytest.param(*case, dtype, id=f"case{i}-{name}")
      for i, case in enumerate(CASES)
      for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))]
     + [pytest.param(*case, torch.bfloat16, id=f"hopper{i}-bf16")
-       for i, case in enumerate(HOPPER_CASES)])
+       for i, case in enumerate(HOPPER_CASES)]
+    + [pytest.param(*case, torch.bfloat16, id=f"window{i}-hd{case[0][4]}")
+       for i, case in enumerate(WINDOW_CASES)])
 
 
 @pytest.mark.parametrize("shape,causal,window,softcap,strided,dtype",
@@ -174,25 +188,36 @@ def _to(tree, device):
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "gemma3-4b",
-                                  "minicpm-2b"])
+                                  "minicpm-2b", "h2o-danube-3-4b",
+                                  "mixtral-8x7b", "internvl2-76b"])
 def test_prefill_on_the_card_matches_cpu(cuda, arch):
     """Prefill runs the kernel once per layer, and its f32 logits and cache
-    equal the same model's on the CPU (plain attention there).  1e-4, not
-    2e-5: every product and reduction of every layer sums in another
-    order on the card than on the CPU."""
+    equal the same model's on the CPU (plain attention there): the static
+    window of 16 (danube, mixtral) past a 40-token prompt, and internvl2
+    with its 8 patch embeddings in front.  1e-4, not 2e-5: every product
+    and reduction of every layer sums in another order on the card than
+    on the CPU."""
     cfg = get_smoke(arch).replace(dtype="float32")
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     tokens = torch.randint(1, cfg.vocab_size, (2, 40),
                            generator=torch.Generator().manual_seed(1))
+    patches = None
+    if cfg.n_vision_patches:
+        patches = torch.randn((2, cfg.n_vision_patches, cfg.d_model),
+                              generator=torch.Generator().manual_seed(2))
     on_card = _to(params, cuda)
     with torch.inference_mode():
-        want, want_cache, _ = model.prefill(params, tokens, 48)
+        want, want_cache, want_len = model.prefill(params, tokens, 48,
+                                                   patches)
         before = ops.launches
-        got, got_cache, length = model.prefill(on_card, tokens.to(cuda), 48)
+        got, got_cache, length = model.prefill(
+            on_card, tokens.to(cuda), 48,
+            None if patches is None else patches.to(cuda))
         torch.cuda.synchronize()
     assert ops.launches == before + cfg.n_layers
-    assert length == 40
+    assert length == want_len == 40 + cfg.n_vision_patches
+    assert got_cache["k"].shape[2] == 48 + cfg.n_vision_patches
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got_cache["k"].cpu(), want_cache["k"],
                                rtol=1e-4, atol=1e-4)
