@@ -8,11 +8,11 @@ but the sources in the checkout.  Phases, in order; any failure exits
 non-zero and prints no result:
 
 1. device: require CUDA, print the card's name and power limit;
-2. build: compile every kernel of the serving paths with nvcc (sm_90a),
-   and the sweep libraries of K2's candidate plans and of K3's yardstick
-   designs, one nvcc per library, all started together; then the SASS
-   of K3's design and its yardsticks (cuobjdump): instructions per state
-   entry in the scan loop;
+2. build: compile every kernel of the serving and training paths with
+   nvcc (sm_90a), and the sweep libraries of K2's candidate plans and of
+   K3's yardstick designs, one nvcc per library, all started together;
+   then the SASS of K3's design and its yardsticks (cuobjdump):
+   instructions per state entry in the scan loop;
 3. kernels: hold each kernel against its plain torch version on the card
    at the main-path shape and at edge shapes, elementwise and row by row,
    show that a deliberately wrong result would fail the checks, and time
@@ -70,7 +70,27 @@ non-zero and prints no result:
    prompt, 12 steps), with the full cache and with the ring buffer of
    4096 slots (window_cache); internvl2-76b (d_model 8192) with 256
    patch embeddings in front of the prompt;
-6. the kernels line, the card line and the result line, last.
+6. K1's backward (flash_bwd): the gradients the training path takes
+   (torch.autograd.grad through ops.flash_attention, whose backward
+   launches the kernel) against attention_bwd_ref on f32 copies at the
+   training shape (4, 2048, 36, 64) bf16 causal and at hd
+   128, hd 120 with a window, a softcap, f32, sq != skv without the causal
+   mask, a strided storage and an expanded GQA view; two calls bit for
+   bit; a backward with D dropped, the softcap derivative dropped, or a
+   kv tile skipped shown to fail the checks; timed at the training shape
+   beside its bound and SDPA's backward;
+7. train: minicpm-2b at full width and depth (40 layers, d_model 2304,
+   2.72 B params), bf16, through repro_torch.launch.train: 6 steps of 4 x
+   2048 tokens with WSD, every loss finite, K1 80 forward launches and
+   40 backward calls (120 kernel launches: stats, dK/dV, dQ) a step
+   (counts set to 0 before each step, read after it), no
+   plain version called; F.embedding's backward bit for bit twice; one
+   step profiled;
+8. train_restart: examples/train_elastic_torch.py (4 layers at d_model
+   128): train, checkpoint, drop, restore bit for bit, continue, and hold
+   the losses to an uninterrupted run bit for bit, eval batches on
+   rFaaS-leased executors, the ledger's bill;
+9. the kernels line, the card line and the result line, last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -249,14 +269,15 @@ def kernel_ops():
 def phase_build():
     """One nvcc per kernel library, all started together (each ``build``
     in a thread of its own), then each library loaded: every kernel
-    module's serving library, and the sweep libraries of K2 and K3, which
-    hold the candidates that phase_wkv6 and phase_scan time.  Returns the
-    libraries' paths by name."""
+    module's serving library, K1's backward library, and the sweep
+    libraries of K2 and K3, which hold the candidates that phase_wkv6 and
+    phase_scan time.  Returns the libraries' paths by name."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import kernel_bwd
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     libs = [(m.NAME, m.build, m.library)
-            for m in (flash_kernel, wkv_kernel, scan_kernel)]
+            for m in (flash_kernel, kernel_bwd, wkv_kernel, scan_kernel)]
     for m in (wkv_kernel, scan_kernel):
         libs.append((m.SWEEP_NAME, functools.partial(m.build, True),
                      functools.partial(m.library, True)))
@@ -1355,7 +1376,7 @@ def full_logits(model, params, toks, patch_embeds=None):
     else:
         x = model._embed_inputs(params, toks, patch_embeds)
         pos = torch.arange(x.shape[1], device=toks.device)[None, :]
-        x = model._run_layers(x, params, pos, None, None, "train")
+        x = model._run_layers(x, params, pos, None, None, "train")[0]
         x = x[:, x.shape[1] - toks.shape[1]:]
     return C.lm_logits(L.apply_norm(x, params["final_norm"], cfg),
                        params["embed"], cfg)
@@ -1435,6 +1456,438 @@ def phase_decode_vs_prefill(arch, prompt=6, steps=5, patches=0, ring=False):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ K1's backward, training
+
+# name, (b, sq, skv, h, hd), dtype, causal, window, softcap, q/k scale,
+# layout; the first is the training shape (minicpm-2b, batch 4 x 2048)
+BWD_CASES = [
+    ("training", (4, 2048, 2048, 36, 64), torch.bfloat16, True, 0, 0.0,
+     2.0, "plain"),
+    ("hd128", (2, 1024, 1024, 32, 128), torch.bfloat16, True, 0, 0.0, 2.0,
+     "plain"),
+    ("hd120-window256", (2, 1024, 1024, 32, 120), torch.bfloat16, True, 256,
+     0.0, 2.0, "plain"),
+    # q, k ~ N(0, 36): scores of standard deviation 36 against the cap 50,
+    # where tanh's derivative (1 - t^2) is far from 1
+    ("softcap-50", (2, 512, 512, 8, 64), torch.bfloat16, True, 0, 50.0,
+     6.0, "plain"),
+    ("f32-hd64", (2, 512, 512, 8, 64), torch.float32, True, 0, 0.0, 2.0,
+     "plain"),
+    ("ragged-noncausal", (2, 300, 500, 4, 64), torch.bfloat16, False, 0,
+     0.0, 2.0, "plain"),
+    ("strided", (2, 700, 700, 8, 64), torch.bfloat16, True, 0, 0.0, 2.0,
+     "strided"),
+    # k and v one KV head seen as all 32 (stride 0 over heads): an
+    # expanded GQA view, read with no copy
+    ("gqa-view", (2, 1024, 1024, 32, 64), torch.bfloat16, True, 0, 0.0, 2.0,
+     "gqa-view"),
+]
+# the fault each case also shows the checks can see (checks.FAULTS)
+BWD_FAULTS = {"training": ("no-delta", "skip-last-tile"),
+              "softcap-50": ("no-softcap-derivative",),
+              "hd120-window256": ("skip-first-tile",)}
+# A gradient row's error is measured against the row's scale
+# (checks.bwd_row_scales: the norm of the sum of magnitudes that makes the
+# row), held to ROW_TOL.  dS = P (dP - D) cancels as a row's softmax nears
+# one key (the first causal row attends to one key and its dq is 0 in
+# exact arithmetic), so there both sides carry rounding of the terms, not
+# of the small sum; on a row without cancellation the scale is a few times
+# the row's norm.  A fault (D dropped, a kv tile lost) moves rows by
+# O(their scale) and still lands far past the limit.
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_SHAPE = dict(batch=4, seq=2048, steps=6)
+# K1 launches a layer in a training step of a dense decoder: the forward
+# kernel twice (the forward and its recompute under activation
+# checkpointing), the backward once, which launches its three kernels
+# (kernel_bwd.KERNELS)
+TRAIN_K1 = {"forward": 2, "backward": 3}
+RESTART = dict(steps=40, preempt_at=20, ckpt_every=10)
+# kernel-name fragments of the groups a training step's time is summed in
+TRAIN_KERNEL_GROUPS = (
+    ("K1", ("flash_fwd", "bwd_stats", "bwd_dkdv", "bwd_dq")),
+    ("GEMM", ("nvjet", "gemm", "cutlass", "cublas", "sm90_xmma")),
+    ("reductions", ("reduce_kernel", "softmax", "LogSumExp", "cunn_")),
+    ("copies and casts", ("copy_kernel", "CatArrayBatchedCopy")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _bwd_inputs(shape, dtype, qk_scale, layout, gen):
+    """q, k, v, dO for a backward case, on the card in ``dtype``."""
+    b, sq, skv, h, hd = shape
+
+    def randn(s, scale, heads=h):
+        if layout == "strided":       # (b, h, s, hd) storage
+            x = torch.randn((b, heads, s, hd), generator=gen, device="cuda")
+            x = x.transpose(1, 2)
+        else:
+            x = torch.randn((b, s, heads, hd), generator=gen, device="cuda")
+        return (x * scale).to(dtype)
+
+    q, do = randn(sq, qk_scale), randn(sq, 1.0)
+    if layout == "gqa-view":
+        k = randn(skv, qk_scale, 1).expand(b, skv, h, hd)
+        v = randn(skv, 1.0, 1).expand(b, skv, h, hd)
+    else:
+        k, v = randn(skv, qk_scale), randn(skv, 1.0)
+    return q, k, v, do
+
+
+def bwd_bound(shape, dtype, causal, window):
+    """Least time for the backward: its bytes (q, k, v, o, dO read once;
+    dq, dk, dv written once) over HBM bandwidth, or 5 products of 2 hd
+    FLOPs per unmasked (query, key) pair over the dtype's peak, whichever
+    is larger.  Returns (ms, "bytes" | "operations", pairs)."""
+    b, sq, skv, h, hd = shape
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (4 * b * sq * h * hd + 4 * b * skv * h * hd) * size
+    i = np.arange(sq)[:, None]
+    j = np.arange(skv)[None, :]
+    mask = np.ones((sq, skv), bool)
+    if causal:
+        mask &= i >= j
+    if window:
+        mask &= i - j < window
+    pairs = int(mask.sum()) * b * h
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 10 * hd * pairs / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", pairs)
+
+
+def phase_flash_bwd():
+    """K1's backward, each case: the gradients of the training path's
+    entry (torch.autograd.grad through ops.flash_attention, whose
+    backward is the kernel) against attention_bwd_ref on f32 copies, row
+    by row, two calls bit for bit; faults that must land past the limits;
+    at the training shape the kernel called directly for the timings.
+    Returns the kernels-line entry."""
+    from repro_torch.kernels.flash_attention import checks
+    from repro_torch.kernels.flash_attention import kernel_bwd
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    entry = None
+    for (name, shape, dtype, causal, window, softcap, qk_scale,
+         layout) in BWD_CASES:
+        q, k, v, do = _bwd_inputs(shape, dtype, qk_scale, layout, gen)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        before = flash_ops.launches_bwd
+        o, got = _flash_grads(flash_ops, q, k, v, do, kw)
+        again = _flash_grads(flash_ops, q, k, v, do, kw)[1]
+        torch.cuda.synchronize()
+        check(flash_ops.launches_bwd - before == 2 * len(kernel_bwd.KERNELS),
+              f"flash_bwd {name}: the backward kernel did not launch")
+        with torch.no_grad():
+            f32 = [t.float() for t in (q, k, v, o, do)]
+            ref = attention_bwd_ref(*f32, **kw)
+            scales = checks.bwd_row_scales(*f32, **kw)
+        rtol = ROW_TOL[dtype]
+        errs = {g: checks.grad_row_err(a, r, m) for g, a, r, m in
+                zip(("dq", "dk", "dv"), got, ref, scales)}
+        raw = max(row_err(a, r) for a, r in zip(got, ref))
+        max_abs = max((a.float() - r).abs().max().item()
+                      for a, r in zip(got, ref))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"[flash_bwd] {name} {tuple(shape)} {str(dtype)[6:]} "
+              f"causal={causal} window={window} softcap={softcap} "
+              f"{layout}: worst row rel err "
+              f"{', '.join(f'{g} {e:.3e}' for g, e in errs.items())} (limit "
+              f"{rtol:g}, against each row's scale; against its norm "
+              f"{raw:.3e}), max_abs_err {max_abs:.3e}; two calls "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        check(all(math.isfinite(e) and e <= rtol for e in errs.values()),
+              f"flash_bwd {name}: worst rows {errs} past {rtol:g}")
+        check(same, f"flash_bwd {name}: two calls differ")
+        for fault in BWD_FAULTS.get(name, ()):
+            with torch.no_grad():
+                bad = checks.attention_bwd_faulty(*f32, fault, **kw)
+            worst = max(checks.grad_row_err(a, r, m)
+                        for a, r, m in zip(bad, ref, scales))
+            del bad
+            print(f"[flash_bwd] {name}: a backward with {fault} gives worst "
+                  f"row rel err {worst:.3e} (limit {rtol:g})")
+            check(worst > 10 * rtol, f"flash_bwd {name}: {fault} gives only "
+                                     f"{worst:.3e}: the check cannot see it")
+        if name == "training":
+            entry = {
+                "name": "flash_attention_bwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_attention_bwd.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+                "gradient_of": "src/repro/models/attention.py:81",
+                "launches": None, "calls": None,
+                "kernels_per_call": len(kernel_bwd.KERNELS),
+                "max_abs_err": max_abs,
+                **_time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o,
+                                  do, shape, dtype, kw)}
+        del q, k, v, do, o, got, again, f32, ref, scales
+        torch.cuda.empty_cache()
+    check(entry is not None, "flash_bwd: no training-shape case")
+    return entry
+
+
+def _flash_grads(flash_ops, q, k, v, do, kw):
+    """(o, (dq, dk, dv)) through ops.flash_attention and autograd, as the
+    training path takes them: the forward kernel, then the backward
+    kernel through ``_FlashAttention``.  Each input keeps its strides (an
+    expanded view its stride-0 heads)."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o = flash_ops.flash_attention(q, k, v, **kw)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    return o.detach(), grads
+
+
+def _time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape,
+                    dtype, kw):
+    """The backward kernel, its plain version, and SDPA's backward through
+    autograd (forward + backward, minus the forward, in turns), beside the
+    bound."""
+    import torch.nn.functional as F
+    with torch.no_grad():
+        ms = time_ms(lambda: kernel_bwd.flash_attention_bwd_cuda(
+            q, k, v, o, do, **kw))
+        plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw),
+                           iters=2, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt,
+                                              is_causal=kw["causal"])
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    turns = [time_ms(fwd), time_ms(fwd_bwd), time_ms(fwd_bwd), time_ms(fwd)]
+    fwd_ms = (turns[0] + turns[3]) / 2
+    library_ms = (turns[1] + turns[2]) / 2 - fwd_ms
+    bound_ms, bound_by, pairs = bwd_bound(shape, dtype, kw["causal"],
+                                          kw["window"])
+    print(f"[flash_bwd] training: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, sdpa backward {library_ms:.4f} ms (forward {fwd_ms:.4f}, "
+          f"forward + backward {turns[1]:.4f}, {turns[2]:.4f}), bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {pairs} unmasked pairs, "
+          f"{10 * shape[4] * pairs / 1e9:.1f} GFLOP); kernel / bound "
+          f"{ms / bound_ms:.2f}, kernel / sdpa {ms / library_ms:.2f}, "
+          f"{10 * shape[4] * pairs / ms / 1e9:.1f} TFLOP/s")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "sdpa_forward_ms": fwd_ms}
+
+
+def _count_plain_calls():
+    """Wraps K1's plain forward and backward where the dispatcher and the
+    model could reach them; returns (calls, undo)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref
+    calls = {"attention_ref": 0, "attention_bwd_ref": 0}
+    saved = [(ref, "attention_ref", ref.attention_ref),
+             (ref, "attention_bwd_ref", ref.attention_bwd_ref),
+             (flash_ops, "attention_ref", flash_ops.attention_ref)]
+    for mod, attr, fn in saved:
+        def counted(*a, _fn=fn, _attr=attr, **kw):
+            calls[_attr] += 1
+            return _fn(*a, **kw)
+        setattr(mod, attr, counted)
+
+    def undo():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return calls, undo
+
+
+def phase_train(card):
+    """minicpm-2b at full width and depth, bf16, random init from seed 0,
+    through repro_torch.launch.train on the card: TRAIN_SHAPE's steps on
+    the synthetic stream with WSD.  Every kernel's counts are set to 0
+    before each step and read after it: K1 TRAIN_K1 times a layer, every
+    backward through the kernel, no plain version called, no other
+    kernel.  Then one step profiled.  Returns K1's forward and backward
+    launches in the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    ops = kernel_ops()
+    flash = ops["flash_attention"]
+    cfg = get_config(TRAIN_ARCH)
+    n = cfg.n_layers
+    print(f"[train] {TRAIN_ARCH}: {n} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.param_counts()['total'] / 1e9:.3f} B params, "
+          f"{TRAIN_SHAPE}")
+
+    def reset():
+        for mod in ops.values():
+            mod.launches = 0
+        flash.launches_bwd = 0
+        for variant in flash.launches_by_variant:
+            flash.launches_by_variant[variant] = 0
+
+    per_step = []
+
+    def on_step(rec):
+        per_step.append({"forward": flash.launches,
+                         "backward": flash.launches_bwd,
+                         "by_variant": dict(flash.launches_by_variant),
+                         "others": {k: m.launches for k, m in ops.items()
+                                    if k != "flash_attention"}})
+        reset()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain, undo = _count_plain_calls()
+    reset()
+    try:
+        out = launch_train.run(cfg, device="cuda", on_step=on_step,
+                               log=lambda line: print(f"[train] {line}"),
+                               **TRAIN_SHAPE)
+    finally:
+        undo()
+    records = out["records"]
+    losses = [r["loss"] for r in records]
+    want = {"forward": TRAIN_K1["forward"] * n,
+            "backward": TRAIN_K1["backward"] * n,
+            "by_variant": {"hopper": TRAIN_K1["forward"] * n, "general": 0},
+            "others": {"wkv6": 0, "selective_scan": 0}}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = float(np.median([r["step_ms"] for r in records[1:]]))
+    tok_s = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["seq"] / step_ms * 1e3
+    print(f"[train] losses {losses}; K1 launches a step {per_step}; plain "
+          f"versions called {plain}")
+    print(f"[train] step time (median of steps 2-{len(records)}) "
+          f"{step_ms:.1f} ms, {tok_s:.0f} tok/s, peak memory {peak_gb:.2f} "
+          f"GB | {card}")
+    check(len(records) == TRAIN_SHAPE["steps"], "train: steps missing")
+    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    check(all(p == want for p in per_step),
+          f"train: launches a step {per_step}, expected {want}")
+    check(plain == {"attention_ref": 0, "attention_bwd_ref": 0},
+          f"train: plain versions called {plain}")
+    _embedding_backward_is_deterministic(out)
+    profile_train_step(out)
+    result = {"arch": TRAIN_ARCH, **TRAIN_SHAPE, "losses": losses,
+              "step_ms": [r["step_ms"] for r in records],
+              "step_ms_median": step_ms, "tok_s": tok_s,
+              "peak_memory_gb": peak_gb, "card": card}
+    print("train " + json.dumps(result))
+    del out
+    return {part: sum(p[part] for p in per_step)
+            for part in ("forward", "backward")}
+
+
+def _embedding_backward_is_deterministic(out):
+    """F.embedding's backward (what C.embed takes) gives the same bits
+    twice on a batch of the stream, at the model's vocab and width; the
+    indexing backward it replaced is printed beside it."""
+    import torch.nn.functional as F
+    w = out["params"]["embed"]["tokens"].detach().requires_grad_()
+    toks = torch.from_numpy(out["data"].batch_at(0)["tokens"]).long().cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    g_out = torch.randn((*toks.shape, w.shape[1]), generator=gen,
+                        device="cuda").to(w.dtype)
+    same = {}
+    for name, fn in (("F.embedding", lambda: F.embedding(toks, w)),
+                     ("indexing", lambda: w[toks])):
+        g1, g2 = (torch.autograd.grad(fn(), w, g_out)[0] for _ in range(2))
+        same[name] = torch.equal(g1, g2)
+        del g1, g2
+    print(f"[train] embedding backward, two calls bit-identical: {same} "
+          f"({toks.numel()} tokens, {len(torch.unique(toks))} distinct)")
+    check(same["F.embedding"], "F.embedding's backward is not deterministic")
+
+
+def profile_train_step(out):
+    """One more training step, timed on the host clock, then again under
+    torch.profiler: its kernels by device time, K1's forward and backward
+    kernels, launches and the device-busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import to_device
+    batch = to_device(out["data"].batch_at(TRAIN_SHAPE["steps"]), "cuda")
+    state = [out["params"], out["opt_state"]]
+
+    def step():
+        state[0], state[1], m = out["step_fn"](state[0], state[1], batch)
+        return m
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"[profile] train step: wall {wall_ms:.1f} ms; device time "
+              f"not measured (no CUDA events)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"[profile] train step ({TRAIN_SHAPE['batch']} x "
+          f"{TRAIN_SHAPE['seq']} tokens): wall {wall_ms:.1f} ms, kernels "
+          f"{busy_ms:.1f} ms in {sum(e.count for e in kernels)} launches, "
+          f"device busy {100 * busy_ms / wall_ms:.0f}%")
+    k1 = {}
+    for e in kernels:
+        for part in ("flash_fwd", "bwd_stats", "bwd_dkdv", "bwd_dq"):
+            if part in e.key:
+                ms, cnt = k1.get(part, (0.0, 0))
+                k1[part] = (ms + e.self_device_time_total / 1e3,
+                            cnt + e.count)
+    print(f"[profile]   K1: " + ", ".join(
+        f"{p} {ms:.2f} ms in {c}" for p, (ms, c) in k1.items()))
+    groups = {}
+    for e in kernels:
+        key = next((g for g, marks in TRAIN_KERNEL_GROUPS
+                    if any(m in e.key for m in marks)), "other")
+        ms, cnt = groups.get(key, (0.0, 0))
+        groups[key] = (ms + e.self_device_time_total / 1e3, cnt + e.count)
+    print(f"[profile]   by group: " + ", ".join(
+        f"{g} {ms:.1f} ms in {c}" for g, (ms, c) in sorted(
+            groups.items(), key=lambda kv: -kv[1][0])))
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:10]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
+              f"{e.count:5d}x  {e.key[:90]}")
+
+
+def phase_train_restart():
+    """examples/train_elastic_torch.py on the card: train to RESTART's
+    preempt_at, checkpoint, drop the state, restore (held bit for bit to
+    what was saved), continue, and hold the continued losses to an
+    uninterrupted run of the same seed, bit for bit; eval batches go to
+    rFaaS-leased executors."""
+    import importlib.util
+    path = ROOT / "examples" / "train_elastic_torch.py"
+    spec = importlib.util.spec_from_file_location("train_elastic_torch",
+                                                  path)
+    elastic = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(elastic)
+    res = elastic.train_elastic(device="cuda",
+                                log=lambda line: print(f"[restart] {line}"),
+                                **RESTART)
+    losses, straight = res["losses"], res["straight"]
+    differ = [i for i, (a, b) in enumerate(zip(losses, straight)) if a != b]
+    print(f"[restart] {elastic.make_cfg().n_layers} layers at d_model "
+          f"{elastic.make_cfg().d_model}: restored leaves that differ "
+          f"{res['restored_same_bits']}; losses that differ from the "
+          f"uninterrupted run at steps {differ}; evals {res['evals']}; "
+          f"bill {res['bill']}")
+    check(not res["restored_same_bits"],
+          f"restart: restored leaves differ {res['restored_same_bits']}")
+    check(len(losses) == len(straight) == RESTART["steps"],
+          "restart: steps missing")
+    check(all(math.isfinite(x) for x in losses), "restart: non-finite loss")
+    check(not differ, f"restart: losses differ at steps {differ}")
+    check(res["evals"], "restart: no eval ran on a leased executor")
+    check(res["bill"].invocations > 0, "restart: nothing billed")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1488,6 +1941,20 @@ def main() -> int:
     for arch in DECODE_CUTS:
         free_device_memory("the previous phase")
         phase_decode_vs_prefill(arch, **DECODE_TRAFFIC.get(arch, {}))
+    free_device_memory("the previous phase")
+    bwd = phase_flash_bwd()
+    free_device_memory("the previous phase")
+    k1 = phase_train(card)
+    # kernel launches, as every entry counts them; calls of the backward
+    bwd["launches"] = k1["backward"]
+    bwd["calls"] = k1["backward"] // bwd["kernels_per_call"]
+    bwd["launches_by_path"] = {TRAIN_ARCH: k1["backward"]}
+    entries["flash_attention_bwd"] = bwd
+    flash["launches"] += k1["forward"]
+    flash["launches_by_path"][TRAIN_ARCH] = k1["forward"]
+    flash["launches_by_variant"]["hopper"] += k1["forward"]
+    free_device_memory("the previous phase")
+    phase_train_restart()
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,94 @@
+"""What the backward kernel's checks must be able to see: the plain
+gradient (``ref.attention_bwd_ref``'s formula) with one fault a kernel
+could make, for ``chip_smoke.py`` and the tests to hold against the
+limits.
+
+* "no-delta": dS = P dP, the D = rowsum(dO * o) term dropped;
+* "no-softcap-derivative": the factor 1 - tanh^2(s / c) dropped;
+* "skip-last-tile" / "skip-first-tile": for every 64-row q tile, the
+  last (the causal diagonal's) or the first (the window's edge) of the
+  64-row kv tiles the forward visits skipped in every product, as a tile
+  loop one tile short would.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention.ref import scores
+
+FAULTS = ("no-delta", "no-softcap-derivative", "skip-last-tile",
+          "skip-first-tile")
+TILE = 64    # the kernel's q and kv tile rows
+
+
+def visited_tiles(sq, skv, causal, window, device=None):
+    """(begin, end) of the kv tiles each q row's tile visits (the
+    kernel's ``kv_tile_range``), as (sq,) tensors."""
+    q0 = torch.arange(sq, device=device) // TILE * TILE
+    q_last = torch.clamp(q0 + TILE, max=sq) - 1
+    end = torch.full_like(q0, -(-skv // TILE))
+    if causal:
+        end = torch.minimum(end, q_last // TILE + 1)
+    begin = torch.zeros_like(q0)
+    if window:
+        begin = torch.clamp(q0 - window + 1, min=0) // TILE
+    return begin, end
+
+
+def attention_bwd_faulty(q, k, v, o, do, fault, *, causal=True, window=0,
+                         softcap=0.0):
+    """(dq, dk, dv) of ``attention_bwd_ref`` with ``fault``, in f32."""
+    if fault not in FAULTS:
+        raise ValueError(f"no fault {fault!r}; one of {FAULTS}")
+    scale = 1.0 / math.sqrt(q.shape[3])
+    s, t = scores(q, k, causal=causal, window=window, softcap=softcap)
+    p = torch.softmax(s, dim=-1)
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    d = (dof * o.float()).sum(dim=-1).transpose(1, 2)[..., None]
+    ds = p * dp if fault == "no-delta" else p * (dp - d)
+    if t is not None and fault != "no-softcap-derivative":
+        ds = ds * (1 - t * t)
+    if fault in ("skip-last-tile", "skip-first-tile"):
+        begin, end = visited_tiles(q.shape[1], k.shape[1], causal, window,
+                                   q.device)
+        lost = end - 1 if fault == "skip-last-tile" else begin
+        k_tile = torch.arange(k.shape[1], device=q.device) // TILE
+        keep = k_tile[None, :] != lost[:, None]              # (sq, skv)
+        p, ds = p * keep, ds * keep
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq, dk, dv
+
+
+def bwd_row_scales(q, k, v, o, do, *, causal=True, window=0, softcap=0.0):
+    """Per-row scale of each gradient: the norm of the sum of magnitudes
+    that makes the row, which bounds its rounding error where the value
+    itself does not (dS = P (dP - D) cancels as a row's softmax nears one
+    key).  dq_i: scale sum_j P_ij (|dP_ij| + |D_i|) c_ij |k_j|, with c the
+    softcap factor; dk_j the same over i with |q_i|; dv_j: sum_i P_ij
+    |dO_i|.  Each is at least the row's own norm.  Returns three (b, s,
+    h) tensors, in f32."""
+    scale = 1.0 / math.sqrt(q.shape[3])
+    s, t = scores(q, k, causal=causal, window=window, softcap=softcap)
+    p = torch.softmax(s, dim=-1)
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float()).abs_()
+    d = (dof * o.float()).sum(dim=-1).transpose(1, 2)[..., None].abs()
+    m = p * (dp + d)
+    if t is not None:
+        m = m * (1 - t * t)
+    mq = torch.einsum("bhqk,bkhd->bqhd", m, k.float().abs()) * scale
+    mk = torch.einsum("bhqk,bqhd->bkhd", m, q.float().abs()) * scale
+    mv = torch.einsum("bhqk,bqhd->bkhd", p, dof.abs())
+    return tuple(x.norm(dim=-1) for x in (mq, mk, mv))
+
+
+def grad_row_err(out, ref, row_scale):
+    """Worst ||out - ref|| / row scale over the (b, s, h) rows of one
+    gradient (``bwd_row_scales``)."""
+    err = (out.float() - ref.float()).norm(dim=-1)
+    return (err / row_scale.clamp_min(1e-30)).max().item()

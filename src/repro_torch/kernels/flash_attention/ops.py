@@ -1,22 +1,30 @@
-"""Dispatcher for flash attention: the CUDA kernel for tensors on the
-card, the plain torch version (ref.py) for tensors on the CPU.
+"""Dispatcher for flash attention: the CUDA kernels for tensors on the
+card, the plain torch version (ref.py) for tensors on the CPU, where
+autograd differentiates it.
 
-There is no fallback: a CUDA tensor launches the kernel or raises.  There
-is no backward kernel yet, so a CUDA call that would need a gradient
-raises too.  The kernel has two variants; ``kernel.plan`` picks one
-before launch from dtype, head dim and strides.  ``launches`` counts
-kernel launches and nothing else; ``launches_by_variant`` counts the same
-launches by the variant each took.
+There is no fallback: a CUDA tensor launches the kernel or raises.  A
+CUDA call that needs a gradient goes through ``_FlashAttention``, a
+``torch.autograd.Function`` whose forward launches the forward kernel and
+whose backward launches the backward kernels (``kernel_bwd``); the plain
+gradient (``attention_bwd_ref``) is never taken on the card.  The
+forward kernel has two variants; ``kernel.plan`` picks one before launch
+from dtype, head dim and strides.  ``launches`` counts forward kernel
+launches and nothing else (a layer recomputed under activation
+checkpointing launches again, and counts again); ``launches_by_variant``
+counts the same launches by the variant each took; ``launches_bwd``
+counts backward kernel launches: three a backward call
+(``kernel_bwd.KERNELS``: stats, dK/dV, dQ).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels.flash_attention import kernel, kernel_bwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
 launches_by_variant = dict.fromkeys(kernel.VARIANTS, 0)
+launches_bwd = 0
 
 
 def _check(q, k, v, window):
@@ -46,18 +54,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q (b, sq, h, hd); k/v (b, skv, h, hd) -> (b, sq, h, hd) in q.dtype.
     Same contract as the TPU kernel: the causal mask aligns q and k from
     position 0.  Every row must have a key to attend to: a window with
-    sq > skv + window - 1 raises."""
-    global launches
+    sq > skv + window - 1 raises.  Differentiable on both devices; on the
+    card up to head dim ``kernel_bwd.MAX_HEAD_DIM``."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError("flash attention has no backward kernel "
-                                  "yet; call it under torch.no_grad()")
     if q.dtype not in kernel.DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 q/k/v of one "
@@ -69,10 +73,46 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
                          f"{tuple(q.shape)}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q/k/v must have stride 1")
+    kw = dict(causal=bool(causal), window=int(window),
+              softcap=float(softcap))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q.shape[3] > kernel_bwd.MAX_HEAD_DIM:
+            raise NotImplementedError(
+                f"flash attention's backward kernel takes head dims up to "
+                f"{kernel_bwd.MAX_HEAD_DIM}, not {q.shape[3]}: ROADMAP Queue "
+                f"2, 'K1 backward hd > 128'")
+        return _FlashAttention.apply(q, k, v, kw)
+    return _forward(q, k, v, kw)
+
+
+def _forward(q, k, v, kw):
+    global launches
     variant = kernel.plan(q, k, v)
-    out = kernel.flash_attention_cuda(q, k, v, variant, causal=causal,
-                                      window=int(window),
-                                      softcap=float(softcap))
+    out = kernel.flash_attention_cuda(q, k, v, variant, **kw)
     launches += 1
     launches_by_variant[variant] += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward and backward kernels of one CUDA call.  Saves q, k, v (as
+    the views they are) and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out = _forward(q, k, v, kw)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        global launches_bwd
+        q, k, v, out = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = kernel_bwd.flash_attention_bwd_cuda(q, k, v, out, do,
+                                                         **ctx.kw)
+        launches_bwd += len(kernel_bwd.KERNELS)
+        return dq, dk, dv, None

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 
@@ -26,7 +27,10 @@ def mul_scalar(x, scale):
 
 
 def embed(tokens, p, cfg):
-    x = p["tokens"][tokens.long()]
+    # the reference's jnp.take; F.embedding's CUDA backward sums the rows
+    # of repeated tokens after a sort, with no atomics, so a training step
+    # gives the same bits each time (chip_smoke.py checks it on the card)
+    x = F.embedding(tokens.long(), p["tokens"])
     if cfg.emb_scale != 1.0:
         x = mul_scalar(x, cfg.emb_scale)
     return x
@@ -56,3 +60,16 @@ def index_layer(tree, l):
     """Layer ``l``'s params as views of the stacked tensors."""
     return {k: index_layer(v, l) if isinstance(v, dict) else v[l]
             for k, v in tree.items()}
+
+
+def unstack_layers(tree, n):
+    """Every layer's params as views of the stacked tensors, a list of
+    ``n`` trees.  One ``unbind`` per leaf: its backward stacks the
+    layers' gradients into the stacked leaf once, where ``index_layer``'s
+    views would each add a zero-filled copy of the whole leaf."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = unstack_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+        for l in range(n):
+            out[l][k] = parts[l]
+    return out

@@ -107,7 +107,7 @@ class JambaLM(DecoderLM):
             x = x + o
             h = L.apply_norm(x, {"scale": pp["ln2"]["scale"][j]}, cfg)
             if j in self.moe_js:
-                y = self._moe(h, C.index_layer(pp["moe"], moei))
+                y = self._moe(h, C.index_layer(pp["moe"], moei))[0]
                 moei += 1
             else:
                 y = L.apply_mlp(h, C.index_layer(pp["mlp"], mlpi), cfg.act)
@@ -117,12 +117,18 @@ class JambaLM(DecoderLM):
 
     def _run_layers(self, x, params, positions, cache, length, mode):
         """As ``DecoderLM._run_layers``: "prefill" fills ``cache``,
-        "decode" writes it at ``length``, "train" runs without one."""
+        "decode" writes it at ``length``, "train" runs without one.
+        Returns (x, None): no aux loss until JambaLM trains."""
         for p in range(self.n_periods):
             ce = None if cache is None else C.index_layer(cache, p)
             x = self._period_block(x, C.index_layer(params["periods"], p),
                                    positions, ce, length, mode)
-        return x
+        return x, None
+
+    def loss(self, params, batch):
+        raise NotImplementedError("JambaLM training needs K3's backward "
+                                  "kernel and selective_scan_chunked: "
+                                  "ROADMAP Queue 1 item 6")
 
     # -------------------------------------------------------------- caches
 

@@ -81,8 +81,8 @@ class RWKVLM:
         return L.apply_norm(x, params["ln0"], self.cfg)
 
     def loss(self, params, batch):
-        raise NotImplementedError("training (loss, remat): ROADMAP Queue 1 "
-                                  "item 6")
+        raise NotImplementedError("RWKVLM training needs K2's backward "
+                                  "kernel: ROADMAP Queue 1 item 6")
 
     def prefill(self, params, tokens, max_len, patch_embeds=None):
         """tokens (b, s) -> (last-position logits (b, 1, V), state, s).

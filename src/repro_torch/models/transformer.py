@@ -16,12 +16,21 @@ and is updated in place; with ``window_cache`` on, decode uses it as the
 reference's ring buffer.  A vision prefix (internvl2's patch embeddings)
 goes in front of the prompt's token embeddings.  The FFN of a MoE layer is
 ``models/moe.py::apply_moe`` on one device (the reference's
-``not dist.active`` branch); its aux loss is computed and dropped, since
-nothing here trains.
+``not dist.active`` branch), and its aux loss joins the training loss.
+
+``loss`` is the reference's: next-token cross entropy plus the MoE aux
+loss, each layer under activation checkpointing (the reference's
+``jax.checkpoint`` of the scanned layer; ``remat_policy`` None recomputes
+the whole layer in the backward, "dots" keeps the outputs of its matrix
+products).  Its attention gradient comes from K1's backward kernel on the
+card.  Params stay stacked: each step takes every layer's views with one
+``unbind`` per leaf, so the gradients land in the stacked leaves (the
+stacked norm scales are matrices to AdamW's decay, as in the reference).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -68,6 +77,7 @@ class DecoderLM:
         # right only for a cache of exactly the window's slots and a
         # prompt no longer than that
         self.window_cache = False
+        self.remat_policy = None      # None | "dots" (checkpoint policy)
 
     # ------------------------------------------------------------------ init
 
@@ -144,15 +154,18 @@ class DecoderLM:
         return o.reshape(x.shape[0], 1, -1) @ ap["wo"]
 
     def _moe(self, x, mp):
-        return M.apply_moe(x, mp, self.cfg, router_mode=self.router_mode)[0]
+        """(y, aux loss)."""
+        return M.apply_moe(x, mp, self.cfg, router_mode=self.router_mode)
 
     def _ffn(self, x, fp):
+        """(y, aux loss): the MoE's, or None for a dense MLP."""
         if self.cfg.moe is not None:
             return self._moe(x, fp)
-        return L.apply_mlp(x, fp, self.cfg.act)
+        return L.apply_mlp(x, fp, self.cfg.act), None
 
     def _layer(self, x, lp, win, theta, positions, cache_entry, length,
                mode):
+        """(x, aux loss) after one layer."""
         cfg = self.cfg
         h = L.apply_norm(x, lp["ln1"], cfg)
         if mode == "decode":
@@ -163,24 +176,71 @@ class DecoderLM:
                                         positions, cache_entry)
         x = x + C.mul_scalar(attn, self.residual_scale)
         h = L.apply_norm(x, lp["ln2"], cfg)
-        return x + C.mul_scalar(self._ffn(h, lp["ffn"]), self.residual_scale)
+        ffn, aux = self._ffn(h, lp["ffn"])
+        return x + C.mul_scalar(ffn, self.residual_scale), aux
 
     # ------------------------------------------------------------- forwards
 
-    def _run_layers(self, x, params, positions, cache, length, mode):
-        """mode "prefill" fills ``cache`` from position 0, "decode" writes
-        it at ``length``, "train" runs without a cache (cache None)."""
+    def _run_layers(self, x, params, positions, cache, length, mode,
+                    remat=False):
+        """(x, aux) after every layer.  mode "prefill" fills ``cache``
+        from position 0, "decode" writes it at ``length``, "train" runs
+        without a cache (cache None) and sums the layers' MoE aux losses
+        into ``aux`` (0 for a dense model; None in the other modes, where
+        nothing reads it).  With ``remat`` ("train" only) each layer runs
+        under activation checkpointing with ``remat_policy``."""
         win, theta = layer_scalars(self.cfg)
-        for l in range(self.cfg.n_layers):
+        layers = C.unstack_layers(params["layers"], self.cfg.n_layers)
+        aux = x.new_zeros((), dtype=torch.float32) if mode == "train" \
+            else None
+        for l, lp in enumerate(layers):
             ce = None if cache is None else {"k": cache["k"][l],
                                              "v": cache["v"][l]}
-            x = self._layer(x, C.index_layer(params["layers"], l), win[l],
-                            theta[l], positions, ce, length, mode)
-        return x
+            args = (x, lp, win[l], theta[l], positions, ce, length, mode)
+            if remat:
+                # no layer draws random numbers: no RNG state to keep
+                x, a = ckpt.checkpoint(self._layer, *args,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False,
+                                       context_fn=self._remat_context)
+            else:
+                x, a = self._layer(*args)
+            if aux is not None and a is not None:
+                aux = aux + a
+        return x, aux
+
+    def _remat_context(self):
+        """What a checkpointed layer keeps: nothing (policy None: the
+        whole layer is recomputed in the backward), or with "dots" the
+        outputs of its matrix products, as jax's ``checkpoint_dots``."""
+        if self.remat_policy is None:
+            return ckpt.noop_context_fn()
+        if self.remat_policy != "dots":
+            raise ValueError(f"remat_policy {self.remat_policy!r}: None or "
+                             f"'dots'")
+        return ckpt.create_selective_checkpoint_contexts(_save_dots)
 
     def loss(self, params, batch):
-        raise NotImplementedError("training (loss, remat): ROADMAP Queue 1 "
-                                  "item 6")
+        """batch: tokens (b, s), labels (b, s), optional loss_mask (b, s),
+        optional patch_embeds (b, P, d).  Returns (xent + aux, {"xent",
+        "aux_loss"}), every layer under activation checkpointing."""
+        cfg = self.cfg
+        patches = batch.get("patch_embeds")
+        x = self._embed_inputs(params, batch["tokens"], patches)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x, aux = self._run_layers(x, params, positions, None, None,
+                                  "train", remat=True)
+        x = L.apply_norm(x, params["final_norm"], cfg)
+        if patches is not None:
+            x = x[:, patches.shape[1]:]
+        logits = C.lm_logits(x, params["embed"], cfg)
+        # The reference's next_token_loss: its one-hot einsum picks exactly
+        # logits[label] (every other term of the sum is +-0), so
+        # softmax_xent's gather gives the same bits without the (b, s, V)
+        # one-hot.
+        xent = L.softmax_xent(logits, batch["labels"],
+                              batch.get("loss_mask"))
+        return xent + aux, {"xent": xent, "aux_loss": aux}
 
     def _embed_inputs(self, params, tokens, patch_embeds=None):
         """Token embeddings, with ``patch_embeds`` (b, P, d) in front."""
@@ -197,7 +257,8 @@ class DecoderLM:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         cache = self.init_cache(tokens.shape[0], max_len, x.device,
                                 extra=x.shape[1] - tokens.shape[1])
-        x = self._run_layers(x, params, positions, cache, None, "prefill")
+        x = self._run_layers(x, params, positions, cache, None,
+                             "prefill")[0]
         x = L.apply_norm(x[:, -1:], params["final_norm"], self.cfg)
         logits = C.lm_logits(x, params["embed"], self.cfg)
         return logits, cache, positions.shape[1]
@@ -207,7 +268,7 @@ class DecoderLM:
         Python int).  Writes the cache in place and returns (logits
         (b, 1, V), cache, length + 1)."""
         x = self._embed_inputs(params, tokens)
-        x = self._run_layers(x, params, None, cache, length, "decode")
+        x = self._run_layers(x, params, None, cache, length, "decode")[0]
         x = L.apply_norm(x, params["final_norm"], self.cfg)
         logits = C.lm_logits(x, params["embed"], self.cfg)
         return logits, cache, length + 1
@@ -222,3 +283,13 @@ class DecoderLM:
                  cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=device)}
+
+
+# the matrix products whose outputs remat_policy "dots" keeps
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)

@@ -265,3 +265,158 @@ def test_cuda_call_needs_a_known_variant():
     with pytest.raises(ValueError, match="no flash attention variant"):
         tK.flash_attention_cuda(tq, tk, tv, "fastest")
     assert tK.library.cache_info().currsize == 0
+
+
+# ------------------------------------------------ the backward (plain)
+
+from jax import grad as jax_grad  # noqa: E402
+
+from repro_torch.kernels.flash_attention import checks as tchecks  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel_bwd as tKB  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    attention_bwd_ref  # noqa: E402
+
+# (b, sq, skv, h, hd), causal, window, softcap: the forward grid's kinds,
+# a ragged sq != skv without the causal mask, hd 12 (minicpm smoke) and
+# 120 (h2o-danube-3-4b)
+BWD_GRID = [
+    ((1, 64, 64, 2, 64), True, 0, 0.0),
+    ((2, 100, 100, 3, 32), True, 16, 0.0),
+    ((1, 96, 96, 2, 16), True, 0, 30.0),
+    ((1, 48, 80, 2, 16), False, 0, 0.0),
+    ((2, 70, 70, 2, 12), True, 0, 0.0),
+    ((1, 130, 130, 1, 120), True, 64, 0.0),
+]
+BWD_TOL = dict(rtol=1e-5, atol=1e-5)   # f32, both sides f32 products
+
+
+def bwd_inputs(shape, seed=2):
+    """q, k, v, do ~ U(-1, 1) as f64 numpy, then f32 tensors."""
+    b, sq, skv, h, hd = shape
+    rng = np.random.default_rng(seed)
+    arrs = [rng.uniform(-1, 1, s).astype(np.float32) for s in
+            ((b, sq, h, hd), (b, skv, h, hd), (b, skv, h, hd),
+             (b, sq, h, hd))]
+    return arrs, [torch.from_numpy(a) for a in arrs]
+
+
+@pytest.mark.parametrize("shape,causal,window,softcap", BWD_GRID)
+def test_bwd_ref_matches_autograd(shape, causal, window, softcap):
+    """The explicit formula equals autograd through attention_ref."""
+    _, (q, k, v, do) = bwd_inputs(shape)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    o = attention_ref(q, k, v, **kw)
+    o.backward(do)
+    got = attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(),
+                            do, **kw)
+    for g, t in zip(got, (q, k, v)):
+        torch.testing.assert_close(g, t.grad, **BWD_TOL)
+
+
+@pytest.mark.parametrize("shape,causal,window,softcap",
+                         [c for c in BWD_GRID if c[0][1] == c[0][2]])
+def test_bwd_ref_matches_jax_grad_of_the_twin(shape, causal, window,
+                                              softcap):
+    """The gradient the reference trains through: jax.grad of the jnp
+    twin (models/attention.py::flash_attention), contracted with the same
+    dO; sq == skv, where the twin's causal alignment is K1's."""
+    (jq, jk, jv, jdo), (q, k, v, do) = bwd_inputs(shape)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+
+    def f(a, b, c):
+        return jnp.sum(jA.flash_attention(a, b, c, block_kv=32, **kw) * jdo)
+
+    want = jax_grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (jq, jk, jv)))
+    o = attention_ref(q, k, v, **kw)
+    got = attention_bwd_ref(q, k, v, o, do, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
+
+
+def test_bwd_faults_exceed_the_limits():
+    """Each fault chip_smoke.py holds the kernel against moves the
+    gradient far past the f32 limit."""
+    shape = (1, 160, 160, 2, 16)
+    _, (q, k, v, do) = bwd_inputs(shape, seed=5)
+    q, k = q * 4, k * 4            # scores past the softcap's linear range
+    for fault, kw in (("no-delta", {}),
+                      ("no-softcap-derivative", dict(softcap=2.0)),
+                      ("skip-last-tile", {}),
+                      ("skip-first-tile", dict(window=70))):
+        kw = dict(dict(causal=True, window=0, softcap=0.0), **kw)
+        o = attention_ref(q, k, v, **kw)
+        good = attention_bwd_ref(q, k, v, o, do, **kw)
+        bad = tchecks.attention_bwd_faulty(q, k, v, o, do, fault, **kw)
+        scales = tchecks.bwd_row_scales(q, k, v, o, do, **kw)
+        worst = max(tchecks.grad_row_err(b, g, m)
+                    for b, g, m in zip(bad, good, scales))
+        assert worst > 0.1, (fault, worst)
+
+
+@pytest.mark.parametrize("shape,causal,window,softcap", BWD_GRID)
+def test_bwd_row_scales_bound_the_rows(shape, causal, window, softcap):
+    """Each gradient row's scale is at least the row's norm (up to the
+    f32 rounding of the scale itself), and the plain version in f32 stays
+    within 1e-5 of each scale from the same formula in f64."""
+    _, (q, k, v, do) = bwd_inputs(shape, seed=7)
+    q, k = q * 4, k * 4                    # peaked rows, as on the card
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o = attention_ref(q, k, v, **kw)
+    got = attention_bwd_ref(q, k, v, o, do, **kw)
+    scales = tchecks.bwd_row_scales(q, k, v, o, do, **kw)
+    want = _bwd_f64(q, k, v, o, do, **kw)
+    for g, w, m in zip(got, want, scales):
+        assert (m >= w.norm(dim=-1) * (1 - 1e-4)).all()
+        assert tchecks.grad_row_err(g, w, m) <= 1e-5
+
+
+def _bwd_f64(q, k, v, o, do, *, causal, window, softcap):
+    """attention_bwd_ref's formula in f64."""
+    q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
+    sq, skv, hd = q.shape[1], k.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(hd)
+    t = torch.tanh(s / softcap) if softcap else None
+    if softcap:
+        s = t * softcap
+    i = torch.arange(sq)[:, None]
+    j = torch.arange(skv)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        mask &= i >= j
+    if window:
+        mask &= i - j < window
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - (do * o).sum(-1).transpose(1, 2)[..., None])
+    if softcap:
+        ds = ds * (1 - t * t)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k) / np.sqrt(hd),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q) / np.sqrt(hd),
+            torch.einsum("bhqk,bqhd->bkhd", p, do))
+
+
+def test_visited_tiles_mirror_the_kernel():
+    """checks.visited_tiles is the .cu's kv_tile_range."""
+    begin, end = tchecks.visited_tiles(200, 200, True, 70)
+    assert (begin[:64] == 0).all() and (end[:64] == 1).all()
+    assert begin[130].item() == (128 - 70 + 1) // 64 and end[130] == 3
+    src = tKB.SOURCE.read_text()
+    assert "constexpr int BQ = 64;" in src and tchecks.TILE == 64
+    assert "if (lo > 0) kt_begin = lo / BK;" in src
+
+
+def test_bwd_build_is_its_own_library_and_lazy():
+    path = tKB.SOURCE
+    assert path.name == "flash_attention_bwd.cu" and path != tK.SOURCE
+    assert tKB.library.cache_info().currsize == 0
+    assert tKB.MAX_HEAD_DIM == 128
+
+
+def test_bwd_cuda_rejects_what_it_does_not_take():
+    """The backward's wrapper checks device, dtype, shapes and head dim
+    before it builds or launches anything."""
+    _, (q, k, v, do) = bwd_inputs((1, 16, 16, 1, 16))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tKB.flash_attention_bwd_cuda(q, k, v, q, do)
+    assert tKB.library.cache_info().currsize == 0

@@ -1,7 +1,8 @@
-"""The port on the card: the CUDA flash attention (K1), WKV6 (K2) and
-selective scan (K3) kernels against their plain versions, the
-dispatchers' rules for CUDA tensors, and DecoderLM, RWKVLM and JambaLM
-prefill through the kernels against the same models on the CPU.
+"""The port on the card: the CUDA flash attention (K1, forward and
+backward), WKV6 (K2) and selective scan (K3) kernels against their plain
+versions, the dispatchers' rules for CUDA tensors, DecoderLM, RWKVLM and
+JambaLM prefill through the kernels against the same models on the CPU,
+and DecoderLM's loss, gradients and train step on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  On a machine
 with a card, from the repository root:
@@ -12,14 +13,20 @@ This file imports no JAX, so it also runs where JAX is not installed.
 """
 from __future__ import annotations
 
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    checks as flash_checks  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_ref)
 from repro_torch.kernels.mamba_scan import checks as scan_checks  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
@@ -141,12 +148,22 @@ def test_kernel_matches_plain(cuda, shape, causal, window, softcap, strided,
 
 
 def test_cuda_grad_raises(cuda):
-    q, k, v = _qkv(1, 16, 16, 1, 16, torch.float32)
+    """A gradient the backward kernel does not take (head dim past 128)
+    raises before any launch; one it takes launches the backward kernel
+    and counts its three kernels."""
+    q, k, v = _qkv(1, 16, 16, 1, 256, torch.float32)
     q.requires_grad_(True)
+    before = (ops.launches, ops.launches_bwd)
     with pytest.raises(NotImplementedError, match="backward"):
         ops.flash_attention(q, k, v)
+    assert (ops.launches, ops.launches_bwd) == before
     with torch.no_grad():
         ops.flash_attention(q, k, v)
+    q, k, v = _qkv(1, 16, 16, 1, 16, torch.float32)
+    q.requires_grad_(True)
+    ops.flash_attention(q, k, v).sum().backward()
+    assert ops.launches_bwd == before[1] + len(kernel_bwd.KERNELS)
+    assert q.grad is not None
 
 
 def test_cuda_rejects_rows_without_a_key(cuda):
@@ -589,3 +606,99 @@ def test_moe_bf16_expert_products_write_f32_on_the_card(cuda):
         got, _ = M.apply_moe(x.to(cuda), _to(p, cuda), cfg)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
+
+
+# ------------------------------------------------ K1's backward, training
+
+# (b, sq, skv, h, hd), causal, window, softcap, strided; each in f32 and
+# in bf16: hd 12 (minicpm smoke), 16, 64, 120 (danube) and 128, a window,
+# a softcap, sq != skv without the causal mask, a (b, h, s, hd) storage
+BWD_CASES = [
+    ((2, 100, 100, 6, 12), True, 0, 0.0, False),
+    ((2, 130, 130, 4, 16), True, 16, 0.0, True),
+    ((1, 257, 257, 4, 64), True, 64, 0.0, False),
+    ((1, 64, 192, 2, 64), False, 0, 0.0, False),
+    ((2, 200, 200, 4, 128), True, 0, 0.0, False),
+    ((1, 300, 300, 2, 120), True, 100, 0.0, False),
+    ((1, 96, 96, 2, 64), True, 0, 30.0, False),
+    ((1, 1, 1, 1, 32), True, 0, 0.0, False),
+]
+@pytest.mark.parametrize("shape,causal,window,softcap,strided,dtype", [
+    pytest.param(*case, dtype, id=f"bwd{i}-{name}")
+    for i, case in enumerate(BWD_CASES)
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))])
+def test_bwd_kernel_matches_plain(cuda, shape, causal, window, softcap,
+                                  strided, dtype):
+    """dq, dk, dv of the backward kernel against attention_bwd_ref on f32
+    copies, row by row at the forward's limits against each row's scale
+    (checks.bwd_row_scales, as chip_smoke.py); two calls bit-identical."""
+    q, k, v = _qkv(*shape, dtype, strided=strided, seed=3)
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device="cuda").manual_seed(4), device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v, **kw)
+        got = kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        again = kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        f32 = [t.float() for t in (q, k, v, o, do)]
+        ref = attention_bwd_ref(*f32, **kw)
+        scales = flash_checks.bwd_row_scales(*f32, **kw)
+    for a, b, r, m, t in zip(got, again, ref, scales, (q, k, v)):
+        assert a.shape == t.shape and a.dtype == dtype
+        assert torch.equal(a, b)
+        assert flash_checks.grad_row_err(a, r, m) <= ROW_TOL[dtype]
+
+
+def test_autograd_uses_the_backward_kernel(cuda):
+    """Through ops.flash_attention with gradients: the Function launches
+    the forward kernel once and the backward's three kernels once each,
+    and q/k/v's grads are the backward kernel's."""
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 150, 150, 4, 64,
+                                                 torch.bfloat16, seed=5))
+    before = (ops.launches, ops.launches_bwd)
+    o = ops.flash_attention(q, k, v)
+    do = torch.randn_like(o)
+    o.backward(do)
+    assert (ops.launches, ops.launches_bwd) == (
+        before[0] + 1, before[1] + len(kernel_bwd.KERNELS))
+    want = kernel_bwd.flash_attention_bwd_cuda(q.detach(), k.detach(),
+                                               v.detach(), o.detach(), do)
+    for t, w in zip((q, k, v), want):
+        assert torch.equal(t.grad, w)
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mistral-nemo-12b",
+                                  "h2o-danube-3-4b"])
+def test_loss_and_grads_on_the_card_match_cpu(cuda, arch):
+    """DecoderLM.loss and its gradients in f32 on the card (K1 forward and
+    backward kernels, remat) equal the CPU's (plain attention): loss 1e-4,
+    each gradient leaf within 1e-3 of its largest |g| (every product and
+    reduction sums in another order)."""
+    from repro_torch.training.step import value_and_grad
+    cfg = get_smoke(arch).replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=rng)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want = value_and_grad(model, params, batch)
+    before = (ops.launches, ops.launches_bwd)
+    got = value_and_grad(model, _to(params, cuda), _to(batch, cuda))
+    n = cfg.n_layers
+    assert (ops.launches - before[0], ops.launches_bwd - before[1]) == (
+        2 * n, len(kernel_bwd.KERNELS) * n)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    from repro_torch import tree as T
+    for (path, g), w in zip(T.flatten(got[2]), T.leaves(want[2])):
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-3 * w.abs().max().item(), path
+
+
+def test_train_launcher_on_the_card(cuda):
+    """The launcher's smoke run on the card: finite losses that fall."""
+    from repro_torch.launch import train as launch_train
+    out = launch_train.run(get_smoke("minicpm-2b"), steps=12, batch=4,
+                           seq=64, device="cuda", log=lambda *a: None)
+    losses = [r["loss"] for r in out["records"]]
+    assert len(losses) == 12 and all(map(math.isfinite, losses))
+    assert min(losses[-3:]) < max(losses[:3])

@@ -50,7 +50,11 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.models.factory, repro_torch.bridge, "
             "repro_torch.kernels.mamba_scan.checks, "
-            "repro_torch.kernels.rwkv6.checks; "
+            "repro_torch.kernels.rwkv6.checks, "
+            "repro_torch.kernels.flash_attention.checks, "
+            "repro_torch.optim, repro_torch.training.step, "
+            "repro_torch.checkpointing, repro_torch.data, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -588,7 +588,7 @@ def full_logits(model, params, toks):
     from repro_torch.models import layers as tL
     x = tC.embed(toks, params["embed"], model.cfg)
     pos = torch.arange(x.shape[1])[None, :]
-    x = model._run_layers(x, params, pos, None, None, "train")
+    x = model._run_layers(x, params, pos, None, None, "train")[0]
     x = tL.apply_norm(x, params["final_norm"], model.cfg)
     return tC.lm_logits(x, params["embed"], model.cfg)
 

@@ -146,7 +146,7 @@ def full_logits(model, params, toks, patch_embeds=None):
     """Logits at every token position from one cache-free forward."""
     x = model._embed_inputs(params, toks, patch_embeds)
     pos = torch.arange(x.shape[1])[None, :]
-    x = model._run_layers(x, params, pos, None, None, "train")
+    x = model._run_layers(x, params, pos, None, None, "train")[0]
     x = tL.apply_norm(x[:, x.shape[1] - toks.shape[1]:],
                       params["final_norm"], model.cfg)
     return tC.lm_logits(x, params["embed"], model.cfg)
