@@ -72,20 +72,29 @@ non-zero and prints no result:
    patch embeddings in front of the prompt;
 6. K1's backward (flash_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.flash_attention, whose backward
-   launches the kernel) against attention_bwd_ref on f32 copies at the
-   training shape (4, 2048, 36, 64) bf16 causal and at hd
-   128, hd 120 with a window, a softcap, f32, sq != skv without the causal
-   mask, a strided storage and an expanded GQA view; two calls bit for
-   bit; a backward with D dropped, the softcap derivative dropped, or a
-   kv tile skipped shown to fail the checks; timed at the training shape
-   beside its bound and SDPA's backward;
+   launches the kernels of the route kernel_bwd.plan picks) against
+   attention_bwd_ref on f32 copies at the training shape (4, 2048, 36,
+   64) bf16 causal and at hd 128, hd 120 with a window, a softcap, f32,
+   sq != skv without the causal mask, a strided storage, an expanded GQA
+   view, hd 64 with a window and a softcap, hd 128 with sq != skv, and sq
+   = 1000 (ragged TMA boxes); each case checked for its route ("hopper":
+   the forward's LSE, preprocess, dK/dV, dQ on TMA and wgmma; "general":
+   stats, dK/dV, dQ on mma.sync); two calls bit for bit; a backward with
+   D dropped, the softcap derivative dropped, a kv tile skipped, the LSE
+   of the neighbouring row, the LSE in log2 units, or a Q/dO ring stage read
+   one tile stale shown to fail the checks; at the training shape and at
+   hd 128, timed in turns: the Hopper backward (each kernel alone and the
+   whole call), the general one as the yardstick, SDPA's backward, and
+   K1's forward with and without the LSE, beside the bound;
 7. train: minicpm-2b at full width and depth (40 layers, d_model 2304,
    2.72 B params), bf16, through repro_torch.launch.train: 6 steps of 4 x
    2048 tokens with WSD, every loss finite, K1 80 forward launches and
-   40 backward calls (120 kernel launches: stats, dK/dV, dQ) a step
-   (counts set to 0 before each step, read after it), no
-   plain version called; F.embedding's backward bit for bit twice; one
-   step profiled;
+   40 backward calls (120 kernel launches: preprocess, dK/dV, dQ) a step,
+   all on the "hopper" route (counts set to 0 before each step, read
+   after it), no plain version called; F.embedding's backward bit for bit
+   twice; one step profiled, with no stats kernel in it; then a 2-layer
+   cut of minicpm-2b at full width, whose gradients under remat policy
+   None and "dots" equal those without remat, bit for bit;
 8. train_restart: examples/train_elastic_torch.py (4 layers at d_model
    128): train, checkpoint, drop, restore bit for bit, continue, and hold
    the losses to an uninterrupted run bit for bit, eval batches on
@@ -597,19 +606,28 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                 plain):
     """Times K1 through the kernel module (no launch counted): both
     variants in turns (general, hopper, hopper, general) where ``plan``
-    takes the Hopper one, else the general one twice; SDPA on the same
-    inputs (with a boolean band mask for a window); and the plain
-    version.  Prints them beside the bound and returns the kernels-line
-    numbers (``ms`` is that of ``variant``, the one the dispatcher
-    takes)."""
+    takes the Hopper one, else the general one twice; where it takes the
+    Hopper one, its serving instantiation against its training mode (the
+    LSE written; without, with, with, without); SDPA on the same inputs
+    (with a boolean band mask for a window); and the plain version.
+    Prints them beside the bound and returns the kernels-line numbers
+    (``ms`` is that of ``variant``, the one the dispatcher takes)."""
     order = (("general", "hopper", "hopper", "general")
              if variant == "hopper" else ("general", "general"))
-    turns = []
+    turns, lse_turns = [], []
     with torch.inference_mode():
         for vt in order:
             turns.append((vt, time_ms(
                 lambda: flash_kernel.flash_attention_cuda(q, k, v, vt,
                                                           **kw))))
+        if variant == "hopper":
+            lse = flash_kernel.lse_buffer(q)
+            for with_lse in (False, True, True, False):
+                lse_turns.append((with_lse, time_ms(
+                    lambda: flash_kernel.flash_attention_cuda(
+                        q, k, v, "hopper", lse=lse if with_lse else None,
+                        **kw))))
+            del lse
         qt, kt, vt_ = (t.transpose(1, 2) for t in (q, k, v))
         if kw["window"]:
             i = torch.arange(q.shape[1], device=q.device)[:, None]
@@ -630,6 +648,14 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
     ratio = ("" if len(ms_by_variant) == 1 else
              f", general / hopper "
              f"{ms_by_variant['general'] / ms_by_variant['hopper']:.2f}")
+    lse_ms = {("with_lse" if u else "without_lse"):
+              float(np.mean([t for w, t in lse_turns if w == u]))
+              for u in (False, True)} if lse_turns else None
+    if lse_ms:
+        print(f"[kernels] flash_attention {name}: hopper without / with the "
+              f"LSE in turns {', '.join(f'{t:.4f}' for _, t in lse_turns)} "
+              f"ms; with / without "
+              f"{lse_ms['with_lse'] / lse_ms['without_lse']:.3f}")
     print(f"[kernels] flash_attention {name}: in turns "
           f"{', '.join(f'{u} {t:.4f}' for u, t in turns)} ms; "
           f"{', '.join(f'{u} {t:.4f} ms' for u, t in ms_by_variant.items())}"
@@ -638,7 +664,8 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
           f"{variant} / bound {ms / bound_ms:.2f}{ratio}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "ms_by_variant": ms_by_variant, "ms_turns": turns}
+            "ms_by_variant": ms_by_variant, "ms_turns": turns,
+            **({"hopper_ms_by_lse": lse_ms} if lse_ms else {})}
 
 
 # WKV6 (K2): inputs and limits from repro_torch.kernels.rwkv6.checks.
@@ -1459,33 +1486,45 @@ def phase_decode_vs_prefill(arch, prompt=6, steps=5, patches=0, ring=False):
 # ------------------------------------------------ K1's backward, training
 
 # name, (b, sq, skv, h, hd), dtype, causal, window, softcap, q/k scale,
-# layout; the first is the training shape (minicpm-2b, batch 4 x 2048)
+# layout, the route kernel_bwd.plan must pick; the first is the training
+# shape (minicpm-2b, batch 4 x 2048)
 BWD_CASES = [
     ("training", (4, 2048, 2048, 36, 64), torch.bfloat16, True, 0, 0.0,
-     2.0, "plain"),
+     2.0, "plain", "hopper"),
     ("hd128", (2, 1024, 1024, 32, 128), torch.bfloat16, True, 0, 0.0, 2.0,
-     "plain"),
+     "plain", "hopper"),
     ("hd120-window256", (2, 1024, 1024, 32, 120), torch.bfloat16, True, 256,
-     0.0, 2.0, "plain"),
+     0.0, 2.0, "plain", "general"),
     # q, k ~ N(0, 36): scores of standard deviation 36 against the cap 50,
     # where tanh's derivative (1 - t^2) is far from 1
     ("softcap-50", (2, 512, 512, 8, 64), torch.bfloat16, True, 0, 50.0,
-     6.0, "plain"),
+     6.0, "plain", "hopper"),
     ("f32-hd64", (2, 512, 512, 8, 64), torch.float32, True, 0, 0.0, 2.0,
-     "plain"),
+     "plain", "general"),
     ("ragged-noncausal", (2, 300, 500, 4, 64), torch.bfloat16, False, 0,
-     0.0, 2.0, "plain"),
+     0.0, 2.0, "plain", "hopper"),
+    # (b, h, s, hd) storage seen as (b, s, h, hd): TMA reads it
     ("strided", (2, 700, 700, 8, 64), torch.bfloat16, True, 0, 0.0, 2.0,
-     "strided"),
+     "strided", "hopper"),
     # k and v one KV head seen as all 32 (stride 0 over heads): an
-    # expanded GQA view, read with no copy
+    # expanded GQA view, read with no copy (TMA takes the stride 0)
     ("gqa-view", (2, 1024, 1024, 32, 64), torch.bfloat16, True, 0, 0.0, 2.0,
-     "gqa-view"),
+     "gqa-view", "hopper"),
+    ("window256-softcap30", (2, 1024, 1024, 8, 64), torch.bfloat16, True,
+     256, 30.0, 6.0, "plain", "hopper"),
+    ("noncausal-hd128", (2, 300, 500, 4, 128), torch.bfloat16, False, 0,
+     0.0, 2.0, "plain", "hopper"),
+    # sq not a multiple of a tile: the last Q/dO boxes run past sq
+    ("ragged-1000", (2, 1000, 1000, 8, 64), torch.bfloat16, True, 0, 0.0,
+     2.0, "plain", "hopper"),
 ]
 # the fault each case also shows the checks can see (checks.FAULTS)
-BWD_FAULTS = {"training": ("no-delta", "skip-last-tile"),
+BWD_FAULTS = {"training": ("no-delta", "skip-last-tile", "lse-neighbour-row",
+                           "lse-log2", "stale-q-stage"),
               "softcap-50": ("no-softcap-derivative",),
               "hd120-window256": ("skip-first-tile",)}
+# the cases timed in turns (the training shape is the kernels line's)
+TIMED_BWD_CASES = ("training", "hd128")
 # A gradient row's error is measured against the row's scale
 # (checks.bwd_row_scales: the norm of the sum of magnitudes that makes the
 # row), held to ROW_TOL.  dS = P (dP - D) cancels as a row's softmax nears
@@ -1499,12 +1538,18 @@ TRAIN_SHAPE = dict(batch=4, seq=2048, steps=6)
 # K1 launches a layer in a training step of a dense decoder: the forward
 # kernel twice (the forward and its recompute under activation
 # checkpointing), the backward once, which launches its three kernels
-# (kernel_bwd.KERNELS)
+# (kernel_bwd.KERNELS["hopper"]: preprocess, dK/dV, dQ)
 TRAIN_K1 = {"forward": 2, "backward": 3}
+# the remat check's cut of TRAIN_ARCH, every width as published, and its
+# batch
+REMAT_CUT = dict(n_layers=2)
+REMAT_SHAPE = dict(batch=2, seq=1024)
 RESTART = dict(steps=40, preempt_at=20, ckpt_every=10)
 # kernel-name fragments of the groups a training step's time is summed in
+K1_KERNEL_PARTS = ("flash_fwd", "bwd_preprocess", "bwd_stats", "bwd_dkdv",
+                   "bwd_dq")
 TRAIN_KERNEL_GROUPS = (
-    ("K1", ("flash_fwd", "bwd_stats", "bwd_dkdv", "bwd_dq")),
+    ("K1", K1_KERNEL_PARTS),
     ("GEMM", ("nvjet", "gemm", "cutlass", "cublas", "sm90_xmma")),
     ("reductions", ("reduce_kernel", "softmax", "LogSumExp", "cunn_")),
     ("copies and casts", ("copy_kernel", "CatArrayBatchedCopy")),
@@ -1558,26 +1603,31 @@ def bwd_bound(shape, dtype, causal, window):
 def phase_flash_bwd():
     """K1's backward, each case: the gradients of the training path's
     entry (torch.autograd.grad through ops.flash_attention, whose
-    backward is the kernel) against attention_bwd_ref on f32 copies, row
-    by row, two calls bit for bit; faults that must land past the limits;
-    at the training shape the kernel called directly for the timings.
-    Returns the kernels-line entry."""
+    backward launches the kernels of the route kernel_bwd.plan picks)
+    against attention_bwd_ref on f32 copies, row by row, two calls bit
+    for bit, the route checked; faults that must land past the limits;
+    at ``TIMED_BWD_CASES`` the kernels called directly for the timings.
+    Returns the kernels-line entry (the training shape's numbers)."""
     from repro_torch.kernels.flash_attention import checks
     from repro_torch.kernels.flash_attention import kernel_bwd
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    entry = None
+    entry, timed = None, {}
     for (name, shape, dtype, causal, window, softcap, qk_scale,
-         layout) in BWD_CASES:
+         layout, route) in BWD_CASES:
         q, k, v, do = _bwd_inputs(shape, dtype, qk_scale, layout, gen)
         kw = dict(causal=causal, window=window, softcap=softcap)
-        before = flash_ops.launches_bwd
+        before = dict(flash_ops.launches_bwd_by_variant)
         o, got = _flash_grads(flash_ops, q, k, v, do, kw)
         again = _flash_grads(flash_ops, q, k, v, do, kw)[1]
         torch.cuda.synchronize()
-        check(flash_ops.launches_bwd - before == 2 * len(kernel_bwd.KERNELS),
-              f"flash_bwd {name}: the backward kernel did not launch")
+        took = {vt: n - before[vt]
+                for vt, n in flash_ops.launches_bwd_by_variant.items()}
+        want = {vt: 2 * len(kernel_bwd.KERNELS[vt]) if vt == route else 0
+                for vt in kernel_bwd.VARIANTS}
+        check(took == want, f"flash_bwd {name}: kernel launches by route "
+                            f"{took}, expected {want}")
         with torch.no_grad():
             f32 = [t.float() for t in (q, k, v, o, do)]
             ref = attention_bwd_ref(*f32, **kw)
@@ -1591,7 +1641,7 @@ def phase_flash_bwd():
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         print(f"[flash_bwd] {name} {tuple(shape)} {str(dtype)[6:]} "
               f"causal={causal} window={window} softcap={softcap} "
-              f"{layout}: worst row rel err "
+              f"{layout}, route {route}: worst row rel err "
               f"{', '.join(f'{g} {e:.3e}' for g, e in errs.items())} (limit "
               f"{rtol:g}, against each row's scale; against its norm "
               f"{raw:.3e}), max_abs_err {max_abs:.3e}; two calls "
@@ -1609,6 +1659,12 @@ def phase_flash_bwd():
                   f"row rel err {worst:.3e} (limit {rtol:g})")
             check(worst > 10 * rtol, f"flash_bwd {name}: {fault} gives only "
                                      f"{worst:.3e}: the check cannot see it")
+        del f32, ref, scales
+        torch.cuda.empty_cache()
+        if name in TIMED_BWD_CASES:
+            timed[name] = {"max_abs_err": max_abs, **_time_flash_bwd(
+                kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape, dtype,
+                kw, name)}
         if name == "training":
             entry = {
                 "name": "flash_attention_bwd", "route": "cuda",
@@ -1617,20 +1673,23 @@ def phase_flash_bwd():
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
                 "gradient_of": "src/repro/models/attention.py:81",
                 "launches": None, "calls": None,
-                "kernels_per_call": len(kernel_bwd.KERNELS),
-                "max_abs_err": max_abs,
-                **_time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o,
-                                  do, shape, dtype, kw)}
-        del q, k, v, do, o, got, again, f32, ref, scales
+                "kernels_per_call": {vt: len(ks) for vt, ks in
+                                     kernel_bwd.KERNELS.items()},
+                **timed[name]}
+        del q, k, v, do, o, got, again
         torch.cuda.empty_cache()
-    check(entry is not None, "flash_bwd: no training-shape case")
+    check(entry is not None and set(timed) == set(TIMED_BWD_CASES),
+          "flash_bwd: a timed case did not run")
+    for name, numbers in timed.items():
+        if name != "training":
+            entry[name.replace("-", "_")] = numbers
     return entry
 
 
 def _flash_grads(flash_ops, q, k, v, do, kw):
     """(o, (dq, dk, dv)) through ops.flash_attention and autograd, as the
     training path takes them: the forward kernel, then the backward
-    kernel through ``_FlashAttention``.  Each input keeps its strides (an
+    kernels through ``_FlashAttention``.  Each input keeps its strides (an
     expanded view its stride-0 heads)."""
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     o = flash_ops.flash_attention(q, k, v, **kw)
@@ -1639,42 +1698,87 @@ def _flash_grads(flash_ops, q, k, v, do, kw):
 
 
 def _time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape,
-                    dtype, kw):
-    """The backward kernel, its plain version, and SDPA's backward through
-    autograd (forward + backward, minus the forward, in turns), beside the
-    bound."""
+                    dtype, kw, name):
+    """In turns, through the kernel modules (no launch counted; the
+    backward's arguments prepared once, so no host time between its
+    launches): the Hopper backward and the general one, whole (hopper,
+    general, general, hopper), each Hopper kernel alone (twice), K1's forward
+    without and with the LSE (without, with, with, without), SDPA's
+    backward through autograd (forward + backward, minus the forward),
+    and the plain version; beside the bound and the Hopper design's
+    floor.  Returns the kernels-line numbers (``ms`` is the Hopper call's,
+    the one the training path takes)."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    lse = flash_kernel.lse_buffer(q)
     with torch.no_grad():
-        ms = time_ms(lambda: kernel_bwd.flash_attention_bwd_cuda(
-            q, k, v, o, do, **kw))
+        flash_kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse, **kw)
+
+        def call(variant, kernels=None):
+            return kernel_bwd.launcher(
+                q, k, v, o, do, variant, kernels=kernels,
+                lse=lse if variant == "hopper" else None, **kw)[0]
+
+        call("hopper", ("preprocess",))()   # D for dK/dV and dQ alone
+        turns = [(vt, time_ms(call(vt)))
+                 for vt in ("hopper", "general", "general", "hopper")]
+        kernel_turns = [(kn, time_ms(call("hopper", (kn,))))
+                        for _ in range(2)
+                        for kn in kernel_bwd.KERNELS["hopper"]]
+        fwd_turns = [(with_lse, time_ms(lambda: flash_kernel
+                                        .flash_attention_cuda(
+                                            q, k, v, "hopper",
+                                            lse=lse if with_lse else None,
+                                            **kw)))
+                     for with_lse in (False, True, True, False)]
         plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw),
                            iters=2, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
+    qt, kt, vt_ = (t.transpose(1, 2).detach().requires_grad_()
+                   for t in (q, k, v))
     dot = do.transpose(1, 2)
 
     def fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt,
+        return F.scaled_dot_product_attention(qt, kt, vt_,
                                               is_causal=kw["causal"])
 
     def fwd_bwd():
-        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+        torch.autograd.grad(fwd(), (qt, kt, vt_), dot)
 
-    turns = [time_ms(fwd), time_ms(fwd_bwd), time_ms(fwd_bwd), time_ms(fwd)]
-    fwd_ms = (turns[0] + turns[3]) / 2
-    library_ms = (turns[1] + turns[2]) / 2 - fwd_ms
+    sdpa = [time_ms(fwd), time_ms(fwd_bwd), time_ms(fwd_bwd), time_ms(fwd)]
+    sdpa_fwd_ms = (sdpa[0] + sdpa[3]) / 2
+    library_ms = (sdpa[1] + sdpa[2]) / 2 - sdpa_fwd_ms
+    ms_by_variant = {u: float(np.mean([t for w, t in turns if w == u]))
+                     for u in kernel_bwd.VARIANTS}
+    kernel_ms = {u: float(np.mean([t for w, t in kernel_turns if w == u]))
+                 for u in kernel_bwd.KERNELS["hopper"]}
+    fwd_ms = {("with_lse" if u else "without_lse"):
+              float(np.mean([t for w, t in fwd_turns if w == u]))
+              for u in (False, True)}
+    ms = ms_by_variant["hopper"]
     bound_ms, bound_by, pairs = bwd_bound(shape, dtype, kw["causal"],
                                           kw["window"])
-    print(f"[flash_bwd] training: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, sdpa backward {library_ms:.4f} ms (forward {fwd_ms:.4f}, "
-          f"forward + backward {turns[1]:.4f}, {turns[2]:.4f}), bound "
-          f"{bound_ms:.4f} ms ({bound_by}; {pairs} unmasked pairs, "
-          f"{10 * shape[4] * pairs / 1e9:.1f} GFLOP); kernel / bound "
-          f"{ms / bound_ms:.2f}, kernel / sdpa {ms / library_ms:.2f}, "
-          f"{10 * shape[4] * pairs / ms / 1e9:.1f} TFLOP/s")
+    hd = shape[4]
+    floor_ms = 14 * hd * pairs / PEAK_FLOPS[dtype] * 1e3
+    print(f"[flash_bwd] {name}: in turns "
+          f"{', '.join(f'{u} {t:.4f}' for u, t in turns)} ms; hopper "
+          f"kernels alone {', '.join(f'{u} {t:.4f}' for u, t in kernel_turns)}"
+          f" ms; forward without / with LSE "
+          f"{', '.join(f'{t:.4f}' for _, t in fwd_turns)} ms; plain "
+          f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms (forward "
+          f"{sdpa_fwd_ms:.4f}, forward + backward {sdpa[1]:.4f}, "
+          f"{sdpa[2]:.4f}); bound {bound_ms:.4f} ms ({bound_by}; {pairs} "
+          f"unmasked pairs, {10 * hd * pairs / 1e9:.1f} GFLOP), the hopper "
+          f"design's floor {floor_ms:.4f} ms ({14 * hd * pairs / 1e9:.1f} "
+          f"GFLOP); hopper / bound {ms / bound_ms:.2f}, hopper / sdpa "
+          f"{ms / library_ms:.2f}, general / hopper "
+          f"{ms_by_variant['general'] / ms:.2f}, "
+          f"{14 * hd * pairs / ms / 1e9:.1f} TFLOP/s of its 7 products")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "sdpa_forward_ms": fwd_ms}
+            "floor_ms": floor_ms, "ms_by_variant": ms_by_variant,
+            "ms_turns": turns, "kernel_ms": kernel_ms,
+            "forward_ms": fwd_ms, "sdpa_forward_ms": sdpa_fwd_ms}
 
 
 def _count_plain_calls():
@@ -1703,9 +1807,10 @@ def phase_train(card):
     through repro_torch.launch.train on the card: TRAIN_SHAPE's steps on
     the synthetic stream with WSD.  Every kernel's counts are set to 0
     before each step and read after it: K1 TRAIN_K1 times a layer, every
-    backward through the kernel, no plain version called, no other
-    kernel.  Then one step profiled.  Returns K1's forward and backward
-    launches in the run."""
+    backward through the kernels of the "hopper" route, no plain version
+    called, no other kernel.  Then one step profiled, with no stats
+    kernel in it.  Returns K1's forward and backward launches in the
+    run, and the backward's by route."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
     ops = kernel_ops()
@@ -1721,8 +1826,10 @@ def phase_train(card):
         for mod in ops.values():
             mod.launches = 0
         flash.launches_bwd = 0
-        for variant in flash.launches_by_variant:
-            flash.launches_by_variant[variant] = 0
+        for counts in (flash.launches_by_variant,
+                       flash.launches_bwd_by_variant):
+            for variant in counts:
+                counts[variant] = 0
 
     per_step = []
 
@@ -1730,6 +1837,8 @@ def phase_train(card):
         per_step.append({"forward": flash.launches,
                          "backward": flash.launches_bwd,
                          "by_variant": dict(flash.launches_by_variant),
+                         "bwd_by_variant": dict(
+                             flash.launches_bwd_by_variant),
                          "others": {k: m.launches for k, m in ops.items()
                                     if k != "flash_attention"}})
         reset()
@@ -1749,6 +1858,8 @@ def phase_train(card):
     want = {"forward": TRAIN_K1["forward"] * n,
             "backward": TRAIN_K1["backward"] * n,
             "by_variant": {"hopper": TRAIN_K1["forward"] * n, "general": 0},
+            "bwd_by_variant": {"hopper": TRAIN_K1["backward"] * n,
+                               "general": 0},
             "others": {"wkv6": 0, "selective_scan": 0}}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = float(np.median([r["step_ms"] for r in records[1:]]))
@@ -1765,15 +1876,75 @@ def phase_train(card):
     check(plain == {"attention_ref": 0, "attention_bwd_ref": 0},
           f"train: plain versions called {plain}")
     _embedding_backward_is_deterministic(out)
-    profile_train_step(out)
+    k1_kernels = profile_train_step(out)
+    check(k1_kernels is None or "bwd_stats" not in k1_kernels,
+          f"train: a stats kernel ran on the hopper route: {k1_kernels}")
     result = {"arch": TRAIN_ARCH, **TRAIN_SHAPE, "losses": losses,
               "step_ms": [r["step_ms"] for r in records],
               "step_ms_median": step_ms, "tok_s": tok_s,
               "peak_memory_gb": peak_gb, "card": card}
     print("train " + json.dumps(result))
     del out
-    return {part: sum(p[part] for p in per_step)
-            for part in ("forward", "backward")}
+    totals = {part: sum(p[part] for p in per_step)
+              for part in ("forward", "backward")}
+    totals["bwd_by_variant"] = {
+        vt: sum(p["bwd_by_variant"][vt] for p in per_step)
+        for vt in want["bwd_by_variant"]}
+    return totals
+
+
+def phase_remat_bits():
+    """A cut of TRAIN_ARCH (REMAT_CUT, every width as published) on the
+    card in bf16: DecoderLM.loss's gradients with each layer under
+    activation checkpointing, remat policy None (the layer recomputed,
+    K1's forward and its LSE with it) and "dots", equal those of the same
+    layers without remat, bit for bit; every K1 backward on the "hopper"
+    route."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models.factory import build_model
+    from repro_torch.training.step import value_and_grad
+    flash = kernel_ops()["flash_attention"]
+    cfg = get_config(TRAIN_ARCH).replace(**REMAT_CUT)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        "cuda")
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (REMAT_SHAPE["batch"], REMAT_SHAPE["seq"] + 1))
+    ).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    class NoRemat(type(model)):
+        def _run_layers(self, *a, remat=False):
+            return super()._run_layers(*a, remat=False)
+
+    before = dict(flash.launches_bwd_by_variant)
+    loss0, _, grads0 = value_and_grad(NoRemat(cfg), params, batch)
+    differ = {}
+    try:
+        for policy in (None, "dots"):
+            model.remat_policy = policy
+            loss, _, grads = value_and_grad(model, params, batch)
+            differ[str(policy)] = [path for (path, g), g0 in zip(
+                T.flatten(grads), T.leaves(grads0))
+                if not torch.equal(g, g0)] + (
+                [] if torch.equal(loss, loss0) else ["loss"])
+            del grads
+    finally:
+        model.remat_policy = None
+    took = {vt: n - before[vt]
+            for vt, n in flash.launches_bwd_by_variant.items()}
+    n_leaves = len(T.leaves(grads0))
+    print(f"[train] remat at {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{REMAT_SHAPE}: loss {loss0.item():.6f}; leaves of {n_leaves} "
+          f"that differ from no remat: {differ}; K1 backward launches by "
+          f"route {took}")
+    check(not any(differ.values()),
+          f"remat: gradients differ from no remat: {differ}")
+    check(took["general"] == 0 and took["hopper"] > 0,
+          f"remat: backward routes {took}")
+    del params, grads0, model
 
 
 def _embedding_backward_is_deterministic(out):
@@ -1800,7 +1971,9 @@ def _embedding_backward_is_deterministic(out):
 def profile_train_step(out):
     """One more training step, timed on the host clock, then again under
     torch.profiler: its kernels by device time, K1's forward and backward
-    kernels, launches and the device-busy share."""
+    kernels, launches and the device-busy share.  Returns K1's kernels
+    ({name fragment: (ms, launches)}), or None where the profiler saw no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1826,7 +1999,7 @@ def profile_train_step(out):
     if not kernels:
         print(f"[profile] train step: wall {wall_ms:.1f} ms; device time "
               f"not measured (no CUDA events)")
-        return
+        return None
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"[profile] train step ({TRAIN_SHAPE['batch']} x "
           f"{TRAIN_SHAPE['seq']} tokens): wall {wall_ms:.1f} ms, kernels "
@@ -1834,7 +2007,7 @@ def profile_train_step(out):
           f"device busy {100 * busy_ms / wall_ms:.0f}%")
     k1 = {}
     for e in kernels:
-        for part in ("flash_fwd", "bwd_stats", "bwd_dkdv", "bwd_dq"):
+        for part in K1_KERNEL_PARTS:
             if part in e.key:
                 ms, cnt = k1.get(part, (0.0, 0))
                 k1[part] = (ms + e.self_device_time_total / 1e3,
@@ -1854,6 +2027,7 @@ def profile_train_step(out):
                     reverse=True)[:10]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
               f"{e.count:5d}x  {e.key[:90]}")
+    return k1
 
 
 def phase_train_restart():
@@ -1945,9 +2119,13 @@ def main() -> int:
     bwd = phase_flash_bwd()
     free_device_memory("the previous phase")
     k1 = phase_train(card)
+    free_device_memory("the previous phase")
+    phase_remat_bits()
     # kernel launches, as every entry counts them; calls of the backward
     bwd["launches"] = k1["backward"]
-    bwd["calls"] = k1["backward"] // bwd["kernels_per_call"]
+    bwd["launches_by_variant"] = k1["bwd_by_variant"]
+    bwd["calls"] = sum(n // bwd["kernels_per_call"][vt]
+                       for vt, n in k1["bwd_by_variant"].items())
     bwd["launches_by_path"] = {TRAIN_ARCH: k1["backward"]}
     entries["flash_attention_bwd"] = bwd
     flash["launches"] += k1["forward"]

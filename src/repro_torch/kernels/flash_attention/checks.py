@@ -8,7 +8,17 @@ limits.
 * "skip-last-tile" / "skip-first-tile": for every 64-row q tile, the
   last (the causal diagonal's) or the first (the window's edge) of the
   64-row kv tiles the forward visits skipped in every product, as a tile
-  loop one tile short would.
+  loop one tile short would;
+* "lse-neighbour-row": P = exp(S - LSE) with each row's LSE taken from
+  the next row (the last row from the first), as an off-by-one in the
+  forward's LSE store or the backward's read would give;
+* "lse-log2": the LSE in log2 units read as natural ones, P = exp(S -
+  LSE log2 e), as a forward that stored m + log2 l without dividing by
+  log2 e would give;
+* "stale-q-stage": in dK and dV, every q tile of the Hopper dK/dV ring
+  (``kernel_bwd.HOPPER_RING_ROWS``) but the first read with the Q, dO,
+  LSE and D of the tile before it (masks still by its own rows), as a
+  ring stage waited on with a stale phase would hold.
 """
 from __future__ import annotations
 
@@ -16,10 +26,12 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_attention.ref import scores
+from repro_torch.kernels.flash_attention.kernel_bwd import HOPPER_RING_ROWS
+from repro_torch.kernels.flash_attention.ref import attention_lse, scores
 
 FAULTS = ("no-delta", "no-softcap-derivative", "skip-last-tile",
-          "skip-first-tile")
+          "skip-first-tile", "lse-neighbour-row", "lse-log2",
+          "stale-q-stage")
 TILE = 64    # the kernel's q and kv tile rows
 
 
@@ -43,7 +55,22 @@ def attention_bwd_faulty(q, k, v, o, do, fault, *, causal=True, window=0,
     if fault not in FAULTS:
         raise ValueError(f"no fault {fault!r}; one of {FAULTS}")
     scale = 1.0 / math.sqrt(q.shape[3])
-    s, t = scores(q, k, causal=causal, window=window, softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    lse = None
+    if fault in ("lse-neighbour-row", "lse-log2", "stale-q-stage"):
+        lse = attention_lse(q, k, **kw)[..., None]           # (b, h, sq, 1)
+    if fault == "lse-neighbour-row":
+        return _grads(q, k, v, o, do, scale, kw, torch.roll(lse, -1, dims=2))
+    if fault == "lse-log2":
+        return _grads(q, k, v, o, do, scale, kw, lse * math.log2(math.e))
+    if fault == "stale-q-stage":
+        ring = HOPPER_RING_ROWS["dkdv"].get(q.shape[3], TILE)
+        src = torch.arange(q.shape[1], device=q.device)
+        src = torch.where(src >= ring, src - ring, src)   # the tile before
+        _, dk, dv = _grads(q[:, src], k, v, o[:, src], do[:, src], scale, kw,
+                           lse[..., src, :])
+        return _grads(q, k, v, o, do, scale, kw, lse)[0], dk, dv
+    s, t = scores(q, k, **kw)
     p = torch.softmax(s, dim=-1)
     dof = do.float()
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
@@ -58,6 +85,23 @@ def attention_bwd_faulty(q, k, v, o, do, fault, *, causal=True, window=0,
         k_tile = torch.arange(k.shape[1], device=q.device) // TILE
         keep = k_tile[None, :] != lost[:, None]              # (sq, skv)
         p, ds = p * keep, ds * keep
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq, dk, dv
+
+
+def _grads(q, k, v, o, do, scale, kw, lse):
+    """attention_bwd_ref's formula in f32 with P = exp(S - lse), lse (b,
+    h, sq, 1) as the Hopper backward reads it."""
+    s, t = scores(q, k, **kw)
+    p = torch.exp(s - lse)
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    d = (dof * o.float()).sum(dim=-1).transpose(1, 2)[..., None]
+    ds = p * (dp - d)
+    if t is not None:
+        ds = ds * (1 - t * t)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale

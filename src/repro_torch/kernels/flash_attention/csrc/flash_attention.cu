@@ -32,7 +32,9 @@
 // the re-reads of K and V against 64-row ones.  What still bounds it
 // (PERF.md): its products run at about half the tensor cores' peak, and
 // the softmax is not wholly hidden behind them.  Details above its code,
-// below.
+// below.  Training mode, a separate instantiation the serving calls never
+// run: the epilogue also writes each row's log-sum-exp, which the
+// backward's Hopper variant (flash_attention_bwd.cu) reads.
 //
 // General variant (every other call: f32, bf16 with other head dims or
 // strides TMA refuses).  Shared by its two paths:
@@ -612,6 +614,8 @@ struct Smem {
 
 struct Params {
   __nv_bfloat16* o;
+  float* lse;         // training mode: (b, h, lse_stride) f32, else unused
+  long long lse_stride;
   int* counter;       // next unit of work, 0 at launch
   long long o_sb, o_ss, o_sh;
   int b, sq, skv, h, causal, window;
@@ -1038,7 +1042,14 @@ __device__ __forceinline__ Work work_item(const Params& p, int w) {
 // The consumers read the number once Q has landed; a number past the
 // last unit ends the block.  Ring stages and phases run on across units
 // (`it` counts the kv tiles of the block so far).
-template <int HD, bool SOFTCAP>
+//
+// LSE (training mode, a separate instantiation): the epilogue also writes
+// each row's log-sum-exp of its scaled, capped, masked scores in natural
+// units, (m + log2 l) / log2 e with the maxima m in the log2 domain and l
+// clamped as o's denominator is, into p.lse[(bb h + hh) lse_stride + row]
+// for rows below sq; K1's Hopper backward reads it instead of recomputing
+// it.  The serving instantiation (LSE false) compiles to the code it had.
+template <int HD, bool SOFTCAP, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_k,
@@ -1226,7 +1237,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int h = 0; h < 2; ++h) {
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-        l[h] = 1.f / fmaxf(l[h], 1e-30f);
+        l[h] = fmaxf(l[h], 1e-30f);
+        if (LSE) {
+          const int row = row0 + 8 * h;
+          if (t == 0 && row < p.sq)
+            p.lse[(static_cast<long long>(wk.bb) * p.h + wk.hh) *
+                      p.lse_stride + row] = (m[h] + log2f(l[h])) / LOG2E;
+        }
+        l[h] = 1.f / l[h];
       }
       __nv_bfloat16* og = p.o + wk.bb * p.o_sb + wk.hh * p.o_sh;
 #pragma unroll
@@ -1294,13 +1312,13 @@ CUresult make_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int HD, bool SOFTCAP>
+template <int HD, bool SOFTCAP, bool LSE>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
                    const CUtensorMap& mv, const Params& p, int b,
                    cudaStream_t stream) {
   const int smem = Smem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_hopper_kernel<HD, SOFTCAP>,
+      flash_fwd_hopper_kernel<HD, SOFTCAP, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int device = 0;
@@ -1311,9 +1329,18 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
                                  device);
   if (err != cudaSuccess) return err;
   const int n_work = (p.sq + BQ - 1) / BQ * b * p.h;
-  flash_fwd_hopper_kernel<HD, SOFTCAP>
+  flash_fwd_hopper_kernel<HD, SOFTCAP, LSE>
       <<<min(n_work, n_sm), THREADS, smem, stream>>>(mq, mk, mv, p);
   return cudaGetLastError();
+}
+
+template <int HD, bool SOFTCAP>
+cudaError_t launch_lse(const CUtensorMap& mq, const CUtensorMap& mk,
+                       const CUtensorMap& mv, const Params& p, int b,
+                       cudaStream_t stream) {
+  return p.lse != nullptr ? launch<HD, SOFTCAP, true>(mq, mk, mv, p, b, stream)
+                          : launch<HD, SOFTCAP, false>(mq, mk, mv, p, b,
+                                                       stream);
 }
 
 }  // namespace hopper
@@ -1371,19 +1398,23 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 
 // The Hopper variant, bf16 only: hd 64 or 128; q/k/v 16-byte aligned with
 // (batch, seq, head) strides that are multiples of 8 elements; o
-// contiguous.  strides as above.  counter: one int in device memory, 0.  Returns a cudaError_t (0 = launched),
-// or 1000 + the CUresult of a tensor map that failed to encode, or 2000
-// if libcuda has no cuTensorMapEncodeTiled.
+// contiguous.  strides as above.  lse: null (serving), or (training mode)
+// f32 (b, h, lse_stride) with lse_stride >= sq, where each row's
+// log-sum-exp is written.  counter: one int in device memory, 0.  Returns
+// a cudaError_t (0 = launched), or 1000 + the CUresult of a tensor map
+// that failed to encode, or 2000 if libcuda has no cuTensorMapEncodeTiled.
 extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
                                           const void* v, void* o, int b,
                                           int sq, int skv, int h, int hd,
                                           const long long* strides,
                                           float scale, int causal,
                                           int window, float softcap,
+                                          float* lse, long long lse_stride,
                                           int* counter, void* stream) {
   if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
   // every row needs a key (each block then has a kv tile to wait for)
-  if (b < 1 || sq < 1 || skv < 1 || (window > 0 && sq > skv + window - 1))
+  if (b < 1 || sq < 1 || skv < 1 || (window > 0 && sq > skv + window - 1) ||
+      (lse != nullptr && lse_stride < sq))
     return static_cast<int>(cudaErrorInvalidValue);
   hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (encode == nullptr) return 2000;
@@ -1399,6 +1430,8 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
   if (res != CUDA_SUCCESS) return 1000 + static_cast<int>(res);
   hopper::Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
+  p.lse_stride = lse_stride;
   p.counter = counter;
   // (batch, head) pairs a group: their K and V together about
   // GROUP_KV_BYTES, which L2 (50 MB) holds with room to spare
@@ -1421,10 +1454,11 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (hd == 64)
-    err = softcap != 0.f ? hopper::launch<64, true>(mq, mk, mv, p, b, s)
-                         : hopper::launch<64, false>(mq, mk, mv, p, b, s);
+    err = softcap != 0.f ? hopper::launch_lse<64, true>(mq, mk, mv, p, b, s)
+                         : hopper::launch_lse<64, false>(mq, mk, mv, p, b, s);
   else
-    err = softcap != 0.f ? hopper::launch<128, true>(mq, mk, mv, p, b, s)
-                         : hopper::launch<128, false>(mq, mk, mv, p, b, s);
+    err = softcap != 0.f
+              ? hopper::launch_lse<128, true>(mq, mk, mv, p, b, s)
+              : hopper::launch_lse<128, false>(mq, mk, mv, p, b, s);
   return static_cast<int>(err);
 }

@@ -1,6 +1,6 @@
 // Flash attention backward for Hopper (sm_90a): dq, dk, dv of the
-// forward in flash_attention.cu, FlashAttention-2's schedule, with no
-// atomics, so two calls give the same bits.
+// forward in flash_attention.cu, with no atomics, so two calls give the
+// same bits.
 //
 // The TPU side has no backward kernel: the reference trains through the
 // jnp twin of `flash_attention_pallas` (src/repro/models/attention.py,
@@ -14,7 +14,12 @@
 //   D = rowsum(dO * o), dS = P (dO V^T - D) (times 1 - tanh^2(s / c)
 //   under a softcap), dV = P^T dO, dQ = dS K scale, dK = dS^T Q scale.
 //
-// Three kernels, launched in order on the caller's stream:
+// Two variants, three kernels each, launched in order on the caller's
+// stream; kernel_bwd.py::plan picks one before the forward runs, and
+// neither falls back to the other.
+//
+// General variant (the first design; f32, hd up to 128, any strides with
+// head-dim stride 1):
 //   (a) stats: one block per (64-row q tile, head, batch); recomputes each
 //       row's log-sum-exp over the kv tiles the forward visits, and D, in
 //       f32, into (b, h, sq) scratch;
@@ -24,32 +29,41 @@
 //       accumulates dV and dK in registers;
 //   (c) dQ: one block per (q tile, head, batch); walks the kv tiles and
 //       accumulates dQ in registers.
-// Each output element is written by one thread, once.
-//
-// What bounds it: 5 products of 2 hd FLOPs per unmasked (query, key)
-// pair (S twice, dP twice, and dV, dK, dQ: S and dP are each computed in
-// (b) and in (c)), at the training shape (4, 2048, 36, 64) bf16 causal
-// 193 GFLOP, 0.196 ms at 989 TFLOP/s, above its 302 MB of q/k/v/o/dO/
-// dq/dk/dv (0.090 ms).  This first design is simple and right: bf16
-// products through mma.sync m16n8k16 with f32 accumulators from 4 warps
-// (each owning 16 rows), tiles loaded between barriers with no overlap;
-// f32 through FMAs on the CUDA cores (TF32 would not hold f32 to its
-// tolerance).  wgmma and TMA are later work (ROADMAP Queue 2).
-//
-// Head dims up to 128, padded to 16/32/64/128 lanes in shared memory
-// (zero-filled, masked on store), so hd 120 works.  q/k/v/o/dO are read
-// through their strides (head-dim stride 1), so expanded GQA views need no
-// copy.  The scale: f32 scales q in shared memory before its products, as
-// the twin does; bf16 scales the f32 product afterwards (q scaled in bf16
-// would round; for a power-of-two scale, as at hd 64, the two agree
+// Each output element is written by one thread, once.  bf16 products
+// through mma.sync m16n8k16 with f32 accumulators from 4 warps (each
+// owning 16 rows), tiles loaded between barriers with no overlap; f32
+// through FMAs on the CUDA cores (TF32 would not hold f32 to its
+// tolerance).  Head dims up to 128, padded to 16/32/64/128 lanes in
+// shared memory (zero-filled, masked on store), so hd 120 works.
+// q/k/v/o/dO are read through their strides, so expanded GQA views need
+// no copy.  The scale: f32 scales q in shared memory before its products,
+// as the twin does; bf16 scales the f32 product afterwards (q scaled in
+// bf16 would round; for a power-of-two scale, as at hd 64, the two agree
 // exactly).
 //
+// Hopper variant (bf16, hd 64 or 128, strides TMA reads: every training
+// call of the dense decoders): FlashAttention-3's schedule on TMA, an
+// mbarrier ring and wgmma, with LSE from the forward's training mode;
+// described above its code, below.
+//
+// What bounds it: 5 products of 2 hd FLOPs per unmasked (query, key)
+// pair are the function's least (S, dP, dV, dK, dQ): at the training
+// shape (4, 2048, 36, 64) bf16 causal 193 GFLOP, 0.196 ms at 989 TFLOP/s,
+// above its 302 MB of q/k/v/o/dO/dq/dk/dv (0.090 ms).  The general
+// variant computes 10 (S in all three kernels, dP in two); the Hopper one
+// 7 (S and dP in both of its product kernels), a floor of 0.274 ms.
+// Measured times stand in PERF.md.
+//
 // Built with nvcc into a shared library with a plain C interface, loaded
-// with ctypes; the entry point returns a cudaError_t.
+// with ctypes; each entry point returns a cudaError_t (the Hopper one
+// also the codes of a failed tensor-map encode).
 
+#include <cuda.h>   // CUtensorMap and its enums; no libcuda is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -811,49 +825,60 @@ cudaError_t launch_one(Kern kernel, dim3 grid, int threads, int smem,
   return cudaGetLastError();
 }
 
+// `which`: a mask of the kernels to launch (1 stats, 2 dK/dV, 4 dQ), all
+// three on the training path; one alone is for timing and for the tests.
 template <int HDP>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+cudaError_t launch_f32(const Params& p, int which, cudaStream_t stream) {
   const int f = static_cast<int>(sizeof(float));
   const dim3 qgrid((p.sq + BQ - 1) / BQ, p.h, p.b);
   const dim3 kgrid((p.skv + BK - 1) / BK, p.h, p.b);
-  cudaError_t err = launch_one(bwd_stats_f32<HDP>, qgrid, FMA_THREADS,
-                               2 * HDP * TS * f, stream, p);
-  if (err == cudaSuccess)
+  cudaError_t err = cudaSuccess;
+  if (which & 1)
+    err = launch_one(bwd_stats_f32<HDP>, qgrid, FMA_THREADS,
+                     2 * HDP * TS * f, stream, p);
+  if (err == cudaSuccess && (which & 2))
     err = launch_one(bwd_dkdv_f32<HDP>, kgrid, FMA_THREADS,
                      (4 * HDP * TS + 2 * 64 * TS + 2 * BQ) * f, stream, p);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && (which & 4))
     err = launch_one(bwd_dq_f32<HDP>, qgrid, FMA_THREADS,
                      (4 * HDP * TS + 64 * TS) * f, stream, p);
   return err;
 }
 
 template <int HDP>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+cudaError_t launch_bf16(const Params& p, int which, cudaStream_t stream) {
   const int tile = 64 * mma_ld<HDP>() * 2;   // bytes of one bf16 tile
   const dim3 qgrid((p.sq + BQ - 1) / BQ, p.h, p.b);
   const dim3 kgrid((p.skv + BK - 1) / BK, p.h, p.b);
-  cudaError_t err = launch_one(bwd_stats_bf16<HDP>, qgrid, MMA_THREADS,
-                               2 * tile, stream, p);
-  if (err == cudaSuccess)
+  cudaError_t err = cudaSuccess;
+  if (which & 1)
+    err = launch_one(bwd_stats_bf16<HDP>, qgrid, MMA_THREADS, 2 * tile,
+                     stream, p);
+  if (err == cudaSuccess && (which & 2))
     err = launch_one(bwd_dkdv_bf16<HDP>, kgrid, MMA_THREADS,
                      4 * tile + 2 * BQ * static_cast<int>(sizeof(float)),
                      stream, p);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && (which & 4))
     err = launch_one(bwd_dq_bf16<HDP>, qgrid, MMA_THREADS, 4 * tile, stream,
                      p);
   return err;
 }
 
 template <bool BF16>
-cudaError_t launch_for_head_dim(const Params& p, cudaStream_t stream) {
+cudaError_t launch_for_head_dim(const Params& p, int which,
+                                cudaStream_t stream) {
   if (p.hd <= 16)
-    return BF16 ? launch_bf16<16>(p, stream) : launch_f32<16>(p, stream);
+    return BF16 ? launch_bf16<16>(p, which, stream)
+                : launch_f32<16>(p, which, stream);
   if (p.hd <= 32)
-    return BF16 ? launch_bf16<32>(p, stream) : launch_f32<32>(p, stream);
+    return BF16 ? launch_bf16<32>(p, which, stream)
+                : launch_f32<32>(p, which, stream);
   if (p.hd <= 64)
-    return BF16 ? launch_bf16<64>(p, stream) : launch_f32<64>(p, stream);
+    return BF16 ? launch_bf16<64>(p, which, stream)
+                : launch_f32<64>(p, which, stream);
   if (p.hd <= 128)
-    return BF16 ? launch_bf16<128>(p, stream) : launch_f32<128>(p, stream);
+    return BF16 ? launch_bf16<128>(p, which, stream)
+                : launch_f32<128>(p, which, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -862,14 +887,1126 @@ bool aligned16(const void* ptr, const long long* s) {
          s[1] % 8 == 0 && s[2] % 8 == 0;
 }
 
+// ------------------------------------------------ bf16, Hopper variant
+//
+// FlashAttention-3's schedule for the backward, kept deterministic (no
+// atomics): three kernels, launched in order by
+// flash_attention_bwd_hopper.  (b) and (c) are persistent: one block per
+// SM walks its share of the units in a fixed order (unit i of block j is
+// j + i x grid), so two calls give the same bits.
+//   (a) preprocess: D = rowsum(dO * o) in f32 into (b, h, ls), 0 on rows
+//       past sq; LSE comes from the forward's training mode, not from a
+//       third S = Q K^T.
+//   (b) dK/dV: a unit is a kv tile of 128 rows (UNIT_ROWS) of one (batch,
+//       head); its q tiles (DkdvCfg::RING rows) are the ones the causal
+//       and window masks let see it (the general variant's tile
+//       skipping, turned into the unit's q range).
+//   (c) dQ: a unit is a q tile of 128 rows; its kv tiles (DqCfg::RING
+//       rows) those the forward visits.
+// Block: 3 warpgroups.  Warpgroup 0 is the producer: after giving up
+// registers (setmaxnreg) one thread issues every TMA load.  Warpgroups 1
+// and 2 are consumers, each owning 64 of the unit's 128 rows, with 240
+// registers a thread.  Shared memory: the unit's two tiles (K and V in
+// (b), Q and dO in (c)), loaded once a unit into one of UBUFS buffers
+// (two where shared memory allows, so the next unit's land while this
+// one's last tiles run); a ring of STAGES stages of
+// the streamed pair (Q and dO with their LSE and D values in (b), K and
+// V in (c)), each stage with a "full" barrier (the TMA bytes landed)
+// and an "empty" one every consumer thread arrives on once the products
+// that read it completed; each unit buffer has the same pair.  A unit's
+// tiles are released before its epilogue.
+// Products, all wgmma with f32 accumulators, 7 of 2 hd FLOPs per unmasked
+// pair:
+//   (b) S^T = K Q^T and dP^T = V dO^T (m64nRINGk16, both operands from
+//       shared memory, K-major); P^T = exp2(S^T scale log2 e - LSE log2
+//       e) and dS^T = P^T (dP^T - D), times 1 - tanh^2 under a softcap,
+//       in registers; dV += P^T dO and dK += dS^T Q with P^T and dS^T
+//       from registers (rounded to bf16) and dO, Q read MN-major;
+//   (c) S = Q K^T, dP = dO V^T, then dQ += dS K (K read MN-major).
+// Masks: only on the tiles that cross the causal diagonal, the window's
+// edge or the end of q (in (b): rows past sq hold TMA's zeros and an
+// unwritten LSE, so their P is masked to 0) or of kv (in (c)); a masked
+// pair's P and dS are 0, as exp(-1e30 - LSE) is in the forward.  Rows of
+// the unit past sq or skv are computed and never stored.
+// Tiles are TMA boxes of 64 columns (128 bytes) x rows, swizzled 128B,
+// as the forward's (hd 128 is two boxes side by side); the wgmma
+// descriptors are the forward's (K-major: SBO 1024, 32 bytes a k step;
+// MN-major: SBO 1024, LBO the distance between the two boxes, 2048 bytes
+// a k step of 16 rows).  Streamed tiles are 128 rows (m64n128 products,
+// half the ring handshakes of 64-row ones) where the accumulators fit in
+// a consumer's 240 registers; dK/dV at hd 128 streams 64-row tiles (S^T,
+// dP^T, dK and dV of 128 columns would take 256).
+// Phase bits: the i-th ring tile of the block uses stage i % STAGES in
+// round i / STAGES; its consumers wait with parity (i / STAGES) & 1, the
+// producer on the empty barrier with the opposite parity; the j-th unit
+// with work uses unit buffer j % UBUFS in round j / UBUFS, the same way.
+// A stale parity would read an earlier round's tile without an error:
+// chip_smoke.py's stale-stage fault shows the checks see one.
+
+namespace hopper {
+
+constexpr int THREADS = 384;
+constexpr int UNIT_ROWS = 128;           // rows of a unit: 2 consumers x 64
+constexpr int BOX = 64;                  // columns of a TMA box
+constexpr int BOX_ROW_BYTES = BOX * 2;   // 128: the swizzle width
+constexpr int PRODUCER_REGS = 24;        // 128 x 24 + 256 x 240 <= 65536
+constexpr int CONSUMER_REGS = 240;
+constexpr int PRE_THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+// bytes of the streamed operands of the (batch, head) pairs whose units
+// run together, so that they stay in L2 (the forward's choice)
+constexpr long long GROUP_BYTES = 8ll << 20;
+
+// Rows of a streamed tile (RING), ring stages, and buffers of a unit's
+// own tiles (UBUFS: with 2, the next unit's land while this one's last
+// tiles run), by kernel and head dim, as shared memory allows.
+template <int HD>
+struct DkdvCfg {
+  static constexpr int RING = HD == 64 ? 128 : 64;
+  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  static constexpr int UBUFS = 2;
+};
+
+template <int HD>
+struct DqCfg {
+  static constexpr int RING = 128;
+  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  static constexpr int UBUFS = HD == 64 ? 2 : 1;   // 192 KB at hd 128
+};
+
+template <int HD, typename Cfg>
+struct Smem {
+  static constexpr int NB = HD / BOX;                   // boxes per row
+  static constexpr int UNIT_TILE = UNIT_ROWS * HD * 2;  // K or V / Q or dO
+  static constexpr int RING_TILE = Cfg::RING * HD * 2;
+  static constexpr int RING_OFF = Cfg::UBUFS * 2 * UNIT_TILE;
+  // LSE and D: RING each a ring stage in (b), 128 each a unit buffer in (c)
+  static constexpr int VEC_OFF = RING_OFF + Cfg::STAGES * 2 * RING_TILE;
+  static constexpr int VEC_RING = Cfg::STAGES * 2 * Cfg::RING * 4;
+  static constexpr int VEC_UNIT = Cfg::UBUFS * 2 * UNIT_ROWS * 4;
+  static constexpr int VEC_BYTES = VEC_RING > VEC_UNIT ? VEC_RING : VEC_UNIT;
+  // barriers: unit full and unit empty x UBUFS, then full and empty x
+  // STAGES
+  static constexpr int BAR_OFF = VEC_OFF + VEC_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (2 * Cfg::UBUFS + 2 * Cfg::STAGES)
+                               + 1024;                  // alignment slack
+};
+
+struct Params {
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  const float* lse;     // (b, h, ls): the forward's, natural log units
+  const float* delta;   // (b, h, ls): D, 0 past sq
+  long long ls;         // row stride of lse and delta, a multiple of 128
+  long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
+  int b, sq, skv, h, causal, window;
+  int group;            // (batch, head) pairs whose units go together
+  float scale;          // 1 / sqrt(hd)
+  float scale_log2;     // scale x log2(e)
+  float cap_in;         // softcap: tanh(s x scale / cap) x cap x log2(e)
+  float cap_out;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// The forward's wait: a spin inside the asm (a C++ loop around try_wait
+// made ptxas serialise the wgmma), which traps after 2^34 clocks (about
+// 10 s), so a pipeline fault fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 17179869184;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a rank-4 {hd, h, s, b} tensor map into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c_hd, int c_h, int c_s, int c_b,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c_hd), "r"(c_h), "r"(c_s),
+      "r"(c_b), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// into shared memory, counted on the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16) B (16 x 64), both from shared memory
+// through descriptors, K-major; scale_d = 0 zeroes D first.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), both from shared
+// memory through descriptors, K-major; scale_d = 0 zeroes D first.
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_ss_m64n64(d, da, db, scale_d);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  wgmma_ss_m64n128(d, da, db, scale_d);
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) B (16 x 128), B
+// from shared memory MN-major (transposed: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64), B
+// from shared memory MN-major (transposed: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n128(d, a, db);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_m64n64(d, a, db);
+}
+
+// acc (64 x N) = A B^T over hd: A's 64 rows start at `a_rows` inside a
+// unit tile (boxes of UNIT_ROWS rows), B is a ring tile (boxes of N
+// rows); HD / 16 k steps of 32 bytes along a 128-byte box row, every 4th
+// on the next 64-column box.
+template <int HD, int N>
+__device__ __forceinline__ void ss_product(float (&acc)[N / 2],
+                                           uint32_t a_rows, uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t da = sw128_desc(
+        a_rows + (kk / 4) * UNIT_ROWS * BOX_ROW_BYTES + off, 16, 1024);
+    const uint64_t db = sw128_desc(
+        b_tile + (kk / 4) * N * BOX_ROW_BYTES + off, 16, 1024);
+    wgmma_ss<N>(acc, da, db, kk > 0);
+  }
+}
+
+// acc (64 x HD) += A X, A (64 x K) in registers as K / 16 k steps of 16,
+// X a ring tile (K rows x HD) read MN-major: a k step of 16 rows is 2048
+// bytes, the second 64-column box K x 128 bytes further.
+template <int HD, int K>
+__device__ __forceinline__ void rs_product(float (&acc)[HD / 2],
+                                           const uint32_t (&a)[K / 16][4],
+                                           uint32_t x_tile) {
+#pragma unroll
+  for (int jj = 0; jj < K / 16; ++jj)
+    wgmma_rs<HD>(acc, a[jj],
+                 sw128_desc(x_tile + jj * 16 * BOX_ROW_BYTES,
+                            K * BOX_ROW_BYTES, 1024));
+}
+
+// A 64 x N accumulator as the A operand of N / 16 k steps of 16 columns,
+// rounded to bf16 (accumulator n-tiles 2 jj and 2 jj + 1).
+template <int N>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[N / 16][4],
+                                           const float (&s)[N / 2]) {
+#pragma unroll
+  for (int jj = 0; jj < N / 16; ++jj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[jj][r] = pack_bf16(s[8 * jj + 2 * r], s[8 * jj + 2 * r + 1]);
+}
+
+// P and dS of one 64 x 64 tile held as two wgmma accumulators, in place:
+// s (raw scores) becomes P = exp2(s scale log2 e - LSE log2 e), with the
+// softcap first; dp becomes dS = P (dp - D), times 1 - tanh^2 under a
+// softcap.  Element 4j + 2h + e of this thread is at accumulator row
+// `row0` + 8h, column `col0` + 8j + 2t + e.  TRANS (the dK/dV kernel):
+// rows are kv positions and columns q positions, and the per-q LSE and D
+// come from shared memory by column; else rows are q and columns kv,
+// with the row's LSE x log2 e and D in l2[h] and d[h].  MASK: the tile
+// crosses the causal diagonal, the window's edge or the end of q (TRANS)
+// or kv; a masked pair's P and dS are 0.
+template <bool TRANS, bool MASK, bool SOFTCAP, int N>
+__device__ __forceinline__ void probs_and_grads(
+    float (&s)[N / 2], float (&dp)[N / 2], const Params& p, int row0,
+    int col0, int t, const float* lse_col, const float* d_col,
+    const float (&l2)[2], const float (&d)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * t + e;
+      const float cl2 = TRANS ? lse_col[col] * LOG2E : 0.f;
+      const float cd = TRANS ? d_col[col] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e;
+        const float lse2 = TRANS ? cl2 : l2[h];
+        const float dd = TRANS ? cd : d[h];
+        float pr, g = 1.f;
+        if (SOFTCAP) {
+          const float th = tanhf(s[i] * p.cap_in);
+          g = 1.f - th * th;
+          pr = fast_exp2(th * p.cap_out - lse2);
+        } else {
+          pr = fast_exp2(fmaf(s[i], p.scale_log2, -lse2));
+        }
+        if (MASK) {
+          const int qp = TRANS ? col0 + col : row0 + 8 * h;
+          const int kp = TRANS ? row0 + 8 * h : col0 + col;
+          bool ok = TRANS ? qp < p.sq : kp < p.skv;
+          if (p.causal) ok = ok && qp >= kp;
+          if (p.window > 0) ok = ok && qp - kp < p.window;
+          pr = ok ? pr : 0.f;
+        }
+        s[i] = pr;
+        float ds = pr * (dp[i] - dd);
+        if (SOFTCAP) ds *= g;
+        dp[i] = ds;
+      }
+    }
+}
+
+// Without a softcap, P and dS in two passes: P as soon as S has landed
+// (while the tensor cores still compute dP), then dS = P (dp - D).
+template <bool TRANS, bool MASK, int N>
+__device__ __forceinline__ void probs(float (&s)[N / 2], const Params& p,
+                                      int row0, int col0, int t,
+                                      const float* lse_col,
+                                      const float (&l2)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * t + e;
+      const float cl2 = TRANS ? lse_col[col] * LOG2E : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e;
+        float pr = fast_exp2(fmaf(s[i], p.scale_log2, -(TRANS ? cl2 : l2[h])));
+        if (MASK) {
+          const int qp = TRANS ? col0 + col : row0 + 8 * h;
+          const int kp = TRANS ? row0 + 8 * h : col0 + col;
+          bool ok = TRANS ? qp < p.sq : kp < p.skv;
+          if (p.causal) ok = ok && qp >= kp;
+          if (p.window > 0) ok = ok && qp - kp < p.window;
+          pr = ok ? pr : 0.f;
+        }
+        s[i] = pr;
+      }
+    }
+}
+
+template <bool TRANS, int N>
+__device__ __forceinline__ void grads(const float (&s)[N / 2],
+                                      float (&dp)[N / 2], int t,
+                                      const float* d_col,
+                                      const float (&d)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float cd = TRANS ? d_col[8 * j + 2 * t + e] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e;
+        dp[i] = s[i] * (dp[i] - (TRANS ? cd : d[h]));
+      }
+    }
+}
+
+// P and dS of a tile whose S and dP products were committed as two wgmma
+// groups, in that order: without a softcap P is formed once S has landed
+// and dS once dP has; under a softcap both once dP has (dS needs the
+// softcap's derivative beside P).  Masks only where `mask` (a test on the
+// unit's and the tile's rows, the same for every thread of the block).
+template <bool TRANS, bool SOFTCAP, int N>
+__device__ __forceinline__ void tile_grads(bool mask, float (&s)[N / 2],
+                                           float (&dp)[N / 2],
+                                           const Params& p, int row0,
+                                           int col0, int t,
+                                           const float* lse_col,
+                                           const float* d_col,
+                                           const float (&l2)[2],
+                                           const float (&d)[2]) {
+  if (SOFTCAP) {
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (mask)
+      probs_and_grads<TRANS, true, true, N>(s, dp, p, row0, col0, t, lse_col,
+                                            d_col, l2, d);
+    else
+      probs_and_grads<TRANS, false, true, N>(s, dp, p, row0, col0, t,
+                                             lse_col, d_col, l2, d);
+  } else {
+    wgmma_wait<1>();
+    fence_regs(s);
+    if (mask)
+      probs<TRANS, true, N>(s, p, row0, col0, t, lse_col, l2);
+    else
+      probs<TRANS, false, N>(s, p, row0, col0, t, lse_col, l2);
+    wgmma_wait<0>();
+    fence_regs(dp);
+    grads<TRANS, N>(s, dp, t, d_col, d);
+  }
+}
+
+// Stores rows row0 and row0 + 8 of a 64 x HD accumulator times `mul` as
+// bf16, two columns a store, through the output's strides; rows at or
+// past `nrows` are dropped.
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ss,
+                                           int row0, int nrows, int t,
+                                           const float (&acc)[HD / 2],
+                                           float mul) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row < nrows) {
+      __nv_bfloat16* out = dst + row * ss + 2 * t;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + 8 * n) = pack_bf16(
+            acc[4 * n + 2 * h] * mul, acc[4 * n + 2 * h + 1] * mul);
+    }
+  }
+}
+
+// Units are numbered group by group (a group is `p.group` (batch, head)
+// pairs, chosen on the host so that their streamed operands stay in L2),
+// inside a group tile by tile; the caller turns the tile number around
+// where that puts the longest units first.
+__device__ __forceinline__ void unit_of(const Params& p, int w, int n_t,
+                                        int* tile, int* bh) {
+  const int n_bh = p.b * p.h;
+  const int group = w / (p.group * n_t);
+  const int first = group * p.group;
+  const int size = min(p.group, n_bh - first);
+  const int idx = w - group * p.group * n_t;
+  *bh = first + idx % size;
+  *tile = idx / size;
+}
+
+struct DkdvUnit {
+  int k0, hh, bb, bh, qt_begin, qt_end;
+};
+
+// A dK/dV unit, the first kv tiles (which the causal mask lets the most q
+// rows see) first; its 64-row q tiles are those with a row that has an
+// unmasked key in the kv tile (the general variant's q_tile_range):
+// causal rows start at k0; a window ends them at the tile's last key +
+// window - 1.  Empty when causal kv rows lie past every q row (skv > sq).
+template <int RING>
+__device__ __forceinline__ DkdvUnit dkdv_unit(const Params& p, int w,
+                                              int n_kt) {
+  DkdvUnit u;
+  int kt;
+  unit_of(p, w, n_kt, &kt, &u.bh);
+  u.k0 = kt * UNIT_ROWS;
+  u.hh = u.bh % p.h;
+  u.bb = u.bh / p.h;
+  u.qt_end = (p.sq + RING - 1) / RING;
+  if (p.window > 0) {
+    const int k_last = min(u.k0 + UNIT_ROWS, p.skv) - 1;
+    u.qt_end = min(u.qt_end, (k_last + p.window - 1) / RING + 1);
+  }
+  u.qt_begin = p.causal ? u.k0 / RING : 0;
+  return u;
+}
+
+struct DqUnit {
+  int q0, hh, bb, bh, kt_begin, kt_end;
+};
+
+// A dQ unit, the last q tiles first; its 64-row kv tiles are those the
+// forward visits for the same rows.
+template <int RING>
+__device__ __forceinline__ DqUnit dq_unit(const Params& p, int w, int n_qt) {
+  DqUnit u;
+  int i;
+  unit_of(p, w, n_qt, &i, &u.bh);
+  u.q0 = (n_qt - 1 - i) * UNIT_ROWS;
+  u.hh = u.bh % p.h;
+  u.bb = u.bh / p.h;
+  const int q_last = min(u.q0 + UNIT_ROWS, p.sq) - 1;
+  u.kt_end = (p.skv + RING - 1) / RING;
+  if (p.causal) u.kt_end = min(u.kt_end, q_last / RING + 1);
+  u.kt_begin = 0;
+  if (p.window > 0 && u.q0 - p.window + 1 > 0)
+    u.kt_begin = (u.q0 - p.window + 1) / RING;
+  return u;
+}
+
+// (a) D = rowsum(dO * o) for every row of (b, h, ls), 0 past sq: HD / 8
+// threads a row, 16 bytes each, summed by shuffles in a fixed order.
+// Rows are taken in the order (batch, position, head), o's and dO's
+// memory order when they are contiguous, so neighbouring threads read
+// neighbouring bytes; D is stored at (batch, head, position).
+template <int HD>
+__global__ void __launch_bounds__(PRE_THREADS)
+    bwd_preprocess_hopper(const __nv_bfloat16* o, const __nv_bfloat16* dout,
+                          float* delta, long long o_sb, long long o_ss,
+                          long long o_sh, long long d_sb, long long d_ss,
+                          long long d_sh, int sq, int h, long long ls,
+                          long long rows) {
+  constexpr int TPR = HD / 8;   // threads a row
+  const long long r =
+      (static_cast<long long>(blockIdx.x) * PRE_THREADS + threadIdx.x) / TPR;
+  const int part = threadIdx.x % TPR;
+  const long long bs = r / h;              // batch x ls + position
+  const int hh = static_cast<int>(r - bs * h);
+  const long long bb = bs / ls;
+  const int row = static_cast<int>(bs - bb * ls);
+  float acc = 0.f;
+  if (r < rows && row < sq) {
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        o + bb * o_sb + row * o_ss + hh * o_sh + part * 8);
+    const uint4 y = *reinterpret_cast<const uint4*>(
+        dout + bb * d_sb + row * d_ss + hh * d_sh + part * 8);
+    const __nv_bfloat162* xa = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* ya = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(xa[i]);
+      const float2 b = __bfloat1622float2(ya[i]);
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0 && r < rows) delta[(bb * h + hh) * ls + row] = acc;
+}
+
+// (b) dK and dV, one kv tile of 128 rows a unit.  The producer loads the
+// unit's K and V once it has work, then every q tile's Q, dO, LSE and D
+// into the ring.  Each consumer, per q tile: S^T and dP^T (two wgmma
+// groups), P^T and dS^T in registers, then dV += P^T dO and dK += dS^T
+// Q, and the stage goes back to the producer.  The unit's K and V go back
+// before the epilogue (dK x scale and dV stored as bf16).
+template <int HD, bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_do,
+                           const Params p) {
+  using C = DkdvCfg<HD>;
+  constexpr int RING = C::RING;
+  constexpr int STAGES = C::STAGES;
+  constexpr int UBUFS = C::UBUFS;
+  using L = Smem<HD, C>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // 128B swizzle
+  const uint32_t bars = base + L::BAR_OFF;
+  auto k_s = [&](int ub) { return base + ub * 2 * L::UNIT_TILE; };
+  auto v_s = [&](int ub) { return k_s(ub) + L::UNIT_TILE; };
+  auto q_s = [&](int s) { return base + L::RING_OFF + s * 2 * L::RING_TILE; };
+  auto do_s = [&](int s) { return q_s(s) + L::RING_TILE; };
+  auto vec_s = [&](int s) { return base + L::VEC_OFF + s * 2 * RING * 4; };
+  auto unit_full = [&](int ub) { return bars + 8 * ub; };
+  auto unit_empty = [&](int ub) { return bars + 8 * (UBUFS + ub); };
+  auto full = [&](int s) { return bars + 8 * (2 * UBUFS + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * UBUFS + STAGES + s); };
+  const float* vec = reinterpret_cast<const float*>(
+      smem_raw + (base - smem_u32(smem_raw)) + L::VEC_OFF);
+  const int n_kt = (p.skv + UNIT_ROWS - 1) / UNIT_ROWS;
+  const int n_units = n_kt * p.b * p.h;
+
+  if (threadIdx.x == 0) {
+    for (int ub = 0; ub < UBUFS; ++ub) {
+      mbar_init(unit_full(ub), 1);
+      mbar_init(unit_empty(ub), 256);   // every consumer thread arrives
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      uint32_t it = 0, u = 0;   // ring tiles and units with work so far
+      for (int w = blockIdx.x; w < n_units; w += gridDim.x) {
+        const DkdvUnit wk = dkdv_unit<RING>(p, w, n_kt);
+        if (wk.qt_begin >= wk.qt_end) continue;
+        const int ub = u % UBUFS;
+        mbar_wait(unit_empty(ub), ((u / UBUFS) & 1) ^ 1);
+        mbar_expect_tx(unit_full(ub), 2 * L::UNIT_TILE);
+#pragma unroll
+        for (int b = 0; b < L::NB; ++b) {
+          tma_load(k_s(ub) + b * UNIT_ROWS * BOX_ROW_BYTES, &map_k, b * BOX,
+                   wk.hh, wk.k0, wk.bb, unit_full(ub));
+          tma_load(v_s(ub) + b * UNIT_ROWS * BOX_ROW_BYTES, &map_v, b * BOX,
+                   wk.hh, wk.k0, wk.bb, unit_full(ub));
+        }
+        ++u;
+        for (int qt = wk.qt_begin; qt < wk.qt_end; ++qt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full(s), 2 * L::RING_TILE + 2 * RING * 4);
+#pragma unroll
+          for (int b = 0; b < L::NB; ++b) {
+            tma_load(q_s(s) + b * RING * BOX_ROW_BYTES, &map_q, b * BOX,
+                     wk.hh, qt * RING, wk.bb, full(s));
+            tma_load(do_s(s) + b * RING * BOX_ROW_BYTES, &map_do, b * BOX,
+                     wk.hh, qt * RING, wk.bb, full(s));
+          }
+          const long long off = wk.bh * p.ls + qt * RING;
+          bulk_load(vec_s(s), p.lse + off, RING * 4, full(s));
+          bulk_load(vec_s(s) + RING * 4, p.delta + off, RING * 4, full(s));
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int c = threadIdx.x / 128 - 1;       // consumer 0 or 1
+    const int lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const float none[2] = {0.f, 0.f};
+    uint32_t it = 0, u = 0;
+    for (int w = blockIdx.x; w < n_units; w += gridDim.x) {
+      const DkdvUnit wk = dkdv_unit<RING>(p, w, n_kt);
+      const int n_tiles = max(wk.qt_end - wk.qt_begin, 0);
+      const int row0 = wk.k0 + 64 * c + 16 * warp + g;   // this thread's kv
+      const int ub = u % UBUFS;
+      const uint32_t k_rows = k_s(ub) + 64 * c * BOX_ROW_BYTES;
+      const uint32_t v_rows = v_s(ub) + 64 * c * BOX_ROW_BYTES;
+      float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+      if (n_tiles > 0) mbar_wait(unit_full(ub), (u / UBUFS) & 1);
+      for (int i = 0; i < n_tiles; ++i) {
+        const uint32_t n = it + i;
+        const int s = n % STAGES;
+        const int q0 = (wk.qt_begin + i) * RING;
+        float sacc[RING / 2], dpacc[RING / 2];
+        mbar_wait(full(s), (n / STAGES) & 1);
+        wgmma_fence();
+        ss_product<HD, RING>(sacc, k_rows, q_s(s));    // S^T = K Q^T
+        wgmma_commit();
+        ss_product<HD, RING>(dpacc, v_rows, do_s(s));  // dP^T = V dO^T
+        wgmma_commit();
+        const bool mask = q0 + RING > p.sq ||
+                          (p.causal && q0 < wk.k0 + UNIT_ROWS - 1) ||
+                          (p.window > 0 && q0 + RING - 1 - wk.k0 >= p.window);
+        const float* lse_col = vec + s * 2 * RING;
+        tile_grads<true, SOFTCAP, RING>(mask, sacc, dpacc, p, row0, q0, t,
+                                        lse_col, lse_col + RING, none, none);
+        uint32_t pa[RING / 16][4], da[RING / 16][4];
+        pack_frags<RING>(pa, sacc);
+        pack_frags<RING>(da, dpacc);
+        wgmma_fence();
+        rs_product<HD, RING>(dv, pa, do_s(s));   // dV += P^T dO
+        rs_product<HD, RING>(dk, da, q_s(s));    // dK += dS^T Q
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        mbar_arrive(empty(s));
+      }
+      if (n_tiles > 0) {
+        mbar_arrive(unit_empty(ub));
+        ++u;
+      }
+      it += n_tiles;
+      store_rows<HD>(p.dk + wk.bb * p.dk_sb + wk.hh * p.dk_sh, p.dk_ss, row0,
+                     p.skv, t, dk, p.scale);
+      store_rows<HD>(p.dv + wk.bb * p.dv_sb + wk.hh * p.dv_sh, p.dv_ss, row0,
+                     p.skv, t, dv, 1.f);
+    }
+  }
+}
+
+// (c) dQ, one q tile of 128 rows a unit.  The producer loads the unit's
+// Q, dO, LSE and D, then every kv tile's K and V into the ring.  Each
+// consumer, per kv tile: S and dP (two wgmma groups), dS in registers,
+// dQ += dS K, and the stage goes back.  Epilogue: dQ x scale as bf16.
+template <int HD, bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const Params p) {
+  using C = DqCfg<HD>;
+  constexpr int RING = C::RING;
+  constexpr int STAGES = C::STAGES;
+  constexpr int UBUFS = C::UBUFS;
+  using L = Smem<HD, C>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto q_s = [&](int ub) { return base + ub * 2 * L::UNIT_TILE; };
+  auto do_s = [&](int ub) { return q_s(ub) + L::UNIT_TILE; };
+  auto k_s = [&](int s) { return base + L::RING_OFF + s * 2 * L::RING_TILE; };
+  auto v_s = [&](int s) { return k_s(s) + L::RING_TILE; };
+  auto vec_s = [&](int ub) { return base + L::VEC_OFF + ub * 2 * UNIT_ROWS * 4; };
+  auto unit_full = [&](int ub) { return bars + 8 * ub; };
+  auto unit_empty = [&](int ub) { return bars + 8 * (UBUFS + ub); };
+  auto full = [&](int s) { return bars + 8 * (2 * UBUFS + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * UBUFS + STAGES + s); };
+  const float* vec = reinterpret_cast<const float*>(
+      smem_raw + (base - smem_u32(smem_raw)) + L::VEC_OFF);
+  const int n_qt = (p.sq + UNIT_ROWS - 1) / UNIT_ROWS;
+  const int n_units = n_qt * p.b * p.h;
+
+  if (threadIdx.x == 0) {
+    for (int ub = 0; ub < UBUFS; ++ub) {
+      mbar_init(unit_full(ub), 1);
+      mbar_init(unit_empty(ub), 256);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      uint32_t it = 0, u = 0;
+      for (int w = blockIdx.x; w < n_units; w += gridDim.x, ++u) {
+        const DqUnit wk = dq_unit<RING>(p, w, n_qt);
+        const int ub = u % UBUFS;
+        mbar_wait(unit_empty(ub), ((u / UBUFS) & 1) ^ 1);
+        mbar_expect_tx(unit_full(ub), 2 * L::UNIT_TILE + 2 * UNIT_ROWS * 4);
+#pragma unroll
+        for (int b = 0; b < L::NB; ++b) {
+          tma_load(q_s(ub) + b * UNIT_ROWS * BOX_ROW_BYTES, &map_q, b * BOX,
+                   wk.hh, wk.q0, wk.bb, unit_full(ub));
+          tma_load(do_s(ub) + b * UNIT_ROWS * BOX_ROW_BYTES, &map_do, b * BOX,
+                   wk.hh, wk.q0, wk.bb, unit_full(ub));
+        }
+        const long long off = wk.bh * p.ls + wk.q0;
+        bulk_load(vec_s(ub), p.lse + off, UNIT_ROWS * 4, unit_full(ub));
+        bulk_load(vec_s(ub) + UNIT_ROWS * 4, p.delta + off, UNIT_ROWS * 4,
+                  unit_full(ub));
+        for (int kt = wk.kt_begin; kt < wk.kt_end; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full(s), 2 * L::RING_TILE);
+#pragma unroll
+          for (int b = 0; b < L::NB; ++b) {
+            tma_load(k_s(s) + b * RING * BOX_ROW_BYTES, &map_k, b * BOX,
+                     wk.hh, kt * RING, wk.bb, full(s));
+            tma_load(v_s(s) + b * RING * BOX_ROW_BYTES, &map_v, b * BOX,
+                     wk.hh, kt * RING, wk.bb, full(s));
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int c = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int r = 64 * c + 16 * warp + g;   // this thread's row in the unit
+    uint32_t it = 0, u = 0;
+    for (int w = blockIdx.x; w < n_units; w += gridDim.x, ++u) {
+      const DqUnit wk = dq_unit<RING>(p, w, n_qt);
+      const int n_tiles = wk.kt_end - wk.kt_begin;   // >= 1
+      const int ub = u % UBUFS;
+      const uint32_t q_rows = q_s(ub) + 64 * c * BOX_ROW_BYTES;
+      const uint32_t do_rows = do_s(ub) + 64 * c * BOX_ROW_BYTES;
+      const float* uvec = vec + ub * 2 * UNIT_ROWS;
+      mbar_wait(unit_full(ub), (u / UBUFS) & 1);
+      float l2[2], d[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l2[h] = uvec[r + 8 * h] * LOG2E;
+        d[h] = uvec[UNIT_ROWS + r + 8 * h];
+      }
+      float dq[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+      for (int i = 0; i < n_tiles; ++i) {
+        const uint32_t n = it + i;
+        const int s = n % STAGES;
+        const int k0 = (wk.kt_begin + i) * RING;
+        float sacc[RING / 2], dpacc[RING / 2];
+        mbar_wait(full(s), (n / STAGES) & 1);
+        wgmma_fence();
+        ss_product<HD, RING>(sacc, q_rows, k_s(s));    // S = Q K^T
+        wgmma_commit();
+        ss_product<HD, RING>(dpacc, do_rows, v_s(s));  // dP = dO V^T
+        wgmma_commit();
+        const bool mask = k0 + RING > p.skv ||
+                          (p.causal && k0 + RING - 1 > wk.q0) ||
+                          (p.window > 0 &&
+                           wk.q0 + UNIT_ROWS - 1 - k0 >= p.window);
+        tile_grads<false, SOFTCAP, RING>(mask, sacc, dpacc, p, wk.q0 + r, k0,
+                                         t, nullptr, nullptr, l2, d);
+        uint32_t da[RING / 16][4];
+        pack_frags<RING>(da, dpacc);
+        wgmma_fence();
+        rs_product<HD, RING>(dq, da, k_s(s));    // dQ += dS K
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        mbar_arrive(empty(s));
+      }
+      mbar_arrive(unit_empty(ub));
+      it += n_tiles;
+      store_rows<HD>(p.dq + wk.bb * p.dq_sb + wk.hh * p.dq_sh, p.dq_ss,
+                     wk.q0 + r, p.sq, t, dq, p.scale);
+    }
+  }
+}
+
+// Tensor map of a (b, s, h, hd) bf16 tensor with element strides st[0..2]
+// = (batch, seq, head) (hd stride 1): rank 4, dims {hd, h, s, b}, boxes
+// of 64 x 1 x rows x 1, 128B swizzle, zero fill out of bounds (the
+// forward's maps).  cuTensorMapEncodeTiled is looked up at run time
+// through the CUDA runtime's entry point query: no libcuda is linked.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+CUresult make_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr,
+                  int b, int s, int h, int hd, const long long* st,
+                  int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {BOX, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+template <typename Kern>
+cudaError_t launch_persistent(Kern kernel, const Maps& m, const Params& p,
+                              int n_units, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0;
+  int n_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  kernel<<<min(n_units, n_sm), THREADS, smem, stream>>>(m.q, m.k, m.v,
+                                                         m.dout, p);
+  return cudaGetLastError();
+}
+
+// The tensor maps of (b) or (c): its streamed operands (`ring` rows a
+// box) and its unit's (UNIT_ROWS); `dkdv` streams Q and dO past K and V,
+// else K and V past Q and dO.  Returns 1000 + the CUresult of a map that
+// failed to encode, else 0.
+int make_maps(Maps* m, EncodeTiledFn encode, const void* const* ptrs,
+              const long long* strides, int b, int sq, int skv, int h,
+              int hd, bool dkdv, int ring) {
+  const int q_rows = dkdv ? ring : UNIT_ROWS;
+  const int kv_rows = dkdv ? UNIT_ROWS : ring;
+  const struct {
+    CUtensorMap* map;
+    int which;   // q, k, v, o, dout
+    int s, rows;
+  } maps[4] = {{&m->q, 0, sq, q_rows}, {&m->k, 1, skv, kv_rows},
+               {&m->v, 2, skv, kv_rows}, {&m->dout, 4, sq, q_rows}};
+  for (const auto& x : maps) {
+    const CUresult res = make_map(x.map, encode, ptrs[x.which], b, x.s, h,
+                                  hd, strides + 3 * x.which, x.rows);
+    if (res != CUDA_SUCCESS) return 1000 + static_cast<int>(res);
+  }
+  return 0;
+}
+
+template <int HD, bool SOFTCAP>
+int launch(EncodeTiledFn encode, const void* const* ptrs,
+           const long long* strides, int hd, const Params& p, int which,
+           cudaStream_t stream) {
+  const int n_bh = p.b * p.h;
+  Maps m;
+  if (which & 2) {
+    constexpr int RING = DkdvCfg<HD>::RING;
+    const int bad = make_maps(&m, encode, ptrs, strides, p.b, p.sq, p.skv,
+                              p.h, hd, true, RING);
+    if (bad) return bad;
+    const cudaError_t err = launch_persistent(
+        bwd_dkdv_hopper_kernel<HD, SOFTCAP>, m, p,
+        (p.skv + UNIT_ROWS - 1) / UNIT_ROWS * n_bh,
+        Smem<HD, DkdvCfg<HD>>::BYTES, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (which & 4) {
+    constexpr int RING = DqCfg<HD>::RING;
+    const int bad = make_maps(&m, encode, ptrs, strides, p.b, p.sq, p.skv,
+                              p.h, hd, false, RING);
+    if (bad) return bad;
+    const cudaError_t err = launch_persistent(
+        bwd_dq_hopper_kernel<HD, SOFTCAP>, m, p,
+        (p.sq + UNIT_ROWS - 1) / UNIT_ROWS * n_bh,
+        Smem<HD, DqCfg<HD>>::BYTES, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+template <int HD>
+cudaError_t launch_preprocess(const void* o, const void* dout, float* delta,
+                              const long long* st, int b, int sq, int h,
+                              long long ls, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(b) * h * ls;
+  const long long blocks = (rows * (HD / 8) + PRE_THREADS - 1) / PRE_THREADS;
+  bwd_preprocess_hopper<HD>
+      <<<static_cast<unsigned>(blocks), PRE_THREADS, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(o),
+          static_cast<const __nv_bfloat16*>(dout), delta, st[9], st[10],
+          st[11], st[12], st[13], st[14], sq, h, ls, rows);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for every tensor.  q/k/v/o/dout are
 // read, dq/dk/dv written (shapes of q, k, v); lse and delta are (b, h, sq)
 // f32 scratch.  strides: 24 element strides, the (batch, seq, head)
 // strides of q, k, v, o, dout, dq, dk, dv in that order; the head-dim
-// stride of each must be 1.  hd <= 128.  Returns a cudaError_t (0 = all
-// three kernels launched).
+// stride of each must be 1.  hd <= 128.  which: the kernels to launch (1
+// stats, 2 dK/dV, 4 dQ; 7 for a whole backward).  Returns a cudaError_t
+// (0 = every kernel asked for launched).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, void* dq, void* dk,
@@ -877,7 +2014,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int dtype, int b, int sq, int skv, int h,
                                    int hd, const long long* strides,
                                    float scale, int causal, int window,
-                                   float softcap, void* stream) {
+                                   float softcap, int which, void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || hd < 1 || hd > 128 ||
       (window > 0 && sq > skv + window - 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -908,10 +2045,82 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_for_head_dim<false>(p, s);
+    err = launch_for_head_dim<false>(p, which, s);
   else if (dtype == 1)
-    err = launch_for_head_dim<true>(p, s);
+    err = launch_for_head_dim<true>(p, which, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// The Hopper variant, bf16 only: hd 64 or 128; q/k/v/o/dout 16-byte
+// aligned with (batch, seq, head) strides that are multiples of 8
+// elements (kernel_bwd.py::plan); dq/dk/dv with even strides.  lse: the
+// forward's training-mode log-sum-exp, (b, h, ls) f32; delta: (b, h, ls)
+// f32 scratch, written by the preprocess kernel; ls a multiple of 128 and
+// at least sq.  strides as for flash_attention_bwd.  which: the kernels
+// to launch (1 preprocess, 2 dK/dV, 4 dQ; 7 for a whole backward).
+// Returns a cudaError_t (0 = every kernel asked for launched), or 1000 +
+// the CUresult of a tensor map that failed to encode, or 2000 if libcuda
+// has no cuTensorMapEncodeTiled.
+extern "C" int flash_attention_bwd_hopper(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, const float* lse,
+    float* delta, long long ls, int b, int sq, int skv, int h, int hd,
+    const long long* strides, float scale, int causal, int window,
+    float softcap, int which, void* stream) {
+  if ((hd != 64 && hd != 128) || b < 1 || sq < 1 || skv < 1 ||
+      ls % hopper::UNIT_ROWS != 0 || ls < sq ||
+      (window > 0 && sq > skv + window - 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (which & 1) {
+    const cudaError_t err =
+        hd == 64 ? hopper::launch_preprocess<64>(o, dout, delta, strides, b,
+                                                 sq, h, ls, s)
+                 : hopper::launch_preprocess<128>(o, dout, delta, strides, b,
+                                                  sq, h, ls, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if ((which & 6) == 0) return 0;
+  hopper::EncodeTiledFn encode = hopper::encode_tiled();
+  if (encode == nullptr) return 2000;
+  const void* const ptrs[5] = {q, k, v, o, dout};
+  hopper::Params p;
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.lse = lse;
+  p.delta = delta;
+  p.ls = ls;
+  p.dq_sb = strides[15];
+  p.dq_ss = strides[16];
+  p.dq_sh = strides[17];
+  p.dk_sb = strides[18];
+  p.dk_ss = strides[19];
+  p.dk_sh = strides[20];
+  p.dv_sb = strides[21];
+  p.dv_ss = strides[22];
+  p.dv_sh = strides[23];
+  p.b = b;
+  p.sq = sq;
+  p.skv = skv;
+  p.h = h;
+  p.causal = causal;
+  p.window = window;
+  // (batch, head) pairs a group: their Q and dO (streamed by (b)), or K
+  // and V (streamed by (c)), together about GROUP_BYTES
+  const long long streamed = 4ll * std::max(sq, skv) * hd;
+  p.group = static_cast<int>(
+      std::max(1ll, std::min(static_cast<long long>(b) * h,
+                             hopper::GROUP_BYTES / streamed)));
+  p.scale = scale;
+  p.scale_log2 = scale * hopper::LOG2E;
+  p.cap_in = softcap != 0.f ? scale / softcap : 0.f;
+  p.cap_out = softcap * hopper::LOG2E;
+  const auto run = hd == 64 ? (softcap != 0.f ? hopper::launch<64, true>
+                                               : hopper::launch<64, false>)
+                            : (softcap != 0.f ? hopper::launch<128, true>
+                                              : hopper::launch<128, false>);
+  return run(encode, ptrs, strides, hd, p, which, s);
 }

@@ -34,6 +34,12 @@ other, and a failed build, tensor-map encode or launch raises):
   without overlap.  It is what every call took before the Hopper variant
   was added.
 
+Training mode (``lse``, Hopper variant only): the same kernel, a separate
+instantiation, also writes each row's log-sum-exp (natural log units, the
+scale and softcap folded in) for the backward's Hopper variant
+(``kernel_bwd.py``), which then needs no third S = Q K^T.  Serving passes
+no buffer and runs the instantiation it ran before.
+
 Both skip tiles above the causal diagonal or before the window (half the
 work at s = 1024) and schedule the longest q tiles first.  Measured times
 stand in PERF.md.
@@ -61,6 +67,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("hopper", "general")
 HOPPER_HEAD_DIMS = (64, 128)
 HOPPER_BQ = 128   # query rows of a Hopper unit of work
+# rows of a (batch, head) in an LSE buffer: sq rounded up to this, so that
+# the backward's 64- and 128-row slices of it are whole and 16-byte aligned
+LSE_ROW_ALIGN = 128
 
 
 def library_path() -> Path:
@@ -85,7 +94,8 @@ def library():
     lib.flash_attention_fwd.argtypes = ([ctypes.c_void_p] * 4
                                         + [ctypes.c_int] + common)
     lib.flash_attention_fwd_hopper.argtypes = (
-        [ctypes.c_void_p] * 4 + common[:-1] + [ctypes.c_void_p] * 2)
+        [ctypes.c_void_p] * 4 + common[:-1]
+        + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2)
     for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_hopper):
         fn.restype = ctypes.c_int
     return lib
@@ -115,15 +125,39 @@ def plan(q, k, v) -> str:
     return "hopper" if hopper else "general"
 
 
+def lse_buffer(q):
+    """An LSE buffer for the forward's training mode: f32 (b, h, sq
+    rounded up to ``LSE_ROW_ALIGN``) on q's device; its rows past sq are
+    never written."""
+    b, sq, h, _ = q.shape
+    rows = -(-sq // LSE_ROW_ALIGN) * LSE_ROW_ALIGN
+    return torch.empty((b, h, rows), dtype=torch.float32, device=q.device)
+
+
+def lse_fits(lse, q) -> bool:
+    """Whether ``lse`` is a buffer ``lse_buffer(q)`` could have made."""
+    b, sq, h, _ = q.shape
+    return (lse.dtype == torch.float32 and lse.device == q.device
+            and lse.dim() == 3 and lse.shape[:2] == (b, h)
+            and lse.shape[2] >= sq and lse.shape[2] % LSE_ROW_ALIGN == 0
+            and lse.is_contiguous())
+
+
 def flash_attention_cuda(q, k, v, variant, *, causal=True, window=0,
-                         softcap=0.0):
+                         softcap=0.0, lse=None):
     """Launches ``variant`` of the kernel on the current stream and returns
     o (b, sq, h, hd) in q.dtype.  The caller has checked device, dtype and
     shapes and chosen the variant (``plan``); the Hopper variant raises on
-    what it does not take rather than run another."""
+    what it does not take rather than run another.  ``lse``: a
+    ``lse_buffer(q)`` into which the Hopper variant also writes each row's
+    log-sum-exp (training mode); the general variant takes none."""
     if variant not in VARIANTS:
         raise ValueError(f"no flash attention variant {variant!r}")
     b, sq, h, hd = q.shape
+    if lse is not None and (variant != "hopper" or not lse_fits(lse, q)):
+        raise ValueError(f"lse must be a contiguous f32 (b, h, rows) buffer "
+                         f"from lse_buffer(q) for the hopper variant; got "
+                         f"{variant!r}, {tuple(lse.shape)} {lse.dtype}")
     skv = k.shape[1]
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
@@ -137,7 +171,9 @@ def flash_attention_cuda(q, k, v, variant, *, causal=True, window=0,
             # the persistent blocks' work counter
             counter = torch.zeros(1, dtype=torch.int32, device=q.device)
             err = library().flash_attention_fwd_hopper(
-                *ptrs, *args, counter.data_ptr(), stream)
+                *ptrs, *args, 0 if lse is None else lse.data_ptr(),
+                0 if lse is None else lse.shape[2], counter.data_ptr(),
+                stream)
         else:
             err = library().flash_attention_fwd(*ptrs, DTYPES[q.dtype],
                                                 *args, stream)

@@ -8,12 +8,21 @@ CUDA call that needs a gradient goes through ``_FlashAttention``, a
 whose backward launches the backward kernels (``kernel_bwd``); the plain
 gradient (``attention_bwd_ref``) is never taken on the card.  The
 forward kernel has two variants; ``kernel.plan`` picks one before launch
-from dtype, head dim and strides.  ``launches`` counts forward kernel
-launches and nothing else (a layer recomputed under activation
-checkpointing launches again, and counts again); ``launches_by_variant``
-counts the same launches by the variant each took; ``launches_bwd``
-counts backward kernel launches: three a backward call
-(``kernel_bwd.KERNELS``: stats, dK/dV, dQ).
+from dtype, head dim and strides.  So does the backward:
+``kernel_bwd.plan`` picks its route when the forward runs, since only the
+forward's Hopper variant, in training mode, writes the log-sum-exp the
+Hopper backward reads (saved with ``save_for_backward``, so a layer
+recomputed under activation checkpointing recomputes it too).
+
+Counts: ``launches`` counts forward kernel launches and nothing else (a
+layer recomputed under activation checkpointing launches again, and
+counts again); ``launches_by_variant`` counts the same launches by the
+variant each took; ``launches_bwd`` counts backward kernel launches,
+three a call of either variant (``kernel_bwd.KERNELS``: preprocess, dK/dV
+and dQ for "hopper"; stats, dK/dV and dQ for "general");
+``launches_bwd_by_variant`` counts the same launches by variant;
+``bwd_dout_copies`` counts the dOs the Hopper route copied because TMA
+could not read them.
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 launches = 0
 launches_by_variant = dict.fromkeys(kernel.VARIANTS, 0)
 launches_bwd = 0
+launches_bwd_by_variant = dict.fromkeys(kernel_bwd.VARIANTS, 0)
+bwd_dout_copies = 0
 
 
 def _check(q, k, v, window):
@@ -86,33 +97,47 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     return _forward(q, k, v, kw)
 
 
-def _forward(q, k, v, kw):
+def _forward(q, k, v, kw, lse=None):
     global launches
     variant = kernel.plan(q, k, v)
-    out = kernel.flash_attention_cuda(q, k, v, variant, **kw)
+    out = kernel.flash_attention_cuda(q, k, v, variant, lse=lse, **kw)
     launches += 1
     launches_by_variant[variant] += 1
     return out
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward and backward kernels of one CUDA call.  Saves q, k, v (as
-    the views they are) and the output."""
+    """Forward and backward kernels of one CUDA call, on the route
+    ``kernel_bwd.plan`` picks before the forward.  Saves q, k, v (as the
+    views they are) and the output, and on the "hopper" route the
+    forward's LSE."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw):
-        out = _forward(q, k, v, kw)
-        ctx.save_for_backward(q, k, v, out)
+        ctx.route = kernel_bwd.plan(q, k, v)
         ctx.kw = kw
+        if ctx.route == "hopper":
+            lse = kernel.lse_buffer(q)
+            out = _forward(q, k, v, kw, lse=lse)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out = _forward(q, k, v, kw)
+            ctx.save_for_backward(q, k, v, out)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        global launches_bwd
-        q, k, v, out = ctx.saved_tensors
-        if do.stride(3) != 1:
+        global launches_bwd, bwd_dout_copies
+        q, k, v, out, *lse = ctx.saved_tensors
+        if ctx.route == "hopper" and not kernel_bwd.dout_ok(do):
+            do = do.clone(memory_format=torch.contiguous_format)
+            bwd_dout_copies += 1
+        elif do.stride(3) != 1:
             do = do.contiguous()
-        dq, dk, dv = kernel_bwd.flash_attention_bwd_cuda(q, k, v, out, do,
-                                                         **ctx.kw)
-        launches_bwd += len(kernel_bwd.KERNELS)
+        dq, dk, dv = kernel_bwd.flash_attention_bwd_cuda(
+            q, k, v, out, do, ctx.route, lse=lse[0] if lse else None,
+            **ctx.kw)
+        n = len(kernel_bwd.KERNELS[ctx.route])
+        launches_bwd += n
+        launches_bwd_by_variant[ctx.route] += n
         return dq, dk, dv, None

@@ -33,6 +33,14 @@ def scores(q, k, *, causal=True, window=0, softcap=0.0):
     return torch.where(mask, s, NEG_INF), t
 
 
+def attention_lse(q, k, *, causal=True, window=0, softcap=0.0):
+    """Each row's log-sum-exp of its scaled, capped, masked scores: (b, h,
+    sq) f32, natural log units.  What the forward's training mode writes
+    for the backward's Hopper variant."""
+    s, _ = scores(q, k, causal=causal, window=window, softcap=softcap)
+    return torch.logsumexp(s, dim=-1)
+
+
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q (b, sq, h, hd); k/v (b, skv, h, hd).  f32 softmax; returns
     q.dtype.  The causal mask aligns q and k from position 0."""

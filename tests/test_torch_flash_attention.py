@@ -334,24 +334,42 @@ def test_bwd_ref_matches_jax_grad_of_the_twin(shape, causal, window,
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
 
 
-def test_bwd_faults_exceed_the_limits():
+@pytest.mark.parametrize("fault,kw", [
+    ("no-delta", {}),
+    ("no-softcap-derivative", dict(softcap=2.0)),
+    ("skip-last-tile", {}),
+    ("skip-first-tile", dict(window=70)),
+    ("lse-neighbour-row", {}),
+    ("lse-log2", {}),
+    ("stale-q-stage", {}),
+])
+def test_bwd_faults_exceed_the_limits(fault, kw):
     """Each fault chip_smoke.py holds the kernel against moves the
     gradient far past the f32 limit."""
+    assert fault in tchecks.FAULTS
     shape = (1, 160, 160, 2, 16)
     _, (q, k, v, do) = bwd_inputs(shape, seed=5)
     q, k = q * 4, k * 4            # scores past the softcap's linear range
-    for fault, kw in (("no-delta", {}),
-                      ("no-softcap-derivative", dict(softcap=2.0)),
-                      ("skip-last-tile", {}),
-                      ("skip-first-tile", dict(window=70))):
-        kw = dict(dict(causal=True, window=0, softcap=0.0), **kw)
-        o = attention_ref(q, k, v, **kw)
-        good = attention_bwd_ref(q, k, v, o, do, **kw)
-        bad = tchecks.attention_bwd_faulty(q, k, v, o, do, fault, **kw)
-        scales = tchecks.bwd_row_scales(q, k, v, o, do, **kw)
-        worst = max(tchecks.grad_row_err(b, g, m)
-                    for b, g, m in zip(bad, good, scales))
-        assert worst > 0.1, (fault, worst)
+    kw = dict(dict(causal=True, window=0, softcap=0.0), **kw)
+    o = attention_ref(q, k, v, **kw)
+    good = attention_bwd_ref(q, k, v, o, do, **kw)
+    bad = tchecks.attention_bwd_faulty(q, k, v, o, do, fault, **kw)
+    scales = tchecks.bwd_row_scales(q, k, v, o, do, **kw)
+    worst = max(tchecks.grad_row_err(b, g, m)
+                for b, g, m in zip(bad, good, scales))
+    assert worst > 0.1, (fault, worst)
+
+
+def test_stale_stage_fault_touches_only_dk_dv():
+    """The stale ring stage is one of dK/dV's: dq stays the plain one."""
+    _, (q, k, v, do) = bwd_inputs((1, 160, 160, 2, 16), seed=5)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    o = attention_ref(q, k, v, **kw)
+    good = attention_bwd_ref(q, k, v, o, do, **kw)
+    bad = tchecks.attention_bwd_faulty(q, k, v, o, do, "stale-q-stage",
+                                       **kw)
+    torch.testing.assert_close(bad[0], good[0], **BWD_TOL)
+    assert not torch.allclose(bad[1], good[1], **BWD_TOL)
 
 
 @pytest.mark.parametrize("shape,causal,window,softcap", BWD_GRID)
@@ -411,12 +429,228 @@ def test_bwd_build_is_its_own_library_and_lazy():
     assert path.name == "flash_attention_bwd.cu" and path != tK.SOURCE
     assert tKB.library.cache_info().currsize == 0
     assert tKB.MAX_HEAD_DIM == 128
+    assert tuple(tKB.KERNELS) == tKB.VARIANTS == tuple(
+        tops.launches_bwd_by_variant)
+    assert all(len(ks) == 3 for ks in tKB.KERNELS.values())
 
 
 def test_bwd_cuda_rejects_what_it_does_not_take():
     """The backward's wrapper checks device, dtype, shapes and head dim
     before it builds or launches anything."""
     _, (q, k, v, do) = bwd_inputs((1, 16, 16, 1, 16))
-    with pytest.raises(ValueError, match="one CUDA device"):
-        tKB.flash_attention_bwd_cuda(q, k, v, q, do)
+    for variant in tKB.VARIANTS:
+        with pytest.raises(ValueError, match="one CUDA device"):
+            tKB.flash_attention_bwd_cuda(q, k, v, q, do, variant)
+    with pytest.raises(ValueError, match="no flash attention backward"):
+        tKB.flash_attention_bwd_cuda(q, k, v, q, do, "fastest")
     assert tKB.library.cache_info().currsize == 0
+
+
+# ------------------------------------------------ kernel_bwd.plan (routes)
+
+
+@pytest.mark.parametrize("case,route", [
+    ("training", "hopper"), ("hd128", "hopper"), ("strided", "hopper"),
+    ("gqa-view", "hopper"), ("f32", "general"), ("hd120", "general"),
+    ("hd32", "general"), ("head-stride-not-16-bytes", "general"),
+    ("o-f32", "general"), ("o-seq-stride-not-16-bytes", "general"),
+    ("do-refused", "hopper"),
+])
+def test_bwd_plan_routes(case, route):
+    """kernel_bwd.plan on meta tensors: "hopper" where the forward takes
+    its Hopper variant and o is bf16 TMA reads, the (b, h, s, hd) storage
+    and an expanded GQA view (stride-0 heads) included; "general" for
+    everything else.  A dO TMA refuses never changes the route."""
+    b, s, h, hd = 4, 2048, 36, 64
+    q = k = v = meta((b, s, h, hd))
+    o = None
+    if case == "hd128":
+        q = k = v = meta((b, s, h, 128))
+    elif case == "strided":
+        q = k = v = meta((b, h, s, hd)).transpose(1, 2)
+    elif case == "gqa-view":
+        k = v = meta((b, s, 1, hd)).expand(b, s, h, hd)
+        assert k.stride(2) == 0
+    elif case == "f32":
+        q = k = v = meta((b, s, h, hd), dtype=torch.float32)
+    elif case.startswith("hd"):
+        q = k = v = meta((b, s, h, int(case[2:])))
+    elif case == "head-stride-not-16-bytes":
+        q = meta((b, s, h, hd), (s * h * 68, h * 68, 68, 1))
+    elif case == "o-f32":
+        o = meta((b, s, h, hd), dtype=torch.float32)
+    elif case == "o-seq-stride-not-16-bytes":
+        o = meta((b, s, h, hd), (s * (h * hd + 4), h * hd + 4, hd, 1))
+    elif case == "do-refused":
+        do = meta((b, s, h, hd), (s * h * hd * 2, h * hd * 2, hd * 2, 2))
+        assert not tKB.dout_ok(do)
+    assert tKB.plan(q, k, v, o) == route
+    if route == "hopper":
+        assert tK.plan(q, k, v) == "hopper"
+
+
+def test_bwd_plan_mirrors_the_kernel_source():
+    """The head dims, tiles and kernels plan() and the wrapper assume are
+    the ones the Hopper backward's source instantiates."""
+    src = tKB.SOURCE.read_text()
+    hopper = src[src.index("namespace hopper {"):]
+    assert "constexpr int UNIT_ROWS = %d;" % tKB.HOPPER_UNIT_ROWS in hopper
+    ring = tKB.HOPPER_RING_ROWS
+    assert ("struct DkdvCfg {\n  static constexpr int RING = HD == 64 ? "
+            "%d : %d;" % (ring["dkdv"][64], ring["dkdv"][128])) in hopper
+    assert ring["dq"][64] == ring["dq"][128]
+    assert ("struct DqCfg {\n  static constexpr int RING = %d;"
+            % ring["dq"][64]) in hopper
+    assert all(tK.LSE_ROW_ALIGN % r == 0 for rows in ring.values()
+               for r in rows.values())
+    assert tK.LSE_ROW_ALIGN % tKB.HOPPER_UNIT_ROWS == 0
+    entry = src[src.index('extern "C" int flash_attention_bwd_hopper'):]
+    assert "if ((hd != 64 && hd != 128)" in entry
+    assert "ls % hopper::UNIT_ROWS != 0" in entry
+    for hd in tK.HOPPER_HEAD_DIMS:
+        assert f"hopper::launch<{hd}, true>" in entry
+        assert f"hopper::launch<{hd}, false>" in entry
+        assert f"hopper::launch_preprocess<{hd}>" in entry
+    for name in ("bwd_preprocess_hopper", "bwd_dkdv_hopper_kernel",
+                 "bwd_dq_hopper_kernel"):
+        assert f"{name}(" in hopper
+    assert "bwd_stats" not in hopper
+    assert tKB.KERNELS["hopper"] == ("preprocess", "dkdv", "dq")
+    fwd = tK.SOURCE.read_text()
+    assert "template <int HD, bool SOFTCAP, bool LSE>" in fwd
+    assert "(m[h] + log2f(l[h])) / LOG2E" in fwd
+
+
+def test_lse_buffer_rows_are_padded():
+    q = meta((2, 1000, 3, 64))
+    buf = tK.lse_buffer(q)
+    assert buf.shape == (2, 3, 1024) and buf.dtype == torch.float32
+
+
+def test_lse_goes_only_to_the_hopper_forward():
+    _, (tq, tk, tv) = qkv((1, 16, 2, 64), dtype="bfloat16")
+    with pytest.raises(ValueError, match="lse must be"):
+        tK.flash_attention_cuda(tq, tk, tv, "general",
+                                lse=tK.lse_buffer(tq))
+    with pytest.raises(ValueError, match="lse must be"):
+        tK.flash_attention_cuda(tq, tk, tv, "hopper",
+                                lse=torch.empty((1, 2, 16)))
+    assert tK.library.cache_info().currsize == 0
+
+
+# ------------------------------------------------ the LSE (plain)
+
+from jax.nn import logsumexp as jax_logsumexp  # noqa: E402
+
+from repro_torch.kernels.flash_attention.ref import attention_lse  # noqa: E402
+
+
+def _jax_twin_scores(q, k, *, causal, window, softcap):
+    """The reference twin's masked, capped scores (models/attention.py::
+    flash_attention's block body, one block): q scaled in f32, the
+    softcap, the causal and window masks, NEG_INF."""
+    sq, skv, hd = q.shape[1], k.shape[1], q.shape[3]
+    qf = (jnp.asarray(q, jnp.float32) / np.sqrt(hd)).transpose(0, 2, 1, 3)
+    kf = jnp.asarray(k, jnp.float32).transpose(0, 2, 1, 3)
+    s = jA._softcap(jnp.einsum("bhqd,bhkd->bhqk", qf, kf), softcap)
+    q_pos = jnp.arange(sq)[:, None]
+    k_pos = jnp.arange(skv)[None, :]
+    mask = jnp.ones((sq, skv), bool)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= q_pos - k_pos < window
+    return jnp.where(mask[None, None], s, jA.NEG_INF)
+
+
+@pytest.mark.parametrize("shape,causal,window,softcap", BWD_GRID)
+def test_attention_lse_matches_jax_logsumexp_of_the_twin(shape, causal,
+                                                         window, softcap):
+    """ref.attention_lse, what the forward's training mode writes and the
+    Hopper backward reads, against jax.nn.logsumexp of the reference
+    twin's masked, capped scores (f32, 2e-5)."""
+    (jq, jk, _, _), (q, k, _, _) = bwd_inputs(shape, seed=11)
+    q, k, jq, jk = q * 4, k * 4, jq * 4, jk * 4     # peaked rows
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = jax_logsumexp(_jax_twin_scores(jq, jk, **kw), axis=-1)
+    got = attention_lse(q, k, **kw)
+    assert got.shape == (shape[0], shape[3], shape[1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+# ------------------------------------------------ _FlashAttention routing
+
+
+def _stand_ins(monkeypatch):
+    """CPU stand-ins for the two kernel entry points, calling ref.py: the
+    forward writes the plain LSE into the buffer it is given; the
+    backward records what it was handed.  Returns the backward's
+    records."""
+    from repro_torch.kernels.flash_attention import ref as tref
+    calls = []
+
+    def forward(q, k, v, variant, *, causal, window, softcap, lse=None):
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        if lse is not None:
+            lse[..., :q.shape[1]] = tref.attention_lse(q, k, **kw)
+        return tref.attention_ref(q, k, v, **kw)
+
+    def backward(q, k, v, o, do, variant, *, lse=None, **kw):
+        calls.append(dict(variant=variant, lse=lse, do_stride=do.stride(),
+                          want_lse=tref.attention_lse(q, k, **kw)))
+        return tref.attention_bwd_ref(q, k, v, o, do, **kw)
+
+    monkeypatch.setattr(tK, "flash_attention_cuda", forward)
+    monkeypatch.setattr(tKB, "flash_attention_bwd_cuda", backward)
+    return calls
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    ("bfloat16", 64, "hopper"), ("bfloat16", 128, "hopper"),
+    ("float32", 64, "general"), ("bfloat16", 32, "general"),
+])
+def test_function_saves_lse_exactly_on_the_hopper_route(monkeypatch, dtype,
+                                                        hd, route):
+    """_FlashAttention saves the forward's LSE through save_for_backward
+    when kernel_bwd.plan says "hopper", and hands it to the backward;
+    on the "general" route it saves none.  Launches count by route."""
+    calls = _stand_ins(monkeypatch)
+    _, (q, k, v) = qkv((2, 40, 3, hd), dtype=dtype, seed=4)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    kw = dict(causal=True, window=0, softcap=0.0)
+    before = dict(tops.launches_bwd_by_variant)
+    o = tops._FlashAttention.apply(q, k, v, kw)
+    saved = o.grad_fn.saved_tensors
+    assert o.grad_fn.route == route
+    assert len(saved) == (5 if route == "hopper" else 4)
+    o.backward(torch.ones_like(o))
+    (call,) = calls
+    assert call["variant"] == route
+    if route == "hopper":
+        lse = saved[4]
+        assert lse.shape == (2, 3, tK.LSE_ROW_ALIGN)
+        assert call["lse"] is lse
+        torch.testing.assert_close(lse[..., :40], call["want_lse"])
+    else:
+        assert call["lse"] is None
+    assert tops.launches_bwd_by_variant[route] - before[route] == 3
+
+
+def test_function_copies_a_dout_tma_refuses(monkeypatch):
+    """On the Hopper route a dO TMA cannot read (here: head-dim stride 2)
+    is copied to contiguous, the copy counted; the route stays."""
+    calls = _stand_ins(monkeypatch)
+    _, (q, k, v) = qkv((1, 24, 2, 64), dtype="bfloat16", seed=6)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = tops._FlashAttention.apply(q, k, v, dict(causal=True, window=0,
+                                                 softcap=0.0))
+    wide = torch.randn((1, 24, 2, 128)).bfloat16()
+    copies = tops.bwd_dout_copies
+    o.backward(wide[..., ::2])
+    assert tops.bwd_dout_copies == copies + 1
+    assert calls[0]["variant"] == "hopper"
+    assert calls[0]["do_stride"] == (24 * 2 * 64, 2 * 64, 64, 1)
+    want = attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(),
+                             wide[..., ::2], causal=True)
+    torch.testing.assert_close(q.grad, want[0])

@@ -162,7 +162,7 @@ def test_cuda_grad_raises(cuda):
     q, k, v = _qkv(1, 16, 16, 1, 16, torch.float32)
     q.requires_grad_(True)
     ops.flash_attention(q, k, v).sum().backward()
-    assert ops.launches_bwd == before[1] + len(kernel_bwd.KERNELS)
+    assert ops.launches_bwd == before[1] + len(kernel_bwd.KERNELS["general"])
     assert q.grad is not None
 
 
@@ -629,30 +629,123 @@ BWD_CASES = [
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))])
 def test_bwd_kernel_matches_plain(cuda, shape, causal, window, softcap,
                                   strided, dtype):
-    """dq, dk, dv of the backward kernel against attention_bwd_ref on f32
-    copies, row by row at the forward's limits against each row's scale
+    """dq, dk, dv of each backward variant that takes the call (the
+    general one always, the Hopper one where kernel_bwd.plan picks it,
+    with the forward's LSE) against attention_bwd_ref on f32 copies, row
+    by row at the forward's limits against each row's scale
     (checks.bwd_row_scales, as chip_smoke.py); two calls bit-identical."""
     q, k, v = _qkv(*shape, dtype, strided=strided, seed=3)
     do = torch.randn(q.shape, generator=torch.Generator(
         device="cuda").manual_seed(4), device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
+    variants = ["general"]
     with torch.no_grad():
         o = ops.flash_attention(q, k, v, **kw)
-        got = kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-        again = kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        lse = None
+        if kernel_bwd.plan(q, k, v, o) == "hopper":
+            variants.append("hopper")
+            lse = kernel.lse_buffer(q)
+            kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse, **kw)
         f32 = [t.float() for t in (q, k, v, o, do)]
         ref = attention_bwd_ref(*f32, **kw)
         scales = flash_checks.bwd_row_scales(*f32, **kw)
-    for a, b, r, m, t in zip(got, again, ref, scales, (q, k, v)):
-        assert a.shape == t.shape and a.dtype == dtype
+        for variant in variants:
+            lv = lse if variant == "hopper" else None
+            got = kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do,
+                                                      variant, lse=lv, **kw)
+            again = kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do,
+                                                        variant, lse=lv,
+                                                        **kw)
+            for a, b, r, m, t in zip(got, again, ref, scales, (q, k, v)):
+                assert a.shape == t.shape and a.dtype == dtype
+                assert torch.equal(a, b)
+                assert flash_checks.grad_row_err(a, r, m) <= ROW_TOL[dtype]
+
+
+# (b, sq, skv, h, hd), causal, window, softcap, q/k scale: the Hopper
+# backward's cases (bf16, hd 64 and 128): a window with a softcap, sq !=
+# skv without the causal mask, sq not a multiple of a tile, skv > sq
+# causal (kv tiles no q row sees), a tile of one row
+HOPPER_BWD_CASES = [
+    ((2, 512, 512, 8, 64), True, 256, 30.0, 6.0),
+    ((2, 300, 500, 4, 128), False, 0, 0.0, 2.0),
+    ((2, 1000, 1000, 4, 64), True, 0, 0.0, 2.0),
+    ((1, 200, 456, 4, 128), True, 0, 0.0, 2.0),
+    ((1, 1, 1, 2, 64), True, 0, 0.0, 2.0),
+]
+
+
+@pytest.mark.parametrize("shape,causal,window,softcap,qk_scale",
+                         HOPPER_BWD_CASES)
+def test_hopper_bwd_matches_plain(cuda, shape, causal, window, softcap,
+                                  qk_scale):
+    """The Hopper backward through ops.flash_attention and autograd (its
+    route, the forward's LSE, preprocess, dK/dV, dQ) against
+    attention_bwd_ref, row by row; two calls bit-identical."""
+    q, k, v = _qkv(*shape, torch.bfloat16, seed=8)
+    q, k = q * (qk_scale / 2), k * (qk_scale / 2)
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda").bfloat16()
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    assert kernel_bwd.plan(q, k, v) == "hopper"
+
+    def grads():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = ops.flash_attention(qq, kk, vv, **kw)
+        return o.detach(), torch.autograd.grad(o, (qq, kk, vv), do)
+
+    before = ops.launches_bwd_by_variant["hopper"]
+    o, got = grads()
+    again = grads()[1]
+    assert ops.launches_bwd_by_variant["hopper"] - before == 6
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    ref = attention_bwd_ref(*f32, **kw)
+    scales = flash_checks.bwd_row_scales(*f32, **kw)
+    for a, b, r, m in zip(got, again, ref, scales):
         assert torch.equal(a, b)
-        assert flash_checks.grad_row_err(a, r, m) <= ROW_TOL[dtype]
+        assert flash_checks.grad_row_err(a, r, m) <= ROW_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("shape,causal,window,softcap,qk_scale",
+                         HOPPER_BWD_CASES)
+def test_forward_lse_matches_the_stats_kernel(cuda, shape, causal, window,
+                                              softcap, qk_scale):
+    """The forward's training-mode LSE against the general backward's
+    stats kernel's (which recomputes it), within 1e-5 relative, and the
+    training mode's o is the serving instantiation's, bit for bit."""
+    q, k, v = _qkv(*shape, torch.bfloat16, seed=10)
+    q, k = q * (qk_scale / 2), k * (qk_scale / 2)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    lse = kernel.lse_buffer(q)
+    with torch.no_grad():
+        o = kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse, **kw)
+        assert torch.equal(o, kernel.flash_attention_cuda(q, k, v, "hopper",
+                                                          **kw))
+        stats = kernel_bwd.launch(q, k, v, o, torch.zeros_like(o), "general",
+                                  kernels=("stats",), **kw)[3]
+    got = lse[..., :shape[1]]
+    torch.testing.assert_close(got, stats, rtol=1e-5, atol=1e-5)
+
+
+def test_hopper_bwd_copies_a_dout_tma_refuses(cuda):
+    """A dO whose head dim has stride 2 stays on the Hopper route: it is
+    copied, the copy counted, and the gradients are those of the copy."""
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 130, 130, 2, 64,
+                                                 torch.bfloat16, seed=11))
+    o = ops.flash_attention(q, k, v)
+    wide = torch.randn((1, 130, 2, 128), device="cuda").bfloat16()
+    copies = ops.bwd_dout_copies
+    before = ops.launches_bwd_by_variant["hopper"]
+    o.backward(wide[..., ::2])
+    assert ops.bwd_dout_copies == copies + 1
+    assert ops.launches_bwd_by_variant["hopper"] - before == 3
 
 
 def test_autograd_uses_the_backward_kernel(cuda):
     """Through ops.flash_attention with gradients: the Function launches
-    the forward kernel once and the backward's three kernels once each,
-    and q/k/v's grads are the backward kernel's."""
+    the forward kernel once (training mode, the LSE written) and the
+    Hopper backward's three kernels once each, and q/k/v's grads are the
+    backward kernels'."""
     q, k, v = (t.requires_grad_() for t in _qkv(2, 150, 150, 4, 64,
                                                  torch.bfloat16, seed=5))
     before = (ops.launches, ops.launches_bwd)
@@ -660,9 +753,13 @@ def test_autograd_uses_the_backward_kernel(cuda):
     do = torch.randn_like(o)
     o.backward(do)
     assert (ops.launches, ops.launches_bwd) == (
-        before[0] + 1, before[1] + len(kernel_bwd.KERNELS))
-    want = kernel_bwd.flash_attention_bwd_cuda(q.detach(), k.detach(),
-                                               v.detach(), o.detach(), do)
+        before[0] + 1, before[1] + len(kernel_bwd.KERNELS["hopper"]))
+    lse = kernel.lse_buffer(q)
+    with torch.no_grad():
+        kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse)
+    want = kernel_bwd.flash_attention_bwd_cuda(
+        q.detach(), k.detach(), v.detach(), o.detach(), do, "hopper",
+        lse=lse)
     for t, w in zip((q, k, v), want):
         assert torch.equal(t.grad, w)
 
@@ -686,7 +783,7 @@ def test_loss_and_grads_on_the_card_match_cpu(cuda, arch):
     got = value_and_grad(model, _to(params, cuda), _to(batch, cuda))
     n = cfg.n_layers
     assert (ops.launches - before[0], ops.launches_bwd - before[1]) == (
-        2 * n, len(kernel_bwd.KERNELS) * n)
+        2 * n, len(kernel_bwd.KERNELS["general"]) * n)
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
     from repro_torch import tree as T
     for (path, g), w in zip(T.flatten(got[2]), T.leaves(want[2])):

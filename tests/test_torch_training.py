@@ -290,6 +290,60 @@ def test_remat_gives_the_same_bits(policy):
         assert torch.equal(g, g0), path
 
 
+@pytest.mark.parametrize("policy", [None, "dots"])
+def test_remat_recomputes_the_saved_lse(monkeypatch, policy):
+    """On the "hopper" route the forward's LSE is saved through
+    save_for_backward, so a layer under activation checkpointing (policy
+    None or "dots") hands its backward the LSE of the recompute: each
+    backward gets the LSE of the q, k it gets, and the gradients equal
+    those without remat, bit for bit.  The kernels are CPU stand-ins that
+    call ref.py, and the route is forced to "hopper": this tests the
+    routing, not the kernels."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import kernel_bwd as fkb
+    from repro_torch.kernels.flash_attention import ref as fref
+    calls = []
+
+    def forward(q, k, v, variant, *, causal, window, softcap, lse=None):
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        if lse is not None:
+            lse[..., :q.shape[1]] = fref.attention_lse(q, k, **kw)
+        return fref.attention_ref(q, k, v, **kw)
+
+    def backward(q, k, v, o, do, variant, *, lse=None, **kw):
+        calls.append((variant, torch.equal(
+            lse[..., :q.shape[1]], fref.attention_lse(q, k, **kw))))
+        return fref.attention_bwd_ref(q, k, v, o, do, **kw)
+
+    def through_function(q, k, v, *, causal=True, window=0, softcap=0.0):
+        return flash_ops._FlashAttention.apply(
+            q, k, v, dict(causal=bool(causal), window=int(window),
+                          softcap=float(softcap)))
+
+    monkeypatch.setattr(fkb, "plan", lambda *a, **kw: "hopper")
+    monkeypatch.setattr(fk, "flash_attention_cuda", forward)
+    monkeypatch.setattr(fkb, "flash_attention_bwd_cuda", backward)
+    monkeypatch.setattr(flash_ops, "flash_attention", through_function)
+    _, _, tm, tp = pair("mistral-nemo-12b")
+    batch = to_torch(batch_np(tm.cfg, 2, 20, seed=8))
+
+    class NoRemat(type(tm)):
+        def _run_layers(self, *a, remat=False):
+            return super()._run_layers(*a, remat=False)
+
+    loss0, _, grads0 = value_and_grad(NoRemat(tm.cfg), tp, batch)
+    calls.clear()
+    tm.remat_policy = policy
+    try:
+        loss, _, grads = value_and_grad(tm, tp, batch)
+    finally:
+        tm.remat_policy = None
+    assert calls == [("hopper", True)] * tm.cfg.n_layers
+    assert torch.equal(loss, loss0)
+    for (path, g), g0 in zip(T.flatten(grads), T.leaves(grads0)):
+        assert torch.equal(g, g0), path
+
+
 def test_remat_policy_must_be_known():
     _, _, tm, tp = pair("minicpm-2b")
     tm.remat_policy = "everything"
