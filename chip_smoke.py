@@ -21,18 +21,24 @@ non-zero and prints no result:
    the Mamba selective scan (K3); K1's two variants (the Hopper one
    that the serving shapes take, and the general one) in turns at the
    main-path shape and at Jamba's 64 heads, each case checked for the
-   variant it took, and at a wave of the sliding-window paths (4 x 6144
-   rows, window 4096: the general variant at danube's hd 120, both at
-   mixtral's hd 128) beside SDPA with a band mask, held to the O(s·w)
+   variant it took (the Hopper variant at hd 64, 120 and 128 in bf16:
+   hd 120 ragged, non-causal, softcapped, windowed, in a (b, h, s, hd)
+   storage and as the first 120 columns of a 128-column storage whose
+   last 8 hold 1e4; the general one at f32 hd 120), and at a wave of the
+   sliding-window paths (4 x 6144 rows, window 4096: the Hopper variant
+   at danube's hd 120 and at mixtral's hd 128, the general one as the
+   yardstick) beside SDPA with a band mask, held to the O(s·w)
    sliding_window_attention, with a window one kv tile shorter or longer
-   shown to fail; K2 through its dispatcher, and its candidate plans
-   (G, C, CB, double buffer) in two passes at the main-path shape, each
-   case checked for the plan it took, and a stale chunk and a lost row
-   group shown to fail; the SFUs' ex2 rate measured on every SM, alone
-   and beside FFMAs; K3 through its dispatcher, and its first design
-   (the yardstick), the same with ex2.approx and the serving design
-   checked and timed in two passes at the main-path shape, beside its
-   bound and its design's floor;
+   shown to fail, and at hd 120 the padding columns read from the next
+   head or the second TMA box dropped shown to fail; K2 through its
+   dispatcher, and its candidate plans (G, C, CB, double buffer) in two
+   passes at the main-path shape, each case checked for the plan it
+   took, and a stale chunk and a lost row group shown to fail; the
+   SFUs' ex2 rate measured on every SM, alone and beside FFMAs; K3
+   through its dispatcher, and its first design (the yardstick), the
+   same with ex2.approx and the serving design checked and timed in two
+   passes at the main-path shape, beside its bound and its design's
+   floor;
 4. main paths, each with every kernel's launch count set to 0 just
    before it and read just after, served through the port's rFaaS stack
    (ModelServer, ServeEngine, Invoker, ResourceManager, BatchSystem,
@@ -42,9 +48,8 @@ non-zero and prints no result:
    4096-token window); each checks that every request gets its tokens,
    every logit is finite and each of its kernels ran as often per
    prefill wave as the path has layers that run it (and no other kernel
-   ran), every K1 launch through the path's variant (``K1_VARIANT``:
-   Hopper but on danube); the device memory of the path before is freed
-   first:
+   ran), every K1 launch through the Hopper variant; the device memory
+   of the path before is freed first:
    a. mistral-nemo-12b (40 layers, d_model 5120): K1 40 times a wave;
    b. rwkv6-1.6b (24 layers, d_model 2048): K2 24 times a wave, every
       launch under kernel.plan's (G, C, CB);
@@ -55,7 +60,7 @@ non-zero and prints no result:
       a wave.  One period (8 layers) would be 45.2 B params, 90.4 GB in
       bf16: more than the card holds;
    d. h2o-danube-3-4b (24 layers, d_model 3840, hd 120, window 4096 on
-      every layer, 3.96 B params): K1 24 times a wave, general variant;
+      every layer, 3.96 B params): K1 24 times a wave, Hopper variant;
    e. mixtral-8x7b cut in depth to its first 8 layers, every width as
       published (window 4096, 8 experts top-2 of 14336), 11.87 B params:
       K1 8 times a wave, Hopper variant.
@@ -161,9 +166,6 @@ MAIN_PATHS = {"mistral-nemo-12b": {"flash_attention": 40},
 # window, so it bites in prefill and in every decode step
 SHORT_TRAFFIC = ((256, 1024), 2048)
 TRAFFIC = {DANUBE: ((4097, 6144), 6160), MIXTRAL: ((4097, 6144), 6160)}
-# the K1 variant every launch of a main path takes: hd 128 takes the
-# Hopper variant, danube's hd 120 the general one (kernel.plan)
-K1_VARIANT = {DANUBE: "general"}
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor cores
               torch.float32: 67e12}            # CUDA cores, no TF32
@@ -186,42 +188,64 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # so ~3e-3 at most.  A row that loses the key it attends to errs by O(1).
 ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
-# name, (b, sq, skv, h, hd), dtype, causal, window, softcap, strided, the
-# variant kernel.plan must pick
+# name, (b, sq, skv, h, hd), dtype, causal, window, softcap, layout of
+# q/k/v ("plain" (b, s, h, hd); "strided": a (b, h, s, hd) storage;
+# "padded": the first hd columns of a (b, s, h, 128) storage whose other
+# columns hold 1e4), the variant kernel.plan must pick
 FLASH_CASES = [
     ("main-path", (4, 1024, 1024, 32, 128), torch.bfloat16, True, 0, 0.0,
-     False, "hopper"),
-    ("window", (1, 257, 257, 4, 64), torch.float32, True, 64, 0.0, False,
+     "plain", "hopper"),
+    ("window", (1, 257, 257, 4, 64), torch.float32, True, 64, 0.0, "plain",
      "general"),
     ("minicpm-hd12", (2, 100, 100, 6, 12), torch.float32, True, 0, 0.0,
-     False, "general"),
+     "plain", "general"),
     ("softcap-hd256", (1, 96, 96, 2, 256), torch.bfloat16, True, 0, 30.0,
-     False, "general"),
+     "plain", "general"),
     ("ragged-noncausal", (1, 64, 192, 2, 64), torch.float32, False, 0, 0.0,
-     False, "general"),
+     "plain", "general"),
     ("strided-gemma-hd16", (2, 130, 130, 4, 16), torch.float32, True, 16,
-     0.0, True, "general"),
+     0.0, "strided", "general"),
     ("ragged-wave", (4, 916, 916, 32, 128), torch.bfloat16, True, 0, 0.0,
-     False, "hopper"),
+     "plain", "hopper"),
     ("window-257", (2, 700, 700, 8, 128), torch.bfloat16, True, 257, 0.0,
-     False, "hopper"),
+     "plain", "hopper"),
     ("window-64", (1, 257, 257, 4, 64), torch.bfloat16, True, 64, 0.0,
-     False, "hopper"),
+     "plain", "hopper"),
     ("noncausal-hd64", (1, 200, 333, 4, 64), torch.bfloat16, False, 0, 0.0,
-     False, "hopper"),
+     "plain", "hopper"),
     ("softcap-30", (1, 300, 300, 4, 128), torch.bfloat16, True, 0, 30.0,
-     False, "hopper"),
+     "plain", "hopper"),
     ("strided-hd128", (1, 300, 300, 4, 128), torch.bfloat16, True, 0, 0.0,
-     True, "hopper"),
+     "strided", "hopper"),
     ("jamba-64-heads", (4, 1024, 1024, 64, 128), torch.bfloat16, True, 0,
-     0.0, False, "hopper"),
+     0.0, "plain", "hopper"),
+    # hd 120 (h2o-danube-3-4b): two TMA boxes a row, the second's columns
+    # 120..127 zero-filled by TMA
+    ("ragged-wave-hd120", (4, 916, 916, 32, 120), torch.bfloat16, True, 0,
+     0.0, "plain", "hopper"),
+    ("noncausal-hd120", (1, 200, 333, 4, 120), torch.bfloat16, False, 0,
+     0.0, "plain", "hopper"),
+    ("softcap-30-hd120", (1, 300, 300, 4, 120), torch.bfloat16, True, 0,
+     30.0, "plain", "hopper"),
+    ("window-257-hd120", (2, 700, 700, 8, 120), torch.bfloat16, True, 257,
+     0.0, "plain", "hopper"),
+    ("strided-hd120", (1, 300, 300, 4, 120), torch.bfloat16, True, 0, 0.0,
+     "strided", "hopper"),
+    ("padded-hd120", (2, 300, 300, 4, 120), torch.bfloat16, True, 0, 0.0,
+     "padded", "hopper"),
+    ("f32-hd120", (1, 300, 300, 4, 120), torch.float32, True, 0, 0.0,
+     "plain", "general"),
     # a wave of the sliding-window paths: 4 prompts padded to 6144, window
     # 4096, hd 120 (danube) and 128 (mixtral)
     ("danube-window-4096", (4, 6144, 6144, 32, 120), torch.bfloat16, True,
-     4096, 0.0, False, "general"),
+     4096, 0.0, "plain", "hopper"),
     ("mixtral-window-4096", (4, 6144, 6144, 32, 128), torch.bfloat16, True,
-     4096, 0.0, False, "hopper"),
+     4096, 0.0, "plain", "hopper"),
 ]
+# the forward faults (checks.FWD_FAULTS) a case also shows its checks
+# can see
+FLASH_FAULTS = {"danube-window-4096": ("pad-from-next-head",
+                                       "second-box-dropped")}
 # the cases timed beside the main-path case, each under its own key of
 # the kernels line
 TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
@@ -430,20 +454,26 @@ def ptxas_summary(log):
     return out
 
 
-def _flash_inputs(shape, dtype, strided, gen):
+def _flash_inputs(shape, dtype, layout, gen):
     """q, k ~ N(0, 4) and v ~ N(0, 1): scores q.k/sqrt(hd) have standard
     deviation 4, so each row's softmax is peaked on a few keys and |out|
     is O(1) in every row, however many keys it sees.  A kernel that
     loses or doubles any kv tile then moves the rows that attend into it
-    by O(1), which the checks see."""
+    by O(1), which the checks see.  ``layout``: see ``FLASH_CASES``; a
+    kernel that read the "padded" storage's columns past hd would see
+    scores of about 1e8."""
     b, sq, skv, h, hd = shape
 
     def randn(s, scale):
-        if strided:       # (b, h, s, hd) storage seen as (b, s, h, hd)
+        if layout == "strided":       # (b, h, s, hd) seen as (b, s, h, hd)
             x = torch.randn((b, h, s, hd), generator=gen, device="cuda")
-            x = x.transpose(1, 2)
-        else:
-            x = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+            return (x.transpose(1, 2) * scale).to(dtype)
+        if layout == "padded":
+            x = torch.randn((b, s, h, 128), generator=gen, device="cuda")
+            x = (x * scale).to(dtype)
+            x[..., hd:] = 1e4
+            return x[..., :hd]
+        x = torch.randn((b, s, h, hd), generator=gen, device="cuda")
         return (x * scale).to(dtype)
 
     return randn(sq, 2.0), randn(skv, 2.0), randn(skv, 1.0)
@@ -499,13 +529,14 @@ def phase_flash():
     at the main-path case; those of ``TIMED_FLASH_CASES`` beside them)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import checks
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ops as flash_ops
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entry, timed = None, {}
-    for (name, shape, dtype, causal, window, softcap, strided,
+    for (name, shape, dtype, causal, window, softcap, layout,
          variant) in FLASH_CASES:
-        q, k, v = _flash_inputs(shape, dtype, strided, gen)
+        q, k, v = _flash_inputs(shape, dtype, layout, gen)
         kw = dict(causal=causal, window=window, softcap=softcap)
         plain = flash_plain(shape, kw)
         before = dict(flash_ops.launches_by_variant)
@@ -520,7 +551,7 @@ def phase_flash():
         tol, rtol = TOL[dtype], ROW_TOL[dtype]
         print(f"[kernels] flash_attention {name} {tuple(shape)} "
               f"{str(dtype)[6:]} causal={causal} window={window} "
-              f"softcap={softcap} strided={strided}, variant {took}: "
+              f"softcap={softcap} {layout}, variant {took}: "
               f"max_abs_err {err:.3e} (limit {tol:g} + {tol:g} x |ref|), "
               f"worst row rel err {rerr:.3e} (tol {rtol:g}) against "
               f"{plain.func.__name__}")
@@ -533,6 +564,9 @@ def phase_flash():
                             f"{rerr:.3e} > {rtol:g}")
         if window >= 1024:
             _window_checks_can_fail(plain, q, k, v, ref, rtol, name)
+        for fault in FLASH_FAULTS.get(name, ()):
+            _forward_fault_fails(checks, plain, q, k, v, ref, tol, rtol,
+                                 name, fault)
         if name in TIMED_FLASH_CASES:
             timed[name] = {"variant": variant, "max_abs_err": err,
                            **_time_flash(flash_kernel, F, q, k, v, shape,
@@ -602,16 +636,40 @@ def _window_checks_can_fail(plain, q, k, v, ref, rtol, name):
                              f"{e:.3e}: the check cannot see it")
 
 
+def _forward_fault_fails(checks, plain, q, k, v, ref, tol, rtol, name,
+                         fault):
+    """The plain version on the inputs the Hopper forward would read with
+    ``fault`` (``checks.forward_fault_inputs``) must fail the elementwise
+    check (some element past tol + tol x |ref|) and land far past the
+    row limit."""
+    with torch.inference_mode():
+        bad = plain(*checks.forward_fault_inputs(q, k, v, fault))
+        bad = bad[..., :q.shape[3]]
+        excess = ((bad - ref.float()).abs() - tol
+                  - tol * ref.float().abs()).max().item()
+        rerr = row_err(bad, ref)
+    del bad
+    print(f"[kernels] flash_attention {name}: a forward with {fault} gives "
+          f"worst row rel err {rerr:.3e} (limit {rtol:g}) and an element "
+          f"{excess:.3e} past the elementwise limit")
+    check(excess > 0 and rerr > 10 * rtol,
+          f"{name}: {fault} gives row err {rerr:.3e}, elementwise excess "
+          f"{excess:.3e}: the checks cannot see it")
+
+
 def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                 plain):
     """Times K1 through the kernel module (no launch counted): both
     variants in turns (general, hopper, hopper, general) where ``plan``
     takes the Hopper one, else the general one twice; where it takes the
-    Hopper one, its serving instantiation against its training mode (the
-    LSE written; without, with, with, without); SDPA on the same inputs
+    Hopper one at a head dim with a training mode (the Hopper backward's,
+    ``kernel_bwd.HOPPER_HEAD_DIMS``), its serving instantiation against
+    its training mode (the LSE written; without, with, with, without);
+    SDPA on the same inputs
     (with a boolean band mask for a window); and the plain version.
     Prints them beside the bound and returns the kernels-line numbers
     (``ms`` is that of ``variant``, the one the dispatcher takes)."""
+    from repro_torch.kernels.flash_attention import kernel_bwd
     order = (("general", "hopper", "hopper", "general")
              if variant == "hopper" else ("general", "general"))
     turns, lse_turns = [], []
@@ -620,7 +678,7 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
             turns.append((vt, time_ms(
                 lambda: flash_kernel.flash_attention_cuda(q, k, v, vt,
                                                           **kw))))
-        if variant == "hopper":
+        if variant == "hopper" and q.shape[3] in kernel_bwd.HOPPER_HEAD_DIMS:
             lse = flash_kernel.lse_buffer(q)
             for with_lse in (False, True, True, False):
                 lse_turns.append((with_lse, time_ms(
@@ -1271,10 +1329,9 @@ def phase_main_path(arch, card, profile):
           "a request got the wrong number of tokens")
     check(probe.nonfinite == 0, f"{probe.nonfinite} non-finite logits")
     want = {name: MAIN_PATHS[arch].get(name, 0) * waves for name in ops}
-    # every K1 launch of a main path takes the path's variant
-    want["flash_attention_by_variant"] = {"hopper": 0, "general": 0}
-    want["flash_attention_by_variant"][K1_VARIANT.get(arch, "hopper")] = \
-        want["flash_attention"]
+    # every K1 launch of a main path takes the Hopper variant
+    want["flash_attention_by_variant"] = {"hopper": want["flash_attention"],
+                                          "general": 0}
     # every K2 launch takes kernel.plan's (G, C, CB) for the model's head dim
     want["wkv6_by_plan"] = {}
     if want["wkv6"]:
@@ -1486,37 +1543,38 @@ def phase_decode_vs_prefill(arch, prompt=6, steps=5, patches=0, ring=False):
 # ------------------------------------------------ K1's backward, training
 
 # name, (b, sq, skv, h, hd), dtype, causal, window, softcap, q/k scale,
-# layout, the route kernel_bwd.plan must pick; the first is the training
-# shape (minicpm-2b, batch 4 x 2048)
+# layout, the route kernel_bwd.plan must pick and the forward variant
+# kernel.plan must pick (hd 120: the Hopper forward, the general
+# backward); the first is the training shape (minicpm-2b, batch 4 x 2048)
 BWD_CASES = [
     ("training", (4, 2048, 2048, 36, 64), torch.bfloat16, True, 0, 0.0,
-     2.0, "plain", "hopper"),
+     2.0, "plain", "hopper", "hopper"),
     ("hd128", (2, 1024, 1024, 32, 128), torch.bfloat16, True, 0, 0.0, 2.0,
-     "plain", "hopper"),
+     "plain", "hopper", "hopper"),
     ("hd120-window256", (2, 1024, 1024, 32, 120), torch.bfloat16, True, 256,
-     0.0, 2.0, "plain", "general"),
+     0.0, 2.0, "plain", "general", "hopper"),
     # q, k ~ N(0, 36): scores of standard deviation 36 against the cap 50,
     # where tanh's derivative (1 - t^2) is far from 1
     ("softcap-50", (2, 512, 512, 8, 64), torch.bfloat16, True, 0, 50.0,
-     6.0, "plain", "hopper"),
+     6.0, "plain", "hopper", "hopper"),
     ("f32-hd64", (2, 512, 512, 8, 64), torch.float32, True, 0, 0.0, 2.0,
-     "plain", "general"),
+     "plain", "general", "general"),
     ("ragged-noncausal", (2, 300, 500, 4, 64), torch.bfloat16, False, 0,
-     0.0, 2.0, "plain", "hopper"),
+     0.0, 2.0, "plain", "hopper", "hopper"),
     # (b, h, s, hd) storage seen as (b, s, h, hd): TMA reads it
     ("strided", (2, 700, 700, 8, 64), torch.bfloat16, True, 0, 0.0, 2.0,
-     "strided", "hopper"),
+     "strided", "hopper", "hopper"),
     # k and v one KV head seen as all 32 (stride 0 over heads): an
     # expanded GQA view, read with no copy (TMA takes the stride 0)
     ("gqa-view", (2, 1024, 1024, 32, 64), torch.bfloat16, True, 0, 0.0, 2.0,
-     "gqa-view", "hopper"),
+     "gqa-view", "hopper", "hopper"),
     ("window256-softcap30", (2, 1024, 1024, 8, 64), torch.bfloat16, True,
-     256, 30.0, 6.0, "plain", "hopper"),
+     256, 30.0, 6.0, "plain", "hopper", "hopper"),
     ("noncausal-hd128", (2, 300, 500, 4, 128), torch.bfloat16, False, 0,
-     0.0, 2.0, "plain", "hopper"),
+     0.0, 2.0, "plain", "hopper", "hopper"),
     # sq not a multiple of a tile: the last Q/dO boxes run past sq
     ("ragged-1000", (2, 1000, 1000, 8, 64), torch.bfloat16, True, 0, 0.0,
-     2.0, "plain", "hopper"),
+     2.0, "plain", "hopper", "hopper"),
 ]
 # the fault each case also shows the checks can see (checks.FAULTS)
 BWD_FAULTS = {"training": ("no-delta", "skip-last-tile", "lse-neighbour-row",
@@ -1615,10 +1673,11 @@ def phase_flash_bwd():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     entry, timed = None, {}
     for (name, shape, dtype, causal, window, softcap, qk_scale,
-         layout, route) in BWD_CASES:
+         layout, route, forward) in BWD_CASES:
         q, k, v, do = _bwd_inputs(shape, dtype, qk_scale, layout, gen)
         kw = dict(causal=causal, window=window, softcap=softcap)
         before = dict(flash_ops.launches_bwd_by_variant)
+        before_fwd = dict(flash_ops.launches_by_variant)
         o, got = _flash_grads(flash_ops, q, k, v, do, kw)
         again = _flash_grads(flash_ops, q, k, v, do, kw)[1]
         torch.cuda.synchronize()
@@ -1627,6 +1686,11 @@ def phase_flash_bwd():
         want = {vt: 2 * len(kernel_bwd.KERNELS[vt]) if vt == route else 0
                 for vt in kernel_bwd.VARIANTS}
         check(took == want, f"flash_bwd {name}: kernel launches by route "
+                            f"{took}, expected {want}")
+        took = {vt: n - before_fwd[vt]
+                for vt, n in flash_ops.launches_by_variant.items()}
+        want = {vt: 2 if vt == forward else 0 for vt in took}
+        check(took == want, f"flash_bwd {name}: forward launches by variant "
                             f"{took}, expected {want}")
         with torch.no_grad():
             f32 = [t.float() for t in (q, k, v, o, do)]
@@ -1641,9 +1705,9 @@ def phase_flash_bwd():
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         print(f"[flash_bwd] {name} {tuple(shape)} {str(dtype)[6:]} "
               f"causal={causal} window={window} softcap={softcap} "
-              f"{layout}, route {route}: worst row rel err "
-              f"{', '.join(f'{g} {e:.3e}' for g, e in errs.items())} (limit "
-              f"{rtol:g}, against each row's scale; against its norm "
+              f"{layout}, forward {forward}, route {route}: worst row rel "
+              f"err {', '.join(f'{g} {e:.3e}' for g, e in errs.items())} "
+              f"(limit {rtol:g}, against each row's scale; against its norm "
               f"{raw:.3e}), max_abs_err {max_abs:.3e}; two calls "
               f"{'bit-identical' if same else 'DIFFER'}")
         check(all(math.isfinite(e) and e <= rtol for e in errs.values()),

@@ -19,6 +19,18 @@ limits.
   (``kernel_bwd.HOPPER_RING_ROWS``) but the first read with the Q, dO,
   LSE and D of the tile before it (masks still by its own rows), as a
   ring stage waited on with a stale phase would hold.
+
+And what the forward's checks must be able to see at a head dim that is
+no multiple of the Hopper forward's 64-column TMA box (hd 120), as
+inputs on which the plain forward returns what the faulty kernel would
+(``forward_fault_inputs``, ``FWD_FAULTS``):
+
+* "pad-from-next-head": the padding columns hd..127 of q and k read from
+  head h + 1's first columns (zeros for the last head), as a tensor map
+  with {hd, h} flattened into one dimension would give;
+* "second-box-dropped": columns 64..hd-1 of q, k and v zero, as a
+  producer that loaded hd // 64 boxes a row (not the ceiling) would
+  leave them.
 """
 from __future__ import annotations
 
@@ -33,6 +45,8 @@ FAULTS = ("no-delta", "no-softcap-derivative", "skip-last-tile",
           "skip-first-tile", "lse-neighbour-row", "lse-log2",
           "stale-q-stage")
 TILE = 64    # the kernel's q and kv tile rows
+FWD_FAULTS = ("pad-from-next-head", "second-box-dropped")
+BOX = 64     # columns of the Hopper forward's TMA box
 
 
 def visited_tiles(sq, skv, causal, window, device=None):
@@ -136,3 +150,34 @@ def grad_row_err(out, ref, row_scale):
     gradient (``bwd_row_scales``)."""
     err = (out.float() - ref.float()).norm(dim=-1)
     return (err / row_scale.clamp_min(1e-30)).max().item()
+
+
+def forward_fault_inputs(q, k, v, fault):
+    """f32 (q, k, v) on which a plain forward (``ref.attention_ref``, or
+    ``sliding_window_attention``, each scaling by 1/sqrt of its inputs'
+    last dim) returns, in its first hd columns, what the Hopper forward
+    would return with ``fault`` (``FWD_FAULTS``).  For
+    "pad-from-next-head" they are HDP = 128 columns wide, q scaled by
+    sqrt(HDP / hd) so that the plain version's 1/sqrt(HDP) is the
+    kernel's 1/sqrt(hd), and v padded with zeros (the kernel's O columns
+    past hd are never stored)."""
+    if fault not in FWD_FAULTS:
+        raise ValueError(f"no forward fault {fault!r}; one of {FWD_FAULTS}")
+    hd = q.shape[3]
+    hdp = -(-hd // BOX) * BOX
+    if hdp == hd:
+        raise ValueError(f"hd {hd} fills whole boxes: {fault} cannot happen")
+    q, k, v = (t.float() for t in (q, k, v))
+    if fault == "second-box-dropped":
+        q, k, v = (t.clone() for t in (q, k, v))
+        for t in (q, k, v):
+            t[..., BOX:] = 0
+        return q, k, v
+
+    def pad(t):
+        nxt = torch.zeros_like(t[..., :hdp - hd])
+        nxt[:, :, :-1] = t[:, :, 1:, :hdp - hd]
+        return torch.cat([t, nxt], dim=-1)
+
+    return (pad(q) * math.sqrt(hdp / hd), pad(k),
+            torch.nn.functional.pad(v, (0, hdp - hd)))

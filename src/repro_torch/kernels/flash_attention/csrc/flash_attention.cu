@@ -16,13 +16,14 @@
 // variants; kernel.py::plan picks one before launch from the dtype, the
 // head dim and the strides, and neither falls back to the other.
 //
-// Hopper variant (bf16, hd 64 or 128, TMA-compatible strides: every
-// serving call).  Persistent blocks, one per SM, each with a producer
-// warpgroup and two consumer warpgroups of 64 query rows; units of 128
-// query rows are handed out by an atomic counter, longest first within
-// groups of heads whose K and V stay in L2 (taking the longest tiles of
-// all heads first streamed K and V from device memory once per q tile,
-// which bounded the whole kernel).  Q, K and V arrive by TMA into double
+// Hopper variant (bf16, hd 64, 120 or 128, TMA-compatible strides: every
+// serving call; hd 120 is stored and multiplied at 128 columns, the last
+// 8 of them zeros that TMA writes).  Persistent blocks, one per SM, each
+// with a producer warpgroup and two consumer warpgroups of 64 query rows;
+// units of 128 query rows are handed out by an atomic counter, longest
+// first within groups of heads whose K and V stay in L2 (taking the
+// longest tiles of all heads first streamed K and V from device memory
+// once per q tile, which bounded the whole kernel).  Q, K and V arrive by TMA into double
 // buffers guarded by mbarriers while the consumers multiply; S = Q K^T
 // and O += P V are wgmma (m64n128k16, P from registers), tile i's S
 // started beside tile i-1's P V and the two consumers taking turns, so
@@ -547,8 +548,16 @@ bool aligned16(const void* ptr, long long sb, long long ss, long long sh) {
 //
 // Tiles are TMA boxes of 64 columns (128 bytes, the widest swizzle) by
 // 128 rows, swizzled 128B; hd 128 is two boxes side by side, each box
-// 16 KB and 1024-byte aligned.  The wgmma descriptors use the same
-// 128B swizzle mode (bits 62-63 = 1):
+// 16 KB and 1024-byte aligned.  hd 120 (h2o-danube-3-4b) takes the layout
+// of hd 128 (HDP, hd rounded up to whole boxes): its second box's
+// columns 120..127 lie past the tensor map's head-dim extent of 120, so
+// TMA fills them with zeros (and counts their bytes towards the
+// barrier's transaction count, as for any box).  The zero columns add
+// nothing to S = Q K^T, which runs all HDP / 16 k steps; O's columns
+// 120..127 are P times zeros and are never stored.  The map keeps hd a
+// dimension of its own: with {hd, h} flattened into one, columns
+// 120..127 would be the next head's first eight.  The wgmma descriptors
+// use the same 128B swizzle mode (bits 62-63 = 1):
 //   * Q and K, K-major: SBO 1024 bytes (8 rows of 128 bytes), LBO unused
 //     (16); one k step of 16 columns moves the start address by 32
 //     bytes inside a box, and the 5th k step starts on the second box.
@@ -599,9 +608,11 @@ constexpr long long GROUP_KV_BYTES = 8ll << 20;
 
 template <int HD>
 struct Smem {
-  static constexpr int NB = HD / BOX;                  // boxes per row
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;         // one K or V tile
+  static constexpr int NB = (HD + BOX - 1) / BOX;      // boxes per row
+  static constexpr int HDP = NB * BOX;                 // columns held
+  // whole boxes: TMA counts the zero-filled columns' bytes too
+  static constexpr int Q_BYTES = BQ * HDP * 2;
+  static constexpr int KV_BYTES = BK * HDP * 2;        // one K or V tile
   static constexpr int K_OFF = 2 * Q_BYTES;           // two Q buffers
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
@@ -1056,6 +1067,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                             const __grid_constant__ CUtensorMap map_v,
                             const Params p) {
   using L = Smem<HD>;
+  constexpr int HDP = L::HDP;   // S = Q K^T's k extent and O's columns
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // 128B swizzle
   const uint32_t bars = base + L::BAR_OFF;
@@ -1157,9 +1169,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       const Work wk = work_item(p, w);
       const int row0 = wk.q0 + 64 * c + 16 * warp + g;   // this thread's
       const int n_tiles = wk.kt_end - wk.kt_begin;        // >= 1
-      float o[HD / 2];
+      float o[HDP / 2];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
       float m[2] = {NEG_INF, NEG_INF};
       float l[2] = {0.f, 0.f};
 
@@ -1178,14 +1190,14 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(full_k(s), (it / STAGES) & 1);
         wait_turn(c);
         wgmma_fence();
-        qk_product<HD>(sacc, q_rows, k_s(s));
+        qk_product<HDP>(sacc, q_rows, k_s(s));
         wgmma_commit();
         pass_turn(c);
         wgmma_wait<0>();
         fence_regs(sacc);
         mbar_arrive(empty_k(s));
-        softmax_tile<SOFTCAP, HD>(sacc, m, l, o, p, row0, wk.q0,
-                                  wk.kt_begin * BK, t);
+        softmax_tile<SOFTCAP, HDP>(sacc, m, l, o, p, row0, wk.q0,
+                                   wk.kt_begin * BK, t);
         pack_p(pa, sacc);
       }
       for (int i = 1; i < n_tiles; ++i) {
@@ -1197,9 +1209,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(full_v(ps), ((cur - 1) / STAGES) & 1);
         wait_turn(c);
         wgmma_fence();
-        qk_product<HD>(sacc, q_rows, k_s(s));
+        qk_product<HDP>(sacc, q_rows, k_s(s));
         wgmma_commit();
-        pv_product<HD>(o, pa, v_s(ps));
+        pv_product<HDP>(o, pa, v_s(ps));
         wgmma_commit();
         pass_turn(c);
         wgmma_wait<1>();   // S of tile i has landed; P V may still run
@@ -1211,7 +1223,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_wait<0>();
         fence_regs(o);
         mbar_arrive(empty_v(ps));
-        rescale<HD>(o, corr);
+        rescale<HDP>(o, corr);
         pack_p(pa, sacc);
       }
       mbar_arrive(q_empty(qb));   // every S of this unit has landed
@@ -1221,7 +1233,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(full_v(s), (last / STAGES) & 1);
         wait_turn(c);
         wgmma_fence();
-        pv_product<HD>(o, pa, v_s(s));
+        pv_product<HDP>(o, pa, v_s(s));
         wgmma_commit();
         pass_turn(c);
         wgmma_wait<0>();
@@ -1232,7 +1244,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       // Epilogue: o / max(l, 1e-30) rounded to bf16, stored from the
       // accumulator's layout (rows row0 and row0 + 8, two columns a
-      // store) through the output's strides; rows past sq are dropped.
+      // store) through the output's strides; rows past sq are dropped,
+      // and so are columns past HD (hd 120: the next head's columns or
+      // past the end of o).
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -1265,9 +1279,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // Tensor map of a (b, s, h, hd) bf16 tensor with element strides sb, ss,
 // sh (hd stride 1): rank 4, dims {hd, h, s, b}, boxes of 64 x 1 x rows x
-// 1, 128B swizzle, zero fill out of bounds.  cuTensorMapEncodeTiled is a
-// libcuda function; it is looked up at run time through the CUDA
-// runtime's entry point query, so the library links no libcuda.
+// 1, 128B swizzle, zero fill out of bounds (the NaN fill would poison
+// every score of hd 120's padding columns).  The extent of dim 0 is hd,
+// not the head stride: a (b, s, h, 128) storage seen as hd 120 keeps its
+// columns 120..127 unread.  cuTensorMapEncodeTiled is a libcuda
+// function; it is looked up at run time through the CUDA runtime's entry
+// point query, so the library links no libcuda.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*,
@@ -1396,13 +1413,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The Hopper variant, bf16 only: hd 64 or 128; q/k/v 16-byte aligned with
-// (batch, seq, head) strides that are multiples of 8 elements; o
-// contiguous.  strides as above.  lse: null (serving), or (training mode)
-// f32 (b, h, lse_stride) with lse_stride >= sq, where each row's
-// log-sum-exp is written.  counter: one int in device memory, 0.  Returns
-// a cudaError_t (0 = launched), or 1000 + the CUresult of a tensor map
-// that failed to encode, or 2000 if libcuda has no cuTensorMapEncodeTiled.
+// The Hopper variant, bf16 only: hd 64, 120 or 128; q/k/v 16-byte aligned
+// with (batch, seq, head) strides that are multiples of 8 elements; o
+// contiguous.  strides as above.  lse: null (serving), or (training mode,
+// hd 64 and 128 only: the Hopper backward takes no other) f32 (b, h,
+// lse_stride) with lse_stride >= sq, where each row's log-sum-exp is
+// written.  counter: one int in device memory, 0.  Returns a cudaError_t
+// (0 = launched), or 1000 + the CUresult of a tensor map that failed to
+// encode, or 2000 if libcuda has no cuTensorMapEncodeTiled.
 extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
                                           const void* v, void* o, int b,
                                           int sq, int skv, int h, int hd,
@@ -1411,7 +1429,8 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
                                           int window, float softcap,
                                           float* lse, long long lse_stride,
                                           int* counter, void* stream) {
-  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if ((hd != 64 && hd != 120 && hd != 128) || (hd == 120 && lse != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   // every row needs a key (each block then has a kv tile to wait for)
   if (b < 1 || sq < 1 || skv < 1 || (window > 0 && sq > skv + window - 1) ||
       (lse != nullptr && lse_stride < sq))
@@ -1456,6 +1475,10 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
   if (hd == 64)
     err = softcap != 0.f ? hopper::launch_lse<64, true>(mq, mk, mv, p, b, s)
                          : hopper::launch_lse<64, false>(mq, mk, mv, p, b, s);
+  else if (hd == 120)   // serving only
+    err = softcap != 0.f
+              ? hopper::launch<120, true, false>(mq, mk, mv, p, b, s)
+              : hopper::launch<120, false, false>(mq, mk, mv, p, b, s);
   else
     err = softcap != 0.f
               ? hopper::launch_lse<128, true>(mq, mk, mv, p, b, s)

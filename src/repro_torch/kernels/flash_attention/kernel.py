@@ -18,15 +18,18 @@ Two variants, chosen before launch by ``plan`` from the dtype, the head
 dim and the strides (a dispatch by shape; neither is a fallback for the
 other, and a failed build, tensor-map encode or launch raises):
 
-* ``"hopper"``: bf16 with hd 64 or 128 and strides TMA takes (every
-  serving call).  Persistent blocks of one producer warpgroup, which
+* ``"hopper"``: bf16 with hd 64, 120 or 128 and strides TMA takes
+  (every serving call).  Persistent blocks of one producer warpgroup, which
   streams Q, K and V by TMA into double-buffered shared memory guarded by
   mbarriers, and two consumer warpgroups of 64 query rows each, which
   take turns at S = Q K^T and O += P V as wgmma (P from registers) and
   run the softmax in the log2 domain, with masks only on the tiles that
   cross the diagonal, the window's edge or the end of kv; units of 128 q
   by 128 kv rows come from an atomic counter, longest first within
-  groups of heads whose K and V stay in L2.
+  groups of heads whose K and V stay in L2.  hd 120 (h2o-danube-3-4b)
+  runs the layout and products of hd 128: TMA fills each row's columns
+  120..127 with zeros, which add nothing to S, and the epilogue stores
+  only the first 120 columns of O.
 * ``"general"``: everything else (f32, other head dims up to 256, bf16
   strides TMA refuses).  bf16 goes through mma.sync tensor-core products
   from 4 warps, f32 through FMAs on the CUDA cores (67 TFLOP/s; TF32
@@ -34,8 +37,9 @@ other, and a failed build, tensor-map encode or launch raises):
   without overlap.  It is what every call took before the Hopper variant
   was added.
 
-Training mode (``lse``, Hopper variant only): the same kernel, a separate
-instantiation, also writes each row's log-sum-exp (natural log units, the
+Training mode (``lse``, Hopper variant at hd 64 and 128 only, the head
+dims of the Hopper backward): the same kernel, a separate instantiation,
+also writes each row's log-sum-exp (natural log units, the
 scale and softcap folded in) for the backward's Hopper variant
 (``kernel_bwd.py``), which then needs no third S = Q K^T.  Serving passes
 no buffer and runs the instantiation it ran before.
@@ -65,7 +69,7 @@ NVCC_FLAGS = _build.NVCC_FLAGS
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("hopper", "general")
-HOPPER_HEAD_DIMS = (64, 128)
+HOPPER_HEAD_DIMS = (64, 120, 128)
 HOPPER_BQ = 128   # query rows of a Hopper unit of work
 # rows of a (batch, head) in an LSE buffer: sq rounded up to this, so that
 # the backward's 64- and 128-row slices of it are whole and 16-byte aligned
@@ -114,9 +118,12 @@ def _tma_ok(t) -> bool:
 def plan(q, k, v) -> str:
     """Which variant a call takes, from what the tensors are (dtype, head
     dim, strides, alignment), before any launch: "hopper" for bf16 with hd
-    in ``HOPPER_HEAD_DIMS`` whose q/k/v TMA can read and whose units of
-    work (q tiles x batch x heads) an int counts; "general" for everything
-    else.  Works on tensors of any device, the meta device included."""
+    in ``HOPPER_HEAD_DIMS`` (64, 120, 128) whose q/k/v TMA can read and
+    whose units of work (q tiles x batch x heads) an int counts; "general"
+    for everything else.  hd 120's head stride of 240 bytes is a multiple
+    of 16, so h2o-danube-3-4b's contiguous q/k/v (and a (b, s, h, 128)
+    storage seen as hd 120) take "hopper".  Works on tensors of any
+    device, the meta device included."""
     b, sq, h, hd = q.shape
     hopper = (all(t.dtype == torch.bfloat16 for t in (q, k, v))
               and hd in HOPPER_HEAD_DIMS
@@ -150,7 +157,8 @@ def flash_attention_cuda(q, k, v, variant, *, causal=True, window=0,
     shapes and chosen the variant (``plan``); the Hopper variant raises on
     what it does not take rather than run another.  ``lse``: a
     ``lse_buffer(q)`` into which the Hopper variant also writes each row's
-    log-sum-exp (training mode); the general variant takes none."""
+    log-sum-exp (training mode, at the Hopper backward's head dims,
+    ``kernel_bwd.HOPPER_HEAD_DIMS``); the general variant takes none."""
     if variant not in VARIANTS:
         raise ValueError(f"no flash attention variant {variant!r}")
     b, sq, h, hd = q.shape
@@ -158,6 +166,14 @@ def flash_attention_cuda(q, k, v, variant, *, causal=True, window=0,
         raise ValueError(f"lse must be a contiguous f32 (b, h, rows) buffer "
                          f"from lse_buffer(q) for the hopper variant; got "
                          f"{variant!r}, {tuple(lse.shape)} {lse.dtype}")
+    if lse is not None:
+        # kernel_bwd imports this module: only a training call reads it
+        from repro_torch.kernels.flash_attention import kernel_bwd
+        if hd not in kernel_bwd.HOPPER_HEAD_DIMS:
+            raise ValueError(
+                f"the hopper forward writes an lse only at hd in "
+                f"{kernel_bwd.HOPPER_HEAD_DIMS} (the hopper backward's), "
+                f"not {hd}")
     skv = k.shape[1]
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(

@@ -13,9 +13,10 @@ same bits); ``plan`` picks one before the forward (a dispatch by dtype,
 head dim and strides; neither is a fallback for the other, and a failed
 tensor-map encode or launch raises):
 
-* ``"hopper"``: bf16 with hd 64 or 128 whose q/k/v/o TMA can read (every
-  training call of the dense decoders).  Its forward ran K1's Hopper
-  variant in training mode, which wrote each row's log-sum-exp.
+* ``"hopper"``: bf16 with hd 64 or 128 (``HOPPER_HEAD_DIMS``) whose
+  q/k/v/o TMA can read (every training call of the dense decoders).  Its
+  forward ran K1's Hopper variant in training mode, which wrote each
+  row's log-sum-exp.
   FlashAttention-3's schedule: (a) preprocess, D = rowsum(dO * o); (b)
   dK/dV, one persistent unit per 128-row kv tile, a producer warp
   streaming Q, dO, LSE and D by TMA into a 3-stage mbarrier ring, two
@@ -25,7 +26,8 @@ tensor-map encode or launch raises):
   (``HOPPER_RING_ROWS``), 64 for dK/dV at hd 128.  7 products of 2 hd
   FLOPs per unmasked pair.
 * ``"general"``: everything else (f32, hd up to 128 but 64 and 128 in
-  bf16, strides TMA refuses).  The first design: (a) stats, each row's LSE
+  bf16, strides TMA refuses): hd 120 too, though its forward takes the
+  forward's Hopper variant.  The first design: (a) stats, each row's LSE
   (a third S = Q K^T) and D; (b) dK/dV per 64-row kv tile; (c) dQ per
   64-row q tile; bf16 through mma.sync, f32 through FMAs on the CUDA
   cores, tiles loaded between barriers.  8 products a pair in (b) and (c)
@@ -65,6 +67,11 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # tile by kernel and head dim (its DkdvCfg / DqCfg::RING): 128 where the
 # accumulators fit a consumer's registers, 64 for dK/dV at hd 128
 HOPPER_UNIT_ROWS = 128
+# the Hopper backward's head dims, and so those at which the forward's
+# Hopper variant has a training mode (writes the LSE): that variant also
+# takes hd 120, whose backward stays on the general variant (no main path
+# trains at hd 120)
+HOPPER_HEAD_DIMS = (64, 128)
 HOPPER_RING_ROWS = {"dkdv": {64: 128, 128: 64}, "dq": {64: 128, 128: 128}}
 
 
@@ -95,14 +102,17 @@ def plan(q, k, v, o=None) -> str:
     """Which variant the backward of a call takes, decided before its
     forward (only the forward's Hopper variant writes the LSE the Hopper
     backward reads): "hopper" where the forward takes its Hopper variant
-    (``kernel.plan``: bf16, hd 64 or 128, q/k/v TMA can read, an expanded
-    GQA view's stride-0 heads and a (b, h, s, hd) storage included) and o,
-    if given, is bf16 TMA can read (the forward's own o always is);
-    "general" for everything else.  dO never changes the route: one TMA
+    (``kernel.plan``: bf16, q/k/v TMA can read, an expanded GQA view's
+    stride-0 heads and a (b, h, s, hd) storage included) at a head dim of
+    ``HOPPER_HEAD_DIMS`` (64, 128) and o, if given, is bf16 TMA can read
+    (the forward's own o always is); "general" for everything else, hd
+    120 included, whose forward still takes the Hopper variant (serving
+    instantiation, no LSE).  dO never changes the route: one TMA
     refuses is copied to contiguous by the caller (``dout_ok``,
     ``ops._FlashAttention``).  Works on tensors of any device, the meta
     device included."""
     hopper = (kernel.plan(q, k, v) == "hopper"
+              and q.shape[3] in HOPPER_HEAD_DIMS
               and (o is None or (o.dtype == torch.bfloat16
                                  and kernel._tma_ok(o))))
     return "hopper" if hopper else "general"
@@ -163,11 +173,11 @@ def launcher(q, k, v, o, do, variant, *, lse=None, causal=True, window=0,
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     if variant == "hopper":
-        if (q.dtype != torch.bfloat16 or hd not in kernel.HOPPER_HEAD_DIMS
+        if (q.dtype != torch.bfloat16 or hd not in HOPPER_HEAD_DIMS
                 or lse is None or not kernel.lse_fits(lse, q)):
             raise ValueError(
                 f"the hopper backward takes bf16 hd in "
-                f"{kernel.HOPPER_HEAD_DIMS} and the forward's lse "
+                f"{HOPPER_HEAD_DIMS} and the forward's lse "
                 f"(kernel.lse_buffer); got {q.dtype}, hd {hd}, lse "
                 f"{None if lse is None else tuple(lse.shape)}")
         delta = torch.empty_like(lse)

@@ -48,7 +48,7 @@ def close(j, t, dtype):
 
 
 # the reference kernel tests' grid (tests/test_kernels.py), plus head
-# dims 12 (minicpm) and 256 (gemma3)
+# dims 12 (minicpm), 256 (gemma3) and 120 (h2o-danube-3-4b, windowed)
 GRID = [
     (1, 64, 2, 64, True, 0),
     (2, 100, 3, 32, True, 16),
@@ -57,6 +57,7 @@ GRID = [
     (2, 48, 4, 16, True, 0),
     (2, 100, 6, 12, True, 0),
     (1, 96, 2, 256, True, 0),
+    (1, 130, 2, 120, True, 64),
 ]
 
 
@@ -183,12 +184,13 @@ def test_plan_main_path_shapes_pick_hopper(b, s, h):
     assert tK.plan(q, meta((b, s, h, 128)), meta((b, s, h, 128))) == "hopper"
 
 
-@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "jamba-1.5-large-398b",
+                                  "h2o-danube-3-4b"])
 def test_plan_of_the_models_own_qkv_is_hopper(arch):
     """q, k, v as DecoderLM/JambaLM prefill builds them at full width (the
     projections' reshape, RoPE where the model has it, the GQA repeat),
     on the meta device: the serving path's strides go to the Hopper
-    variant."""
+    variant, danube's hd 120 included."""
     cfg = get_config(arch)
     hd = cfg.resolved_head_dim
     d, nq, nkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
@@ -248,9 +250,56 @@ def test_plan_mirrors_the_kernel_source():
     src = tK.SOURCE.read_text()
     hopper = src[src.index("namespace hopper {"):]
     assert "constexpr int BQ = %d;" % tK.HOPPER_BQ in hopper
-    assert "if (hd != 64 && hd != 128)" in hopper
-    assert tK.HOPPER_HEAD_DIMS == (64, 128)
+    assert ("if ((hd != 64 && hd != 120 && hd != 128) || (hd == 120 && "
+            "lse != nullptr))") in hopper
+    assert tK.HOPPER_HEAD_DIMS == (64, 120, 128)
+    # hd 120: the serving instantiations only, padded to whole TMA boxes
+    for softcap in ("true", "false"):
+        assert f"hopper::launch<120, {softcap}, false>" in hopper
+    assert "launch<120, true, true>" not in hopper
+    assert "launch_lse<120" not in hopper
+    assert "static constexpr int NB = (HD + BOX - 1) / BOX;" in hopper
+    assert "static constexpr int Q_BYTES = BQ * HDP * 2;" in hopper
+    assert "for (int n = 0; n < HD / 8; ++n)" in hopper
+    assert "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE" in hopper
     assert set(tK.VARIANTS) == set(tops.launches_by_variant)
+
+
+@pytest.mark.parametrize("case,variant", [
+    ("contiguous", "hopper"), ("gqa-view", "hopper"), ("strided", "hopper"),
+    ("padded-storage", "hopper"), ("f32", "general"),
+    ("head-stride-not-16-bytes", "general"),
+])
+def test_plan_routes_hd120(case, variant):
+    """hd 120 (h2o-danube-3-4b) in bf16 takes the Hopper variant where TMA
+    reads it: contiguous (a 240-byte head stride), an expanded GQA view
+    (stride-0 heads), a (b, h, s, hd) storage, and the first 120 columns
+    of a (b, s, h, 128) storage; f32 and a head stride that is no
+    multiple of 16 bytes take the general one."""
+    b, s, h, hd = 2, 300, 4, 120
+    q = k = v = meta((b, s, h, hd))
+    if case == "gqa-view":
+        k = v = meta((b, s, 1, hd)).expand(b, s, h, hd)
+        assert k.stride(2) == 0
+    elif case == "strided":
+        q = k = v = meta((b, h, s, hd)).transpose(1, 2)
+    elif case == "padded-storage":
+        q = k = v = meta((b, s, h, 128))[..., :hd]
+        assert q.stride() == (s * h * 128, h * 128, 128, 1)
+    elif case == "f32":
+        q = k = v = meta((b, s, h, hd), dtype=torch.float32)
+    elif case == "head-stride-not-16-bytes":       # 124 x 2 bytes a head
+        q = meta((b, s, h, hd), (s * h * 124, h * 124, 124, 1))
+    assert tK.plan(q, k, v) == variant
+
+
+def test_hopper_lse_at_hd120_raises_before_any_build():
+    """The Hopper forward has no training mode at hd 120 (the Hopper
+    backward takes none): an lse raises before the library is loaded."""
+    _, (tq, tk, tv) = qkv((1, 16, 2, 120), dtype="bfloat16")
+    with pytest.raises(ValueError, match="lse only at hd"):
+        tK.flash_attention_cuda(tq, tk, tv, "hopper", lse=tK.lse_buffer(tq))
+    assert tK.library.cache_info().currsize == 0
 
 
 def test_cpu_calls_count_no_variant():
@@ -372,6 +421,56 @@ def test_stale_stage_fault_touches_only_dk_dv():
     assert not torch.allclose(bad[1], good[1], **BWD_TOL)
 
 
+@pytest.mark.parametrize("fault", tchecks.FWD_FAULTS)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (64, 0.0), (0, 30.0)])
+def test_forward_faults_exceed_the_limits(fault, window, softcap):
+    """Each forward fault chip_smoke.py holds the Hopper forward against
+    at hd 120 fails the elementwise check and lands far past the row
+    limit (bf16's 1e-2, as on the card), on peaked inputs as there."""
+    rng = np.random.default_rng(8)
+    b, s, h, hd = 1, 160, 3, 120
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, hd))
+                                .astype(np.float32) * scale)
+               for scale in (2.0, 2.0, 1.0))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    good = attention_ref(q, k, v, **kw)
+    bad = attention_ref(*tchecks.forward_fault_inputs(q, k, v, fault),
+                        **kw)[..., :hd]
+    assert bad.shape == good.shape
+    assert not torch.allclose(bad, good, rtol=1e-2, atol=1e-2)
+    rows = (bad - good).norm(dim=-1) / good.norm(dim=-1)
+    assert rows.max().item() > 0.1, (fault, rows.max().item())
+
+
+def test_pad_from_next_head_keeps_the_last_head():
+    """The fault's padding is zeros for the last head (past the
+    flattened map's extent), and there the padded, rescaled inputs give
+    the plain output: the rescale is the kernel's 1/sqrt(hd).  Every
+    other head moves."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 40, 3, 120))
+                                .astype(np.float32) * scale)
+               for scale in (2.0, 2.0, 1.0))
+    good = attention_ref(q, k, v)
+    fq, fk, fv = tchecks.forward_fault_inputs(q, k, v, "pad-from-next-head")
+    assert fq.shape == fk.shape == fv.shape == (2, 40, 3, 128)
+    torch.testing.assert_close(fk[:, :, :2, 120:], k[:, :, 1:, :8])
+    assert not fv[..., 120:].any() and not fk[:, :, 2, 120:].any()
+    bad = attention_ref(fq, fk, fv)[..., :120]
+    torch.testing.assert_close(bad[:, :, 2], good[:, :, 2], rtol=1e-5,
+                               atol=1e-5)
+    assert not torch.allclose(bad[:, :, :2], good[:, :, :2], rtol=1e-2,
+                              atol=1e-2)
+
+
+def test_forward_faults_need_a_partial_box():
+    _, (q, k, v) = qkv((1, 16, 2, 128))
+    with pytest.raises(ValueError, match="whole boxes"):
+        tchecks.forward_fault_inputs(q, k, v, "second-box-dropped")
+    with pytest.raises(ValueError, match="no forward fault"):
+        tchecks.forward_fault_inputs(q, k, v, "lost-tile")
+
+
 @pytest.mark.parametrize("shape,causal,window,softcap", BWD_GRID)
 def test_bwd_row_scales_bound_the_rows(shape, causal, window, softcap):
     """Each gradient row's scale is at least the row's norm (up to the
@@ -485,7 +584,8 @@ def test_bwd_plan_routes(case, route):
         do = meta((b, s, h, hd), (s * h * hd * 2, h * hd * 2, hd * 2, 2))
         assert not tKB.dout_ok(do)
     assert tKB.plan(q, k, v, o) == route
-    if route == "hopper":
+    if route == "hopper" or case == "hd120":
+        # hd 120: the Hopper forward (no LSE), the general backward
         assert tK.plan(q, k, v) == "hopper"
 
 
@@ -507,7 +607,9 @@ def test_bwd_plan_mirrors_the_kernel_source():
     entry = src[src.index('extern "C" int flash_attention_bwd_hopper'):]
     assert "if ((hd != 64 && hd != 128)" in entry
     assert "ls % hopper::UNIT_ROWS != 0" in entry
-    for hd in tK.HOPPER_HEAD_DIMS:
+    assert tKB.HOPPER_HEAD_DIMS == (64, 128)
+    assert set(tKB.HOPPER_HEAD_DIMS) == set(tKB.HOPPER_RING_ROWS["dkdv"])
+    for hd in tKB.HOPPER_HEAD_DIMS:
         assert f"hopper::launch<{hd}, true>" in entry
         assert f"hopper::launch<{hd}, false>" in entry
         assert f"hopper::launch_preprocess<{hd}>" in entry
@@ -609,13 +711,24 @@ def _stand_ins(monkeypatch):
 @pytest.mark.parametrize("dtype,hd,route", [
     ("bfloat16", 64, "hopper"), ("bfloat16", 128, "hopper"),
     ("float32", 64, "general"), ("bfloat16", 32, "general"),
+    ("bfloat16", 120, "general"),
 ])
 def test_function_saves_lse_exactly_on_the_hopper_route(monkeypatch, dtype,
                                                         hd, route):
     """_FlashAttention saves the forward's LSE through save_for_backward
     when kernel_bwd.plan says "hopper", and hands it to the backward;
-    on the "general" route it saves none.  Launches count by route."""
+    on the "general" route it saves none (hd 120: the forward still
+    takes its Hopper variant, without an LSE).  Launches count by
+    route."""
     calls = _stand_ins(monkeypatch)
+    fwd_variants = []
+    forward = tK.flash_attention_cuda
+
+    def record(q, k, v, variant, **kw):
+        fwd_variants.append((variant, kw["lse"] is not None))
+        return forward(q, k, v, variant, **kw)
+
+    monkeypatch.setattr(tK, "flash_attention_cuda", record)
     _, (q, k, v) = qkv((2, 40, 3, hd), dtype=dtype, seed=4)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     kw = dict(causal=True, window=0, softcap=0.0)
@@ -627,6 +740,7 @@ def test_function_saves_lse_exactly_on_the_hopper_route(monkeypatch, dtype,
     o.backward(torch.ones_like(o))
     (call,) = calls
     assert call["variant"] == route
+    assert fwd_variants == [(tK.plan(q, k, v), route == "hopper")]
     if route == "hopper":
         lse = saved[4]
         assert lse.shape == (2, 3, tK.LSE_ROW_ALIGN)

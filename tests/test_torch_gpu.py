@@ -58,57 +58,73 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def _qkv(b, sq, skv, h, hd, dtype, strided=False, seed=0):
+def _qkv(b, sq, skv, h, hd, dtype, layout="plain", seed=0):
     """q, k ~ N(0, 4), v ~ N(0, 1): each row's softmax peaks on a few
     keys, so |out| is O(1) in every row and a lost or doubled kv tile
-    moves the rows that attend into it by O(1)."""
+    moves the rows that attend into it by O(1).  ``layout``: "plain" (b,
+    s, h, hd); "strided", a (b, h, s, hd) storage seen as (b, s, h, hd);
+    "padded", the first hd columns of a (b, s, h, 128) storage whose
+    other columns hold 1e4 (a kernel that read them would see scores of
+    about 1e8)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(s, scale):
-        if strided:       # (b, h, s, hd) storage seen as (b, s, h, hd)
+        if layout == "strided":
             x = torch.randn((b, h, s, hd), generator=gen, device="cuda")
-            x = x.transpose(1, 2)
-        else:
-            x = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+            return (x.transpose(1, 2) * scale).to(dtype)
+        if layout == "padded":
+            x = torch.randn((b, s, h, 128), generator=gen, device="cuda")
+            x = (x * scale).to(dtype)
+            x[..., hd:] = 1e4
+            return x[..., :hd]
+        x = torch.randn((b, s, h, hd), generator=gen, device="cuda")
         return (x * scale).to(dtype)
 
     return randn(sq, 2.0), randn(skv, 2.0), randn(skv, 1.0)
 
 
-# (b, sq, skv, h, hd), causal, window, softcap, strided; each in f32 and
-# in bf16
+# (b, sq, skv, h, hd), causal, window, softcap, layout (``_qkv``); each
+# in f32 and in bf16
 CASES = [
-    ((2, 100, 100, 6, 12), True, 0, 0.0, False),
-    ((2, 130, 130, 4, 16), True, 16, 0.0, True),
-    ((1, 257, 257, 4, 64), True, 64, 0.0, False),
-    ((1, 64, 192, 2, 64), False, 0, 0.0, False),
-    ((2, 200, 200, 4, 128), True, 0, 0.0, False),
-    ((1, 96, 96, 2, 256), True, 0, 30.0, False),
-    ((1, 1, 1, 1, 32), True, 0, 0.0, False),
+    ((2, 100, 100, 6, 12), True, 0, 0.0, "plain"),
+    ((2, 130, 130, 4, 16), True, 16, 0.0, "strided"),
+    ((1, 257, 257, 4, 64), True, 64, 0.0, "plain"),
+    ((1, 64, 192, 2, 64), False, 0, 0.0, "plain"),
+    ((2, 200, 200, 4, 128), True, 0, 0.0, "plain"),
+    ((1, 96, 96, 2, 256), True, 0, 30.0, "plain"),
+    ((1, 1, 1, 1, 32), True, 0, 0.0, "plain"),
 ]
 # the Hopper variant's cases, in bf16 only (it takes no f32): the ragged
 # length of a real wave, a window wider than a kv tile, sq != skv without
 # the causal mask, a softcap, a (b, h, s, hd) storage, and Jamba's 64
-# heads
+# heads; at hd 120 (h2o-danube-3-4b: two TMA boxes a row, columns
+# 120..127 zero-filled) a ragged wave, sq != skv without the causal
+# mask, a softcap, a (b, h, s, hd) storage, and the first 120 columns of
+# a 128-column storage
 HOPPER_CASES = [
-    ((4, 916, 916, 32, 128), True, 0, 0.0, False),
-    ((2, 700, 700, 8, 128), True, 257, 0.0, False),
-    ((1, 200, 333, 4, 64), False, 0, 0.0, False),
-    ((1, 300, 300, 4, 128), True, 0, 30.0, False),
-    ((1, 300, 300, 4, 128), True, 0, 0.0, True),
-    ((2, 1024, 1024, 64, 128), True, 0, 0.0, False),
+    ((4, 916, 916, 32, 128), True, 0, 0.0, "plain"),
+    ((2, 700, 700, 8, 128), True, 257, 0.0, "plain"),
+    ((1, 200, 333, 4, 64), False, 0, 0.0, "plain"),
+    ((1, 300, 300, 4, 128), True, 0, 30.0, "plain"),
+    ((1, 300, 300, 4, 128), True, 0, 0.0, "strided"),
+    ((2, 1024, 1024, 64, 128), True, 0, 0.0, "plain"),
+    ((4, 916, 916, 32, 120), True, 0, 0.0, "plain"),
+    ((1, 200, 333, 4, 120), False, 0, 0.0, "plain"),
+    ((1, 300, 300, 4, 120), True, 0, 30.0, "plain"),
+    ((1, 300, 300, 4, 120), True, 0, 0.0, "strided"),
+    ((2, 300, 300, 4, 120), True, 0, 0.0, "padded"),
 ]
-# long windows, in bf16: hd 120 (h2o-danube-3-4b; the general variant, hd
-# padded to 128) and hd 128 (mixtral-8x7b; the Hopper variant), rows past
-# the window, a window that is no multiple of a kv tile, a window longer
-# than the sequence, and a ragged last tile
+# long windows, in bf16: hd 120 (h2o-danube-3-4b) and hd 128
+# (mixtral-8x7b), both on the Hopper variant, rows past the window, a
+# window that is no multiple of a kv tile, a window longer than the
+# sequence, and a ragged last tile
 WINDOW_CASES = [
-    ((1, 1500, 1500, 4, 120), True, 1024, 0.0, False),
-    ((2, 1100, 1100, 2, 120), True, 1000, 0.0, False),
-    ((1, 2100, 2100, 2, 120), True, 4096, 0.0, False),
-    ((1, 1500, 1500, 4, 128), True, 1024, 0.0, False),
-    ((2, 2300, 2300, 2, 128), True, 1100, 0.0, False),
-    ((1, 3000, 3000, 2, 128), True, 2048, 0.0, False),
+    ((1, 1500, 1500, 4, 120), True, 1024, 0.0, "plain"),
+    ((2, 1100, 1100, 2, 120), True, 1000, 0.0, "plain"),
+    ((1, 2100, 2100, 2, 120), True, 4096, 0.0, "plain"),
+    ((1, 1500, 1500, 4, 128), True, 1024, 0.0, "plain"),
+    ((2, 2300, 2300, 2, 128), True, 1100, 0.0, "plain"),
+    ((1, 3000, 3000, 2, 128), True, 2048, 0.0, "plain"),
 ]
 KERNEL_CASES = (
     [pytest.param(*case, dtype, id=f"case{i}-{name}")
@@ -120,15 +136,15 @@ KERNEL_CASES = (
        for i, case in enumerate(WINDOW_CASES)])
 
 
-@pytest.mark.parametrize("shape,causal,window,softcap,strided,dtype",
+@pytest.mark.parametrize("shape,causal,window,softcap,layout,dtype",
                          KERNEL_CASES)
-def test_kernel_matches_plain(cuda, shape, causal, window, softcap, strided,
+def test_kernel_matches_plain(cuda, shape, causal, window, softcap, layout,
                               dtype):
-    q, k, v = _qkv(*shape, dtype, strided=strided)
+    q, k, v = _qkv(*shape, dtype, layout=layout)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    # the Hopper variant takes every bf16 call with hd 64 or 128 here
-    variant = ("hopper" if dtype == torch.bfloat16 and shape[4] in (64, 128)
-               else "general")
+    # the Hopper variant takes every bf16 call with hd 64, 120 or 128 here
+    variant = ("hopper" if dtype == torch.bfloat16
+               and shape[4] in kernel.HOPPER_HEAD_DIMS else "general")
     assert kernel.plan(q, k, v) == variant
     before = ops.launches
     by_variant = dict(ops.launches_by_variant)
@@ -189,6 +205,11 @@ def test_hopper_variant_raises_on_what_it_does_not_take(cuda):
     q = q[:, :, :, :60]   # a 120-byte head: no tensor map
     with pytest.raises(RuntimeError, match="CUDA error|tensor map"):
         kernel.flash_attention_cuda(q, k[..., :60], v[..., :60], "hopper")
+    # hd 120 has no training mode (the Hopper backward takes no hd 120)
+    q, k, v = _qkv(1, 64, 64, 2, 120, torch.bfloat16)
+    with pytest.raises(ValueError, match="lse only at hd"):
+        kernel.flash_attention_cuda(q, k, v, "hopper",
+                                    lse=kernel.lse_buffer(q))
     assert ops.launches == before
     torch.cuda.synchronize()
 
@@ -610,31 +631,38 @@ def test_moe_bf16_expert_products_write_f32_on_the_card(cuda):
 
 # ------------------------------------------------ K1's backward, training
 
-# (b, sq, skv, h, hd), causal, window, softcap, strided; each in f32 and
+# (b, sq, skv, h, hd), causal, window, softcap, layout; each in f32 and
 # in bf16: hd 12 (minicpm smoke), 16, 64, 120 (danube) and 128, a window,
 # a softcap, sq != skv without the causal mask, a (b, h, s, hd) storage
 BWD_CASES = [
-    ((2, 100, 100, 6, 12), True, 0, 0.0, False),
-    ((2, 130, 130, 4, 16), True, 16, 0.0, True),
-    ((1, 257, 257, 4, 64), True, 64, 0.0, False),
-    ((1, 64, 192, 2, 64), False, 0, 0.0, False),
-    ((2, 200, 200, 4, 128), True, 0, 0.0, False),
-    ((1, 300, 300, 2, 120), True, 100, 0.0, False),
-    ((1, 96, 96, 2, 64), True, 0, 30.0, False),
-    ((1, 1, 1, 1, 32), True, 0, 0.0, False),
+    ((2, 100, 100, 6, 12), True, 0, 0.0, "plain"),
+    ((2, 130, 130, 4, 16), True, 16, 0.0, "strided"),
+    ((1, 257, 257, 4, 64), True, 64, 0.0, "plain"),
+    ((1, 64, 192, 2, 64), False, 0, 0.0, "plain"),
+    ((2, 200, 200, 4, 128), True, 0, 0.0, "plain"),
+    ((1, 300, 300, 2, 120), True, 100, 0.0, "plain"),
+    ((1, 96, 96, 2, 64), True, 0, 30.0, "plain"),
+    ((1, 1, 1, 1, 32), True, 0, 0.0, "plain"),
 ]
-@pytest.mark.parametrize("shape,causal,window,softcap,strided,dtype", [
+@pytest.mark.parametrize("shape,causal,window,softcap,layout,dtype", [
     pytest.param(*case, dtype, id=f"bwd{i}-{name}")
     for i, case in enumerate(BWD_CASES)
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))])
 def test_bwd_kernel_matches_plain(cuda, shape, causal, window, softcap,
-                                  strided, dtype):
+                                  layout, dtype):
     """dq, dk, dv of each backward variant that takes the call (the
     general one always, the Hopper one where kernel_bwd.plan picks it,
     with the forward's LSE) against attention_bwd_ref on f32 copies, row
     by row at the forward's limits against each row's scale
-    (checks.bwd_row_scales, as chip_smoke.py); two calls bit-identical."""
-    q, k, v = _qkv(*shape, dtype, strided=strided, seed=3)
+    (checks.bwd_row_scales, as chip_smoke.py); two calls bit-identical.
+    hd 120 in bf16: the Hopper forward and the general backward."""
+    q, k, v = _qkv(*shape, dtype, layout=layout, seed=3)
+    bf16, hd = dtype == torch.bfloat16, shape[4]
+    assert kernel.plan(q, k, v) == (
+        "hopper" if bf16 and hd in kernel.HOPPER_HEAD_DIMS else "general")
+    assert kernel_bwd.plan(q, k, v) == (
+        "hopper" if bf16 and hd in kernel_bwd.HOPPER_HEAD_DIMS
+        else "general")
     do = torch.randn(q.shape, generator=torch.Generator(
         device="cuda").manual_seed(4), device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
@@ -739,6 +767,31 @@ def test_hopper_bwd_copies_a_dout_tma_refuses(cuda):
     o.backward(wide[..., ::2])
     assert ops.bwd_dout_copies == copies + 1
     assert ops.launches_bwd_by_variant["hopper"] - before == 3
+
+
+def test_hd120_gradient_takes_hopper_forward_general_backward(cuda):
+    """A call at hd 120 that needs a gradient runs: the forward on the
+    Hopper variant (serving instantiation, no LSE), the backward on the
+    general variant's three kernels, its gradients those of
+    attention_bwd_ref row by row."""
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 300, 300, 4, 120,
+                                                 torch.bfloat16, seed=12))
+    kw = dict(causal=True, window=100, softcap=0.0)
+    fwd = dict(ops.launches_by_variant)
+    bwd = dict(ops.launches_bwd_by_variant)
+    o = ops.flash_attention(q, k, v, **kw)
+    assert o.grad_fn.route == "general"
+    assert len(o.grad_fn.saved_tensors) == 4        # no LSE saved
+    do = torch.randn_like(o)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    assert ops.launches_by_variant == {**fwd, "hopper": fwd["hopper"] + 1}
+    assert ops.launches_bwd_by_variant == {
+        **bwd, "general": bwd["general"] + len(kernel_bwd.KERNELS["general"])}
+    f32 = [t.detach().float() for t in (q, k, v, o, do)]
+    ref = attention_bwd_ref(*f32, **kw)
+    scales = flash_checks.bwd_row_scales(*f32, **kw)
+    for a, r, m in zip(got, ref, scales):
+        assert flash_checks.grad_row_err(a, r, m) <= ROW_TOL[torch.bfloat16]
 
 
 def test_autograd_uses_the_backward_kernel(cuda):
