@@ -91,20 +91,37 @@ non-zero and prints no result:
    hd 128, timed in turns: the Hopper backward (each kernel alone and the
    whole call), the general one as the yardstick, SDPA's backward, and
    K1's forward with and without the LSE, beside the bound;
-7. train: minicpm-2b at full width and depth (40 layers, d_model 2304,
-   2.72 B params), bf16, through repro_torch.launch.train: 6 steps of 4 x
-   2048 tokens with WSD, every loss finite, K1 80 forward launches and
-   40 backward calls (120 kernel launches: preprocess, dK/dV, dQ) a step,
-   all on the "hopper" route (counts set to 0 before each step, read
-   after it), no plain version called; F.embedding's backward bit for bit
-   twice; one step profiled, with no stats kernel in it; then a 2-layer
-   cut of minicpm-2b at full width, whose gradients under remat policy
-   None and "dots" equal those without remat, bit for bit;
-8. train_restart: examples/train_elastic_torch.py (4 layers at d_model
+7. K2's backward (wkv6_bwd): the gradients the training path takes
+   (torch.autograd.grad through ops.wkv6, whose backward launches the
+   backward kernel and K2's forward kernel run backward in time for dv
+   and dS_0) against wkv6_bwd_ref at the training shape (4, 2048, 32,
+   64) in bf16 and f32, and on strided views, with nonzero S_0 and dS_T,
+   at s = 1000 and 2047, with w down to 0, and at hd 16 and 24; every
+   gradient row held to its scale (checks.bwd_row_scales), finite, two
+   calls bit for bit; the G update without its decay, dw one step late,
+   du over one batch row and dk without its u term shown to fail; at the
+   training shape the backward call, the forward and the plain backward
+   timed beside the bound (wkv_bwd_bound);
+8. train, each path of TRAIN_PATHS at full width and depth, bf16,
+   through repro_torch.launch.train, 6 steps of 4 x 2048 tokens, every
+   loss finite, counts set to 0 before each step and read after it, no
+   plain version called, one step profiled by kernel group:
+   a. minicpm-2b (40 layers, d_model 2304, 2.72 B params) with WSD: K1
+      80 forward launches and 40 backward calls (120 kernel launches:
+      preprocess, dK/dV, dQ) a step, all on the "hopper" route;
+      F.embedding's backward bit for bit twice; no stats kernel in the
+      profiled step;
+   b. rwkv6-1.6b (24 layers, d_model 2048, 1.60 B params) with cosine:
+      K2 48 forward launches (under kernel.plan's choice) and 24 backward
+      calls (48 kernel launches: bwd, dv) a step, no K1 and no K3;
+   then a 2-layer cut of minicpm-2b at full width, whose gradients under
+   remat policy None and "dots" equal those without remat, bit for bit;
+9. train_restart: examples/train_elastic_torch.py (4 layers at d_model
    128): train, checkpoint, drop, restore bit for bit, continue, and hold
    the losses to an uninterrupted run bit for bit, eval batches on
    rFaaS-leased executors, the ledger's bill;
-9. the kernels line, the card line and the result line, last.
+10. the kernels line (K1, K1's backward, K2, K2's backward, K3, each
+    with its launches by path), the card line and the result line, last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -302,15 +319,18 @@ def kernel_ops():
 def phase_build():
     """One nvcc per kernel library, all started together (each ``build``
     in a thread of its own), then each library loaded: every kernel
-    module's serving library, K1's backward library, and the sweep
+    module's serving library, K1's and K2's backward libraries, and the
+    sweep
     libraries of K2 and K3, which hold the candidates that phase_wkv6 and
     phase_scan time.  Returns the libraries' paths by name."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import kernel_bwd
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6 import kernel_bwd as wkv_kernel_bwd
     libs = [(m.NAME, m.build, m.library)
-            for m in (flash_kernel, kernel_bwd, wkv_kernel, scan_kernel)]
+            for m in (flash_kernel, kernel_bwd, wkv_kernel, wkv_kernel_bwd,
+                      scan_kernel)]
     for m in (wkv_kernel, scan_kernel):
         libs.append((m.SWEEP_NAME, functools.partial(m.build, True),
                      functools.partial(m.library, True)))
@@ -931,6 +951,175 @@ def _time_wkv(wkv_kernel, wkv_ops, wkv6_ref, args, shape, dtype, plan):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "plan": list(plan), "ms_by_plan": ms_by_plan,
             "fastest": fastest}
+
+
+# K2's backward: inputs, limits and faults from
+# repro_torch.kernels.rwkv6.checks.  name, (b, s, H, hd), dtype, strided
+# (r/k/v, w and dy views of wider storages), scale of S_0, scale of dS_T
+# (0: none), fast decay (w from about 1 down to 0); the first is the
+# training shape (rwkv6-1.6b, batch 4 x 2048)
+WKV_BWD_CASES = [
+    ("training", (4, 2048, 32, 64), torch.bfloat16, False, 0.0, 0.0, False),
+    ("training-f32", (4, 2048, 32, 64), torch.float32, False, 0.0, 0.0,
+     False),
+    ("strided", (2, 1024, 32, 64), torch.bfloat16, True, 0.0, 0.0, False),
+    ("states", (2, 1024, 16, 64), torch.float32, False, 10.0, 1.0, False),
+    ("s1000", (2, 1000, 32, 64), torch.bfloat16, False, 10.0, 1.0, False),
+    ("s2047-strided-f32", (1, 2047, 8, 64), torch.float32, True, 10.0, 1.0,
+     False),
+    ("small-w", (2, 1024, 16, 64), torch.float32, False, 10.0, 1.0, True),
+    ("small-w-bf16", (2, 1024, 16, 64), torch.bfloat16, False, 10.0, 1.0,
+     True),
+    ("hd16-s37-strided", (2, 37, 4, 16), torch.float32, True, 10.0, 1.0,
+     False),
+    ("hd24-s100", (2, 100, 4, 24), torch.float32, False, 10.0, 1.0, False),
+]
+# the faults (checks.BWD_FAULTS) each case shows its checks can see: f32
+# cases, whose limits are 2e-5 for every gradient; the u term of dk is
+# small beside G v where w ~ 1, so it is shown where w forgets fast
+WKV_BWD_FAULTS = {"training-f32": ("no-g-decay", "dw-late", "du-one-row"),
+                  "small-w": ("no-u-in-dk",)}
+
+
+def wkv_bwd_bound(shape, dtype):
+    """Least time for K2's backward: bytes (r, k, v, dy in ``dtype``, w
+    f32, u and the two states read once; dr, dk, dv in ``dtype``, dw f32,
+    du and dS_0 written once) over HBM bandwidth, or its f32 operations
+    over the f32 peak, whichever is larger.  Operations per (b, h, step):
+    10 hd^2 + 16 hd -- the S and G recurrences at one FMA an entry each
+    (the states kept scaled by running decay products, as ``wkv_bound``),
+    the dr, dk and dv contractions at one FMA an entry each; dw from the
+    pair-sum identity d(log w_t) = sum_{t'>t} r_t' dr^S_t' - sum_{tau>=t}
+    k_tau dk^G_tau + rowsum(dS_T S_T), with v.dy, the u terms, a_t and du,
+    O(hd)."""
+    b, s, h, hd = shape
+    size = torch.finfo(dtype).bits // 8
+    n = b * s * h * hd
+    nbytes = (7 * n * size + 2 * 4 * n + 2 * h * hd * 4
+              + 3 * b * h * hd * hd * 4)
+    flops = b * h * s * (10 * hd * hd + 16 * hd)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _wkv_grads(wkv_ops, args, dy, dstate):
+    """(dr, dk, dv, dw, du, dS_0) through ops.wkv6 and autograd, as the
+    training path takes them: the forward kernel, then the backward's
+    kernels through ``_WKV6``.  Each input keeps its strides; u is f32,
+    so du comes back in f32."""
+    leaves = [t.detach().requires_grad_() for t in args]
+    y, s_out = wkv_ops.wkv6(*leaves)
+    outs, grads = ((y, s_out), (dy, dstate)) if dstate is not None \
+        else ((y,), (dy,))
+    return torch.autograd.grad(outs, leaves, grads)
+
+
+def phase_wkv6_bwd():
+    """K2's backward, each case: the gradients of the training path's
+    entry against wkv6_bwd_ref, row by row against each row's scale
+    (checks.bwd_row_scales), finite, two calls bit for bit, one forward
+    launch and the backward's kernels counted; faults that must land past
+    the limits; at the training shape the backward call, the forward and
+    the plain backward timed.  Returns the kernels-line entry."""
+    from repro_torch.kernels.rwkv6 import checks, kernel_bwd
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    entry = None
+    per_call = len(kernel_bwd.KERNELS)
+    for (name, shape, dtype, strided, state_scale, dstate_scale,
+         fast) in WKV_BWD_CASES:
+        r, k, v, w, u, state, dy, dstate = checks.bwd_inputs(
+            shape, dtype, gen, strided, state_scale, dstate_scale, fast)
+        args = (r, k, v, w, u.float(), state)
+        before = (wkv_ops.launches, wkv_ops.launches_bwd)
+        got = _wkv_grads(wkv_ops, args, dy, dstate)
+        again = _wkv_grads(wkv_ops, args, dy, dstate)
+        torch.cuda.synchronize()
+        took = (wkv_ops.launches - before[0],
+                wkv_ops.launches_bwd - before[1])
+        check(took == (2, 2 * per_call),
+              f"wkv6_bwd {name}: launches (forward, backward) {took}, "
+              f"expected (2, {2 * per_call})")
+        with torch.no_grad():
+            ref = wkv6_bwd_ref(*args, dy, dstate)
+            scales = checks.bwd_row_scales(*args, dy, dstate)
+        errs = checks.bwd_errors(got, ref, scales)
+        max_abs = max((a.float() - b).abs().max().item()
+                      for a, b in zip(got, ref))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(torch.isfinite(g).all().item() for g in got)
+        zeros = int((w == 0).sum().item())
+        limits = checks.BWD_ROW_TOL[dtype]
+        print(f"[wkv6_bwd] {name} {tuple(shape)} {str(dtype)[6:]} "
+              f"strided={strided} S_0 x{state_scale:g} dS_T "
+              f"x{dstate_scale:g} fast_decay={fast} (w == 0 at {zeros}): "
+              f"worst row rel err " + ", ".join(
+                  f"{g} {e:.3e} (limit {limits[g]:g})"
+                  for g, e in errs.items())
+              + f"; max_abs_err {max_abs:.3e}; finite {finite}; two calls "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        check(finite, f"wkv6_bwd {name}: a gradient is not finite")
+        check(checks.bwd_within(errs, dtype),
+              f"wkv6_bwd {name}: worst rows {errs} past {limits}")
+        check(same, f"wkv6_bwd {name}: two calls differ")
+        for fault in WKV_BWD_FAULTS.get(name, ()):
+            with torch.no_grad():
+                bad = checks.wkv6_bwd_faulty(*args, dy, dstate, fault)
+            worst = checks.bwd_errors(bad, ref, scales)
+            hit = {g: e for g, e in worst.items() if e > 10 * limits[g]}
+            del bad
+            print(f"[wkv6_bwd] {name}: a backward with {fault} gives worst "
+                  f"rows {', '.join(f'{g} {e:.3e}' for g, e in hit.items())}"
+                  f" (past 10 x their limits)")
+            check(hit, f"wkv6_bwd {name}: {fault} gives only {worst}: the "
+                       f"check cannot see it")
+        del ref, scales, got, again
+        torch.cuda.empty_cache()
+        if name == "training":
+            entry = {
+                "name": "wkv6_bwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
+                "replaces": "src/repro/kernels/rwkv6/kernel.py:49",
+                "gradient_of": "src/repro/kernels/rwkv6/ops.py:27",
+                "launches": None, "calls": None,
+                "kernels_per_call": {kn: 1 for kn in kernel_bwd.KERNELS},
+                "max_abs_err": max_abs,
+                **_time_wkv_bwd(kernel_bwd, wkv_ops, wkv6_bwd_ref, args, dy,
+                                shape, dtype)}
+        del r, k, v, w, u, state, dy, dstate, args
+        torch.cuda.empty_cache()
+    check(entry is not None, "wkv6_bwd: the training case did not run")
+    return entry
+
+
+def _time_wkv_bwd(kernel_bwd, wkv_ops, wkv6_bwd_ref, args, dy, shape,
+                  dtype):
+    """Times the backward call (``kernel_bwd.wkv6_bwd_cuda``: both kernels
+    and du's batch sum), each of its kernels alone, the forward at the
+    same shape and the plain backward, in one call; prints them beside
+    the bound."""
+    r, k, v, w, uf, state = args
+    with torch.no_grad():
+        ms = time_ms(lambda: kernel_bwd.wkv6_bwd_cuda(r, k, v, w, uf, state,
+                                                      dy))
+        kernel_ms = {name: time_ms(lambda: kernel_bwd.wkv6_bwd_cuda(
+            r, k, v, w, uf, state, dy, kernels=(name,)))
+            for name in kernel_bwd.KERNELS}
+        fwd_ms = time_ms(lambda: wkv_ops.wkv6(*args))
+        plain_ms = time_ms(lambda: wkv6_bwd_ref(*args, dy), iters=1,
+                           warmup=1)
+    bound_ms, bound_by = wkv_bwd_bound(shape, dtype)
+    print(f"[wkv6_bwd] training {tuple(shape)} {str(dtype)[6:]}: backward "
+          f"call {ms:.4f} ms ({ms / bound_ms:.2f} x bound; alone "
+          + ", ".join(f"{n} {t:.4f}" for n, t in kernel_ms.items())
+          + f" ms), forward {fwd_ms:.4f} ms, plain backward {plain_ms:.1f} "
+          f"ms, no library call, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "kernel_ms": kernel_ms,
+            "forward_ms": fwd_ms}
 
 
 # Selective scan (K3): inputs and limits from
@@ -1591,15 +1780,20 @@ TIMED_BWD_CASES = ("training", "hd128")
 # of the small sum; on a row without cancellation the scale is a few times
 # the row's norm.  A fault (D dropped, a kv tile lost) moves rows by
 # O(their scale) and still lands far past the limit.
-TRAIN_ARCH = "minicpm-2b"
-TRAIN_SHAPE = dict(batch=4, seq=2048, steps=6)
-# K1 launches a layer in a training step of a dense decoder: the forward
-# kernel twice (the forward and its recompute under activation
-# checkpointing), the backward once, which launches its three kernels
-# (kernel_bwd.KERNELS["hopper"]: preprocess, dK/dV, dQ)
-TRAIN_K1 = {"forward": 2, "backward": 3}
-# the remat check's cut of TRAIN_ARCH, every width as published, and its
-# batch
+# Each training path, at full width and depth in bf16 from seed 0: its
+# batch and steps, the kernel its layers call, and that kernel's launches
+# a layer in a step: the forward kernel twice (the forward and its
+# recompute under activation checkpointing), the backward once, which
+# launches its kernels (K1: kernel_bwd.KERNELS["hopper"], preprocess,
+# dK/dV, dQ; K2: kernel_bwd.KERNELS, bwd and dv)
+TRAIN_PATHS = {
+    "minicpm-2b": dict(batch=4, seq=2048, steps=6, kernel="flash_attention",
+                       forward=2, backward=3),
+    "rwkv6-1.6b": dict(batch=4, seq=2048, steps=6, kernel="wkv6",
+                       forward=2, backward=2),
+}
+# the remat check's model, its cut (every width as published) and batch
+REMAT_ARCH = "minicpm-2b"
 REMAT_CUT = dict(n_layers=2)
 REMAT_SHAPE = dict(batch=2, seq=1024)
 RESTART = dict(steps=40, preempt_at=20, ckpt_every=10)
@@ -1608,6 +1802,7 @@ K1_KERNEL_PARTS = ("flash_fwd", "bwd_preprocess", "bwd_stats", "bwd_dkdv",
                    "bwd_dq")
 TRAIN_KERNEL_GROUPS = (
     ("K1", K1_KERNEL_PARTS),
+    ("K2", ("wkv6_kernel", "wkv6_bwd_kernel")),
     ("GEMM", ("nvjet", "gemm", "cutlass", "cublas", "sm90_xmma")),
     ("reductions", ("reduce_kernel", "softmax", "LogSumExp", "cunn_")),
     ("copies and casts", ("copy_kernel", "CatArrayBatchedCopy")),
@@ -1846,14 +2041,20 @@ def _time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape,
 
 
 def _count_plain_calls():
-    """Wraps K1's plain forward and backward where the dispatcher and the
-    model could reach them; returns (calls, undo)."""
+    """Wraps K1's and K2's plain forwards and backwards where the
+    dispatchers and the models could reach them; returns (calls, undo)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref
-    calls = {"attention_ref": 0, "attention_bwd_ref": 0}
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    calls = {"attention_ref": 0, "attention_bwd_ref": 0, "wkv6_ref": 0,
+             "wkv6_bwd_ref": 0}
     saved = [(ref, "attention_ref", ref.attention_ref),
              (ref, "attention_bwd_ref", ref.attention_bwd_ref),
-             (flash_ops, "attention_ref", flash_ops.attention_ref)]
+             (flash_ops, "attention_ref", flash_ops.attention_ref),
+             (wkv_ref, "wkv6_ref", wkv_ref.wkv6_ref),
+             (wkv_ref, "wkv6_bwd_ref", wkv_ref.wkv6_bwd_ref),
+             (wkv_ops, "wkv6_ref", wkv_ops.wkv6_ref)]
     for mod, attr, fn in saved:
         def counted(*a, _fn=fn, _attr=attr, **kw):
             calls[_attr] += 1
@@ -1866,45 +2067,51 @@ def _count_plain_calls():
     return calls, undo
 
 
-def phase_train(card):
-    """minicpm-2b at full width and depth, bf16, random init from seed 0,
-    through repro_torch.launch.train on the card: TRAIN_SHAPE's steps on
-    the synthetic stream with WSD.  Every kernel's counts are set to 0
-    before each step and read after it: K1 TRAIN_K1 times a layer, every
-    backward through the kernels of the "hopper" route, no plain version
-    called, no other kernel.  Then one step profiled, with no stats
-    kernel in it.  Returns K1's forward and backward launches in the
-    run, and the backward's by route."""
+def phase_train(arch, card):
+    """``arch`` at full width and depth, bf16, random init from seed 0,
+    through repro_torch.launch.train on the card: TRAIN_PATHS' steps on
+    the synthetic stream (WSD for minicpm-2b, cosine otherwise).  Every
+    kernel's counts are set to 0 before each step and read after it: the
+    path's kernel launched TRAIN_PATHS' times a layer, forward and
+    backward (K1's on the "hopper" route, K2's under kernel.plan's
+    choice), no plain version called, no other kernel.  Then one step
+    profiled.  Returns the kernel's forward and backward launches in the
+    run, and K1's backward's by route."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     from repro_torch.launch import train as launch_train
+    spec = TRAIN_PATHS[arch]
+    shape = {key: spec[key] for key in ("batch", "seq", "steps")}
     ops = kernel_ops()
-    flash = ops["flash_attention"]
-    cfg = get_config(TRAIN_ARCH)
+    name = spec["kernel"]
+    mod, flash, wkv = ops[name], ops["flash_attention"], ops["wkv6"]
+    cfg = get_config(arch)
     n = cfg.n_layers
-    print(f"[train] {TRAIN_ARCH}: {n} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, "
-          f"{cfg.param_counts()['total'] / 1e9:.3f} B params, "
-          f"{TRAIN_SHAPE}")
+    print(f"[train] {arch}: {n} layers, d_model {cfg.d_model}, {shape}, "
+          f"kernel {name}")
 
     def reset():
-        for mod in ops.values():
-            mod.launches = 0
-        flash.launches_bwd = 0
+        for m in ops.values():
+            m.launches = 0
+            if hasattr(m, "launches_bwd"):
+                m.launches_bwd = 0
         for counts in (flash.launches_by_variant,
                        flash.launches_bwd_by_variant):
             for variant in counts:
                 counts[variant] = 0
+        wkv.launches_by_plan.clear()
 
     per_step = []
 
     def on_step(rec):
-        per_step.append({"forward": flash.launches,
-                         "backward": flash.launches_bwd,
-                         "by_variant": dict(flash.launches_by_variant),
-                         "bwd_by_variant": dict(
-                             flash.launches_bwd_by_variant),
-                         "others": {k: m.launches for k, m in ops.items()
-                                    if k != "flash_attention"}})
+        per_step.append({
+            "forward": mod.launches, "backward": mod.launches_bwd,
+            "k1_by_variant": dict(flash.launches_by_variant),
+            "k1_bwd_by_variant": dict(flash.launches_bwd_by_variant),
+            "k2_by_plan": {_plan_name(*pl): c
+                           for pl, c in wkv.launches_by_plan.items()},
+            "others": {k: (m.launches, getattr(m, "launches_bwd", 0))
+                       for k, m in ops.items() if k != name}})
         reset()
 
     torch.cuda.synchronize()
@@ -1914,51 +2121,60 @@ def phase_train(card):
     try:
         out = launch_train.run(cfg, device="cuda", on_step=on_step,
                                log=lambda line: print(f"[train] {line}"),
-                               **TRAIN_SHAPE)
+                               **shape)
     finally:
         undo()
     records = out["records"]
     losses = [r["loss"] for r in records]
-    want = {"forward": TRAIN_K1["forward"] * n,
-            "backward": TRAIN_K1["backward"] * n,
-            "by_variant": {"hopper": TRAIN_K1["forward"] * n, "general": 0},
-            "bwd_by_variant": {"hopper": TRAIN_K1["backward"] * n,
-                               "general": 0},
-            "others": {"wkv6": 0, "selective_scan": 0}}
+    params = sum(t.numel() for t in _leaves(out["params"]))
+    fwd, bwd = spec["forward"] * n, spec["backward"] * n
+    k1 = name == "flash_attention"
+    want = {"forward": fwd, "backward": bwd,
+            "k1_by_variant": {"hopper": fwd if k1 else 0, "general": 0},
+            "k1_bwd_by_variant": {"hopper": bwd if k1 else 0, "general": 0},
+            "k2_by_plan": {} if k1 else {_plan_name(*wkv_kernel.PLAN): fwd},
+            "others": {k: (0, 0) for k in ops if k != name}}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = float(np.median([r["step_ms"] for r in records[1:]]))
-    tok_s = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["seq"] / step_ms * 1e3
-    print(f"[train] losses {losses}; K1 launches a step {per_step}; plain "
-          f"versions called {plain}")
-    print(f"[train] step time (median of steps 2-{len(records)}) "
-          f"{step_ms:.1f} ms, {tok_s:.0f} tok/s, peak memory {peak_gb:.2f} "
-          f"GB | {card}")
-    check(len(records) == TRAIN_SHAPE["steps"], "train: steps missing")
-    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    tok_s = shape["batch"] * shape["seq"] / step_ms * 1e3
+    print(f"[train] {arch} losses {losses}; launches a step {per_step}; "
+          f"plain versions called {plain}")
+    print(f"[train] {arch} ({params / 1e9:.3f} B params) step time (median "
+          f"of steps 2-{len(records)}) {step_ms:.1f} ms, {tok_s:.0f} tok/s, "
+          f"peak memory {peak_gb:.2f} GB | {card}")
+    check(len(records) == shape["steps"], f"train {arch}: steps missing")
+    check(all(math.isfinite(x) for x in losses),
+          f"train {arch}: losses {losses}")
     check(all(p == want for p in per_step),
-          f"train: launches a step {per_step}, expected {want}")
-    check(plain == {"attention_ref": 0, "attention_bwd_ref": 0},
-          f"train: plain versions called {plain}")
-    _embedding_backward_is_deterministic(out)
-    k1_kernels = profile_train_step(out)
-    check(k1_kernels is None or "bwd_stats" not in k1_kernels,
-          f"train: a stats kernel ran on the hopper route: {k1_kernels}")
-    result = {"arch": TRAIN_ARCH, **TRAIN_SHAPE, "losses": losses,
+          f"train {arch}: launches a step {per_step}, expected {want}")
+    check(not any(plain.values()),
+          f"train {arch}: plain versions called {plain}")
+    if k1:
+        _embedding_backward_is_deterministic(out)
+    kernels = profile_train_step(out, shape)
+    if k1:
+        check(kernels is None or "bwd_stats" not in kernels,
+              f"train: a stats kernel ran on the hopper route: {kernels}")
+    result = {"arch": arch, **shape, "losses": losses,
               "step_ms": [r["step_ms"] for r in records],
               "step_ms_median": step_ms, "tok_s": tok_s,
-              "peak_memory_gb": peak_gb, "card": card}
+              "peak_memory_gb": peak_gb, "params": params, "card": card}
     print("train " + json.dumps(result))
     del out
     totals = {part: sum(p[part] for p in per_step)
               for part in ("forward", "backward")}
     totals["bwd_by_variant"] = {
-        vt: sum(p["bwd_by_variant"][vt] for p in per_step)
-        for vt in want["bwd_by_variant"]}
+        vt: sum(p["k1_bwd_by_variant"][vt] for p in per_step)
+        for vt in want["k1_bwd_by_variant"]}
+    totals["k2_by_plan"] = {}
+    for p in per_step:
+        for pl, c in p["k2_by_plan"].items():
+            totals["k2_by_plan"][pl] = totals["k2_by_plan"].get(pl, 0) + c
     return totals
 
 
 def phase_remat_bits():
-    """A cut of TRAIN_ARCH (REMAT_CUT, every width as published) on the
+    """A cut of REMAT_ARCH (REMAT_CUT, every width as published) on the
     card in bf16: DecoderLM.loss's gradients with each layer under
     activation checkpointing, remat policy None (the layer recomputed,
     K1's forward and its LSE with it) and "dots", equal those of the same
@@ -1969,7 +2185,7 @@ def phase_remat_bits():
     from repro_torch.models.factory import build_model
     from repro_torch.training.step import value_and_grad
     flash = kernel_ops()["flash_attention"]
-    cfg = get_config(TRAIN_ARCH).replace(**REMAT_CUT)
+    cfg = get_config(REMAT_ARCH).replace(**REMAT_CUT)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
                         "cuda")
@@ -2032,9 +2248,10 @@ def _embedding_backward_is_deterministic(out):
     check(same["F.embedding"], "F.embedding's backward is not deterministic")
 
 
-def profile_train_step(out):
-    """One more training step, timed on the host clock, then again under
-    torch.profiler: its kernels by device time, K1's forward and backward
+def profile_train_step(out, shape):
+    """One more training step (of ``shape``'s batch), timed on the host
+    clock, then again under torch.profiler: its kernels by device time
+    and by group (TRAIN_KERNEL_GROUPS), K1's forward and backward
     kernels, launches and the device-busy share.  Returns K1's kernels
     ({name fragment: (ms, launches)}), or None where the profiler saw no
     device time."""
@@ -2042,7 +2259,7 @@ def profile_train_step(out):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.train import to_device
-    batch = to_device(out["data"].batch_at(TRAIN_SHAPE["steps"]), "cuda")
+    batch = to_device(out["data"].batch_at(shape["steps"]), "cuda")
     state = [out["params"], out["opt_state"]]
 
     def step():
@@ -2065,8 +2282,8 @@ def profile_train_step(out):
               f"not measured (no CUDA events)")
         return None
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"[profile] train step ({TRAIN_SHAPE['batch']} x "
-          f"{TRAIN_SHAPE['seq']} tokens): wall {wall_ms:.1f} ms, kernels "
+    print(f"[profile] train step ({shape['batch']} x "
+          f"{shape['seq']} tokens): wall {wall_ms:.1f} ms, kernels "
           f"{busy_ms:.1f} ms in {sum(e.count for e in kernels)} launches, "
           f"device busy {100 * busy_ms / wall_ms:.0f}%")
     k1 = {}
@@ -2182,19 +2399,36 @@ def main() -> int:
     free_device_memory("the previous phase")
     bwd = phase_flash_bwd()
     free_device_memory("the previous phase")
-    k1 = phase_train(card)
+    wkv_bwd = phase_wkv6_bwd()
+    trained = {}
+    for arch in TRAIN_PATHS:
+        free_device_memory("the previous phase")
+        trained[arch] = phase_train(arch, card)
     free_device_memory("the previous phase")
     phase_remat_bits()
-    # kernel launches, as every entry counts them; calls of the backward
-    bwd["launches"] = k1["backward"]
-    bwd["launches_by_variant"] = k1["bwd_by_variant"]
-    bwd["calls"] = sum(n // bwd["kernels_per_call"][vt]
-                       for vt, n in k1["bwd_by_variant"].items())
-    bwd["launches_by_path"] = {TRAIN_ARCH: k1["backward"]}
+    # kernel launches, as every entry counts them; calls of the backwards
+    for arch, got in trained.items():
+        path = f"{arch} (train)"
+        name = TRAIN_PATHS[arch]["kernel"]
+        fwd_entry = entries[name]
+        bwd_entry = bwd if name == "flash_attention" else wkv_bwd
+        fwd_entry["launches"] += got["forward"]
+        fwd_entry["launches_by_path"][path] = got["forward"]
+        bwd_entry["launches"] = got["backward"]
+        bwd_entry["launches_by_path"] = {path: got["backward"]}
+        if name == "flash_attention":
+            flash["launches_by_variant"]["hopper"] += got["forward"]
+            bwd["launches_by_variant"] = got["bwd_by_variant"]
+            bwd["calls"] = sum(c // bwd["kernels_per_call"][vt]
+                               for vt, c in got["bwd_by_variant"].items())
+        else:
+            by_plan = entries["wkv6"]["launches_by_plan"]
+            for pl, c in got["k2_by_plan"].items():
+                by_plan[pl] = by_plan.get(pl, 0) + c
+            wkv_bwd["calls"] = got["backward"] // len(
+                wkv_bwd["kernels_per_call"])
     entries["flash_attention_bwd"] = bwd
-    flash["launches"] += k1["forward"]
-    flash["launches_by_path"][TRAIN_ARCH] = k1["forward"]
-    flash["launches_by_variant"]["hopper"] += k1["forward"]
+    entries["wkv6_bwd"] = wkv_bwd
     free_device_memory("the previous phase")
     phase_train_restart()
     print(json.dumps({"kernels": list(entries.values())}))

@@ -1,11 +1,22 @@
 """Dispatcher for the WKV6 recurrence: the CUDA kernel for tensors on the
-card, the plain torch version (ref.py) for tensors on the CPU.
+card, the plain torch version (ref.py) for tensors on the CPU, where
+autograd differentiates it.
 
-There is no fallback: a CUDA tensor launches the kernel or raises.  There
-is no backward kernel yet, so a CUDA call that would need a gradient
-raises too.  ``launches`` counts kernel launches and nothing else;
-``launches_by_plan`` counts them by the (G, C, CB) that ``kernel.plan``
-chose.
+There is no fallback: a CUDA tensor launches the kernel or raises.  A
+CUDA call that needs a gradient goes through ``_WKV6``, a
+``torch.autograd.Function`` whose forward launches the forward kernel
+and whose backward launches the backward's kernels (``kernel_bwd``: its
+own kernel, then the forward kernel run backward in time); the plain
+gradient (``wkv6_bwd_ref``) is never taken on the card.  It saves
+its inputs with ``save_for_backward`` (the backward recomputes the
+states from them), so a layer recomputed under activation checkpointing
+saves them again.
+
+Counts: ``launches`` counts forward kernel launches and nothing else (a
+layer recomputed under activation checkpointing launches again, and
+counts again); ``launches_by_plan`` counts them by the (G, C, CB) that
+``kernel.plan`` chose; ``launches_bwd`` counts backward kernel launches,
+``len(kernel_bwd.KERNELS)`` a call.
 
 ``wkv6_step`` (one token, the decode path) is plain torch ops on every
 device, as the reference's is jnp.
@@ -14,11 +25,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.rwkv6 import kernel
+from repro_torch.kernels.rwkv6 import kernel, kernel_bwd
 from repro_torch.kernels.rwkv6.ref import step, wkv6_ref
 
 launches = 0
 launches_by_plan: dict = {}
+launches_bwd = 0
 
 
 def _check(r, k, v, w, u, state):
@@ -43,17 +55,13 @@ def _check(r, k, v, w, u, state):
 
 def wkv6(r, k, v, w, u, state):
     """r/k/v/w (b, s, H, hd); u (H, hd); state (b, H, hd, hd).  Returns
-    (y (b, s, H, hd) in r.dtype, final state f32)."""
-    global launches
+    (y (b, s, H, hd) in r.dtype, final state f32).  Differentiable on
+    both devices."""
     _check(r, k, v, w, u, state)
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"no wkv6 for device {r.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (r, k, v, w, u, state)):
-        raise NotImplementedError("wkv6 has no backward kernel yet; call it "
-                                  "under torch.no_grad()")
     if r.dtype not in kernel.DTYPES or k.dtype != r.dtype \
             or v.dtype != r.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 r/k/v of one "
@@ -70,12 +78,52 @@ def wkv6(r, k, v, w, u, state):
         raise ValueError(f"batch too large for the grid: {tuple(r.shape)}")
     if any(t.stride(3) != 1 for t in (r, k, v, w)):
         raise ValueError("the head dim of r/k/v/w must have stride 1")
+    uf = u.float()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, uf, state)):
+        # u's f32 copy is the Function's input: autograd carries du back
+        # through the cast
+        return _WKV6.apply(r, k, v, w, uf, state)
+    return _forward(r, k, v, w, uf, state)
+
+
+def _forward(r, k, v, w, uf, state):
+    global launches
     plan = kernel.plan(r.shape, r.dtype)
-    out = kernel.wkv6_cuda(r, k, v, w, u.float().contiguous(),
-                           state.contiguous(), plan)
+    out = kernel.wkv6_cuda(r, k, v, w, uf.contiguous(), state.contiguous(),
+                           plan)
     launches += 1
     launches_by_plan[plan] = launches_by_plan.get(plan, 0) + 1
     return out
+
+
+class _WKV6(torch.autograd.Function):
+    """Forward and backward kernels of one CUDA call.  Saves r, k, v, w
+    (as the views they are), u in f32 and the initial state; the
+    backward recomputes the states from them.  A gradient it is not given
+    (the final state's, where the caller drops it) is zeros."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, uf, state):
+        ctx.set_materialize_grads(False)
+        y, s_out = _forward(r, k, v, w, uf, state)
+        ctx.save_for_backward(r, k, v, w, uf, state)
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        global launches_bwd
+        r, k, v, w, uf, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        elif dy.dtype != r.dtype or dy.stride(3) != 1:
+            dy = dy.to(r.dtype).contiguous()
+        grads = kernel_bwd.wkv6_bwd_cuda(
+            r, k, v, w, uf.contiguous(), state.contiguous(), dy,
+            None if dstate is None else dstate.float().contiguous())
+        launches_bwd += len(kernel_bwd.KERNELS)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def wkv6_step(r1, k1, v1, w1, u, state):

@@ -4,6 +4,8 @@
         --steps 30                       # the smoke config, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.train --full \
         --batch 4 --seq 2048 --steps 6   # minicpm-2b, published, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
+        --full --batch 4 --seq 2048 --steps 6   # rwkv6-1.6b, on the card
 
 Trains ``--arch`` (the smoke config, or with ``--full`` the published
 one) from random weights (seed 0) on the deterministic synthetic stream

@@ -15,10 +15,19 @@ place, layer by layer (the counterpart of the reference's donated cache
 buffer): the state passed to ``decode`` is the one it returns.  Prefill
 runs the WKV6 kernel's dispatcher once per layer; decode takes the plain
 one-step path.
+
+``loss`` is the reference's: next-token cross entropy from a zero state,
+every layer under activation checkpointing that recomputes the whole
+layer (the reference's ``jax.checkpoint`` of the scanned layer, which
+takes no policy).  Its layers are functional (``_layer_fn`` returns the
+new state, which the loss drops, as the reference discards the cache), so
+autograd and the recompute see no in-place write.  On the card the WKV
+gradient comes from K2's backward kernel.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import common as C
@@ -55,9 +64,8 @@ class RWKVLM:
 
     # --------------------------------------------------------------- forward
 
-    def _layer(self, x, lp, state):
-        """One layer; ``state`` holds this layer's views of the state,
-        overwritten with the new state."""
+    def _layer_fn(self, x, lp, state):
+        """One layer, functional: returns (x, the new state)."""
         cfg = self.cfg
         h = L.apply_norm(x, lp["ln1"], cfg)
         y, (wkv, tm_x) = R.time_mix(h, lp["tm"], cfg, state["wkv"],
@@ -65,10 +73,18 @@ class RWKVLM:
         x = x + y
         h = L.apply_norm(x, lp["ln2"], cfg)
         y, cm_x = R.channel_mix(h, lp["cm"], state["cm_x"])
-        state["wkv"].copy_(wkv)
-        state["tm_x"].copy_(tm_x)
-        state["cm_x"].copy_(cm_x)
-        return x + y
+        return x + y, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}
+
+    def _layer(self, x, lp, state):
+        """One layer; ``state`` holds this layer's views of the state,
+        overwritten with the new state."""
+        x, new = self._layer_fn(x, lp, state)
+        for key, value in new.items():
+            state[key].copy_(value)
+        return x
+
+    def _train_layer(self, x, lp, state):
+        return self._layer_fn(x, lp, state)[0]
 
     def _run_layers(self, x, params, cache):
         for l in range(self.cfg.n_layers):
@@ -81,8 +97,23 @@ class RWKVLM:
         return L.apply_norm(x, params["ln0"], self.cfg)
 
     def loss(self, params, batch):
-        raise NotImplementedError("RWKVLM training needs K2's backward "
-                                  "kernel: ROADMAP Queue 1 item 6")
+        """batch: tokens (b, s), labels (b, s), optional loss_mask (b, s).
+        Returns (xent, {"xent", "aux_loss": f32 0}), every layer under
+        activation checkpointing from a zero state."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        cache = self.init_cache(x.shape[0], 0, x.device)
+        layers = C.unstack_layers(params["layers"], cfg.n_layers)
+        for l, lp in enumerate(layers):
+            # no layer draws random numbers: no RNG state to keep
+            x = ckpt.checkpoint(self._train_layer, x, lp,
+                                C.index_layer(cache, l),
+                                use_reentrant=False, preserve_rng_state=False)
+        x = L.apply_norm(x, params["final_norm"], cfg)
+        logits = C.lm_logits(x, params["embed"], cfg)
+        xent = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return xent, {"xent": xent, "aux_loss": aux}
 
     def prefill(self, params, tokens, max_len, patch_embeds=None):
         """tokens (b, s) -> (last-position logits (b, 1, V), state, s).

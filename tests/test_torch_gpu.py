@@ -1,8 +1,9 @@
 """The port on the card: the CUDA flash attention (K1, forward and
-backward), WKV6 (K2) and selective scan (K3) kernels against their plain
-versions, the dispatchers' rules for CUDA tensors, DecoderLM, RWKVLM and
-JambaLM prefill through the kernels against the same models on the CPU,
-and DecoderLM's loss, gradients and train step on the card.
+backward), WKV6 (K2, forward and backward) and selective scan (K3)
+kernels against their plain versions, the dispatchers' rules for CUDA
+tensors, DecoderLM, RWKVLM and JambaLM prefill through the kernels
+against the same models on the CPU, and DecoderLM's and RWKVLM's losses,
+gradients and train steps on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  On a machine
 with a card, from the repository root:
@@ -33,8 +34,12 @@ from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import checks  # noqa: E402
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
+from repro_torch.kernels.rwkv6 import \
+    kernel_bwd as wkv_kernel_bwd  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
-from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
+from repro_torch.kernels.rwkv6.checks import \
+    bwd_inputs as wkv_checks_bwd_inputs  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv6_ref  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -382,12 +387,114 @@ def test_wkv6_copies_rows_at_any_alignment(cuda):
 
 
 def test_wkv6_cuda_grad_raises(cuda):
+    """A CUDA call that needs a gradient raises only where the kernels do
+    not go (head dim past 64, before any launch); at hd 16 it launches the
+    forward kernel once and, in the backward, the backward's kernels."""
+    big = [t.requires_grad_(t.is_floating_point())
+           for t in _wkv_inputs(1, 4, 1, 128, torch.float32)]
+    before = (wkv_ops.launches, wkv_ops.launches_bwd)
+    with pytest.raises(ValueError, match="head dim 128"):
+        wkv_ops.wkv6(*big)
     r, k, v, w, u, s0 = _wkv_inputs(1, 8, 1, 16, torch.float32)
     r.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        wkv_ops.wkv6(r, k, v, w, u, s0)
-    with torch.no_grad():
-        wkv_ops.wkv6(r, k, v, w, u, s0)
+    y, _ = wkv_ops.wkv6(r, k, v, w, u, s0)
+    y.sum().backward()
+    assert (wkv_ops.launches - before[0],
+            wkv_ops.launches_bwd - before[1]) == (1, len(wkv_kernel_bwd.KERNELS))
+    assert torch.isfinite(r.grad).all()
+
+
+# K2's backward: (b, s, h, hd), dtype, strided, scale of S_0, scale of dS_T,
+# fast decay (w down to 0)
+WKV_BWD_CASES = [
+    ((2, 37, 4, 16), torch.float32, True, 10.0, 1.0, False),
+    ((2, 100, 4, 24), torch.float32, False, 10.0, 1.0, False),
+    ((3, 45, 2, 33), torch.bfloat16, True, 10.0, 1.0, False),
+    ((1, 130, 2, 32), torch.bfloat16, False, 0.0, 0.0, False),
+    ((2, 300, 4, 64), torch.float32, False, 10.0, 1.0, True),
+    ((2, 1000, 8, 64), torch.bfloat16, True, 10.0, 1.0, False),
+    ((1, 2047, 4, 64), torch.float32, False, 10.0, 1.0, False),
+    ((4, 2048, 32, 64), torch.bfloat16, False, 0.0, 0.0, False),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,strided,state_scale,dstate_scale,fast",
+                         WKV_BWD_CASES)
+def test_wkv6_bwd_kernel_matches_plain(cuda, shape, dtype, strided,
+                                       state_scale, dstate_scale, fast):
+    """The backward's kernels against wkv6_bwd_ref: every gradient row
+    within its limit against its scale (checks.BWD_ROW_TOL), finite, the
+    same bits twice."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    r, k, v, w, u, s0, dy, ds = wkv_checks_bwd_inputs(
+        shape, dtype, gen, strided, state_scale, dstate_scale, fast)
+    uf = u.float()
+    got = wkv_kernel_bwd.wkv6_bwd_cuda(r, k, v, w, uf, s0, dy, ds)
+    again = wkv_kernel_bwd.wkv6_bwd_cuda(r, k, v, w, uf, s0, dy, ds)
+    ref = wkv6_bwd_ref(r, k, v, w, uf, s0, dy, ds)
+    scales = checks.bwd_row_scales(r, k, v, w, uf, s0, dy, ds)
+    errs = checks.bwd_errors(got, ref, scales)
+    assert checks.bwd_within(errs, dtype), errs
+    assert all(torch.isfinite(g).all() for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [g.dtype for g in got] == [dtype] * 3 + [torch.float32] * 3
+
+
+def test_wkv6_grad_through_ops_launches_the_backward(cuda):
+    """Through ops.wkv6 with gradients: one forward launch, the backward's
+    kernels once each, and the grads are wkv6_bwd_cuda's (u's cast back
+    to bf16 through u.float())."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    ins = wkv_checks_bwd_inputs((2, 70, 4, 64), torch.bfloat16, gen, False,
+                                1.0, 1.0, False)
+    r, k, v, w, u, s0, dy, ds = ins
+    leaves = [t.detach().clone().requires_grad_() for t in (r, k, v, w, u,
+                                                             s0)]
+    before = (wkv_ops.launches, wkv_ops.launches_bwd)
+    y, s_out = wkv_ops.wkv6(*leaves)
+    grads = torch.autograd.grad((y, s_out), leaves, (dy, ds))
+    assert (wkv_ops.launches - before[0], wkv_ops.launches_bwd - before[1]
+            ) == (1, len(wkv_kernel_bwd.KERNELS))
+    want = wkv_kernel_bwd.wkv6_bwd_cuda(r, k, v, w, u.float(), s0, dy, ds)
+    for g, wnt in zip(grads[:4] + grads[5:], want[:4] + want[5:]):
+        assert torch.equal(g, wnt)
+    assert grads[4].dtype == torch.bfloat16
+    assert torch.equal(grads[4], want[4].to(torch.bfloat16))
+
+
+def test_rwkv_loss_and_grads_on_the_card_match_cpu(cuda):
+    """RWKVLM.loss and its gradients in f32 on the card (K2's forward and
+    backward kernels, remat) equal the CPU's (the plain recurrence under
+    autograd): loss 1e-4, each gradient leaf within 1e-3 of its largest
+    |g|; K2's forward twice and its backward once a layer."""
+    from repro_torch import tree as T
+    from repro_torch.training.step import value_and_grad
+    cfg = get_smoke("rwkv6-1.6b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=rng)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want = value_and_grad(model, params, batch)
+    before = (wkv_ops.launches, wkv_ops.launches_bwd)
+    got = value_and_grad(model, _to(params, cuda), _to(batch, cuda))
+    n = cfg.n_layers
+    assert (wkv_ops.launches - before[0],
+            wkv_ops.launches_bwd - before[1]) == (
+        2 * n, len(wkv_kernel_bwd.KERNELS) * n)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    for (path, g), w in zip(T.flatten(got[2]), T.leaves(want[2])):
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-3 * w.abs().max().item(), path
+
+
+def test_rwkv_train_launcher_on_the_card(cuda):
+    """The launcher's rwkv6-1.6b smoke run on the card: finite losses."""
+    from repro_torch.launch import train as launch_train
+    out = launch_train.run(get_smoke("rwkv6-1.6b"), steps=6, batch=2,
+                           seq=64, device="cuda", log=lambda *a: None)
+    losses = [r["loss"] for r in out["records"]]
+    assert len(losses) == 6 and all(map(math.isfinite, losses))
 
 
 def test_wkv6_cuda_rejects_what_the_kernel_does_not_take(cuda):

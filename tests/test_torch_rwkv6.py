@@ -4,9 +4,16 @@ The port's plain WKV6 (the version its dispatcher takes for CPU tensors,
 and the one the CUDA kernel is held against on the card) against the
 reference Pallas kernel in interpret mode and the reference oracle, at
 the reference kernel tests' tolerances; the one-token step; time mix and
-channel mix with bridged weights; ``RWKVLM`` prefill and decode logits
-and state; and the dispatcher's and the build's rules.  Inputs come from
-numpy seeds.  The CUDA kernel itself runs only on the card
+channel mix with bridged weights, and their gradients against
+``jax.vjp``; ``RWKVLM`` prefill and decode logits and state; the
+dispatcher's and the build's rules.  The backward: ``wkv6_bwd_ref``
+against torch autograd of the plain version and ``jax.vjp`` of the
+reference's ``wkv6_chunked`` and ``wkv6_ref`` (f32 at 2e-5, a length
+past one 128-step chunk, nonzero S_0 and dS_T, w down to 0), the faults
+of ``checks.py`` past the limits, and ``_WKV6``'s routing with the kernel
+entry points replaced by stand-ins that call ``ref.py`` (launch counts,
+saved inputs, the recompute under activation checkpointing).  Inputs
+come from numpy seeds.  The CUDA kernel itself runs only on the card
 (``chip_smoke.py``, ``tests/test_torch_gpu.py``)."""
 from __future__ import annotations
 
@@ -32,8 +39,11 @@ from repro_torch.bridge import params_from_flat  # noqa: E402
 from repro_torch.configs import get_smoke as torch_smoke  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fK  # noqa: E402
+from repro_torch.kernels.rwkv6 import checks as tchecks  # noqa: E402
 from repro_torch.kernels.rwkv6 import kernel as tK  # noqa: E402
+from repro_torch.kernels.rwkv6 import kernel_bwd as tKB  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as tops  # noqa: E402
+from repro_torch.kernels.rwkv6 import ref as tref  # noqa: E402
 from repro_torch.models import rwkv6 as tR  # noqa: E402
 from repro_torch.models.factory import build_model as torch_build  # noqa: E402
 from repro_torch.models.rwkv_lm import RWKVLM  # noqa: E402
@@ -319,6 +329,43 @@ def test_build_is_keyed_by_source_and_lazy():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+def test_backward_library_is_its_own_lazy_build():
+    """K2's backward builds from ``csrc/wkv6_bwd.cu`` into a library of
+    its own, keyed by that source's hash; importing loaded nothing; a
+    call launches "bwd" then the forward kernel's "dv" pass; the
+    checkpoint scratch holds one padded state every SUB_STEPS steps."""
+    digest = hashlib.sha256(tKB.SOURCE.read_bytes()).hexdigest()[:16]
+    assert tKB.SOURCE.name == "wkv6_bwd.cu" and tKB.SOURCE.exists()
+    assert _build.library_path(tKB.SOURCE, tKB.NAME) == (
+        _build.BUILD_ROOT / f"wkv6_bwd-{digest}" / "libwkv6_bwd.so")
+    assert tKB.library.cache_info().currsize == 0
+    assert tKB.KERNELS == ("bwd", "dv")
+    assert tKB.checkpoint_shape((4, 2048, 32, 64)) == (4, 32, 128, 64, 64)
+    assert tKB.checkpoint_shape((2, 17, 3, 24)) == (2, 3, 2, 32, 32)
+
+
+def test_backward_rejects_what_its_kernels_do_not_take():
+    """wkv6_bwd_cuda checks before any build or launch: CPU tensors, a
+    head dim past 64, mixed dtypes, a bf16 w or a non-contiguous state
+    raise ValueError."""
+    _, (r, k, v, w, u, s0) = wkv_inputs(1, 5, 2, 16)
+    dy = torch.ones_like(r)
+    with pytest.raises(ValueError, match="wkv6_bwd takes"):
+        tKB.wkv6_bwd_cuda(r, k, v, w, u, s0, dy)
+    meta = [t.to("meta") for t in (r, k, v, w, u, s0, dy)]
+    for bad in (
+            [meta[0].bfloat16(), *meta[1:]],
+            [*meta[:3], meta[3].bfloat16(), *meta[4:]],
+            [*meta[:5], meta[5].transpose(2, 3), meta[6]]):
+        with pytest.raises(ValueError, match="wkv6_bwd takes"):
+            tKB.wkv6_bwd_cuda(*bad)
+    big = torch.empty((1, 4, 1, 128), device="meta")
+    with pytest.raises(ValueError, match="hd <= 64"):
+        tKB.wkv6_bwd_cuda(big, big, big, big, torch.empty((1, 128)),
+                          torch.empty((1, 1, 128, 128)), big)
+    assert tKB.library.cache_info().currsize == 0
+
+
 FAKE_NVCC = """#!/bin/sh
 # stands in for nvcc: logs its call and writes the file after -o
 echo "$@" >> "{log}"
@@ -539,7 +586,252 @@ def test_bf16_prefill_matches_reference():
     close(jl, tl, TOL["bfloat16"])
 
 
-def test_loss_raises_naming_the_training_item():
-    tm = torch_build(torch_smoke(ARCH))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tm.loss({}, {})
+# ------------------------------------------------------------ the backward
+
+
+def bwd_np(b, s, H, hd, seed, fast_decay):
+    """numpy f32 inputs for the backward: r/k/v/u/dy uniform(-1, 1), S_0
+    and dS_T uniform(-1, 1); w as ``wkv_inputs`` (0.45-0.95), or with
+    ``fast_decay`` exp(-exp(1 + 2 N(0, 1))), from about 1 down to exactly
+    0 in f32."""
+    rng = np.random.default_rng(seed)
+
+    def uni(*shape):
+        return rng.uniform(-1, 1, shape).astype(np.float32)
+
+    r, k, v, dy = (uni(b, s, H, hd) for _ in range(4))
+    if fast_decay:
+        w = np.exp(-np.exp(1 + 2 * rng.standard_normal((b, s, H, hd))))
+        w = w.astype(np.float32)
+        assert (w == 0).any() and (w > 0.5).any()
+    else:
+        w = (0.5 / (1 + np.exp(-uni(b, s, H, hd))) + 0.45).astype(np.float32)
+    return r, k, v, w, uni(H, hd), uni(b, H, hd, hd), dy, uni(b, H, hd, hd)
+
+
+def close_grads(want, got, tol=2e-5):
+    """Each gradient within ``tol`` relative and ``tol`` of its largest
+    |value| (G sums up to s rank-1 terms: an elementwise limit at the
+    smallest entries would hold rounding to a bare 2e-5)."""
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), want, got):
+        a = np.asarray(a, np.float32)
+        b = b.detach().float().numpy()
+        assert np.isfinite(b).all(), name
+        np.testing.assert_allclose(b, a, rtol=tol,
+                                   atol=tol * np.abs(a).max(), err_msg=name)
+
+
+BWD_CASES = [(6, False), (130, False), (6, True), (130, True)]
+BWD_IDS = ["s6", "s130", "s6-w-to-0", "s130-w-to-0"]
+
+
+@pytest.mark.parametrize("s,fast", BWD_CASES, ids=BWD_IDS)
+def test_bwd_ref_matches_autograd(s, fast):
+    """wkv6_bwd_ref against torch autograd of wkv6_ref, with nonzero S_0
+    and dS_T, f32 at 2e-5."""
+    arrays = bwd_np(2, s, 3, 16, seed=20 + s, fast_decay=fast)
+    r, k, v, w, u, s0, dy, ds = (torch.from_numpy(a) for a in arrays)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    y, S = tR.wkv_ops.wkv6_ref(*leaves)
+    want = torch.autograd.grad((y, S), leaves, (dy, ds))
+    got = tref.wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds)
+    close_grads([g.numpy() for g in want], got)
+
+
+@pytest.mark.parametrize("oracle", ["wkv6_chunked", "wkv6_ref"])
+@pytest.mark.parametrize("s,fast", BWD_CASES, ids=BWD_IDS)
+def test_bwd_ref_matches_jax_vjp(s, fast, oracle):
+    """wkv6_bwd_ref against jax.vjp of the reference's chunked twin (the
+    one it trains through: s = 130 pads to two 128-step chunks with w = 1)
+    and of its step scan, with nonzero S_0 and dS_T and w down to 0, f32
+    at 2e-5; every gradient finite."""
+    arrays = bwd_np(2, s, 3, 16, seed=40 + s, fast_decay=fast)
+    fn = jops.wkv6_chunked if oracle == "wkv6_chunked" else jax_ref
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in arrays[:6]))
+    want = vjp((jnp.asarray(arrays[6]), jnp.asarray(arrays[7])))
+    got = tref.wkv6_bwd_ref(*(torch.from_numpy(a) for a in arrays))
+    close_grads(want, got)
+
+
+@pytest.mark.parametrize("fault", tchecks.BWD_FAULTS)
+def test_bwd_faults_fail_the_limits(fault):
+    """Each fault of checks.py lands past its gradient's f32 limit by more
+    than 10x (the u term of dk where the states forget fast, as
+    chip_smoke.py shows it), while the plain backward's own gradients
+    rounded to bf16 stay within the bf16 limits."""
+    gen = torch.Generator().manual_seed(5)
+    ins = tchecks.bwd_inputs((2, 96, 2, 32), torch.float32, gen,
+                             state_scale=10.0, dstate_scale=1.0,
+                             fast_decay=fault == "no-u-in-dk")
+    ref = tref.wkv6_bwd_ref(*ins)
+    scales = tchecks.bwd_row_scales(*ins)
+    bad = tchecks.wkv6_bwd_faulty(*ins, fault)
+    errs = tchecks.bwd_errors(bad, ref, scales)
+    limits = tchecks.BWD_ROW_TOL[torch.float32]
+    assert not tchecks.bwd_within(errs, torch.float32)
+    assert max(e / limits[g] for g, e in errs.items()) > 10, errs
+    rounded = [g.to(torch.bfloat16) if i < 3 else g
+               for i, g in enumerate(ref)]
+    assert tchecks.bwd_within(tchecks.bwd_errors(rounded, ref, scales),
+                              torch.bfloat16)
+    with pytest.raises(ValueError, match="no fault"):
+        tchecks.wkv6_bwd_faulty(*ins, "no-such-fault")
+
+
+@pytest.fixture
+def stand_ins(monkeypatch):
+    """The kernel entry points replaced by CPU stand-ins that call
+    ref.py, and ops.wkv6's CPU tensors routed through ``_WKV6`` as CUDA
+    tensors are: this tests the routing, not the kernels.  Returns the
+    record of the stand-ins' calls, in order."""
+    calls = []
+    ref_fwd, ref_bwd = tref.wkv6_ref, tref.wkv6_bwd_ref
+
+    def forward(r, k, v, w, u, state, plan, pipelined=True, sweep=False):
+        calls.append(("fwd", (r, k, v, w, u, state)))
+        return ref_fwd(r, k, v, w, u, state)
+
+    def backward(r, k, v, w, u, state, dy, dstate=None):
+        calls.append(("bwd", (r, k, v, w, u, state, dy, dstate)))
+        g = ref_bwd(r, k, v, w, u, state, dy, dstate)
+        return (*(x.to(r.dtype) for x in g[:3]), *g[3:])
+
+    def routed(r, k, v, w, u, state):
+        uf = u.float()
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, w, uf, state)):
+            return tops._WKV6.apply(r, k, v, w, uf, state)
+        return tops._forward(r, k, v, w, uf, state)
+
+    monkeypatch.setattr(tK, "wkv6_cuda", forward)
+    monkeypatch.setattr(tKB, "wkv6_bwd_cuda", backward)
+    monkeypatch.setattr(tops, "wkv6", routed)
+    return calls
+
+
+@pytest.mark.parametrize("with_state_grad", [False, True])
+def test_function_launches_and_saves_its_inputs(stand_ins, with_state_grad):
+    """``_WKV6``: one forward launch, the backward's kernels counted once,
+    the backward handed the very tensors the forward saved (views as
+    they are, u in f32) and dS_T only where the final state is used; its
+    gradients are autograd's of wkv6_ref, u's cast back through
+    u.float()."""
+    arrays = bwd_np(2, 9, 2, 16, seed=3, fast_decay=False)
+    r, k, v, w, u, s0, dy, ds = (torch.from_numpy(a) for a in arrays)
+    fused = torch.cat([r, k], dim=-1)
+    r, k = fused[..., :16], fused[..., 16:]              # strided views
+    ub = u.bfloat16()
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, w, ub, s0)]
+    before = (tops.launches, tops.launches_bwd)
+    y, S = tops.wkv6(*leaves)
+    outs, grads = ((y, S), (dy, ds)) if with_state_grad else ((y,), (dy,))
+    got = torch.autograd.grad(outs, leaves, grads)
+    assert (tops.launches - before[0], tops.launches_bwd - before[1]) == (
+        1, len(tKB.KERNELS))
+    assert [c[0] for c in stand_ins] == ["fwd", "bwd"]
+    fwd_args, bwd_args = stand_ins[0][1], stand_ins[1][1]
+    for a, b in zip(fwd_args, bwd_args[:6]):
+        assert a.data_ptr() == b.data_ptr() and a.stride() == b.stride()
+    assert bwd_args[4].dtype == torch.float32
+    assert (bwd_args[7] is None) != with_state_grad
+    ref_leaves = [t.clone().requires_grad_() for t in (r, k, v, w, ub, s0)]
+    y2, S2 = tref.wkv6_ref(*ref_leaves)
+    want = torch.autograd.grad((y2, S2) if with_state_grad else (y2,),
+                               ref_leaves, grads)
+    assert got[4].dtype == torch.bfloat16
+    for g, wnt in zip(got, want):
+        torch.testing.assert_close(g, wnt, rtol=2e-5, atol=2e-5)
+
+
+def test_remat_recomputes_the_saved_inputs(stand_ins):
+    """RWKVLM.loss with each layer under activation checkpointing: the
+    forward launches twice a layer (the forward, then its recompute in
+    the backward), each backward is handed the inputs its layer's
+    recompute saved, and loss and gradients equal those without remat,
+    bit for bit."""
+    from repro_torch import tree as T
+    from repro_torch.models import common as C
+    from repro_torch.training.step import value_and_grad
+    jm, jp, tm, tp = model_pair(seed=4)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, tm.cfg.vocab_size, (2, 21)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    n = tm.cfg.n_layers
+
+    class NoRemat(RWKVLM):
+        def loss(self, params, batch):
+            x = self._embed(params, batch["tokens"])
+            cache = self.init_cache(x.shape[0], 0, x.device)
+            layers = C.unstack_layers(params["layers"], self.cfg.n_layers)
+            for l, lp in enumerate(layers):
+                x = self._train_layer(x, lp, C.index_layer(cache, l))
+            x = tR.L.apply_norm(x, params["final_norm"], self.cfg)
+            logits = C.lm_logits(x, params["embed"], self.cfg)
+            xent = tR.L.softmax_xent(logits, batch["labels"])
+            return xent, {"xent": xent}
+
+    loss0, _, grads0 = value_and_grad(NoRemat(tm.cfg), tp, batch)
+    stand_ins.clear()
+    loss, _, grads = value_and_grad(tm, tp, batch)
+    kinds = [c[0] for c in stand_ins]
+    assert kinds == ["fwd"] * n + ["fwd", "bwd"] * n
+    for l in range(n):
+        recompute = stand_ins[n + 2 * l][1]
+        handed = stand_ins[n + 2 * l + 1][1]
+        for a, b in zip(recompute, handed[:6]):
+            assert a.data_ptr() == b.data_ptr()
+    assert torch.equal(loss, loss0)
+    for (path, g), g0 in zip(T.flatten(grads), T.leaves(grads0)):
+        assert torch.equal(g, g0), path
+
+
+def test_time_mix_and_channel_mix_grads_match_reference():
+    """The time mix's and channel mix's gradients (through the token
+    shift, the LoRA mixes, the decay chain exp(-exp(w0 + dw)) in f32, the
+    WKV recurrence and the group norm: population variance, eps 64e-5)
+    against jax.vjp of the reference's, for every input, param and the
+    carried states, f32 at 1e-4 of each leaf's largest |g|."""
+    cfg = get_smoke(ARCH).replace(dtype="float32")
+    tcfg = torch_smoke(ARCH).replace(dtype="float32")
+    rng = jax.random.split(jax.random.PRNGKey(7), 2)
+    jtm = perturbed_params(jR.init_time_mix(rng[0], cfg, jnp.float32), 8)
+    jcm = perturbed_params(jR.init_channel_mix(rng[1], cfg, jnp.float32), 9)
+    b, s, d, hd = 2, 9, cfg.d_model, cfg.rwkv.head_dim
+    H = d // hd
+    g = np.random.default_rng(10)
+    x, state, last, gy, gS, gl = (
+        g.standard_normal(shape).astype(np.float32)
+        for shape in ((b, s, d), (b, H, hd, hd), (b, d), (b, s, d),
+                      (b, H, hd, hd), (b, d)))
+
+    def jtime(p, x, state, last):
+        return jR.time_mix(x, p, cfg, state, last)
+
+    _, vjp = jax.vjp(jtime, jtm, jnp.asarray(x), jnp.asarray(state),
+                     jnp.asarray(last))
+    jg = vjp((jnp.asarray(gy), (jnp.asarray(gS), jnp.asarray(gl))))
+    tp = {k: v.requires_grad_() for k, v in bridged(jtm).items()}
+    tx, ts, tl = (torch.from_numpy(a).requires_grad_()
+                  for a in (x, state, last))
+    ty, (tS, tlast) = tR.time_mix(tx, tp, tcfg, ts, tl)
+    tg = torch.autograd.grad(
+        (ty, tS, tlast), [*tp.values(), tx, ts, tl],
+        (torch.from_numpy(gy), torch.from_numpy(gS), torch.from_numpy(gl)))
+    want = [np.asarray(jg[0][key]) for key in tp] + [np.asarray(a)
+                                                    for a in jg[1:]]
+    for name, a, t in zip([*tp, "x", "state", "last_x"], want, tg):
+        np.testing.assert_allclose(t.numpy(), a, rtol=1e-4,
+                                   atol=1e-4 * np.abs(a).max(), err_msg=name)
+    _, vjp = jax.vjp(lambda p, x, last: jR.channel_mix(x, p, last), jcm,
+                     jnp.asarray(x), jnp.asarray(last))
+    jg = vjp((jnp.asarray(gy), jnp.asarray(gl)))
+    tp = {k: v.requires_grad_() for k, v in bridged(jcm).items()}
+    tx, tl = (torch.from_numpy(a).requires_grad_() for a in (x, last))
+    tc, tcl = tR.channel_mix(tx, tp, tl)
+    tg = torch.autograd.grad((tc, tcl), [*tp.values(), tx, tl],
+                             (torch.from_numpy(gy), torch.from_numpy(gl)))
+    want = [np.asarray(jg[0][key]) for key in tp] + [np.asarray(a)
+                                                    for a in jg[1:]]
+    for name, a, t in zip([*tp, "x", "last_x"], want, tg):
+        np.testing.assert_allclose(t.numpy(), a, rtol=1e-4,
+                                   atol=1e-4 * np.abs(a).max(), err_msg=name)

@@ -1,7 +1,8 @@
 """The PyTorch port's training path against the reference JAX package on
-the CPU: ``DecoderLM.loss`` and its gradients against
-``jax.value_and_grad(model.loss)`` on smoke configs, a short trajectory
-of the train step, microbatch accumulation, the MoE aux loss, and remat.
+the CPU: ``DecoderLM.loss`` and ``RWKVLM.loss`` and their gradients
+against ``jax.value_and_grad(model.loss)`` on smoke configs (RWKV in bf16
+too), short trajectories of the train step, microbatch accumulation, the
+MoE aux loss, and remat.
 
 Weights are the reference's ``init`` carried by the bridge; tokens come
 from numpy.  Tolerances (f32): the loss within 2e-5 relative, as the
@@ -105,6 +106,8 @@ def to_torch(batch):
     ("minicpm-2b", 24, False),
     ("mistral-nemo-12b", 24, True),        # GQA: 4 query / 2 KV heads
     ("h2o-danube-3-4b", 40, False),        # window 16 bites past 32
+    ("rwkv6-1.6b", 24, False),             # K2's recurrence, remat'ed
+    ("rwkv6-1.6b", 40, True),
 ])
 def test_loss_and_grads_match_reference(arch, seq, mask):
     jm, jp, tm, tp = pair(arch)
@@ -119,6 +122,68 @@ def test_loss_and_grads_match_reference(arch, seq, mask):
         assert g.dtype == torch.float32 and g.shape == jgrads[path].shape
     ratios = grad_ratios(jgrads, grads)
     assert max(ratios.values()) <= 1.0, ratios
+
+
+def test_rwkv_bf16_loss_and_grads_match_reference():
+    """rwkv6-1.6b smoke in bf16 on both sides (weights, activations and
+    gradients; the recurrence, decay and norms in f32 on both): the loss
+    and every gradient leaf within the reference's bf16 tolerance, 5e-2
+    relative and of the leaf's largest |g|."""
+    jcfg = get_smoke("rwkv6-1.6b")
+    tcfg = torch_smoke("rwkv6-1.6b")
+    assert jcfg.dtype == tcfg.dtype == "bfloat16"
+    jm = jax_build(jcfg)
+    jp = jm.init(jax.random.PRNGKey(2))
+    tm = torch_build(tcfg)
+    tp = params_from_flat({k: np.asarray(v) for k, v in _flatten(jp)})
+    batch = batch_np(jcfg, 2, 24, seed=7)
+    jloss, _, jgrads = jax_value_and_grad(jm, jp, batch)
+    loss, _, grads = value_and_grad(tm, tp, to_torch(batch))
+    np.testing.assert_allclose(loss.item(), jloss, rtol=5e-2)
+    for path, g in T.flatten(grads):
+        assert g.dtype == torch.bfloat16, path
+        want = jgrads[path].astype(np.float32)
+        err = np.abs(g.float().numpy() - want).max()
+        assert err <= 5e-2 * max(np.abs(want).max(), 1e-30), path
+
+
+def test_rwkv_trajectory_matches_reference():
+    """Five steps of the train step for rwkv6-1.6b smoke (AdamW, cosine,
+    clip) from the same weights on the same stream: every loss within
+    1e-4 relative, as for minicpm-2b."""
+    jm, jp, tm, tp = pair("rwkv6-1.6b")
+    sched = dict(peak_lr=3e-3, warmup=2, total=5)
+    jopt = JAdamW(lambda s: jcosine(s, **sched), JAdamWConfig(
+        weight_decay=0.01))
+    opt = AdamW(lambda s: cosine(s, **sched), AdamWConfig(weight_decay=0.01))
+    jstep = jax.jit(jax_train_step(jm, jopt))
+    step = make_train_step(tm, opt)
+    jstate, state = jopt.init(jp), opt.init(tp)
+    tp = T.map_tree(torch.clone, tp)
+    data = SyntheticLMDataset(tm.cfg.vocab_size, 24, 2, seed=1)
+    for i in range(5):
+        hb = data.batch_at(i)
+        jp, jstate, jm_ = jstep(jp, jstate, {k: jnp.asarray(v)
+                                            for k, v in hb.items()})
+        tp, state, m = step(tp, state, to_torch(hb))
+        np.testing.assert_allclose(m["loss"].item(), float(jm_["loss"]),
+                                   rtol=1e-4)
+    assert int(state["step"]) == int(jstate["step"]) == 5
+
+
+def test_rwkv_loss_returns_a_zero_aux_loss():
+    """RWKVLM.loss returns (xent, {"xent", "aux_loss"}) with the aux loss
+    an f32 0, as the reference; a loss mask weights the tokens."""
+    _, _, tm, tp = pair("rwkv6-1.6b")
+    batch = to_torch(batch_np(tm.cfg, 2, 12, seed=9, mask=True))
+    with torch.no_grad():
+        loss, metrics = tm.loss(tp, batch)
+        unmasked, _ = tm.loss(tp, {k: v for k, v in batch.items()
+                                   if k != "loss_mask"})
+    assert metrics["aux_loss"].dtype == torch.float32
+    assert metrics["aux_loss"].item() == 0.0
+    assert torch.equal(loss, metrics["xent"])
+    assert loss.item() != unmasked.item()
 
 
 class _ExplicitAttention(torch.autograd.Function):
