@@ -93,15 +93,21 @@ non-zero and prints no result:
    K1's forward with and without the LSE, beside the bound;
 7. K2's backward (wkv6_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.wkv6, whose backward launches the
-   backward kernel and K2's forward kernel run backward in time for dv
-   and dS_0) against wkv6_bwd_ref at the training shape (4, 2048, 32,
-   64) in bf16 and f32, and on strided views, with nonzero S_0 and dS_T,
-   at s = 1000 and 2047, with w down to 0, and at hd 16 and 24; every
-   gradient row held to its scale (checks.bwd_row_scales), finite, two
-   calls bit for bit; the G update without its decay, dw one step late,
-   du over one batch row and dk without its u term shown to fail; at the
-   training shape the backward call, the forward and the plain backward
-   timed beside the bound (wkv_bwd_bound);
+   backward kernel on the route kernel_bwd.plan picked before the forward,
+   "hopper" from the forward's checkpoints or "general", and K2's forward
+   kernel run backward in time for dv and dS_0) against wkv6_bwd_ref at
+   the training shape (4, 2048, 32, 64) in bf16 and f32, and on strided
+   views, with nonzero S_0 and dS_T, at s = 1000 and 2047, with w down to
+   0, and at hd 16 and 24; each case's route printed and held to
+   WKV_BWD_ROUTES; every gradient row held to its scale
+   (checks.bwd_row_scales), finite, two calls bit for bit; the G update
+   without its decay, dw one step late, du over one batch row and dk
+   without its u term shown to fail; at the training shape the forward in
+   training mode held bit for bit to serving mode and its checkpoints to
+   the plain ones, the general route held to the limits too, and timed in
+   turns: both routes' calls and each kernel alone, the forward with and
+   without checkpoints, every Hopper tile of the sweep library (each held
+   to the limits), the plain backward, beside the bound (wkv_bwd_bound);
 8. train, each path of TRAIN_PATHS at full width and depth, bf16,
    through repro_torch.launch.train, 6 steps of 4 x 2048 tokens, every
    loss finite, counts set to 0 before each step and read after it, no
@@ -113,7 +119,8 @@ non-zero and prints no result:
       profiled step;
    b. rwkv6-1.6b (24 layers, d_model 2048, 1.60 B params) with cosine:
       K2 48 forward launches (under kernel.plan's choice) and 24 backward
-      calls (48 kernel launches: bwd, dv) a step, no K1 and no K3;
+      calls (48 kernel launches: bwd, dv) a step, all on the "hopper"
+      route, no K1 and no K3;
    then a 2-layer cut of minicpm-2b at full width, whose gradients under
    remat policy None and "dots" equal those without remat, bit for bit;
 9. train_restart: examples/train_elastic_torch.py (4 layers at d_model
@@ -321,8 +328,9 @@ def phase_build():
     in a thread of its own), then each library loaded: every kernel
     module's serving library, K1's and K2's backward libraries, and the
     sweep
-    libraries of K2 and K3, which hold the candidates that phase_wkv6 and
-    phase_scan time.  Returns the libraries' paths by name."""
+    libraries of K2, K2's backward and K3, which hold the candidates that
+    phase_wkv6, phase_wkv6_bwd and phase_scan time.  Returns the
+    libraries' paths by name."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import kernel_bwd
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
@@ -331,7 +339,7 @@ def phase_build():
     libs = [(m.NAME, m.build, m.library)
             for m in (flash_kernel, kernel_bwd, wkv_kernel, wkv_kernel_bwd,
                       scan_kernel)]
-    for m in (wkv_kernel, scan_kernel):
+    for m in (wkv_kernel, wkv_kernel_bwd, scan_kernel):
         libs.append((m.SWEEP_NAME, functools.partial(m.build, True),
                      functools.partial(m.library, True)))
     t0 = time.perf_counter()
@@ -974,6 +982,11 @@ WKV_BWD_CASES = [
      False),
     ("hd24-s100", (2, 100, 4, 24), torch.float32, False, 10.0, 1.0, False),
 ]
+# the route kernel_bwd.plan gives each case: "hopper" at hd 64 (strided
+# views of fused storages included: their strides are multiples of 16
+# bytes), "general" below it
+WKV_BWD_ROUTES = {name: "hopper" if shape[3] == 64 else "general"
+                  for name, shape, *_ in WKV_BWD_CASES}
 # the faults (checks.BWD_FAULTS) each case shows its checks can see: f32
 # cases, whose limits are 2e-5 for every gradient; the u term of dk is
 # small beside G v where w ~ 1, so it is shown where w forgets fast
@@ -1016,13 +1029,19 @@ def _wkv_grads(wkv_ops, args, dy, dstate):
     return torch.autograd.grad(outs, leaves, grads)
 
 
+def _tile_name(tile):
+    return "R{}-C{}-SUB{}".format(*tile)
+
+
 def phase_wkv6_bwd():
-    """K2's backward, each case: the gradients of the training path's
-    entry against wkv6_bwd_ref, row by row against each row's scale
+    """K2's backward, each case: its route (kernel_bwd.plan) held to
+    WKV_BWD_ROUTES; the gradients of the training path's entry against
+    wkv6_bwd_ref, row by row against each row's scale
     (checks.bwd_row_scales), finite, two calls bit for bit, one forward
-    launch and the backward's kernels counted; faults that must land past
-    the limits; at the training shape the backward call, the forward and
-    the plain backward timed.  Returns the kernels-line entry."""
+    launch and the backward's kernels counted on the case's route; faults
+    that must land past the limits; at the training shape the forward's
+    training mode checked and both routes, every Hopper tile, the forward
+    and the plain backward timed.  Returns the kernels-line entry."""
     from repro_torch.kernels.rwkv6 import checks, kernel_bwd
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
@@ -1034,15 +1053,23 @@ def phase_wkv6_bwd():
         r, k, v, w, u, state, dy, dstate = checks.bwd_inputs(
             shape, dtype, gen, strided, state_scale, dstate_scale, fast)
         args = (r, k, v, w, u.float(), state)
-        before = (wkv_ops.launches, wkv_ops.launches_bwd)
+        route = kernel_bwd.plan(r, k, v, w)
+        check(route == WKV_BWD_ROUTES[name],
+              f"wkv6_bwd {name}: route {route}, expected "
+              f"{WKV_BWD_ROUTES[name]}")
+        before = (wkv_ops.launches, wkv_ops.launches_bwd,
+                  dict(wkv_ops.launches_bwd_by_route))
         got = _wkv_grads(wkv_ops, args, dy, dstate)
         again = _wkv_grads(wkv_ops, args, dy, dstate)
         torch.cuda.synchronize()
         took = (wkv_ops.launches - before[0],
                 wkv_ops.launches_bwd - before[1])
-        check(took == (2, 2 * per_call),
-              f"wkv6_bwd {name}: launches (forward, backward) {took}, "
-              f"expected (2, {2 * per_call})")
+        by_route = {rt: n - before[2][rt]
+                    for rt, n in wkv_ops.launches_bwd_by_route.items()}
+        check(took == (2, 2 * per_call)
+              and by_route[route] == 2 * per_call,
+              f"wkv6_bwd {name}: launches (forward, backward) {took}, by "
+              f"route {by_route}, expected (2, {2 * per_call}) on {route}")
         with torch.no_grad():
             ref = wkv6_bwd_ref(*args, dy, dstate)
             scales = checks.bwd_row_scales(*args, dy, dstate)
@@ -1055,8 +1082,8 @@ def phase_wkv6_bwd():
         limits = checks.BWD_ROW_TOL[dtype]
         print(f"[wkv6_bwd] {name} {tuple(shape)} {str(dtype)[6:]} "
               f"strided={strided} S_0 x{state_scale:g} dS_T "
-              f"x{dstate_scale:g} fast_decay={fast} (w == 0 at {zeros}): "
-              f"worst row rel err " + ", ".join(
+              f"x{dstate_scale:g} fast_decay={fast} (w == 0 at {zeros}) "
+              f"route {route}: worst row rel err " + ", ".join(
                   f"{g} {e:.3e} (limit {limits[g]:g})"
                   for g, e in errs.items())
               + f"; max_abs_err {max_abs:.3e}; finite {finite}; two calls "
@@ -1076,50 +1103,148 @@ def phase_wkv6_bwd():
                   f" (past 10 x their limits)")
             check(hit, f"wkv6_bwd {name}: {fault} gives only {worst}: the "
                        f"check cannot see it")
-        del ref, scales, got, again
-        torch.cuda.empty_cache()
+        del got, again
         if name == "training":
             entry = {
                 "name": "wkv6_bwd", "route": "cuda",
                 "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
                 "replaces": "src/repro/kernels/rwkv6/kernel.py:49",
                 "gradient_of": "src/repro/kernels/rwkv6/ops.py:27",
-                "launches": None, "calls": None,
+                "launches": None, "calls": None, "launches_by_route": None,
                 "kernels_per_call": {kn: 1 for kn in kernel_bwd.KERNELS},
                 "max_abs_err": max_abs,
-                **_time_wkv_bwd(kernel_bwd, wkv_ops, wkv6_bwd_ref, args, dy,
-                                shape, dtype)}
+                **_time_wkv_bwd(args, dy, ref, scales, shape, dtype)}
+        del ref, scales
         del r, k, v, w, u, state, dy, dstate, args
         torch.cuda.empty_cache()
     check(entry is not None, "wkv6_bwd: the training case did not run")
     return entry
 
 
-def _time_wkv_bwd(kernel_bwd, wkv_ops, wkv6_bwd_ref, args, dy, shape,
-                  dtype):
-    """Times the backward call (``kernel_bwd.wkv6_bwd_cuda``: both kernels
-    and du's batch sum), each of its kernels alone, the forward at the
-    same shape and the plain backward, in one call; prints them beside
-    the bound."""
+def _training_mode_checks(args, shape, dtype):
+    """K2's forward in training mode against serving mode, bit for bit (y
+    and the final state), and its checkpoints (put back in place) against
+    ref.wkv6_checkpoints within the forward's state limits.  Returns the
+    checkpoints at kernel_bwd.PLAN's steps."""
+    from repro_torch.kernels.rwkv6 import checks, kernel_bwd
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6.ref import wkv6_checkpoints
     r, k, v, w, uf, state = args
+    steps = kernel_bwd.PLAN[2]
+    plan = wkv_kernel.plan(shape, dtype)
+    ck = torch.empty(kernel_bwd.checkpoint_shape(shape, steps),
+                     dtype=torch.float32, device="cuda")
     with torch.no_grad():
-        ms = time_ms(lambda: kernel_bwd.wkv6_bwd_cuda(r, k, v, w, uf, state,
-                                                      dy))
-        kernel_ms = {name: time_ms(lambda: kernel_bwd.wkv6_bwd_cuda(
-            r, k, v, w, uf, state, dy, kernels=(name,)))
-            for name in kernel_bwd.KERNELS}
-        fwd_ms = time_ms(lambda: wkv_ops.wkv6(*args))
-        plain_ms = time_ms(lambda: wkv6_bwd_ref(*args, dy), iters=1,
-                           warmup=1)
+        y0, s0 = wkv_kernel.wkv6_cuda(r, k, v, w, uf, state, plan)
+        y1, s1 = wkv_kernel.wkv6_cuda(r, k, v, w, uf, state, plan,
+                                      checkpoints=ck, ck_steps=steps)
+        torch.cuda.synchronize()
+        same = torch.equal(y0, y1) and torch.equal(s0, s1)
+        want = wkv6_checkpoints(k, v, w, state, steps)
+        err, rerr = _close(kernel_bwd.checkpoint_states(ck), want,
+                           checks.STATE_TOL, checks.STATE_ROW_TOL,
+                           "wkv6 training-mode checkpoints")
+    print(f"[wkv6_bwd] training mode of K2's forward at {tuple(shape)} "
+          f"{str(dtype)[6:]}: y and S_T {'bit-identical' if same else 'DIFFER'}"
+          f" to serving mode; {ck.shape[2]} checkpoints every {steps} steps "
+          f"({ck.numel() * 4 / 1e6:.1f} MB) against the plain states: "
+          f"elementwise {err:.3e} (limit {checks.STATE_TOL:g}), row "
+          f"{rerr:.3e} (limit {checks.STATE_ROW_TOL:g})")
+    check(same, "wkv6 training mode: y or the final state differ from "
+                "serving mode")
+    del y0, s0, y1, s1, want
+    return ck
+
+
+def _time_wkv_bwd(args, dy, ref, scales, shape, dtype):
+    """At the training shape: the training-mode checks; the general
+    route's gradients held to the limits; then in turns (general, hopper,
+    hopper, general) the backward call on each route (both kernels and
+    du's batch sum, the Hopper one from the forward's checkpoints), each
+    route's kernels alone, the forward without and with checkpoints, every
+    Hopper tile of the sweep library (held to the limits, its checkpoints
+    from its own forward), the plain backward; printed beside the bound."""
+    from repro_torch.kernels.rwkv6 import checks, kernel_bwd
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
+    r, k, v, w, uf, state = args
+    limits = checks.BWD_ROW_TOL[dtype]
+    ck = _training_mode_checks(args, shape, dtype)
+    steps = kernel_bwd.PLAN[2]
+    plan = wkv_kernel.plan(shape, dtype)
+
+    def call(route, kernels=kernel_bwd.KERNELS, tile=None, ckp=None,
+             sweep=False):
+        return kernel_bwd.wkv6_bwd_cuda(
+            r, k, v, w, uf, state, dy, kernels=kernels, route=route,
+            checkpoints=(ck if ckp is None else ckp) if route == "hopper"
+            else None, tile=tile, sweep=sweep)
+
+    with torch.no_grad():
+        errs = checks.bwd_errors(call("general"), ref, scales)
+        check(checks.bwd_within(errs, dtype),
+              f"wkv6_bwd training on general: worst rows {errs}")
+        turns = {"general": [], "hopper": []}
+        for route in ("general", "hopper", "hopper", "general"):
+            turns[route].append(time_ms(lambda: call(route)))
+        kernel_ms = {rt: {kn: time_ms(lambda: call(rt, (kn,)))
+                          for kn in kernel_bwd.KERNELS}
+                     for rt in kernel_bwd.ROUTES}
+        ck_tmp = torch.empty_like(ck)
+        fwd = {"serving": [], "training": []}
+        for mode in ("serving", "training", "training", "serving"):
+            kw = {} if mode == "serving" else dict(checkpoints=ck_tmp,
+                                                   ck_steps=steps)
+            fwd[mode].append(time_ms(lambda: wkv_kernel.wkv6_cuda(
+                r, k, v, w, uf, state, plan, **kw)))
+        del ck_tmp
+        by_tile = {}
+        for tile in kernel_bwd.SWEEP_TILES:
+            ck_t = kernel_bwd.forward_checkpoints(r, k, v, w, uf, state,
+                                                  tile[2])
+            got = call("hopper", tile=tile, ckp=ck_t, sweep=True)
+            errs_t = checks.bwd_errors(got, ref, scales)
+            del got
+            ok = all(errs_t[g] <= limits[g] for g in ("dr", "dk", "dw",
+                                                      "du"))
+            check(ok, f"wkv6_bwd tile {tile}: worst rows {errs_t}")
+            bwd_ms = time_ms(lambda: call("hopper", ("bwd",), tile, ck_t,
+                                          True))
+            fck_ms = time_ms(lambda: wkv_kernel.wkv6_cuda(
+                r, k, v, w, uf, state, plan, checkpoints=ck_t,
+                ck_steps=tile[2]))
+            by_tile[_tile_name(tile)] = {"bwd_ms": bwd_ms,
+                                         "forward_ms": fck_ms}
+            del ck_t
+            torch.cuda.empty_cache()
+        plain_ms = time_ms(lambda: wkv6_bwd_ref(r, k, v, w, uf, state, dy),
+                           iters=1, warmup=1)
     bound_ms, bound_by = wkv_bwd_bound(shape, dtype)
-    print(f"[wkv6_bwd] training {tuple(shape)} {str(dtype)[6:]}: backward "
-          f"call {ms:.4f} ms ({ms / bound_ms:.2f} x bound; alone "
-          + ", ".join(f"{n} {t:.4f}" for n, t in kernel_ms.items())
-          + f" ms), forward {fwd_ms:.4f} ms, plain backward {plain_ms:.1f} "
-          f"ms, no library call, bound {bound_ms:.4f} ms ({bound_by})")
+    ms = float(np.mean(turns["hopper"]))
+    print(f"[wkv6_bwd] training {tuple(shape)} {str(dtype)[6:]}, in turns: "
+          f"backward call on hopper "
+          f"{', '.join(f'{t:.4f}' for t in turns['hopper'])}"
+          f" ms ({ms / bound_ms:.2f} x bound), on general "
+          f"{', '.join(f'{t:.4f}' for t in turns['general'])} ms; alone "
+          + "; ".join(f"{rt}: " + ", ".join(f"{n} {t:.4f}"
+                                            for n, t in kms.items())
+                      for rt, kms in kernel_ms.items())
+          + f" ms; forward serving "
+          f"{', '.join(f'{t:.4f}' for t in fwd['serving'])}"
+          f", training (checkpoints every {steps} steps) "
+          f"{', '.join(f'{t:.4f}' for t in fwd['training'])} ms; plain "
+          f"backward {plain_ms:.1f} ms, no library call, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    for name, t in by_tile.items():
+        print(f"[wkv6_bwd] hopper tile {name}: bwd alone {t['bwd_ms']:.4f} "
+              f"ms, forward with its checkpoints {t['forward_ms']:.4f} ms"
+              + (" (the plan)" if name == _tile_name(kernel_bwd.PLAN)
+                 else ""))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "kernel_ms": kernel_ms,
-            "forward_ms": fwd_ms}
+            "bound_by": bound_by, "library_ms": None,
+            "ms_by_route": turns, "kernel_ms": kernel_ms,
+            "forward_ms": fwd, "plan": list(kernel_bwd.PLAN),
+            "ms_by_tile": by_tile}
 
 
 # Selective scan (K3): inputs and limits from
@@ -1802,7 +1927,7 @@ K1_KERNEL_PARTS = ("flash_fwd", "bwd_preprocess", "bwd_stats", "bwd_dkdv",
                    "bwd_dq")
 TRAIN_KERNEL_GROUPS = (
     ("K1", K1_KERNEL_PARTS),
-    ("K2", ("wkv6_kernel", "wkv6_bwd_kernel")),
+    ("K2", ("wkv6_kernel", "wkv6_bwd_kernel", "wkv6_bwd_hopper_kernel")),
     ("GEMM", ("nvjet", "gemm", "cutlass", "cublas", "sm90_xmma")),
     ("reductions", ("reduce_kernel", "softmax", "LogSumExp", "cunn_")),
     ("copies and casts", ("copy_kernel", "CatArrayBatchedCopy")),
@@ -2073,10 +2198,11 @@ def phase_train(arch, card):
     the synthetic stream (WSD for minicpm-2b, cosine otherwise).  Every
     kernel's counts are set to 0 before each step and read after it: the
     path's kernel launched TRAIN_PATHS' times a layer, forward and
-    backward (K1's on the "hopper" route, K2's under kernel.plan's
-    choice), no plain version called, no other kernel.  Then one step
-    profiled.  Returns the kernel's forward and backward launches in the
-    run, and K1's backward's by route."""
+    backward (K1's on the "hopper" route, K2's forward under
+    kernel.plan's choice and its backward on the "hopper" route), no plain
+    version called, no other kernel.  Then one step profiled.  Returns
+    the kernel's forward and backward launches in the run, and K1's and
+    K2's backward's by route."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     from repro_torch.launch import train as launch_train
@@ -2100,6 +2226,8 @@ def phase_train(arch, card):
             for variant in counts:
                 counts[variant] = 0
         wkv.launches_by_plan.clear()
+        for route in wkv.launches_bwd_by_route:
+            wkv.launches_bwd_by_route[route] = 0
 
     per_step = []
 
@@ -2110,6 +2238,7 @@ def phase_train(arch, card):
             "k1_bwd_by_variant": dict(flash.launches_bwd_by_variant),
             "k2_by_plan": {_plan_name(*pl): c
                            for pl, c in wkv.launches_by_plan.items()},
+            "k2_bwd_by_route": dict(wkv.launches_bwd_by_route),
             "others": {k: (m.launches, getattr(m, "launches_bwd", 0))
                        for k, m in ops.items() if k != name}})
         reset()
@@ -2133,6 +2262,7 @@ def phase_train(arch, card):
             "k1_by_variant": {"hopper": fwd if k1 else 0, "general": 0},
             "k1_bwd_by_variant": {"hopper": bwd if k1 else 0, "general": 0},
             "k2_by_plan": {} if k1 else {_plan_name(*wkv_kernel.PLAN): fwd},
+            "k2_bwd_by_route": {"hopper": 0 if k1 else bwd, "general": 0},
             "others": {k: (0, 0) for k in ops if k != name}}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = float(np.median([r["step_ms"] for r in records[1:]]))
@@ -2166,6 +2296,9 @@ def phase_train(arch, card):
     totals["bwd_by_variant"] = {
         vt: sum(p["k1_bwd_by_variant"][vt] for p in per_step)
         for vt in want["k1_bwd_by_variant"]}
+    totals["k2_bwd_by_route"] = {
+        rt: sum(p["k2_bwd_by_route"][rt] for p in per_step)
+        for rt in want["k2_bwd_by_route"]}
     totals["k2_by_plan"] = {}
     for p in per_step:
         for pl, c in p["k2_by_plan"].items():
@@ -2427,6 +2560,7 @@ def main() -> int:
                 by_plan[pl] = by_plan.get(pl, 0) + c
             wkv_bwd["calls"] = got["backward"] // len(
                 wkv_bwd["kernels_per_call"])
+            wkv_bwd["launches_by_route"] = got["k2_bwd_by_route"]
     entries["flash_attention_bwd"] = bwd
     entries["wkv6_bwd"] = wkv_bwd
     free_device_memory("the previous phase")

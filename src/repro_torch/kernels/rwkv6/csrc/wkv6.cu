@@ -82,6 +82,20 @@
 // times, per (G, C, CB), are in PERF.md beside the card's name and power
 // limit.
 //
+// Training mode (CKPT, the serving tile (8, 4) at HDP 64 only): the
+// consumers also store the state S_{t-1} at the start of every
+// ck_steps-step sub-chunk (t a multiple of ck_steps) into ck (b, H,
+// ceil(s / ck_steps), 64, 64) f32, the checkpoints from which the
+// backward's "hopper" route (csrc/wkv6_bwd.cu) recomputes each
+// sub-chunk's states.  A thread stores its 8 rows x 4 columns as 8
+// 16-byte stores, chunk q (columns 4q .. 4q + 3) of row i at chunk q ^
+// ck_swizzle(i), the permutation the backward reads without bank
+// conflicts.  The chunk is a multiple of ck_steps (kernel.py), so a
+// sub-chunk never straddles two; each one's steps run as in serving
+// mode, so y and the final state are the same bits.  The serving
+// instantiation (CKPT false) is the code it was: Params' new fields come
+// last.
+//
 // Built with nvcc into a shared library with a plain C interface, loaded
 // with ctypes; the entry point returns cudaGetLastError().
 
@@ -111,7 +125,17 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   long long w_sb, w_ss, w_sh;
   long long y_sb, y_ss, y_sh;
+  float* ck;        // training mode: (b, H, nck, 64, 64) f32, else unused
+  int ck_steps;     // steps a checkpoint (training mode)
+  int nck;          // ceil(s / ck_steps)
 };
+
+// The chunk of 4 columns of row `row` at which the checkpoint stores its
+// chunk 0 is chunk ck_swizzle(row); chunk q at q ^ ck_swizzle(row) (the
+// same function as the backward's).
+__host__ __device__ constexpr int ck_swizzle(int row) {
+  return (row & 7) ^ ((row >> 3) & 3);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -324,7 +348,7 @@ constexpr int max_threads(int hdp, int g, int c) {
 // kProducers producer threads, which copy the steps and sum a_t.
 // One block an SM at least: ptxas may give a thread up to 255 registers
 // (at 128 it spills the (8, 4) tile's prefetched operands).
-template <typename T, int HDP, int G, int C>
+template <typename T, int HDP, int G, int C, bool CKPT>
 __global__ void __launch_bounds__(max_threads(HDP, G, C), 1)
     wkv6_kernel(Params p) {
   constexpr int R = HDP / G;           // state rows per thread
@@ -523,24 +547,56 @@ __global__ void __launch_bounds__(max_threads(HDP, G, C), 1)
         }
         store_n<C>(part + t * G * L.PS, sum);
       };
-      if constexpr (PREFETCH) {
-        // two sets of operands in turn: step t + 1's load is issued
-        // before step t's products
-        Ops o0, o1;
-        load(0, o0);
-        int t = 0;
-        for (; t + 1 < n; t += 2) {
-          load(t + 1, o1);
-          step(t, o0);
-          load(min(t + 2, n - 1), o0);
-          step(t + 1, o1);
+      if constexpr (CKPT) {
+        static_assert(HDP == 64 && C % 4 == 0 && PREFETCH, "checkpoints");
+        const long long bh = static_cast<long long>(bi) * p.h + h;
+        for (int t0 = 0; t0 < n; t0 += p.ck_steps) {
+          // S_{t0 - 1}: this thread's rows, chunk by chunk
+          float* ck = p.ck +
+                      (bh * p.nck + (c * CH + t0) / p.ck_steps) * HDP * HDP;
+#pragma unroll
+          for (int q = 0; q < NQ; ++q)
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              const int i = V * (q * G + g) + e;
+#pragma unroll
+              for (int m = 0; m < C; m += 4)
+                store_n<4>(ck + i * HDP +
+                               4 * (((jb + m) >> 2) ^ ck_swizzle(i)),
+                           &S[(q * V + e) * C + m]);
+            }
+          const int n1 = min(n, t0 + p.ck_steps);
+          Ops o0, o1;
+          load(t0, o0);
+          int t = t0;
+          for (; t + 1 < n1; t += 2) {
+            load(t + 1, o1);
+            step(t, o0);
+            load(min(t + 2, n1 - 1), o0);
+            step(t + 1, o1);
+          }
+          if (t < n1) step(t, o0);
         }
-        if (t < n) step(t, o0);
       } else {
-        for (int t = 0; t < n; ++t) {
-          Ops cur;
-          load(t, cur);
-          step(t, cur);
+        if constexpr (PREFETCH) {
+          // two sets of operands in turn: step t + 1's load is issued
+          // before step t's products
+          Ops o0, o1;
+          load(0, o0);
+          int t = 0;
+          for (; t + 1 < n; t += 2) {
+            load(t + 1, o1);
+            step(t, o0);
+            load(min(t + 2, n - 1), o0);
+            step(t + 1, o1);
+          }
+          if (t < n) step(t, o0);
+        } else {
+          for (int t = 0; t < n; ++t) {
+            Ops cur;
+            load(t, cur);
+            step(t, cur);
+          }
         }
       }
     }
@@ -589,14 +645,17 @@ __global__ void __launch_bounds__(max_threads(HDP, G, C), 1)
     }
 }
 
-template <typename T, int HDP, int G, int C>
+template <typename T, int HDP, int G, int C, bool CKPT>
 cudaError_t launch(Params p, cudaStream_t stream) {
   const int cols = HDP / p.cb;
   const int threads = (cols / C * G + 31) / 32 * 32 + kProducers;
   const int smem = Layout<T, HDP, G>(p.ch).bytes();
   if (cols % C != 0 || p.ch < 1 || threads > 1024 || smem > kMaxSmem)
     return cudaErrorInvalidValue;
-  auto kernel = wkv6_kernel<T, HDP, G, C>;
+  if (CKPT && (p.ck_steps < 1 || p.ch % p.ck_steps != 0 ||
+               p.nck != (p.s + p.ck_steps - 1) / p.ck_steps))
+    return cudaErrorInvalidValue;
+  auto kernel = wkv6_kernel<T, HDP, G, C, CKPT>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -623,8 +682,15 @@ cudaError_t launch(Params p, cudaStream_t stream) {
 template <typename T, int HDP>
 cudaError_t launch_for_plan(const Params& p, int groups, int cols,
                             cudaStream_t stream) {
+  if (p.ck != nullptr) {   // training mode: the serving tile at HDP 64
+    if constexpr (HDP == 64)
+      if (groups == 8 && cols == 4)
+        return launch<T, 64, 8, 4, true>(p, stream);
+    return cudaErrorInvalidValue;
+  }
 #define WKV6_CASE(G, C) \
-  if (groups == G && cols == C) return launch<T, HDP, G, C>(p, stream);
+  if (groups == G && cols == C) \
+    return launch<T, HDP, G, C, false>(p, stream);
   WKV6_PLANS(WKV6_CASE)
 #undef WKV6_CASE
   return cudaErrorInvalidValue;
@@ -664,14 +730,20 @@ int copy_bytes(const void* base, const long long* strides, int esize,
 // cols_per_thread (C) one of WKV6_PLANS, col_blocks (CB, blocks per head)
 // in {1, 2, 4}, C dividing hd padded to 16, 32 or 64 over CB;
 // chunk_steps (CH) whose layout fits a block's shared memory; pipe: 1
-// overlaps copies, conversion and steps.  Returns a cudaError_t (0 =
-// launched).
+// overlaps copies, conversion and steps.  ck: null (serving), or
+// (training mode: hd 64, plan (8, 4, CB), pipe 1, CH a multiple of
+// ck_steps) f32 (b, H, ceil(s / ck_steps), 64, 64), where the states at
+// the start of every ck_steps steps are stored.  Returns a cudaError_t (0
+// = launched).
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                         const void* w, const void* u, const void* s0,
                         void* y, void* sT, int dtype, int b, int s, int h,
                         int hd, const long long* strides, int groups,
                         int cols_per_thread, int col_blocks,
-                        int chunk_steps, int pipe, void* stream) {
+                        int chunk_steps, int pipe, void* ck, int ck_steps,
+                        void* stream) {
+  if (ck != nullptr && (hd != 64 || !pipe || ck_steps < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.r = r;
   p.k = k;
@@ -703,6 +775,9 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
   p.y_sb = strides[12];
   p.y_ss = strides[13];
   p.y_sh = strides[14];
+  p.ck = static_cast<float*>(ck);
+  p.ck_steps = ck_steps;
+  p.nck = ck != nullptr ? (s + ck_steps - 1) / ck_steps : 0;
   const int esize = dtype == 0 ? 4 : 2;
   p.vec[0] = copy_bytes(r, strides, esize, hd);
   p.vec[1] = copy_bytes(k, strides + 3, esize, hd);

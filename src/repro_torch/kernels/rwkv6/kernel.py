@@ -32,6 +32,15 @@ dim past 64; ``ops.wkv6`` always launches it.  ``chip_smoke.py`` times
 every candidate in ``CANDIDATES`` in one call; ``PLAN`` is the fastest
 it measured.  Measured times stand in PERF.md.
 
+Training mode (``checkpoints``): the same kernel also stores the state at
+the start of every ``ck_steps`` steps into a (b, H, ceil(s / ck_steps),
+64, 64) f32 buffer, its rows' 16-byte chunks permuted as
+``kernel_bwd.checkpoint_states`` undoes; the backward's "hopper" route
+recomputes each sub-chunk's states from them.  Only the plan's tile at
+hd 64 has it, and its chunks are cut to a multiple of ``ck_steps``
+(``chunk_steps(..., multiple_of)``); y and the final state are the
+serving mode's bits.
+
 The library is built at first use with nvcc (``kernels/_build.py``) into
 ``build/repro_torch/`` at the repository root, keyed by a hash of the
 source, and loaded with ctypes.  It instantiates ``PLAN``'s tile alone;
@@ -85,17 +94,19 @@ def threads(hd: int, plan) -> int:
     return -(-consumers // 32) * 32 + PRODUCERS
 
 
-def chunk_steps(hd: int, dtype, plan) -> int:
+def chunk_steps(hd: int, dtype, plan, multiple_of: int = 1) -> int:
     """Steps per chunk: as many as the layout of ``csrc/wkv6.cu``
     (``Layout``) fits in ``SMEM_BUDGET`` over CB, so that the CB blocks of
-    a head share an SM; at most ``MAX_CHUNK``.  Per step: two buffers of
-    the rows of w (f32) and r, k, v (in ``dtype``) and a, and G padded
-    rows of partial sums of y."""
+    a head share an SM; at most ``MAX_CHUNK``; rounded down to a multiple
+    of ``multiple_of`` (training mode: the steps a checkpoint).  Per
+    step: two buffers of the rows of w (f32) and r, k, v (in ``dtype``)
+    and a, and G padded rows of partial sums of y."""
     groups, _, col_blocks = plan
     hdp = padded_head_dim(hd)
     size = torch.finfo(dtype).bits // 8
     step_bytes = 2 * (hdp * (4 + 3 * size) + 4) + groups * (hdp + 4) * 4
-    return min(MAX_CHUNK, SMEM_BUDGET // col_blocks // step_bytes)
+    steps = min(MAX_CHUNK, SMEM_BUDGET // col_blocks // step_bytes)
+    return steps // multiple_of * multiple_of
 
 
 def fits(hd: int, plan, sweep: bool = False) -> bool:
@@ -156,24 +167,44 @@ def library(sweep: bool = False):
     fn = lib.wkv6_fwd
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def wkv6_cuda(r, k, v, w, u, state, plan, pipelined=True, sweep=False):
+def wkv6_cuda(r, k, v, w, u, state, plan, pipelined=True, sweep=False,
+              checkpoints=None, ck_steps=0):
     """Launches the kernel under ``plan`` = (G, C, CB) on the current
     stream, from the sweep library if ``sweep``; ``pipelined`` False
     keeps one buffer, so that copies and steps do not overlap (for timing
     the double buffer).  r/k/v (b, s, H, hd) in one dtype, w (b, s, H,
     hd) f32, u (H, hd) and state (b, H, hd, hd) contiguous f32; the caller
-    has checked them.  Returns (y (b, s, H, hd) in r.dtype, final state
-    (b, H, hd, hd) f32)."""
+    has checked them.  ``checkpoints``: None (serving mode), or a
+    contiguous f32 (b, H, ceil(s / ck_steps), 64, 64) tensor that the
+    kernel fills with the state at the start of every ``ck_steps`` steps
+    (training mode: hd 64, ``PLAN``'s tile, pipelined).  Returns (y (b,
+    s, H, hd) in r.dtype, final state (b, H, hd, hd) f32)."""
     b, s, h, hd = r.shape
     if not fits(hd, plan, sweep):
         raise ValueError(f"no WKV6 plan (G, C, CB) = {tuple(plan)} for hd "
                          f"{hd}" + ("" if sweep else " in the serving "
                                     "library"))
+    multiple_of = 1
+    if checkpoints is not None:
+        want = (b, h, -(-s // max(ck_steps, 1)), MAX_HEAD_DIM, MAX_HEAD_DIM)
+        if (hd != MAX_HEAD_DIM or tuple(plan[:2]) != PLAN[:2] or ck_steps < 1
+                or not pipelined or checkpoints.dtype != torch.float32
+                or not checkpoints.is_contiguous()
+                or tuple(checkpoints.shape) != want
+                or checkpoints.device != r.device):
+            raise ValueError(
+                f"training mode takes hd {MAX_HEAD_DIM}, the tile "
+                f"{PLAN[:2]}, pipelined, ck_steps >= 1 and contiguous f32 "
+                f"checkpoints {want}; got hd {hd}, plan {tuple(plan)}, "
+                f"ck_steps {ck_steps}, {tuple(checkpoints.shape)} "
+                f"{checkpoints.dtype}")
+        multiple_of = ck_steps
     groups, cols, col_blocks = plan
     y = torch.empty((b, s, h, hd), dtype=r.dtype, device=r.device)
     s_out = torch.empty_like(state)
@@ -184,8 +215,9 @@ def wkv6_cuda(r, k, v, w, u, state, plan, pipelined=True, sweep=False):
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
             DTYPES[r.dtype], b, s, h, hd, strides, groups, cols, col_blocks,
-            chunk_steps(hd, r.dtype, plan), int(pipelined),
-            torch.cuda.current_stream().cuda_stream)
+            chunk_steps(hd, r.dtype, plan, multiple_of), int(pipelined),
+            None if checkpoints is None else checkpoints.data_ptr(),
+            ck_steps, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkv6_fwd launch failed: CUDA error {err}")
     return y, s_out

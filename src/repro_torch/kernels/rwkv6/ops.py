@@ -7,16 +7,20 @@ CUDA call that needs a gradient goes through ``_WKV6``, a
 ``torch.autograd.Function`` whose forward launches the forward kernel
 and whose backward launches the backward's kernels (``kernel_bwd``: its
 own kernel, then the forward kernel run backward in time); the plain
-gradient (``wkv6_bwd_ref``) is never taken on the card.  It saves
-its inputs with ``save_for_backward`` (the backward recomputes the
-states from them), so a layer recomputed under activation checkpointing
-saves them again.
+gradient (``wkv6_bwd_ref``) is never taken on the card.
+``kernel_bwd.plan`` picks the backward's route before the forward: on
+"hopper" the forward runs in training mode and the Function saves its
+checkpoints beside its inputs; on "general" it saves the inputs alone
+(that kernel recomputes the states from S_0).  A layer recomputed under
+activation checkpointing saves them again: the recompute's checkpoints
+are the ones the backward reads.
 
 Counts: ``launches`` counts forward kernel launches and nothing else (a
 layer recomputed under activation checkpointing launches again, and
 counts again); ``launches_by_plan`` counts them by the (G, C, CB) that
 ``kernel.plan`` chose; ``launches_bwd`` counts backward kernel launches,
-``len(kernel_bwd.KERNELS)`` a call.
+``len(kernel_bwd.KERNELS)`` a call, and ``launches_bwd_by_route`` the
+same launches by route.
 
 ``wkv6_step`` (one token, the decode path) is plain torch ops on every
 device, as the reference's is jnp.
@@ -31,6 +35,7 @@ from repro_torch.kernels.rwkv6.ref import step, wkv6_ref
 launches = 0
 launches_by_plan: dict = {}
 launches_bwd = 0
+launches_bwd_by_route = dict.fromkeys(kernel_bwd.ROUTES, 0)
 
 
 def _check(r, k, v, w, u, state):
@@ -87,41 +92,56 @@ def wkv6(r, k, v, w, u, state):
     return _forward(r, k, v, w, uf, state)
 
 
-def _forward(r, k, v, w, uf, state):
+def _forward(r, k, v, w, uf, state, checkpoints=None):
+    """The forward kernel under ``kernel.plan``; with ``checkpoints`` in
+    training mode, storing the state every ``kernel_bwd.PLAN[2]`` steps
+    there."""
     global launches
     plan = kernel.plan(r.shape, r.dtype)
+    kw = {} if checkpoints is None else dict(
+        checkpoints=checkpoints, ck_steps=kernel_bwd.PLAN[2])
     out = kernel.wkv6_cuda(r, k, v, w, uf.contiguous(), state.contiguous(),
-                           plan)
+                           plan, **kw)
     launches += 1
     launches_by_plan[plan] = launches_by_plan.get(plan, 0) + 1
     return out
 
 
 class _WKV6(torch.autograd.Function):
-    """Forward and backward kernels of one CUDA call.  Saves r, k, v, w
-    (as the views they are), u in f32 and the initial state; the
-    backward recomputes the states from them.  A gradient it is not given
+    """Forward and backward kernels of one CUDA call, on the route
+    ``kernel_bwd.plan`` picks before the forward.  Saves r, k, v, w (as
+    the views they are), u in f32 and the initial state, and on the
+    "hopper" route the forward's checkpoints.  A gradient it is not given
     (the final state's, where the caller drops it) is zeros."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, uf, state):
         ctx.set_materialize_grads(False)
-        y, s_out = _forward(r, k, v, w, uf, state)
-        ctx.save_for_backward(r, k, v, w, uf, state)
+        ctx.route = kernel_bwd.plan(r, k, v, w)
+        ck = None
+        if ctx.route == "hopper":
+            ck = torch.empty(
+                kernel_bwd.checkpoint_shape(r.shape, kernel_bwd.PLAN[2]),
+                dtype=torch.float32, device=r.device)
+        y, s_out = _forward(r, k, v, w, uf, state, ck)
+        ctx.save_for_backward(r, k, v, w, uf, state,
+                              *(() if ck is None else (ck,)))
         return y, s_out
 
     @staticmethod
     def backward(ctx, dy, dstate):
         global launches_bwd
-        r, k, v, w, uf, state = ctx.saved_tensors
+        r, k, v, w, uf, state, *ck = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(r)
         elif dy.dtype != r.dtype or dy.stride(3) != 1:
             dy = dy.to(r.dtype).contiguous()
         grads = kernel_bwd.wkv6_bwd_cuda(
             r, k, v, w, uf.contiguous(), state.contiguous(), dy,
-            None if dstate is None else dstate.float().contiguous())
+            None if dstate is None else dstate.float().contiguous(),
+            route=ctx.route, checkpoints=ck[0] if ck else None)
         launches_bwd += len(kernel_bwd.KERNELS)
+        launches_bwd_by_route[ctx.route] += len(kernel_bwd.KERNELS)
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
 

@@ -9,8 +9,10 @@ the decay already mapped to (0, 1) = exp(-exp(·)).  The CUDA kernel's
 dispatcher takes it for CPU tensors, and the kernel is held against it on
 the card.
 
-``wkv6_bwd_ref`` is the explicit gradient, the backward kernel's plain
-version: with G_t = dL/dS_t (G_T the final state's gradient),
+``wkv6_checkpoints`` is the plain version of what K2's forward stores in
+training mode: the state S_{t-1} at every t that is a multiple of
+``steps``.  ``wkv6_bwd_ref`` is the explicit gradient, the backward
+kernel's plain version: with G_t = dL/dS_t (G_T the final state's gradient),
 
     G_{t-1} = diag(w_t)·G_t + r_tᵀ⊗dy_t
     dr_t = S_{t-1}·dy_t + u ⊙ k_t (v_t·dy_t)
@@ -41,6 +43,19 @@ def wkv6_ref(r, k, v, w, u, state):
         y, S = step(rf[:, t], kf[:, t], vf[:, t], wf[:, t], uf, S)
         ys.append(y)
     return torch.stack(ys, dim=1).to(r.dtype), S
+
+
+def wkv6_checkpoints(k, v, w, state, steps):
+    """The states before steps 0, ``steps``, 2 ``steps``, .. of
+    ``wkv6_ref`` (S_0 first): (b, H, ceil(s / steps), K, V) f32."""
+    kf, vf, wf = (t.float() for t in (k, v, w))
+    S = state.float()
+    out = []
+    for t in range(k.shape[1]):
+        if t % steps == 0:
+            out.append(S)
+        S = wf[:, t, ..., None] * S + kf[:, t, ..., None] * vf[:, t, :, None, :]
+    return torch.stack(out, dim=2)
 
 
 def wkv6_bwd_ref(r, k, v, w, u, state, dy, dstate=None):

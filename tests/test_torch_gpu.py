@@ -418,19 +418,30 @@ WKV_BWD_CASES = [
 ]
 
 
+@pytest.mark.parametrize("route", wkv_kernel_bwd.ROUTES)
 @pytest.mark.parametrize("shape,dtype,strided,state_scale,dstate_scale,fast",
                          WKV_BWD_CASES)
 def test_wkv6_bwd_kernel_matches_plain(cuda, shape, dtype, strided,
-                                       state_scale, dstate_scale, fast):
-    """The backward's kernels against wkv6_bwd_ref: every gradient row
-    within its limit against its scale (checks.BWD_ROW_TOL), finite, the
-    same bits twice."""
+                                       state_scale, dstate_scale, fast,
+                                       route):
+    """The backward's kernels on each route against wkv6_bwd_ref: every
+    gradient row within its limit against its scale (checks.BWD_ROW_TOL),
+    finite, the same bits twice; the "hopper" route (its checkpoints from
+    the forward in training mode) raises before any launch at a head dim
+    other than 64."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     r, k, v, w, u, s0, dy, ds = wkv_checks_bwd_inputs(
         shape, dtype, gen, strided, state_scale, dstate_scale, fast)
     uf = u.float()
-    got = wkv_kernel_bwd.wkv6_bwd_cuda(r, k, v, w, uf, s0, dy, ds)
-    again = wkv_kernel_bwd.wkv6_bwd_cuda(r, k, v, w, uf, s0, dy, ds)
+    if route == "hopper" and shape[3] != wkv_kernel_bwd.HOPPER_HEAD_DIM:
+        with pytest.raises(ValueError, match="hopper route takes"):
+            wkv_kernel_bwd.wkv6_bwd_cuda(r, k, v, w, uf, s0, dy, ds,
+                                         route=route)
+        return
+    got = wkv_kernel_bwd.wkv6_bwd_cuda(r, k, v, w, uf, s0, dy, ds,
+                                       route=route)
+    again = wkv_kernel_bwd.wkv6_bwd_cuda(r, k, v, w, uf, s0, dy, ds,
+                                         route=route)
     ref = wkv6_bwd_ref(r, k, v, w, uf, s0, dy, ds)
     scales = checks.bwd_row_scales(r, k, v, w, uf, s0, dy, ds)
     errs = checks.bwd_errors(got, ref, scales)
@@ -440,21 +451,98 @@ def test_wkv6_bwd_kernel_matches_plain(cuda, shape, dtype, strided,
     assert [g.dtype for g in got] == [dtype] * 3 + [torch.float32] * 3
 
 
+@pytest.mark.parametrize("tile", wkv_kernel_bwd.SWEEP_TILES,
+                         ids=lambda t: "R{}-C{}-SUB{}".format(*t))
+@pytest.mark.parametrize("shape,dtype,strided,state_scale,dstate_scale,fast",
+                         [c for c in WKV_BWD_CASES if c[0][3] == 64][:3])
+def test_wkv6_bwd_hopper_tiles_match_plain(cuda, shape, dtype, strided,
+                                           state_scale, dstate_scale, fast,
+                                           tile):
+    """Every tile of the sweep library, its checkpoints from the forward
+    at its own steps, within the limits of dr, dk, dw and du."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    r, k, v, w, u, s0, dy, ds = wkv_checks_bwd_inputs(
+        shape, dtype, gen, strided, state_scale, dstate_scale, fast)
+    uf = u.float()
+    got = wkv_kernel_bwd.wkv6_bwd_cuda(r, k, v, w, uf, s0, dy, ds,
+                                       route="hopper", tile=tile, sweep=True)
+    ref = wkv6_bwd_ref(r, k, v, w, uf, s0, dy, ds)
+    scales = checks.bwd_row_scales(r, k, v, w, uf, s0, dy, ds)
+    errs = checks.bwd_errors(got, ref, scales)
+    limits = checks.BWD_ROW_TOL[dtype]
+    assert all(errs[g] <= limits[g] for g in ("dr", "dk", "dw", "du")), errs
+
+
+def test_wkv6_bwd_hopper_as_a_threads_first_cuda_call(cuda):
+    """The Hopper route's entry encodes its tensor maps in a thread whose
+    first CUDA call it is, as autograd's backward thread can be (no
+    context was current there: CUDA_ERROR_INVALID_CONTEXT), and gives
+    the bits it gives on this thread."""
+    import threading
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    r, k, v, w, u, s0, dy, ds = wkv_checks_bwd_inputs(
+        (2, 100, 4, 64), torch.bfloat16, gen, False, 1.0, 1.0, False)
+    uf = u.float()
+    ck = wkv_kernel_bwd.forward_checkpoints(r, k, v, w, uf, s0,
+                                            wkv_kernel_bwd.PLAN[2])
+    args = (r, k, v, w, uf, s0, dy, ds)
+    kw = dict(kernels=("bwd",), route="hopper", checkpoints=ck)
+    want = wkv_kernel_bwd.wkv6_bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    got = []
+    thread = threading.Thread(target=lambda: got.append(
+        wkv_kernel_bwd.wkv6_bwd_cuda(*args, **kw)))
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive() and len(got) == 1
+    torch.cuda.synchronize()
+    for a, b in zip(got[0][:2] + got[0][3:5], want[:2] + want[3:5]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,strided,steps", [
+    ((2, 300, 4, 64), False, 8), ((1, 2047, 4, 64), True, 8),
+    ((2, 37, 2, 64), False, 4), ((1, 5, 1, 64), False, 16)])
+def test_wkv6_training_mode_forward(cuda, shape, strided, steps, dtype):
+    """K2's forward in training mode: y and the final state bit-identical
+    to serving mode, and its checkpoints (put back in place) equal to
+    ref.wkv6_checkpoints within the forward's state limits."""
+    from repro_torch.kernels.rwkv6.ref import wkv6_checkpoints
+    r, k, v, w, u, s0 = _wkv_inputs(*shape, dtype, strided, 1.0)
+    uf = u.float()
+    plan = wkv_kernel.plan(shape, dtype)
+    ck = torch.empty(wkv_kernel_bwd.checkpoint_shape(shape, steps),
+                     device="cuda")
+    with torch.no_grad():
+        y0, S0 = wkv_kernel.wkv6_cuda(r, k, v, w, uf, s0, plan)
+        y1, S1 = wkv_kernel.wkv6_cuda(r, k, v, w, uf, s0, plan,
+                                      checkpoints=ck, ck_steps=steps)
+        want = wkv6_checkpoints(k, v, w, s0, steps)
+    assert torch.equal(y0, y1) and torch.equal(S0, S1)
+    _assert_close(wkv_kernel_bwd.checkpoint_states(ck), want,
+                  checks.STATE_TOL, checks.STATE_ROW_TOL)
+
+
 def test_wkv6_grad_through_ops_launches_the_backward(cuda):
     """Through ops.wkv6 with gradients: one forward launch, the backward's
-    kernels once each, and the grads are wkv6_bwd_cuda's (u's cast back
-    to bf16 through u.float())."""
+    kernels once each, on the "hopper" route, and the grads are
+    wkv6_bwd_cuda's (its checkpoints from the same forward kernel in
+    training mode; u's cast back to bf16 through u.float())."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     ins = wkv_checks_bwd_inputs((2, 70, 4, 64), torch.bfloat16, gen, False,
                                 1.0, 1.0, False)
     r, k, v, w, u, s0, dy, ds = ins
     leaves = [t.detach().clone().requires_grad_() for t in (r, k, v, w, u,
                                                              s0)]
-    before = (wkv_ops.launches, wkv_ops.launches_bwd)
+    before = (wkv_ops.launches, wkv_ops.launches_bwd,
+              wkv_ops.launches_bwd_by_route["hopper"])
     y, s_out = wkv_ops.wkv6(*leaves)
     grads = torch.autograd.grad((y, s_out), leaves, (dy, ds))
-    assert (wkv_ops.launches - before[0], wkv_ops.launches_bwd - before[1]
-            ) == (1, len(wkv_kernel_bwd.KERNELS))
+    assert (wkv_ops.launches - before[0], wkv_ops.launches_bwd - before[1],
+            wkv_ops.launches_bwd_by_route["hopper"] - before[2]
+            ) == (1,) + (len(wkv_kernel_bwd.KERNELS),) * 2
     want = wkv_kernel_bwd.wkv6_bwd_cuda(r, k, v, w, u.float(), s0, dy, ds)
     for g, wnt in zip(grads[:4] + grads[5:], want[:4] + want[5:]):
         assert torch.equal(g, wnt)
@@ -462,26 +550,39 @@ def test_wkv6_grad_through_ops_launches_the_backward(cuda):
     assert torch.equal(grads[4], want[4].to(torch.bfloat16))
 
 
-def test_rwkv_loss_and_grads_on_the_card_match_cpu(cuda):
+@pytest.mark.parametrize("head_dim,route", [(16, "general"),
+                                            (64, "hopper")])
+def test_rwkv_loss_and_grads_on_the_card_match_cpu(cuda, head_dim, route):
     """RWKVLM.loss and its gradients in f32 on the card (K2's forward and
     backward kernels, remat) equal the CPU's (the plain recurrence under
     autograd): loss 1e-4, each gradient leaf within 1e-3 of its largest
-    |g|; K2's forward twice and its backward once a layer."""
+    |g|; K2's forward twice and its backward once a layer, on the route
+    of the head dim (the smoke config's 16, or 64 as rwkv6-1.6b's, with
+    its forward in training mode)."""
     from repro_torch import tree as T
+    from repro_torch.configs.base import RWKVConfig
     from repro_torch.training.step import value_and_grad
     cfg = get_smoke("rwkv6-1.6b").replace(dtype="float32")
+    if head_dim != cfg.head_dim:
+        cfg = cfg.replace(d_model=2 * head_dim, n_heads=2, n_kv_heads=2,
+                          head_dim=head_dim,
+                          rwkv=RWKVConfig(head_dim=head_dim, decay_lora=8,
+                                          mix_lora=4))
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     rng = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=rng)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     want = value_and_grad(model, params, batch)
-    before = (wkv_ops.launches, wkv_ops.launches_bwd)
+    before = (wkv_ops.launches, wkv_ops.launches_bwd,
+              wkv_ops.launches_bwd_by_route[route])
     got = value_and_grad(model, _to(params, cuda), _to(batch, cuda))
     n = cfg.n_layers
     assert (wkv_ops.launches - before[0],
-            wkv_ops.launches_bwd - before[1]) == (
-        2 * n, len(wkv_kernel_bwd.KERNELS) * n)
+            wkv_ops.launches_bwd - before[1],
+            wkv_ops.launches_bwd_by_route[route] - before[2]) == (
+        2 * n, len(wkv_kernel_bwd.KERNELS) * n,
+        len(wkv_kernel_bwd.KERNELS) * n)
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
     for (path, g), w in zip(T.flatten(got[2]), T.leaves(want[2])):
         err = (g.cpu() - w).abs().max().item()

@@ -12,8 +12,12 @@ reference's ``wkv6_chunked`` and ``wkv6_ref`` (f32 at 2e-5, a length
 past one 128-step chunk, nonzero S_0 and dS_T, w down to 0), the faults
 of ``checks.py`` past the limits, and ``_WKV6``'s routing with the kernel
 entry points replaced by stand-ins that call ``ref.py`` (launch counts,
-saved inputs, the recompute under activation checkpointing).  Inputs
-come from numpy seeds.  The CUDA kernel itself runs only on the card
+saved inputs, the recompute under activation checkpointing, the forward's
+checkpoints saved on the "hopper" route alone); ``kernel_bwd.plan``'s
+route for every view of the card's cases, the Hopper tiles' register and
+shared-memory budgets, the checkpoints' layout, and the plain
+checkpoints against the reference's states.  Inputs come from numpy
+seeds.  The CUDA kernel itself runs only on the card
 (``chip_smoke.py``, ``tests/test_torch_gpu.py``)."""
 from __future__ import annotations
 
@@ -687,12 +691,16 @@ def stand_ins(monkeypatch):
     calls = []
     ref_fwd, ref_bwd = tref.wkv6_ref, tref.wkv6_bwd_ref
 
-    def forward(r, k, v, w, u, state, plan, pipelined=True, sweep=False):
-        calls.append(("fwd", (r, k, v, w, u, state)))
+    def forward(r, k, v, w, u, state, plan, pipelined=True, sweep=False,
+                checkpoints=None, ck_steps=0):
+        calls.append(("fwd", (r, k, v, w, u, state),
+                      dict(checkpoints=checkpoints, ck_steps=ck_steps)))
+        if checkpoints is not None:
+            checkpoints.copy_(tref.wkv6_checkpoints(k, v, w, state, ck_steps))
         return ref_fwd(r, k, v, w, u, state)
 
-    def backward(r, k, v, w, u, state, dy, dstate=None):
-        calls.append(("bwd", (r, k, v, w, u, state, dy, dstate)))
+    def backward(r, k, v, w, u, state, dy, dstate=None, **kw):
+        calls.append(("bwd", (r, k, v, w, u, state, dy, dstate), kw))
         g = ref_bwd(r, k, v, w, u, state, dy, dstate)
         return (*(x.to(r.dtype) for x in g[:3]), *g[3:])
 
@@ -783,6 +791,213 @@ def test_remat_recomputes_the_saved_inputs(stand_ins):
     assert torch.equal(loss, loss0)
     for (path, g), g0 in zip(T.flatten(grads), T.leaves(grads0)):
         assert torch.equal(g, g0), path
+
+
+# ------------------------------------------- the backward's two routes
+
+
+def _views(shape, dtype, strided, offset=0):
+    """r, k, v, w (uninitialised) as ``checks.inputs`` lays them out: each
+    its own (b, s, H, hd) tensor, or with ``strided`` views of one (b, s,
+    3d) tensor (w of a (b, s, 2d) one); ``offset`` elements into their
+    storage."""
+    b, s, h, hd = shape
+    d = h * hd
+    if strided:
+        rkv = torch.empty(b * s * 3 * d + offset, dtype=dtype)[offset:]
+        rkv = rkv.view(b, s, 3 * d)
+        r, k, v = (rkv[..., i * d:(i + 1) * d].view(b, s, h, hd)
+                   for i in range(3))
+        w = torch.empty(b * s * 2 * d + offset)[offset:].view(b, s, 2 * d)
+        return r, k, v, w[..., :d].view(b, s, h, hd)
+    r, k, v = (torch.empty(b * s * d + offset, dtype=dtype)[offset:]
+               .view(shape) for _ in range(3))
+    return r, k, v, torch.empty(b * s * d + offset)[offset:].view(shape)
+
+
+# chip_smoke.py's WKV_BWD_CASES (name, shape, dtype, strided) and the route
+# each takes: "hopper" at hd 64, strided views of fused storages included
+# (their strides are multiples of 16 bytes); "general" below
+BWD_ROUTE_CASES = [
+    ("training", (4, 2048, 32, 64), torch.bfloat16, False, "hopper"),
+    ("training-f32", (4, 2048, 32, 64), torch.float32, False, "hopper"),
+    ("strided", (2, 1024, 32, 64), torch.bfloat16, True, "hopper"),
+    ("states", (2, 1024, 16, 64), torch.float32, False, "hopper"),
+    ("s1000", (2, 1000, 32, 64), torch.bfloat16, False, "hopper"),
+    ("s2047-strided-f32", (1, 2047, 8, 64), torch.float32, True, "hopper"),
+    ("small-w", (2, 1024, 16, 64), torch.float32, False, "hopper"),
+    ("small-w-bf16", (2, 1024, 16, 64), torch.bfloat16, False, "hopper"),
+    ("hd16-s37-strided", (2, 37, 4, 16), torch.float32, True, "general"),
+    ("hd24-s100", (2, 100, 4, 24), torch.float32, False, "general"),
+]
+
+
+@pytest.mark.parametrize("name,shape,dtype,strided,route", BWD_ROUTE_CASES,
+                         ids=[c[0] for c in BWD_ROUTE_CASES])
+def test_bwd_plan_routes_each_case(name, shape, dtype, strided, route):
+    """``kernel_bwd.plan`` on the views of each of chip_smoke.py's backward
+    cases gives the route pinned here (the training shape, contiguous
+    bf16 and f32, on "hopper")."""
+    assert tKB.plan(*_views(shape, dtype, strided)) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bwd_plan_routes_what_tma_cannot_read_to_general(dtype):
+    """At hd 64: a view one element into its storage (a base address off
+    16 bytes), a bf16 w, an odd head stride and a head dim of 32 all take
+    "general"; the same views at offset 0 take "hopper"."""
+    shape = (2, 40, 3, 64)
+    assert tKB.plan(*_views(shape, dtype, False)) == "hopper"
+    assert tKB.plan(*_views(shape, dtype, True)) == "hopper"
+    assert tKB.plan(*_views(shape, dtype, False, offset=1)) == "general"
+    assert tKB.plan(*_views(shape, dtype, True, offset=1)) == "general"
+    r, k, v, w = _views(shape, dtype, False)
+    assert tKB.plan(r, k, v, w.bfloat16()) == "general"
+    odd = torch.empty((2, 40, 3, 66), dtype=dtype)[..., :64]
+    assert tKB.plan(odd, k, v, w) == "general"
+    assert tKB.plan(*_views((2, 40, 3, 32), dtype, False)) == "general"
+
+
+def test_every_bwd_tile_fits_its_budgets():
+    """Every Hopper tile (R, C, SUB) of the sweep library: R divides 64, C
+    a multiple of 4 dividing 64, a block of at most 1024 threads whose
+    consumers are whole warps and a multiple of 64; its shared memory
+    (both dtypes) within a block's 227 KB; its stash and working set
+    within the registers one block an SM leaves a thread.  PLAN is one of
+    them and the serving library's only one; both lists are the source's
+    ``WKV6_BWD_TILES``."""
+    assert tKB.PLAN in tKB.SWEEP_TILES and tKB.TILES == (tKB.PLAN,)
+    assert len(set(tKB.SWEEP_TILES)) == len(tKB.SWEEP_TILES)
+    for tile in tKB.SWEEP_TILES:
+        rows, cols, sub = tile
+        assert 64 % rows == 0 and cols % 4 == 0 and 64 % cols == 0
+        consumers = tKB.threads(tile) - tKB.PRODUCER
+        assert consumers % 64 == 0 and consumers % 32 == 0
+        assert tKB.threads(tile) <= 1024
+        for dtype in (torch.float32, torch.bfloat16):
+            size, sets = tKB.shared_memory(tile, dtype)
+            assert size <= tKB.SMEM_MAX and sets in (1, 2)
+        assert sub * rows * cols <= tKB.registers_needed(tile)
+        assert tKB.registers_needed(tile) <= tKB.register_budget(tile), tile
+    src = tKB.SOURCE.read_text()
+    sweep, serving = re.search(
+        r"#ifdef WKV6_BWD_SWEEP\n#define WKV6_BWD_TILES\(X\)(.*?)#else\n"
+        r"#define WKV6_BWD_TILES\(X\)(.*?)#endif", src, re.S).groups()
+
+    def tiles(text):
+        return tuple(tuple(int(x) for x in t) for t in
+                     re.findall(r"X\((\d+), (\d+), (\d+)\)", text))
+    assert tiles(sweep) == tKB.SWEEP_TILES
+    assert tiles(serving) == tKB.TILES
+
+
+def test_checkpoint_layout_undone_and_free_of_bank_conflicts():
+    """``checkpoint_states`` undoes the forward's chunk permutation (the
+    sources' ``ck_swizzle``, the same in both); the 8 rows that 8 lanes
+    of a Hopper tile read together, {l R + e}, land on 8 different 16-byte
+    bank groups for R in 1, 2, 4."""
+    expr = "return (row & 7) ^ ((row >> 3) & 3);"
+    assert expr in tKB.SOURCE.read_text() and expr in tK.SOURCE.read_text()
+    plain = torch.arange(2 * 3 * 64 * 64, dtype=torch.float32).view(
+        2, 1, 3, 64, 64)
+    stored = torch.empty_like(plain)
+    for i in range(64):
+        for q in range(16):
+            p = q ^ tKB.ck_swizzle(i)
+            stored[..., i, 4 * p:4 * p + 4] = plain[..., i, 4 * q:4 * q + 4]
+    assert torch.equal(tKB.checkpoint_states(stored), plain)
+    for rows in (1, 2, 4):
+        for first in range(0, 64 // rows, 8):
+            for e in range(rows):
+                for q in range(16):
+                    banks = {(q ^ tKB.ck_swizzle((first + lane) * rows + e))
+                             % 8 for lane in range(8)}
+                    assert len(banks) == 8, (rows, first, e, q)
+
+
+@pytest.mark.parametrize("steps", [8, 16])
+def test_plain_checkpoints_match_reference_states(steps):
+    """``ref.wkv6_checkpoints``: S_0, then the state after every ``steps``
+    steps, against the final state of the reference's ``wkv6_ref`` run
+    over the same prefix, f32 at 2e-5, with w down to 0 and a ragged end
+    (s = 37)."""
+    arrays = bwd_np(2, 37, 3, 16, seed=60 + steps, fast_decay=True)
+    r, k, v, w, u, s0 = arrays[:6]
+    got = tref.wkv6_checkpoints(*(torch.from_numpy(a)
+                                  for a in (k, v, w, s0)), steps)
+    assert got.shape == (2, 3, -(-37 // steps), 16, 16)
+    np.testing.assert_array_equal(got[:, :, 0].numpy(), s0)
+    for c in range(1, got.shape[2]):
+        t = c * steps
+        _, want = jax_ref(*(jnp.asarray(a[:, :t]) for a in (r, k, v, w)),
+                          jnp.asarray(u), jnp.asarray(s0))
+        np.testing.assert_allclose(got[:, :, c].numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_training_mode_forward_rejects_what_it_has_no_kernel_for():
+    """``kernel.wkv6_cuda`` with checkpoints raises before any launch for
+    a head dim other than 64, a buffer of another shape or dtype, or no
+    steps; a chunk in training mode is a multiple of the steps."""
+    r = torch.zeros((1, 20, 1, 64))
+    state = torch.zeros((1, 1, 64, 64))
+    ck = torch.zeros(tKB.checkpoint_shape(r.shape, 8))
+    for bad in (dict(checkpoints=ck[:, :, :1], ck_steps=8),
+                dict(checkpoints=ck.double(), ck_steps=8),
+                dict(checkpoints=ck, ck_steps=0),
+                dict(checkpoints=ck, ck_steps=8, pipelined=False)):
+        with pytest.raises(ValueError, match="training mode takes"):
+            tK.wkv6_cuda(r, r, r, r, torch.zeros((1, 64)), state, tK.PLAN,
+                         **bad)
+    small = torch.zeros((1, 20, 1, 16))
+    with pytest.raises(ValueError, match="training mode takes"):
+        tK.wkv6_cuda(small, small, small, small, torch.zeros((1, 16)),
+                     torch.zeros((1, 1, 16, 16)), tK.PLAN,
+                     checkpoints=torch.zeros(tKB.checkpoint_shape(
+                         small.shape, 8)), ck_steps=8)
+    assert tK.library.cache_info().currsize == 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for steps in (4, 8, 16):
+            ch = tK.chunk_steps(64, dtype, tK.PLAN, steps)
+            assert ch % steps == 0 and 0 < ch <= tK.chunk_steps(
+                64, dtype, tK.PLAN)
+
+
+@pytest.mark.parametrize("hd,route", [(64, "hopper"), (16, "general")])
+def test_function_saves_checkpoints_only_on_the_hopper_route(stand_ins, hd,
+                                                             route):
+    """``_WKV6`` picks the route before the forward: on "hopper" the
+    forward runs in training mode into a (b, H, ceil(s / PLAN[2]), 64, 64)
+    f32 buffer, every PLAN[2] steps, and the backward is handed that very
+    buffer; on "general" the forward runs in serving mode and the
+    backward gets no buffer.  The backward's launches are counted by
+    route; the gradients are autograd's of wkv6_ref."""
+    arrays = bwd_np(1, 20, 2, hd, seed=7, fast_decay=False)
+    r, k, v, w, u, s0, dy, ds = (torch.from_numpy(a) for a in arrays)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    before = dict(tops.launches_bwd_by_route)
+    y, S = tops.wkv6(*leaves)
+    got = torch.autograd.grad((y, S), leaves, (dy, ds))
+    (_, _, fkw), (_, _, bkw) = stand_ins
+    assert bkw["route"] == route
+    steps = tKB.PLAN[2]
+    if route == "hopper":
+        ck = fkw["checkpoints"]
+        assert fkw["ck_steps"] == steps
+        assert ck.shape == tKB.checkpoint_shape(r.shape, steps)
+        assert ck.dtype == torch.float32
+        assert bkw["checkpoints"] is ck
+    else:
+        assert fkw["checkpoints"] is None and bkw["checkpoints"] is None
+    assert {rt: n - before[rt] for rt, n in
+            tops.launches_bwd_by_route.items()} == {
+        rt: len(tKB.KERNELS) if rt == route else 0 for rt in tKB.ROUTES}
+    ref_leaves = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    want = torch.autograd.grad(tref.wkv6_ref(*ref_leaves), ref_leaves,
+                               (dy, ds))
+    for g, wnt in zip(got, want):
+        torch.testing.assert_close(g, wnt, rtol=2e-5, atol=2e-5)
 
 
 def test_time_mix_and_channel_mix_grads_match_reference():
