@@ -108,10 +108,23 @@ non-zero and prints no result:
    turns: both routes' calls and each kernel alone, the forward with and
    without checkpoints, every Hopper tile of the sweep library (each held
    to the limits), the plain backward, beside the bound (wkv_bwd_bound);
-8. train, each path of TRAIN_PATHS at full width and depth, bf16,
-   through repro_torch.launch.train, 6 steps of 4 x 2048 tokens, every
-   loss finite, counts set to 0 before each step and read after it, no
-   plain version called, one step profiled by kernel group:
+8. K3's backward (scan_bwd): the gradients the training path takes
+   (torch.autograd.grad through ops.selective_scan, whose backward
+   launches kernel_bwd's three kernels: the checkpoints, the reverse
+   pass, the dB/dC sum) against selective_scan_bwd_ref at the training
+   shape (4, 2048, 16384, 16) in bf16 and f32, with B and C strided views
+   of the projection, nonzero h_0 and dh_T, s = 1000 and 2047, N = 8 and
+   4, exponentials that underflow, shuffled A, and long-memory decays
+   held to an f64 backward; every gradient row held to its scale
+   (checks.bwd_row_scales), finite, two calls bit for bit; dB over one
+   channel block, dA one step late, dx without D and the states
+   recomputed without their decay shown to fail; at the training shape
+   the call, each kernel alone, the forward and the plain backward timed
+   beside the bound (scan_bwd_bound);
+9. train, each path of TRAIN_PATHS in bf16 through
+   repro_torch.launch.train, 6 steps of 4 x 2048 tokens, every loss
+   finite, counts set to 0 before each step and read after it, no plain
+   version called, one step profiled by kernel group:
    a. minicpm-2b (40 layers, d_model 2304, 2.72 B params) with WSD: K1
       80 forward launches and 40 backward calls (120 kernel launches:
       preprocess, dK/dV, dQ) a step, all on the "hopper" route;
@@ -121,14 +134,25 @@ non-zero and prints no result:
       K2 48 forward launches (under kernel.plan's choice) and 24 backward
       calls (48 kernel launches: bwd, dv) a step, all on the "hopper"
       route, no K1 and no K3;
+   c. jamba-1.5-large-398b cut to 2 layers, both dense (attention + MLP,
+      Mamba + MLP: layers 4 and 6 of a period), every width as published
+      (2.85 B params) with cosine: K1 2 forward launches and 1 backward
+      call (3 launches) and K3 2 forward launches and 1 backward call (3
+      launches: ckpt, bwd, sum) a step, K1 all "hopper";
    then a 2-layer cut of minicpm-2b at full width, whose gradients under
    remat policy None and "dots" equal those without remat, bit for bit;
-9. train_restart: examples/train_elastic_torch.py (4 layers at d_model
-   128): train, checkpoint, drop, restore bit for bit, continue, and hold
-   the losses to an uninterrupted run bit for bit, eval batches on
-   rFaaS-leased executors, the ledger's bill;
-10. the kernels line (K1, K1's backward, K2, K2's backward, K3, each
-    with its launches by path), the card line and the result line, last.
+10. jamba_moe_grad: the 2-layer MoE cut of jamba-1.5-large-398b
+    (attention + MLP, Mamba + MoE with all 16 experts; 11.9 B params) in
+    bf16: JambaLM.loss and its gradients on 1 x 2048 tokens, no
+    optimizer; loss, aux loss and every gradient finite, every expert
+    that received a token with nonzero gradients, its peak memory;
+11. train_restart: examples/train_elastic_torch.py (4 layers at d_model
+    128): train, checkpoint, drop, restore bit for bit, continue, and
+    hold the losses to an uninterrupted run bit for bit, eval batches on
+    rFaaS-leased executors, the ledger's bill;
+12. the kernels line (K1, K1's backward, K2, K2's backward, K3, K3's
+    backward, each with its launches by path), the card line and the
+    result line, last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -326,19 +350,19 @@ def kernel_ops():
 def phase_build():
     """One nvcc per kernel library, all started together (each ``build``
     in a thread of its own), then each library loaded: every kernel
-    module's serving library, K1's and K2's backward libraries, and the
-    sweep
-    libraries of K2, K2's backward and K3, which hold the candidates that
-    phase_wkv6, phase_wkv6_bwd and phase_scan time.  Returns the
+    module's serving library, K1's, K2's and K3's backward libraries, and
+    the sweep libraries of K2, K2's backward and K3, which hold the
+    candidates that phase_wkv6, phase_wkv6_bwd and phase_scan time.  Returns the
     libraries' paths by name."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import kernel_bwd
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    from repro_torch.kernels.mamba_scan import kernel_bwd as scan_kernel_bwd
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     from repro_torch.kernels.rwkv6 import kernel_bwd as wkv_kernel_bwd
     libs = [(m.NAME, m.build, m.library)
             for m in (flash_kernel, kernel_bwd, wkv_kernel, wkv_kernel_bwd,
-                      scan_kernel)]
+                      scan_kernel, scan_kernel_bwd)]
     for m in (wkv_kernel, wkv_kernel_bwd, scan_kernel):
         libs.append((m.SWEEP_NAME, functools.partial(m.build, True),
                      functools.partial(m.library, True)))
@@ -365,7 +389,8 @@ def phase_sass(paths):
     16): cuobjdump's listing of the kernel, its innermost loop that holds
     MUFU.EX2 instructions (the unrolled one, if the compiler split the
     loop), that loop's instructions (NOPs left out) over the entries it
-    updates.  Printed only: a static count, not a check."""
+    updates; and of its backward's reverse pass, per entry and step.
+    Printed only: a static count, not a check."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -394,6 +419,24 @@ def phase_sass(paths):
               f"entries ({count['steps']:g} steps x 16): "
               f"{count['per_entry']:.3f} an entry; opcodes "
               f"{json.dumps(count['opcodes'])}")
+    # K3's backward reverse pass: its sub-chunk loop forms each of a
+    # lane's 4 entries' decays twice a step (the recompute, the walk back)
+    from repro_torch.kernels.mamba_scan import kernel_bwd as scan_kernel_bwd
+    proc = subprocess.run([str(tool), "-sass",
+                           str(paths[scan_kernel_bwd.NAME])],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed on "
+                                f"{scan_kernel_bwd.NAME}: {proc.stderr[-2000:]}")
+    found = [body for fn, body in sass_functions(proc.stdout).items()
+             if "15scan_bwd_kernelI13__nv_bfloat16Li16E" in fn]
+    check(len(found) == 1, f"sass: {len(found)} functions match the "
+                           f"backward's reverse pass")
+    count = sass_loop_count(found[0], 4)
+    print(f"[sass] selective_scan_bwd reverse pass (bf16, N = 16): "
+          f"sub-chunk loop of {count['instr']} instructions for "
+          f"{count['entries'] / 2:g} entry-steps of a lane (2 MUFU.EX2 "
+          f"each): {2 * count['per_entry']:.3f} an entry and step; opcodes "
+          f"{json.dumps(count['opcodes'])}")
 
 
 def sass_functions(listing):
@@ -1513,6 +1556,218 @@ def _time_scan(scan_kernel, scan_ops, selective_scan_ref, args, shape,
             "ms_by_design": ms_by_design}
 
 
+# K3's backward: inputs, limits and faults from
+# repro_torch.kernels.mamba_scan.checks (B and C are column slices of one
+# (b, s, dt_rank + 2N) projection, as apply_mamba hands them over).
+# name, (b, s, di, N), dtype, scale of the initial state, scale of dh_T
+# (0: none), options of checks.inputs; the first two are the training
+# shape (jamba-1.5-large-398b, batch 4 x 2048)
+SCAN_BWD_CASES = [
+    ("training", (4, 2048, 16384, 16), torch.bfloat16, 0.0, 0.0, {}),
+    ("training-f32", (4, 2048, 16384, 16), torch.float32, 0.0, 0.0, {}),
+    ("states-s1000", (2, 1000, 4096, 16), torch.float32, 10.0, 1.0, {}),
+    ("s2047-bf16", (1, 2047, 4096, 16), torch.bfloat16, 10.0, 1.0, {}),
+    ("n8", (2, 1000, 2048, 8), torch.float32, 10.0, 1.0, {}),
+    ("n4-di200", (3, 37, 200, 4), torch.bfloat16, 10.0, 1.0, {}),
+    # dt A log2 e < -150 on many entries: both exponentials give 0 there
+    ("large-dt", (2, 256, 4096, 16), torch.bfloat16, 10.0, 1.0,
+     dict(dt_bias=6.0, dt_scale=2.0)),
+    ("shuffled-A", (2, 512, 4096, 16), torch.float32, 10.0, 1.0,
+     dict(A_kind="shuffled")),
+    # decays that remember thousands of steps, held to an f64 backward
+    ("long-memory", (2, 512, 4096, 16), torch.float32, 10.0, 1.0,
+     dict(A_kind="long-memory")),
+]
+# the faults (checks.BWD_FAULTS) a case shows its checks can see: an f32
+# case, whose limits are 2e-5 for every gradient
+SCAN_BWD_FAULTS = {"states-s1000": ("dB-one-block", "dA-late", "no-D-in-dx",
+                                    "no-decay")}
+
+
+def scan_bwd_bound(shape, dtype, ex2_per_s):
+    """Least time for K3's backward, the largest of three: bytes (x, dy,
+    B, C in ``dtype``, dt f32, A, D and the two states read once; dx, dB,
+    dC in ``dtype``, ddt f32, dA, dD and dh_0 written once) over HBM
+    bandwidth; its exponentials, one per state entry and step, over the
+    SFUs' exp2 rate ``ex2_per_s``; its f32 operations, 10 per state entry
+    and step (the decay's argument, g, dB's and dC's terms, g.B, the
+    decay term of ddt and dA, the next g) and 6 per channel and step,
+    over the f32 peak.  Also the time of the bytes with the design's
+    scratch (its checkpoints and dB/dC partials, each written and read
+    once)."""
+    from repro_torch.kernels.mamba_scan import kernel_bwd
+    b, s, di, n = shape
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (b * s * di * (3 * size + 8) + 4 * b * s * n * size
+              + 2 * 4 * (di * n + di) + 3 * 4 * b * di * n)
+    scratch = 2 * 4 * (math.prod(kernel_bwd.checkpoint_shape(shape))
+                       + math.prod(kernel_bwd.partials_shape(shape)))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_exp = b * s * di * n / ex2_per_s
+    t_flops = b * s * di * (10 * n + 6) / PEAK_FLOPS[torch.float32]
+    t_ops = max(t_exp, t_flops)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            {"bytes": nbytes, "exp": b * s * di * n,
+             "flops": b * s * di * (10 * n + 6),
+             "t_bytes_ms": t_bytes * 1e3, "t_exp_ms": t_exp * 1e3,
+             "t_flops_ms": t_flops * 1e3, "scratch_bytes": scratch,
+             "t_bytes_with_scratch_ms":
+                 (nbytes + scratch) / HBM_BYTES_PER_S * 1e3})
+
+
+def _scan_grads(scan_ops, args, dy, dstate):
+    """(dx, ddt, dA, dB, dC, dD, dh_0) through ops.selective_scan and
+    autograd, as the training path takes them: the forward kernel, then
+    the backward's kernels through ``_SelectiveScan``.  Each input keeps
+    its strides (B and C stay views of the projection)."""
+    leaves = [t.detach().requires_grad_() for t in args]
+    y, h = scan_ops.selective_scan(*leaves)
+    outs, grads = ((y, h), (dy, dstate)) if dstate is not None \
+        else ((y,), (dy,))
+    return torch.autograd.grad(outs, leaves, grads)
+
+
+def phase_scan_bwd(ex2_per_s):
+    """K3's backward, each case: the gradients of the training path's
+    entry against selective_scan_bwd_ref, row by row against each row's
+    scale (checks.bwd_row_scales), or for long memory against an f64
+    backward; finite, two calls bit for bit, one forward launch and the
+    backward's kernels counted; faults that must land past the limits; at
+    the training shape the call, each kernel alone, the forward and the
+    plain backward timed.  Returns the kernels-line entry."""
+    from repro_torch.kernels.mamba_scan import checks, kernel_bwd
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    entry = None
+    per_call = len(kernel_bwd.KERNELS)
+    for name, shape, dtype, state_scale, dstate_scale, opts in \
+            SCAN_BWD_CASES:
+        *args, dy, dstate = checks.bwd_inputs(shape, dtype, gen, state_scale,
+                                              dstate_scale, **opts)
+        before = (scan_ops.launches, scan_ops.launches_bwd)
+        got = _scan_grads(scan_ops, args, dy, dstate)
+        again = _scan_grads(scan_ops, args, dy, dstate)
+        torch.cuda.synchronize()
+        took = (scan_ops.launches - before[0],
+                scan_ops.launches_bwd - before[1])
+        check(took == (2, 2 * per_call),
+              f"scan_bwd {name}: launches (forward, backward) {took}, "
+              f"expected (2, {2 * per_call})")
+        with torch.no_grad():
+            ref = selective_scan_bwd_ref(*args, dy, dstate)
+            scales = checks.bwd_row_scales(*args, dy, dstate)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(torch.isfinite(g).all().item() for g in got)
+        dtypes = [g.dtype for g in got]
+        check(dtypes == [dtype, torch.float32, torch.float32, dtype, dtype,
+                         torch.float32, torch.float32],
+              f"scan_bwd {name}: gradient dtypes {dtypes}")
+        max_abs = max((a.float() - b).abs().max().item()
+                      for a, b in zip(got, ref))
+        head = (f"[scan_bwd] {name} {tuple(shape)} {str(dtype)[6:]} state "
+                f"x{state_scale:g} dh_T x{dstate_scale:g}"
+                + (f" {opts}" if opts else ""))
+        if opts.get("A_kind") == "long-memory":
+            with torch.no_grad():
+                exact = checks.f64_bwd(*args, dy, dstate)
+            held = checks.bwd_long_memory(got, ref, exact, scales, dtype)
+            del exact
+            print(f"{head}: worst rows from an f64 backward, kernel / plain: "
+                  + ", ".join(f"{g} {k:.3e} / {p:.3e}"
+                              for g, (k, p, _) in held.items())
+                  + f" (limit: kernel <= {checks.LONG_MEMORY_RATIO:g} x "
+                  f"plain; {', '.join(checks.STATELESS)} within its f32 "
+                  f"limit of plain); finite {finite}; two calls "
+                  f"{'bit-identical' if same else 'DIFFER'}")
+            check(all(ok for _, _, ok in held.values()),
+                  f"scan_bwd {name}: {held}")
+        else:
+            errs = checks.bwd_errors(got, ref, scales)
+            limits = checks.BWD_ROW_TOL[dtype]
+            print(f"{head}: worst row rel err " + ", ".join(
+                f"{g} {e:.3e} (limit {limits[g]:g})" for g, e in errs.items())
+                + f"; max_abs_err {max_abs:.3e}; finite {finite}; two calls "
+                f"{'bit-identical' if same else 'DIFFER'}")
+            check(checks.bwd_within(errs, dtype),
+                  f"scan_bwd {name}: worst rows {errs} past {limits}")
+        if name == "large-dt":
+            arg = args[1][..., None] * (args[2] * math.log2(math.e))
+            deep = (arg < -150).float().mean().item()
+            del arg
+            print(f"[scan_bwd] large-dt: dt A log2 e < -150 on "
+                  f"{100 * deep:.1f}% of the entries")
+            check(deep > 0.01, f"scan_bwd large-dt: only {deep:.4f} below "
+                               f"-150")
+        check(finite, f"scan_bwd {name}: a gradient is not finite")
+        check(same, f"scan_bwd {name}: two calls differ")
+        for fault in SCAN_BWD_FAULTS.get(name, ()):
+            with torch.no_grad():
+                bad = checks.selective_scan_bwd_faulty(*args, dy, dstate,
+                                                       fault)
+            worst = checks.bwd_errors(bad, ref, scales)
+            limits = checks.BWD_ROW_TOL[dtype]
+            hit = {g: e for g, e in worst.items() if e > 10 * limits[g]}
+            del bad
+            print(f"[scan_bwd] {name}: a backward with {fault} gives worst "
+                  f"rows {', '.join(f'{g} {e:.3e}' for g, e in hit.items())}"
+                  f" (past 10 x their limits)")
+            check(hit, f"scan_bwd {name}: {fault} gives only {worst}: the "
+                       f"check cannot see it")
+        del got, again
+        if name == "training":
+            entry = {
+                "name": "selective_scan_bwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/mamba_scan/csrc/"
+                          "selective_scan_bwd.cu",
+                "replaces": "src/repro/kernels/mamba_scan/kernel.py:51",
+                "gradient_of": "src/repro/kernels/mamba_scan/ops.py:13",
+                "launches": 0, "launches_by_path": {}, "calls": 0,
+                "kernels_per_call": {kn: 1 for kn in kernel_bwd.KERNELS},
+                "max_abs_err": max_abs,
+                **_time_scan_bwd(args, dy, shape, dtype, ex2_per_s)}
+        del ref, scales, args, dy, dstate
+        torch.cuda.empty_cache()
+    check(entry is not None, "scan_bwd: the training case did not run")
+    return entry
+
+
+def _time_scan_bwd(args, dy, shape, dtype, ex2_per_s):
+    """At the training shape, in turns: the backward call (its three
+    kernels and dA's and dD's batch sums), each kernel alone, the forward
+    kernel, then the plain backward; printed beside the bound."""
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    from repro_torch.kernels.mamba_scan import kernel_bwd
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+    x, dt, A, B, C, D, state = args
+
+    def call(kernels=kernel_bwd.KERNELS):
+        return kernel_bwd.selective_scan_bwd_cuda(x, dt, A, B, C, D, state,
+                                                  dy, kernels=kernels)
+
+    with torch.no_grad():
+        turns = [time_ms(call) for _ in range(2)]
+        kernel_ms = {kn: time_ms(lambda: call((kn,)))
+                     for kn in kernel_bwd.KERNELS}
+        fwd_ms = time_ms(lambda: scan_kernel.selective_scan_cuda(*args))
+        turns += [time_ms(call)]
+        plain_ms = time_ms(lambda: selective_scan_bwd_ref(*args, dy),
+                           iters=1, warmup=1)
+    bound_ms, bound_by, count = scan_bwd_bound(shape, dtype, ex2_per_s)
+    ms = float(np.mean(turns))
+    print(f"[scan_bwd] training {tuple(shape)} {str(dtype)[6:]}: backward "
+          f"call {', '.join(f'{t:.4f}' for t in turns)} ms ({ms / bound_ms:.2f}"
+          f" x bound); alone " + ", ".join(f"{kn} {t:.4f}"
+                                           for kn, t in kernel_ms.items())
+          + f" ms; the forward kernel {fwd_ms:.4f} ms; plain backward "
+          f"{plain_ms:.1f} ms, no library call; bound {bound_ms:.4f} ms "
+          f"({bound_by}; {json.dumps(count)})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "ms_turns": turns,
+            "kernel_ms": kernel_ms, "forward_ms": fwd_ms}
+
+
 class StepProbe:
     """Wraps a model: counts non-finite logits of every step and times
     each step on the host clock, up to the card finishing it."""
@@ -1905,18 +2160,30 @@ TIMED_BWD_CASES = ("training", "hd128")
 # of the small sum; on a row without cancellation the scale is a few times
 # the row's norm.  A fault (D dropped, a kv tile lost) moves rows by
 # O(their scale) and still lands far past the limit.
-# Each training path, at full width and depth in bf16 from seed 0: its
-# batch and steps, the kernel its layers call, and that kernel's launches
-# a layer in a step: the forward kernel twice (the forward and its
-# recompute under activation checkpointing), the backward once, which
-# launches its kernels (K1: kernel_bwd.KERNELS["hopper"], preprocess,
-# dK/dV, dQ; K2: kernel_bwd.KERNELS, bwd and dv)
+# Each training path, in bf16 from seed 0: its batch and steps, the
+# kernels its layers call and each one's launches in a step, (forward,
+# backward): the forward kernel twice a layer that calls it (the forward
+# and its recompute under activation checkpointing), the backward once,
+# which launches its kernels (K1: kernel_bwd.KERNELS["hopper"],
+# preprocess, dK/dV, dQ; K2: kernel_bwd.KERNELS, bwd and dv; K3:
+# kernel_bwd.KERNELS, ckpt, bwd and sum); the cut of the published
+# config where it does not fit whole (every width as published), and the
+# MoE layer offset it takes (none of Jamba's dense cut's 2 layers is MoE)
 TRAIN_PATHS = {
-    "minicpm-2b": dict(batch=4, seq=2048, steps=6, kernel="flash_attention",
-                       forward=2, backward=3),
-    "rwkv6-1.6b": dict(batch=4, seq=2048, steps=6, kernel="wkv6",
-                       forward=2, backward=2),
+    "minicpm-2b": dict(batch=4, seq=2048, steps=6,
+                       kernels={"flash_attention": (80, 120)}),
+    "rwkv6-1.6b": dict(batch=4, seq=2048, steps=6,
+                       kernels={"wkv6": (48, 48)}),
+    JAMBA: dict(batch=4, seq=2048, steps=6,
+                cut=dict(n_layers=2, attn_layer_period=2,
+                         attn_layer_offset=0), moe_offset=2,
+                kernels={"flash_attention": (2, 3),
+                         "selective_scan": (2, 3)}),
 }
+# The MoE cut's gradient (phase jamba_moe_grad): DECODE_CUTS[JAMBA]
+# (attention + MLP, then Mamba + MoE with all 16 experts) in bf16, one
+# sequence of this many tokens, no optimizer
+MOE_GRAD_SEQ = 2048
 # the remat check's model, its cut (every width as published) and batch
 REMAT_ARCH = "minicpm-2b"
 REMAT_CUT = dict(n_layers=2)
@@ -1928,6 +2195,7 @@ K1_KERNEL_PARTS = ("flash_fwd", "bwd_preprocess", "bwd_stats", "bwd_dkdv",
 TRAIN_KERNEL_GROUPS = (
     ("K1", K1_KERNEL_PARTS),
     ("K2", ("wkv6_kernel", "wkv6_bwd_kernel", "wkv6_bwd_hopper_kernel")),
+    ("K3", ("scan_pipe_kernel", "scan_bwd")),
     ("GEMM", ("nvjet", "gemm", "cutlass", "cublas", "sm90_xmma")),
     ("reductions", ("reduce_kernel", "softmax", "LogSumExp", "cunn_")),
     ("copies and casts", ("copy_kernel", "CatArrayBatchedCopy")),
@@ -2166,20 +2434,27 @@ def _time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape,
 
 
 def _count_plain_calls():
-    """Wraps K1's and K2's plain forwards and backwards where the
+    """Wraps K1's, K2's and K3's plain forwards and backwards where the
     dispatchers and the models could reach them; returns (calls, undo)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.kernels.rwkv6 import ref as wkv_ref
     calls = {"attention_ref": 0, "attention_bwd_ref": 0, "wkv6_ref": 0,
-             "wkv6_bwd_ref": 0}
+             "wkv6_bwd_ref": 0, "selective_scan_ref": 0,
+             "selective_scan_bwd_ref": 0}
     saved = [(ref, "attention_ref", ref.attention_ref),
              (ref, "attention_bwd_ref", ref.attention_bwd_ref),
              (flash_ops, "attention_ref", flash_ops.attention_ref),
              (wkv_ref, "wkv6_ref", wkv_ref.wkv6_ref),
              (wkv_ref, "wkv6_bwd_ref", wkv_ref.wkv6_bwd_ref),
-             (wkv_ops, "wkv6_ref", wkv_ops.wkv6_ref)]
+             (wkv_ops, "wkv6_ref", wkv_ops.wkv6_ref),
+             (scan_ref, "selective_scan_ref", scan_ref.selective_scan_ref),
+             (scan_ref, "selective_scan_bwd_ref",
+              scan_ref.selective_scan_bwd_ref),
+             (scan_ops, "selective_scan_ref", scan_ops.selective_scan_ref)]
     for mod, attr, fn in saved:
         def counted(*a, _fn=fn, _attr=attr, **kw):
             calls[_attr] += 1
@@ -2192,61 +2467,89 @@ def _count_plain_calls():
     return calls, undo
 
 
-def phase_train(arch, card):
-    """``arch`` at full width and depth, bf16, random init from seed 0,
-    through repro_torch.launch.train on the card: TRAIN_PATHS' steps on
-    the synthetic stream (WSD for minicpm-2b, cosine otherwise).  Every
-    kernel's counts are set to 0 before each step and read after it: the
-    path's kernel launched TRAIN_PATHS' times a layer, forward and
-    backward (K1's on the "hopper" route, K2's forward under
-    kernel.plan's choice and its backward on the "hopper" route), no plain
-    version called, no other kernel.  Then one step profiled.  Returns
-    the kernel's forward and backward launches in the run, and K1's and
-    K2's backward's by route."""
+def train_config(arch):
+    """TRAIN_PATHS' config of ``arch``: the published one, cut where the
+    path says so."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
-    from repro_torch.launch import train as launch_train
     spec = TRAIN_PATHS[arch]
-    shape = {key: spec[key] for key in ("batch", "seq", "steps")}
-    ops = kernel_ops()
-    name = spec["kernel"]
-    mod, flash, wkv = ops[name], ops["flash_attention"], ops["wkv6"]
-    cfg = get_config(arch)
-    n = cfg.n_layers
-    print(f"[train] {arch}: {n} layers, d_model {cfg.d_model}, {shape}, "
-          f"kernel {name}")
+    cfg = get_config(arch).replace(**spec.get("cut", {}))
+    if "moe_offset" in spec:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, layer_offset=spec["moe_offset"]))
+    return cfg
 
-    def reset():
-        for m in ops.values():
-            m.launches = 0
-            if hasattr(m, "launches_bwd"):
-                m.launches_bwd = 0
-        for counts in (flash.launches_by_variant,
-                       flash.launches_bwd_by_variant):
-            for variant in counts:
-                counts[variant] = 0
-        wkv.launches_by_plan.clear()
-        for route in wkv.launches_bwd_by_route:
-            wkv.launches_bwd_by_route[route] = 0
 
-    per_step = []
+def reset_counts(ops):
+    """Every kernel's launch counts set to 0."""
+    flash, wkv = ops["flash_attention"], ops["wkv6"]
+    for m in ops.values():
+        m.launches = 0
+        if hasattr(m, "launches_bwd"):
+            m.launches_bwd = 0
+    for counts in (flash.launches_by_variant, flash.launches_bwd_by_variant):
+        for variant in counts:
+            counts[variant] = 0
+    wkv.launches_by_plan.clear()
+    for route in wkv.launches_bwd_by_route:
+        wkv.launches_bwd_by_route[route] = 0
 
-    def on_step(rec):
-        per_step.append({
-            "forward": mod.launches, "backward": mod.launches_bwd,
+
+def read_counts(ops):
+    """Every kernel's (forward, backward) launches, and K1's by variant
+    and K2's by plan and route."""
+    flash, wkv = ops["flash_attention"], ops["wkv6"]
+    return {"launches": {k: (m.launches, getattr(m, "launches_bwd", 0))
+                         for k, m in ops.items()},
             "k1_by_variant": dict(flash.launches_by_variant),
             "k1_bwd_by_variant": dict(flash.launches_bwd_by_variant),
             "k2_by_plan": {_plan_name(*pl): c
                            for pl, c in wkv.launches_by_plan.items()},
-            "k2_bwd_by_route": dict(wkv.launches_bwd_by_route),
-            "others": {k: (m.launches, getattr(m, "launches_bwd", 0))
-                       for k, m in ops.items() if k != name}})
-        reset()
+            "k2_bwd_by_route": dict(wkv.launches_bwd_by_route)}
+
+
+def expected_counts(kernels, ops):
+    """``read_counts``' value for a run whose kernels launch ``kernels``
+    ({name: (forward, backward)}) times: every K1 launch "hopper", every
+    K2 forward under kernel.plan's choice and backward on "hopper", no
+    other kernel."""
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+    k1 = kernels.get("flash_attention", (0, 0))
+    k2 = kernels.get("wkv6", (0, 0))
+    return {"launches": {k: tuple(kernels.get(k, (0, 0))) for k in ops},
+            "k1_by_variant": {"hopper": k1[0], "general": 0},
+            "k1_bwd_by_variant": {"hopper": k1[1], "general": 0},
+            "k2_by_plan": ({_plan_name(*wkv_kernel.PLAN): k2[0]}
+                           if k2[0] else {}),
+            "k2_bwd_by_route": {"hopper": k2[1], "general": 0}}
+
+
+def phase_train(arch, card):
+    """``arch`` (TRAIN_PATHS' config: the published one, or its cut) in
+    bf16, random init from seed 0, through repro_torch.launch.train on the
+    card: TRAIN_PATHS' steps on the synthetic stream (WSD for minicpm-2b,
+    cosine otherwise).  Every kernel's counts are set to 0 before each
+    step and read after it: each kernel of the path launched TRAIN_PATHS'
+    times, forward and backward (K1's on the "hopper" route, K2's forward
+    under kernel.plan's choice and its backward on the "hopper" route), no
+    plain version called, no other kernel.  Then one step profiled.
+    Returns the path's counts over its steps (``read_counts``' keys)."""
+    from repro_torch.launch import train as launch_train
+    spec = TRAIN_PATHS[arch]
+    shape = {key: spec[key] for key in ("batch", "seq", "steps")}
+    ops = kernel_ops()
+    cfg = train_config(arch)
+    print(f"[train] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{shape}, kernels {list(spec['kernels'])}")
+    per_step = []
+
+    def on_step(rec):
+        per_step.append(read_counts(ops))
+        reset_counts(ops)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     plain, undo = _count_plain_calls()
-    reset()
+    reset_counts(ops)
     try:
         out = launch_train.run(cfg, device="cuda", on_step=on_step,
                                log=lambda line: print(f"[train] {line}"),
@@ -2256,14 +2559,7 @@ def phase_train(arch, card):
     records = out["records"]
     losses = [r["loss"] for r in records]
     params = sum(t.numel() for t in _leaves(out["params"]))
-    fwd, bwd = spec["forward"] * n, spec["backward"] * n
-    k1 = name == "flash_attention"
-    want = {"forward": fwd, "backward": bwd,
-            "k1_by_variant": {"hopper": fwd if k1 else 0, "general": 0},
-            "k1_bwd_by_variant": {"hopper": bwd if k1 else 0, "general": 0},
-            "k2_by_plan": {} if k1 else {_plan_name(*wkv_kernel.PLAN): fwd},
-            "k2_bwd_by_route": {"hopper": 0 if k1 else bwd, "general": 0},
-            "others": {k: (0, 0) for k in ops if k != name}}
+    want = expected_counts(spec["kernels"], ops)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = float(np.median([r["step_ms"] for r in records[1:]]))
     tok_s = shape["batch"] * shape["seq"] / step_ms * 1e3
@@ -2279,31 +2575,113 @@ def phase_train(arch, card):
           f"train {arch}: launches a step {per_step}, expected {want}")
     check(not any(plain.values()),
           f"train {arch}: plain versions called {plain}")
-    if k1:
+    k1 = "flash_attention" in spec["kernels"]
+    if arch == "minicpm-2b":
         _embedding_backward_is_deterministic(out)
     kernels = profile_train_step(out, shape)
     if k1:
         check(kernels is None or "bwd_stats" not in kernels,
               f"train: a stats kernel ran on the hopper route: {kernels}")
-    result = {"arch": arch, **shape, "losses": losses,
-              "step_ms": [r["step_ms"] for r in records],
+    result = {"arch": arch, **shape, "layers": cfg.n_layers,
+              "losses": losses, "step_ms": [r["step_ms"] for r in records],
               "step_ms_median": step_ms, "tok_s": tok_s,
               "peak_memory_gb": peak_gb, "params": params, "card": card}
     print("train " + json.dumps(result))
     del out
-    totals = {part: sum(p[part] for p in per_step)
-              for part in ("forward", "backward")}
-    totals["bwd_by_variant"] = {
-        vt: sum(p["k1_bwd_by_variant"][vt] for p in per_step)
-        for vt in want["k1_bwd_by_variant"]}
-    totals["k2_bwd_by_route"] = {
-        rt: sum(p["k2_bwd_by_route"][rt] for p in per_step)
-        for rt in want["k2_bwd_by_route"]}
-    totals["k2_by_plan"] = {}
-    for p in per_step:
-        for pl, c in p["k2_by_plan"].items():
-            totals["k2_by_plan"][pl] = totals["k2_by_plan"].get(pl, 0) + c
-    return totals
+    return _sum_counts(per_step)
+
+
+def _sum_counts(runs):
+    """``read_counts``' values of several runs, summed key by key."""
+    out = {"launches": {}, "k1_by_variant": {}, "k1_bwd_by_variant": {},
+           "k2_by_plan": {}, "k2_bwd_by_route": {}}
+    for run in runs:
+        for k, (f, b) in run["launches"].items():
+            f0, b0 = out["launches"].get(k, (0, 0))
+            out["launches"][k] = (f0 + f, b0 + b)
+        for part in ("k1_by_variant", "k1_bwd_by_variant", "k2_by_plan",
+                     "k2_bwd_by_route"):
+            for key, c in run[part].items():
+                out[part][key] = out[part].get(key, 0) + c
+    return out
+
+
+def phase_jamba_moe_grad(card):
+    """The MoE cut of jamba-1.5-large-398b (DECODE_CUTS[JAMBA]: attention +
+    MLP, then Mamba + MoE with all 16 experts, every width as published)
+    in bf16 from seed 0: JambaLM.loss and its gradients
+    (training.step.value_and_grad, no optimizer) on one sequence of
+    MOE_GRAD_SEQ tokens.  The loss, the aux loss and every gradient
+    finite; every expert that received a token has a nonzero gradient in
+    gate, up and down; K1 and K3 launched twice forward and once backward,
+    K1 on "hopper", no plain version.  Returns the run's counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models.factory import build_model
+    from repro_torch.training.step import value_and_grad
+    ops = kernel_ops()
+    cfg = get_config(JAMBA).replace(**DECODE_CUTS[JAMBA])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(SEED + 9)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, MOE_GRAD_SEQ + 1))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    routed = []
+    real_route = M.route
+
+    def recording(*a, **kw):
+        out = real_route(*a, **kw)
+        routed.append(out[0].detach())
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain, undo = _count_plain_calls()
+    reset_counts(ops)
+    M.route = recording
+    try:
+        t0 = time.perf_counter()
+        loss, metrics, grads = value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        M.route = real_route
+        undo()
+    counts = read_counts(ops)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expected_counts({"flash_attention": (2, 3),
+                            "selective_scan": (2, 3)}, ops)
+    leaves = list(_leaves(grads))
+    finite = all(torch.isfinite(g).all().item() for g in leaves)
+    moe = grads["periods"]["moe"]
+    E = cfg.moe.n_experts
+    got_tokens = sorted(set(routed[0].reshape(-1).tolist()))
+    nonzero = [e for e in range(E)
+               if all(moe[w][0, 0, e].count_nonzero().item() > 0
+                      for w in ("gate", "up", "down"))]
+    aux = metrics["aux_loss"].item()
+    print(f"[moe_grad] {JAMBA} cut to {cfg.n_layers} layers (attention + "
+          f"MLP, Mamba + MoE of {E} experts of {cfg.moe.d_expert}), "
+          f"{n_params / 1e9:.3f} B params, 1 x {MOE_GRAD_SEQ} tokens bf16: "
+          f"loss {loss.item():.4f} (xent {metrics['xent'].item():.4f}, aux "
+          f"{aux:.4f}), {len(leaves)} gradient leaves finite {finite}; "
+          f"experts that received tokens {got_tokens}, with nonzero "
+          f"gate/up/down gradients {nonzero}; router gradient norm "
+          f"{moe['router'].float().norm().item():.4e}; {dt:.1f} s; launches "
+          f"{counts['launches']}; plain versions called {plain}; peak "
+          f"memory {peak_gb:.2f} GB | {card}")
+    check(math.isfinite(loss.item()) and math.isfinite(aux) and aux > 0,
+          f"moe_grad: loss {loss.item()}, aux {aux}")
+    check(finite, "moe_grad: a gradient is not finite")
+    check(got_tokens and set(got_tokens) <= set(nonzero),
+          f"moe_grad: experts with tokens {got_tokens}, nonzero {nonzero}")
+    check(counts == want, f"moe_grad: launches {counts}, expected {want}")
+    check(not any(plain.values()), f"moe_grad: plain versions {plain}")
+    del params, grads, leaves, moe, model
+    return counts
 
 
 def phase_remat_bits():
@@ -2533,36 +2911,48 @@ def main() -> int:
     bwd = phase_flash_bwd()
     free_device_memory("the previous phase")
     wkv_bwd = phase_wkv6_bwd()
-    trained = {}
+    free_device_memory("the previous phase")
+    scan_bwd = phase_scan_bwd(ex2_per_s)
+    runs = {}
     for arch in TRAIN_PATHS:
         free_device_memory("the previous phase")
-        trained[arch] = phase_train(arch, card)
+        runs[f"{arch} (train)"] = phase_train(arch, card)
     free_device_memory("the previous phase")
     phase_remat_bits()
-    # kernel launches, as every entry counts them; calls of the backwards
-    for arch, got in trained.items():
-        path = f"{arch} (train)"
-        name = TRAIN_PATHS[arch]["kernel"]
-        fwd_entry = entries[name]
-        bwd_entry = bwd if name == "flash_attention" else wkv_bwd
-        fwd_entry["launches"] += got["forward"]
-        fwd_entry["launches_by_path"][path] = got["forward"]
-        bwd_entry["launches"] = got["backward"]
-        bwd_entry["launches_by_path"] = {path: got["backward"]}
-        if name == "flash_attention":
-            flash["launches_by_variant"]["hopper"] += got["forward"]
-            bwd["launches_by_variant"] = got["bwd_by_variant"]
-            bwd["calls"] = sum(c // bwd["kernels_per_call"][vt]
-                               for vt, c in got["bwd_by_variant"].items())
-        else:
-            by_plan = entries["wkv6"]["launches_by_plan"]
-            for pl, c in got["k2_by_plan"].items():
-                by_plan[pl] = by_plan.get(pl, 0) + c
-            wkv_bwd["calls"] = got["backward"] // len(
-                wkv_bwd["kernels_per_call"])
-            wkv_bwd["launches_by_route"] = got["k2_bwd_by_route"]
+    free_device_memory("the previous phase")
+    runs[f"{JAMBA} (moe grad)"] = phase_jamba_moe_grad(card)
+    # kernel launches, as every entry counts them, by path; calls of the
+    # backwards
+    bwd_entries = {"flash_attention": bwd, "wkv6": wkv_bwd,
+                   "selective_scan": scan_bwd}
+    for entry in bwd_entries.values():
+        entry["launches"], entry["launches_by_path"] = 0, {}
+    bwd["launches_by_variant"] = {"hopper": 0, "general": 0}
+    wkv_bwd["launches_by_route"] = {"hopper": 0, "general": 0}
+    for path, got in runs.items():
+        for name, (fwd_n, bwd_n) in got["launches"].items():
+            if fwd_n:
+                entries[name]["launches"] += fwd_n
+                entries[name]["launches_by_path"][path] = fwd_n
+            if bwd_n:
+                bwd_entries[name]["launches"] += bwd_n
+                bwd_entries[name]["launches_by_path"][path] = bwd_n
+        for vt, c in got["k1_by_variant"].items():
+            flash["launches_by_variant"][vt] += c
+        for vt, c in got["k1_bwd_by_variant"].items():
+            bwd["launches_by_variant"][vt] += c
+        by_plan = entries["wkv6"]["launches_by_plan"]
+        for pl, c in got["k2_by_plan"].items():
+            by_plan[pl] = by_plan.get(pl, 0) + c
+        for rt, c in got["k2_bwd_by_route"].items():
+            wkv_bwd["launches_by_route"][rt] += c
+    bwd["calls"] = sum(c // bwd["kernels_per_call"][vt]
+                       for vt, c in bwd["launches_by_variant"].items())
+    for entry in (wkv_bwd, scan_bwd):
+        entry["calls"] = entry["launches"] // len(entry["kernels_per_call"])
     entries["flash_attention_bwd"] = bwd
     entries["wkv6_bwd"] = wkv_bwd
+    entries["selective_scan_bwd"] = scan_bwd
     free_device_memory("the previous phase")
     phase_train_restart()
     print(json.dumps({"kernels": list(entries.values())}))

@@ -1435,6 +1435,12 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
   if (b < 1 || sq < 1 || skv < 1 || (window > 0 && sq > skv + window - 1) ||
       (lse != nullptr && lse_stride < sq))
     return static_cast<int>(cudaErrorInvalidValue);
+  // cuTensorMapEncodeTiled, a libcuda call, needs a current context; the
+  // runtime makes the device's primary context current in this thread
+  // here.  Autograd runs a backward on a thread of its own, where this
+  // may be the first CUDA call (CUDA_ERROR_INVALID_CONTEXT otherwise).
+  const cudaError_t ctx = cudaFree(nullptr);
+  if (ctx != cudaSuccess) return static_cast<int>(ctx);
   hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (encode == nullptr) return 2000;
   CUtensorMap mq, mk, mv;

@@ -2083,6 +2083,12 @@ extern "C" int flash_attention_bwd_hopper(
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if ((which & 6) == 0) return 0;
+  // cuTensorMapEncodeTiled, a libcuda call, needs a current context; the
+  // runtime makes the device's primary context current in this thread
+  // here.  Autograd runs a backward on a thread of its own, where this
+  // may be the first CUDA call (CUDA_ERROR_INVALID_CONTEXT otherwise).
+  const cudaError_t ctx = cudaFree(nullptr);
+  if (ctx != cudaSuccess) return static_cast<int>(ctx);
   hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (encode == nullptr) return 2000;
   const void* const ptrs[5] = {q, k, v, o, dout};

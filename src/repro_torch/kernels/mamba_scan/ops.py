@@ -1,23 +1,33 @@
 """Dispatcher for the Mamba selective scan: the CUDA kernel for tensors
-on the card, the plain torch version (ref.py) for tensors on the CPU.
+on the card, the plain torch version (ref.py) for tensors on the CPU,
+where autograd differentiates it.
 
-There is no fallback: a CUDA tensor launches the kernel or raises.  There
-is no backward kernel yet, so a CUDA call that would need a gradient
-raises too.  ``launches`` counts kernel launches and nothing else.
+There is no fallback: a CUDA tensor launches the kernel or raises.  A
+CUDA call that needs a gradient goes through ``_SelectiveScan``, a
+``torch.autograd.Function`` whose forward launches the forward kernel and
+whose backward launches the backward's kernels (``kernel_bwd``); the
+plain gradient (``selective_scan_bwd_ref``) is never taken on the card.
+A layer recomputed under activation checkpointing saves its inputs again.
+
+Counts: ``launches`` counts forward kernel launches and nothing else (a
+recomputed layer launches again, and counts again); ``launches_bwd``
+counts backward kernel launches, ``len(kernel_bwd.KERNELS)`` a call.
 
 ``selective_scan_step`` (one token, the decode path) is plain torch ops on
 every device, as the reference's is jnp.  The reference's
-``selective_scan_chunked`` exists only for its backward's remat and comes
-with training (ROADMAP Queue 1 item 6).
+``selective_scan_chunked`` is its differentiable twin: the port
+differentiates ``ref.py`` on the CPU and runs the backward kernel on the
+card instead.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.mamba_scan import kernel
+from repro_torch.kernels.mamba_scan import kernel, kernel_bwd
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref, step
 
 launches = 0
+launches_bwd = 0
 
 
 def _check(x, dt, A, B, C, D, state):
@@ -47,17 +57,13 @@ def _check(x, dt, A, B, C, D, state):
 
 def selective_scan(x, dt, A, B, C, D, state):
     """x, dt (b, s, di); A (di, N); B, C (b, s, N); D (di,); state (b, di,
-    N).  Returns (y (b, s, di) in x.dtype, final state f32)."""
-    global launches
+    N).  Returns (y (b, s, di) in x.dtype, final state f32).
+    Differentiable on both devices."""
     _check(x, dt, A, B, C, D, state)
     if x.device.type == "cpu":
         return selective_scan_ref(x, dt, A, B, C, D, state)
     if x.device.type != "cuda":
         raise ValueError(f"no selective_scan for device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, B, C, D, state)):
-        raise NotImplementedError("selective_scan has no backward kernel "
-                                  "yet; call it under torch.no_grad()")
     if x.dtype not in kernel.DTYPES or B.dtype != x.dtype \
             or C.dtype != x.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 x/B/C of one "
@@ -71,10 +77,47 @@ def selective_scan(x, dt, A, B, C, D, state):
         raise ValueError(f"batch too large for the grid: {tuple(x.shape)}")
     if any(t.stride(2) != 1 for t in (x, dt, B, C)):
         raise ValueError("the last dim of x/dt/B/C must have stride 1")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C, D, state)):
+        return _SelectiveScan.apply(x, dt, A, B, C, D, state)
+    return _forward(x, dt, A, B, C, D, state)
+
+
+def _forward(x, dt, A, B, C, D, state):
+    global launches
     out = kernel.selective_scan_cuda(x, dt, A.contiguous(), B, C,
                                      D.contiguous(), state.contiguous())
     launches += 1
     return out
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The forward kernel and the backward's kernels of one CUDA call.
+    Saves x, dt, A, B, C, D and the initial state, B and C as the views
+    they are.  A gradient it is not given (the final state's, where the
+    caller drops it) is zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, state):
+        ctx.set_materialize_grads(False)
+        y, h = _forward(x, dt, A, B, C, D, state)
+        ctx.save_for_backward(x, dt, A, B, C, D, state)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        global launches_bwd
+        x, dt, A, B, C, D, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        elif dy.dtype != x.dtype or dy.stride(2) != 1:
+            dy = dy.to(x.dtype).contiguous()
+        grads = kernel_bwd.selective_scan_bwd_cuda(
+            x, dt, A.contiguous(), B, C, D.contiguous(), state.contiguous(),
+            dy, None if dstate is None else dstate.float().contiguous())
+        launches_bwd += len(kernel_bwd.KERNELS)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def selective_scan_step(x1, dt1, A, B1, C1, D, state):

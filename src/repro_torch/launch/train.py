@@ -6,11 +6,16 @@
         --batch 4 --seq 2048 --steps 6   # minicpm-2b, published, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
         --full --batch 4 --seq 2048 --steps 6   # rwkv6-1.6b, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch jamba-1.5-large-398b --steps 6   # Jamba's smoke config
 
 Trains ``--arch`` (the smoke config, or with ``--full`` the published
 one) from random weights (seed 0) on the deterministic synthetic stream
 (seed 1) through the port's AdamW and remat'ed train step, with WSD for
 minicpm-2b (its paper's recipe) and cosine otherwise, as the reference.
+``run`` takes any config: jamba-1.5-large-398b (398 B params) trains on
+one card only as a cut, which its caller builds (``chip_smoke.py``'s
+2-layer dense cut), as the reference's launcher has no cut flag either.
 It runs on the card unless ``--device`` says otherwise, and never falls
 back to the CPU.  Each step prints its loss, lr, gradient norm, time
 (host clock, up to the card finishing the step), tokens a second and the

@@ -14,10 +14,16 @@ scan kernel (K3); decode takes the plain one-step paths.  The cache keeps
 the reference's layout, ``{attn: {k, v: (P, b, S, n_kv, hd)}, mamba:
 {ssm: (P, n_mamba, b, di, N) f32, conv: (P, n_mamba, b, K-1, di)}}``, and
 prefill and decode write it in place.
+
+``loss`` is ``DecoderLM.loss``: next-token cross entropy plus the MoE
+layers' aux losses, each period under activation checkpointing (the
+reference's ``jax.checkpoint`` of the scanned period).  On the card its
+gradient runs through K1's and K3's backward kernels.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
@@ -29,8 +35,8 @@ from repro_torch.models.transformer import DecoderLM
 
 
 class JambaLM(DecoderLM):
-    """Reuses DecoderLM's attention, MoE, embedding, ``prefill`` and
-    ``decode``; replaces the layer stack with the hybrid periods."""
+    """Reuses DecoderLM's attention, MoE, embedding, ``loss``, ``prefill``
+    and ``decode``; replaces the layer stack with the hybrid periods."""
 
     def __init__(self, cfg, long_context=False):
         super().__init__(cfg)
@@ -80,9 +86,13 @@ class JambaLM(DecoderLM):
     # ------------------------------------------------------------- forward
 
     def _period_block(self, x, pp, positions, ce, length, mode):
-        """One period.  ``ce`` holds this period's cache views, written
-        in place (None: a cache-free forward from a zero state)."""
+        """(x, aux) after one period.  ``ce`` holds this period's cache
+        views, written in place (None: a cache-free forward from a zero
+        state).  aux: in "train" the sum of the period's MoE aux losses
+        in layer order (an f32 0 without MoE layers), else None."""
         cfg = self.cfg
+        aux = x.new_zeros((), dtype=torch.float32) if mode == "train" \
+            else None
         mi = moei = mlpi = 0
         for j in range(self.period):
             h = L.apply_norm(x, {"scale": pp["ln1"]["scale"][j]}, cfg)
@@ -107,28 +117,40 @@ class JambaLM(DecoderLM):
             x = x + o
             h = L.apply_norm(x, {"scale": pp["ln2"]["scale"][j]}, cfg)
             if j in self.moe_js:
-                y = self._moe(h, C.index_layer(pp["moe"], moei))[0]
+                y, a = self._moe(h, C.index_layer(pp["moe"], moei))
+                if aux is not None:
+                    aux = aux + a
                 moei += 1
             else:
                 y = L.apply_mlp(h, C.index_layer(pp["mlp"], mlpi), cfg.act)
                 mlpi += 1
             x = x + y
-        return x
+        return x, aux
 
-    def _run_layers(self, x, params, positions, cache, length, mode):
-        """As ``DecoderLM._run_layers``: "prefill" fills ``cache``,
-        "decode" writes it at ``length``, "train" runs without one.
-        Returns (x, None): no aux loss until JambaLM trains."""
+    def _run_layers(self, x, params, positions, cache, length, mode,
+                    remat=False):
+        """As ``DecoderLM._run_layers``, a period at a time: "prefill"
+        fills ``cache``, "decode" writes it at ``length``, "train" runs
+        without one and sums the periods' aux losses (None in the other
+        modes).  With ``remat`` ("train" only) each period runs under
+        activation checkpointing with ``remat_policy``."""
+        aux = x.new_zeros((), dtype=torch.float32) if mode == "train" \
+            else None
         for p in range(self.n_periods):
             ce = None if cache is None else C.index_layer(cache, p)
-            x = self._period_block(x, C.index_layer(params["periods"], p),
-                                   positions, ce, length, mode)
-        return x, None
-
-    def loss(self, params, batch):
-        raise NotImplementedError("JambaLM training needs K3's backward "
-                                  "kernel and selective_scan_chunked: "
-                                  "ROADMAP Queue 1 item 6")
+            args = (x, C.index_layer(params["periods"], p), positions, ce,
+                    length, mode)
+            if remat:
+                # no layer draws random numbers: no RNG state to keep
+                x, a = ckpt.checkpoint(self._period_block, *args,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False,
+                                       context_fn=self._remat_context)
+            else:
+                x, a = self._period_block(*args)
+            if aux is not None:
+                aux = aux + a
+        return x, aux
 
     # -------------------------------------------------------------- caches
 

@@ -95,10 +95,45 @@ def _bmm_f32(a, w):
     """``a @ w`` batched, with f32 outputs of operands in their own dtype.
     On the card cuBLAS writes the f32 output of bf16 operands directly
     (``out_dtype``), so the (E, d, d_e) weights are never converted; the
-    CPU's bmm has no such output, so there the operands are converted."""
+    CPU's bmm has no such output, so there the operands are converted.
+    That overload has no derivative, so on the card a product that needs
+    a gradient goes through ``_BmmF32``, whose forward is the same call."""
     if a.is_cuda and a.dtype != torch.float32:
+        if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+            return _BmmF32.apply(a, w)
         return torch.bmm(a, w, out_dtype=torch.float32)
     return torch.bmm(a.float(), w.float())
+
+
+def bmm_f32_grads(a, w, g):
+    """The gradients of ``a @ w`` (f32 output) for an f32 cotangent ``g``,
+    as JAX transposes an einsum with ``preferred_element_type=f32``: g
+    against the other operand in f32, rounded to each operand's dtype.
+    One expert at a time, so the f32 copies are one expert's (d, d_e),
+    never the whole (E, d, d_e) stack."""
+    da = torch.empty_like(a)
+    dw = torch.empty_like(w)
+    for e in range(a.shape[0]):
+        da[e] = (g[e] @ w[e].float().T).to(a.dtype)
+        dw[e] = (a[e].float().T @ g[e]).to(w.dtype)
+    return da, dw
+
+
+class _BmmF32(torch.autograd.Function):
+    """``torch.bmm(a, w, out_dtype=torch.float32)`` with the backward of
+    ``bmm_f32_grads``."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.bmm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        da, dw = bmm_f32_grads(a, w, g.float())
+        return (da if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None)
 
 
 def apply_moe(x, p, cfg, *, router_mode="softmax_topk", ep_axis=None,

@@ -54,12 +54,14 @@ def value_and_grad(model, params, batch):
     """(loss, metrics, grads) of ``model.loss`` at ``params``: the
     reference's ``jax.value_and_grad(loss_fn, has_aux=True)``.  The
     gradients are new tensors in the params' structure and dtypes; the
-    params' own ``.grad`` stays untouched."""
+    params' own ``.grad`` stays untouched.  A leaf the loss does not
+    reach (a hybrid period's empty MoE stack) gets zeros, as in JAX."""
     paths = [path for path, _ in T.flatten(params)]
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_() for p in T.leaves(params)]
         loss, metrics = model.loss(_unflat(paths, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             _unflat(paths, grads))
 

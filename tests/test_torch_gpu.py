@@ -1,9 +1,10 @@
 """The port on the card: the CUDA flash attention (K1, forward and
-backward), WKV6 (K2, forward and backward) and selective scan (K3)
-kernels against their plain versions, the dispatchers' rules for CUDA
-tensors, DecoderLM, RWKVLM and JambaLM prefill through the kernels
-against the same models on the CPU, and DecoderLM's and RWKVLM's losses,
-gradients and train steps on the card.
+backward), WKV6 (K2, forward and backward) and selective scan (K3,
+forward and backward) kernels against their plain versions, the
+dispatchers' rules for CUDA tensors, DecoderLM, RWKVLM and JambaLM
+prefill through the kernels against the same models on the CPU, and
+DecoderLM's, RWKVLM's and JambaLM's losses, gradients and train steps on
+the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  On a machine
 with a card, from the repository root:
@@ -185,6 +186,39 @@ def test_cuda_grad_raises(cuda):
     ops.flash_attention(q, k, v).sum().backward()
     assert ops.launches_bwd == before[1] + len(kernel_bwd.KERNELS["general"])
     assert q.grad is not None
+
+
+@pytest.mark.parametrize("entry", ["forward", "backward"])
+def test_hopper_as_a_threads_first_cuda_call(cuda, entry):
+    """K1's Hopper forward (training mode) and backward encode their
+    tensor maps in a thread whose first CUDA call they are, as autograd's
+    backward thread can be (no context is current there until the entry
+    binds the device's), and give the bits they give on this thread."""
+    import threading
+    q, k, v = _qkv(2, 150, 150, 4, 128, torch.bfloat16, seed=8)
+    lse = kernel.lse_buffer(q)
+    with torch.no_grad():
+        o = kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse)
+    do = torch.randn_like(o)
+    if entry == "forward":
+        def call():
+            out = kernel.lse_buffer(q)
+            return (kernel.flash_attention_cuda(q, k, v, "hopper", lse=out),
+                    out[..., :q.shape[1]])
+    else:
+        def call():
+            return kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do,
+                                                       "hopper", lse=lse)
+    want = call()
+    torch.cuda.synchronize()
+    got = []
+    thread = threading.Thread(target=lambda: got.append(call()))
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive() and len(got) == 1
+    torch.cuda.synchronize()
+    for a, b in zip(got[0], want):
+        assert torch.equal(a, b)
 
 
 def test_cuda_rejects_rows_without_a_key(cuda):
@@ -753,13 +787,185 @@ def test_ex2_rate_probe_fills_every_sm(cuda):
     assert r["per_sm_per_clock"] == pytest.approx(16, rel=0.02)
 
 
-def test_selective_scan_cuda_grad_raises(cuda):
-    x, dt, A, B, C, D, h0 = _scan_inputs(1, 8, 16, 4, torch.float32)
-    x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        scan_ops.selective_scan(x, dt, A, B, C, D, h0)
+# K3's backward: (b, s, di, N), scale of h_0, scale of dh_T, options of
+# checks.inputs; s = 1, ragged sub-chunks and channel blocks, N 4/8/16,
+# exponentials that underflow
+SCAN_BWD_CASES = [
+    ((2, 1, 64, 16), 1.0, 1.0, {}),
+    ((2, 37, 200, 4), 10.0, 1.0, {}),
+    ((1, 100, 130, 8), 0.0, 0.0, {}),
+    ((2, 300, 512, 16), 10.0, 1.0, {}),
+    ((1, 64, 256, 16), 10.0, 1.0, LARGE_DT),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,state_scale,dstate_scale,opts",
+                         SCAN_BWD_CASES)
+def test_selective_scan_bwd_kernel_matches_plain(cuda, shape, state_scale,
+                                                 dstate_scale, opts, dtype):
+    """K3's backward kernels against selective_scan_bwd_ref, every
+    gradient row within checks.BWD_ROW_TOL of its scale, the gradients in
+    jax.vjp's dtypes, two calls bit for bit."""
+    from repro_torch.kernels.mamba_scan import kernel_bwd as scan_bwd
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    *args, dy, ds = scan_checks.bwd_inputs(shape, dtype, gen, state_scale,
+                                           dstate_scale, **opts)
+    got = scan_bwd.selective_scan_bwd_cuda(*args, dy, ds)
+    again = scan_bwd.selective_scan_bwd_cuda(*args, dy, ds)
     with torch.no_grad():
-        scan_ops.selective_scan(x, dt, A, B, C, D, h0)
+        ref = selective_scan_bwd_ref(*args, dy, ds)
+        scales = scan_checks.bwd_row_scales(*args, dy, ds)
+    assert [g.dtype for g in got] == [dtype, torch.float32, torch.float32,
+                                      dtype, dtype, torch.float32,
+                                      torch.float32]
+    errs = scan_checks.bwd_errors(got, ref, scales)
+    assert scan_checks.bwd_within(errs, dtype), errs
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_selective_scan_grad_goes_through_the_backward_kernel(
+        cuda, monkeypatch):
+    """A CUDA call that needs a gradient launches the forward kernel once
+    and the backward's kernels once each, never a plain version, and its
+    gradients are the backward kernels' (dB and dC reach the projection
+    B and C are views of)."""
+    from repro_torch.kernels.mamba_scan import kernel_bwd as scan_bwd
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
+
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((scan_ops, "selective_scan_ref"),
+                      (scan_ref, "selective_scan_ref"),
+                      (scan_ref, "selective_scan_bwd_ref")):
+        monkeypatch.setattr(mod, name, plain)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    *args, dy, ds = scan_checks.bwd_inputs((2, 70, 256, 16), torch.bfloat16,
+                                           gen, 1.0, 1.0)
+    x, dt, A, B, C, D, h0 = args
+    proj = B._base
+    assert proj is not None and C._base is proj
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, dt, A, proj, D, h0)]
+    n = A.shape[1]
+    dtr = proj.shape[2] - 2 * n
+    Bv, Cv = leaves[3][..., dtr:dtr + n], leaves[3][..., dtr + n:]
+    before = (scan_ops.launches, scan_ops.launches_bwd)
+    y, h = scan_ops.selective_scan(*leaves[:3], Bv, Cv, *leaves[4:])
+    grads = torch.autograd.grad((y, h), leaves, (dy, ds))
+    assert (scan_ops.launches - before[0],
+            scan_ops.launches_bwd - before[1]) == (1, len(scan_bwd.KERNELS))
+    want = scan_bwd.selective_scan_bwd_cuda(x, dt, A, B, C, D, h0, dy, ds)
+    gx, gdt, gA, gproj, gD, gh0 = grads
+    for g, w in zip((gx, gdt, gA, gproj[..., dtr:dtr + n],
+                     gproj[..., dtr + n:], gD, gh0), want):
+        assert torch.equal(g, w)
+    assert not gproj[..., :dtr].any()
+
+
+def test_selective_scan_bwd_rejects_what_its_kernels_do_not_take(cuda):
+    from repro_torch.kernels.mamba_scan import kernel_bwd as scan_bwd
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    *args, dy, ds = scan_checks.bwd_inputs((1, 8, 16, 4), torch.float32,
+                                           gen, 1.0, 1.0)
+    with pytest.raises(ValueError, match="selective_scan_bwd takes"):
+        scan_bwd.selective_scan_bwd_cuda(*args, dy.bfloat16(), ds)
+    with pytest.raises(ValueError, match="selective_scan_bwd takes"):
+        scan_bwd.selective_scan_bwd_cuda(*args, dy, ds[:, :, :2])
+    bad = list(args)
+    bad[2] = bad[2].t().contiguous().t()             # A not contiguous
+    with pytest.raises(ValueError, match="selective_scan_bwd takes"):
+        scan_bwd.selective_scan_bwd_cuda(*bad, dy, ds)
+    with pytest.raises(ValueError, match="has kernels"):
+        scan_bwd.selective_scan_bwd_cuda(*args, dy, ds, kernels=("dx",))
+
+
+def test_jamba_loss_and_grads_on_the_card_match_cpu(cuda):
+    """JambaLM.loss and its gradients in f32 on the card (K1's and K3's
+    forward and backward kernels, each period remat'ed, the MoE's expert
+    products) equal the CPU's (the plain versions under autograd): loss
+    1e-4, each gradient leaf within 1e-3 of its largest |g|; K1 twice
+    forward and once backward a period, K3 twice forward and once backward
+    a Mamba layer."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.kernels.mamba_scan import kernel_bwd as scan_bwd
+    from repro_torch.training.step import value_and_grad
+    cfg = get_smoke("jamba-1.5-large-398b").replace(dtype="float32")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=rng)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want = value_and_grad(model, params, batch)
+    before = (ops.launches, ops.launches_bwd, scan_ops.launches,
+              scan_ops.launches_bwd)
+    got = value_and_grad(model, _to(params, cuda), _to(batch, cuda))
+    p, m = model.n_periods, model.n_periods * model.n_mamba
+    assert (ops.launches - before[0], ops.launches_bwd - before[1],
+            scan_ops.launches - before[2],
+            scan_ops.launches_bwd - before[3]) == (
+        2 * p, len(kernel_bwd.KERNELS["general"]) * p, 2 * m,
+        len(scan_bwd.KERNELS) * m)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    for (path, g), w in zip(T.flatten(got[2]), T.leaves(want[2])):
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-3 * w.abs().max().item(), path
+
+
+def test_jamba_train_launcher_on_the_card(cuda):
+    """The launcher's jamba-1.5-large-398b smoke run on the card: finite
+    losses."""
+    from repro_torch.launch import train as launch_train
+    out = launch_train.run(get_smoke("jamba-1.5-large-398b"), steps=4,
+                           batch=2, seq=64, device="cuda",
+                           log=lambda *a: None)
+    losses = [r["loss"] for r in out["records"]]
+    assert len(losses) == 4 and all(map(math.isfinite, losses))
+
+
+def test_moe_bf16_expert_products_differentiate_on_the_card(cuda):
+    """A bf16 expert product that needs a gradient goes through the
+    f32-output product (its forward the serving call's bits) and its
+    gradients are ``bmm_f32_grads``' on the CPU within one bf16 ulp (the
+    f32 sums in another order); a bf16 ``apply_moe``'s gradients on the
+    card agree with the CPU's at the bf16 limit."""
+    from repro_torch.models import moe as M
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn((4, 24, 64), generator=gen).bfloat16()
+    w = (torch.randn((4, 64, 96), generator=gen) * 0.125).bfloat16()
+    g = torch.randn((4, 24, 96), generator=gen)
+    leaves = [a.to(cuda).requires_grad_(), w.to(cuda).requires_grad_()]
+    out = M._bmm_f32(*leaves)
+    with torch.no_grad():
+        assert torch.equal(out, M._bmm_f32(*leaves))
+    got = torch.autograd.grad(out, leaves, g.to(cuda))
+    for x, y in zip(got, M.bmm_f32_grads(a, w, g)):
+        assert x.dtype == torch.bfloat16
+        torch.testing.assert_close(x.float().cpu(), y.float(),
+                                   rtol=2 ** -8,
+                                   atol=2 ** -8 * y.float().abs().max().item())
+    cfg = get_smoke("mixtral-8x7b")
+    p = M.init_moe(torch.Generator().manual_seed(6), cfg, torch.bfloat16,
+                   "cpu")
+    x = torch.randn((2, 12, cfg.d_model), generator=gen).bfloat16()
+    dy = torch.randn((2, 12, cfg.d_model), generator=gen).bfloat16()
+    grads = []
+    for dev in ("cpu", cuda):
+        xs = x.to(dev).requires_grad_()
+        ps = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+        y, aux = M.apply_moe(xs, ps, cfg)
+        grads.append([t.float().cpu() for t in torch.autograd.grad(
+            (y, aux), [xs, *ps.values()], (dy.to(dev), torch.ones((),
+                                                                   device=dev)))])
+    for want, got in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=5e-2,
+                                   atol=5e-2 * want.abs().max().item())
 
 
 def test_selective_scan_cuda_rejects_what_the_kernel_does_not_take(cuda):

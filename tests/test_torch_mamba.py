@@ -8,8 +8,11 @@ mixer with bridged weights, with and without a carried state; ``JambaLM``
 prefill and decode logits and cache for the smoke config and for the
 structure of the 4-layer cut that ``chip_smoke.py`` serves (layers 4-7 of
 a published period: attention + MLP, Mamba + MoE, Mamba + MLP, Mamba +
-MoE); a mirror of the decode-vs-prefill checks; and the dispatcher's
-rules.  Inputs come from numpy seeds.  The CUDA kernel itself runs only
+MoE); a mirror of the decode-vs-prefill checks; the dispatcher's
+rules; the backward's plain version (``selective_scan_bwd_ref``) against
+``jax.vjp`` of the reference's chunked twin and torch autograd, its
+limits' faults, and ``_SelectiveScan``'s routing under ``JambaLM.loss``
+with the kernels replaced by stand-ins that call ref.py.  Inputs come from numpy seeds.  The CUDA kernel itself runs only
 on the card (``chip_smoke.py``, ``tests/test_torch_gpu.py``); here, what
 surrounds it: a plain scan that forms its exponentials as the kernel
 does against an f64 scan at the card checks' limits, its copy widths and
@@ -42,7 +45,9 @@ from repro_torch.configs import get_smoke as torch_smoke  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.mamba_scan import checks  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as tK  # noqa: E402
+from repro_torch.kernels.mamba_scan import kernel_bwd as tKB  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as tops  # noqa: E402
+from repro_torch.kernels.mamba_scan import ref as tref  # noqa: E402
 from repro_torch.models import mamba as tMB  # noqa: E402
 from repro_torch.models.factory import build_model as torch_build  # noqa: E402
 from repro_torch.models.hybrid import JambaLM  # noqa: E402
@@ -666,7 +671,265 @@ def test_long_context_windows_the_attention_layer():
     close(jl, tl, TOL["float32"])
 
 
-def test_loss_raises_naming_the_training_item():
-    tm = torch_build(torch_smoke(ARCH))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tm.loss({}, {})
+
+# ------------------------------------------------------------ the backward
+
+
+def bwd_np(b, s, di, N, seed, dt_zero=False, long_memory=False):
+    """numpy f32 inputs for the backward, each uniform(-1, 1) but for dt =
+    softplus(uniform) * 0.1 (with ``dt_zero`` a quarter of the entries
+    exactly 0) and A = -exp(uniform(0, 1)) (with ``long_memory`` -exp(1.5
+    N(0, 1)): decays from ~1e-4 to ~90 a unit of dt); B and C are column
+    slices of one (b, s, 3 + 2N) projection.  Returns (x, dt, A, proj, D,
+    state, dy, dstate)."""
+    rng = np.random.default_rng(seed)
+
+    def uni(*shape, lo=-1.0):
+        return rng.uniform(lo, 1, shape).astype(np.float32)
+
+    x = uni(b, s, di)
+    dt = (np.log1p(np.exp(uni(b, s, di))) * 0.1).astype(np.float32)
+    if dt_zero:
+        dt[rng.random((b, s, di)) < 0.25] = 0.0
+    if long_memory:
+        A = -np.exp(1.5 * rng.standard_normal((di, N))).astype(np.float32)
+    else:
+        A = -np.exp(uni(di, N, lo=0.0))
+    proj = uni(b, s, 3 + 2 * N)
+    return x, dt, A, proj, uni(di), uni(b, di, N), uni(b, s, di), \
+        uni(b, di, N)
+
+
+def split(proj, N):
+    """B and C, the projection's column slices (views in torch)."""
+    return proj[..., 3:3 + N], proj[..., 3 + N:]
+
+
+BWD_CASES = [(6, {}), (130, {}), (130, dict(dt_zero=True)),
+             (130, dict(long_memory=True))]
+BWD_IDS = ["s6", "s130", "s130-dt-0", "s130-long-memory"]
+
+
+def close_grads(want, got, tol=2e-5):
+    """Each gradient within ``tol`` relative and ``tol`` of its largest
+    |value| (dB and dC sum over every channel: an elementwise limit at the
+    smallest entries would hold rounding to a bare 2e-5)."""
+    for name, a, b in zip(checks.GRADS, want, got):
+        a = np.asarray(a, np.float32)
+        b = b.detach().float().numpy()
+        assert a.shape == b.shape and np.isfinite(b).all(), name
+        np.testing.assert_allclose(b, a, rtol=tol,
+                                   atol=tol * np.abs(a).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("s,opts", BWD_CASES, ids=BWD_IDS)
+def test_bwd_ref_matches_jax_vjp(s, opts):
+    """selective_scan_bwd_ref against jax.vjp of the reference's chunked
+    twin (the one it trains through: s = 130 pads to two 128-step chunks
+    with dt = 0), with nonzero h_0 and dh_T, B and C strided slices of one
+    projection, f32 at 2e-5; every gradient finite."""
+    N = 4
+    x, dt, A, proj, D, h0, dy, dh = bwd_np(2, s, 8, N, seed=30 + s, **opts)
+    jB, jC = split(jnp.asarray(proj), N)
+    ins = [jnp.asarray(a) for a in (x, dt, A)] + [jB, jC] + [
+        jnp.asarray(a) for a in (D, h0)]
+    _, vjp = jax.vjp(jops.selective_scan_chunked, *ins)
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    tp = torch.from_numpy(proj)
+    B, C = split(tp, N)
+    assert B.stride(1) == 3 + 2 * N
+    got = tref.selective_scan_bwd_ref(
+        *(torch.from_numpy(a) for a in (x, dt, A)), B, C,
+        *(torch.from_numpy(a) for a in (D, h0, dy, dh)))
+    close_grads(want, got)
+
+
+@pytest.mark.parametrize("s,opts", BWD_CASES, ids=BWD_IDS)
+def test_bwd_ref_matches_autograd(s, opts):
+    """selective_scan_bwd_ref against torch autograd of selective_scan_ref
+    (gradients of the projection's slices through the view), with nonzero
+    h_0 and dh_T, f32 at 2e-5."""
+    N = 4
+    x, dt, A, proj, D, h0, dy, dh = (torch.from_numpy(a) for a in bwd_np(
+        2, s, 8, N, seed=50 + s, **opts))
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, proj, D, h0)]
+    B, C = split(leaves[3], N)
+    y, h = tref.selective_scan_ref(*leaves[:3], B, C, *leaves[4:])
+    gx, gdt, gA, gproj, gD, gh0 = torch.autograd.grad((y, h), leaves,
+                                                      (dy, dh))
+    want = (gx, gdt, gA, *split(gproj, N), gD, gh0)
+    got = tref.selective_scan_bwd_ref(x, dt, A, *split(proj, N), D, h0, dy,
+                                      dh)
+    close_grads([w.numpy() for w in want], got)
+    assert not gproj[..., :3].any()
+
+
+def test_bwd_ref_in_f32_holds_to_f64_at_long_memory():
+    """At long memory the plain backward in f32 stays within its f32 row
+    limits of the same backward in f64 (the yardstick the card holds the
+    kernel to there), and ``bwd_long_memory`` accepts it."""
+    gen = torch.Generator().manual_seed(3)
+    *args, dy, ds = checks.bwd_inputs((2, 200, 64, 16), torch.float32, gen,
+                                      10.0, 1.0, A_kind="long-memory")
+    plain = tref.selective_scan_bwd_ref(*args, dy, ds)
+    exact = checks.f64_bwd(*args, dy, ds)
+    assert all(g.dtype == torch.float64 for g in exact)
+    scales = checks.bwd_row_scales(*args, dy, ds)
+    assert checks.bwd_within(checks.bwd_errors(plain, exact, scales),
+                             torch.float32)
+    held = checks.bwd_long_memory(plain, plain, exact, scales,
+                                  torch.float32)
+    assert all(ok for _, _, ok in held.values())
+
+
+@pytest.mark.parametrize("fault", checks.BWD_FAULTS)
+def test_bwd_faults_fail_the_limits(fault):
+    """Each fault of checks.py lands past its gradient's f32 limit by more
+    than 10x, while the plain backward's own gradients rounded to bf16
+    stay within the bf16 limits."""
+    gen = torch.Generator().manual_seed(7)
+    ins = checks.bwd_inputs((2, 64, 192, 16), torch.float32, gen, 10.0, 1.0)
+    ref = tref.selective_scan_bwd_ref(*ins)
+    scales = checks.bwd_row_scales(*ins)
+    bad = checks.selective_scan_bwd_faulty(*ins, fault)
+    errs = checks.bwd_errors(bad, ref, scales)
+    limits = checks.BWD_ROW_TOL[torch.float32]
+    assert not checks.bwd_within(errs, torch.float32)
+    assert max(e / limits[g] for g, e in errs.items()) > 10, errs
+    rounded = [g.to(torch.bfloat16) if name in ("dx", "dB", "dC") else g
+               for name, g in zip(checks.GRADS, ref)]
+    assert checks.bwd_within(checks.bwd_errors(rounded, ref, scales),
+                             torch.bfloat16)
+    with pytest.raises(ValueError, match="no fault"):
+        checks.selective_scan_bwd_faulty(*ins, "no-such-fault")
+
+
+@pytest.fixture
+def stand_ins(monkeypatch):
+    """The kernel entry points replaced by CPU stand-ins that call
+    ref.py, and ops.selective_scan's CPU tensors routed through
+    ``_SelectiveScan`` as CUDA tensors are: this tests the routing, not
+    the kernels.  Returns the record of the stand-ins' calls, in order."""
+    calls = []
+    ref_fwd, ref_bwd = tref.selective_scan_ref, tref.selective_scan_bwd_ref
+
+    def forward(x, dt, A, B, C, D, state, design=tK.DESIGN, sweep=False):
+        calls.append(("fwd", (x, dt, A, B, C, D, state)))
+        return ref_fwd(x, dt, A, B, C, D, state)
+
+    def backward(x, dt, A, B, C, D, state, dy, dstate=None,
+                 kernels=tKB.KERNELS):
+        calls.append(("bwd", (x, dt, A, B, C, D, state, dy, dstate)))
+        g = ref_bwd(x, dt, A, B, C, D, state, dy, dstate)
+        return (g[0].to(x.dtype), *g[1:3], g[3].to(x.dtype),
+                g[4].to(x.dtype), *g[5:])
+
+    def routed(x, dt, A, B, C, D, state):
+        tops._check(x, dt, A, B, C, D, state)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, A, B, C, D, state)):
+            return tops._SelectiveScan.apply(x, dt, A, B, C, D, state)
+        return tops._forward(x, dt, A, B, C, D, state)
+
+    monkeypatch.setattr(tK, "selective_scan_cuda", forward)
+    monkeypatch.setattr(tKB, "selective_scan_bwd_cuda", backward)
+    monkeypatch.setattr(tops, "selective_scan", routed)
+    return calls
+
+
+@pytest.mark.parametrize("with_state_grad", [False, True])
+def test_function_launches_and_saves_its_inputs(stand_ins, with_state_grad):
+    """``_SelectiveScan``: one forward launch, the backward's kernels
+    counted once, the backward handed the very tensors the forward saved
+    (B and C as the projection's views) and dh_T only where the final
+    state is used; its gradients are autograd's of selective_scan_ref."""
+    N = 4
+    x, dt, A, proj, D, h0, dy, dh = (torch.from_numpy(a) for a in bwd_np(
+        2, 9, 8, N, seed=3))
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, proj, D, h0)]
+
+    def run(fn):
+        B, C = split(leaves[3], N)
+        y, h = fn(*leaves[:3], B, C, *leaves[4:])
+        outs, grads = ((y, h), (dy, dh)) if with_state_grad else ((y,),
+                                                                  (dy,))
+        return torch.autograd.grad(outs, leaves, grads)
+
+    before = (tops.launches, tops.launches_bwd)
+    got = run(tops.selective_scan)
+    assert (tops.launches - before[0], tops.launches_bwd - before[1]) == (
+        1, len(tKB.KERNELS))
+    assert [c[0] for c in stand_ins] == ["fwd", "bwd"]
+    fwd_args, bwd_args = stand_ins[0][1], stand_ins[1][1]
+    for a, b in zip(fwd_args, bwd_args[:7]):
+        assert a.data_ptr() == b.data_ptr() and a.stride() == b.stride()
+    assert bwd_args[3].stride(1) == 3 + 2 * N
+    assert (bwd_args[8] is None) != with_state_grad
+    want = run(tref.selective_scan_ref)
+    for g, wnt in zip(got, want):
+        torch.testing.assert_close(g, wnt, rtol=2e-5, atol=2e-5)
+
+
+def test_remat_recomputes_the_saved_inputs(stand_ins):
+    """JambaLM.loss with each period under activation checkpointing: the
+    forward launches twice a Mamba layer (the forward, then its period's
+    recompute in the backward), each backward is handed the inputs its
+    layer's recompute saved, and loss and gradients equal those without
+    remat, bit for bit."""
+    from repro_torch import tree as T
+    from repro_torch.training.step import value_and_grad
+    _, _, tm, tp = model_pair(seed=4)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, tm.cfg.vocab_size, (2, 21)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    n, m = tm.n_periods, tm.n_mamba
+
+    class NoRemat(JambaLM):
+        def _run_layers(self, *a, remat=False):
+            return super()._run_layers(*a, remat=False)
+
+    loss0, _, grads0 = value_and_grad(NoRemat(tm.cfg), tp, batch)
+    stand_ins.clear()
+    loss, _, grads = value_and_grad(tm, tp, batch)
+    kinds = [c[0] for c in stand_ins]
+    assert kinds == ["fwd"] * n * m + (["fwd"] * m + ["bwd"] * m) * n
+    for p in range(n):
+        start = n * m + 2 * m * p
+        recompute = stand_ins[start:start + m]
+        handed = stand_ins[start + m:start + 2 * m]
+        for r, h in zip(reversed(recompute), handed):
+            for a, b in zip(r[1], h[1][:7]):
+                assert a.data_ptr() == b.data_ptr()
+    assert torch.equal(loss, loss0)
+    for (path, g), g0 in zip(T.flatten(grads), T.leaves(grads0)):
+        assert torch.equal(g, g0), path
+
+
+def test_backward_library_is_its_own_lazy_build():
+    """The backward is a library of its own, keyed by its source's hash,
+    built at first use (not at import), and its layout constants are the
+    source's."""
+    digest = hashlib.sha256(tKB.SOURCE.read_bytes()).hexdigest()[:16]
+    assert _build.library_path(tKB.SOURCE, tKB.NAME) == (
+        _build.BUILD_ROOT / f"selective_scan_bwd-{digest}"
+        / "libselective_scan_bwd.so")
+    assert tKB.library.cache_info().currsize == 0
+    src = tKB.SOURCE.read_text()
+    for name, value in (("K", tKB.CK_STEPS), ("CH", tKB.CHANNELS),
+                        ("LANES", tKB.LANES)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert tKB.checkpoint_shape((4, 2048, 16384, 16)) == (4, 128, 16384, 16)
+    assert tKB.partials_shape((4, 2048, 16384, 16)) == (4, 2048, 256, 32)
+    assert tKB.checkpoint_shape((3, 37, 200, 3)) == (3, 3, 200, 4)
+    assert tKB.partials_shape((3, 37, 200, 5)) == (3, 37, 4, 16)
+
+
+def test_backward_refuses_cpu_tensors():
+    """The backward's entry takes CUDA tensors only, and refuses before
+    any launch."""
+    gen = torch.Generator().manual_seed(1)
+    *args, dy, ds = checks.bwd_inputs((1, 8, 16, 4), torch.float32, gen)
+    before = tKB.library.cache_info().currsize
+    with pytest.raises(ValueError, match="selective_scan_bwd takes"):
+        tKB.selective_scan_bwd_cuda(*args, dy, ds)
+    assert tKB.library.cache_info().currsize == before
