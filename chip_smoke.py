@@ -12,7 +12,8 @@ non-zero and prints no result:
    nvcc (sm_90a), and the sweep libraries of K2's candidate plans and of
    K3's yardstick designs, one nvcc per library, all started together;
    then the SASS of K3's design and its yardsticks (cuobjdump):
-   instructions per state entry in the scan loop;
+   instructions per state entry in the scan loop, and per entry and step
+   in the sub-chunk loop of K3's backward (the design's, PR 24's form's);
 3. kernels: hold each kernel against its plain torch version on the card
    at the main-path shape and at edge shapes, elementwise and row by row,
    show that a deliberately wrong result would fail the checks, and time
@@ -109,18 +110,24 @@ non-zero and prints no result:
    without checkpoints, every Hopper tile of the sweep library (each held
    to the limits), the plain backward, beside the bound (wkv_bwd_bound);
 8. K3's backward (scan_bwd): the gradients the training path takes
-   (torch.autograd.grad through ops.selective_scan, whose backward
-   launches kernel_bwd's three kernels: the checkpoints, the reverse
+   (torch.autograd.grad through ops.selective_scan, whose forward runs in
+   training mode and stores the state every 16 steps, and whose backward
+   launches kernel_bwd's two kernels on those checkpoints: the reverse
    pass, the dB/dC sum) against selective_scan_bwd_ref at the training
    shape (4, 2048, 16384, 16) in bf16 and f32, with B and C strided views
    of the projection, nonzero h_0 and dh_T, s = 1000 and 2047, N = 8 and
    4, exponentials that underflow, shuffled A, and long-memory decays
    held to an f64 backward; every gradient row held to its scale
-   (checks.bwd_row_scales), finite, two calls bit for bit; dB over one
-   channel block, dA one step late, dx without D and the states
-   recomputed without their decay shown to fail; at the training shape
-   the call, each kernel alone, the forward and the plain backward timed
-   beside the bound (scan_bwd_bound);
+   (checks.bwd_row_scales), finite, two calls bit for bit, the forward
+   launches counted in training mode; dB over one channel block, dA one
+   step late, dx without D and the states recomputed without their decay
+   shown to fail; at the training shape the forward's training mode held
+   bit for bit to serving mode and its checkpoints to those of PR 24's
+   "ckpt" kernel, PR 24's form (the sweep library) held to the limits and
+   to the design, and timed in turns (PR 24's form, the design, the
+   design, PR 24's form): the call, each kernel of each alone, the
+   forward with and without checkpoints, the plain backward, beside the
+   bound (scan_bwd_bound);
 9. train, each path of TRAIN_PATHS in bf16 through
    repro_torch.launch.train, 6 steps of 4 x 2048 tokens, every loss
    finite, counts set to 0 before each step and read after it, no plain
@@ -137,8 +144,9 @@ non-zero and prints no result:
    c. jamba-1.5-large-398b cut to 2 layers, both dense (attention + MLP,
       Mamba + MLP: layers 4 and 6 of a period), every width as published
       (2.85 B params) with cosine: K1 2 forward launches and 1 backward
-      call (3 launches) and K3 2 forward launches and 1 backward call (3
-      launches: ckpt, bwd, sum) a step, K1 all "hopper";
+      call (3 launches) and K3 2 forward launches (both in training mode)
+      and 1 backward call (2 launches: bwd, sum) a step, K1 all "hopper";
+      K3's launches a step printed;
    then a 2-layer cut of minicpm-2b at full width, whose gradients under
    remat policy None and "dots" equal those without remat, bit for bit;
 10. jamba_moe_grad: the 2-layer MoE cut of jamba-1.5-large-398b
@@ -351,9 +359,10 @@ def phase_build():
     """One nvcc per kernel library, all started together (each ``build``
     in a thread of its own), then each library loaded: every kernel
     module's serving library, K1's, K2's and K3's backward libraries, and
-    the sweep libraries of K2, K2's backward and K3, which hold the
-    candidates that phase_wkv6, phase_wkv6_bwd and phase_scan time.  Returns the
-    libraries' paths by name."""
+    the sweep libraries of K2, K2's backward, K3 and K3's backward, which
+    hold the candidates and yardsticks that phase_wkv6, phase_wkv6_bwd,
+    phase_scan and phase_scan_bwd time.  Returns the libraries' paths by
+    name."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import kernel_bwd
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
@@ -363,7 +372,7 @@ def phase_build():
     libs = [(m.NAME, m.build, m.library)
             for m in (flash_kernel, kernel_bwd, wkv_kernel, wkv_kernel_bwd,
                       scan_kernel, scan_kernel_bwd)]
-    for m in (wkv_kernel, wkv_kernel_bwd, scan_kernel):
+    for m in (wkv_kernel, wkv_kernel_bwd, scan_kernel, scan_kernel_bwd):
         libs.append((m.SWEEP_NAME, functools.partial(m.build, True),
                      functools.partial(m.library, True)))
     t0 = time.perf_counter()
@@ -389,8 +398,9 @@ def phase_sass(paths):
     16): cuobjdump's listing of the kernel, its innermost loop that holds
     MUFU.EX2 instructions (the unrolled one, if the compiler split the
     loop), that loop's instructions (NOPs left out) over the entries it
-    updates; and of its backward's reverse pass, per entry and step.
-    Printed only: a static count, not a check."""
+    updates; and of its backward's reverse pass, per entry and step, the
+    design's and PR 24's form's.  Printed only: a static count, not a
+    check."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -402,7 +412,7 @@ def phase_sass(paths):
         "first-ex2": (scan_kernel.SWEEP_NAME,
                       "11scan_kernelI13__nv_bfloat16Li16ELb1E"),
         scan_kernel.DESIGN: (scan_kernel.NAME,
-                             "16scan_pipe_kernelI13__nv_bfloat16Li16EE")}
+                             "16scan_pipe_kernelI13__nv_bfloat16Li16ELb0EE")}
     listings = {}
     for name, (lib, frag) in kernels.items():
         if lib not in listings:
@@ -419,24 +429,58 @@ def phase_sass(paths):
               f"entries ({count['steps']:g} steps x 16): "
               f"{count['per_entry']:.3f} an entry; opcodes "
               f"{json.dumps(count['opcodes'])}")
-    # K3's backward reverse pass: its sub-chunk loop forms each of a
-    # lane's 4 entries' decays twice a step (the recompute, the walk back)
+    # K3's backward reverse pass, its sub-chunk loop: a lane's 16 steps of
+    # its 4 entries (at N = 16), the design's and PR 24's; both form each
+    # decay twice (the compiler may reuse one of the recompute's last
+    # step's for the walk back's first)
     from repro_torch.kernels.mamba_scan import kernel_bwd as scan_kernel_bwd
-    proc = subprocess.run([str(tool), "-sass",
-                           str(paths[scan_kernel_bwd.NAME])],
-                          capture_output=True, text=True, timeout=300)
-    check(proc.returncode == 0, f"cuobjdump failed on "
-                                f"{scan_kernel_bwd.NAME}: {proc.stderr[-2000:]}")
-    found = [body for fn, body in sass_functions(proc.stdout).items()
-             if "15scan_bwd_kernelI13__nv_bfloat16Li16E" in fn]
-    check(len(found) == 1, f"sass: {len(found)} functions match the "
-                           f"backward's reverse pass")
-    count = sass_loop_count(found[0], 4)
-    print(f"[sass] selective_scan_bwd reverse pass (bf16, N = 16): "
-          f"sub-chunk loop of {count['instr']} instructions for "
-          f"{count['entries'] / 2:g} entry-steps of a lane (2 MUFU.EX2 "
-          f"each): {2 * count['per_entry']:.3f} an entry and step; opcodes "
-          f"{json.dumps(count['opcodes'])}")
+    steps = scan_kernel_bwd.CK_STEPS * 16 // scan_kernel_bwd.LANES
+    for name, lib, frag in (
+            ("design", scan_kernel_bwd.NAME,
+             "20scan_bwd_pipe_kernelI13__nv_bfloat16Li16E"),
+            ("PR 24's form", scan_kernel_bwd.SWEEP_NAME,
+             "15scan_bwd_kernelI13__nv_bfloat16Li16E")):
+        proc = subprocess.run([str(tool), "-sass", str(paths[lib])],
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"cuobjdump failed on {lib}: "
+                                    f"{proc.stderr[-2000:]}")
+        found = [body for fn, body in sass_functions(proc.stdout).items()
+                 if frag in fn]
+        check(len(found) == 1, f"sass: {len(found)} functions match the "
+                               f"backward's reverse pass ({name})")
+        count = sass_loop_count(found[0], 4)
+        print(f"[sass] selective_scan_bwd reverse pass, {name} (bf16, N = "
+              f"16): sub-chunk loop of {count['instr']} instructions and "
+              f"{count['entries']:g} MUFU.EX2 for {steps} entry-steps of a "
+              f"lane: {count['instr'] / steps:.3f} an entry and step; "
+              f"opcodes {json.dumps(count['opcodes'])}")
+        if name == "design":
+            hot = sass_recompute_and_walk(found[0])
+            print(f"[sass] selective_scan_bwd reverse pass, design: its "
+                  f"recompute and walk back (from the copies' commit to "
+                  f"their wait) {hot['instr']} instructions, "
+                  f"{hot['instr'] / steps:.3f} an entry and step; opcodes "
+                  f"{json.dumps(hot['opcodes'])}")
+
+
+def sass_recompute_and_walk(body):
+    """Instructions (NOPs left out) of K3's backward reverse pass between
+    the commit of the next sub-chunk's copies (the LDGDEPBAR before its
+    first MUFU.EX2) and their wait (the DEPBAR after its last): the
+    recompute and the walk back, without the staging and the write-out
+    that the sub-chunk loop also holds."""
+    ops = [op for _, op in body if op != "NOP"]
+    ex2 = [i for i, op in enumerate(ops) if op.startswith("MUFU.EX2")]
+    lo = max(i for i, op in enumerate(ops[:ex2[0]])
+             if op.startswith("LDGDEPBAR"))
+    hi = next(i for i, op in enumerate(ops) if i > ex2[-1]
+              and op.startswith("DEPBAR"))
+    hist = {}
+    for op in ops[lo + 1:hi]:
+        key = "BRA" if op.startswith("BRA") else op.split(".")[0]
+        hist[key] = hist.get(key, 0) + 1
+    return {"instr": hi - lo - 1,
+            "opcodes": dict(sorted(hist.items(), key=lambda kv: -kv[1]))}
 
 
 def sass_functions(listing):
@@ -1632,10 +1676,13 @@ def phase_scan_bwd(ex2_per_s):
     """K3's backward, each case: the gradients of the training path's
     entry against selective_scan_bwd_ref, row by row against each row's
     scale (checks.bwd_row_scales), or for long memory against an f64
-    backward; finite, two calls bit for bit, one forward launch and the
-    backward's kernels counted; faults that must land past the limits; at
-    the training shape the call, each kernel alone, the forward and the
-    plain backward timed.  Returns the kernels-line entry."""
+    backward; finite, two calls bit for bit, one forward launch (in
+    training mode) and the backward's kernels counted; faults that must
+    land past the limits; at the training shape the training mode's
+    checks, PR 24's form held to the same limits, and the call (in turns
+    with PR 24's form), each kernel alone, the forward with and without
+    checkpoints and the plain backward timed.  Returns the kernels-line
+    entry."""
     from repro_torch.kernels.mamba_scan import checks, kernel_bwd
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
@@ -1646,15 +1693,17 @@ def phase_scan_bwd(ex2_per_s):
             SCAN_BWD_CASES:
         *args, dy, dstate = checks.bwd_inputs(shape, dtype, gen, state_scale,
                                               dstate_scale, **opts)
-        before = (scan_ops.launches, scan_ops.launches_bwd)
+        before = (scan_ops.launches, scan_ops.launches_bwd,
+                  scan_ops.launches_by_mode["training"])
         got = _scan_grads(scan_ops, args, dy, dstate)
         again = _scan_grads(scan_ops, args, dy, dstate)
         torch.cuda.synchronize()
         took = (scan_ops.launches - before[0],
-                scan_ops.launches_bwd - before[1])
-        check(took == (2, 2 * per_call),
-              f"scan_bwd {name}: launches (forward, backward) {took}, "
-              f"expected (2, {2 * per_call})")
+                scan_ops.launches_bwd - before[1],
+                scan_ops.launches_by_mode["training"] - before[2])
+        check(took == (2, 2 * per_call, 2),
+              f"scan_bwd {name}: launches (forward, backward, forward in "
+              f"training mode) {took}, expected (2, {2 * per_call}, 2)")
         with torch.no_grad():
             ref = selective_scan_bwd_ref(*args, dy, dstate)
             scales = checks.bwd_row_scales(*args, dy, dstate)
@@ -1725,47 +1774,148 @@ def phase_scan_bwd(ex2_per_s):
                 "gradient_of": "src/repro/kernels/mamba_scan/ops.py:13",
                 "launches": 0, "launches_by_path": {}, "calls": 0,
                 "kernels_per_call": {kn: 1 for kn in kernel_bwd.KERNELS},
-                "max_abs_err": max_abs,
-                **_time_scan_bwd(args, dy, shape, dtype, ex2_per_s)}
+                "design": kernel_bwd.DESIGN, "max_abs_err": max_abs,
+                **_scan_training_mode_checks(args, shape, dtype),
+                **_time_scan_bwd(args, dy, ref, scales, shape, dtype,
+                                 ex2_per_s)}
         del ref, scales, args, dy, dstate
         torch.cuda.empty_cache()
     check(entry is not None, "scan_bwd: the training case did not run")
     return entry
 
 
-def _time_scan_bwd(args, dy, shape, dtype, ex2_per_s):
-    """At the training shape, in turns: the backward call (its three
-    kernels and dA's and dD's batch sums), each kernel alone, the forward
-    kernel, then the plain backward; printed beside the bound."""
+def _scan_training_mode_checks(args, shape, dtype):
+    """K3's forward in training mode against serving mode, bit for bit (y
+    and the final state); its checkpoints against those of PR 24's "ckpt"
+    kernel (the sweep library), bit for bit, and against
+    ref.selective_scan_checkpoints within the forward's elementwise state
+    limit; each row's distance from the f64 states, the checkpoints' and
+    the plain states', printed beside."""
+    from repro_torch.kernels.mamba_scan import checks, kernel_bwd
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
-    from repro_torch.kernels.mamba_scan import kernel_bwd
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_checkpoints
+    x, dt, A, B, C, D, state = args
+    n = shape[3]
+    with torch.no_grad():
+        y0, h0 = scan_kernel.selective_scan_cuda(*args)
+        ck = torch.empty(kernel_bwd.checkpoint_shape(shape),
+                         dtype=torch.float32, device="cuda")
+        y1, h1 = scan_kernel.selective_scan_cuda(*args, checkpoints=ck)
+        first = torch.full_like(ck, float("nan"))
+        kernel_bwd.selective_scan_bwd_cuda(
+            *args, torch.zeros_like(x), kernels=("ckpt",), checkpoints=first,
+            design="first", sweep=True)
+        torch.cuda.synchronize()
+        same = torch.equal(y0, y1) and torch.equal(h0, h1)
+        same_ck = torch.equal(ck, first)
+        want = selective_scan_checkpoints(x, dt, A, B, state,
+                                          kernel_bwd.CK_STEPS)
+        got = ck[..., :n]
+        err = (got - want).abs().max().item()
+        scale = want.pow(2).mean().sqrt().item()
+        within = bool(((got - want).abs()
+                       <= checks.STATE_TOL * (scale + want.abs())).all())
+        exact = selective_scan_checkpoints(x, dt, A, B, state,
+                                           kernel_bwd.CK_STEPS,
+                                           compute=torch.float64)
+        k_rerr, p_rerr = (((t.double() - exact).norm(dim=-1)
+                           / exact.norm(dim=-1).clamp_min(1e-30)).max().item()
+                          for t in (got, want))
+        del exact
+    print(f"[scan_bwd] training mode of K3's forward at {tuple(shape)} "
+          f"{str(dtype)[6:]}: y and h_T "
+          f"{'bit-identical' if same else 'DIFFER'} to serving mode; "
+          f"{ck.shape[1]} checkpoints every {kernel_bwd.CK_STEPS} steps "
+          f"({ck.numel() * 4 / 1e6:.1f} MB) "
+          f"{'bit-identical' if same_ck else 'DIFFER'} to PR 24's ckpt "
+          f"kernel's; against the plain states: elementwise {err:.3e} "
+          f"(limit {checks.STATE_TOL:g} of rms + |state|: {within}); worst "
+          f"row from the f64 states, kernel / plain: {k_rerr:.3e} / "
+          f"{p_rerr:.3e}")
+    check(same, "scan training mode: y or the final state differ from "
+                "serving mode")
+    check(same_ck, "scan training mode: checkpoints differ from PR 24's "
+                   "ckpt kernel's")
+    check(within, f"scan training mode: checkpoints {err:.3e} from the "
+                  f"plain states")
+    del y0, h0, y1, h1, ck, first, want, got
+    return {"training_mode": {"bit_identical_to_serving": same,
+                              "checkpoints_as_first": same_ck,
+                              "checkpoint_err": err,
+                              "checkpoint_row_err_f64": [k_rerr, p_rerr]}}
+
+
+def _time_scan_bwd(args, dy, ref, scales, shape, dtype, ex2_per_s):
+    """At the training shape: PR 24's form (the sweep library's "first":
+    ckpt, bwd, sum) held to the limits and compared with the design; then
+    in turns (first, pipe, pipe, first) the backward call of each (the
+    design's from the forward's checkpoints; dA's and dD's batch sums
+    included), each kernel of each alone, the forward without and with
+    checkpoints, then the plain backward; printed beside the bound."""
+    from repro_torch.kernels.mamba_scan import checks, kernel_bwd
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
     x, dt, A, B, C, D, state = args
+    ck = kernel_bwd.forward_checkpoints(*args)
 
-    def call(kernels=kernel_bwd.KERNELS):
-        return kernel_bwd.selective_scan_bwd_cuda(x, dt, A, B, C, D, state,
-                                                  dy, kernels=kernels)
+    def call(design, kernels=None):
+        if design == "first":
+            return kernel_bwd.selective_scan_bwd_cuda(
+                *args, dy, kernels=kernels, design="first", sweep=True)
+        return kernel_bwd.selective_scan_bwd_cuda(*args, dy, kernels=kernels,
+                                                  checkpoints=ck)
 
     with torch.no_grad():
-        turns = [time_ms(call) for _ in range(2)]
-        kernel_ms = {kn: time_ms(lambda: call((kn,)))
-                     for kn in kernel_bwd.KERNELS}
-        fwd_ms = time_ms(lambda: scan_kernel.selective_scan_cuda(*args))
-        turns += [time_ms(call)]
+        got, first = call("pipe"), call("first")
+        errs = checks.bwd_errors(first, ref, scales)
+        check(checks.bwd_within(errs, dtype),
+              f"scan_bwd training on PR 24's form: worst rows {errs}")
+        apart = checks.bwd_errors(got, first, scales)
+        same = [g for g, a, b in zip(checks.GRADS, got, first)
+                if torch.equal(a, b)]
+        check(checks.bwd_within(apart, dtype),
+              f"scan_bwd training: the design from PR 24's form {apart}")
+        del got, first
+        turns = {"first": [], "pipe": []}
+        for design in ("first", "pipe", "pipe", "first"):
+            turns[design].append(time_ms(lambda: call(design)))
+        kernel_ms = {d: {kn: time_ms(lambda: call(d, (kn,)))
+                         for kn in kernel_bwd.DESIGNS[d]}
+                     for d in ("pipe", "first")}
+        ck_tmp = torch.empty_like(ck)
+        fwd = {"serving": [], "training": []}
+        for mode in ("serving", "training", "training", "serving"):
+            kw = {} if mode == "serving" else dict(checkpoints=ck_tmp)
+            fwd[mode].append(time_ms(
+                lambda: scan_kernel.selective_scan_cuda(*args, **kw)))
+        del ck_tmp
         plain_ms = time_ms(lambda: selective_scan_bwd_ref(*args, dy),
                            iters=1, warmup=1)
     bound_ms, bound_by, count = scan_bwd_bound(shape, dtype, ex2_per_s)
-    ms = float(np.mean(turns))
-    print(f"[scan_bwd] training {tuple(shape)} {str(dtype)[6:]}: backward "
-          f"call {', '.join(f'{t:.4f}' for t in turns)} ms ({ms / bound_ms:.2f}"
-          f" x bound); alone " + ", ".join(f"{kn} {t:.4f}"
-                                           for kn, t in kernel_ms.items())
-          + f" ms; the forward kernel {fwd_ms:.4f} ms; plain backward "
-          f"{plain_ms:.1f} ms, no library call; bound {bound_ms:.4f} ms "
-          f"({bound_by}; {json.dumps(count)})")
+    ms = float(np.mean(turns["pipe"]))
+    print(f"[scan_bwd] training {tuple(shape)} {str(dtype)[6:]}: PR 24's "
+          f"form within the limits ({', '.join(f'{g} {e:.3e}' for g, e in errs.items())}); "
+          f"the design from it: worst rows "
+          f"{', '.join(f'{g} {e:.3e}' for g, e in apart.items())}, "
+          f"bit-identical {same}")
+    print(f"[scan_bwd] training {tuple(shape)} {str(dtype)[6:]}, in turns: "
+          f"backward call pipe "
+          f"{', '.join(f'{t:.4f}' for t in turns['pipe'])} ms "
+          f"({ms / bound_ms:.2f} x bound), PR 24's form (first) "
+          f"{', '.join(f'{t:.4f}' for t in turns['first'])} ms; alone "
+          + "; ".join(f"{d}: " + ", ".join(f"{n} {t:.4f}"
+                                           for n, t in kms.items())
+                      for d, kms in kernel_ms.items())
+          + f" ms; forward serving "
+          f"{', '.join(f'{t:.4f}' for t in fwd['serving'])}, training "
+          f"(checkpoints every {kernel_bwd.CK_STEPS} steps) "
+          f"{', '.join(f'{t:.4f}' for t in fwd['training'])} ms; plain "
+          f"backward {plain_ms:.1f} ms, no library call; bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {json.dumps(count)})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "ms_turns": turns,
-            "kernel_ms": kernel_ms, "forward_ms": fwd_ms}
+            "bound_by": bound_by, "library_ms": None, "ms_by_design": turns,
+            "kernel_ms": kernel_ms, "forward_ms": fwd,
+            "bit_identical_to_first": same}
 
 
 class StepProbe:
@@ -2166,7 +2316,8 @@ TIMED_BWD_CASES = ("training", "hd128")
 # and its recompute under activation checkpointing), the backward once,
 # which launches its kernels (K1: kernel_bwd.KERNELS["hopper"],
 # preprocess, dK/dV, dQ; K2: kernel_bwd.KERNELS, bwd and dv; K3:
-# kernel_bwd.KERNELS, ckpt, bwd and sum); the cut of the published
+# kernel_bwd.KERNELS, bwd and sum, from the checkpoints of K3's forward
+# in training mode); the cut of the published
 # config where it does not fit whole (every width as published), and the
 # MoE layer offset it takes (none of Jamba's dense cut's 2 layers is MoE)
 TRAIN_PATHS = {
@@ -2178,7 +2329,7 @@ TRAIN_PATHS = {
                 cut=dict(n_layers=2, attn_layer_period=2,
                          attn_layer_offset=0), moe_offset=2,
                 kernels={"flash_attention": (2, 3),
-                         "selective_scan": (2, 3)}),
+                         "selective_scan": (2, 2)}),
 }
 # The MoE cut's gradient (phase jamba_moe_grad): DECODE_CUTS[JAMBA]
 # (attention + MLP, then Mamba + MoE with all 16 experts) in bf16, one
@@ -2482,6 +2633,8 @@ def train_config(arch):
 def reset_counts(ops):
     """Every kernel's launch counts set to 0."""
     flash, wkv = ops["flash_attention"], ops["wkv6"]
+    for mode in ops["selective_scan"].launches_by_mode:
+        ops["selective_scan"].launches_by_mode[mode] = 0
     for m in ops.values():
         m.launches = 0
         if hasattr(m, "launches_bwd"):
@@ -2495,8 +2648,8 @@ def reset_counts(ops):
 
 
 def read_counts(ops):
-    """Every kernel's (forward, backward) launches, and K1's by variant
-    and K2's by plan and route."""
+    """Every kernel's (forward, backward) launches, K1's by variant, K2's
+    by plan and route, and K3's forward by mode."""
     flash, wkv = ops["flash_attention"], ops["wkv6"]
     return {"launches": {k: (m.launches, getattr(m, "launches_bwd", 0))
                          for k, m in ops.items()},
@@ -2504,23 +2657,26 @@ def read_counts(ops):
             "k1_bwd_by_variant": dict(flash.launches_bwd_by_variant),
             "k2_by_plan": {_plan_name(*pl): c
                            for pl, c in wkv.launches_by_plan.items()},
-            "k2_bwd_by_route": dict(wkv.launches_bwd_by_route)}
+            "k2_bwd_by_route": dict(wkv.launches_bwd_by_route),
+            "k3_by_mode": dict(ops["selective_scan"].launches_by_mode)}
 
 
 def expected_counts(kernels, ops):
     """``read_counts``' value for a run whose kernels launch ``kernels``
     ({name: (forward, backward)}) times: every K1 launch "hopper", every
-    K2 forward under kernel.plan's choice and backward on "hopper", no
-    other kernel."""
+    K2 forward under kernel.plan's choice and backward on "hopper", every
+    K3 forward in training mode, no other kernel."""
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     k1 = kernels.get("flash_attention", (0, 0))
     k2 = kernels.get("wkv6", (0, 0))
+    k3 = kernels.get("selective_scan", (0, 0))
     return {"launches": {k: tuple(kernels.get(k, (0, 0))) for k in ops},
             "k1_by_variant": {"hopper": k1[0], "general": 0},
             "k1_bwd_by_variant": {"hopper": k1[1], "general": 0},
             "k2_by_plan": ({_plan_name(*wkv_kernel.PLAN): k2[0]}
                            if k2[0] else {}),
-            "k2_bwd_by_route": {"hopper": k2[1], "general": 0}}
+            "k2_bwd_by_route": {"hopper": k2[1], "general": 0},
+            "k3_by_mode": {"serving": 0, "training": k3[0]}}
 
 
 def phase_train(arch, card):
@@ -2565,6 +2721,12 @@ def phase_train(arch, card):
     tok_s = shape["batch"] * shape["seq"] / step_ms * 1e3
     print(f"[train] {arch} losses {losses}; launches a step {per_step}; "
           f"plain versions called {plain}")
+    if "selective_scan" in spec["kernels"]:
+        from repro_torch.kernels.mamba_scan import kernel_bwd as scan_bwd
+        k3 = [(p["k3_by_mode"]["training"], p["launches"]["selective_scan"][1])
+              for p in per_step]
+        print(f"[train] {arch} K3 launches a step (forward in training mode, "
+              f"backward kernels {'/'.join(scan_bwd.KERNELS)}): {k3}")
     print(f"[train] {arch} ({params / 1e9:.3f} B params) step time (median "
           f"of steps 2-{len(records)}) {step_ms:.1f} ms, {tok_s:.0f} tok/s, "
           f"peak memory {peak_gb:.2f} GB | {card}")
@@ -2594,13 +2756,13 @@ def phase_train(arch, card):
 def _sum_counts(runs):
     """``read_counts``' values of several runs, summed key by key."""
     out = {"launches": {}, "k1_by_variant": {}, "k1_bwd_by_variant": {},
-           "k2_by_plan": {}, "k2_bwd_by_route": {}}
+           "k2_by_plan": {}, "k2_bwd_by_route": {}, "k3_by_mode": {}}
     for run in runs:
         for k, (f, b) in run["launches"].items():
             f0, b0 = out["launches"].get(k, (0, 0))
             out["launches"][k] = (f0 + f, b0 + b)
         for part in ("k1_by_variant", "k1_bwd_by_variant", "k2_by_plan",
-                     "k2_bwd_by_route"):
+                     "k2_bwd_by_route", "k3_by_mode"):
             for key, c in run[part].items():
                 out[part][key] = out[part].get(key, 0) + c
     return out
@@ -2653,7 +2815,7 @@ def phase_jamba_moe_grad(card):
     counts = read_counts(ops)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = expected_counts({"flash_attention": (2, 3),
-                            "selective_scan": (2, 3)}, ops)
+                            "selective_scan": (2, 2)}, ops)
     leaves = list(_leaves(grads))
     finite = all(torch.isfinite(g).all().item() for g in leaves)
     moe = grads["periods"]["moe"]
@@ -2946,6 +3108,10 @@ def main() -> int:
             by_plan[pl] = by_plan.get(pl, 0) + c
         for rt, c in got["k2_bwd_by_route"].items():
             wkv_bwd["launches_by_route"][rt] += c
+        scan = entries["selective_scan"]
+        scan["launches_training_mode"] = (
+            scan.get("launches_training_mode", 0)
+            + got["k3_by_mode"].get("training", 0))
     bwd["calls"] = sum(c // bwd["kernels_per_call"][vt]
                        for vt, c in bwd["launches_by_variant"].items())
     for entry in (wkv_bwd, scan_bwd):

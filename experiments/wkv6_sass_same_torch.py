@@ -6,10 +6,12 @@ Builds each pair of sources with the port's nvcc flags
 SASS of both libraries with cuobjdump, and compares the instructions of
 every kernel whose mangled name holds ``--match``, instantiation by
 instantiation, their names left out (the training mode's template
-argument ``Lb0E`` and the hash of the anonymous namespace are dropped
-from a name before pairing, and kernels with ``Lb1E``, the training mode,
-have no counterpart; within an instruction, a callee's name loses the
-hash too).  Prints one line per instantiation and exits 1 if any
+argument ``Lb0E``, the hash of the anonymous namespace and the parameter
+list are dropped from a name before pairing: a kernel's training mode
+may add a parameter after the parent's, whose offsets, which the
+instructions name, then stay the parent's; kernels with ``Lb1E``, the
+training mode, have no counterpart; within an instruction, a callee's
+name loses the hash too).  Prints one line per instantiation and exits 1 if any
 differs or has no counterpart.  Needs
 nvcc and the card's toolkit:
 
@@ -55,10 +57,12 @@ def sass(library: Path) -> dict:
 
 def _key(name: str) -> str:
     """A kernel's mangled name without what differs between two builds of
-    one kernel: the hash nvcc gives the source's anonymous namespace, and
-    the training mode's template argument Lb0E."""
-    return re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__",
+    one kernel: the hash nvcc gives the source's anonymous namespace, the
+    training mode's template argument Lb0E, and the parameter list (after
+    the template arguments' closing "EEv")."""
+    name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__",
                   name).replace("Lb0E", "")
+    return name.split("EEv", 1)[0]
 
 
 def compare(source: Path, other: Path, match: str, tag: str) -> bool:

@@ -43,6 +43,17 @@
 // A = B = C = 0 and a zero state; a ragged last block of channels is
 // masked.
 //
+// Training mode (TRAIN, a template argument): the same kernel also
+// stores the state before every CK-th step into ck (b, ceil(s / CK), di,
+// NP) f32, the checkpoints from which the backward (selective_scan_bwd.cu)
+// recomputes the states: with the instructions it scans with, so they are
+// the forward's own states, bit for bit.  A thread stores its channel's NP
+// entries as float4s, neighbouring threads neighbouring channels: 537 MB
+// at the training shape (4, 2048, 16384, N = 16), 0.16 ms at 3.35 TB/s.
+// The serving instantiation (TRAIN false) compiles to the code it had
+// before the training mode; its ck parameter is unused and comes after the
+// others.
+//
 // The serving library holds this kernel alone.  Built with -DSCAN_SWEEP,
 // the sweep library adds the kernel's first design (scan_kernel: exp2f,
 // one buffer, two barriers a chunk) as the yardstick, the same with
@@ -63,6 +74,7 @@ namespace {
 constexpr int CHANNELS = 128;  // channels per block
 constexpr int CHUNK = 32;      // steps a chunk
 constexpr int UNROLL = 4;      // of the step loop
+constexpr int CK = 16;         // steps a checkpoint (training mode)
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
@@ -184,10 +196,10 @@ struct Layout {
 
 // The pipelined kernel: a block of CHANNELS channels of one batch, a
 // thread a channel with its NP entries; chunks of CHUNK steps,
-// double-buffered.
-template <typename T, int NP>
+// double-buffered; with TRAIN the checkpoints into ck.
+template <typename T, int NP, bool TRAIN>
 __global__ void __launch_bounds__(CHANNELS, 4)
-    scan_pipe_kernel(Params p, int wx, int wdt) {
+    scan_pipe_kernel(Params p, int wx, int wdt, float* ck) {
   constexpr int R = (CHUNK * NP + CHANNELS - 1) / CHANNELS;  // B/C values
                                                               // a thread
   using L = Layout<T, NP>;
@@ -269,6 +281,18 @@ __global__ void __launch_bounds__(CHANNELS, 4)
     auto scan_chunk = [&](auto all) {
 #pragma unroll UNROLL
       for (int tt = 0; tt < CHUNK; ++tt) {
+        if constexpr (TRAIN) {
+          // the state before step k CHUNK + tt, where that is a multiple
+          // of CK and before s
+          if (tt % CK == 0 && (decltype(all)::value || (live && tt < nt))) {
+            float* dst = ck + (((long long)bi * ((p.s + CK - 1) / CK) +
+                                (k * CHUNK + tt) / CK) * p.di + c) * NP;
+#pragma unroll
+            for (int i = 0; i < NP; i += 4)
+              *reinterpret_cast<float4*>(dst + i) =
+                  make_float4(h[i], h[i + 1], h[i + 2], h[i + 3]);
+          }
+        }
         const float dtv = sdt[tt * CHANNELS + tid];
         const float xv = to_f32(sx[tt * CHANNELS + tid]);
         const float dx = dtv * xv;
@@ -310,9 +334,10 @@ __global__ void __launch_bounds__(CHANNELS, 4)
 }
 
 template <typename T, int NP>
-cudaError_t launch_pipe(const Params& p, int wx, int wdt,
+cudaError_t launch_pipe(const Params& p, int wx, int wdt, float* ck,
                         cudaStream_t stream) {
-  auto kern = scan_pipe_kernel<T, NP>;
+  auto kern = ck != nullptr ? scan_pipe_kernel<T, NP, true>
+                            : scan_pipe_kernel<T, NP, false>;
   constexpr int bytes = Layout<T, NP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -322,7 +347,7 @@ cudaError_t launch_pipe(const Params& p, int wx, int wdt,
       cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.di + CHANNELS - 1) / CHANNELS, p.b);
-  kern<<<grid, CHANNELS, bytes, stream>>>(p, wx, wdt);
+  kern<<<grid, CHANNELS, bytes, stream>>>(p, wx, wdt, ck);
   return cudaGetLastError();
 }
 
@@ -477,15 +502,15 @@ __global__ void __launch_bounds__(1024)
 
 template <typename T>
 cudaError_t launch_for_state(const Params& p, int design, int wx, int wdt,
-                             cudaStream_t stream) {
+                             float* ck, cudaStream_t stream) {
   if (design == 2) {
-    if (p.n <= 4) return launch_pipe<T, 4>(p, wx, wdt, stream);
-    if (p.n <= 8) return launch_pipe<T, 8>(p, wx, wdt, stream);
-    if (p.n <= 16) return launch_pipe<T, 16>(p, wx, wdt, stream);
+    if (p.n <= 4) return launch_pipe<T, 4>(p, wx, wdt, ck, stream);
+    if (p.n <= 8) return launch_pipe<T, 8>(p, wx, wdt, ck, stream);
+    if (p.n <= 16) return launch_pipe<T, 16>(p, wx, wdt, ck, stream);
     return cudaErrorInvalidValue;
   }
 #ifdef SCAN_SWEEP
-  if (design == 0 || design == 1) {
+  if ((design == 0 || design == 1) && ck == nullptr) {
     const bool fast = design == 1;
     if (p.n <= 4) return launch_first<T, 4>(p, fast, stream);
     if (p.n <= 8) return launch_first<T, 8>(p, fast, stream);
@@ -504,15 +529,17 @@ cudaError_t launch_for_state(const Params& p, int design, int wx, int wdt,
 // are contiguous.  design: 2 = the pipelined kernel, with copy widths
 // wx, wdt (bytes: 16, 8, 4, or 2 for bf16 x); in the sweep library also
 // 0 = the first design, 1 = the same with ex2.approx (widths unread).
-// Returns a cudaError_t (0 = launched; cudaErrorInvalidValue for a
-// design the library does not hold).
+// ck: null (serving), or for design 2 the training mode's checkpoints,
+// (b, ceil(s / 16), di, NP) contiguous f32, NP the state size padded to
+// 4, 8 or 16.  Returns a cudaError_t (0 = launched;
+// cudaErrorInvalidValue for a design the library does not hold).
 extern "C" int selective_scan_fwd(const void* x, const void* dt,
                                   const void* A, const void* B,
                                   const void* C, const void* D,
                                   const void* h0, void* y, void* hT,
                                   int dtype, int b, int s, int di, int n,
                                   const long long* strides, int design,
-                                  int wx, int wdt, void* stream) {
+                                  int wx, int wdt, void* ck, void* stream) {
   Params p;
   p.x = x;
   p.dt = static_cast<const float*>(dt);
@@ -537,10 +564,11 @@ extern "C" int selective_scan_fwd(const void* x, const void* dt,
   p.C_ss = strides[7];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  float* cp = static_cast<float*>(ck);
   if (dtype == 0)
-    err = launch_for_state<float>(p, design, wx, wdt, st);
+    err = launch_for_state<float>(p, design, wx, wdt, cp, st);
   else if (dtype == 1)
-    err = launch_for_state<__nv_bfloat16>(p, design, wx, wdt, st);
+    err = launch_for_state<__nv_bfloat16>(p, design, wx, wdt, cp, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -21,6 +21,13 @@ whole sequence; each exponential is one ``ex2.approx.ftz`` on the SFU; a
 block of 128 channels copies the next chunk of x and dt into a second
 shared-memory buffer with cp.async while it scans the current one.
 
+Training mode (``checkpoints``): the "pipe" kernel also stores the state
+before every ``CK_STEPS``-th step into a (b, ceil(s / CK_STEPS), di,
+padded N) f32 tensor, with the instructions it scans with: the
+checkpoints from which the backward (``kernel_bwd``) recomputes the
+forward's states bit for bit.  y and the final state are those of
+serving mode, bit for bit.
+
 The designs, by kind: "pipe" is that kernel, ``DESIGN``, the one
 ``ops.selective_scan`` launches and the only one the serving library
 holds; "first" is the kernel's first design (exp2f, one buffer, two
@@ -51,6 +58,7 @@ MAX_STATE = 16
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHANNELS = 128                # channels per block
 CHUNK = 32                    # steps a chunk of the "pipe" kernel
+CK_STEPS = 16                 # steps a checkpoint of the training mode
 KINDS = {"first": 0, "first-ex2": 1, "pipe": 2}
 # the design ops.selective_scan launches, the serving library's only one
 DESIGN = "pipe"
@@ -122,7 +130,7 @@ def library(sweep: bool = False):
     fn = lib.selective_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     if sweep:
         probe = lib.ex2_rate_probe
@@ -132,18 +140,38 @@ def library(sweep: bool = False):
     return lib
 
 
+def checkpoint_shape(shape):
+    """The training mode's checkpoints for x of ``shape`` (b, s, di) and
+    state size N: (b, ceil(s / CK_STEPS), di, padded N) f32."""
+    b, s, di, n = shape
+    return (b, -(-s // CK_STEPS), di, padded_state(n))
+
+
 def selective_scan_cuda(x, dt, A, B, C, D, state, design=DESIGN,
-                        sweep=False):
+                        sweep=False, checkpoints=None):
     """Launches ``design`` on the current stream, from the sweep library
     if ``sweep``.  x (b, s, di) and B, C (b, s, N) in one dtype, dt (b, s,
     di) f32, each with a last dim of stride 1; A (di, N), D (di,) and
-    state (b, di, N) contiguous f32; the caller has checked them.
-    Returns (y (b, s, di) in x.dtype, final state (b, di, N) f32)."""
+    state (b, di, N) contiguous f32; the caller has checked them.  With
+    ``checkpoints``, a contiguous f32 tensor of ``checkpoint_shape`` on
+    x's device, ``DESIGN`` runs in training mode and fills it.  Returns (y
+    (b, s, di) in x.dtype, final state (b, di, N) f32)."""
     if not fits(design, sweep):
         raise ValueError(f"no selective_scan design {design!r}"
                          + ("" if sweep else " in the serving library"))
     b, s, di = x.shape
     n = A.shape[1]
+    if checkpoints is not None:
+        want = checkpoint_shape((b, s, di, n))
+        if (design != DESIGN or tuple(checkpoints.shape) != want
+                or checkpoints.dtype != torch.float32
+                or not checkpoints.is_contiguous()
+                or checkpoints.device != x.device):
+            raise ValueError(
+                f"the training mode takes design {DESIGN!r} and contiguous "
+                f"f32 checkpoints {want} on {x.device}; got {design!r}, "
+                f"{tuple(checkpoints.shape)} {checkpoints.dtype} "
+                f"{checkpoints.device}")
     y = torch.empty((b, s, di), dtype=x.dtype, device=x.device)
     h_out = torch.empty_like(state)
     strides = (ctypes.c_longlong * 8)(
@@ -154,6 +182,7 @@ def selective_scan_cuda(x, dt, A, B, C, D, state, design=DESIGN,
             C.data_ptr(), D.data_ptr(), state.data_ptr(), y.data_ptr(),
             h_out.data_ptr(), DTYPES[x.dtype], b, s, di, n, strides,
             KINDS[design], copy_width(x), copy_width(dt),
+            None if checkpoints is None else checkpoints.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"selective_scan_fwd launch failed: CUDA error "

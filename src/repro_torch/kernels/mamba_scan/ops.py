@@ -4,13 +4,17 @@ where autograd differentiates it.
 
 There is no fallback: a CUDA tensor launches the kernel or raises.  A
 CUDA call that needs a gradient goes through ``_SelectiveScan``, a
-``torch.autograd.Function`` whose forward launches the forward kernel and
-whose backward launches the backward's kernels (``kernel_bwd``); the
-plain gradient (``selective_scan_bwd_ref``) is never taken on the card.
-A layer recomputed under activation checkpointing saves its inputs again.
+``torch.autograd.Function`` whose forward launches the forward kernel in
+training mode (it also stores the state every ``kernel.CK_STEPS`` steps)
+and saves those checkpoints beside its inputs, and whose backward
+launches the backward's kernels (``kernel_bwd``) on them; the plain
+gradient (``selective_scan_bwd_ref``) is never taken on the card.  A
+layer recomputed under activation checkpointing saves them again: the
+recompute's checkpoints are the ones the backward reads.
 
 Counts: ``launches`` counts forward kernel launches and nothing else (a
-recomputed layer launches again, and counts again); ``launches_bwd``
+recomputed layer launches again, and counts again), ``launches_by_mode``
+the same launches by mode ("serving", "training"); ``launches_bwd``
 counts backward kernel launches, ``len(kernel_bwd.KERNELS)`` a call.
 
 ``selective_scan_step`` (one token, the decode path) is plain torch ops on
@@ -27,6 +31,7 @@ from repro_torch.kernels.mamba_scan import kernel, kernel_bwd
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref, step
 
 launches = 0
+launches_by_mode = {"serving": 0, "training": 0}
 launches_bwd = 0
 
 
@@ -83,38 +88,46 @@ def selective_scan(x, dt, A, B, C, D, state):
     return _forward(x, dt, A, B, C, D, state)
 
 
-def _forward(x, dt, A, B, C, D, state):
+def _forward(x, dt, A, B, C, D, state, checkpoints=None):
+    """The forward kernel; with ``checkpoints`` in training mode, storing
+    the state every ``kernel.CK_STEPS`` steps there."""
     global launches
     out = kernel.selective_scan_cuda(x, dt, A.contiguous(), B, C,
-                                     D.contiguous(), state.contiguous())
+                                     D.contiguous(), state.contiguous(),
+                                     checkpoints=checkpoints)
     launches += 1
+    launches_by_mode["serving" if checkpoints is None else "training"] += 1
     return out
 
 
 class _SelectiveScan(torch.autograd.Function):
-    """The forward kernel and the backward's kernels of one CUDA call.
-    Saves x, dt, A, B, C, D and the initial state, B and C as the views
-    they are.  A gradient it is not given (the final state's, where the
-    caller drops it) is zeros."""
+    """The forward kernel in training mode and the backward's kernels of
+    one CUDA call.  Saves x, dt, A, B, C, D and the initial state, B and C
+    as the views they are, and the forward's checkpoints.  A gradient it
+    is not given (the final state's, where the caller drops it) is
+    zeros."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D, state):
         ctx.set_materialize_grads(False)
-        y, h = _forward(x, dt, A, B, C, D, state)
-        ctx.save_for_backward(x, dt, A, B, C, D, state)
+        ck = torch.empty(kernel_bwd.checkpoint_shape((*x.shape, A.shape[1])),
+                         dtype=torch.float32, device=x.device)
+        y, h = _forward(x, dt, A, B, C, D, state, ck)
+        ctx.save_for_backward(x, dt, A, B, C, D, state, ck)
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dstate):
         global launches_bwd
-        x, dt, A, B, C, D, state = ctx.saved_tensors
+        x, dt, A, B, C, D, state, ck = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
         elif dy.dtype != x.dtype or dy.stride(2) != 1:
             dy = dy.to(x.dtype).contiguous()
         grads = kernel_bwd.selective_scan_bwd_cuda(
             x, dt, A.contiguous(), B, C, D.contiguous(), state.contiguous(),
-            dy, None if dstate is None else dstate.float().contiguous())
+            dy, None if dstate is None else dstate.float().contiguous(),
+            checkpoints=ck)
         launches_bwd += len(kernel_bwd.KERNELS)
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))

@@ -82,3 +82,20 @@ def selective_scan_bwd_ref(x, dt, A, B, C, D, state, dy, dstate=None,
         G = e * g
     dD = (dyf * xf).sum((0, 1))
     return dx, ddt, dA, dB, dC, dD, G
+
+
+def selective_scan_checkpoints(x, dt, A, B, state, steps,
+                               compute=torch.float32):
+    """The states before steps 0, ``steps``, 2 ``steps``, .. of
+    ``selective_scan_ref`` (the initial state first): (b, ceil(s / steps),
+    di, N) in ``compute`` (f32; f64 for an exact yardstick), the
+    training-mode forward's checkpoints."""
+    xf, dtf, Af, Bf = (t.to(compute) for t in (x, dt, A, B))
+    h = state.to(compute)
+    out = []
+    for t in range(x.shape[1]):
+        if t % steps == 0:
+            out.append(h)
+        h = (torch.exp(dtf[:, t, :, None] * Af) * h
+             + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
+    return torch.stack(out, dim=1)

@@ -853,17 +853,89 @@ def test_selective_scan_grad_goes_through_the_backward_kernel(
     n = A.shape[1]
     dtr = proj.shape[2] - 2 * n
     Bv, Cv = leaves[3][..., dtr:dtr + n], leaves[3][..., dtr + n:]
-    before = (scan_ops.launches, scan_ops.launches_bwd)
+    before = (scan_ops.launches, scan_ops.launches_bwd,
+              dict(scan_ops.launches_by_mode))
+    # the backward reads the forward's checkpoints: it runs no forward of
+    # its own for them
+    real_checkpoints = scan_bwd.forward_checkpoints
+    monkeypatch.setattr(scan_bwd, "forward_checkpoints", plain)
     y, h = scan_ops.selective_scan(*leaves[:3], Bv, Cv, *leaves[4:])
     grads = torch.autograd.grad((y, h), leaves, (dy, ds))
     assert (scan_ops.launches - before[0],
             scan_ops.launches_bwd - before[1]) == (1, len(scan_bwd.KERNELS))
+    assert scan_bwd.KERNELS == ("bwd", "sum")
+    assert {m: scan_ops.launches_by_mode[m] - before[2][m]
+            for m in before[2]} == {"serving": 0, "training": 1}
+    monkeypatch.setattr(scan_bwd, "forward_checkpoints", real_checkpoints)
     want = scan_bwd.selective_scan_bwd_cuda(x, dt, A, B, C, D, h0, dy, ds)
     gx, gdt, gA, gproj, gD, gh0 = grads
     for g, w in zip((gx, gdt, gA, gproj[..., dtr:dtr + n],
                      gproj[..., dtr + n:], gD, gh0), want):
         assert torch.equal(g, w)
     assert not gproj[..., :dtr].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,state_scale,dstate_scale,opts",
+                         SCAN_BWD_CASES)
+def test_selective_scan_training_mode_is_serving_bit_for_bit(
+        cuda, shape, state_scale, dstate_scale, opts, dtype):
+    """K3's forward in training mode: y and the final state bit for bit
+    those of serving mode; its checkpoints bit for bit those of PR 24's
+    "ckpt" kernel (the sweep library), and within the forward's
+    elementwise state limit of the plain states before every 16th
+    step."""
+    from repro_torch.kernels.mamba_scan import kernel_bwd as scan_bwd
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_checkpoints
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    *args, dy, ds = scan_checks.bwd_inputs(shape, dtype, gen, state_scale,
+                                           dstate_scale, **opts)
+    x, dt, A, B, C, D, h0 = args
+    ck = torch.full(scan_bwd.checkpoint_shape(shape), float("nan"),
+                    device="cuda")
+    first = torch.full_like(ck, float("nan"))
+    with torch.inference_mode():
+        y0, s0 = scan_kernel.selective_scan_cuda(*args)
+        y1, s1 = scan_kernel.selective_scan_cuda(*args, checkpoints=ck)
+        scan_bwd.selective_scan_bwd_cuda(*args, dy, kernels=("ckpt",),
+                                         checkpoints=first, design="first",
+                                         sweep=True)
+        want = selective_scan_checkpoints(x, dt, A, B, h0, 16)
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
+    assert torch.equal(ck, first)
+    n = shape[3]
+    assert not ck[..., n:].any()
+    scale = want.pow(2).mean().sqrt().item()
+    torch.testing.assert_close(ck[..., :n], want,
+                               rtol=scan_checks.STATE_TOL,
+                               atol=scan_checks.STATE_TOL * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,state_scale,dstate_scale,opts",
+                         SCAN_BWD_CASES)
+def test_selective_scan_bwd_design_matches_the_first(
+        cuda, shape, state_scale, dstate_scale, opts, dtype):
+    """The design's gradients against PR 24's form (the sweep library's
+    "first": ckpt, bwd, sum) within checks.BWD_ROW_TOL of the plain
+    backward's row scales; dA, dD and dh_0 bit for bit (the same terms
+    summed in the same order)."""
+    from repro_torch.kernels.mamba_scan import kernel_bwd as scan_bwd
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    *args, dy, ds = scan_checks.bwd_inputs(shape, dtype, gen, state_scale,
+                                           dstate_scale, **opts)
+    got = scan_bwd.selective_scan_bwd_cuda(*args, dy, ds)
+    first = scan_bwd.selective_scan_bwd_cuda(*args, dy, ds, design="first",
+                                             sweep=True)
+    with torch.no_grad():
+        scales = scan_checks.bwd_row_scales(*args, dy, ds)
+    assert scan_checks.bwd_within(scan_checks.bwd_errors(got, first, scales),
+                                  dtype)
+    for name in ("dA", "dD", "ds0"):
+        i = scan_checks.GRADS.index(name)
+        assert torch.equal(got[i], first[i]), name
 
 
 def test_selective_scan_bwd_rejects_what_its_kernels_do_not_take(cuda):

@@ -813,13 +813,19 @@ def stand_ins(monkeypatch):
     calls = []
     ref_fwd, ref_bwd = tref.selective_scan_ref, tref.selective_scan_bwd_ref
 
-    def forward(x, dt, A, B, C, D, state, design=tK.DESIGN, sweep=False):
-        calls.append(("fwd", (x, dt, A, B, C, D, state)))
+    def forward(x, dt, A, B, C, D, state, design=tK.DESIGN, sweep=False,
+                checkpoints=None):
+        calls.append(("fwd", (x, dt, A, B, C, D, state), checkpoints))
+        if checkpoints is not None:
+            checkpoints.zero_()[..., :A.shape[1]] = \
+                tref.selective_scan_checkpoints(x, dt, A, B, state,
+                                                tK.CK_STEPS)
         return ref_fwd(x, dt, A, B, C, D, state)
 
-    def backward(x, dt, A, B, C, D, state, dy, dstate=None,
-                 kernels=tKB.KERNELS):
-        calls.append(("bwd", (x, dt, A, B, C, D, state, dy, dstate)))
+    def backward(x, dt, A, B, C, D, state, dy, dstate=None, kernels=None,
+                 checkpoints=None, design=tKB.DESIGN, sweep=False):
+        calls.append(("bwd", (x, dt, A, B, C, D, state, dy, dstate),
+                      checkpoints))
         g = ref_bwd(x, dt, A, B, C, D, state, dy, dstate)
         return (g[0].to(x.dtype), *g[1:3], g[3].to(x.dtype),
                 g[4].to(x.dtype), *g[5:])
@@ -833,6 +839,7 @@ def stand_ins(monkeypatch):
 
     monkeypatch.setattr(tK, "selective_scan_cuda", forward)
     monkeypatch.setattr(tKB, "selective_scan_bwd_cuda", backward)
+    monkeypatch.setattr(tKB, "forward_checkpoints", None)
     monkeypatch.setattr(tops, "selective_scan", routed)
     return calls
 
@@ -933,3 +940,179 @@ def test_backward_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="selective_scan_bwd takes"):
         tKB.selective_scan_bwd_cuda(*args, dy, ds)
     assert tKB.library.cache_info().currsize == before
+
+
+# ------------------------------------------ the backward's design, by layout
+
+
+def _source_constant(src, name):
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m, name
+    return int(m.group(1))
+
+
+def test_checkpoint_layout_is_the_sources():
+    """The training mode's checkpoints: every CK_STEPS = 16 steps in the
+    forward's source (CK) and the backward's (K), (b, ceil(s / 16), di,
+    padded N) f32; 537 MB at the training shape (4, 2048, 16384, 16)."""
+    assert tK.CK_STEPS == tKB.CK_STEPS == 16
+    assert _source_constant(tK.SOURCE.read_text(), "CK") == tK.CK_STEPS
+    assert _source_constant(tKB.SOURCE.read_text(), "K") == tKB.CK_STEPS
+    shape = tKB.checkpoint_shape((4, 2048, 16384, 16))
+    assert shape == tK.checkpoint_shape((4, 2048, 16384, 16)) == (
+        4, 128, 16384, 16)
+    assert math.prod(shape) * 4 == 536870912
+    assert tKB.checkpoint_shape((2, 37, 200, 5)) == (2, 3, 200, 8)
+    assert tKB.checkpoint_shape((1, 16, 64, 4)) == (1, 1, 64, 4)
+    assert tKB.checkpoint_shape((1, 17, 64, 4)) == (1, 2, 64, 4)
+
+
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 37, 1000, 2047, 2048])
+def test_sub_chunks_cover_the_sequence_exactly(s):
+    """The reverse pass walks ceil(s / 16) sub-chunks, last first, one a
+    checkpoint: each starts at a multiple of 16, none overlaps another,
+    together they cover steps 0 .. s - 1, and only the last (the first
+    walked) may be ragged."""
+    chunks = tKB.sub_chunks(s)
+    assert len(chunks) == tKB.checkpoint_shape((1, s, 1, 16))[1]
+    steps = [t for t0, n in reversed(chunks) for t in range(t0, t0 + n)]
+    assert steps == list(range(s))
+    assert all(t0 % tKB.CK_STEPS == 0 and 1 <= n <= tKB.CK_STEPS
+               for t0, n in chunks)
+    assert [t0 for t0, _ in chunks] == sorted(
+        (t0 for t0, _ in chunks), reverse=True)
+    assert all(n == tKB.CK_STEPS for _, n in chunks[1:])
+    assert chunks[0][1] == s - tKB.CK_STEPS * (len(chunks) - 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_reverse_pass_budgets(n, dtype):
+    """Two blocks of the reverse pass fit an SM: its shared memory (the
+    warps' sums of a sub-chunk, the packed rows, B and C in the lane
+    orders, the next sub-chunk's copies) twice with each block's reserved
+    1 KB, and 128 registers a thread, of which the stashed states take 68
+    at N = 16; the source's launch bound says 2 blocks."""
+    smem = tKB.smem_bytes(dtype, n)
+    assert smem <= tKB.SMEM_PER_BLOCK
+    assert tKB.BLOCKS_PER_SM * (smem + 1024) <= tKB.SMEM_PER_SM
+    assert smem % 16 == 0
+    assert tKB.registers_per_thread() == 128
+    assert tKB.stash_registers(n) <= tKB.registers_per_thread() // 2 + 4
+    if n == 16:
+        assert tKB.stash_registers(n) == 68
+        assert smem == {torch.float32: 68096, torch.bfloat16: 62976}[dtype]
+    src = tKB.SOURCE.read_text()
+    assert re.search(
+        r"__launch_bounds__\(THREADS, %d\)\s+scan_bwd_pipe_kernel"
+        % tKB.BLOCKS_PER_SM, src)
+
+
+@pytest.mark.parametrize("s", [1, 16, 37])
+def test_plain_checkpoints_match_jax_scan_states(s):
+    """ref.selective_scan_checkpoints: the states before steps 0, 16, 32,
+    .. of the plain scan, held in f32 at 2e-5 to the final states of
+    jax.lax.scan of the reference (selective_scan_chunked) over each
+    prefix (the initial state first)."""
+    N = 4
+    x, dt, A, proj, D, h0, _, _ = bwd_np(2, s, 8, N, seed=70 + s)
+    B, C = split(proj, N)
+    got = tref.selective_scan_checkpoints(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in (x, dt, A, B,
+                                                              h0)),
+        tKB.CK_STEPS)
+    assert got.shape == (2, -(-s // 16), 8, N) and got.dtype == torch.float32
+    for k in range(got.shape[1]):
+        t0 = k * tKB.CK_STEPS
+        if t0 == 0:
+            want = h0
+        else:
+            _, want = jops.selective_scan_chunked(
+                *(jnp.asarray(a[:, :t0]) for a in (x, dt)), jnp.asarray(A),
+                *(jnp.asarray(a[:, :t0]) for a in (B, C)), jnp.asarray(D),
+                jnp.asarray(h0))
+        np.testing.assert_allclose(got[:, k].numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5, err_msg=str(k))
+
+
+def test_function_saves_the_forwards_checkpoints(stand_ins):
+    """``_SelectiveScan`` runs the forward in training mode (counted by
+    mode), saves the checkpoints it wrote and hands the backward that very
+    tensor, so no backward recomputes them (``forward_checkpoints`` is
+    not called); a call without a gradient runs serving mode."""
+    N = 4
+    x, dt, A, proj, D, h0, dy, dh = (torch.from_numpy(a) for a in bwd_np(
+        2, 21, 8, N, seed=5))
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, proj, D, h0)]
+    B, C = split(leaves[3], N)
+    before = dict(tops.launches_by_mode)
+    y, h = tops.selective_scan(*leaves[:3], B, C, *leaves[4:])
+    torch.autograd.grad((y, h), leaves, (dy, dh))
+    (_, _, ck), (_, _, ck_bwd) = stand_ins
+    assert ck is not None and ck_bwd is ck
+    assert tuple(ck.shape) == tKB.checkpoint_shape((2, 21, 8, N))
+    assert ck.dtype == torch.float32 and ck.is_contiguous()
+    want = tref.selective_scan_checkpoints(x, dt, A, *split(proj, N)[:1],
+                                           h0, tKB.CK_STEPS)
+    assert torch.equal(ck[..., :N], want)
+    assert {m: tops.launches_by_mode[m] - before[m]
+            for m in before} == {"serving": 0, "training": 1}
+    with torch.no_grad():
+        tops.selective_scan(x, dt, A, *split(proj, N), D, h0)
+    assert stand_ins[-1][2] is None
+    assert {m: tops.launches_by_mode[m] - before[m]
+            for m in before} == {"serving": 1, "training": 1}
+
+
+@pytest.mark.parametrize("design,kernels,sweep,match", [
+    ("first", None, False, "sweep library only"),
+    ("hopper", None, True, "has designs"),
+    ("pipe", ("ckpt",), False, "has kernels"),
+    ("pipe", (), False, "has kernels"),
+    ("first", ("bwd", "dv"), True, "has kernels"),
+])
+def test_backward_refuses_designs_and_kernels_it_lacks(design, kernels,
+                                                       sweep, match):
+    """The design ("pipe": bwd, sum) and PR 24's form ("first": ckpt, bwd,
+    sum; the sweep library only) are named before any tensor is looked at
+    or any library loaded."""
+    gen = torch.Generator().manual_seed(1)
+    *args, dy, ds = checks.bwd_inputs((1, 8, 16, 4), torch.float32, gen)
+    before = tKB.library.cache_info().currsize
+    with pytest.raises(ValueError, match=match):
+        tKB.selective_scan_bwd_cuda(*args, dy, ds, kernels=kernels,
+                                    design=design, sweep=sweep)
+    assert tKB.library.cache_info().currsize == before
+    assert tKB.KERNELS == ("bwd", "sum") and "ckpt" not in tKB.KERNELS
+    assert tKB.DESIGNS == {"pipe": tKB.KERNELS, "first": tKB.FIRST_KERNELS}
+
+
+def test_training_mode_refuses_what_it_does_not_take():
+    """The forward's training mode takes the serving design and contiguous
+    f32 checkpoints of ``checkpoint_shape``; it refuses before a launch."""
+    gen = torch.Generator().manual_seed(2)
+    args = checks.inputs((1, 20, 16, 4), torch.float32, gen)
+    good = torch.empty(tK.checkpoint_shape((1, 20, 16, 4)))
+    before = tK.library.cache_info().currsize
+    for ck, kw in ((torch.empty(1, 1, 16, 4), {}),
+                   (good.double(), {}),
+                   (torch.empty(1, 16, 2, 4).transpose(1, 2), {}),
+                   (good, dict(design="first", sweep=True))):
+        with pytest.raises(ValueError, match="training mode takes"):
+            tK.selective_scan_cuda(*args, checkpoints=ck, **kw)
+    assert tK.library.cache_info().currsize == before
+
+
+def test_sweep_libraries_hold_the_first_design_alone():
+    """PR 24's checkpoint and reverse-pass kernels are built only with
+    -DSCAN_BWD_SWEEP (the sweep library); the reverse pass and the sum
+    kernel are in both."""
+    src = tKB.SOURCE.read_text()
+    outside = re.sub(r"#ifdef SCAN_BWD_SWEEP\n.*?#endif", "",
+                     re.sub(r"//[^\n]*", "", src), flags=re.S)
+    assert "scan_bwd_pipe_kernel" in outside
+    assert "scan_bwd_sum_kernel" in outside
+    for name in ("scan_bwd_ckpt_kernel", "scan_bwd_kernel<"):
+        assert name in src and name not in outside, name
+    assert "#ifdef SCAN_BWD_SWEEP" in src
