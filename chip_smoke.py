@@ -31,7 +31,11 @@ non-zero and prints no result:
    yardstick) beside SDPA with a band mask, held to the O(s·w)
    sliding_window_attention, with a window one kv tile shorter or longer
    shown to fail, and at hd 120 the padding columns read from the next
-   head or the second TMA box dropped shown to fail; K2 through its
+   head or the second TMA box dropped shown to fail; at a prefill wave of
+   deepseek-v3-671b's MLA (4 x 1024 rows, 128 heads of hd 192, the general
+   variant), with v as drawn and with its columns 128..191 zero as the
+   model pads them (the output's then exactly zero), timed in turns with
+   SDPA (general, sdpa, sdpa, general) beside the bound; K2 through its
    dispatcher, and its candidate plans (G, C, CB, double buffer) in two
    passes at the main-path shape, each case checked for the plan it
    took, and a stale chunk and a lost row group shown to fail; the
@@ -49,8 +53,10 @@ non-zero and prints no result:
    4096-token window); each checks that every request gets its tokens,
    every logit is finite and each of its kernels ran as often per
    prefill wave as the path has layers that run it (and no other kernel
-   ran), every K1 launch through the Hopper variant; the device memory
-   of the path before is freed first:
+   ran), every K1 launch through the path's variant (the Hopper one but
+   on f); the device memory of the path before is freed first; it prints
+   the peak memory and the decode step's time beside the least time to
+   read the weights a step reads:
    a. mistral-nemo-12b (40 layers, d_model 5120): K1 40 times a wave;
    b. rwkv6-1.6b (24 layers, d_model 2048): K2 24 times a wave, every
       launch under kernel.plan's (G, C, CB);
@@ -64,7 +70,13 @@ non-zero and prints no result:
       every layer, 3.96 B params): K1 24 times a wave, Hopper variant;
    e. mixtral-8x7b cut in depth to its first 8 layers, every width as
       published (window 4096, 8 experts top-2 of 14336), 11.87 B params:
-      K1 8 times a wave, Hopper variant.
+      K1 8 times a wave, Hopper variant;
+   f. deepseek-v3-671b cut in depth to 2 layers without its MTP block,
+      every width as published (d_model 7168, 128 heads, q_lora 1536,
+      kv_lora 512, nope/rope/v 128/64/128, 256 experts top-8 of 2048
+      plus 1 shared, vocab 129280 untied), 24.87 B params: MLA prefill
+      through K1 at hd 192, twice a wave, general variant; absorbed
+      decode against the latent cache.
    With --profile, after each, one prefill wave (at the path's longest
    prompt) and three decode steps outside the engine, timed and traced
    with torch.profiler;
@@ -75,7 +87,9 @@ non-zero and prints no result:
    above; h2o-danube-3-4b across its window's edge (a 4090-token
    prompt, 12 steps), with the full cache and with the ring buffer of
    4096 slots (window_cache); internvl2-76b (d_model 8192) with 256
-   patch embeddings in front of the prompt;
+   patch embeddings in front of the prompt; deepseek-v3-671b cut to 1
+   layer (13.36 B params, 53.4 GB), capacity factor 32, the absorbed
+   decode against the expanded prefill;
 6. K1's backward (flash_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.flash_attention, whose backward
    launches the kernels of the route kernel_bwd.plan picks) against
@@ -188,21 +202,29 @@ JAMBA = "jamba-1.5-large-398b"
 DANUBE = "h2o-danube-3-4b"
 MIXTRAL = "mixtral-8x7b"
 INTERNVL = "internvl2-76b"
+DEEPSEEK = "deepseek-v3-671b"
 # Depth cuts of the published configs; every width stays as published.
 # Jamba's main path: layers 4-7 of a period (one attention layer, then
 # three Mamba layers, MoE on the 2nd and 4th).  Mixtral's: its first 8
 # of 32 layers (11.87 B params; all 32 are 46.7 B, 93 GB in bf16).
+# DeepSeek-V3's: 2 of 61 layers (24.87 B params, 49.7 GB in bf16; a third
+# layer, 36.4 B and 72.8 GB, leaves no room for a wave) without the MTP
+# block, which prefill and decode never read and which would add one more
+# MoE layer (about 11.6 B params).
 PATH_CUTS = {JAMBA: dict(n_layers=4, attn_layer_period=4,
                          attn_layer_offset=0),
-             MIXTRAL: dict(n_layers=8)}
+             MIXTRAL: dict(n_layers=8),
+             DEEPSEEK: dict(n_layers=2, mtp_depth=0)}
 # Decode-vs-prefill models: 2 layers each; Jamba's are layers 4-5 of a
-# period (attention + MLP, Mamba + MoE).
+# period (attention + MLP, Mamba + MoE).  DeepSeek-V3's is 1 layer
+# without the MTP block (13.36 B params, 53.4 GB in f32).
 DECODE_CUTS = {"mistral-nemo-12b": dict(n_layers=2),
                "rwkv6-1.6b": dict(n_layers=2),
                JAMBA: dict(n_layers=2, attn_layer_period=2,
                            attn_layer_offset=0),
                DANUBE: dict(n_layers=2),
-               INTERNVL: dict(n_layers=2)}
+               INTERNVL: dict(n_layers=2),
+               DEEPSEEK: dict(n_layers=1, mtp_depth=0)}
 # Decode-vs-prefill traffic where it is not a 6-token prompt and 5 steps:
 # danube's 4090-token prompt and 12 steps cross its 4096-token window in
 # decode, with the full cache and again with the ring buffer of 4096
@@ -216,7 +238,11 @@ MAIN_PATHS = {"mistral-nemo-12b": {"flash_attention": 40},
               "rwkv6-1.6b": {"wkv6": 24},
               JAMBA: {"flash_attention": 1, "selective_scan": 3},
               DANUBE: {"flash_attention": 24},
-              MIXTRAL: {"flash_attention": 8}}
+              MIXTRAL: {"flash_attention": 8},
+              DEEPSEEK: {"flash_attention": 2}}
+# the K1 variant every launch of a main path takes, where it is not the
+# Hopper one: MLA's q·k head dim 192 is not in kernel.HOPPER_HEAD_DIMS
+MAIN_PATH_VARIANT = {DEEPSEEK: "general"}
 # each main path's traffic: prompt lengths drawn from seed 0 in [lo, hi]
 # and max_len; the sliding-window paths' prompts all pass their 4096-token
 # window, so it bites in prefill and in every decode step
@@ -297,6 +323,13 @@ FLASH_CASES = [
      4096, 0.0, "plain", "hopper"),
     ("mixtral-window-4096", (4, 6144, 6144, 32, 128), torch.bfloat16, True,
      4096, 0.0, "plain", "hopper"),
+    # a prefill wave of deepseek-v3-671b's MLA: 128 heads of 128 nope + 64
+    # rope, v zero-padded from 128 to 192 ("zero-v": as mla_prefill pads
+    # it) or not
+    ("mla-hd192", (4, 1024, 1024, 128, 192), torch.bfloat16, True, 0, 0.0,
+     "plain", "general"),
+    ("mla-hd192-zero-v", (4, 1024, 1024, 128, 192), torch.bfloat16, True, 0,
+     0.0, "zero-v", "general"),
 ]
 # the forward faults (checks.FWD_FAULTS) a case also shows its checks
 # can see
@@ -305,7 +338,7 @@ FLASH_FAULTS = {"danube-window-4096": ("pad-from-next-head",
 # the cases timed beside the main-path case, each under its own key of
 # the kernels line
 TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
-                     "mixtral-window-4096")
+                     "mixtral-window-4096", "mla-hd192")
 # the most bytes of f32 scores attention_ref may build as a plain version
 PLAIN_SCORES_BYTES = 2 ** 32
 
@@ -576,7 +609,8 @@ def _flash_inputs(shape, dtype, layout, gen):
     loses or doubles any kv tile then moves the rows that attend into it
     by O(1), which the checks see.  ``layout``: see ``FLASH_CASES``; a
     kernel that read the "padded" storage's columns past hd would see
-    scores of about 1e8."""
+    scores of about 1e8; "zero-v" is "plain" with v's columns from 128 on
+    zero, as MLA's prefill pads v."""
     b, sq, skv, h, hd = shape
 
     def randn(s, scale):
@@ -591,7 +625,10 @@ def _flash_inputs(shape, dtype, layout, gen):
         x = torch.randn((b, s, h, hd), generator=gen, device="cuda")
         return (x * scale).to(dtype)
 
-    return randn(sq, 2.0), randn(skv, 2.0), randn(skv, 1.0)
+    q, k, v = randn(sq, 2.0), randn(skv, 2.0), randn(skv, 1.0)
+    if layout == "zero-v":
+        v[..., 128:] = 0
+    return q, k, v
 
 
 def row_err(out, ref):
@@ -677,6 +714,10 @@ def phase_flash():
                                    atol=tol)
         check(rerr <= rtol, f"flash_attention {name}: worst row rel err "
                             f"{rerr:.3e} > {rtol:g}")
+        if layout == "zero-v":
+            check(torch.equal(out[..., 128:], torch.zeros_like(
+                out[..., 128:])), f"flash_attention {name}: the padded "
+                                  f"columns of o are not zero")
         if window >= 1024:
             _window_checks_can_fail(plain, q, k, v, ref, rtol, name)
         for fault in FLASH_FAULTS.get(name, ()):
@@ -776,23 +817,32 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                 plain):
     """Times K1 through the kernel module (no launch counted): both
     variants in turns (general, hopper, hopper, general) where ``plan``
-    takes the Hopper one, else the general one twice; where it takes the
-    Hopper one at a head dim with a training mode (the Hopper backward's,
+    takes the Hopper one, else the general one in turns with SDPA
+    (general, sdpa, sdpa, general); where it takes the Hopper one at a
+    head dim with a training mode (the Hopper backward's,
     ``kernel_bwd.HOPPER_HEAD_DIMS``), its serving instantiation against
     its training mode (the LSE written; without, with, with, without);
-    SDPA on the same inputs
-    (with a boolean band mask for a window); and the plain version.
-    Prints them beside the bound and returns the kernels-line numbers
-    (``ms`` is that of ``variant``, the one the dispatcher takes)."""
+    SDPA on the same inputs (in those turns for the general variant; with
+    a boolean band mask for a window); and the plain version.  Prints
+    them beside the bound and returns the kernels-line numbers (``ms`` is
+    that of ``variant``, the one the dispatcher takes)."""
     from repro_torch.kernels.flash_attention import kernel_bwd
     order = (("general", "hopper", "hopper", "general")
-             if variant == "hopper" else ("general", "general"))
-    turns, lse_turns = [], []
+             if variant == "hopper" else ("general", "sdpa", "sdpa",
+                                          "general"))
+    qt, kt, vt_ = (t.transpose(1, 2) for t in (q, k, v))
+    in_turns, lse_turns = [], []
     with torch.inference_mode():
         for vt in order:
-            turns.append((vt, time_ms(
-                lambda: flash_kernel.flash_attention_cuda(q, k, v, vt,
-                                                          **kw))))
+            if vt == "sdpa":
+                fn = functools.partial(F.scaled_dot_product_attention, qt,
+                                       kt, vt_, is_causal=kw["causal"])
+            else:
+                fn = functools.partial(flash_kernel.flash_attention_cuda, q,
+                                       k, v, vt, **kw)
+            in_turns.append((vt, time_ms(fn)))
+        turns = [(u, t) for u, t in in_turns if u != "sdpa"]
+        sdpa_turns = [t for u, t in in_turns if u == "sdpa"]
         if variant == "hopper" and q.shape[3] in kernel_bwd.HOPPER_HEAD_DIMS:
             lse = flash_kernel.lse_buffer(q)
             for with_lse in (False, True, True, False):
@@ -801,8 +851,10 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                         q, k, v, "hopper", lse=lse if with_lse else None,
                         **kw))))
             del lse
-        qt, kt, vt_ = (t.transpose(1, 2) for t in (q, k, v))
-        if kw["window"]:
+        if sdpa_turns:
+            check(not kw["window"], f"{name}: SDPA in turns takes no window")
+            library_ms = float(np.mean(sdpa_turns))
+        elif kw["window"]:
             i = torch.arange(q.shape[1], device=q.device)[:, None]
             j = torch.arange(k.shape[1], device=q.device)[None, :]
             band = (i >= j) & (i - j < kw["window"])
@@ -830,7 +882,7 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
               f"ms; with / without "
               f"{lse_ms['with_lse'] / lse_ms['without_lse']:.3f}")
     print(f"[kernels] flash_attention {name}: in turns "
-          f"{', '.join(f'{u} {t:.4f}' for u, t in turns)} ms; "
+          f"{', '.join(f'{u} {t:.4f}' for u, t in in_turns)} ms; "
           f"{', '.join(f'{u} {t:.4f} ms' for u, t in ms_by_variant.items())}"
           f", plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}); {variant} / sdpa {ms / library_ms:.2f}, "
@@ -838,6 +890,7 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "ms_by_variant": ms_by_variant, "ms_turns": turns,
+            **({"sdpa_ms_turns": sdpa_turns} if sdpa_turns else {}),
             **({"hopper_ms_by_lse": lse_ms} if lse_ms else {})}
 
 
@@ -2040,17 +2093,32 @@ def phase_main_path(arch, card, profile):
           f"kernel launches {launches}; "
           f"{len(probe.seconds['decode'])} decode steps; "
           f"{probe.nonfinite} non-finite logits")
+    # a decode step reads every weight at least once, but an untied input
+    # embedding table (one row a token)
+    emb = params["embed"]
+    step_gb = params_gb - ("lm_head" in emb) * emb["tokens"].numel() * \
+        emb["tokens"].element_size() / 1e9
     print(f"[main] step times on the host clock: prefill per wave "
           f"{[round(t, 1) for t in prefill_ms]} ms, decode step median "
-          f"{decode_ms:.1f} ms")
+          f"{decode_ms:.1f} ms (reading the {step_gb:.2f} GB of weights "
+          f"a step reads takes at least {step_gb / HBM_BYTES_PER_S * 1e12:.1f}"
+          f" ms at {HBM_BYTES_PER_S / 1e12:g} TB/s); peak memory "
+          f"{peak_gb:.2f} GB")
     check(len(done) == n_req, f"{len(done)} of {n_req} requests served")
     check(all(len(r.tokens_out) == new_tokens for r in done),
           "a request got the wrong number of tokens")
     check(probe.nonfinite == 0, f"{probe.nonfinite} non-finite logits")
     want = {name: MAIN_PATHS[arch].get(name, 0) * waves for name in ops}
-    # every K1 launch of a main path takes the Hopper variant
-    want["flash_attention_by_variant"] = {"hopper": want["flash_attention"],
-                                          "general": 0}
+    # every K1 launch of a main path takes the path's variant (the Hopper
+    # one but where MAIN_PATH_VARIANT says otherwise)
+    k1_variant = MAIN_PATH_VARIANT.get(arch, "hopper")
+    want["flash_attention_by_variant"] = {
+        vt: want["flash_attention"] if vt == k1_variant else 0
+        for vt in ("hopper", "general")}
+    if want["flash_attention"]:
+        print(f"[main] {arch}: K1 launches by variant "
+              f"{launches['flash_attention_by_variant']} (expected all "
+              f"{k1_variant!r})")
     # every K2 launch takes kernel.plan's (G, C, CB) for the model's head dim
     want["wkv6_by_plan"] = {}
     if want["wkv6"]:
@@ -2199,9 +2267,11 @@ def phase_decode_vs_prefill(arch, prompt=6, steps=5, patches=0, ring=False):
     from repro_torch.models.factory import build_model
 
     cfg = get_config(arch).replace(dtype="float32", **DECODE_CUTS[arch])
-    if cfg.moe is not None:           # no drops on either side
-        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
-                                                  capacity_factor=16.0))
+    if cfg.moe is not None:
+        # no drops on either side: an expert's capacity holds every token
+        # once the factor is n_experts / top_k (32 for DeepSeek-V3)
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=max(
+            16.0, cfg.moe.n_experts / cfg.moe.top_k)))
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = model.init(gen, "cuda")

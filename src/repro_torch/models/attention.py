@@ -1,6 +1,7 @@
-"""Attention, dense GQA part: projections, GQA repeat, blockwise flash
-attention, the O(s·w) static sliding-window attention and single-step
-decode attention, mirroring ``repro.models.attention``.
+"""Attention: projections, GQA repeat, blockwise flash attention, the
+O(s·w) static sliding-window attention, single-step decode attention and
+DeepSeek-V3's multi-head latent attention (MLA), mirroring
+``repro.models.attention``.
 
 ``flash_attention`` here is the plain blockwise online-softmax form of the
 reference, with its ``q_offset``, finite -1e30 mask value and 1e-30 clamp
@@ -13,6 +14,15 @@ static window: K1's window mask is the same, so prefill sends the window
 to K1, and ``sliding_window_attention`` is the O(s·w) yardstick that
 K1's windowed output is held to at full width.  Decode attention is
 plain torch, as it is plain jnp in the reference.
+
+MLA prefill (``mla_prefill``) is the reference's expanded form: k_nope
+and v from the latent, the one-head k_rope broadcast to every head, v
+zero-padded to the q·k head dim so that K1 sees one head dim (192 at
+full width), and the output sliced back.  MLA decode (``mla_decode``) is
+the reference's absorbed form against the latent cache, in f32
+throughout, plain torch as in the reference.  The multi-device
+``mla_decode_sp`` comes with the multi-device layer (ROADMAP Queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -170,3 +181,104 @@ def decode_attention(q, k_cache, v_cache, length, *, window=0, softcap=0.0):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v_cache.float())
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): low-rank latent KV, absorbed decode
+
+
+def init_mla(generator, cfg, dtype, device, lead=()):
+    m, d, nq = cfg.mla, cfg.d_model, cfg.n_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def dense(shape):
+        return L.dense_init(generator, shape, dtype, device, lead=lead)
+
+    def ones(n):
+        return torch.ones((*lead, n), dtype=dtype, device=device)
+
+    return {
+        "wq_a": dense((d, m.q_lora_rank)),
+        "q_norm": ones(m.q_lora_rank),
+        "wq_b": dense((m.q_lora_rank, nq * qk_hd)),
+        "wkv_a": dense((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": ones(m.kv_lora_rank),
+        "wk_b": dense((m.kv_lora_rank, nq * m.qk_nope_head_dim)),
+        "wv_b": dense((m.kv_lora_rank, nq * m.v_head_dim)),
+        "wo": dense((nq * m.v_head_dim, d)),
+    }
+
+
+def _rms(x, scale, eps=1e-6):
+    """MLA's own RMS norm, not ``layers.rmsnorm``: a fixed eps of 1e-6, a
+    bare scale vector, one rounding to x's dtype at the end."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def mla_latents(x, p, cfg, positions):
+    """The cached quantities: c_kv (b, s, r_kv) and k_rope (b, s, hd_r),
+    k_rope rotated as one head with ``cfg.rope_theta``."""
+    m = cfg.mla
+    kv = x @ p["wkv_a"]
+    c_kv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
+    c_kv = _rms(c_kv, p["kv_norm"])
+    k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def mla_queries(x, p, cfg, positions):
+    """(q_nope (b, s, h, hd_n), q_rope (b, s, h, hd_r))."""
+    m, nq = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    q = _rms(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    q = q.reshape(b, s, nq, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = (q[..., :m.qk_nope_head_dim],
+                      q[..., m.qk_nope_head_dim:])
+    return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_prefill(x, p, cfg, positions):
+    """Expanded MLA for train and prefill, causal, through K1's
+    dispatcher; returns (out (b, s, d), c_kv, k_rope)."""
+    m, nq = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    c_kv, k_rope = mla_latents(x, p, cfg, positions)
+    q_nope, q_rope = mla_queries(x, p, cfg, positions)
+    k_nope = (c_kv @ p["wk_b"]).reshape(b, s, nq, m.qk_nope_head_dim)
+    v = (c_kv @ p["wv_b"]).reshape(b, s, nq, m.v_head_dim)
+    # contiguous in the head dim, as K1 takes them: the concatenation
+    # materialises the broadcast k_rope
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, nq, m.qk_rope_head_dim)], dim=-1)
+    # v zero-padded to the q·k head dim, so that K1 sees one head dim
+    v = F.pad(v, (0, q.shape[-1] - m.v_head_dim))
+    o = flash_ops.flash_attention(q, k, v, causal=True)
+    o = o[..., :m.v_head_dim].reshape(b, s, nq * m.v_head_dim)
+    return o @ p["wo"], c_kv, k_rope
+
+
+def mla_decode(x, p, cfg, c_kv_cache, k_rope_cache, length, positions):
+    """Absorbed-matmul decode: the scores of q_nope · W_kb against the
+    latent cache, never re-expanding per-position K/V, in f32; the output
+    cast to x's dtype before ``wo``.  x (b, 1, d); ``length`` = number of
+    valid cache slots."""
+    m, nq = cfg.mla, cfg.n_heads
+    b = x.shape[0]
+    S = c_kv_cache.shape[1]
+    q_nope, q_rope = mla_queries(x, p, cfg, positions)         # (b,1,h,.)
+    wk_b = p["wk_b"].reshape(m.kv_lora_rank, nq, m.qk_nope_head_dim)
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wk_b.float())
+    ckv = c_kv_cache.float()
+    s = torch.einsum("bqhr,bkr->bhqk", q_abs, ckv)
+    s = s + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                         k_rope_cache.float())
+    s = s * (1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
+    mask = torch.arange(S, device=x.device) < length
+    pw = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", pw, ckv)
+    wv_b = p["wv_b"].reshape(m.kv_lora_rank, nq, m.v_head_dim)
+    o = torch.einsum("bqhr,rhd->bqhd", o_lat, wv_b.float())
+    return o.reshape(b, 1, nq * m.v_head_dim).to(x.dtype) @ p["wo"]

@@ -8,8 +8,9 @@ from repro_torch.models.transformer import DecoderLM
 
 def build_model(cfg, long_context=False):
     """The dense and MoE decoder families (mistral-nemo, gemma3, minicpm,
-    internvl2's language model), RWKV6 and Jamba are ported; the others
-    raise."""
+    internvl2's language model, mixtral, DeepSeek-V3 with its MLA and
+    multi-token prediction), RWKV6 and Jamba are ported; Whisper
+    raises."""
     if cfg.rwkv is not None:
         return RWKVLM(cfg)
     if cfg.is_encdec:

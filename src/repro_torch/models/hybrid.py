@@ -17,8 +17,8 @@ prefill and decode write it in place.
 
 ``loss`` is ``DecoderLM.loss``: next-token cross entropy plus the MoE
 layers' aux losses, each period under activation checkpointing (the
-reference's ``jax.checkpoint`` of the scanned period).  On the card its
-gradient runs through K1's and K3's backward kernels.
+reference's ``jax.checkpoint`` of the scanned period, with no policy).
+On the card its gradient runs through K1's and K3's backward kernels.
 """
 from __future__ import annotations
 
@@ -133,7 +133,10 @@ class JambaLM(DecoderLM):
         fills ``cache``, "decode" writes it at ``length``, "train" runs
         without one and sums the periods' aux losses (None in the other
         modes).  With ``remat`` ("train" only) each period runs under
-        activation checkpointing with ``remat_policy``."""
+        activation checkpointing with no policy, whatever
+        ``remat_policy`` says: the reference's ``JambaLM._run_layers``
+        checkpoints each period without one, so the whole period is
+        recomputed in the backward."""
         aux = x.new_zeros((), dtype=torch.float32) if mode == "train" \
             else None
         for p in range(self.n_periods):
@@ -144,8 +147,7 @@ class JambaLM(DecoderLM):
                 # no layer draws random numbers: no RNG state to keep
                 x, a = ckpt.checkpoint(self._period_block, *args,
                                        use_reentrant=False,
-                                       preserve_rng_state=False,
-                                       context_fn=self._remat_context)
+                                       preserve_rng_state=False)
             else:
                 x, a = self._period_block(*args)
             if aux is not None:

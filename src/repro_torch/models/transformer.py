@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense and single-device MoE: the port of
+"""Decoder-only LM, dense, single-device MoE and MLA: the port of
 ``repro.models.transformer``.
 
 Params keep the reference's pytree layout, with every per-layer weight
@@ -14,16 +14,22 @@ is that of the reference's ``sliding_window_attention``.  Decode
 attention is plain torch.  The KV cache has layout (L, b, S, n_kv, hd)
 and is updated in place; with ``window_cache`` on, decode uses it as the
 reference's ring buffer.  A vision prefix (internvl2's patch embeddings)
-goes in front of the prompt's token embeddings.  The FFN of a MoE layer is
-``models/moe.py::apply_moe`` on one device (the reference's
-``not dist.active`` branch), and its aux loss joins the training loss.
+goes in front of the prompt's token embeddings.  With ``cfg.mla``
+(DeepSeek-V3) the attention is ``attention.py``'s MLA: prefill through
+K1 at the q·k head dim, decode absorbed against a latent cache of layout
+{ckv: (L, b, S, kv_lora_rank), krope: (L, b, S, rope dim)}.  The FFN of
+a MoE layer is ``models/moe.py::apply_moe`` on one device (the
+reference's ``not dist.active`` branch), and its aux loss joins the
+training loss.
 
 ``loss`` is the reference's: next-token cross entropy plus the MoE aux
 loss, each layer under activation checkpointing (the reference's
 ``jax.checkpoint`` of the scanned layer; ``remat_policy`` None recomputes
 the whole layer in the backward, "dots" keeps the outputs of its matrix
-products).  Its attention gradient comes from K1's backward kernel on the
-card.  Params stay stacked: each step takes every layer's views with one
+products).  With ``cfg.mtp_depth`` it adds the reference's depth-1
+multi-token prediction loss (``_mtp_loss``) at weight 0.3.  Its
+attention gradient comes from K1's backward kernel on the card.  Params
+stay stacked: each step takes every layer's views with one
 ``unbind`` per leaf, so the gradients land in the stacked leaves (the
 stacked norm scales are matrices to AdamW's decay, as in the reference).
 """
@@ -62,8 +68,6 @@ class DecoderLM:
     from the in-place cache updates of ``prefill`` and ``decode``."""
 
     def __init__(self, cfg):
-        if cfg.mla is not None or cfg.mtp_depth:
-            raise NotImplementedError("MLA/MTP: ROADMAP Queue 1 item 10")
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                       else torch.float32)
@@ -87,28 +91,50 @@ class DecoderLM:
         its (L, ...) stacked tensor: the peak is the model's size and one
         draw block (``layers.DRAW_BLOCK``)."""
         device = resolve_device(device)
-        cfg, dt, lead = self.cfg, self.dtype, (self.cfg.n_layers,)
-        layers = {
+        cfg, dt = self.cfg, self.dtype
+        layers = self._init_layer(generator, device, lead=(cfg.n_layers,))
+        params = {
+            "embed": C.init_embedding(generator, cfg, dt, device),
+            "layers": layers,
+            "final_norm": L.init_norm(cfg, dt, device),
+        }
+        if cfg.mtp_depth:
+            params["mtp"] = {
+                "proj": L.dense_init(generator, (2 * cfg.d_model,
+                                                 cfg.d_model), dt, device),
+                "layer": self._init_layer(generator, device),
+                "norm": L.init_norm(cfg, dt, device),
+            }
+        return params
+
+    def _init_layer(self, generator, device, lead=()):
+        """One layer's params, stacked on ``lead``."""
+        cfg, dt = self.cfg, self.dtype
+        attn = A.init_mla if cfg.mla is not None else A.init_attention
+        return {
             "ln1": L.init_norm(cfg, dt, device, lead=lead),
             "ln2": L.init_norm(cfg, dt, device, lead=lead),
-            "attn": A.init_attention(generator, cfg, dt, device, lead=lead),
+            "attn": attn(generator, cfg, dt, device, lead=lead),
             "ffn": (M.init_moe(generator, cfg, dt, device, lead=lead)
                     if cfg.moe is not None and cfg.layer_is_moe(0) else
                     L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt,
                                device, lead=lead)),
-        }
-        return {
-            "embed": C.init_embedding(generator, cfg, self.dtype, device),
-            "layers": layers,
-            "final_norm": L.init_norm(cfg, self.dtype, device),
         }
 
     # -------------------------------------------------------------- layers
 
     def _attention_full(self, x, ap, win, theta, positions, cache_entry):
         """Prefill (cache_entry = this layer's cache views, filled in
-        place) or a cache-free forward (cache_entry None)."""
+        place) or a cache-free forward (cache_entry None).  MLA takes
+        ``cfg.rope_theta`` and no window, as in the reference."""
         cfg = self.cfg
+        if cfg.mla is not None:
+            out, c_kv, k_rope = A.mla_prefill(x, ap, cfg, positions)
+            if cache_entry is not None:
+                s = c_kv.shape[1]
+                cache_entry["ckv"][:, :s] = c_kv
+                cache_entry["krope"][:, :s] = k_rope
+            return out
         q, k, v = A.project_qkv(x, ap, cfg)
         if not cfg.no_rope:
             q = L.apply_rope(q, positions, theta)
@@ -128,6 +154,15 @@ class DecoderLM:
         cfg = self.cfg
         positions = torch.full((x.shape[0], 1), length, dtype=torch.long,
                                device=x.device)
+        if cfg.mla is not None:
+            c_kv, k_rope = A.mla_latents(x, ap, cfg, positions)
+            ckv_c, krope_c = cache_entry["ckv"], cache_entry["krope"]
+            # clamped to the last slot past the cache's end, as below
+            write_at = min(length, ckv_c.shape[1] - 1)
+            ckv_c[:, write_at] = c_kv[:, 0]
+            krope_c[:, write_at] = k_rope[:, 0]
+            return A.mla_decode(x, ap, cfg, ckv_c, krope_c, length + 1,
+                                positions)
         q, k, v = A.project_qkv(x, ap, cfg)
         if not cfg.no_rope:
             q = L.apply_rope(q, positions, theta)
@@ -194,8 +229,7 @@ class DecoderLM:
         aux = x.new_zeros((), dtype=torch.float32) if mode == "train" \
             else None
         for l, lp in enumerate(layers):
-            ce = None if cache is None else {"k": cache["k"][l],
-                                             "v": cache["v"][l]}
+            ce = None if cache is None else C.index_layer(cache, l)
             args = (x, lp, win[l], theta[l], positions, ce, length, mode)
             if remat:
                 # no layer draws random numbers: no RNG state to keep
@@ -222,8 +256,9 @@ class DecoderLM:
 
     def loss(self, params, batch):
         """batch: tokens (b, s), labels (b, s), optional loss_mask (b, s),
-        optional patch_embeds (b, P, d).  Returns (xent + aux, {"xent",
-        "aux_loss"}), every layer under activation checkpointing."""
+        optional patch_embeds (b, P, d).  Returns (xent [+ 0.3 mtp] + aux,
+        {"xent", "aux_loss"[, "mtp"]}), every layer under activation
+        checkpointing."""
         cfg = self.cfg
         patches = batch.get("patch_embeds")
         x = self._embed_inputs(params, batch["tokens"], patches)
@@ -240,7 +275,35 @@ class DecoderLM:
         # one-hot.
         xent = L.softmax_xent(logits, batch["labels"],
                               batch.get("loss_mask"))
-        return xent + aux, {"xent": xent, "aux_loss": aux}
+        metrics = {"xent": xent, "aux_loss": aux}
+        loss = xent
+        if cfg.mtp_depth:
+            mtp = self._mtp_loss(params, x, batch)
+            loss = loss + 0.3 * mtp
+            metrics["mtp"] = mtp
+        return loss + aux, metrics
+
+    def _mtp_loss(self, params, h, batch):
+        """The reference's depth-1 multi-token prediction: ``h`` (after
+        ``final_norm``) normed again by ``mtp/norm``, joined with the
+        embeddings of the labels rolled by -1 (the roll wraps), projected,
+        one more layer (the last layer's window and theta, no remat, its
+        MoE aux loss dropped), then cross entropy against the labels
+        rolled by -1 with the last two positions masked."""
+        cfg, mtp = self.cfg, params["mtp"]
+        labels2 = torch.roll(batch["labels"], -1, dims=1)
+        emb_next = C.embed(labels2, params["embed"], cfg)
+        hn = L.rmsnorm(h, mtp["norm"], cfg.norm_eps)
+        x = torch.cat([hn, emb_next], dim=-1) @ mtp["proj"]
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        win, theta = layer_scalars(cfg)
+        x, _ = self._layer(x, mtp["layer"], win[-1], theta[-1], positions,
+                           None, None, "train")
+        logits = C.lm_logits(x, params["embed"], cfg)
+        mask = torch.ones(labels2.shape, dtype=torch.float32,
+                          device=labels2.device)
+        mask[:, -2:] = 0.0
+        return L.softmax_xent(logits, labels2, mask)
 
     def _embed_inputs(self, params, tokens, patch_embeds=None):
         """Token embeddings, with ``patch_embeds`` (b, P, d) in front."""
@@ -277,17 +340,26 @@ class DecoderLM:
 
     def init_cache(self, batch, max_len, device, extra=0):
         """Zero caches of max_len + extra slots (extra: a vision
-        prefix's patches)."""
+        prefix's patches); MLA's holds the latents."""
         cfg = self.cfg
+        if cfg.mla is not None:
+            lead = (cfg.n_layers, batch, max_len + extra)
+            return {"ckv": torch.zeros((*lead, cfg.mla.kv_lora_rank),
+                                       dtype=self.dtype, device=device),
+                    "krope": torch.zeros((*lead, cfg.mla.qk_rope_head_dim),
+                                         dtype=self.dtype, device=device)}
         shape = (cfg.n_layers, batch, max_len + extra, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=device)}
 
 
-# the matrix products whose outputs remat_policy "dots" keeps
+# the matrix products whose outputs remat_policy "dots" keeps, as jax's
+# checkpoint_dots keeps every dot_general's: bmm.dtype is the MoE's
+# f32-output expert product on the card (moe.py::_bmm_f32)
 _DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+         torch.ops.aten.bmm.dtype, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default}
 
 
 def _save_dots(ctx, op, *args, **kwargs):

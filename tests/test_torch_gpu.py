@@ -1338,3 +1338,128 @@ def test_train_launcher_on_the_card(cuda):
     losses = [r["loss"] for r in out["records"]]
     assert len(losses) == 12 and all(map(math.isfinite, losses))
     assert min(losses[-3:]) < max(losses[:3])
+
+
+# --------------------------------------------------- MLA (DeepSeek-V3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k1_at_mla_head_dim_with_zero_padded_v(cuda, dtype):
+    """K1 at MLA's head dim 192 (128 nope + 64 rope) with v's columns
+    128..191 zero, as ``mla_prefill`` pads them: the general variant,
+    held to attention_ref elementwise and by row, and the output's padded
+    columns exactly zero."""
+    q, k, v = _qkv(2, 300, 300, 8, 192, dtype)
+    v[..., 128:] = 0
+    assert kernel.plan(q, k, v) == "general"
+    before = ops.launches_by_variant["general"]
+    with torch.inference_mode():
+        out = ops.flash_attention(q, k, v, causal=True)
+        ref = attention_ref(q, k, v, causal=True)
+    assert ops.launches_by_variant["general"] == before + 1
+    assert torch.equal(out[..., 128:], torch.zeros_like(out[..., 128:]))
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    row = ((out.float() - ref.float()).norm(dim=-1)
+           / ref.float().norm(dim=-1).clamp_min(1e-30))
+    assert row.max().item() <= ROW_TOL[dtype]
+
+
+def test_mla_prefill_decode_on_the_card_match_cpu(cuda):
+    """deepseek-v3-671b's smoke config in f32: prefill runs K1 once a
+    layer (the general variant: hd 24), and its logits and latent caches,
+    then 3 decode steps' (absorbed MLA, plain torch), equal the same
+    model's on the CPU within 1e-4."""
+    cfg = get_smoke("deepseek-v3-671b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(1, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    on_card = _to(params, cuda)
+    with torch.inference_mode():
+        want, want_cache, n = model.prefill(params, tokens, 48)
+        before = ops.launches_by_variant["general"]
+        got, got_cache, length = model.prefill(on_card, tokens.to(cuda), 48)
+        torch.cuda.synchronize()
+        assert ops.launches_by_variant["general"] == before + cfg.n_layers
+        assert length == n == 40
+        for step in range(3):
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+            for key in ("ckv", "krope"):
+                torch.testing.assert_close(got_cache[key].cpu(),
+                                           want_cache[key], rtol=1e-4,
+                                           atol=1e-4)
+            nxt = want[:, -1].argmax(-1, keepdim=True)
+            want, want_cache, n = model.decode(params, want_cache, nxt, n)
+            got, got_cache, length = model.decode(on_card, got_cache,
+                                                  nxt.to(cuda), length)
+        assert length == n == 43
+
+
+def test_mla_loss_with_mtp_on_the_card_matches_cpu(cuda):
+    """deepseek-v3-671b's smoke config in f32: ``loss`` with MTP and its
+    gradients on the card (K1 forward and backward at hd 24: twice a layer
+    under remat and once for the MTP layer, each with its backward) equal
+    the CPU's: loss and the MTP loss 1e-4, each gradient leaf (mtp/*
+    included) within 1e-3 of its largest |g|."""
+    from repro_torch import tree as T
+    from repro_torch.training.step import value_and_grad
+    cfg = get_smoke("deepseek-v3-671b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 33),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want = value_and_grad(model, params, batch)
+    before = (ops.launches, ops.launches_bwd)
+    got = value_and_grad(model, _to(params, cuda), _to(batch, cuda))
+    n = cfg.n_layers
+    assert (ops.launches - before[0], ops.launches_bwd - before[1]) == (
+        2 * n + 1, len(kernel_bwd.KERNELS["general"]) * (n + 1))
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[1]["mtp"].cpu(), want[1]["mtp"],
+                               rtol=1e-4, atol=1e-4)
+    paths = [p for p, _ in T.flatten(got[2])]
+    assert "mtp/layer/attn/wq_a" in paths
+    for (path, g), w in zip(T.flatten(got[2]), T.leaves(want[2])):
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-3 * w.abs().max().item(), path
+
+
+def test_remat_dots_saves_the_f32_expert_products_on_the_card(cuda,
+                                                              monkeypatch):
+    """mixtral-8x7b's smoke config in bf16 on the card: remat policy
+    "dots" saves the MoE's f32-output expert products (``aten.bmm.dtype``)
+    and gives the loss and gradients of no remat, bit for bit."""
+    from repro_torch import tree as T
+    from repro_torch.models import transformer as tT
+    from repro_torch.training.step import value_and_grad
+    cfg = get_smoke("mixtral-8x7b")
+    model = build_model(cfg)
+    params = _to(model.init(torch.Generator().manual_seed(0), "cpu"), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 25),
+                         generator=torch.Generator().manual_seed(1))
+    batch = _to({"tokens": toks[:, :-1], "labels": toks[:, 1:]}, cuda)
+
+    class NoRemat(type(model)):
+        def _run_layers(self, *a, remat=False):
+            return super()._run_layers(*a, remat=False)
+
+    loss0, _, grads0 = value_and_grad(NoRemat(cfg), params, batch)
+    saved = []
+    real = tT._save_dots
+
+    def save_dots(ctx, op, *a, **kw):
+        out = real(ctx, op, *a, **kw)
+        if out == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE:
+            saved.append(op)
+        return out
+
+    monkeypatch.setattr(tT, "_save_dots", save_dots)
+    model.remat_policy = "dots"
+    loss, _, grads = value_and_grad(model, params, batch)
+    assert torch.ops.aten.bmm.dtype in saved
+    assert torch.equal(loss, loss0)
+    for (path, g), g0 in zip(T.flatten(grads), T.leaves(grads0)):
+        assert torch.equal(g, g0), path

@@ -496,6 +496,73 @@ def test_remat_gives_the_same_bits(policy):
         assert torch.equal(g, g0), path
 
 
+def record_saved_dots(monkeypatch):
+    """Wraps remat policy "dots"' choice; returns the list of ops it told
+    to save."""
+    from repro_torch.models import transformer as tT
+    saved = []
+    real = tT._save_dots
+
+    def save_dots(ctx, op, *a, **kw):
+        out = real(ctx, op, *a, **kw)
+        if out == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE:
+            saved.append(op)
+        return out
+
+    monkeypatch.setattr(tT, "_save_dots", save_dots)
+    return saved
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b"])
+def test_remat_dots_gives_the_same_bits_with_moe(arch, monkeypatch):
+    """On MoE smoke configs (mixtral's softmax router; DeepSeek-V3's
+    sigmoid router, shared expert, MLA and MTP), the loss and gradients
+    under remat policy "dots" equal those without remat, bit for bit, and
+    "dots" saves the expert products (on the CPU a bmm of f32 copies; on
+    the card ``aten.bmm.dtype``, which ``_DOTS`` holds as jax's
+    ``checkpoint_dots`` saves every dot_general)."""
+    from repro_torch.models import transformer as tT
+    assert torch.ops.aten.bmm.dtype in tT._DOTS
+    _, _, tm, tp = pair(arch, no_drop)
+    batch = to_torch(batch_np(tm.cfg, 2, 16, seed=9))
+
+    class NoRemat(type(tm)):
+        def _run_layers(self, *a, remat=False):
+            return super()._run_layers(*a, remat=False)
+
+    loss0, _, grads0 = value_and_grad(NoRemat(tm.cfg), tp, batch)
+    saved = record_saved_dots(monkeypatch)
+    tm.remat_policy = "dots"
+    try:
+        loss, _, grads = value_and_grad(tm, tp, batch)
+    finally:
+        tm.remat_policy = None
+    assert torch.ops.aten.bmm.default in saved
+    assert torch.equal(loss, loss0)
+    for (path, g), g0 in zip(T.flatten(grads), T.leaves(grads0)):
+        assert torch.equal(g, g0), path
+
+
+def test_jamba_remat_takes_no_policy(monkeypatch):
+    """As the reference's JambaLM checkpoints each period with no policy
+    whatever remat_policy says, the port's recomputes every period whole:
+    "dots" saves nothing there, and the gradients are those without
+    remat, bit for bit."""
+    _, _, tm, tp = pair(JAMBA, no_drop)
+    batch = to_torch(batch_np(tm.cfg, 2, 16, seed=10))
+    loss0, _, grads0 = value_and_grad(tm, tp, batch)
+    saved = record_saved_dots(monkeypatch)
+    tm.remat_policy = "dots"
+    try:
+        loss, _, grads = value_and_grad(tm, tp, batch)
+    finally:
+        tm.remat_policy = None
+    assert saved == []
+    assert torch.equal(loss, loss0)
+    for (path, g), g0 in zip(T.flatten(grads), T.leaves(grads0)):
+        assert torch.equal(g, g0), path
+
+
 @pytest.mark.parametrize("policy", [None, "dots"])
 def test_remat_recomputes_the_saved_lse(monkeypatch, policy):
     """On the "hopper" route the forward's LSE is saved through

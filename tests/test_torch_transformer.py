@@ -149,18 +149,11 @@ def test_softcap_and_window_path():
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("whisper-tiny", "Whisper"), ("deepseek-v3-671b", "MoE|MLA"),
+    ("whisper-tiny", "Whisper"),
 ])
 def test_unported_families_raise(arch, match):
     with pytest.raises(NotImplementedError, match=match):
         torch_build(torch_smoke(arch))
-
-
-def test_unported_options_raise():
-    # DecoderLM.loss is ported (tests/test_torch_training.py); its
-    # multi-token prediction is not
-    with pytest.raises(NotImplementedError, match="item 10"):
-        torch_build(torch_smoke("mistral-nemo-12b").replace(mtp_depth=1))
 
 
 def test_init_defaults_to_the_card():
