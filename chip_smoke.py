@@ -32,10 +32,17 @@ non-zero and prints no result:
    sliding_window_attention, with a window one kv tile shorter or longer
    shown to fail, and at hd 120 the padding columns read from the next
    head or the second TMA box dropped shown to fail; at a prefill wave of
-   deepseek-v3-671b's MLA (4 x 1024 rows, 128 heads of hd 192, the general
-   variant), with v as drawn and with its columns 128..191 zero as the
-   model pads them (the output's then exactly zero), timed in turns with
-   SDPA (general, sdpa, sdpa, general) beside the bound; K2 through its
+   deepseek-v3-671b's MLA (4 x 1024 rows, 128 heads, q and k 192 columns,
+   v 128: the Hopper variant, the function of v zero-padded to 192 with
+   o's first 128 columns), with the third q/k box dropped shown to fail,
+   and the general variant on v zero-padded to 192 as the model padded it
+   before (the output's columns 128..191 then exactly zero) as the
+   yardstick, timed in turns (hopper, general, sdpa, sdpa, general,
+   hopper; SDPA on the padded q/k/v, and on v at 128 columns where it
+   takes them) beside both functions' bounds; small Hopper cases at (192,
+   128): ragged, non-causal with sq != skv, softcapped, q and k the two
+   halves of one 384-column storage; bf16 (192, 192) on the general
+   variant; K2 through its
    dispatcher, and its candidate plans (G, C, CB, double buffer) in two
    passes at the main-path shape, each case checked for the plan it
    took, and a stale chunk and a lost row group shown to fail; the
@@ -53,8 +60,8 @@ non-zero and prints no result:
    4096-token window); each checks that every request gets its tokens,
    every logit is finite and each of its kernels ran as often per
    prefill wave as the path has layers that run it (and no other kernel
-   ran), every K1 launch through the path's variant (the Hopper one but
-   on f); the device memory of the path before is freed first; it prints
+   ran), every K1 launch through the Hopper variant; the device memory
+   of the path before is freed first; it prints
    the peak memory and the decode step's time beside the least time to
    read the weights a step reads:
    a. mistral-nemo-12b (40 layers, d_model 5120): K1 40 times a wave;
@@ -75,8 +82,8 @@ non-zero and prints no result:
       every width as published (d_model 7168, 128 heads, q_lora 1536,
       kv_lora 512, nope/rope/v 128/64/128, 256 experts top-8 of 2048
       plus 1 shared, vocab 129280 untied), 24.87 B params: MLA prefill
-      through K1 at hd 192, twice a wave, general variant; absorbed
-      decode against the latent cache.
+      through K1 at q·k 192 and v 128, twice a wave, Hopper variant;
+      absorbed decode against the latent cache.
    With --profile, after each, one prefill wave (at the path's longest
    prompt) and three decode steps outside the engine, timed and traced
    with torch.profiler;
@@ -240,9 +247,6 @@ MAIN_PATHS = {"mistral-nemo-12b": {"flash_attention": 40},
               DANUBE: {"flash_attention": 24},
               MIXTRAL: {"flash_attention": 8},
               DEEPSEEK: {"flash_attention": 2}}
-# the K1 variant every launch of a main path takes, where it is not the
-# Hopper one: MLA's q·k head dim 192 is not in kernel.HOPPER_HEAD_DIMS
-MAIN_PATH_VARIANT = {DEEPSEEK: "general"}
 # each main path's traffic: prompt lengths drawn from seed 0 in [lo, hi]
 # and max_len; the sliding-window paths' prompts all pass their 4096-token
 # window, so it bites in prefill and in every decode step
@@ -270,10 +274,13 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # so ~3e-3 at most.  A row that loses the key it attends to errs by O(1).
 ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
-# name, (b, sq, skv, h, hd), dtype, causal, window, softcap, layout of
-# q/k/v ("plain" (b, s, h, hd); "strided": a (b, h, s, hd) storage;
-# "padded": the first hd columns of a (b, s, h, 128) storage whose other
-# columns hold 1e4), the variant kernel.plan must pick
+# name, (b, sq, skv, h, hd[, dv]) (dv: v's and o's columns where fewer
+# than hd), dtype, causal, window, softcap, layout of q/k/v ("plain" (b,
+# s, h, hd); "strided": a (b, h, s, hd) storage; "padded": the first hd
+# columns of a (b, s, h, 128) storage whose other columns hold 1e4;
+# "zero-v": v's columns from 128 on zero; "qk-halves": q and k the two
+# halves of one (b, s, h, 2 hd) storage), the variant kernel.plan must
+# pick
 FLASH_CASES = [
     ("main-path", (4, 1024, 1024, 32, 128), torch.bfloat16, True, 0, 0.0,
      "plain", "hopper"),
@@ -323,22 +330,40 @@ FLASH_CASES = [
      4096, 0.0, "plain", "hopper"),
     ("mixtral-window-4096", (4, 6144, 6144, 32, 128), torch.bfloat16, True,
      4096, 0.0, "plain", "hopper"),
-    # a prefill wave of deepseek-v3-671b's MLA: 128 heads of 128 nope + 64
-    # rope, v zero-padded from 128 to 192 ("zero-v": as mla_prefill pads
-    # it) or not
-    ("mla-hd192", (4, 1024, 1024, 128, 192), torch.bfloat16, True, 0, 0.0,
+    # a prefill wave of deepseek-v3-671b's MLA: 128 heads, q and k 128
+    # nope + 64 rope, v 128 (the Hopper variant); and the general variant
+    # on v zero-padded to 192 as mla_prefill padded it before ("zero-v"),
+    # the yardstick
+    ("mla-hd192", (4, 1024, 1024, 128, 192, 128), torch.bfloat16, True, 0,
+     0.0, "plain", "hopper"),
+    ("mla-hd192-general", (4, 1024, 1024, 128, 192), torch.bfloat16, True,
+     0, 0.0, "zero-v", "general"),
+    # MLA's head dims at small shapes: a ragged wave, sq != skv without the
+    # causal mask, a softcap, q and k as the two halves of one storage;
+    # bf16 (192, 192), which no Hopper instantiation takes
+    ("ragged-mla", (1, 1000, 1000, 8, 192, 128), torch.bfloat16, True, 0,
+     0.0, "plain", "hopper"),
+    ("noncausal-mla", (1, 200, 333, 4, 192, 128), torch.bfloat16, False, 0,
+     0.0, "plain", "hopper"),
+    ("softcap-30-mla", (1, 300, 300, 4, 192, 128), torch.bfloat16, True, 0,
+     30.0, "plain", "hopper"),
+    ("qk-halves-mla", (2, 500, 500, 4, 192, 128), torch.bfloat16, True, 0,
+     0.0, "qk-halves", "hopper"),
+    ("square-hd192", (1, 300, 300, 4, 192), torch.bfloat16, True, 0, 0.0,
      "plain", "general"),
-    ("mla-hd192-zero-v", (4, 1024, 1024, 128, 192), torch.bfloat16, True, 0,
-     0.0, "zero-v", "general"),
 ]
 # the forward faults (checks.FWD_FAULTS) a case also shows its checks
 # can see
 FLASH_FAULTS = {"danube-window-4096": ("pad-from-next-head",
-                                       "second-box-dropped")}
+                                       "second-box-dropped"),
+                "mla-hd192": ("third-box-dropped",)}
 # the cases timed beside the main-path case, each under its own key of
 # the kernels line
 TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
                      "mixtral-window-4096", "mla-hd192")
+# name fragments of the serving kernels K1, K2 and K3, which a profile
+# prints even where they are not among a step's largest
+PORT_KERNELS = ("flash_fwd_", "wkv6_kernel", "scan_pipe_kernel")
 # the most bytes of f32 scores attention_ref may build as a plain version
 PLAIN_SCORES_BYTES = 2 ** 32
 
@@ -610,25 +635,36 @@ def _flash_inputs(shape, dtype, layout, gen):
     by O(1), which the checks see.  ``layout``: see ``FLASH_CASES``; a
     kernel that read the "padded" storage's columns past hd would see
     scores of about 1e8; "zero-v" is "plain" with v's columns from 128 on
-    zero, as MLA's prefill pads v."""
-    b, sq, skv, h, hd = shape
+    zero, as MLA's prefill padded v; "qk-halves": q and k the first and
+    the last hd columns of one (b, s, h, 2 hd) storage."""
+    b, sq, skv, h, hd, dv = flash_dims(shape)
 
-    def randn(s, scale):
+    def randn(s, scale, d=hd):
         if layout == "strided":       # (b, h, s, hd) seen as (b, s, h, hd)
-            x = torch.randn((b, h, s, hd), generator=gen, device="cuda")
+            x = torch.randn((b, h, s, d), generator=gen, device="cuda")
             return (x.transpose(1, 2) * scale).to(dtype)
         if layout == "padded":
             x = torch.randn((b, s, h, 128), generator=gen, device="cuda")
             x = (x * scale).to(dtype)
-            x[..., hd:] = 1e4
-            return x[..., :hd]
-        x = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+            x[..., d:] = 1e4
+            return x[..., :d]
+        x = torch.randn((b, s, h, d), generator=gen, device="cuda")
         return (x * scale).to(dtype)
 
-    q, k, v = randn(sq, 2.0), randn(skv, 2.0), randn(skv, 1.0)
+    q, k, v = randn(sq, 2.0), randn(skv, 2.0), randn(skv, 1.0, dv)
     if layout == "zero-v":
         v[..., 128:] = 0
+    if layout == "qk-halves":
+        check(sq == skv, "qk-halves needs sq == skv")
+        qk = torch.cat([q, k], dim=-1)
+        q, k = qk[..., :hd], qk[..., hd:]
     return q, k, v
+
+
+def flash_dims(shape):
+    """(b, sq, skv, h, hd, dv) of a ``FLASH_CASES`` shape; dv = hd where
+    the shape gives none."""
+    return (*shape, shape[4]) if len(shape) == 5 else tuple(shape)
 
 
 def row_err(out, ref):
@@ -641,10 +677,11 @@ def row_err(out, ref):
 def flash_bound(shape, dtype, causal, window):
     """Least time for the function: bytes (q, k, v read once, o written
     once) over HBM bandwidth, or the products of the unmasked (query,
-    key) pairs over the peak rate for the dtype, whichever is larger."""
-    b, sq, skv, h, hd = shape
+    key) pairs (2 hd for S, 2 dv for P V) over the peak rate for the
+    dtype, whichever is larger."""
+    b, sq, skv, h, hd, dv = flash_dims(shape)
     size = torch.finfo(dtype).bits // 8
-    nbytes = (2 * b * sq * h * hd + 2 * b * skv * h * hd) * size
+    nbytes = (b * sq * h * (hd + dv) + b * skv * h * (hd + dv)) * size
     i = np.arange(sq)[:, None]
     j = np.arange(skv)[None, :]
     mask = np.ones((sq, skv), bool)
@@ -652,7 +689,7 @@ def flash_bound(shape, dtype, causal, window):
         mask &= i >= j
     if window:
         mask &= i - j < window
-    flops = 4 * hd * int(mask.sum()) * b * h
+    flops = 2 * (hd + dv) * int(mask.sum()) * b * h
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -666,7 +703,7 @@ def flash_plain(shape, kw):
     ``sliding_window_attention``, the same function in O(s·w) memory."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.attention import sliding_window_attention
-    b, sq, skv, h, _ = shape
+    b, sq, skv, h = shape[:4]
     if b * h * sq * skv * 4 <= PLAIN_SCORES_BYTES:
         return functools.partial(attention_ref, **kw)
     check(kw["causal"] and kw["window"] and sq == skv,
@@ -817,32 +854,61 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                 plain):
     """Times K1 through the kernel module (no launch counted): both
     variants in turns (general, hopper, hopper, general) where ``plan``
-    takes the Hopper one, else the general one in turns with SDPA
-    (general, sdpa, sdpa, general); where it takes the Hopper one at a
-    head dim with a training mode (the Hopper backward's,
+    takes the Hopper one; where v is narrower than q and k (MLA), the
+    Hopper one in turns with the general one and SDPA on v zero-padded to
+    hd, the model's call before the Hopper variant took v as it is, and
+    with SDPA on v as it is where SDPA takes it (hopper, general, sdpa,
+    sdpa-dv, sdpa-dv, sdpa, general, hopper); else the general one in
+    turns with SDPA (general, sdpa, sdpa, general); where it takes the
+    Hopper one at a head dim with a training mode (the Hopper backward's,
     ``kernel_bwd.HOPPER_HEAD_DIMS``), its serving instantiation against
     its training mode (the LSE written; without, with, with, without);
     SDPA on the same inputs (in those turns for the general variant; with
     a boolean band mask for a window); and the plain version.  Prints
-    them beside the bound and returns the kernels-line numbers (``ms`` is
-    that of ``variant``, the one the dispatcher takes)."""
+    them beside the bound (and, where v is narrower, the padded
+    function's) and returns the kernels-line numbers (``ms`` is that of
+    ``variant``, the one the dispatcher takes; ``library_ms`` SDPA's on
+    the same inputs, on padded v only where SDPA refuses them)."""
     from repro_torch.kernels.flash_attention import kernel_bwd
-    order = (("general", "hopper", "hopper", "general")
-             if variant == "hopper" else ("general", "sdpa", "sdpa",
-                                          "general"))
-    qt, kt, vt_ = (t.transpose(1, 2) for t in (q, k, v))
+    _, _, _, _, hd, dv = flash_dims(shape)
+    narrow = dv < hd
+    vp = F.pad(v, (0, hd - dv)) if narrow else v
+    qt, kt, vt_, vpt = (t.transpose(1, 2) for t in (q, k, v, vp))
+    sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt,
+                             is_causal=kw["causal"])
+    sdpa_dv = narrow
+    if narrow:
+        try:
+            with torch.inference_mode():
+                sdpa(vt_)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            sdpa_dv = False
+            print(f"[kernels] flash_attention {name}: SDPA refuses v at {dv} "
+                  f"columns beside q and k at {hd}: {e}")
+    if narrow:
+        order = (("hopper", "general", "sdpa")
+                 + ("sdpa-dv", "sdpa-dv") * sdpa_dv
+                 + ("sdpa", "general", "hopper"))
+    elif variant == "hopper":
+        order = ("general", "hopper", "hopper", "general")
+    else:
+        order = ("general", "sdpa", "sdpa", "general")
     in_turns, lse_turns = [], []
     with torch.inference_mode():
         for vt in order:
             if vt == "sdpa":
-                fn = functools.partial(F.scaled_dot_product_attention, qt,
-                                       kt, vt_, is_causal=kw["causal"])
-            else:
+                fn = functools.partial(sdpa, vpt)
+            elif vt == "sdpa-dv":
+                fn = functools.partial(sdpa, vt_)
+            else:      # the general variant takes the padded v, if any
                 fn = functools.partial(flash_kernel.flash_attention_cuda, q,
-                                       k, v, vt, **kw)
+                                       k, v if vt == "hopper" else vp, vt,
+                                       **kw)
             in_turns.append((vt, time_ms(fn)))
-        turns = [(u, t) for u, t in in_turns if u != "sdpa"]
-        sdpa_turns = [t for u, t in in_turns if u == "sdpa"]
+        turns = [(u, t) for u, t in in_turns if not u.startswith("sdpa")]
+        sdpa_turns = {u: [t for w, t in in_turns if w == u]
+                      for u in ("sdpa", "sdpa-dv")}
         if variant == "hopper" and q.shape[3] in kernel_bwd.HOPPER_HEAD_DIMS:
             lse = flash_kernel.lse_buffer(q)
             for with_lse in (False, True, True, False):
@@ -851,9 +917,10 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                         q, k, v, "hopper", lse=lse if with_lse else None,
                         **kw))))
             del lse
-        if sdpa_turns:
+        if sdpa_turns["sdpa"]:
             check(not kw["window"], f"{name}: SDPA in turns takes no window")
-            library_ms = float(np.mean(sdpa_turns))
+            library_ms = float(np.mean(sdpa_turns["sdpa-dv"]
+                                       or sdpa_turns["sdpa"]))
         elif kw["window"]:
             i = torch.arange(q.shape[1], device=q.device)[:, None]
             j = torch.arange(k.shape[1], device=q.device)[None, :]
@@ -862,9 +929,9 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                 qt, kt, vt_, attn_mask=band), iters=3)
             del band
         else:
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt_, is_causal=kw["causal"]))
+            library_ms = time_ms(lambda: sdpa(vt_))
         plain_ms = time_ms(plain, iters=3)
+    del vp, vpt
     ms_by_variant = {u: float(np.mean([t for w, t in turns if w == u]))
                      for u in dict(turns)}
     ms = ms_by_variant[variant]
@@ -881,17 +948,36 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
               f"LSE in turns {', '.join(f'{t:.4f}' for _, t in lse_turns)} "
               f"ms; with / without "
               f"{lse_ms['with_lse'] / lse_ms['without_lse']:.3f}")
+    extra = {}
+    padded = ""
+    if narrow:
+        # the function on v zero-padded to hd, as the model computed it
+        # before: the general variant's and SDPA's yardstick
+        extra["padded_bound_ms"] = flash_bound(shape[:5], dtype,
+                                               kw["causal"],
+                                               kw["window"])[0]
+        extra["sdpa_padded_ms"] = float(np.mean(sdpa_turns["sdpa"]))
+        if sdpa_turns["sdpa-dv"]:
+            extra["sdpa_dv_ms"] = library_ms
+        padded = (f"; on v padded to {hd}: sdpa "
+                  f"{extra['sdpa_padded_ms']:.4f} ms, bound "
+                  f"{extra['padded_bound_ms']:.4f} ms; hopper / padded "
+                  f"sdpa {ms / extra['sdpa_padded_ms']:.2f}")
     print(f"[kernels] flash_attention {name}: in turns "
           f"{', '.join(f'{u} {t:.4f}' for u, t in in_turns)} ms; "
           f"{', '.join(f'{u} {t:.4f} ms' for u, t in ms_by_variant.items())}"
-          f", plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}); {variant} / sdpa {ms / library_ms:.2f}, "
-          f"{variant} / bound {ms / bound_ms:.2f}{ratio}")
+          f", plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); {variant} / sdpa "
+          f"{ms / library_ms:.2f}, {variant} / bound {ms / bound_ms:.2f}"
+          f"{ratio}{padded}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "ms_by_variant": ms_by_variant, "ms_turns": turns,
-            **({"sdpa_ms_turns": sdpa_turns} if sdpa_turns else {}),
-            **({"hopper_ms_by_lse": lse_ms} if lse_ms else {})}
+            **({"sdpa_ms_turns": sdpa_turns["sdpa"]}
+               if sdpa_turns["sdpa"] else {}),
+            **({"sdpa_dv_ms_turns": sdpa_turns["sdpa-dv"]}
+               if sdpa_turns["sdpa-dv"] else {}),
+            **({"hopper_ms_by_lse": lse_ms} if lse_ms else {}), **extra}
 
 
 # WKV6 (K2): inputs and limits from repro_torch.kernels.rwkv6.checks.
@@ -2109,16 +2195,13 @@ def phase_main_path(arch, card, profile):
           "a request got the wrong number of tokens")
     check(probe.nonfinite == 0, f"{probe.nonfinite} non-finite logits")
     want = {name: MAIN_PATHS[arch].get(name, 0) * waves for name in ops}
-    # every K1 launch of a main path takes the path's variant (the Hopper
-    # one but where MAIN_PATH_VARIANT says otherwise)
-    k1_variant = MAIN_PATH_VARIANT.get(arch, "hopper")
+    # every K1 launch of a main path takes the Hopper variant
     want["flash_attention_by_variant"] = {
-        vt: want["flash_attention"] if vt == k1_variant else 0
-        for vt in ("hopper", "general")}
+        "hopper": want["flash_attention"], "general": 0}
     if want["flash_attention"]:
         print(f"[main] {arch}: K1 launches by variant "
               f"{launches['flash_attention_by_variant']} (expected all "
-              f"{k1_variant!r})")
+              f"'hopper')")
     # every K2 launch takes kernel.plan's (G, C, CB) for the model's head dim
     want["wkv6_by_plan"] = {}
     if want["wkv6"]:
@@ -2174,8 +2257,9 @@ def profile_steps(model, params, max_len, seq, batch=4, steps=3):
     profiler, then run again under torch.profiler for the device time of
     its kernels (the kernels alone, not the host-side ops that launched
     them).  Prints, per step, the wall time, the kernel time and launches,
-    the device-busy share (kernel time over wall time) and the kernels
-    that take the most."""
+    the device-busy share (kernel time over wall time), the kernels that
+    take the most, and the repository's own kernels (``PORT_KERNELS``)
+    where they are not among those."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2216,8 +2300,10 @@ def profile_steps(model, params, max_len, seq, batch=4, steps=3):
                   f"{wall_ms:.1f} ms per step, kernels {busy_ms:.1f} ms in "
                   f"{n_launch} launches, device busy "
                   f"{100 * busy_ms / wall_ms:.0f}%")
-            for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                            reverse=True)[:8]:
+            ranked = sorted(kernels, key=lambda e: e.self_device_time_total,
+                            reverse=True)
+            for e in ranked[:8] + [e for e in ranked[8:] if any(
+                    name in e.key for name in PORT_KERNELS)]:
                 print(f"[profile]   {e.self_device_time_total / 1e3 / n:8.2f}"
                       f" ms {e.count // n:5d}x  {e.key[:90]}")
 

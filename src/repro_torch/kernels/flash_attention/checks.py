@@ -21,15 +21,19 @@ limits.
   ring stage waited on with a stale phase would hold.
 
 And what the forward's checks must be able to see at a head dim that is
-no multiple of the Hopper forward's 64-column TMA box (hd 120), as
-inputs on which the plain forward returns what the faulty kernel would
-(``forward_fault_inputs``, ``FWD_FAULTS``):
+no multiple of the Hopper forward's 64-column TMA box (hd 120), or that
+takes three boxes a row (MLA's q·k 192), as inputs on which the plain
+forward returns what the faulty kernel would (``forward_fault_inputs``,
+``FWD_FAULTS``):
 
 * "pad-from-next-head": the padding columns hd..127 of q and k read from
   head h + 1's first columns (zeros for the last head), as a tensor map
   with {hd, h} flattened into one dimension would give;
 * "second-box-dropped": columns 64..hd-1 of q, k and v zero, as a
   producer that loaded hd // 64 boxes a row (not the ceiling) would
+  leave them;
+* "third-box-dropped": columns 128..hd-1 of q and k zero (hd > 128), as
+  a producer that loaded two boxes of each q and k row (v's count) would
   leave them.
 """
 from __future__ import annotations
@@ -45,7 +49,8 @@ FAULTS = ("no-delta", "no-softcap-derivative", "skip-last-tile",
           "skip-first-tile", "lse-neighbour-row", "lse-log2",
           "stale-q-stage")
 TILE = 64    # the kernel's q and kv tile rows
-FWD_FAULTS = ("pad-from-next-head", "second-box-dropped")
+FWD_FAULTS = ("pad-from-next-head", "second-box-dropped",
+              "third-box-dropped")
 BOX = 64     # columns of the Hopper forward's TMA box
 
 
@@ -165,9 +170,17 @@ def forward_fault_inputs(q, k, v, fault):
         raise ValueError(f"no forward fault {fault!r}; one of {FWD_FAULTS}")
     hd = q.shape[3]
     hdp = -(-hd // BOX) * BOX
+    q, k, v = (t.float() for t in (q, k, v))
+    if fault == "third-box-dropped":
+        if hd <= 2 * BOX:
+            raise ValueError(f"hd {hd} takes at most two boxes: {fault} "
+                             f"cannot happen")
+        q, k = q.clone(), k.clone()
+        q[..., 2 * BOX:] = 0
+        k[..., 2 * BOX:] = 0
+        return q, k, v
     if hdp == hd:
         raise ValueError(f"hd {hd} fills whole boxes: {fault} cannot happen")
-    q, k, v = (t.float() for t in (q, k, v))
     if fault == "second-box-dropped":
         q, k, v = (t.clone() for t in (q, k, v))
         for t in (q, k, v):

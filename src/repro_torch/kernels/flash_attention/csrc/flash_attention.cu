@@ -6,6 +6,8 @@
 // scale 1/sqrt(hd), optional tanh softcap, a causal mask aligned from
 // position 0, a sliding window, f32 statistics and accumulator, a finite
 // -1e30 mask value, the denominator clamped at 1e-30, output in q's type.
+// v may have dv <= hd columns: the function is the TPU kernel's on v
+// zero-padded to hd, and o (b, sq, h, dv) is its first dv columns.
 //
 // What bounds it: at the serving shape, (4, <=1024, 32 or 64, 128) bf16
 // causal, reading q, k, v and writing o once takes about as long at 3.35
@@ -16,9 +18,10 @@
 // variants; kernel.py::plan picks one before launch from the dtype, the
 // head dim and the strides, and neither falls back to the other.
 //
-// Hopper variant (bf16, hd 64, 120 or 128, TMA-compatible strides: every
-// serving call; hd 120 is stored and multiplied at 128 columns, the last
-// 8 of them zeros that TMA writes).  Persistent blocks, one per SM, each
+// Hopper variant (bf16, hd 64, 120 or 128, or q/k at 192 with v/o at 128
+// (MLA), TMA-compatible strides: every serving call; hd 120 is stored and
+// multiplied at 128 columns, the last 8 of them zeros that TMA writes).
+// Persistent blocks, one per SM, each
 // with a producer warpgroup and two consumer warpgroups of 64 query rows;
 // units of 128 query rows are handed out by an atomic counter, longest
 // first within groups of heads whose K and V stay in L2 (taking the
@@ -47,7 +50,8 @@
 //     unmasked key; the dispatcher refuses calls with a row that has
 //     none); the longest q tiles go first;
 //   * head dims up to 256 are padded to 16/32/64/128/256 lanes,
-//     zero-filled, and masked on store;
+//     zero-filled, and masked on store; v may be narrower than q and k
+//     (dv < hd): its columns dv.. are loaded as zeros, o's never stored;
 //   * q/k/v/o are read and written through their strides (innermost
 //     stride 1), so the caller makes no transpose copy.
 //
@@ -90,13 +94,15 @@ struct Params {
   const void* v;
   void* o;
   int b, sq, skv, h, hd;
+  int dv;    // columns of v and o, <= hd: v's columns dv..hd-1 read as zeros
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   float scale, softcap;
   int causal, window;
-  int vec;   // q/k/v allow 16-byte loads: aligned pointers, strides % 8
+  int vec;   // q/k/v allow 16-byte loads: aligned pointers, strides % 8,
+             // hd and dv % 8
 };
 
 // The kv tiles that hold an unmasked key for some row of this q tile.
@@ -187,7 +193,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
       const int row = k0 + i;
       const bool ok = row < p.skv && d < p.hd;
       ks[d * TS + i] = ok ? kg[row * p.k_ss + d] : 0.f;
-      vs[i * HDP + d] = ok ? vg[row * p.v_ss + d] : 0.f;
+      vs[i * HDP + d] = ok && d < p.dv ? vg[row * p.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -266,7 +272,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
-      if (col < p.hd) og[row * p.o_ss + col] = acc[r][c] / lr;
+      if (col < p.dv) og[row * p.o_ss + col] = acc[r][c] / lr;
     }
   }
 }
@@ -315,7 +321,8 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
 }
 
 // rows [row0, row0 + 64) of a (seq, hd) slice with row stride `ss` into a
-// padded smem tile; rows past `nrows` and lanes past `hd` are zero.
+// padded smem tile; rows past `nrows` and lanes past `hd` are zero (for
+// V, `hd` is dv: its columns dv..HDP-1 are zeros, which P V multiplies).
 template <int HDP>
 __device__ __forceinline__ void load_tile_bf16(
     __nv_bfloat16* dst, const __nv_bfloat16* src, long long ss, int row0,
@@ -389,7 +396,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     const int k0 = kt * BK;
     __syncthreads();   // the previous tile's readers are done
     load_tile_bf16<HDP>(ks, kg, p.k_ss, k0, p.skv, p.hd, vec);
-    load_tile_bf16<HDP>(vs, vg, p.v_ss, k0, p.skv, p.hd, vec);
+    load_tile_bf16<HDP>(vs, vg, p.v_ss, k0, p.skv, p.dv, vec);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys
@@ -478,7 +485,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = n * 8 + t * 2 + e;
-        if (col < p.hd)
+        if (col < p.dv)
           og[row * p.o_ss + col] = __float2bfloat16(o[n][half * 2 + e] / lr);
       }
   }
@@ -546,6 +553,20 @@ bool aligned16(const void* ptr, long long sb, long long ss, long long sh) {
 // (K after S, V after P V).  A third stage measured no faster, and does
 // not fit beside the second Q tile.
 //
+// MLA (DeepSeek-V3's prefill: q and k 192 columns, 128 nope + 64 rope; v
+// and o 128) is the function of v zero-padded to 192 columns with o's
+// first 128 kept, as the reference computes it: o's first 128 columns do
+// not depend on v's zero ones, so V is read and multiplied at 128
+// columns.  S = Q K^T runs 12 k steps over three boxes a row; P V, O (64
+// accumulator registers a thread) and the epilogue are hd 128's.  At 128
+// kv rows a tile, two Q buffers and two stages would need 96 + 96 + 64 =
+// 256 KB of the 227 a block has; MlaTile keeps 128-row kv tiles and
+// drops the second Q buffer (208 KB), so the next unit's Q loads only
+// once this unit's last S has landed.  The other candidate, two Q
+// buffers and 64-row kv tiles (S m64n64, P half as wide) in three stages
+// (216 KB), is timed beside it by experiments/time_flash_mla_tiles_torch.py
+// (PERF.md).
+//
 // Tiles are TMA boxes of 64 columns (128 bytes, the widest swizzle) by
 // 128 rows, swizzled 128B; hd 128 is two boxes side by side, each box
 // 16 KB and 1024-byte aligned.  hd 120 (h2o-danube-3-4b) takes the layout
@@ -560,7 +581,8 @@ bool aligned16(const void* ptr, long long sb, long long ss, long long sh) {
 // use the same 128B swizzle mode (bits 62-63 = 1):
 //   * Q and K, K-major: SBO 1024 bytes (8 rows of 128 bytes), LBO unused
 //     (16); one k step of 16 columns moves the start address by 32
-//     bytes inside a box, and the 5th k step starts on the second box.
+//     bytes inside a box, and the 5th k step starts on the second box
+//     (the 9th on the third, at hd 192).
 //     The swizzle is a function of the address bits, so a start 32, 64
 //     or 96 bytes into a 1024-byte-aligned box reads the right columns.
 //   * V, read MN-major (transposed B, the (kv, hd) layout as loaded):
@@ -568,7 +590,7 @@ bool aligned16(const void* ptr, long long sb, long long ss, long long sh) {
 //     64-column boxes (BK x 128 bytes); one k step of 16 kv rows moves
 //     the start by 2048 bytes.
 // Phase bits: the i-th kv tile of the block uses stage i % STAGES in
-// round r = i / STAGES (unit j's Q buffer j % 2 in round j / 2).  A
+// round r = i / STAGES (unit j's Q buffer j % QBUF in round j / QBUF).  A
 // consumer waits on full barriers with parity r & 1; the producer waits
 // on empty barriers with parity (r & 1) ^ 1, which passes at once in
 // round 0 (no consumer has arrived yet).  A stale parity would read the
@@ -594,8 +616,6 @@ bool aligned16(const void* ptr, long long sb, long long ss, long long sh) {
 namespace hopper {
 
 constexpr int BQ = 128;
-constexpr int BK = 128;
-constexpr int STAGES = 2;
 constexpr int THREADS = 384;
 constexpr int BOX = 64;                  // columns of a TMA box
 constexpr int BOX_ROW_BYTES = BOX * 2;   // 128: the swizzle width
@@ -605,23 +625,47 @@ constexpr float LOG2E = 1.4426950408889634f;
 // K and V bytes of the (batch, head) pairs whose units run together: 8 MB
 // (16 pairs at s = 1024, hd 128); 4 and 16 measured no faster, 64 slower
 constexpr long long GROUP_KV_BYTES = 8ll << 20;
+constexpr int MAX_SMEM = 232448;   // dynamic shared memory of a block
 
-template <int HD>
-struct Smem {
-  static constexpr int NB = (HD + BOX - 1) / BOX;      // boxes per row
-  static constexpr int HDP = NB * BOX;                 // columns held
+// The tiles of one instantiation and its shared-memory layout: q·k width
+// HD and v/o width HDV, each held as whole 64-column boxes (HDP, HDVP);
+// BK kv rows a K or V tile; QBUF Q buffers (with 2, the next unit's Q
+// lands while this unit's last tiles run); STAGES K and STAGES V tiles.
+template <int HD_, int HDV_, int BK_, int QBUF_, int STAGES_>
+struct Tile {
+  static constexpr int HD = HD_, HDV = HDV_, BK = BK_, QBUF = QBUF_,
+                       STAGES = STAGES_;
+  static constexpr int NB = (HD + BOX - 1) / BOX;      // q/k boxes a row
+  static constexpr int NBV = (HDV + BOX - 1) / BOX;    // v boxes a row
+  static constexpr int HDP = NB * BOX;                 // q/k columns held
+  static constexpr int HDVP = NBV * BOX;               // v/o columns held
   // whole boxes: TMA counts the zero-filled columns' bytes too
   static constexpr int Q_BYTES = BQ * HDP * 2;
-  static constexpr int KV_BYTES = BK * HDP * 2;        // one K or V tile
-  static constexpr int K_OFF = 2 * Q_BYTES;           // two Q buffers
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
-  // barriers: Q full and Q empty x 2, then full K, full V, empty K and
+  static constexpr int K_BYTES = BK * HDP * 2;         // one K tile
+  static constexpr int V_BYTES = BK * HDVP * 2;        // one V tile
+  static constexpr int K_OFF = QBUF * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * V_BYTES;
+  // barriers: Q full and Q empty x QBUF, then full K, full V, empty K and
   // empty V x STAGES; then the numbers of the units whose Q is loaded
-  static constexpr int WORK_OFF = BAR_OFF + 8 * (4 + 4 * STAGES);
+  static constexpr int WORK_OFF = BAR_OFF + 8 * (2 * QBUF + 4 * STAGES);
   static constexpr int BYTES = WORK_OFF + 16
                                + 1024;                 // alignment slack
+  static_assert(BYTES <= MAX_SMEM, "the tiles exceed a block's shared memory");
+  static_assert(BK == 64 || BK == 128, "S = Q K^T is m64n64 or m64n128");
+  static_assert(QBUF == 1 || QBUF == 2, "one or two Q buffers");
 };
+
+// hd 64, 120 and 128: 128-row kv tiles, two Q buffers, two stages (192 KB
+// at hd 128).  A third stage measured no faster, and does not fit beside
+// the second Q buffer.
+template <int HD>
+using SquareTile = Tile<HD, HD, 128, 2, 2>;
+// MLA (q·k 192, v and o 128): 128-row kv tiles and two stages as at hd
+// 128, and one Q buffer (208 KB; two would need 256).  The candidate with
+// two Q buffers and 64-row kv tiles in three stages (216 KB) measured
+// slower (PERF.md, experiments/time_flash_mla_tiles_torch.py).
+using MlaTile = Tile<192, 128, 128, 1, 2>;
 
 struct Params {
   __nv_bfloat16* o;
@@ -780,6 +824,28 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, f32) (+)= A (64 x 16) B (16 x 64), as wgmma_ss_m64n128.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 in registers) B (16 x 128), B
 // from shared memory MN-major (transposed: imm-trans-b = 1).
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
@@ -840,6 +906,24 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// S = Q K^T's product at N = BK keys (both operands from shared memory)
+// and P V's at N = HDVP columns (P from registers).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  wgmma_ss_m64n128(d, da, db, scale_d);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_ss_m64n64(d, da, db, scale_d);
+}
+
 template <int HD>
 __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
                                          const uint32_t (&a)[4], uint64_t db);
@@ -858,7 +942,7 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
   wgmma_rs_m64n64(d, a, db);
 }
 
-// Softcap, masks and the online softmax of one 64 x 128 score tile held
+// Softcap, masks and the online softmax of one 64 x BK score tile held
 // as a wgmma accumulator: this thread's rows are row0 and row0 + 8 (s[4j
 // + 2h + e] is row row0 + 8h, key k0 + 8j + 2t + e), and each row is
 // spread over the 4 lanes of a quad.  The maxima m are kept in the log2
@@ -878,8 +962,9 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
 // folded FMA would not give (it keeps the rounding error of -1e30 x
 // scale, up to 2^73, and ex2 of it is infinite): hence no fold on masked
 // tiles.
-template <bool MASK, bool SOFTCAP>
-__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
+template <bool MASK, bool SOFTCAP, int BK>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
+                                               float (&m)[2],
                                                float (&l)[2],
                                                float (&corr)[2],
                                                const Params& p, int row0,
@@ -932,8 +1017,9 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
 // consumer's: a branch on a value that depends on the thread index made
 // ptxas serialise the wgmma in flight across it.  (For tiles of 128 rows
 // it differs from the consumer's own test only at a window's edge.)
-template <bool SOFTCAP>
-__device__ __forceinline__ void softmax_scores(float (&s)[64], float (&m)[2],
+template <bool SOFTCAP, int BK>
+__device__ __forceinline__ void softmax_scores(float (&s)[BK / 2],
+                                               float (&m)[2],
                                                float (&l)[2],
                                                float (&corr)[2],
                                                const Params& p, int row0,
@@ -941,9 +1027,9 @@ __device__ __forceinline__ void softmax_scores(float (&s)[64], float (&m)[2],
   const bool mask = k0 + BK > p.skv || (p.causal && k0 + BK - 1 > q0) ||
                     (p.window > 0 && q0 + BQ - 1 - k0 >= p.window);
   if (mask)
-    online_softmax<true, SOFTCAP>(s, m, l, corr, p, row0, k0, t);
+    online_softmax<true, SOFTCAP, BK>(s, m, l, corr, p, row0, k0, t);
   else
-    online_softmax<false, SOFTCAP>(s, m, l, corr, p, row0, k0, t);
+    online_softmax<false, SOFTCAP, BK>(s, m, l, corr, p, row0, k0, t);
 }
 
 template <int HD>
@@ -959,50 +1045,52 @@ __device__ __forceinline__ void rescale(float (&o)[HD / 2],
 }
 
 // The first tile: no P V in flight, so O is rescaled at once.
-template <bool SOFTCAP, int HD>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
-                                             float (&l)[2],
-                                             float (&o)[HD / 2],
+template <bool SOFTCAP, int BK, int HDVP>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&o)[HDVP / 2],
                                              const Params& p, int row0,
                                              int q0, int k0, int t) {
   float corr[2];
-  softmax_scores<SOFTCAP>(s, m, l, corr, p, row0, q0, k0, t);
-  rescale<HD>(o, corr);
+  softmax_scores<SOFTCAP, BK>(s, m, l, corr, p, row0, q0, k0, t);
+  rescale<HDVP>(o, corr);
 }
 
-// S = Q K^T for this consumer's 64 rows and one K stage: HD / 16 k steps;
+// S = Q K^T for this consumer's 64 rows and one K stage: HDP / 16 k steps;
 // each moves 32 bytes along a 128-byte box row, and every 4th starts the
-// next 64-column box.
-template <int HD>
-__device__ __forceinline__ void qk_product(float (&sacc)[64], uint32_t q_rows,
-                                           uint32_t k_tile) {
+// next 64-column box (the 5th the second, the 9th the third at hd 192).
+template <class T>
+__device__ __forceinline__ void qk_product(float (&sacc)[T::BK / 2],
+                                           uint32_t q_rows, uint32_t k_tile) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < T::HDP / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     const uint64_t da =
         sw128_desc(q_rows + (kk / 4) * BQ * BOX_ROW_BYTES + off, 16, 1024);
-    const uint64_t db =
-        sw128_desc(k_tile + (kk / 4) * BK * BOX_ROW_BYTES + off, 16, 1024);
-    wgmma_ss_m64n128(sacc, da, db, kk > 0);
+    const uint64_t db = sw128_desc(
+        k_tile + (kk / 4) * T::BK * BOX_ROW_BYTES + off, 16, 1024);
+    wgmma_ss<T::BK>(sacc, da, db, kk > 0);
   }
 }
 
-// O += P V for one V stage: BK / 16 k steps of 16 kv rows (2048 bytes).
-template <int HD>
-__device__ __forceinline__ void pv_product(float (&o)[HD / 2],
-                                           const uint32_t (&pa)[BK / 16][4],
+// O += P V for one V stage: BK / 16 k steps of 16 kv rows (2048 bytes);
+// the V tile's 64-column boxes lie BK x 128 bytes apart.
+template <class T>
+__device__ __forceinline__ void pv_product(float (&o)[T::HDVP / 2],
+                                           const uint32_t (&pa)[T::BK / 16][4],
                                            uint32_t v_tile) {
 #pragma unroll
-  for (int jj = 0; jj < BK / 16; ++jj)
-    wgmma_rs<HD>(o, pa[jj],
-                 sw128_desc(v_tile + jj * 16 * BOX_ROW_BYTES,
-                            BK * BOX_ROW_BYTES, 1024));
+  for (int jj = 0; jj < T::BK / 16; ++jj)
+    wgmma_rs<T::HDVP>(o, pa[jj],
+                      sw128_desc(v_tile + jj * 16 * BOX_ROW_BYTES,
+                                 T::BK * BOX_ROW_BYTES, 1024));
 }
 
 // The probabilities as the A operand of P V's k step jj (keys 16 jj .. 16
 // jj + 15): the accumulator's n-tiles 2 jj and 2 jj + 1, rounded to bf16.
+template <int BK>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
-                                       const float (&s)[64]) {
+                                       const float (&s)[BK / 2]) {
 #pragma unroll
   for (int jj = 0; jj < BK / 16; ++jj)
 #pragma unroll
@@ -1022,6 +1110,7 @@ struct Work {
   int q0, hh, bb, kt_begin, kt_end;
 };
 
+template <int BK>
 __device__ __forceinline__ Work work_item(const Params& p, int w) {
   const int n_qt = (p.sq + BQ - 1) / BQ;
   const int n_bh = p.b * p.h;
@@ -1046,10 +1135,12 @@ __device__ __forceinline__ Work work_item(const Params& p, int w) {
 // Persistent: one block per SM.  The producer takes the next unit from
 // a counter in device memory (atomicAdd; a block that finishes early
 // takes more), writes its number to shared memory and loads its Q into
-// the other of two Q buffers (unit j uses buffer j % 2) as soon as the
-// consumers are done with the unit before, then its K and V as the ring
-// frees: the next unit's Q lands while the current one's last tiles run,
-// and its first K and V while the last P V products and the stores run.
+// Q buffer j % QBUF (unit j's) as soon as the consumers are done with the
+// unit that used it last, then its K and V as the ring frees.  With two
+// buffers the next unit's Q lands while the current one's last tiles run;
+// with one (MLA's tile) it is loaded once every S of the current unit has
+// landed, beside its last P V and its stores.  The next unit's first K and
+// V land while the last P V products and the stores run.
 // The consumers read the number once Q has landed; a number past the
 // last unit ends the block.  Ring stages and phases run on across units
 // (`it` counts the kv tiles of the block so far).
@@ -1060,32 +1151,34 @@ __device__ __forceinline__ Work work_item(const Params& p, int w) {
 // clamped as o's denominator is, into p.lse[(bb h + hh) lse_stride + row]
 // for rows below sq; K1's Hopper backward reads it instead of recomputing
 // it.  The serving instantiation (LSE false) compiles to the code it had.
-template <int HD, bool SOFTCAP, bool LSE>
+template <class T, bool SOFTCAP, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v,
                             const Params p) {
-  using L = Smem<HD>;
-  constexpr int HDP = L::HDP;   // S = Q K^T's k extent and O's columns
+  constexpr int BK = T::BK;
+  constexpr int STAGES = T::STAGES;
+  constexpr int QBUF = T::QBUF;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // 128B swizzle
-  const uint32_t bars = base + L::BAR_OFF;
-  auto q_s = [&](int qb) { return base + qb * L::Q_BYTES; };
+  const uint32_t bars = base + T::BAR_OFF;
+  const uint32_t ring = bars + 8 * 2 * QBUF;   // the K and V barriers
+  auto q_s = [&](int qb) { return base + qb * T::Q_BYTES; };
   auto q_full = [&](int qb) { return bars + 8 * qb; };
-  auto q_empty = [&](int qb) { return bars + 8 * (2 + qb); };
-  auto k_s = [&](int s) { return base + L::K_OFF + s * L::KV_BYTES; };
-  auto v_s = [&](int s) { return base + L::V_OFF + s * L::KV_BYTES; };
-  auto full_k = [&](int s) { return bars + 8 * (4 + s); };
-  auto full_v = [&](int s) { return bars + 8 * (4 + STAGES + s); };
-  auto empty_k = [&](int s) { return bars + 8 * (4 + 2 * STAGES + s); };
-  auto empty_v = [&](int s) { return bars + 8 * (4 + 3 * STAGES + s); };
+  auto q_empty = [&](int qb) { return bars + 8 * (QBUF + qb); };
+  auto k_s = [&](int s) { return base + T::K_OFF + s * T::K_BYTES; };
+  auto v_s = [&](int s) { return base + T::V_OFF + s * T::V_BYTES; };
+  auto full_k = [&](int s) { return ring + 8 * s; };
+  auto full_v = [&](int s) { return ring + 8 * (STAGES + s); };
+  auto empty_k = [&](int s) { return ring + 8 * (2 * STAGES + s); };
+  auto empty_v = [&](int s) { return ring + 8 * (3 * STAGES + s); };
   volatile int* const work_slot = reinterpret_cast<volatile int*>(
-      smem_raw + (base - smem_u32(smem_raw)) + L::WORK_OFF);
+      smem_raw + (base - smem_u32(smem_raw)) + T::WORK_OFF);
   const int n_work = (p.sq + BQ - 1) / BQ * p.b * p.h;
 
   if (threadIdx.x == 0) {
-    for (int qb = 0; qb < 2; ++qb) {
+    for (int qb = 0; qb < QBUF; ++qb) {
       mbar_init(q_full(qb), 1);
       mbar_init(q_empty(qb), 256);   // every consumer thread arrives
     }
@@ -1106,17 +1199,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       uint32_t it = 0;
       for (uint32_t j = 0;; ++j) {
         const int w = atomicAdd(p.counter, 1);
-        const int qb = j & 1;   // Q buffer of unit j
-        mbar_wait(q_empty(qb), ((j >> 1) & 1) ^ 1);
+        const int qb = j % QBUF;   // Q buffer of unit j
+        mbar_wait(q_empty(qb), ((j / QBUF) & 1) ^ 1);
         work_slot[qb] = w;   // ordered before the arrival below (release)
         if (w >= n_work) {
           mbar_arrive(q_full(qb));
           break;
         }
-        const Work wk = work_item(p, w);
-        mbar_expect_tx(q_full(qb), L::Q_BYTES);
+        const Work wk = work_item<BK>(p, w);
+        mbar_expect_tx(q_full(qb), T::Q_BYTES);
 #pragma unroll
-        for (int b = 0; b < L::NB; ++b)
+        for (int b = 0; b < T::NB; ++b)
           tma_load(q_s(qb) + b * BQ * BOX_ROW_BYTES, &map_q, b * BOX, wk.hh,
                    wk.q0, wk.bb, q_full(qb));
         // K of tile i, then V of tile i - 1: the order the consumers read
@@ -1124,18 +1217,18 @@ __global__ void __launch_bounds__(THREADS, 1)
         auto load_k = [&](uint32_t n, int kt) {
           const int s = n % STAGES;
           mbar_wait(empty_k(s), ((n / STAGES) & 1) ^ 1);
-          mbar_expect_tx(full_k(s), L::KV_BYTES);
+          mbar_expect_tx(full_k(s), T::K_BYTES);
 #pragma unroll
-          for (int b = 0; b < L::NB; ++b)
+          for (int b = 0; b < T::NB; ++b)
             tma_load(k_s(s) + b * BK * BOX_ROW_BYTES, &map_k, b * BOX, wk.hh,
                      kt * BK, wk.bb, full_k(s));
         };
         auto load_v = [&](uint32_t n, int kt) {
           const int s = n % STAGES;
           mbar_wait(empty_v(s), ((n / STAGES) & 1) ^ 1);
-          mbar_expect_tx(full_v(s), L::KV_BYTES);
+          mbar_expect_tx(full_v(s), T::V_BYTES);
 #pragma unroll
-          for (int b = 0; b < L::NB; ++b)
+          for (int b = 0; b < T::NBV; ++b)
             tma_load(v_s(s) + b * BK * BOX_ROW_BYTES, &map_v, b * BOX, wk.hh,
                      kt * BK, wk.bb, full_v(s));
         };
@@ -1160,18 +1253,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (c == 1) pass_turn(c);
     uint32_t it = 0;
     for (uint32_t j = 0;; ++j) {
-      const int qb = j & 1;
-      mbar_wait(q_full(qb), (j >> 1) & 1);
+      const int qb = j % QBUF;
+      mbar_wait(q_full(qb), (j / QBUF) & 1);
       const int w = work_slot[qb];
       if (w >= n_work) break;
       // this consumer's Q rows, box 0
       const uint32_t q_rows = q_s(qb) + 64 * c * BOX_ROW_BYTES;
-      const Work wk = work_item(p, w);
+      const Work wk = work_item<BK>(p, w);
       const int row0 = wk.q0 + 64 * c + 16 * warp + g;   // this thread's
       const int n_tiles = wk.kt_end - wk.kt_begin;        // >= 1
-      float o[HDP / 2];
+      float o[T::HDVP / 2];
 #pragma unroll
-      for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < T::HDVP / 2; ++i) o[i] = 0.f;
       float m[2] = {NEG_INF, NEG_INF};
       float l[2] = {0.f, 0.f};
 
@@ -1186,45 +1279,45 @@ __global__ void __launch_bounds__(THREADS, 1)
       uint32_t pa[BK / 16][4];
       {
         const int s = it % STAGES;
-        float sacc[64];   // written by the first k step (scale_d = 0)
+        float sacc[BK / 2];   // written by the first k step (scale_d = 0)
         mbar_wait(full_k(s), (it / STAGES) & 1);
         wait_turn(c);
         wgmma_fence();
-        qk_product<HDP>(sacc, q_rows, k_s(s));
+        qk_product<T>(sacc, q_rows, k_s(s));
         wgmma_commit();
         pass_turn(c);
         wgmma_wait<0>();
         fence_regs(sacc);
         mbar_arrive(empty_k(s));
-        softmax_tile<SOFTCAP, HDP>(sacc, m, l, o, p, row0, wk.q0,
-                                   wk.kt_begin * BK, t);
-        pack_p(pa, sacc);
+        softmax_tile<SOFTCAP, BK, T::HDVP>(sacc, m, l, o, p, row0, wk.q0,
+                                           wk.kt_begin * BK, t);
+        pack_p<BK>(pa, sacc);
       }
       for (int i = 1; i < n_tiles; ++i) {
         const uint32_t cur = it + i;
         const int s = cur % STAGES;
         const int ps = (cur - 1) % STAGES;   // stage of tile i-1
-        float sacc[64];
+        float sacc[BK / 2];
         mbar_wait(full_k(s), (cur / STAGES) & 1);
         mbar_wait(full_v(ps), ((cur - 1) / STAGES) & 1);
         wait_turn(c);
         wgmma_fence();
-        qk_product<HDP>(sacc, q_rows, k_s(s));
+        qk_product<T>(sacc, q_rows, k_s(s));
         wgmma_commit();
-        pv_product<HDP>(o, pa, v_s(ps));
+        pv_product<T>(o, pa, v_s(ps));
         wgmma_commit();
         pass_turn(c);
         wgmma_wait<1>();   // S of tile i has landed; P V may still run
         fence_regs(sacc);
         mbar_arrive(empty_k(s));
         float corr[2];
-        softmax_scores<SOFTCAP>(sacc, m, l, corr, p, row0, wk.q0,
-                                (wk.kt_begin + i) * BK, t);
+        softmax_scores<SOFTCAP, BK>(sacc, m, l, corr, p, row0, wk.q0,
+                                    (wk.kt_begin + i) * BK, t);
         wgmma_wait<0>();
         fence_regs(o);
         mbar_arrive(empty_v(ps));
-        rescale<HDP>(o, corr);
-        pack_p(pa, sacc);
+        rescale<T::HDVP>(o, corr);
+        pack_p<BK>(pa, sacc);
       }
       mbar_arrive(q_empty(qb));   // every S of this unit has landed
       {
@@ -1233,7 +1326,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(full_v(s), (last / STAGES) & 1);
         wait_turn(c);
         wgmma_fence();
-        pv_product<HDP>(o, pa, v_s(s));
+        pv_product<T>(o, pa, v_s(s));
         wgmma_commit();
         pass_turn(c);
         wgmma_wait<0>();
@@ -1245,7 +1338,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // Epilogue: o / max(l, 1e-30) rounded to bf16, stored from the
       // accumulator's layout (rows row0 and row0 + 8, two columns a
       // store) through the output's strides; rows past sq are dropped,
-      // and so are columns past HD (hd 120: the next head's columns or
+      // and so are columns past HDV (hd 120: the next head's columns or
       // past the end of o).
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -1267,7 +1360,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (row < p.sq) {
           __nv_bfloat16* orow = og + row * p.o_ss + 2 * t;
 #pragma unroll
-          for (int n = 0; n < HD / 8; ++n)
+          for (int n = 0; n < T::HDV / 8; ++n)
             *reinterpret_cast<uint32_t*>(orow + 8 * n) = pack_bf16(
                 o[4 * n + 2 * h] * l[h], o[4 * n + 2 * h + 1] * l[h]);
         }
@@ -1329,13 +1422,13 @@ CUresult make_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int HD, bool SOFTCAP, bool LSE>
+template <class T, bool SOFTCAP, bool LSE>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
                    const CUtensorMap& mv, const Params& p, int b,
                    cudaStream_t stream) {
-  const int smem = Smem<HD>::BYTES;
+  const int smem = T::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_hopper_kernel<HD, SOFTCAP, LSE>,
+      flash_fwd_hopper_kernel<T, SOFTCAP, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int device = 0;
@@ -1346,30 +1439,41 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
                                  device);
   if (err != cudaSuccess) return err;
   const int n_work = (p.sq + BQ - 1) / BQ * b * p.h;
-  flash_fwd_hopper_kernel<HD, SOFTCAP, LSE>
+  flash_fwd_hopper_kernel<T, SOFTCAP, LSE>
       <<<min(n_work, n_sm), THREADS, smem, stream>>>(mq, mk, mv, p);
   return cudaGetLastError();
 }
 
-template <int HD, bool SOFTCAP>
+template <class T, bool SOFTCAP>
 cudaError_t launch_lse(const CUtensorMap& mq, const CUtensorMap& mk,
                        const CUtensorMap& mv, const Params& p, int b,
                        cudaStream_t stream) {
-  return p.lse != nullptr ? launch<HD, SOFTCAP, true>(mq, mk, mv, p, b, stream)
-                          : launch<HD, SOFTCAP, false>(mq, mk, mv, p, b,
-                                                       stream);
+  return p.lse != nullptr ? launch<T, SOFTCAP, true>(mq, mk, mv, p, b, stream)
+                          : launch<T, SOFTCAP, false>(mq, mk, mv, p, b,
+                                                      stream);
+}
+
+// The serving instantiations of a tile: softcap or not, no LSE.
+template <class T>
+cudaError_t launch_serving(const CUtensorMap& mq, const CUtensorMap& mk,
+                           const CUtensorMap& mv, const Params& p, int b,
+                           float softcap, cudaStream_t stream) {
+  return softcap != 0.f ? launch<T, true, false>(mq, mk, mv, p, b, stream)
+                        : launch<T, false, false>(mq, mk, mv, p, b, stream);
 }
 
 }  // namespace hopper
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, the
-// (batch, seq, head) strides of q, k, v and o in that order; the head-dim
-// stride of each must be 1.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  hd: the columns of q and k; dv
+// (1 <= dv <= hd): those of v and o (the function of v zero-padded to hd,
+// o's first dv columns).  strides: 12 element strides, the (batch, seq,
+// head) strides of q, k, v and o in that order; the head-dim stride of
+// each must be 1.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int b,
-                                   int sq, int skv, int h, int hd,
+                                   int sq, int skv, int h, int hd, int dv,
                                    const long long* strides, float scale,
                                    int causal, int window, float softcap,
                                    void* stream) {
@@ -1383,6 +1487,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.skv = skv;
   p.h = h;
   p.hd = hd;
+  p.dv = dv;
   p.q_sb = strides[0];
   p.q_ss = strides[1];
   p.q_sh = strides[2];
@@ -1399,7 +1504,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.softcap = softcap;
   p.causal = causal;
   p.window = window;
-  p.vec = hd % 8 == 0 && aligned16(q, p.q_sb, p.q_ss, p.q_sh) &&
+  if (dv < 1 || dv > hd) return static_cast<int>(cudaErrorInvalidValue);
+  p.vec = hd % 8 == 0 && dv % 8 == 0 && aligned16(q, p.q_sb, p.q_ss, p.q_sh) &&
           aligned16(k, p.k_sb, p.k_ss, p.k_sh) &&
           aligned16(v, p.v_sb, p.v_ss, p.v_sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1413,23 +1519,26 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The Hopper variant, bf16 only: hd 64, 120 or 128; q/k/v 16-byte aligned
-// with (batch, seq, head) strides that are multiples of 8 elements; o
-// contiguous.  strides as above.  lse: null (serving), or (training mode,
-// hd 64 and 128 only: the Hopper backward takes no other) f32 (b, h,
-// lse_stride) with lse_stride >= sq, where each row's log-sum-exp is
-// written.  counter: one int in device memory, 0.  Returns a cudaError_t
-// (0 = launched), or 1000 + the CUresult of a tensor map that failed to
-// encode, or 2000 if libcuda has no cuTensorMapEncodeTiled.
+// The Hopper variant, bf16 only: (hd, dv) (64, 64), (120, 120), (128, 128)
+// or (192, 128) (MLA: q and k 192 columns, v and o 128); q/k/v 16-byte
+// aligned with (batch, seq, head) strides that are multiples of 8
+// elements; o contiguous.  strides as above.  lse: null (serving), or
+// (training mode, hd = dv = 64 or 128 only: the Hopper backward takes no
+// other) f32 (b, h, lse_stride) with lse_stride >= sq, where each row's
+// log-sum-exp is written.  counter: one int in device memory, 0.  Returns
+// a cudaError_t (0 = launched), or 1000 + the CUresult of a tensor map
+// that failed to encode, or 2000 if libcuda has no cuTensorMapEncodeTiled.
 extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
                                           const void* v, void* o, int b,
                                           int sq, int skv, int h, int hd,
-                                          const long long* strides,
+                                          int dv, const long long* strides,
                                           float scale, int causal,
                                           int window, float softcap,
                                           float* lse, long long lse_stride,
                                           int* counter, void* stream) {
-  if ((hd != 64 && hd != 120 && hd != 128) || (hd == 120 && lse != nullptr))
+  const bool square = hd == dv && (hd == 64 || hd == 120 || hd == 128);
+  const bool training = square && hd != 120;
+  if (!(square || (hd == 192 && dv == 128)) || (lse != nullptr && !training))
     return static_cast<int>(cudaErrorInvalidValue);
   // every row needs a key (each block then has a kv tile to wait for)
   if (b < 1 || sq < 1 || skv < 1 || (window > 0 && sq > skv + window - 1) ||
@@ -1443,15 +1552,17 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
   if (ctx != cudaSuccess) return static_cast<int>(ctx);
   hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (encode == nullptr) return 2000;
+  // kv rows of a K or V box: the tile's
+  const int bk = hd == 192 ? hopper::MlaTile::BK : hopper::SquareTile<128>::BK;
   CUtensorMap mq, mk, mv;
   CUresult res = hopper::make_map(&mq, encode, q, b, sq, h, hd, strides[0],
                                   strides[1], strides[2], hopper::BQ);
   if (res == CUDA_SUCCESS)
     res = hopper::make_map(&mk, encode, k, b, skv, h, hd, strides[3],
-                           strides[4], strides[5], hopper::BK);
+                           strides[4], strides[5], bk);
   if (res == CUDA_SUCCESS)
-    res = hopper::make_map(&mv, encode, v, b, skv, h, hd, strides[6],
-                           strides[7], strides[8], hopper::BK);
+    res = hopper::make_map(&mv, encode, v, b, skv, h, dv, strides[6],
+                           strides[7], strides[8], bk);
   if (res != CUDA_SUCCESS) return 1000 + static_cast<int>(res);
   hopper::Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
@@ -1460,7 +1571,7 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
   p.counter = counter;
   // (batch, head) pairs a group: their K and V together about
   // GROUP_KV_BYTES, which L2 (50 MB) holds with room to spare
-  const long long kv_bytes = 4ll * skv * hd;
+  const long long kv_bytes = 2ll * skv * (hd + dv);
   p.group = static_cast<int>(
       std::max(1ll, std::min(static_cast<long long>(b) * h,
                              hopper::GROUP_KV_BYTES / kv_bytes)));
@@ -1477,17 +1588,22 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
   p.cap_in = softcap != 0.f ? scale / softcap : 0.f;
   p.cap_out = softcap * hopper::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using hopper::SquareTile;
   cudaError_t err;
   if (hd == 64)
-    err = softcap != 0.f ? hopper::launch_lse<64, true>(mq, mk, mv, p, b, s)
-                         : hopper::launch_lse<64, false>(mq, mk, mv, p, b, s);
-  else if (hd == 120)   // serving only
     err = softcap != 0.f
-              ? hopper::launch<120, true, false>(mq, mk, mv, p, b, s)
-              : hopper::launch<120, false, false>(mq, mk, mv, p, b, s);
+              ? hopper::launch_lse<SquareTile<64>, true>(mq, mk, mv, p, b, s)
+              : hopper::launch_lse<SquareTile<64>, false>(mq, mk, mv, p, b, s);
+  else if (hd == 120)   // serving only
+    err = hopper::launch_serving<SquareTile<120>>(mq, mk, mv, p, b, softcap,
+                                                  s);
+  else if (hd == 192)   // serving only
+    err = hopper::launch_serving<hopper::MlaTile>(mq, mk, mv, p, b, softcap,
+                                                  s);
   else
     err = softcap != 0.f
-              ? hopper::launch_lse<128, true>(mq, mk, mv, p, b, s)
-              : hopper::launch_lse<128, false>(mq, mk, mv, p, b, s);
+              ? hopper::launch_lse<SquareTile<128>, true>(mq, mk, mv, p, b, s)
+              : hopper::launch_lse<SquareTile<128>, false>(mq, mk, mv, p, b,
+                                                          s);
   return static_cast<int>(err);
 }

@@ -3,7 +3,10 @@
 Replaces ``flash_attention_pallas`` (body ``_kernel``) in
 ``src/repro/kernels/flash_attention/kernel.py``: the same blockwise
 online-softmax attention, on (b, s, h, hd) tensors with GQA heads already
-repeated.  The source is ``csrc/flash_attention.cu``.
+repeated.  v may be narrower than q and k (dv < hd columns, MLA's 128
+beside q·k's 192): the function is then the TPU kernel applied to v
+zero-padded to hd, and o is its first dv columns.  The source is
+``csrc/flash_attention.cu``.
 
 What bounds it on an H100 at the main-path shapes.  Prefill of
 mistral-nemo-12b calls it with q/k/v (4, <=1024, 32, 128) in bf16, causal;
@@ -18,24 +21,27 @@ Two variants, chosen before launch by ``plan`` from the dtype, the head
 dim and the strides (a dispatch by shape; neither is a fallback for the
 other, and a failed build, tensor-map encode or launch raises):
 
-* ``"hopper"``: bf16 with hd 64, 120 or 128 and strides TMA takes
-  (every serving call).  Persistent blocks of one producer warpgroup, which
-  streams Q, K and V by TMA into double-buffered shared memory guarded by
-  mbarriers, and two consumer warpgroups of 64 query rows each, which
-  take turns at S = Q K^T and O += P V as wgmma (P from registers) and
-  run the softmax in the log2 domain, with masks only on the tiles that
-  cross the diagonal, the window's edge or the end of kv; units of 128 q
-  by 128 kv rows come from an atomic counter, longest first within
-  groups of heads whose K and V stay in L2.  hd 120 (h2o-danube-3-4b)
-  runs the layout and products of hd 128: TMA fills each row's columns
-  120..127 with zeros, which add nothing to S, and the epilogue stores
-  only the first 120 columns of O.
-* ``"general"``: everything else (f32, other head dims up to 256, bf16
-  strides TMA refuses).  bf16 goes through mma.sync tensor-core products
-  from 4 warps, f32 through FMAs on the CUDA cores (67 TFLOP/s; TF32
-  would miss f32's tolerance); 64-row tiles loaded between barriers,
-  without overlap.  It is what every call took before the Hopper variant
-  was added.
+* ``"hopper"``: bf16 with (hd, dv) in ``HOPPER_HEAD_DIM_PAIRS`` and
+  strides TMA takes (every serving call).  Persistent blocks of one
+  producer warpgroup, which streams Q, K and V by TMA into double-buffered
+  shared memory guarded by mbarriers, and two consumer warpgroups of 64
+  query rows each, which take turns at S = Q K^T and O += P V as wgmma (P
+  from registers) and run the softmax in the log2 domain, with masks only
+  on the tiles that cross the diagonal, the window's edge or the end of
+  kv; units of 128 q by 128 kv rows come from an atomic counter, longest
+  first within groups of heads whose K and V stay in L2.  hd 120
+  (h2o-danube-3-4b) runs the layout and products of hd 128: TMA fills each
+  row's columns 120..127 with zeros, which add nothing to S, and the
+  epilogue stores only the first 120 columns of O.  MLA's (192, 128)
+  multiplies q·k over three 64-column boxes a row and P V at hd 128's
+  width, with one Q buffer so that its tiles fit in shared memory (serving
+  only).
+* ``"general"``: everything else (f32, other head dims up to 256, any dv
+  <= hd, bf16 strides TMA refuses).  bf16 goes through mma.sync
+  tensor-core products from 4 warps, f32 through FMAs on the CUDA cores
+  (67 TFLOP/s; TF32 would miss f32's tolerance); 64-row tiles loaded
+  between barriers, without overlap.  It is what every call took before
+  the Hopper variant was added.
 
 Training mode (``lse``, Hopper variant at hd 64 and 128 only, the head
 dims of the Hopper backward): the same kernel, a separate instantiation,
@@ -69,7 +75,10 @@ NVCC_FLAGS = _build.NVCC_FLAGS
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("hopper", "general")
-HOPPER_HEAD_DIMS = (64, 120, 128)
+# (q·k head dim, v/o head dim) pairs of the Hopper variant; (192, 128) is
+# deepseek-v3-671b's MLA prefill (128 nope + 64 rope, v 128)
+HOPPER_HEAD_DIM_PAIRS = ((64, 64), (120, 120), (128, 128), (192, 128))
+HOPPER_HEAD_DIMS = tuple(dict.fromkeys(hd for hd, _ in HOPPER_HEAD_DIM_PAIRS))
 HOPPER_BQ = 128   # query rows of a Hopper unit of work
 # rows of a (batch, head) in an LSE buffer: sq rounded up to this, so that
 # the backward's 64- and 128-row slices of it are whole and 16-byte aligned
@@ -90,8 +99,13 @@ def build() -> Path:
 def library():
     """The built library with both entry points typed: general
     (``flash_attention_fwd``) and Hopper (``flash_attention_fwd_hopper``)."""
-    lib = ctypes.CDLL(str(build()))
-    common = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+    return typed(ctypes.CDLL(str(build())))
+
+
+def typed(lib):
+    """``lib`` (this source's library, or a library built from an edited
+    copy of it) with both entry points' argument and result types set."""
+    common = ([ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong),
                                     ctypes.c_float, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_float,
                                     ctypes.c_void_p])
@@ -117,8 +131,9 @@ def _tma_ok(t) -> bool:
 
 def plan(q, k, v) -> str:
     """Which variant a call takes, from what the tensors are (dtype, head
-    dim, strides, alignment), before any launch: "hopper" for bf16 with hd
-    in ``HOPPER_HEAD_DIMS`` (64, 120, 128) whose q/k/v TMA can read and
+    dims, strides, alignment), before any launch: "hopper" for bf16 with
+    (hd, dv) in ``HOPPER_HEAD_DIM_PAIRS`` (64, 64), (120, 120), (128, 128),
+    (192, 128) whose q/k/v TMA can read and
     whose units of work (q tiles x batch x heads) an int counts; "general"
     for everything else.  hd 120's head stride of 240 bytes is a multiple
     of 16, so h2o-danube-3-4b's contiguous q/k/v (and a (b, s, h, 128)
@@ -126,7 +141,7 @@ def plan(q, k, v) -> str:
     device, the meta device included."""
     b, sq, h, hd = q.shape
     hopper = (all(t.dtype == torch.bfloat16 for t in (q, k, v))
-              and hd in HOPPER_HEAD_DIMS
+              and (hd, v.shape[3]) in HOPPER_HEAD_DIM_PAIRS
               and -(-sq // HOPPER_BQ) * b * h < 2 ** 31
               and all(_tma_ok(t) for t in (q, k, v)))
     return "hopper" if hopper else "general"
@@ -153,12 +168,13 @@ def lse_fits(lse, q) -> bool:
 def flash_attention_cuda(q, k, v, variant, *, causal=True, window=0,
                          softcap=0.0, lse=None):
     """Launches ``variant`` of the kernel on the current stream and returns
-    o (b, sq, h, hd) in q.dtype.  The caller has checked device, dtype and
-    shapes and chosen the variant (``plan``); the Hopper variant raises on
-    what it does not take rather than run another.  ``lse``: a
-    ``lse_buffer(q)`` into which the Hopper variant also writes each row's
-    log-sum-exp (training mode, at the Hopper backward's head dims,
-    ``kernel_bwd.HOPPER_HEAD_DIMS``); the general variant takes none."""
+    o (b, sq, h, dv) in q.dtype, dv = v.shape[3] <= hd.  The caller has
+    checked device, dtype and shapes and chosen the variant (``plan``); the
+    Hopper variant raises on what it does not take rather than run
+    another.  ``lse``: a ``lse_buffer(q)`` into which the Hopper variant
+    also writes each row's log-sum-exp (training mode, at the Hopper
+    backward's head dims, ``kernel_bwd.HOPPER_HEAD_DIMS``, with dv = hd);
+    the general variant takes none."""
     if variant not in VARIANTS:
         raise ValueError(f"no flash attention variant {variant!r}")
     b, sq, h, hd = q.shape
@@ -169,16 +185,16 @@ def flash_attention_cuda(q, k, v, variant, *, causal=True, window=0,
     if lse is not None:
         # kernel_bwd imports this module: only a training call reads it
         from repro_torch.kernels.flash_attention import kernel_bwd
-        if hd not in kernel_bwd.HOPPER_HEAD_DIMS:
+        if hd not in kernel_bwd.HOPPER_HEAD_DIMS or v.shape[3] != hd:
             raise ValueError(
-                f"the hopper forward writes an lse only at hd in "
+                f"the hopper forward writes an lse only at hd = dv in "
                 f"{kernel_bwd.HOPPER_HEAD_DIMS} (the hopper backward's), "
-                f"not {hd}")
-    skv = k.shape[1]
-    o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+                f"not ({hd}, {v.shape[3]})")
+    skv, dv = k.shape[1], v.shape[3]
+    o = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, o) for i in range(3)))
-    args = (b, sq, skv, h, hd, strides, 1.0 / (hd ** 0.5), int(causal),
+    args = (b, sq, skv, h, hd, dv, strides, 1.0 / (hd ** 0.5), int(causal),
             int(window), float(softcap))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with torch.cuda.device(q.device):

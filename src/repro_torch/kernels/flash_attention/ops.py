@@ -14,6 +14,13 @@ forward's Hopper variant, in training mode, writes the log-sum-exp the
 Hopper backward reads (saved with ``save_for_backward``, so a layer
 recomputed under activation checkpointing recomputes it too).
 
+v may be narrower than q and k (dv < hd: MLA's v at 128 columns beside
+q·k's 192).  The function is then the TPU kernel's on v zero-padded to hd,
+o its first dv columns; both kernels compute it without the padding.
+K1's backward kernels take one head dim, so a CUDA call that needs a
+gradient with dv < hd pads v and slices o around ``_FlashAttention`` as
+differentiable torch ops: the reference's own arithmetic.
+
 Counts: ``launches`` counts forward kernel launches and nothing else (a
 layer recomputed under activation checkpointing launches again, and
 counts again); ``launches_by_variant`` counts the same launches by the
@@ -42,8 +49,11 @@ def _check(q, k, v, window):
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"expected q (b,sq,h,hd), k/v (b,skv,h,hd); got "
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or k.shape[:3] != v.shape[:3]
+            or not 1 <= v.shape[3] <= k.shape[3]):
+        raise ValueError(f"expected q (b,sq,h,hd), k (b,skv,h,hd), v "
+                         f"(b,skv,h,dv) with 1 <= dv <= hd; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, _, h, hd = q.shape
@@ -62,11 +72,13 @@ def _check(q, k, v, window):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """q (b, sq, h, hd); k/v (b, skv, h, hd) -> (b, sq, h, hd) in q.dtype.
-    Same contract as the TPU kernel: the causal mask aligns q and k from
-    position 0.  Every row must have a key to attend to: a window with
-    sq > skv + window - 1 raises.  Differentiable on both devices; on the
-    card up to head dim ``kernel_bwd.MAX_HEAD_DIM``."""
+    """q (b, sq, h, hd), k (b, skv, h, hd), v (b, skv, h, dv) with 1 <= dv
+    <= hd -> (b, sq, h, dv) in q.dtype: the TPU kernel applied to v
+    zero-padded to hd; o is its first dv columns (the scale stays 1/sqrt
+    of hd).  Same contract as the TPU kernel: the causal mask aligns q and
+    k from position 0.  Every row must have a key to attend to: a window
+    with sq > skv + window - 1 raises.  Differentiable on both devices; on
+    the card up to head dim ``kernel_bwd.MAX_HEAD_DIM``."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -93,6 +105,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
                 f"flash attention's backward kernel takes head dims up to "
                 f"{kernel_bwd.MAX_HEAD_DIM}, not {q.shape[3]}: ROADMAP Queue "
                 f"2, 'K1 backward hd > 128'")
+        dv = v.shape[3]
+        if dv < q.shape[3]:      # the backward kernels take one head dim
+            v = torch.nn.functional.pad(v, (0, q.shape[3] - dv))
+            return _FlashAttention.apply(q, k, v, kw)[..., :dv]
         return _FlashAttention.apply(q, k, v, kw)
     return _forward(q, k, v, kw)
 

@@ -42,8 +42,10 @@ def attention_lse(q, k, *, causal=True, window=0, softcap=0.0):
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """q (b, sq, h, hd); k/v (b, skv, h, hd).  f32 softmax; returns
-    q.dtype.  The causal mask aligns q and k from position 0."""
+    """q (b, sq, h, hd), k (b, skv, h, hd), v (b, skv, h, dv) with dv <= hd
+    -> (b, sq, h, dv): the function on v zero-padded to hd, o's first dv
+    columns (the scale is 1/sqrt(hd)).  f32 softmax; returns q.dtype.  The
+    causal mask aligns q and k from position 0."""
     s, _ = scores(q, k, causal=causal, window=window, softcap=softcap)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())

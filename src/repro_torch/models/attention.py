@@ -16,11 +16,13 @@ K1's windowed output is held to at full width.  Decode attention is
 plain torch, as it is plain jnp in the reference.
 
 MLA prefill (``mla_prefill``) is the reference's expanded form: k_nope
-and v from the latent, the one-head k_rope broadcast to every head, v
-zero-padded to the q·k head dim so that K1 sees one head dim (192 at
-full width), and the output sliced back.  MLA decode (``mla_decode``) is
-the reference's absorbed form against the latent cache, in f32
-throughout, plain torch as in the reference.  The multi-device
+and v from the latent, the one-head k_rope broadcast to every head.  The
+reference zero-pads v to the q·k head dim (192 at full width) and slices
+o back to v's 128 columns; those columns do not depend on the zero ones,
+and K1 takes v narrower than q and k as exactly that function, so v goes
+to K1 unpadded and o comes back at v's width.  MLA decode
+(``mla_decode``) is the reference's absorbed form against the latent
+cache, in f32 throughout, plain torch as in the reference.  The multi-device
 ``mla_decode_sp`` comes with the multi-device layer (ROADMAP Queue 1
 item 12).
 """
@@ -253,10 +255,10 @@ def mla_prefill(x, p, cfg, positions):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, nq, m.qk_rope_head_dim)], dim=-1)
-    # v zero-padded to the q·k head dim, so that K1 sees one head dim
-    v = F.pad(v, (0, q.shape[-1] - m.v_head_dim))
+    # v at its own width: K1 computes the reference's padded call's first
+    # v_head_dim columns
     o = flash_ops.flash_attention(q, k, v, causal=True)
-    o = o[..., :m.v_head_dim].reshape(b, s, nq * m.v_head_dim)
+    o = o.reshape(b, s, nq * m.v_head_dim)
     return o @ p["wo"], c_kv, k_rope
 
 

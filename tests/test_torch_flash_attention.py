@@ -117,6 +117,55 @@ def test_dispatch_matches_reference_model_attention(b, s, h, hd, causal,
           "float32")
 
 
+def qkv_narrow_v(shape_q, dv, dtype="float32", seed=0):
+    """qkv's inputs with v of dv < hd columns: (jax q, k, v zero-padded to
+    hd) and (torch q, k, v at dv)."""
+    b, sq, h, hd = shape_q
+    rng = np.random.default_rng(seed)
+    q, k = (rng.uniform(-1, 1, shape_q).astype(np.float32) for _ in "qk")
+    v = rng.uniform(-1, 1, (b, sq, h, dv)).astype(np.float32)
+    vp = np.pad(v, ((0, 0), (0, 0), (0, 0), (0, hd - dv)))
+    return ([jnp.asarray(a).astype(JDT[dtype]) for a in (q, k, vp)],
+            [torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape_q,dv", [((1, 96, 2, 192), 128),
+                                        ((2, 40, 2, 24), 16)])
+def test_dispatch_with_narrower_v_matches_pallas_on_padded_v(shape_q, dv,
+                                                             causal, dtype):
+    """v of dv < hd columns (MLA's 128 beside q·k's 192; the smoke
+    config's 16 beside 24): the dispatcher's output is the Pallas
+    kernel's on v zero-padded to hd, its first dv columns."""
+    (jq, jk, jvp), (tq, tk, tv) = qkv_narrow_v(shape_q, dv, dtype, seed=11)
+    ref = flash_attention_pallas(jq, jk, jvp, causal=causal, block_q=32,
+                                 block_k=32, interpret=True)[..., :dv]
+    out = tops.flash_attention(tq, tk, tv, causal=causal)
+    assert out.dtype == TDT[dtype] and out.shape == shape_q[:3] + (dv,)
+    close(ref, out, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_cpu_grads_with_narrower_v_equal_the_padded_calls(causal):
+    """On the CPU, q, k and v's gradients through the dispatcher with v at
+    dv < hd equal those of the padded call (v zero-padded to hd, o sliced
+    to dv), v's at its dv columns."""
+    _, (q, k, v) = qkv_narrow_v((2, 40, 2, 24), 16, seed=12)
+    do = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (2, 40, 2, 16)).astype(np.float32))
+    grads = []
+    for padded in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        qq, kk, vv = leaves
+        if padded:
+            vv = torch.nn.functional.pad(vv, (0, 8))
+        out = tops.flash_attention(qq, kk, vv, causal=causal)[..., :16]
+        grads.append(torch.autograd.grad(out, leaves, do))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
 def test_dispatch_counts_no_cpu_launches():
     before = tops.launches
     _, (tq, tk, tv) = qkv((1, 16, 1, 16))
@@ -130,6 +179,21 @@ def test_dispatch_rejects_bad_shapes():
         tops.flash_attention(tq, tk[:, :, :1], tv[:, :, :1])
     with pytest.raises(ValueError, match="empty"):
         tops.flash_attention(tq, tk[:, :0], tv[:, :0])
+
+
+@pytest.mark.parametrize("case", ["dv-past-hd", "dv-0", "v-heads",
+                                  "v-rows", "v-batch"])
+def test_dispatch_rejects_a_v_that_does_not_fit_k(case):
+    """v is (b, skv, h, dv) with 1 <= dv <= hd and k's first three dims;
+    anything else raises before any launch."""
+    _, (tq, tk, tv) = qkv((2, 16, 2, 16))
+    v = {"dv-past-hd": torch.zeros(2, 16, 2, 24),
+         "dv-0": torch.zeros(2, 16, 2, 0),
+         "v-heads": tv[:, :, :1],
+         "v-rows": tv[:, :8],
+         "v-batch": tv[:1]}[case]
+    with pytest.raises(ValueError, match="1 <= dv <= hd"):
+        tops.flash_attention(tq, tk, v)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -250,19 +314,96 @@ def test_plan_mirrors_the_kernel_source():
     src = tK.SOURCE.read_text()
     hopper = src[src.index("namespace hopper {"):]
     assert "constexpr int BQ = %d;" % tK.HOPPER_BQ in hopper
-    assert ("if ((hd != 64 && hd != 120 && hd != 128) || (hd == 120 && "
-            "lse != nullptr))") in hopper
-    assert tK.HOPPER_HEAD_DIMS == (64, 120, 128)
-    # hd 120: the serving instantiations only, padded to whole TMA boxes
-    for softcap in ("true", "false"):
-        assert f"hopper::launch<120, {softcap}, false>" in hopper
-    assert "launch<120, true, true>" not in hopper
-    assert "launch_lse<120" not in hopper
+    # the Hopper entry takes exactly HOPPER_HEAD_DIM_PAIRS; training mode
+    # (an lse) at hd = dv = 64 and 128 alone
+    assert ("const bool square = hd == dv && (hd == 64 || hd == 120 || "
+            "hd == 128);") in hopper
+    assert "const bool training = square && hd != 120;" in hopper
+    assert ("if (!(square || (hd == 192 && dv == 128)) || (lse != nullptr "
+            "&& !training))") in hopper
+    assert tK.HOPPER_HEAD_DIM_PAIRS == ((64, 64), (120, 120), (128, 128),
+                                        (192, 128))
+    assert tK.HOPPER_HEAD_DIMS == (64, 120, 128, 192)
+    # hd 120 and MLA's (192, 128): the serving instantiations only, both
+    # with and without a softcap, padded to whole TMA boxes
+    assert "hopper::launch_serving<SquareTile<120>>" in hopper
+    assert "hopper::launch_serving<hopper::MlaTile>" in hopper
+    assert "launch_lse<SquareTile<120>" not in hopper
+    assert "launch_lse<hopper::MlaTile" not in hopper
+    assert ("softcap != 0.f ? launch<T, true, false>(mq, mk, mv, p, b, "
+            "stream)") in hopper
+    assert "using MlaTile = Tile<192, 128, " in hopper
     assert "static constexpr int NB = (HD + BOX - 1) / BOX;" in hopper
+    assert "static constexpr int NBV = (HDV + BOX - 1) / BOX;" in hopper
     assert "static constexpr int Q_BYTES = BQ * HDP * 2;" in hopper
-    assert "for (int n = 0; n < HD / 8; ++n)" in hopper
+    assert "static constexpr int V_BYTES = BK * HDVP * 2;" in hopper
+    assert "for (int n = 0; n < T::HDV / 8; ++n)" in hopper
+    # V's tensor map has dv columns: TMA zero-fills a box past them
+    assert "res = hopper::make_map(&mv, encode, v, b, skv, h, dv," in hopper
     assert "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE" in hopper
     assert set(tK.VARIANTS) == set(tops.launches_by_variant)
+
+
+@pytest.mark.parametrize("case,variant", [
+    ("mla", "hopper"), ("mla-softcap", "hopper"), ("mla-strided", "hopper"),
+    ("qk-halves", "hopper"), ("square-192", "general"), ("f32", "general"),
+    ("v-head-stride-not-16-bytes", "general"), ("dv-64", "general"),
+])
+def test_plan_routes_mla_head_dims(case, variant):
+    """q and k at 192 columns with v at 128 (MLA) in bf16 take the Hopper
+    variant where TMA reads them (contiguous, a (b, h, s, hd) storage, q
+    and k the two halves of one 384-column storage); bf16 (192, 192), f32,
+    another dv and a v head stride that is no multiple of 16 bytes take
+    the general one."""
+    b, s, h = 2, 300, 4
+    q = k = meta((b, s, h, 192))
+    v = meta((b, s, h, 128))
+    if case == "mla-strided":
+        q = k = meta((b, h, s, 192)).transpose(1, 2)
+        v = meta((b, h, s, 128)).transpose(1, 2)
+    elif case == "qk-halves":
+        q = meta((b, s, h, 384))[..., :192]
+        k = meta((b, s, h, 384), offset=192)[..., 192:]
+        assert q.stride(2) == k.stride(2) == 384
+    elif case == "square-192":
+        v = meta((b, s, h, 192))
+    elif case == "f32":
+        q = k = meta((b, s, h, 192), dtype=torch.float32)
+        v = meta((b, s, h, 128), dtype=torch.float32)
+    elif case == "v-head-stride-not-16-bytes":     # 132 x 2 bytes a head
+        v = meta((b, s, h, 128), (s * h * 132, h * 132, 132, 1))
+    elif case == "dv-64":
+        v = meta((b, s, h, 64))
+    assert tK.plan(q, k, v) == variant
+
+
+def test_plan_of_mla_prefill_qkv_is_hopper():
+    """q, k, v as ``mla_prefill`` builds them for deepseek-v3-671b at full
+    width (its projections, RoPE, the concatenations, v at v_head_dim), on
+    the meta device: the Hopper variant at (192, 128)."""
+    cfg = get_config("deepseek-v3-671b")
+    m, nq, d = cfg.mla, cfg.n_heads, cfg.d_model
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    p = {name: meta(shape) for name, shape in (
+        ("wq_a", (d, m.q_lora_rank)), ("q_norm", (m.q_lora_rank,)),
+        ("wq_b", (m.q_lora_rank, nq * qk_hd)),
+        ("wkv_a", (d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        ("kv_norm", (m.kv_lora_rank,)),
+        ("wk_b", (m.kv_lora_rank, nq * m.qk_nope_head_dim)),
+        ("wv_b", (m.kv_lora_rank, nq * m.v_head_dim)))}
+    b, s = 4, 916
+    x = meta((b, s, d))
+    pos = torch.arange(s, device="meta")[None, :].expand(b, s)
+    c_kv, k_rope = tA.mla_latents(x, p, cfg, pos)
+    q_nope, q_rope = tA.mla_queries(x, p, cfg, pos)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([(c_kv @ p["wk_b"]).reshape(b, s, nq, m.qk_nope_head_dim),
+                   k_rope[:, :, None, :].expand(b, s, nq,
+                                                m.qk_rope_head_dim)], -1)
+    v = (c_kv @ p["wv_b"]).reshape(b, s, nq, m.v_head_dim)
+    assert q.shape == k.shape == (b, s, nq, 192)
+    assert v.shape == (b, s, nq, 128)
+    assert tK.plan(q, k, v) == "hopper"
 
 
 @pytest.mark.parametrize("case,variant", [
@@ -297,6 +438,15 @@ def test_hopper_lse_at_hd120_raises_before_any_build():
     """The Hopper forward has no training mode at hd 120 (the Hopper
     backward takes none): an lse raises before the library is loaded."""
     _, (tq, tk, tv) = qkv((1, 16, 2, 120), dtype="bfloat16")
+    with pytest.raises(ValueError, match="lse only at hd"):
+        tK.flash_attention_cuda(tq, tk, tv, "hopper", lse=tK.lse_buffer(tq))
+    assert tK.library.cache_info().currsize == 0
+
+
+def test_hopper_lse_at_mla_head_dims_raises_before_any_build():
+    """Nor at MLA's (192, 128), which only serves: an lse raises before
+    the library is loaded."""
+    _, (tq, tk, tv) = qkv_narrow_v((1, 16, 2, 192), 128, "bfloat16")
     with pytest.raises(ValueError, match="lse only at hd"):
         tK.flash_attention_cuda(tq, tk, tv, "hopper", lse=tK.lse_buffer(tq))
     assert tK.library.cache_info().currsize == 0
@@ -421,21 +571,30 @@ def test_stale_stage_fault_touches_only_dk_dv():
     assert not torch.allclose(bad[1], good[1], **BWD_TOL)
 
 
+# (hd, dv) at which chip_smoke.py shows each forward fault: hd 120's
+# partial box, MLA's third q/k box
+FWD_FAULT_DIMS = {"pad-from-next-head": (120, 120),
+                  "second-box-dropped": (120, 120),
+                  "third-box-dropped": (192, 128)}
+
+
 @pytest.mark.parametrize("fault", tchecks.FWD_FAULTS)
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (64, 0.0), (0, 30.0)])
 def test_forward_faults_exceed_the_limits(fault, window, softcap):
     """Each forward fault chip_smoke.py holds the Hopper forward against
-    at hd 120 fails the elementwise check and lands far past the row
-    limit (bf16's 1e-2, as on the card), on peaked inputs as there."""
+    (at hd 120, or at MLA's (192, 128)) fails the elementwise check and
+    lands far past the row limit (bf16's 1e-2, as on the card), on peaked
+    inputs as there."""
     rng = np.random.default_rng(8)
-    b, s, h, hd = 1, 160, 3, 120
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, hd))
+    b, s, h = 1, 160, 3
+    hd, dv = FWD_FAULT_DIMS[fault]
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d))
                                 .astype(np.float32) * scale)
-               for scale in (2.0, 2.0, 1.0))
+               for d, scale in ((hd, 2.0), (hd, 2.0), (dv, 1.0)))
     kw = dict(causal=True, window=window, softcap=softcap)
     good = attention_ref(q, k, v, **kw)
     bad = attention_ref(*tchecks.forward_fault_inputs(q, k, v, fault),
-                        **kw)[..., :hd]
+                        **kw)[..., :dv]
     assert bad.shape == good.shape
     assert not torch.allclose(bad, good, rtol=1e-2, atol=1e-2)
     rows = (bad - good).norm(dim=-1) / good.norm(dim=-1)
@@ -467,6 +626,8 @@ def test_forward_faults_need_a_partial_box():
     _, (q, k, v) = qkv((1, 16, 2, 128))
     with pytest.raises(ValueError, match="whole boxes"):
         tchecks.forward_fault_inputs(q, k, v, "second-box-dropped")
+    with pytest.raises(ValueError, match="at most two boxes"):
+        tchecks.forward_fault_inputs(q, k, v, "third-box-dropped")
     with pytest.raises(ValueError, match="no forward fault"):
         tchecks.forward_fault_inputs(q, k, v, "lost-tile")
 
@@ -619,7 +780,7 @@ def test_bwd_plan_mirrors_the_kernel_source():
     assert "bwd_stats" not in hopper
     assert tKB.KERNELS["hopper"] == ("preprocess", "dkdv", "dq")
     fwd = tK.SOURCE.read_text()
-    assert "template <int HD, bool SOFTCAP, bool LSE>" in fwd
+    assert "template <class T, bool SOFTCAP, bool LSE>" in fwd
     assert "(m[h] + log2f(l[h])) / LOG2E" in fwd
 
 

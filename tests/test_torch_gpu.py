@@ -64,29 +64,35 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def _qkv(b, sq, skv, h, hd, dtype, layout="plain", seed=0):
+def _qkv(b, sq, skv, h, hd, dtype, layout="plain", seed=0, dv=None):
     """q, k ~ N(0, 4), v ~ N(0, 1): each row's softmax peaks on a few
     keys, so |out| is O(1) in every row and a lost or doubled kv tile
-    moves the rows that attend into it by O(1).  ``layout``: "plain" (b,
-    s, h, hd); "strided", a (b, h, s, hd) storage seen as (b, s, h, hd);
-    "padded", the first hd columns of a (b, s, h, 128) storage whose
-    other columns hold 1e4 (a kernel that read them would see scores of
-    about 1e8)."""
+    moves the rows that attend into it by O(1).  v has dv columns (hd if
+    None).  ``layout``: "plain" (b, s, h, hd); "strided", a (b, h, s, hd)
+    storage seen as (b, s, h, hd); "padded", the first hd columns of a
+    (b, s, h, 128) storage whose other columns hold 1e4 (a kernel that
+    read them would see scores of about 1e8); "qk-halves", q and k the
+    first and last hd columns of one (b, s, h, 2 hd) storage."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
-    def randn(s, scale):
+    def randn(s, scale, d=hd):
         if layout == "strided":
-            x = torch.randn((b, h, s, hd), generator=gen, device="cuda")
+            x = torch.randn((b, h, s, d), generator=gen, device="cuda")
             return (x.transpose(1, 2) * scale).to(dtype)
         if layout == "padded":
             x = torch.randn((b, s, h, 128), generator=gen, device="cuda")
             x = (x * scale).to(dtype)
-            x[..., hd:] = 1e4
-            return x[..., :hd]
-        x = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+            x[..., d:] = 1e4
+            return x[..., :d]
+        x = torch.randn((b, s, h, d), generator=gen, device="cuda")
         return (x * scale).to(dtype)
 
-    return randn(sq, 2.0), randn(skv, 2.0), randn(skv, 1.0)
+    q, k = randn(sq, 2.0), randn(skv, 2.0)
+    v = randn(skv, 1.0, hd if dv is None else dv)
+    if layout == "qk-halves":
+        qk = torch.cat([q, k], dim=-1)
+        q, k = qk[..., :hd], qk[..., hd:]
+    return q, k, v
 
 
 # (b, sq, skv, h, hd), causal, window, softcap, layout (``_qkv``); each
@@ -149,8 +155,10 @@ def test_kernel_matches_plain(cuda, shape, causal, window, softcap, layout,
     q, k, v = _qkv(*shape, dtype, layout=layout)
     kw = dict(causal=causal, window=window, softcap=softcap)
     # the Hopper variant takes every bf16 call with hd 64, 120 or 128 here
+    # (v at hd, (hd, hd) in kernel.HOPPER_HEAD_DIM_PAIRS)
     variant = ("hopper" if dtype == torch.bfloat16
-               and shape[4] in kernel.HOPPER_HEAD_DIMS else "general")
+               and (shape[4], shape[4]) in kernel.HOPPER_HEAD_DIM_PAIRS
+               else "general")
     assert kernel.plan(q, k, v) == variant
     before = ops.launches
     by_variant = dict(ops.launches_by_variant)
@@ -249,6 +257,14 @@ def test_hopper_variant_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="lse only at hd"):
         kernel.flash_attention_cuda(q, k, v, "hopper",
                                     lse=kernel.lse_buffer(q))
+    # nor has MLA's (192, 128); and no instantiation takes (192, 192)
+    q, k, v = _qkv(1, 64, 64, 2, 192, torch.bfloat16, dv=128)
+    with pytest.raises(ValueError, match="lse only at hd"):
+        kernel.flash_attention_cuda(q, k, v, "hopper",
+                                    lse=kernel.lse_buffer(q))
+    q, k, v = _qkv(1, 64, 64, 2, 192, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernel.flash_attention_cuda(q, k, v, "hopper")
     assert ops.launches == before
     torch.cuda.synchronize()
 
@@ -1145,7 +1161,8 @@ def test_bwd_kernel_matches_plain(cuda, shape, causal, window, softcap,
     q, k, v = _qkv(*shape, dtype, layout=layout, seed=3)
     bf16, hd = dtype == torch.bfloat16, shape[4]
     assert kernel.plan(q, k, v) == (
-        "hopper" if bf16 and hd in kernel.HOPPER_HEAD_DIMS else "general")
+        "hopper" if bf16 and (hd, hd) in kernel.HOPPER_HEAD_DIM_PAIRS
+        else "general")
     assert kernel_bwd.plan(q, k, v) == (
         "hopper" if bf16 and hd in kernel_bwd.HOPPER_HEAD_DIMS
         else "general")
@@ -1364,6 +1381,64 @@ def test_k1_at_mla_head_dim_with_zero_padded_v(cuda, dtype):
     row = ((out.float() - ref.float()).norm(dim=-1)
            / ref.float().norm(dim=-1).clamp_min(1e-30))
     assert row.max().item() <= ROW_TOL[dtype]
+
+
+# (b, sq, skv, h), causal, softcap, layout (``_qkv``) of K1's Hopper
+# variant at MLA's head dims, q and k 192 columns and v 128, bf16: a
+# ragged length, sq != skv without the causal mask, a (b, h, s, hd)
+# storage, q and k the two halves of one storage, a softcap
+MLA_CASES = [
+    ((1, 1000, 1000, 8), True, 0.0, "plain"),
+    ((1, 200, 333, 4), False, 0.0, "plain"),
+    ((1, 300, 300, 4), True, 0.0, "strided"),
+    ((2, 500, 500, 4), True, 0.0, "qk-halves"),
+    ((1, 300, 300, 4), True, 30.0, "plain"),
+]
+
+
+@pytest.mark.parametrize("shape,causal,softcap,layout", MLA_CASES)
+def test_hopper_at_mla_head_dims_matches_plain(cuda, shape, causal, softcap,
+                                               layout):
+    """The Hopper variant at (192, 128) through the dispatcher against
+    attention_ref (the function of v zero-padded to 192, o's first 128
+    columns), elementwise and by row; two calls bit-identical."""
+    q, k, v = _qkv(*shape, 192, torch.bfloat16, layout=layout, dv=128)
+    kw = dict(causal=causal, softcap=softcap)
+    assert kernel.plan(q, k, v) == "hopper"
+    before = ops.launches_by_variant["hopper"]
+    with torch.inference_mode():
+        out = ops.flash_attention(q, k, v, **kw)
+        again = ops.flash_attention(q, k, v, **kw)
+        ref = attention_ref(q, k, v, **kw)
+    assert ops.launches_by_variant["hopper"] == before + 2
+    b, sq, _, h = shape
+    assert out.shape == (b, sq, h, 128) and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    row = ((out.float() - ref.float()).norm(dim=-1)
+           / ref.float().norm(dim=-1).clamp_min(1e-30))
+    assert row.max().item() <= ROW_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd,dv", [(192, 128), (24, 16)])
+def test_general_with_narrower_v_equals_padded_v(cuda, hd, dv, dtype):
+    """The general variant with v at dv < hd columns gives, bit for bit,
+    the first dv columns of its output on v zero-padded to hd (it loads
+    the missing columns as zeros), and holds to attention_ref."""
+    q, k, v = _qkv(2, 300, 300, 8, hd, dtype, dv=dv)
+    vp = torch.nn.functional.pad(v, (0, hd - dv))
+    with torch.inference_mode():
+        out = kernel.flash_attention_cuda(q, k, v, "general")
+        padded = kernel.flash_attention_cuda(q, k, vp, "general")
+        ref = attention_ref(q, k, v)
+    assert out.shape == (2, 300, 8, dv)
+    assert torch.equal(out, padded[..., :dv])
+    assert not padded[..., dv:].any()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
 
 
 def test_mla_prefill_decode_on_the_card_match_cpu(cuda):
