@@ -42,7 +42,12 @@ non-zero and prints no result:
    takes them) beside both functions' bounds; small Hopper cases at (192,
    128): ragged, non-causal with sq != skv, softcapped, q and k the two
    halves of one 384-column storage; bf16 (192, 192) on the general
-   variant; K2 through its
+   variant; at whisper-tiny's shapes (6 heads of 64, 1500 frames, none
+   causal, all on the Hopper variant): a prefill wave's encoder (4, 1500,
+   1500), the cross-attention of 224-token prompts (4, 224, 1500), and of
+   4- and 1-token prompts (4, 4, 1500), (2, 1, 1500), whose q tile lies
+   almost wholly past sq; the first two timed in turns with SDPA
+   (general, hopper, sdpa, sdpa, hopper, general); K2 through its
    dispatcher, and its candidate plans (G, C, CB, double buffer) in two
    passes at the main-path shape, each case checked for the plan it
    took, and a stale chunk and a lost row group shown to fail; the
@@ -84,9 +89,20 @@ non-zero and prints no result:
       plus 1 shared, vocab 129280 untied), 24.87 B params: MLA prefill
       through K1 at q·k 192 and v 128, twice a wave, Hopper variant;
       absorbed decode against the latent cache.
+   g. whisper-tiny as published (4 + 4 layers, d_model 384, 6 heads of
+      64, vocab 51865 tied, 36.44 M params), driven at its model entry
+      points (prefill with frames, decode), not through the engine: the
+      reference's ModelServer passes no frames.  8 requests in 2 waves
+      of 4, each 1500 frames (N(0, 1) from a seed: the conv frontend is a
+      stub) and a prompt of 4-224 tokens, left-padded with token 0, 32
+      greedy new tokens, max_len 448: K1 12 times a wave (4 encoder, 4
+      causal self-attention, 4 cross-attention with sq != skv), all
+      Hopper, no other kernel, no plain version; decode attention, the
+      cross-attention over the 1500 cached frames too, plain torch.
    With --profile, after each, one prefill wave (at the path's longest
    prompt) and three decode steps outside the engine, timed and traced
-   with torch.profiler;
+   with torch.profiler, the time by kernel group beside the largest
+   kernels;
 5. decode vs prefill: full-width f32 models cut to 2 layers (Jamba:
    layers 4-5 of a period, attention + MLP then Mamba + MoE with all 16
    experts, capacity factor 16 so that no token drops), teacher-forced
@@ -96,7 +112,16 @@ non-zero and prints no result:
    4096 slots (window_cache); internvl2-76b (d_model 8192) with 256
    patch embeddings in front of the prompt; deepseek-v3-671b cut to 1
    layer (13.36 B params, 53.4 GB), capacity factor 32, the absorbed
-   decode against the expanded prefill;
+   decode against the expanded prefill; then whisper-tiny at full width
+   and depth on the card against the same model on the CPU (the same
+   weights, copied across): a wave of 2 requests of 1500 frames and a
+   37-token prompt, its logits and k/v/ck/cv caches, and 8 teacher-forced
+   decode steps' logits, in f32 (K1's general variant, TF32 off; each
+   logits row and cache within 1e-4 of its largest |value|) and in bf16
+   (the Hopper variant; each row within 5e-2 of the CPU's f32 run), with
+   the encoder run causal, the cross-attention's k/v taken from the
+   decoder's input, and decode embedding at position length instead of 0
+   each shown to fail;
 6. K1's backward (flash_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.flash_attention, whose backward
    launches the kernels of the route kernel_bwd.plan picks) against
@@ -104,15 +129,18 @@ non-zero and prints no result:
    64) bf16 causal and at hd 128, hd 120 with a window, a softcap, f32,
    sq != skv without the causal mask, a strided storage, an expanded GQA
    view, hd 64 with a window and a softcap, hd 128 with sq != skv, and sq
-   = 1000 (ragged TMA boxes); each case checked for its route ("hopper":
-   the forward's LSE, preprocess, dK/dV, dQ on TMA and wgmma; "general":
-   stats, dK/dV, dQ on mma.sync); two calls bit for bit; a backward with
-   D dropped, the softcap derivative dropped, a kv tile skipped, the LSE
-   of the neighbouring row, the LSE in log2 units, or a Q/dO ring stage read
-   one tile stale shown to fail the checks; at the training shape and at
-   hd 128, timed in turns: the Hopper backward (each kernel alone and the
-   whole call), the general one as the yardstick, SDPA's backward, and
-   K1's forward with and without the LSE, beside the bound;
+   = 1000 (ragged TMA boxes), and whisper-tiny's training shapes without
+   the causal mask, the cross-attention (16, 448, 1500, 6, 64) and the
+   encoder (16, 1500, 1500, 6, 64); each case checked for its route
+   ("hopper": the forward's LSE, preprocess, dK/dV, dQ on TMA and wgmma;
+   "general": stats, dK/dV, dQ on mma.sync); two calls bit for bit; a
+   backward with D dropped, the softcap derivative dropped, a kv tile
+   skipped, the LSE of the neighbouring row, the LSE in log2 units, or a
+   Q/dO ring stage read one tile stale shown to fail the checks; at the
+   training shape and at hd 128, timed in turns: the Hopper backward
+   (each kernel alone and the whole call), the general one as the
+   yardstick, SDPA's backward, and K1's forward with and without the
+   LSE, beside the bound;
 7. K2's backward (wkv6_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.wkv6, whose backward launches the
    backward kernel on the route kernel_bwd.plan picked before the forward,
@@ -168,6 +196,13 @@ non-zero and prints no result:
       call (3 launches) and K3 2 forward launches (both in training mode)
       and 1 backward call (2 launches: bwd, sum) a step, K1 all "hopper";
       K3's launches a step printed;
+   d. whisper-tiny as published (36.44 M params), not through
+      launch/train.py (which feeds no frames, as the reference's does
+      not): make_train_step with AdamW (weight decay 0.01) and the cosine
+      schedule, 6 steps of 16 x 448 tokens (the synthetic stream, seed 1)
+      and 16 x 1500 frames: K1 20 forward launches (4 encoder, 8 decoder
+      twice: the forward and its recompute) and 12 backward calls (36
+      launches) a step, all "hopper", no stats kernel;
    then a 2-layer cut of minicpm-2b at full width, whose gradients under
    remat policy None and "dots" equal those without remat, bit for bit;
 10. jamba_moe_grad: the 2-layer MoE cut of jamba-1.5-large-398b
@@ -180,14 +215,17 @@ non-zero and prints no result:
     hold the losses to an uninterrupted run bit for bit, eval batches on
     rFaaS-leased executors, the ledger's bill;
 12. the kernels line (K1, K1's backward, K2, K2's backward, K3, K3's
-    backward, each with its launches by path), the card line and the
-    result line, last.
+    backward, each with its launches by path, Whisper's path g and its
+    training among K1's), the card line and the result line, last.
+
+The Whisper phases print their own wall times.
 
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -232,6 +270,31 @@ DECODE_CUTS = {"mistral-nemo-12b": dict(n_layers=2),
                DANUBE: dict(n_layers=2),
                INTERNVL: dict(n_layers=2),
                DEEPSEEK: dict(n_layers=1, mtp_depth=0)}
+# Path g: whisper-tiny as published (4 + 4 layers, d_model 384, 6 heads of
+# 64, vocab 51865 tied), driven at its model entry points (prefill with
+# frames, decode), as the reference's launch cells drive it: the
+# reference's ModelServer passes no frames.  Each request: 1500 frames
+# (30 s of audio after the conv frontend, which is a stub: N(0, 1) from a
+# seed) and a prompt of 4-224 tokens drawn from seed 0 (Whisper's
+# previous-text prompt and its start sequence); a wave left-padded with
+# token 0 to its longest prompt; 32 greedy new tokens each; max_len 448,
+# the released decoder's context.
+WHISPER = "whisper-tiny"
+WHISPER_SERVE = dict(requests=8, batch=4, prompt=(4, 224), new_tokens=32,
+                     max_len=448)
+# Whisper's training path: 16 x 448 tokens of the synthetic stream (seed
+# 1) and 16 x 1500 frames a step, 6 steps
+WHISPER_TRAIN = dict(batch=16, seq=448, steps=6)
+# Whisper on the card against the same model on the CPU (full width and
+# depth, the same weights): a wave of 2 requests of 1500 frames and a
+# 37-token prompt, then 8 teacher-forced decode steps; each logits row
+# within WHISPER_ROW_LIMIT of the row's largest |logit| of the CPU's f32
+# run.  f32: the card runs K1's general variant and cuBLAS with TF32 off,
+# and sums in other orders than the CPU.  bf16 (the Hopper variant):
+# weights and activations rounded to bf16 (2^-9 relative) through 8
+# layers and the head, against f32.
+WHISPER_CHECK = dict(batch=2, prompt=37, steps=8, max_len=48)
+WHISPER_ROW_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # Decode-vs-prefill traffic where it is not a 6-token prompt and 5 steps:
 # danube's 4090-token prompt and 12 steps cross its 4096-token window in
 # decode, with the full cache and again with the ring buffer of 4096
@@ -351,6 +414,18 @@ FLASH_CASES = [
      0.0, "qk-halves", "hopper"),
     ("square-hd192", (1, 300, 300, 4, 192), torch.bfloat16, True, 0, 0.0,
      "plain", "general"),
+    # whisper-tiny (6 heads of 64, 1500 frames), none causal: a prefill
+    # wave's encoder, the cross-attention of a wave of 224-token prompts,
+    # and of 4- and 1-token prompts, whose one q tile lies almost wholly
+    # past sq (TMA zero-fills its rows, the epilogue stores none of them)
+    ("whisper-encoder", (4, 1500, 1500, 6, 64), torch.bfloat16, False, 0,
+     0.0, "plain", "hopper"),
+    ("whisper-cross", (4, 224, 1500, 6, 64), torch.bfloat16, False, 0, 0.0,
+     "plain", "hopper"),
+    ("whisper-cross-4", (4, 4, 1500, 6, 64), torch.bfloat16, False, 0, 0.0,
+     "plain", "hopper"),
+    ("whisper-cross-1", (2, 1, 1500, 6, 64), torch.bfloat16, False, 0, 0.0,
+     "plain", "hopper"),
 ]
 # the forward faults (checks.FWD_FAULTS) a case also shows its checks
 # can see
@@ -360,7 +435,16 @@ FLASH_FAULTS = {"danube-window-4096": ("pad-from-next-head",
 # the cases timed beside the main-path case, each under its own key of
 # the kernels line
 TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
-                     "mixtral-window-4096", "mla-hd192")
+                     "mixtral-window-4096", "mla-hd192", "whisper-encoder",
+                     "whisper-cross")
+# the timed cases whose SDPA call also runs in the turns of K1's variants
+# (general, hopper, sdpa, sdpa, hopper, general), each timed queued
+# behind a sleep of the stream: their kernels take less time than the
+# host takes to launch them
+SDPA_IN_TURNS = ("whisper-encoder", "whisper-cross")
+# cycles of torch.cuda._sleep before a queued timing's calls (about 10 ms
+# at 1.98 GHz), more than the host takes to enqueue them
+QUEUE_SLEEP_CYCLES = 20_000_000
 # name fragments of the serving kernels K1, K2 and K3, which a profile
 # prints even where they are not among a step's largest
 PORT_KERNELS = ("flash_fwd_", "wkv6_kernel", "scan_pipe_kernel")
@@ -385,13 +469,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=10, warmup=2):
+def time_ms(fn, iters=10, warmup=2, queued=False):
     """Mean device time of one call, from CUDA events around ``iters``
-    calls after ``warmup`` calls."""
+    calls after ``warmup`` calls.  Back to back, calls whose host work
+    outlasts their kernels time the host; ``queued`` holds the stream
+    (``torch.cuda._sleep``) while the host enqueues the calls, so that
+    the events time their kernels alone."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -854,7 +943,11 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                 plain):
     """Times K1 through the kernel module (no launch counted): both
     variants in turns (general, hopper, hopper, general) where ``plan``
-    takes the Hopper one; where v is narrower than q and k (MLA), the
+    takes the Hopper one, with SDPA in the same turns for the cases of
+    ``SDPA_IN_TURNS`` (general, hopper, sdpa, sdpa, hopper, general),
+    whose turns are queued behind a sleep of the stream (``time_ms``) and
+    whose hopper and SDPA calls are timed back to back once more;
+    where v is narrower than q and k (MLA), the
     Hopper one in turns with the general one and SDPA on v zero-padded to
     hd, the model's call before the Hopper variant took v as it is, and
     with SDPA on v as it is where SDPA takes it (hopper, general, sdpa,
@@ -890,11 +983,14 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
         order = (("hopper", "general", "sdpa")
                  + ("sdpa-dv", "sdpa-dv") * sdpa_dv
                  + ("sdpa", "general", "hopper"))
+    elif name in SDPA_IN_TURNS:
+        order = ("general", variant, "sdpa", "sdpa", variant, "general")
     elif variant == "hopper":
         order = ("general", "hopper", "hopper", "general")
     else:
         order = ("general", "sdpa", "sdpa", "general")
     in_turns, lse_turns = [], []
+    queued = name in SDPA_IN_TURNS
     with torch.inference_mode():
         for vt in order:
             if vt == "sdpa":
@@ -905,7 +1001,7 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                 fn = functools.partial(flash_kernel.flash_attention_cuda, q,
                                        k, v if vt == "hopper" else vp, vt,
                                        **kw)
-            in_turns.append((vt, time_ms(fn)))
+            in_turns.append((vt, time_ms(fn, queued=queued)))
         turns = [(u, t) for u, t in in_turns if not u.startswith("sdpa")]
         sdpa_turns = {u: [t for w, t in in_turns if w == u]
                       for u in ("sdpa", "sdpa-dv")}
@@ -915,7 +1011,7 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                 lse_turns.append((with_lse, time_ms(
                     lambda: flash_kernel.flash_attention_cuda(
                         q, k, v, "hopper", lse=lse if with_lse else None,
-                        **kw))))
+                        **kw), queued=queued)))
             del lse
         if sdpa_turns["sdpa"]:
             check(not kw["window"], f"{name}: SDPA in turns takes no window")
@@ -931,6 +1027,11 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
         else:
             library_ms = time_ms(lambda: sdpa(vt_))
         plain_ms = time_ms(plain, iters=3)
+        # the same calls back to back: the host's launch work included
+        back_to_back = {u: time_ms(fn) for u, fn in (
+            ("hopper", functools.partial(flash_kernel.flash_attention_cuda,
+                                         q, k, v, "hopper", **kw)),
+            ("sdpa", functools.partial(sdpa, vpt)))} if queued else None
     del vp, vpt
     ms_by_variant = {u: float(np.mean([t for w, t in turns if w == u]))
                      for u in dict(turns)}
@@ -963,6 +1064,12 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                   f"{extra['sdpa_padded_ms']:.4f} ms, bound "
                   f"{extra['padded_bound_ms']:.4f} ms; hopper / padded "
                   f"sdpa {ms / extra['sdpa_padded_ms']:.2f}")
+    if back_to_back:
+        extra["back_to_back_ms"] = back_to_back
+        b2b = ", ".join(f"{u} {t:.4f}" for u, t in back_to_back.items())
+        print(f"[kernels] flash_attention {name}: turns queued behind a "
+              f"sleep of the stream (kernels alone); back to back, the "
+              f"host's launch work included: {b2b} ms")
     print(f"[kernels] flash_attention {name}: in turns "
           f"{', '.join(f'{u} {t:.4f}' for u, t in in_turns)} ms; "
           f"{', '.join(f'{u} {t:.4f} ms' for u, t in ms_by_variant.items())}"
@@ -2251,23 +2358,28 @@ def free_device_memory(what):
     check(left < 1e9, f"{left / 1e9:.2f} GB still allocated after {what}")
 
 
-def profile_steps(model, params, max_len, seq, batch=4, steps=3):
-    """Where a step's time goes: one prefill wave (batch x seq) and
-    ``steps`` decode steps, each timed on the host clock without the
+def profile_steps(model, params, max_len, seq, batch=4, steps=3,
+                  prefill_kw=None):
+    """Where a step's time goes: one prefill wave (batch x seq; the
+    model's other prefill inputs, Whisper's frames, in ``prefill_kw``)
+    and ``steps`` decode steps, each timed on the host clock without the
     profiler, then run again under torch.profiler for the device time of
     its kernels (the kernels alone, not the host-side ops that launched
     them).  Prints, per step, the wall time, the kernel time and launches,
-    the device-busy share (kernel time over wall time), the kernels that
-    take the most, and the repository's own kernels (``PORT_KERNELS``)
-    where they are not among those."""
+    the device-busy share (kernel time over wall time), the time by
+    kernel group (``KERNEL_GROUPS``), the kernels that take the most, and
+    the repository's own kernels (``PORT_KERNELS``) where they are not
+    among those."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     toks = torch.randint(1, model.cfg.vocab_size, (batch, seq),
                          generator=gen, device="cuda")
+    prefill_kw = prefill_kw or {}
     with torch.inference_mode():
-        _, cache, length = model.prefill(params, toks, max_len)   # warm
+        _, cache, length = model.prefill(params, toks, max_len,
+                                         **prefill_kw)   # warm
         nxt = toks[:, -1:]
         model.decode(params, cache, nxt, length)
 
@@ -2275,8 +2387,8 @@ def profile_steps(model, params, max_len, seq, batch=4, steps=3):
             for i in range(steps):
                 model.decode(params, cache, nxt, length + 1 + i)
 
-        runs = {"prefill": (1, seq, lambda: model.prefill(params, toks,
-                                                          max_len)),
+        runs = {"prefill": (1, seq, lambda: model.prefill(
+                    params, toks, max_len, **prefill_kw)),
                 "decode": (steps, 1, run_decode)}
         for kind, (n, tokens, run) in runs.items():
             torch.cuda.synchronize()
@@ -2300,6 +2412,7 @@ def profile_steps(model, params, max_len, seq, batch=4, steps=3):
                   f"{wall_ms:.1f} ms per step, kernels {busy_ms:.1f} ms in "
                   f"{n_launch} launches, device busy "
                   f"{100 * busy_ms / wall_ms:.0f}%")
+            print(f"[profile]   by group: {group_line(kernels, n)}")
             ranked = sorted(kernels, key=lambda e: e.self_device_time_total,
                             reverse=True)
             for e in ranked[:8] + [e for e in ranked[8:] if any(
@@ -2348,7 +2461,10 @@ def phase_decode_vs_prefill(arch, prompt=6, steps=5, patches=0, ring=False):
     and to the full cache's logits.  f32 at 1e-3: both paths are f32
     (TF32 off) but reduce over the model's widths in different orders (a
     CUDA kernel against plain torch: attention, or the recurrence's step
-    path)."""
+    path).  Whisper does not take this check: its decode embeds each new
+    token at sinusoidal position 0, as the reference's does, where its
+    prefill embeds position i at i, so the two cannot agree;
+    ``phase_whisper_card_vs_cpu`` holds its decode to the CPU's."""
     from repro_torch.configs import get_config
     from repro_torch.models.factory import build_model
 
@@ -2415,6 +2531,408 @@ def phase_decode_vs_prefill(arch, prompt=6, steps=5, patches=0, ring=False):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ Whisper (path g)
+
+
+@contextlib.contextmanager
+def _swapped(obj, attr, value):
+    """``obj.attr`` set to ``value`` inside the block; yields the old."""
+    real = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield real
+    finally:
+        setattr(obj, attr, real)
+
+
+def whisper_k1_launches(cfg):
+    """K1's launches in a Whisper prefill wave (the encoder's layers, each
+    decoder layer's self- and cross-attention), and in a training step:
+    (forward: the encoder's, and the decoder's twice, its layers
+    recomputed under activation checkpointing; backward kernel launches:
+    a call for each attention, ``kernel_bwd.KERNELS["hopper"]`` each)."""
+    from repro_torch.kernels.flash_attention import kernel_bwd
+    attentions = cfg.n_enc_layers + 2 * cfg.n_layers
+    return attentions, (cfg.n_enc_layers + 4 * cfg.n_layers,
+                        attentions * len(kernel_bwd.KERNELS["hopper"]))
+
+
+def phase_whisper_serve(card, profile):
+    """Path g: WHISPER_SERVE's 8 requests in waves of 4 through
+    ``WhisperLM.prefill(frames=)`` and ``decode`` on the card, in bf16
+    from seed 0.  Every request gets its tokens, every logit finite; each
+    wave launches K1 ``whisper_k1_launches`` times, all on the Hopper
+    variant, and no other kernel; no plain version is called.  Prints
+    each wave's prefill time and the median decode step (host clock,
+    synchronised), the least time to read what a decode step reads, and
+    the peak memory; with ``profile``, one prefill wave and three decode
+    steps profiled.  Returns the run's counts (``read_counts``' keys)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.whisper_tiny import N_AUDIO_FRAMES
+    from repro_torch.models.factory import build_model
+    ops = kernel_ops()
+    spec = WHISPER_SERVE
+    n_req, batch, new = spec["requests"], spec["batch"], spec["new_tokens"]
+    (lo, hi), max_len = spec["prompt"], spec["max_len"]
+    t_phase = time.perf_counter()
+    cfg = get_config(WHISPER)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    nbytes = {k: sum(t.numel() * t.element_size() for t in _leaves(v))
+              if isinstance(v, dict) else 0 for k, v in params.items()}
+    params_gb = sum(nbytes.values()) / 1e9
+    print(f"[whisper] {WHISPER}: {cfg.n_enc_layers} + {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {n_params / 1e6:.2f} M params "
+          f"({params_gb * 1e3:.1f} MB) in {str(model.dtype)[6:]} "
+          f"initialised in {init_s:.2f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size,
+                            size=int(rng.integers(lo, hi + 1)))
+               for _ in range(n_req)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    frames = torch.randn((n_req, N_AUDIO_FRAMES, cfg.d_model),
+                         generator=gen, device="cuda")
+    waves = [list(range(i, min(i + batch, n_req)))
+             for i in range(0, n_req, batch)]
+    seconds = {"prefill": [], "decode": []}
+
+    def serve(idx, n_new):
+        """One wave: left-padded prompts, prefill, n_new - 1 greedy decode
+        steps; returns (tokens (len(idx), n_new), non-finite logits)."""
+        s = max(len(prompts[i]) for i in idx)
+        toks = np.zeros((len(idx), s), np.int32)
+        for row, i in enumerate(idx):
+            toks[row, s - len(prompts[i]):] = prompts[i]
+        toks = torch.from_numpy(toks).cuda()
+        fr = frames[idx[0]:idx[-1] + 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, length = model.prefill(params, toks, max_len,
+                                              frames=fr)
+        bad = int((~torch.isfinite(logits)).sum())          # syncs
+        seconds["prefill"].append(time.perf_counter() - t0)
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        out = [nxt]
+        for _ in range(n_new - 1):
+            t0 = time.perf_counter()
+            logits, cache, length = model.decode(params, cache, nxt, length)
+            bad += int((~torch.isfinite(logits)).sum())
+            seconds["decode"].append(time.perf_counter() - t0)
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(nxt)
+        return torch.cat(out, dim=1).cpu(), bad
+
+    k1_wave = whisper_k1_launches(cfg)[0]
+    want = expected_counts({"flash_attention": (k1_wave, 0)}, ops)
+    with torch.inference_mode():
+        serve(waves[0][:1], 2)           # warm-up (cuBLAS handles), unread
+    for times in seconds.values():
+        times.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain, undo = _count_plain_calls()
+    per_wave, got, nonfinite = [], [], 0
+    try:
+        with torch.inference_mode():
+            for idx in waves:
+                reset_counts(ops)
+                toks, bad = serve(idx, new)
+                per_wave.append(read_counts(ops))
+                got.append(toks)
+                nonfinite += bad
+    finally:
+        undo()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefill_ms = [t * 1e3 for t in seconds["prefill"]]
+    decode_ms = float(np.median(seconds["decode"])) * 1e3
+    # a decode step reads the decoder's weights, the tied embedding (its
+    # head) and the final norm, and the wave's caches: self k/v at
+    # max_len slots, cross k/v at 1500
+    step_gb = (nbytes["dec"] + nbytes["embed"] + nbytes["final_norm"]) / 1e9
+    cache_gb = sum(t.numel() * t.element_size() for t in _leaves(
+        model.init_cache(batch, max_len, "meta"))) / 1e9
+    hbm = HBM_BYTES_PER_S / 1e12
+    print(f"[whisper] path g: prompts {[len(p) for p in prompts]}, "
+          f"{len(waves)} waves of {batch}, {N_AUDIO_FRAMES} frames a "
+          f"request, max_len {max_len}; tokens a request "
+          f"{[t.shape[1] for t in got for _ in range(t.shape[0])]}; "
+          f"{len(seconds['decode'])} decode steps; {nonfinite} non-finite "
+          f"logits; counts a wave {per_wave}; plain versions called "
+          f"{plain}")
+    print(f"[whisper] path g step times on the host clock: prefill per "
+          f"wave {[round(t, 2) for t in prefill_ms]} ms, decode step "
+          f"median {decode_ms:.2f} ms (reading the {step_gb * 1e3:.1f} MB "
+          f"of weights a step reads takes at least "
+          f"{step_gb / hbm:.4f} ms at {hbm:g} TB/s, with the "
+          f"{cache_gb * 1e3:.1f} MB of a wave's caches "
+          f"{(step_gb + cache_gb) / hbm:.4f} ms); peak memory "
+          f"{peak_gb:.3f} GB; phase {time.perf_counter() - t_phase:.1f} "
+          f"s | {card}")
+    check(len(got) == len(waves) and sum(t.shape[0] for t in got) == n_req,
+          f"whisper: {sum(t.shape[0] for t in got)} of {n_req} served")
+    check(all(t.shape[1] == new for t in got),
+          "whisper: a request got the wrong number of tokens")
+    check(nonfinite == 0, f"whisper: {nonfinite} non-finite logits")
+    check(all(c == want for c in per_wave),
+          f"whisper: counts a wave {per_wave}, expected {want}")
+    check(not any(plain.values()), f"whisper: plain versions {plain}")
+    result = {"arch": WHISPER, "prompt_lengths": [len(p) for p in prompts],
+              "frames": N_AUDIO_FRAMES, "max_len": max_len,
+              "new_tokens": new, "prefill_ms": prefill_ms,
+              "decode_step_ms_median": decode_ms, "peak_memory_gb": peak_gb,
+              "params_mb": params_gb * 1e3, "step_read_mb": step_gb * 1e3,
+              "cache_mb": cache_gb * 1e3, "card": card}
+    print("whisper_serve " + json.dumps(result))
+    if profile:
+        profile_steps(model, params, max_len, seq=hi, batch=batch,
+                      prefill_kw={"frames": frames[:batch]})
+    del params, frames
+    return _sum_counts(per_wave)
+
+
+def phase_whisper_card_vs_cpu():
+    """whisper-tiny at full width and depth on the card against the same
+    model on the CPU, with the same weights (drawn once on the CPU from
+    seed 0 and copied across): WHISPER_CHECK's prefill wave (its logits
+    and its k/v/ck/cv caches), then 8 teacher-forced decode steps' logits
+    and the self caches after them.  In f32 (K1's general variant, TF32
+    off) every logits row within 1e-4 of its largest |logit| and each
+    cache within 1e-4 of its largest |value|; in bf16 (the Hopper
+    variant) every row within 5e-2 against the CPU's f32 run, its worst
+    row printed.  Three faults run in f32 on the card must land far past
+    the f32 limit: the encoder causal, the cross-attention's k/v from the
+    decoder's input instead of the encoder's output, and decode embedding
+    the token at position ``length`` instead of 0."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.configs.whisper_tiny import N_AUDIO_FRAMES
+    from repro_torch.models import attention as A
+    from repro_torch.models.factory import build_model
+    from repro_torch.models.whisper import WhisperLM
+    flash = kernel_ops()["flash_attention"]
+    spec = WHISPER_CHECK
+    b, prompt, steps = spec["batch"], spec["prompt"], spec["steps"]
+    t_phase = time.perf_counter()
+    cfg = get_config(WHISPER).replace(dtype="float32")
+    params = WhisperLM(cfg).init(torch.Generator().manual_seed(SEED), "cpu")
+    rng = np.random.default_rng(SEED + 13)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (b, prompt + steps)))
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, N_AUDIO_FRAMES, cfg.d_model)).astype(np.float32))
+
+    def run(model, p, device):
+        """(logits (b, 1 + steps, V), caches after prefill, self caches
+        after the last step), f32 on the CPU; K1's launches by variant."""
+        before = dict(flash.launches_by_variant)
+        with torch.inference_mode():
+            logits, cache, length = model.prefill(
+                p, toks[:, :prompt].to(device), spec["max_len"],
+                frames=frames.to(device))
+            rows = [logits[:, 0].float().cpu()]
+            # copies: decode writes the cache in place
+            caches = {k: v.to("cpu", torch.float32, copy=True)
+                      for k, v in cache.items()}
+            for i in range(prompt, prompt + steps):
+                logits, cache, length = model.decode(
+                    p, cache, toks[:, i:i + 1].to(device), length)
+                rows.append(logits[:, 0].float().cpu())
+            check(length == prompt + steps, f"whisper: length {length}")
+            end = {k: cache[k].float().cpu() for k in ("k", "v")}
+        took = {vt: n - before[vt]
+                for vt, n in flash.launches_by_variant.items()}
+        return torch.stack(rows, dim=1), caches, end, took
+
+    def row_ratio(got, want):
+        """Worst max |got - want| / max |want| over the logits rows."""
+        return ((got - want).abs().amax(-1)
+                / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+    def cache_ratio(got, want):
+        return {k: ((got[k] - want[k]).abs().max()
+                    / want[k].abs().max().clamp_min(1e-30)).item()
+                for k in want}
+
+    t0 = time.perf_counter()
+    want, want_cache, want_end, _ = run(WhisperLM(cfg), params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    wave = whisper_k1_launches(cfg)[0]
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model(cfg.replace(dtype=str(dtype)[6:]))
+        on_card = T.map_tree(lambda t: t.to("cuda", dtype), params)
+        got, cache, end, took = run(model, on_card, "cuda")
+        variant = "general" if dtype == torch.float32 else "hopper"
+        ratio = row_ratio(got, want)
+        caches = {**cache_ratio(cache, want_cache),
+                  **{f"{k} after decode": e for k, e in
+                     cache_ratio(end, want_end).items()}}
+        limit = WHISPER_ROW_LIMIT[dtype]
+        results[str(dtype)[6:]] = {"worst_row": ratio, "caches": caches}
+        print(f"[whisper_check] {str(dtype)[6:]} on the card vs f32 on the "
+              f"CPU, {b} x {prompt} tokens, {N_AUDIO_FRAMES} frames, "
+              f"{steps} decode steps: K1 launches by variant {took}; worst "
+              f"logits row err {ratio:.3e} of the row's largest |logit| "
+              f"(limit {limit:g}); caches (err over largest |value|) "
+              f"{', '.join(f'{k} {e:.3e}' for k, e in caches.items())}")
+        check(took == {vt: wave if vt == variant else 0 for vt in took},
+              f"whisper {dtype}: K1 launches {took}, expected {wave} "
+              f"{variant}")
+        check(math.isfinite(ratio) and ratio <= limit,
+              f"whisper {dtype}: worst row {ratio:.3e} past {limit:g}")
+        if dtype == torch.float32:
+            check(all(e <= limit for e in caches.values()),
+                  f"whisper f32: caches {caches} past {limit:g}")
+            card_params = on_card
+        else:
+            del on_card
+
+    real_flash, real_qkv = flash.flash_attention, A.project_qkv
+
+    class CausalEncoder(WhisperLM):
+        def encode(self, p, fr):
+            def causal(q, k, v, **kw):
+                return real_flash(q, k, v, **{**kw, "causal": True})
+            with _swapped(flash, "flash_attention", causal):
+                return super().encode(p, fr)
+
+    class CrossFromDecoder(WhisperLM):
+        def _dec_layer_full(self, x, lp, enc, cache_entry):
+            def from_x(x, p, c, kv_x=None):
+                return real_qkv(x, p, c)
+            with _swapped(A, "project_qkv", from_x):
+                return super()._dec_layer_full(x, lp, enc, cache_entry)
+
+    class DecodeAtLength(WhisperLM):
+        def decode(self, p, cache, tokens, length):
+            real = self._embed_tokens
+            self._embed_tokens = lambda pp, t, offset=0: real(
+                pp, t, offset=length)
+            try:
+                return super().decode(p, cache, tokens, length)
+            finally:
+                del self._embed_tokens
+
+    limit = WHISPER_ROW_LIMIT[torch.float32]
+    faults = {}
+    for name, cls in (("the encoder causal", CausalEncoder),
+                      ("cross k/v from the decoder's input",
+                       CrossFromDecoder),
+                      ("decode at position length", DecodeAtLength)):
+        faults[name] = row_ratio(run(cls(cfg), card_params, "cuda")[0],
+                                 want)
+    print(f"[whisper_check] faults in f32 on the card, worst logits row "
+          f"err: {', '.join(f'{k} {e:.3e}' for k, e in faults.items())} "
+          f"(limit {limit:g}); the CPU run {cpu_s:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    for name, e in faults.items():
+        check(e > 100 * limit, f"whisper: {name} gives only {e:.3e}: the "
+                               f"check cannot see it")
+    print("whisper_check " + json.dumps({**results, "faults": faults}))
+    del card_params
+
+
+def phase_whisper_train(card):
+    """whisper-tiny as published in bf16 from seed 0: WHISPER_TRAIN's
+    steps through training.step.make_train_step with AdamW (weight decay
+    0.01) and launch.train's cosine schedule, each batch the synthetic
+    stream's tokens (seed 1) and frames from another seed, as the
+    reference's train cell feeds them (its launch/train.py feeds no
+    frames).  Every loss finite; counts set to 0 before each step and
+    read after it: K1 ``whisper_k1_launches`` (forward, backward) a step,
+    all "hopper"; no other kernel, no plain version; no stats kernel in
+    the profiled step.  Returns the path's counts over its steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.whisper_tiny import N_AUDIO_FRAMES
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import schedule_for, to_device
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.training.step import make_train_step
+    ops = kernel_ops()
+    shape = dict(WHISPER_TRAIN)
+    b, seq, steps = shape["batch"], shape["seq"], shape["steps"]
+    t_phase = time.perf_counter()
+    cfg = get_config(WHISPER)
+    model = build_model(cfg)
+    opt = AdamW(schedule_for(cfg, steps), AdamWConfig(weight_decay=0.01))
+    step_fn = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        "cuda")
+    opt_state = opt.init(params)
+    data = SyntheticLMDataset(cfg.vocab_size, seq, b, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def batch_at(step):
+        batch = to_device(data.batch_at(step), "cuda")
+        batch["frames"] = torch.randn((b, N_AUDIO_FRAMES, cfg.d_model),
+                                      generator=gen, device="cuda")
+        return batch
+
+    k1 = whisper_k1_launches(cfg)[1]
+    want = expected_counts({"flash_attention": k1}, ops)
+    print(f"[whisper_train] {WHISPER}: {cfg.n_enc_layers} + {cfg.n_layers} "
+          f"layers, {b} x {seq} tokens and {b} x {N_AUDIO_FRAMES} frames a "
+          f"step; K1 (forward launches, backward kernel launches) a step "
+          f"expected {k1}")
+    plain, undo = _count_plain_calls()
+    records, per_step = [], []
+    try:
+        for step in range(steps):
+            batch = batch_at(step)
+            torch.cuda.synchronize()
+            reset_counts(ops)
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            loss = float(m["loss"])                # waits for the card
+            dt = time.perf_counter() - t0
+            per_step.append(read_counts(ops))
+            records.append({"step": step + 1, "loss": loss,
+                            "grad_norm": float(m["grad_norm"]),
+                            "step_ms": dt * 1e3})
+            print(f"[whisper_train] step {step + 1} loss {loss:.4f} lr "
+                  f"{float(m['lr']):.2e} gnorm {float(m['grad_norm']):.3f} "
+                  f"{dt * 1e3:.1f} ms")
+    finally:
+        undo()
+    losses = [r["loss"] for r in records]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = float(np.median([r["step_ms"] for r in records[1:]]))
+    tok_s = b * seq / step_ms * 1e3
+    print(f"[whisper_train] losses {losses}; launches a step {per_step}; "
+          f"plain versions called {plain}")
+    print(f"[whisper_train] step time (median of steps 2-{steps}) "
+          f"{step_ms:.1f} ms, {tok_s:.0f} tok/s, peak memory {peak_gb:.3f} "
+          f"GB | {card}")
+    check(len(records) == steps and all(map(math.isfinite, losses)),
+          f"whisper_train: losses {losses}")
+    check(all(p == want for p in per_step),
+          f"whisper_train: launches a step {per_step}, expected {want}")
+    check(not any(plain.values()), f"whisper_train: plain versions {plain}")
+    kernels = profile_train_step({"step_fn": step_fn, "params": params,
+                                  "opt_state": opt_state}, shape,
+                                 batch_at(steps))
+    check(kernels is None or "bwd_stats" not in kernels,
+          f"whisper_train: a stats kernel ran: {kernels}")
+    result = {"arch": WHISPER, **shape, "frames": N_AUDIO_FRAMES,
+              "losses": losses, "step_ms": [r["step_ms"] for r in records],
+              "step_ms_median": step_ms, "tok_s": tok_s,
+              "peak_memory_gb": peak_gb, "card": card}
+    print("whisper_train " + json.dumps(result))
+    print(f"[whisper_train] phase {time.perf_counter() - t_phase:.1f} s")
+    del params, opt_state
+    return _sum_counts(per_step)
+
+
 # ------------------------------------------------ K1's backward, training
 
 # name, (b, sq, skv, h, hd), dtype, causal, window, softcap, q/k scale,
@@ -2450,6 +2968,12 @@ BWD_CASES = [
     # sq not a multiple of a tile: the last Q/dO boxes run past sq
     ("ragged-1000", (2, 1000, 1000, 8, 64), torch.bfloat16, True, 0, 0.0,
      2.0, "plain", "hopper", "hopper"),
+    # whisper-tiny's training step (16 x 448 tokens, 1500 frames), neither
+    # causal: the cross-attention (sq != skv) and the encoder
+    ("whisper-cross", (16, 448, 1500, 6, 64), torch.bfloat16, False, 0,
+     0.0, 2.0, "plain", "hopper", "hopper"),
+    ("whisper-encoder", (16, 1500, 1500, 6, 64), torch.bfloat16, False, 0,
+     0.0, 2.0, "plain", "hopper", "hopper"),
 ]
 # the fault each case also shows the checks can see (checks.FAULTS)
 BWD_FAULTS = {"training": ("no-delta", "skip-last-tile", "lse-neighbour-row",
@@ -2496,10 +3020,10 @@ REMAT_ARCH = "minicpm-2b"
 REMAT_CUT = dict(n_layers=2)
 REMAT_SHAPE = dict(batch=2, seq=1024)
 RESTART = dict(steps=40, preempt_at=20, ckpt_every=10)
-# kernel-name fragments of the groups a training step's time is summed in
+# kernel-name fragments of the groups a profiled step's time is summed in
 K1_KERNEL_PARTS = ("flash_fwd", "bwd_preprocess", "bwd_stats", "bwd_dkdv",
                    "bwd_dq")
-TRAIN_KERNEL_GROUPS = (
+KERNEL_GROUPS = (
     ("K1", K1_KERNEL_PARTS),
     ("K2", ("wkv6_kernel", "wkv6_bwd_kernel", "wkv6_bwd_hopper_kernel")),
     ("K3", ("scan_pipe_kernel", "scan_bwd")),
@@ -3077,18 +3601,19 @@ def _embedding_backward_is_deterministic(out):
     check(same["F.embedding"], "F.embedding's backward is not deterministic")
 
 
-def profile_train_step(out, shape):
-    """One more training step (of ``shape``'s batch), timed on the host
-    clock, then again under torch.profiler: its kernels by device time
-    and by group (TRAIN_KERNEL_GROUPS), K1's forward and backward
-    kernels, launches and the device-busy share.  Returns K1's kernels
-    ({name fragment: (ms, launches)}), or None where the profiler saw no
-    device time."""
+def profile_train_step(out, shape, batch=None):
+    """One more training step (of ``shape``'s batch: ``batch`` where
+    given, else the stream's next), timed on the host clock, then again
+    under torch.profiler: its kernels by device time and by group
+    (KERNEL_GROUPS), K1's forward and backward kernels, launches and the
+    device-busy share.  Returns K1's kernels ({name fragment: (ms,
+    launches)}), or None where the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.train import to_device
-    batch = to_device(out["data"].batch_at(shape["steps"]), "cuda")
+    if batch is None:
+        batch = to_device(out["data"].batch_at(shape["steps"]), "cuda")
     state = [out["params"], out["opt_state"]]
 
     def step():
@@ -3124,20 +3649,26 @@ def profile_train_step(out, shape):
                             cnt + e.count)
     print(f"[profile]   K1: " + ", ".join(
         f"{p} {ms:.2f} ms in {c}" for p, (ms, c) in k1.items()))
-    groups = {}
-    for e in kernels:
-        key = next((g for g, marks in TRAIN_KERNEL_GROUPS
-                    if any(m in e.key for m in marks)), "other")
-        ms, cnt = groups.get(key, (0.0, 0))
-        groups[key] = (ms + e.self_device_time_total / 1e3, cnt + e.count)
-    print(f"[profile]   by group: " + ", ".join(
-        f"{g} {ms:.1f} ms in {c}" for g, (ms, c) in sorted(
-            groups.items(), key=lambda kv: -kv[1][0])))
+    print(f"[profile]   by group: {group_line(kernels)}")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:10]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
               f"{e.count:5d}x  {e.key[:90]}")
     return k1
+
+
+def group_line(kernels, n=1):
+    """Profiled kernels' device time and launches by ``KERNEL_GROUPS``,
+    largest first, per step of ``n``."""
+    groups = {}
+    for e in kernels:
+        key = next((g for g, marks in KERNEL_GROUPS
+                    if any(m in e.key for m in marks)), "other")
+        ms, cnt = groups.get(key, (0.0, 0))
+        groups[key] = (ms + e.self_device_time_total / 1e3 / n,
+                       cnt + e.count // n)
+    return ", ".join(f"{g} {ms:.2f} ms in {c}" for g, (ms, c) in sorted(
+        groups.items(), key=lambda kv: -kv[1][0]))
 
 
 def phase_train_restart():
@@ -3222,9 +3753,18 @@ def main() -> int:
         for pl, n in launches["wkv6_by_plan"].items():
             by_plan = entries["wkv6"]["launches_by_plan"]
             by_plan[pl] = by_plan.get(pl, 0) + n
+    free_device_memory("the previous phase")
+    g = phase_whisper_serve(card, args.profile)
+    flash["launches"] += g["launches"]["flash_attention"][0]
+    flash["launches_by_path"][WHISPER] = g["launches"]["flash_attention"][0]
+    for variant, n in g["k1_by_variant"].items():
+        flash["launches_by_variant"][variant] += n
+    flash["launches_by_path_and_variant"][WHISPER] = g["k1_by_variant"]
     for arch in DECODE_CUTS:
         free_device_memory("the previous phase")
         phase_decode_vs_prefill(arch, **DECODE_TRAFFIC.get(arch, {}))
+    free_device_memory("the previous phase")
+    phase_whisper_card_vs_cpu()
     free_device_memory("the previous phase")
     bwd = phase_flash_bwd()
     free_device_memory("the previous phase")
@@ -3235,6 +3775,8 @@ def main() -> int:
     for arch in TRAIN_PATHS:
         free_device_memory("the previous phase")
         runs[f"{arch} (train)"] = phase_train(arch, card)
+    free_device_memory("the previous phase")
+    runs[f"{WHISPER} (train)"] = phase_whisper_train(card)
     free_device_memory("the previous phase")
     phase_remat_bits()
     free_device_memory("the previous phase")

@@ -13,7 +13,9 @@ the two causal alignments agree).  Nor does it call
 static window: K1's window mask is the same, so prefill sends the window
 to K1, and ``sliding_window_attention`` is the O(s·w) yardstick that
 K1's windowed output is held to at full width.  Decode attention is
-plain torch, as it is plain jnp in the reference.
+plain torch, as it is plain jnp in the reference.  For Whisper's
+cross-attention ``project_qkv`` takes k and v from another sequence
+(``kv_x``), and ``init_attention(cross=True)`` draws no q/k norm scales.
 
 MLA prefill (``mla_prefill``) is the reference's expanded form: k_nope
 and v from the latent, the one-head k_rope broadcast to every head.  The
@@ -49,7 +51,9 @@ def _softcap(x, cap):
 # params
 
 
-def init_attention(generator, cfg, dtype, device, lead=()):
+def init_attention(generator, cfg, dtype, device, lead=(), cross=False):
+    """wq, wk, wv, wo, and under ``cfg.qk_norm`` the q/k scales, which a
+    cross-attention (``cross``: Whisper's decoder) has none of."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     kw = dict(lead=lead)
@@ -59,19 +63,21 @@ def init_attention(generator, cfg, dtype, device, lead=()):
         "wv": L.dense_init(generator, (d, nkv * hd), dtype, device, **kw),
         "wo": L.dense_init(generator, (nq * hd, d), dtype, device, **kw),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_scale"] = torch.ones((*lead, hd), dtype=dtype, device=device)
         p["k_scale"] = torch.ones((*lead, hd), dtype=dtype, device=device)
     return p
 
 
-def project_qkv(x, p, cfg):
-    """Returns q (b,s,nq,hd), k/v (b,s,nkv,hd)."""
+def project_qkv(x, p, cfg, kv_x=None):
+    """Returns q (b,s,nq,hd), k/v (b,skv,nkv,hd): k and v from ``kv_x``
+    (b, skv, d) where given (cross-attention), else from x."""
     b, s, _ = x.shape
     hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    kv_x = x if kv_x is None else kv_x
     q = (x @ p["wq"]).reshape(b, s, nq, hd)
-    k = (x @ p["wk"]).reshape(b, s, nkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, nkv, hd)
+    k = (kv_x @ p["wk"]).reshape(b, kv_x.shape[1], nkv, hd)
+    v = (kv_x @ p["wv"]).reshape(b, kv_x.shape[1], nkv, hd)
     if "q_scale" in p:
         q = L.head_rmsnorm(q) * p["q_scale"]
         k = L.head_rmsnorm(k) * p["k_scale"]

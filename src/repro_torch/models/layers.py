@@ -11,6 +11,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -168,6 +169,29 @@ def apply_rope(x, positions, theta):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# sinusoidal positions (Whisper)
+
+
+def sinusoidal_positions(n_pos, d_model, device):
+    """The (n_pos, d_model) f32 table of sin then cos of pos / 10000^(2i /
+    d_model): computed in numpy f64 and cast to f32, as the reference
+    does, so its bits equal the reference's.  One table a (n_pos,
+    d_model, device), shared by every caller (read it, never write it):
+    a decode step then makes no host-to-device copy, which would hold the
+    host until the card drained."""
+    return _sinusoidal_table(int(n_pos), int(d_model), torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _sinusoidal_table(n_pos, d_model, device):
+    pos = np.arange(n_pos)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * dim / d_model)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------------

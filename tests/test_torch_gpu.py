@@ -1,10 +1,11 @@
 """The port on the card: the CUDA flash attention (K1, forward and
 backward), WKV6 (K2, forward and backward) and selective scan (K3,
-forward and backward) kernels against their plain versions, the
-dispatchers' rules for CUDA tensors, DecoderLM, RWKVLM and JambaLM
-prefill through the kernels against the same models on the CPU, and
-DecoderLM's, RWKVLM's and JambaLM's losses, gradients and train steps on
-the card.
+forward and backward) kernels against their plain versions (K1 at
+whisper-tiny's shapes too), the dispatchers' rules for CUDA tensors,
+DecoderLM, RWKVLM, JambaLM and WhisperLM prefill through the kernels
+(and WhisperLM's decode) against the same models on the CPU, and
+DecoderLM's, RWKVLM's, JambaLM's and WhisperLM's losses, gradients and
+train steps on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  On a machine
 with a card, from the repository root:
@@ -125,6 +126,13 @@ HOPPER_CASES = [
     ((1, 300, 300, 4, 120), True, 0, 30.0, "plain"),
     ((1, 300, 300, 4, 120), True, 0, 0.0, "strided"),
     ((2, 300, 300, 4, 120), True, 0, 0.0, "padded"),
+    # whisper-tiny's (6 heads of 64, 1500 frames, none causal): a prefill
+    # wave's encoder, the cross-attention of 224-token prompts, and of 4-
+    # and 1-token prompts, whose one q tile lies almost wholly past sq
+    ((4, 1500, 1500, 6, 64), False, 0, 0.0, "plain"),
+    ((4, 224, 1500, 6, 64), False, 0, 0.0, "plain"),
+    ((4, 4, 1500, 6, 64), False, 0, 0.0, "plain"),
+    ((2, 1, 1500, 6, 64), False, 0, 0.0, "plain"),
 ]
 # long windows, in bf16: hd 120 (h2o-danube-3-4b) and hd 128
 # (mixtral-8x7b), both on the Hopper variant, rows past the window, a
@@ -1203,6 +1211,10 @@ HOPPER_BWD_CASES = [
     ((2, 1000, 1000, 4, 64), True, 0, 0.0, 2.0),
     ((1, 200, 456, 4, 128), True, 0, 0.0, 2.0),
     ((1, 1, 1, 2, 64), True, 0, 0.0, 2.0),
+    # whisper-tiny's training step, none causal: the cross-attention and
+    # the encoder
+    ((16, 448, 1500, 6, 64), False, 0, 0.0, 2.0),
+    ((16, 1500, 1500, 6, 64), False, 0, 0.0, 2.0),
 ]
 
 
@@ -1538,3 +1550,83 @@ def test_remat_dots_saves_the_f32_expert_products_on_the_card(cuda,
     assert torch.equal(loss, loss0)
     for (path, g), g0 in zip(T.flatten(grads), T.leaves(grads0)):
         assert torch.equal(g, g0), path
+
+
+# --------------------------------------------------------------- Whisper
+
+
+def _whisper_inputs(cfg, b=2, s=40, frames=16):
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (b, s + 4), generator=gen)
+    fr = torch.randn((b, frames, cfg.d_model), generator=gen)
+    return toks, fr
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_prefill_decode_on_the_card_match_cpu(cuda, dtype):
+    """whisper-tiny's smoke config: prefill with 16 frames runs K1 once an
+    encoder layer and twice a decoder layer (the general variant: hd 16),
+    and its logits and four caches, then 4 teacher-forced decode steps'
+    logits (plain torch), equal the same model's on the CPU with the same
+    weights: f32 within 1e-4 (every product sums in another order), bf16
+    within 5e-2."""
+    cfg = get_smoke("whisper-tiny").replace(dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks, fr = _whisper_inputs(cfg)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    on_card = _to(params, cuda)
+    with torch.inference_mode():
+        want, want_cache, n = model.prefill(params, toks[:, :40], 48,
+                                            frames=fr)
+        before = ops.launches_by_variant["general"]
+        got, got_cache, length = model.prefill(
+            on_card, toks[:, :40].to(cuda), 48, frames=fr.to(cuda))
+        torch.cuda.synchronize()
+        assert ops.launches_by_variant["general"] == (
+            before + cfg.n_enc_layers + 2 * cfg.n_layers)
+        assert length == n == 40
+        for key in ("k", "v", "ck", "cv"):
+            torch.testing.assert_close(got_cache[key].cpu().float(),
+                                       want_cache[key].float(), rtol=tol,
+                                       atol=tol)
+        for i in range(40, 44):
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       rtol=tol, atol=tol)
+            want, want_cache, n = model.decode(params, want_cache,
+                                               toks[:, i:i + 1], n)
+            got, got_cache, length = model.decode(
+                on_card, got_cache, toks[:, i:i + 1].to(cuda), length)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+        assert length == n == 44
+
+
+def test_whisper_train_step_on_the_card(cuda):
+    """whisper-tiny's smoke config in bf16 on the card: ``loss`` and every
+    gradient finite, K1's forward once an encoder layer and twice a
+    decoder layer's attention (remat), its backward once an attention;
+    then a train step (AdamW, cosine) with a finite loss."""
+    from repro_torch import tree as T
+    from repro_torch.launch.train import schedule_for
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.training.step import make_train_step, value_and_grad
+    cfg = get_smoke("whisper-tiny")
+    model = build_model(cfg)
+    params = _to(model.init(torch.Generator().manual_seed(0), "cpu"), cuda)
+    toks, fr = _whisper_inputs(cfg, s=32)
+    batch = _to({"tokens": toks[:, :32], "labels": toks[:, 1:33],
+                 "frames": fr}, cuda)
+    before = (ops.launches, ops.launches_bwd)
+    loss, metrics, grads = value_and_grad(model, params, batch)
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+    assert (ops.launches - before[0], ops.launches_bwd - before[1]) == (
+        n_enc + 4 * n_dec,
+        len(kernel_bwd.KERNELS["general"]) * (n_enc + 2 * n_dec))
+    assert math.isfinite(loss.item()) and metrics["aux_loss"].item() == 0
+    for path, g in T.flatten(grads):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all(), path
+    opt = AdamW(schedule_for(cfg, 3), AdamWConfig(weight_decay=0.01))
+    step = make_train_step(model, opt)
+    params, state, m = step(params, opt.init(params), batch)
+    assert math.isfinite(float(m["loss"]))

@@ -152,8 +152,9 @@ def test_softcap_and_window_path():
     ("whisper-tiny", "Whisper"),
 ])
 def test_unported_families_raise(arch, match):
-    with pytest.raises(NotImplementedError, match=match):
-        torch_build(torch_smoke(arch))
+    """The families the factory once refused now build their models:
+    Whisper was the last (its parity tests: tests/test_torch_whisper.py)."""
+    assert type(torch_build(torch_smoke(arch))).__name__ == f"{match}LM"
 
 
 def test_init_defaults_to_the_card():
