@@ -47,7 +47,9 @@ non-zero and prints no result:
    1500), the cross-attention of 224-token prompts (4, 224, 1500), and of
    4- and 1-token prompts (4, 4, 1500), (2, 1, 1500), whose q tile lies
    almost wholly past sq; the first two timed in turns with SDPA
-   (general, hopper, sdpa, sdpa, hopper, general); K2 through its
+   (general, hopper, sdpa, sdpa, hopper, general); at a mesh rank's local
+   heads (mistral-nemo-12b's 16 of 32 and DeepSeek-V3's 64 of 128 MLA
+   heads, 2 rows of 1024), timed in turns with SDPA; K2 through its
    dispatcher, and its candidate plans (G, C, CB, double buffer) in two
    passes at the main-path shape, each case checked for the plan it
    took, and a stale chunk and a lost row group shown to fail; the
@@ -122,6 +124,22 @@ non-zero and prints no result:
    the encoder run causal, the cross-attention's k/v taken from the
    decoder's input, and decode embedding at position length instead of 0
    each shown to fail;
+   then the mesh phase (phase_mesh): DecoderLM's serving path on a (2, 2)
+   ("data", "model") mesh of 4 spawned ranks, all on the one card, over
+   gloo (NCCL refuses two ranks on one device; the collectives are staged
+   through host memory), each rank cutting its blocks of seed-0 weights
+   by the rule table: path h, mistral-nemo-12b cut to 8 layers (heads,
+   MLP and vocab split over `model`, SP decode over 1024 slots a rank),
+   and path i, deepseek-v3-671b cut to 1 layer (MLA's heads split, full
+   EP: 64 experts a rank, tokens all-gathered over `data`), path a's 8
+   prompts in 2 waves (2 rows a `data` rank), 16 new tokens; each path's
+   prefill and 4 teacher-forced decode steps' logits, row by row, within
+   5e-2 of the row's largest |logit| in the same model's one-device run
+   on the card; a wrong shard, a missing psum and a missing pmax on one
+   rank shown to fail that; K1 on every rank on local heads, all Hopper;
+   rank 0's prefill and decode times, each rank's peak memory and the
+   bytes each collective moved in a decode step; then path h at 2 layers
+   on a one-rank NCCL mesh, the deployment backend, held the same way;
 6. K1's backward (flash_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.flash_attention, whose backward
    launches the kernels of the route kernel_bwd.plan picks) against
@@ -295,6 +313,35 @@ WHISPER_TRAIN = dict(batch=16, seq=448, steps=6)
 # layers and the head, against f32.
 WHISPER_CHECK = dict(batch=2, prompt=37, steps=8, max_len=48)
 WHISPER_ROW_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# Phase mesh: DecoderLM's serving path on a ("data", "model") mesh of
+# MESH_SHAPE ranks, all on the one card.  NCCL refuses two ranks on one
+# device, so they join over gloo (every collective staged through host
+# memory: slow here, and no figure for NCCL on NVLink); the deployment
+# backend, NCCL with one rank a card, serves MESH_NCCL on a one-rank
+# mesh.  Path h: mistral-nemo-12b cut to 8 of 40 layers, every width as
+# published (3.6 GB of weights a rank: `data` dims stored whole); path i:
+# deepseek-v3-671b cut to 1 of 61 layers without the MTP block (13.36 B
+# params), full EP: 64 of its 256 experts a rank.  Knobs:
+# optimized_overrides(arch, "decode_32k").  Traffic as path a's: the same
+# 8 prompts of 256-1024 tokens in waves of 4 (2 rows a `data` rank),
+# max_len 2048 (1024 slots a `model` rank), 16 new tokens, the first
+# MESH_FORCED of them teacher-forced (tokens from seed 29), greedy after.
+MESH_SHAPE = (2, 2)
+MESH_PATHS = {"mistral-nemo-12b": dict(n_layers=8),
+              DEEPSEEK: dict(n_layers=1, mtp_depth=0)}
+MESH_NCCL = ("mistral-nemo-12b", dict(n_layers=2))
+MESH_FORCED = 4
+# Each logits row of the mesh (prefill and the forced steps) within
+# MESH_ROW_LIMIT of the row's largest |logit| in the one-device run on
+# the card, as phase_whisper_card_vs_cpu holds bf16: both sides round
+# weights and activations to bf16 (2^-9 relative); the mesh also rounds
+# each row-parallel partial sum and the SP decode's q and probabilities
+# to bf16 (the reference's SP numerics) and sums full EP's combine in
+# bf16, through the layers and the head.  A wrong shard or a lost
+# collective errs by O(1) of the row's scale.
+MESH_ROW_LIMIT = 5e-2
+# the phase's deadline: a rank that fails or hangs fails the phase
+MESH_DEADLINE_S = 900
 # Decode-vs-prefill traffic where it is not a 6-token prompt and 5 steps:
 # danube's 4090-token prompt and 12 steps cross its 4096-token window in
 # decode, with the full cache and again with the ring buffer of 4096
@@ -426,6 +473,13 @@ FLASH_CASES = [
      "plain", "hopper"),
     ("whisper-cross-1", (2, 1, 1500, 6, 64), torch.bfloat16, False, 0, 0.0,
      "plain", "hopper"),
+    # a rank's local heads on the mesh phase's (2, 2) mesh: 2 rows a `data`
+    # rank, half the heads a `model` rank (mistral-nemo-12b's 16 of 32 at
+    # hd 128; DeepSeek-V3's MLA 64 of 128 at (192, 128))
+    ("mesh-local-heads", (2, 1024, 1024, 16, 128), torch.bfloat16, True, 0,
+     0.0, "plain", "hopper"),
+    ("mla-local-heads", (2, 1024, 1024, 64, 192, 128), torch.bfloat16, True,
+     0, 0.0, "plain", "hopper"),
 ]
 # the forward faults (checks.FWD_FAULTS) a case also shows its checks
 # can see
@@ -436,12 +490,12 @@ FLASH_FAULTS = {"danube-window-4096": ("pad-from-next-head",
 # the kernels line
 TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
                      "mixtral-window-4096", "mla-hd192", "whisper-encoder",
-                     "whisper-cross")
+                     "whisper-cross", "mesh-local-heads", "mla-local-heads")
 # the timed cases whose SDPA call also runs in the turns of K1's variants
 # (general, hopper, sdpa, sdpa, hopper, general), each timed queued
 # behind a sleep of the stream: their kernels take less time than the
 # host takes to launch them
-SDPA_IN_TURNS = ("whisper-encoder", "whisper-cross")
+SDPA_IN_TURNS = ("whisper-encoder", "whisper-cross", "mesh-local-heads")
 # cycles of torch.cuda._sleep before a queued timing's calls (about 10 ms
 # at 1.98 GHz), more than the host takes to enqueue them
 QUEUE_SLEEP_CYCLES = 20_000_000
@@ -2839,6 +2893,445 @@ def phase_whisper_card_vs_cpu():
     del card_params
 
 
+# ------------------------------------------------------------------- mesh
+
+
+def mesh_waves(vocab):
+    """Path a's 8 prompts (seed 0, 256-1024 tokens) in waves of 4, each
+    left-padded with token 0 to its longest (as ServeEngine pads), and
+    each request's MESH_FORCED teacher-forced tokens: [(tokens (4, L),
+    forced (4, MESH_FORCED))], int64 on the CPU."""
+    (lo, hi), _ = SHORT_TRAFFIC
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, vocab, size=int(rng.integers(lo, hi + 1)))
+               for _ in range(8)]
+    forced = np.random.default_rng(SEED + 29).integers(
+        1, vocab, (len(prompts), MESH_FORCED))
+    waves = []
+    for w0 in range(0, len(prompts), 4):
+        wave = prompts[w0:w0 + 4]
+        toks = np.zeros((len(wave), max(map(len, wave))), np.int64)
+        for i, p in enumerate(wave):
+            toks[i, toks.shape[1] - len(p):] = p
+        waves.append((torch.from_numpy(toks),
+                      torch.from_numpy(forced[w0:w0 + 4])))
+    return waves
+
+
+class RouteLog:
+    """Inside the block, every MoE routing call records, for each wave row
+    (the last prompt position in a prefill call of ``rows`` x L tokens,
+    the row's token in a decode call), its top-k experts (sorted) and its
+    margin at the k-th choice: the k-th largest router logit less the
+    (k+1)-th, in bf16 value spacings at the k-th.  The router's logits
+    are rounded to bf16, so a margin of 0-2 spacings is a near tie that a
+    rounding elsewhere can turn."""
+
+    def __init__(self, rows):
+        self.rows, self.calls = rows, []
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self.M, self.real = M, M.route
+
+        def route(x, w, m, mode):
+            out = self.real(x, w, m, mode)
+            length = x.shape[0] // self.rows
+            keep = torch.arange(self.rows, device=x.device) * length + (
+                length - 1)
+            top = (x[keep] @ w).float().topk(m.top_k + 1, dim=-1).values
+            kth = top[:, -2]
+            spacing = torch.exp2(torch.floor(torch.log2(
+                kth.abs().clamp_min(1e-30))) - 7)
+            self.calls.append((out[0][keep].sort(-1).values.cpu(),
+                               ((kth - top[:, -1]) / spacing).cpu()))
+            return out
+
+        M.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.M.route = self.real
+
+
+def mesh_reference(arch, cut):
+    """The one-device run of a mesh path on the card, with the weights the
+    ranks draw (seed 0): each wave's prefill logits and its forced decode
+    steps', (waves, 4, 1 + MESH_FORCED, V) f32 on the CPU, and the MoE
+    routing calls of those forwards (RouteLog)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.factory import build_model
+    cfg = get_config(arch).replace(**cut)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        "cuda")
+    out = []
+    with torch.inference_mode(), RouteLog(4) as routes:
+        for toks, forced in mesh_waves(cfg.vocab_size):
+            logits, cache, length = model.prefill(params, toks.cuda(),
+                                                  SHORT_TRAFFIC[1])
+            rows = [logits[:, 0].float().cpu()]
+            for i in range(MESH_FORCED):
+                logits, cache, length = model.decode(
+                    params, cache, forced[:, i:i + 1].cuda(), length)
+                rows.append(logits[:, 0].float().cpu())
+            out.append(torch.stack(rows, dim=1))
+            del cache
+    del params
+    free_device_memory(f"{arch}'s one-device run")
+    return torch.stack(out), routes.calls
+
+
+def _mesh_rows(t, ctx):
+    """This rank's rows of a wave (split over `data`)."""
+    n = t.shape[0] // ctx.dp_size
+    return t[ctx.comm.axis_index(ctx.dp) * n:][:n]
+
+
+def _mesh_forward(model, params, ctx, toks, forced, steps):
+    """One wave on this rank: prefill, then ``steps`` decode steps (the
+    forced tokens first, greedy after).  Returns (logits rows (b_l, 1 +
+    MESH_FORCED, V) f32 on the CPU, prefill s, decode s each, collective
+    bytes and calls of the prefill and of the sixth step)."""
+    comm = ctx.comm
+    toks = _mesh_rows(toks, ctx).cuda()
+    forced = _mesh_rows(forced, ctx).cuda()
+    comm.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, length = model.prefill(params, toks, SHORT_TRAFFIC[1])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    moved = {"prefill": dict(comm.bytes_by_op)}
+    rows, decode_s = [logits[:, 0].float().cpu()], []
+    for i in range(steps):
+        tok = (forced[:, i:i + 1] if i < MESH_FORCED
+               else logits[:, -1].argmax(-1, keepdim=True))
+        comm.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, length = model.decode(params, cache, tok, length)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+        if i < MESH_FORCED:
+            rows.append(logits[:, 0].float().cpu())
+        if i == 5:
+            moved["decode_step"] = dict(comm.bytes_by_op)
+            moved["decode_step_calls"] = dict(comm.calls_by_op)
+    return torch.stack(rows, dim=1), prefill_s, decode_s, moved
+
+
+def _mesh_path(ctx, arch, cut, faults):
+    """A mesh path on this rank: its weights (each rank in turn draws the
+    full model from seed 0 on the card, cuts its blocks and frees the
+    rest, so one full copy exists at a time), a warm-up wave off the
+    record, then both waves with K1's counts and the collectives' bytes
+    set to 0 before and read after; with ``faults``, wave 0 again under
+    each of three faults on rank (data 0, model 1).  Returns what the
+    parent checks and prints."""
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distribution.sharding import param_specs, shard_params
+    from repro_torch.launch.specs import optimized_overrides
+    from repro_torch.models.factory import build_model
+    flash = kernel_ops()["flash_attention"]
+    comm = ctx.comm
+    coords = (comm.axis_index("data"), comm.axis_index("model"))
+    cfg = get_config(arch).replace(**cut)
+    model = build_model(cfg, ctx)
+    for knob, value in optimized_overrides(arch, "decode_32k").items():
+        setattr(model, knob, value)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for r in range(tdist.get_world_size()):
+        if r == tdist.get_rank():
+            full = build_model(cfg).init(
+                torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+            params = shard_params(full, param_specs(model, full), ctx)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+        tdist.barrier()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params_gb = sum(t.numel() * t.element_size()
+                    for t in _leaves(params)) / 1e9
+    waves = mesh_waves(cfg.vocab_size)
+    n_moe = sum(map(cfg.layer_is_moe, range(cfg.n_layers))) \
+        if cfg.moe else 0
+    with torch.inference_mode():
+        toks, forced = waves[0]
+        _mesh_forward(model, params, ctx, toks[:, -32:], forced, 2)
+        flash.launches = 0
+        for vt in flash.launches_by_variant:
+            flash.launches_by_variant[vt] = 0
+        torch.cuda.reset_peak_memory_stats()
+        logits, prefill_s, decode_s, moved, routes = [], [], [], [], []
+        for toks, forced in waves:
+            with RouteLog(toks.shape[0]) as log:
+                got = _mesh_forward(model, params, ctx, toks, forced, 16)
+            # the prefill's and the forced steps' routing calls
+            routes += log.calls[:(1 + MESH_FORCED) * n_moe]
+            logits.append(got[0])
+            prefill_s.append(got[1])
+            decode_s += got[2]
+            moved.append(got[3])
+        k1 = dict(flash.launches_by_variant)
+        out = {"coords": coords, "logits": torch.stack(logits),
+               "prefill_ms": [t * 1e3 for t in prefill_s],
+               "decode_ms": float(np.median(decode_s)) * 1e3,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "init_peak_gb": init_peak_gb, "params_gb": params_gb,
+               "init_s": init_s, "k1": k1, "k1_launches": flash.launches,
+               "moved": moved[-1], "routes": routes, "faults": {}}
+        if faults:
+            out["faults"] = _mesh_faults(model, params, ctx, coords,
+                                         waves[0])
+    del params
+    return out
+
+
+def _mesh_faults(model, params, ctx, coords, wave):
+    """Wave 0 again under each fault, on rank (0, 1) alone; every rank
+    still takes part in every collective (no rank waits): "wrong shard"
+    (its wq block's heads rolled by one), "missing psum" (it keeps its
+    own partial sums), "missing pmax" (it keeps its own maxima in the SP
+    decode's combine).  Returns each fault's logits rows."""
+    comm, hd = ctx.comm, model.cfg.resolved_head_dim
+    faulty = coords == (0, 1)
+    rolled = {**params, "layers": {**params["layers"], "attn": {
+        **params["layers"]["attn"],
+        "wq": torch.roll(params["layers"]["attn"]["wq"], hd, dims=-1)}}}
+    real_psum, real_pmax = comm.psum, comm.pmax
+    runs = {"wrong shard": (rolled, {}),
+            "missing psum": (params, {"psum": lambda x, axes: (
+                real_psum(x, axes), x)[1]}),
+            "missing pmax": (params, {"pmax": lambda x, axes: (
+                real_pmax(x, axes), x)[1]})}
+    out = {}
+    toks, forced = wave
+    for name, (p, patches) in runs.items():
+        with contextlib.ExitStack() as stack:
+            for attr, fn in patches.items():
+                if faulty:
+                    stack.enter_context(_swapped(comm, attr, fn))
+            out[name] = _mesh_forward(model, p if faulty else params, ctx,
+                                      toks, forced, MESH_FORCED)[0]
+    return out
+
+
+def _mesh_rank(rank, shape, backend, paths, workdir):
+    """One rank of the mesh phase (a spawned process): joins the mesh,
+    serves each of ``paths`` ((arch, cut, faults)) and saves what it
+    returns to ``workdir/rank<r>.pt``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as tdist
+
+    from repro_torch.distribution.collectives import Collectives
+    from repro_torch.distribution.context import make_context
+    from repro_torch.launch.mesh import make_smoke_mesh
+    torch.cuda.set_device(0)
+    store = tdist.FileStore(str(Path(workdir) / "store"), math.prod(shape))
+    mesh = make_smoke_mesh(shape, ("data", "model"), device_type="cuda",
+                           backend=backend, store=store, rank=rank)
+    ctx = make_context(mesh, comm=Collectives(mesh))
+    out = {"backend": ctx.comm.backend, "staged": ctx.comm.stage}
+    for arch, cut, faults in paths:
+        out[arch] = _mesh_path(ctx, arch, cut, faults)
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(out, Path(workdir) / f"rank{rank}.pt")
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def run_mesh_ranks(shape, backend, paths):
+    """Spawns the ranks of a ``shape`` mesh on ``backend``, all on card 0,
+    and joins them by MESH_DEADLINE_S; fails (stopping every rank) if one
+    fails or the deadline passes.  Returns each rank's results by its
+    (data, model) coordinates."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as workdir:
+        procs = [ctx.Process(target=_mesh_rank,
+                             args=(r, shape, backend, paths, workdir))
+                 for r in range(math.prod(shape))]
+        for p in procs:
+            p.start()
+        end = time.monotonic() + MESH_DEADLINE_S
+        try:
+            while any(p.is_alive() for p in procs):
+                failed = [r for r, p in enumerate(procs)
+                          if p.exitcode not in (None, 0)]
+                check(not failed, f"mesh {shape} {backend}: rank(s) "
+                                  f"{failed} failed")
+                check(time.monotonic() < end,
+                      f"mesh {shape} {backend}: ranks still running after "
+                      f"{MESH_DEADLINE_S} s")
+                time.sleep(0.5)
+            codes = [p.exitcode for p in procs]
+            check(codes == [0] * len(procs),
+                  f"mesh {shape} {backend}: rank exit codes {codes}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        outs = [torch.load(Path(workdir) / f"rank{r}.pt", weights_only=False)
+                for r in range(len(procs))]
+    return {o[paths[0][0]]["coords"]: o for o in outs}
+
+
+def mesh_row_errs(got, want):
+    """max |got - want| / max |want| of each logits row."""
+    return ((got - want).abs().amax(-1)
+            / want.abs().amax(-1).clamp_min(1e-30))
+
+
+def mesh_row_err(got, want):
+    """The worst row's."""
+    return mesh_row_errs(got, want).max().item()
+
+
+def _routing_near_ties(want_routes, got_routes, shape, n_moe):
+    """(rows whose top-k experts differ between the runs at some MoE
+    layer, those of them where every such layer's one-device margin is a
+    near tie (<= 2 bf16 spacings)): boolean (waves, 4, 1 + MESH_FORCED)."""
+    differ = torch.zeros(shape, dtype=torch.bool)
+    near = torch.ones(shape, dtype=torch.bool)
+    for c, ((wi, wm), (gi, _)) in enumerate(zip(want_routes, got_routes)):
+        step = c // n_moe
+        w, j = divmod(step, shape[2])
+        d = (wi != gi).any(-1)
+        differ[w, :, j] |= d
+        near[w, :, j] &= ~d | (wm <= 2)
+    return differ, differ & near
+
+
+def _mesh_check(arch, layers, outs, want, shape, backend, card):
+    """Holds a path's rows on the mesh to the one-device run and its K1
+    launches to ``layers`` a wave on every rank, all Hopper; prints its
+    numbers and returns them.  With MoE layers, a row may pass the limit
+    only where the two runs' router took other experts for its token at
+    a near tie (RouteLog): both runs round the router's logits to bf16,
+    and roundings elsewhere can turn such a tie."""
+    from repro_torch.configs import get_config
+    want, want_routes = want
+    blocks = []
+    for di in range(shape[0]):
+        first = outs[(di, 0)][arch]["logits"]
+        for mi in range(1, shape[1]):
+            check(torch.equal(outs[(di, mi)][arch]["logits"], first),
+                  f"mesh {arch}: ranks ({di}, 0) and ({di}, {mi}) disagree")
+        blocks.append(first)
+    got = torch.cat(blocks, dim=1)
+    errs = mesh_row_errs(got, want)
+    r0 = outs[(0, 0)][arch]
+    cfg = get_config(arch)
+    n_moe = sum(map(cfg.replace(n_layers=layers).layer_is_moe,
+                    range(layers))) if cfg.moe else 0
+    differ = near = torch.zeros(errs.shape, dtype=torch.bool)
+    if n_moe:
+        check(len(r0["routes"]) == len(want_routes),
+              f"mesh {arch}: {len(r0['routes'])} routing calls, one device "
+              f"{len(want_routes)}")
+        differ, near = _routing_near_ties(want_routes, r0["routes"],
+                                          errs.shape, n_moe)
+    over = errs > MESH_ROW_LIMIT
+    bad = over & ~near
+    err = errs[~(over & near)].max().item()
+    waves = want.shape[0]
+    print(f"[mesh] {arch} ({layers} layers of {cfg.n_layers}) on a {shape} "
+          f"('data', 'model') mesh over {backend} (staged through the "
+          f"host: {outs[(0, 0)]['staged']}): worst logits row err "
+          f"{err:.3e} of the row's largest |logit| against the one-device "
+          f"run (limit {MESH_ROW_LIMIT:g}), {waves} waves x 4 rows x "
+          f"{1 + MESH_FORCED} (prefill + forced steps)"
+          + (f"; the router chose other experts for {int(differ.sum())} "
+             f"of {differ.numel()} rows' tokens, {int(near.sum())} at near "
+             f"ties; {int((over & near).sum())} rows past the limit, each "
+             f"at a near tie: errs "
+             f"{[round(e, 3) for e in errs[over & near].tolist()]}"
+             if n_moe else ""))
+    print(f"[mesh] {arch} {backend}: rank (0, 0) prefill per wave "
+          f"{[round(t, 1) for t in r0['prefill_ms']]} ms, decode step "
+          f"median {r0['decode_ms']:.1f} ms (host clock, synchronised); "
+          f"weights drawn and cut in {r0['init_s']:.1f} s | {card}")
+    for c in sorted(outs):
+        o = outs[c][arch]
+        print(f"[mesh] {arch} {backend} rank {c}: {o['params_gb']:.2f} GB "
+              f"of weights, peak {o['peak_gb']:.2f} GB serving "
+              f"({o['init_peak_gb']:.2f} GB drawing the full model to cut "
+              f"it); K1 launches by variant {o['k1']}; bytes moved in a "
+              f"decode step {o['moved']['decode_step']} (calls "
+              f"{o['moved']['decode_step_calls']}), in the last prefill "
+              f"{o['moved']['prefill']}")
+        check(o["k1"] == {"hopper": layers * waves, "general": 0},
+              f"mesh {arch} rank {c}: K1 launches {o['k1']}, expected "
+              f"{layers * waves} hopper")
+    check(math.isfinite(err) and not bad.any(),
+          f"mesh {arch} {backend}: rows {bad.nonzero().tolist()} past "
+          f"{MESH_ROW_LIMIT:g} (errs {errs[bad].tolist()}) without a "
+          f"routing near tie")
+    faults = {}
+    for name in outs[(0, 0)][arch]["faults"]:
+        faults[name] = max(mesh_row_err(
+            outs[(0, mi)][arch]["faults"][name], want[0, :2])
+            for mi in range(shape[1]))
+    if faults:
+        print(f"[mesh] {arch} faults on rank (0, 1), wave 0, worst logits "
+              f"row err: {', '.join(f'{k} {e:.3e}' for k, e in faults.items())}"
+              f" (limit {MESH_ROW_LIMIT:g})")
+        for name, e in faults.items():
+            check(e > 2 * MESH_ROW_LIMIT, f"mesh {arch}: {name} gives only "
+                                          f"{e:.3e}: the check cannot see it")
+    return {"worst_row": err, "near_tie_rows_past_limit":
+            errs[over & near].tolist(), "routing_differs": int(differ.sum()),
+            "faults": faults,
+            "prefill_ms_rank0": r0["prefill_ms"],
+            "decode_ms_rank0": r0["decode_ms"],
+            "k1_by_rank": {str(c): outs[c][arch]["k1"] for c in outs},
+            "peak_gb_by_rank": {str(c): outs[c][arch]["peak_gb"]
+                                for c in outs},
+            "decode_step_bytes_rank0": r0["moved"]["decode_step"]}
+
+
+def phase_mesh(card):
+    """DecoderLM's serving path on a ("data", "model") mesh (MESH_SHAPE,
+    gloo, every rank on card 0): paths h and i (MESH_PATHS), each held row
+    by row to the same model on one device (MESH_ROW_LIMIT), three faults
+    on one rank shown to fail it, K1's launches on every rank all Hopper;
+    then path h at 2 layers on a one-rank NCCL mesh.  The parent's kernel
+    builds come first (phase_build); each one-device run is freed before
+    the ranks start.  Returns the mesh paths' K1 launches and results."""
+    t_phase = time.perf_counter()
+    wants = {arch: mesh_reference(arch, cut)
+             for arch, cut in MESH_PATHS.items()}
+    first = next(iter(MESH_PATHS))
+    paths = [(arch, cut, arch == first) for arch, cut in MESH_PATHS.items()]
+    outs = run_mesh_ranks(MESH_SHAPE, "gloo", paths)
+    results = {arch: _mesh_check(arch, MESH_PATHS[arch]["n_layers"], outs,
+                                 want, MESH_SHAPE, "gloo", card)
+               for arch, want in wants.items()}
+    arch, cut = MESH_NCCL
+    want = mesh_reference(arch, cut)
+    outs1 = run_mesh_ranks((1, 1), "nccl", [(arch, cut, False)])
+    check(outs1[(0, 0)]["backend"] == "nccl" and not outs1[(0, 0)]["staged"],
+          f"the one-rank mesh ran {outs1[(0, 0)]['backend']}")
+    results[f"{arch} nccl"] = _mesh_check(arch, cut["n_layers"], outs1,
+                                          want, (1, 1), "nccl", card)
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s | {card}")
+    print("mesh " + json.dumps(results))
+    launches = {f"{a} (mesh {MESH_SHAPE[0]}x{MESH_SHAPE[1]} gloo)":
+                {vt: sum(outs[c][a]["k1"][vt] for c in outs)
+                 for vt in ("hopper", "general")} for a in MESH_PATHS}
+    launches[f"{arch} (mesh 1x1 nccl)"] = dict(outs1[(0, 0)][arch]["k1"])
+    return launches
+
+
 def phase_whisper_train(card):
     """whisper-tiny as published in bf16 from seed 0: WHISPER_TRAIN's
     steps through training.step.make_train_step with AdamW (weight decay
@@ -3765,6 +4258,13 @@ def main() -> int:
         phase_decode_vs_prefill(arch, **DECODE_TRAFFIC.get(arch, {}))
     free_device_memory("the previous phase")
     phase_whisper_card_vs_cpu()
+    free_device_memory("the previous phase")
+    for path, by_variant in phase_mesh(card).items():
+        flash["launches"] += sum(by_variant.values())
+        flash["launches_by_path"][path] = sum(by_variant.values())
+        flash["launches_by_path_and_variant"][path] = by_variant
+        for variant, n in by_variant.items():
+            flash["launches_by_variant"][variant] += n
     free_device_memory("the previous phase")
     bwd = phase_flash_bwd()
     free_device_memory("the previous phase")

@@ -24,9 +24,19 @@ o back to v's 128 columns; those columns do not depend on the zero ones,
 and K1 takes v narrower than q and k as exactly that function, so v goes
 to K1 unpadded and o comes back at v's width.  MLA decode
 (``mla_decode``) is the reference's absorbed form against the latent
-cache, in f32 throughout, plain torch as in the reference.  The multi-device
-``mla_decode_sp`` comes with the multi-device layer (ROADMAP Queue 1
-item 12).
+cache, in f32 throughout, plain torch as in the reference.
+
+On a mesh (``distribution/context.py``) each rank holds its shard of the
+weights, and these functions take the shard's widths from the weights
+themselves: q from ``wq``'s (or MLA's ``wq_b``'s) columns holds this
+rank's heads, ``repeat_kv`` gives each local q head its kv head, MLA's
+column-split down-projections are all-gathered over `model` before their
+norms, and ``out_proj`` sums the heads' partial products over `model`.
+The sequence-parallel decodes ``decode_attention_sp`` and
+``mla_decode_sp`` attend over this rank's slots of a cache whose sequence
+dim is sharded over ``dist.kv_seq`` and combine the shards' partial
+softmaxes by log-sum-exp (``_lse_combine``), with the SP functions' own
+numerics.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
+from repro_torch.models.moe import _bmm_f32   # f32 outputs, no upcast
 
 NEG_INF = -1e30
 
@@ -71,24 +82,61 @@ def init_attention(generator, cfg, dtype, device, lead=(), cross=False):
 
 def project_qkv(x, p, cfg, kv_x=None):
     """Returns q (b,s,nq,hd), k/v (b,skv,nkv,hd): k and v from ``kv_x``
-    (b, skv, d) where given (cross-attention), else from x."""
+    (b, skv, d) where given (cross-attention), else from x.  The head
+    counts are the weights' (this rank's q heads on a mesh)."""
     b, s, _ = x.shape
-    hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
     kv_x = x if kv_x is None else kv_x
-    q = (x @ p["wq"]).reshape(b, s, nq, hd)
-    k = (kv_x @ p["wk"]).reshape(b, kv_x.shape[1], nkv, hd)
-    v = (kv_x @ p["wv"]).reshape(b, kv_x.shape[1], nkv, hd)
+    q = (x @ p["wq"]).reshape(b, s, -1, hd)
+    k = (kv_x @ p["wk"]).reshape(b, kv_x.shape[1], -1, hd)
+    v = (kv_x @ p["wv"]).reshape(b, kv_x.shape[1], -1, hd)
     if "q_scale" in p:
         q = L.head_rmsnorm(q) * p["q_scale"]
         k = L.head_rmsnorm(k) * p["k_scale"]
     return q, k, v
 
 
-def repeat_kv(k, n_heads):
+def repeat_kv(k, n_heads, head0=0, n_local=None):
+    """k (b, s, nkv, hd) -> the kv head of each of ``n_heads`` q heads
+    (q head j reads kv head j // (n_heads // nkv)); with ``n_local``, of
+    q heads [head0, head0 + n_local) only: a rank's local heads."""
     nkv = k.shape[2]
-    if nkv == n_heads:
-        return k
-    return torch.repeat_interleave(k, n_heads // nkv, dim=2)
+    if n_local is None or n_local == n_heads:
+        if nkv == n_heads:
+            return k
+        return torch.repeat_interleave(k, n_heads // nkv, dim=2)
+    heads = torch.arange(head0, head0 + n_local, device=k.device)
+    return k.index_select(2, heads // (n_heads // nkv))
+
+
+def head_offset(n_local, n_heads, dist):
+    """This rank's first q head: 0 with every head local, else its
+    `model` index times ``n_local`` (heads split over ``dist.tp``)."""
+    if n_local == n_heads:
+        return 0
+    return dist.comm.axis_index(dist.tp) * n_local
+
+
+def out_proj(o, wo, n_local, n_heads, dist):
+    """o (..., n_local * hd_v) @ wo.  With every head local, the product.
+    With this rank's heads only, a partial sum over ``dist.tp``, summed
+    here: ``wo`` is either split by rows already (the rule table's
+    ``shard_heads``) or held whole (MLA), and then its rows of the local
+    heads are taken."""
+    if n_local == n_heads:
+        return o @ wo
+    if wo.shape[0] != o.shape[-1]:
+        r0 = head_offset(n_local, n_heads, dist) * (o.shape[-1] // n_local)
+        wo = wo[r0:r0 + o.shape[-1]]
+    return dist.comm.psum(o @ wo, dist.tp)
+
+
+def _gather_cols(y, width, dist):
+    """y = x @ w for a w whose ``width`` columns may be split over
+    `model` (MLA's down-projections): the whole width on every rank."""
+    if y.shape[-1] == width:
+        return y
+    return dist.comm.all_gather(y, dist.tp, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -225,60 +273,84 @@ def _rms(x, scale, eps=1e-6):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def mla_latents(x, p, cfg, positions):
+def mla_latents(x, p, cfg, positions, dist=None):
     """The cached quantities: c_kv (b, s, r_kv) and k_rope (b, s, hd_r),
     k_rope rotated as one head with ``cfg.rope_theta``."""
     m = cfg.mla
-    kv = x @ p["wkv_a"]
+    kv = _gather_cols(x @ p["wkv_a"], m.kv_lora_rank + m.qk_rope_head_dim,
+                      dist)
     c_kv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
     c_kv = _rms(c_kv, p["kv_norm"])
     k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
     return c_kv, k_rope[:, :, 0, :]
 
 
-def mla_queries(x, p, cfg, positions):
-    """(q_nope (b, s, h, hd_n), q_rope (b, s, h, hd_r))."""
-    m, nq = cfg.mla, cfg.n_heads
+def mla_queries(x, p, cfg, positions, dist=None):
+    """(q_nope (b, s, h, hd_n), q_rope (b, s, h, hd_r)) of ``wq_b``'s
+    heads."""
+    m = cfg.mla
     b, s, _ = x.shape
-    q = _rms(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
-    q = q.reshape(b, s, nq, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_a = _gather_cols(x @ p["wq_a"], m.q_lora_rank, dist)
+    q = _rms(q_a, p["q_norm"]) @ p["wq_b"]
+    q = q.reshape(b, s, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = (q[..., :m.qk_nope_head_dim],
                       q[..., m.qk_nope_head_dim:])
     return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
 
 
-def mla_prefill(x, p, cfg, positions):
+def mla_prefill(x, p, cfg, positions, dist=None):
     """Expanded MLA for train and prefill, causal, through K1's
-    dispatcher; returns (out (b, s, d), c_kv, k_rope)."""
+    dispatcher on ``wq_b``'s heads; returns (out (b, s, d), c_kv,
+    k_rope)."""
     m, nq = cfg.mla, cfg.n_heads
     b, s, _ = x.shape
-    c_kv, k_rope = mla_latents(x, p, cfg, positions)
-    q_nope, q_rope = mla_queries(x, p, cfg, positions)
-    k_nope = (c_kv @ p["wk_b"]).reshape(b, s, nq, m.qk_nope_head_dim)
-    v = (c_kv @ p["wv_b"]).reshape(b, s, nq, m.v_head_dim)
+    c_kv, k_rope = mla_latents(x, p, cfg, positions, dist)
+    q_nope, q_rope = mla_queries(x, p, cfg, positions, dist)
+    h = q_nope.shape[2]
+    k_nope = (c_kv @ p["wk_b"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (c_kv @ p["wv_b"]).reshape(b, s, h, m.v_head_dim)
     # contiguous in the head dim, as K1 takes them: the concatenation
     # materialises the broadcast k_rope
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        b, s, nq, m.qk_rope_head_dim)], dim=-1)
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
     # v at its own width: K1 computes the reference's padded call's first
     # v_head_dim columns
     o = flash_ops.flash_attention(q, k, v, causal=True)
-    o = o.reshape(b, s, nq * m.v_head_dim)
-    return o @ p["wo"], c_kv, k_rope
+    o = o.reshape(b, s, h * m.v_head_dim)
+    return out_proj(o, p["wo"], h, nq, dist), c_kv, k_rope
 
 
-def mla_decode(x, p, cfg, c_kv_cache, k_rope_cache, length, positions):
+def _absorbed_queries(x, p, cfg, positions, dist):
+    """(q_abs (b, 1, h, r_kv) f32, q_rope (b, 1, h, hd_r)) of ``wq_b``'s
+    heads: q_nope · W_kb, the query against the latent cache."""
+    m = cfg.mla
+    q_nope, q_rope = mla_queries(x, p, cfg, positions, dist)  # (b,1,h,.)
+    wk_b = p["wk_b"].reshape(m.kv_lora_rank, -1, m.qk_nope_head_dim)
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wk_b.float())
+    return q_abs, q_rope
+
+
+def _latent_out(o_lat, p, cfg, x, dist):
+    """o_lat (b, 1, h, r_kv) f32 of ``wv_b``'s heads -> (b, 1, d): W_vb,
+    cast to x's dtype, then ``wo``."""
+    m, nq = cfg.mla, cfg.n_heads
+    wv_b = p["wv_b"].reshape(m.kv_lora_rank, -1, m.v_head_dim)
+    o = torch.einsum("bqhr,rhd->bqhd", o_lat, wv_b.float())
+    h = o.shape[2]
+    o = o.reshape(x.shape[0], 1, h * m.v_head_dim).to(x.dtype)
+    return out_proj(o, p["wo"], h, nq, dist)
+
+
+def mla_decode(x, p, cfg, c_kv_cache, k_rope_cache, length, positions,
+               dist=None):
     """Absorbed-matmul decode: the scores of q_nope · W_kb against the
     latent cache, never re-expanding per-position K/V, in f32; the output
     cast to x's dtype before ``wo``.  x (b, 1, d); ``length`` = number of
     valid cache slots."""
-    m, nq = cfg.mla, cfg.n_heads
-    b = x.shape[0]
+    m = cfg.mla
     S = c_kv_cache.shape[1]
-    q_nope, q_rope = mla_queries(x, p, cfg, positions)         # (b,1,h,.)
-    wk_b = p["wk_b"].reshape(m.kv_lora_rank, nq, m.qk_nope_head_dim)
-    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wk_b.float())
+    q_abs, q_rope = _absorbed_queries(x, p, cfg, positions, dist)
     ckv = c_kv_cache.float()
     s = torch.einsum("bqhr,bkr->bhqk", q_abs, ckv)
     s = s + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
@@ -287,6 +359,96 @@ def mla_decode(x, p, cfg, c_kv_cache, k_rope_cache, length, positions):
     mask = torch.arange(S, device=x.device) < length
     pw = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     o_lat = torch.einsum("bhqk,bkr->bqhr", pw, ckv)
-    wv_b = p["wv_b"].reshape(m.kv_lora_rank, nq, m.v_head_dim)
-    o = torch.einsum("bqhr,rhd->bqhd", o_lat, wv_b.float())
-    return o.reshape(b, 1, nq * m.v_head_dim).to(x.dtype) @ p["wo"]
+    return _latent_out(o_lat, p, cfg, x, dist)
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel (flash-decoding) decode: the cache's sequence dim stays
+# sharded over dist.kv_seq; each shard computes a partial softmax over its
+# slots and the shards combine with the log-sum-exp trick (a pmax and two
+# psums of (b, h, 1[, hd]): the bytes moved a layer drop from O(cache) to
+# O(heads · head_dim)).  The masked value is finite: an all-masked shard
+# gets corr = 0, not NaN.
+
+
+def slot_offset(S_l, dist):
+    """The first cache slot this rank holds: its flattened index over
+    ``dist.kv_seq`` times its slot count."""
+    return dist.comm.axis_index(dist.kv_seq) * S_l
+
+
+def _lse_combine(m_l, l_l, o_l, dist):
+    """The shards' partial softmaxes, each (max m_l, sum l_l, unnormalised
+    output o_l with one more trailing dim), combined over ``dist.kv_seq``:
+    a pmax, two psums and the 1e-30 clamp of the denominator."""
+    comm, axes = dist.comm, dist.kv_seq
+    m_g = comm.pmax(m_l, axes)
+    corr = torch.exp(m_l - m_g)
+    l_g = comm.psum(l_l * corr, axes)
+    o_g = comm.psum(o_l * corr[..., None], axes)
+    return o_g / torch.clamp(l_g[..., None], min=1e-30)
+
+
+def decode_attention_sp(q, k_cache, v_cache, length, dist, *, window=0,
+                        softcap=0.0):
+    """Sequence-parallel single-step decode.  q (b, 1, nq, hd), every
+    head; caches (b, S_l, nkv, hd), this rank's slots [pos0, pos0 + S_l)
+    of a cache sharded over ``dist.kv_seq``.  ``length`` = number of valid
+    slots (ring caches pass the clamped value).
+
+    The reference's SP numerics, not the one-device decode's: q scaled in
+    f32 and rounded to the cache dtype; each group of q heads contracted
+    against its shared kv head with operands in the cache dtype and f32
+    outputs (no repeated or upcast cache), the probabilities rounded to
+    the cache dtype for the product with v; masked slots at the finite
+    -1e30."""
+    b, _, nq, hd = q.shape
+    S_l, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = nq // kvh
+    pos0 = slot_offset(S_l, dist)
+    scale = 1.0 / math.sqrt(hd)
+    qg = (q.float() * scale).to(k_cache.dtype)
+    qg = qg.reshape(b, kvh, g, hd).reshape(b * kvh, g, hd)
+    kt = k_cache.permute(0, 2, 3, 1).reshape(b * kvh, hd, S_l)
+    s = _softcap(_bmm_f32(qg, kt).reshape(b, kvh, g, S_l), softcap)
+    pos = pos0 + torch.arange(S_l, device=q.device)
+    mask = pos < length
+    if window > 0:
+        mask &= pos >= length - window
+    s = torch.where(mask, s, NEG_INF)
+    m_l = s.amax(dim=-1)                                     # (b, kvh, g)
+    p = torch.exp(s - m_l[..., None])
+    l_l = p.sum(dim=-1)
+    vv = v_cache.permute(0, 2, 1, 3).reshape(b * kvh, S_l, hd)
+    o_l = _bmm_f32(p.to(v_cache.dtype).reshape(b * kvh, g, S_l), vv)
+    o = _lse_combine(m_l, l_l, o_l.reshape(b, kvh, g, hd), dist)
+    return o.reshape(b, 1, nq, hd).to(q.dtype)
+
+
+def mla_decode_sp(x, p, cfg, c_kv_cache, k_rope_cache, length, positions,
+                  dist):
+    """Sequence-parallel absorbed-matmul MLA decode: the latent cache
+    (b, S_l, r_kv) holds this rank's slots; every head's scores and
+    latent readout, in f32, combine by log-sum-exp in latent space, then
+    W_vb and ``wo`` on this rank's heads."""
+    m, nq = cfg.mla, cfg.n_heads
+    S_l = c_kv_cache.shape[1]
+    q_abs, q_rope = _absorbed_queries(x, p, cfg, positions, dist)
+    h = q_abs.shape[2]
+    if h < nq:            # every head attends this rank's slots
+        q_abs = dist.comm.all_gather(q_abs, dist.tp, dim=2)
+        q_rope = dist.comm.all_gather(q_rope, dist.tp, dim=2)
+    ckv = c_kv_cache.float()
+    s = torch.einsum("bqhr,bkr->bhqk", q_abs, ckv)
+    s = s + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                         k_rope_cache.float())
+    s = s * (1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
+    pos = slot_offset(S_l, dist) + torch.arange(S_l, device=x.device)
+    s = torch.where(pos < length, s, NEG_INF)
+    m_l = s.amax(dim=-1)                                     # (b, h, 1)
+    pw = torch.exp(s - m_l[..., None])
+    o_l = torch.einsum("bhqk,bkr->bhqr", pw, ckv)
+    o_lat = _lse_combine(m_l, pw.sum(dim=-1), o_l, dist)     # (b,h,1,r)
+    h0 = head_offset(h, nq, dist)
+    o_lat = o_lat.transpose(1, 2)[:, :, h0:h0 + h]           # (b,1,h_l,r)
+    return _latent_out(o_lat, p, cfg, x, dist)

@@ -26,21 +26,58 @@ def mul_scalar(x, scale):
     return x * torch.tensor(scale, dtype=x.dtype).item()
 
 
-def embed(tokens, p, cfg):
-    # the reference's jnp.take; F.embedding's CUDA backward sums the rows
-    # of repeated tokens after a sort, with no atomics, so a training step
-    # gives the same bits each time (chip_smoke.py checks it on the card)
-    x = F.embedding(tokens.long(), p["tokens"])
+def _vocab_split(n_local, cfg, dist):
+    """Whether a table holds ``n_local`` of the vocab's rows because a
+    mesh's rule split it over `model` (one device: never)."""
+    return dist is not None and dist.active and n_local < cfg.vocab_size
+
+
+def _vocab0(n_local, cfg, dist):
+    """This rank's first vocab row of a table split over `model`."""
+    return dist.comm.axis_index(dist.tp) * n_local
+
+
+def embed(tokens, p, cfg, dist=None):
+    """The reference's jnp.take.  On a mesh whose rule split the table's
+    vocab over `model`, a masked lookup into this rank's rows (zeros for
+    other ranks' tokens) summed over `model`: exactly the take.
+    F.embedding's CUDA backward sums the rows of repeated tokens after a
+    sort, with no atomics, so a training step gives the same bits each
+    time (chip_smoke.py checks it on the card)."""
+    table = p["tokens"]
+    tokens = tokens.long()
+    if not _vocab_split(table.shape[0], cfg, dist):
+        x = F.embedding(tokens, table)
+    else:
+        local = tokens - _vocab0(table.shape[0], cfg, dist)
+        inside = (local >= 0) & (local < table.shape[0])
+        x = F.embedding(torch.where(inside, local, 0), table)
+        x = dist.comm.psum(torch.where(inside[..., None], x, 0), dist.tp)
     if cfg.emb_scale != 1.0:
         x = mul_scalar(x, cfg.emb_scale)
     return x
 
 
-def lm_logits(x, p, cfg):
+def lm_logits(x, p, cfg, dist=None):
+    """x @ the head (the tied table's transpose, or ``lm_head``).  On a
+    mesh whose rule split the vocab over `model`, this rank's columns,
+    all-gathered over `model`."""
     if cfg.logit_scale != 1.0:
         x = mul_scalar(x, cfg.logit_scale)
     w = p["tokens"].T if cfg.tie_embeddings else p["lm_head"]
-    return x @ w
+    logits = x @ w
+    if not _vocab_split(w.shape[-1], cfg, dist):
+        return logits
+    return dist.comm.all_gather(logits, dist.tp, dim=-1)
+
+
+def row_sum(y, rows, full_rows, dist):
+    """y = x @ w where w holds ``rows`` of its ``full_rows`` input rows:
+    a row-split w's partial products summed over ``dist.tp`` (Megatron's
+    one all-reduce a block), else y."""
+    if not dist.active or rows == full_rows:
+        return y
+    return dist.comm.psum(y, dist.tp)
 
 
 def residual_scale(cfg) -> float:

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts on one device: the port of ``repro.models.moe``.
+"""Mixture-of-Experts: top-k routing with capacity, on one device or
+sharded over a mesh; the port of ``repro.models.moe``.
 
 Top-k routing with a per-expert capacity, two router flavours
 ("softmax_topk": Mixtral, Jamba; "sigmoid": DeepSeek-V3) and the
@@ -22,10 +23,15 @@ with ``preferred_element_type=f32``: gate, up, the activation product and
 the down projection stay f32, and only the hidden ``h`` is rounded to the
 model dtype, once.
 
-Only the single-device mode is ported: the reference's expert- and
-tensor-parallel modes (``ep_axis``, ``tp_axis``, ``e_offset``,
-``combine_axes``, ``combine_dtype``, and ``shared_scale``, which only
-full expert parallelism sets) come with the multi-device layer.
+On a mesh (the reference's ``shard_map`` bodies, run as explicit SPMD
+with ``dist``'s collectives) ``apply_moe`` takes the reference's sharding
+arguments: ``ep_axis`` (this rank's slice of the experts, its offset from
+its index on that axis), ``tp_axis`` (every expert, this rank's slice of
+each expert's hidden dim), or full expert parallelism's explicit
+``e_offset`` with ``combine_axes``, ``combine_dtype`` and
+``shared_scale``.  Assignments to other ranks' experts drop into the
+trash row as overflow does, in the same token-major order, and the
+combine is one psum.
 """
 from __future__ import annotations
 
@@ -35,9 +41,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-
-MESH_ITEM = "MoE expert/tensor parallelism: ROADMAP Queue 1 item 12"
-
 
 def init_moe(generator, cfg, dtype, device, lead=()):
     m, d = cfg.moe, cfg.d_model
@@ -138,47 +141,73 @@ class _BmmF32(torch.autograd.Function):
 
 def apply_moe(x, p, cfg, *, router_mode="softmax_topk", ep_axis=None,
               tp_axis=None, e_offset=None, combine_axes=None,
-              combine_dtype=None):
-    """x (b, s, d) -> (y (b, s, d) in x.dtype, aux_loss).  One device:
-    the reference's sharding arguments raise unless None."""
-    mesh = dict(ep_axis=ep_axis, tp_axis=tp_axis, e_offset=e_offset,
-                combine_axes=combine_axes, combine_dtype=combine_dtype)
-    given = sorted(k for k, v in mesh.items() if v is not None)
-    if given:
-        raise NotImplementedError(f"{given}: {MESH_ITEM}")
+              combine_dtype=None, shared_scale=1.0, dist=None):
+    """x (b, s, d) -> (y (b, s, d) in x.dtype, aux_loss).
+
+    Sharding modes (at most one; none on one device), each needing the
+    mesh context ``dist`` for its collectives:
+      * ``ep_axis``: ``p["gate"]`` et al. hold this rank's slice of the
+        experts, from its index on that axis; the aux loss is averaged and
+        the output summed over it;
+      * ``tp_axis``: every expert, this rank's slice of each expert's
+        hidden dim (and of the shared experts'); the output is summed
+        over it;
+      * full EP: the caller's ``e_offset`` (experts over several axes)
+        and ``combine_axes``; ``combine_dtype`` (e.g. bf16) for the
+        combine's psum; ``shared_scale`` for a shared expert computed
+        again on every rank of an axis the combine sums over but its
+        weights do not split.
+    """
+    axis = combine_axes or ep_axis or tp_axis
+    if axis is not None and (dist is None or not dist.active):
+        raise ValueError(f"the mesh axes {axis!r} need an active "
+                         f"MeshContext (dist=)")
     m = cfg.moe
     b, s, d = x.shape
     T = b * s
     xf = x.reshape(T, d)
     idx, gates, aux = route(xf, p["router"], m, router_mode)
-    E = p["gate"].shape[0]
+
+    n_local = p["gate"].shape[0]                 # E, or this rank's slice
+    if e_offset is None:
+        e_offset = 0
+        if ep_axis is not None:
+            e_offset = dist.comm.axis_index(ep_axis) * n_local
+            aux = dist.comm.pmean(aux, ep_axis)
     C = _capacity(T, m)
 
     # position of each (token, k) assignment within its expert's queue
     flat_e = idx.reshape(-1)                                   # (T*k,)
     onehot = F.one_hot(flat_e, m.n_experts)
     pos = (torch.cumsum(onehot, dim=0) * onehot).amax(dim=-1) - 1
-    valid = pos < C
-    slot = torch.where(valid, flat_e * C + pos, E * C)         # overflow slot
+    local_e = flat_e - e_offset
+    valid = (pos < C) & (local_e >= 0) & (local_e < n_local)
+    slot = torch.where(valid, local_e * C + pos, n_local * C)  # overflow
 
-    # dispatch: (E*C + 1, d), the last row the trash slot (written by
-    # every dropped assignment, in no defined order, and never read)
+    # dispatch: (n_local*C + 1, d), the last row the trash slot (written
+    # by every dropped or other rank's assignment, in no defined order, and
+    # never read)
     tok_idx = torch.arange(T, device=x.device).repeat_interleave(m.top_k)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((n_local * C + 1, d), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, slot, xf[tok_idx])
-    ebuf = buf[:E * C].view(E, C, d)
+    ebuf = buf[:n_local * C].view(n_local, C, d)
 
     act = L.silu if cfg.act == "silu" else L.gelu
     h = act(_bmm_f32(ebuf, p["gate"])) * _bmm_f32(ebuf, p["up"])
-    y_e = _bmm_f32(h.to(x.dtype), p["down"])                   # (E, C, d)
+    y_e = _bmm_f32(h.to(x.dtype), p["down"])              # (E_l, C, d)
 
     # combine: gate-weighted f32 scatter-add back to the tokens; the
     # trash slot reads as zeros
-    y_flat = torch.cat([y_e.reshape(E * C, d),
+    y_flat = torch.cat([y_e.reshape(n_local * C, d),
                         y_e.new_zeros((1, d))])
     w = gates.reshape(-1) * valid
     y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
     y.index_add_(0, tok_idx, y_flat[slot] * w[:, None])
     if m.n_shared_experts:
-        y = y + L.apply_mlp(xf, p["shared"], cfg.act).float()
+        shared = L.apply_mlp(xf, p["shared"], cfg.act).float()
+        y = y + (shared if shared_scale == 1.0 else shared * shared_scale)
+    if axis is not None:
+        if combine_dtype is not None:
+            y = y.to(combine_dtype)
+        y = dist.comm.psum(y, axis)              # single combine all-reduce
     return y.to(x.dtype).reshape(b, s, d), aux

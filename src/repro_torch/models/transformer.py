@@ -18,9 +18,29 @@ goes in front of the prompt's token embeddings.  With ``cfg.mla``
 (DeepSeek-V3) the attention is ``attention.py``'s MLA: prefill through
 K1 at the q·k head dim, decode absorbed against a latent cache of layout
 {ckv: (L, b, S, kv_lora_rank), krope: (L, b, S, rope dim)}.  The FFN of
-a MoE layer is ``models/moe.py::apply_moe`` on one device (the
-reference's ``not dist.active`` branch), and its aux loss joins the
+a MoE layer is ``models/moe.py::apply_moe``, and its aux loss joins the
 training loss.
+
+``DecoderLM(cfg, dist)`` serves on a mesh (``distribution/context.py``)
+as explicit SPMD: each rank holds its shard of every parameter
+(``sharding.shard_params`` by the rule table), its rows of the batch
+(`data`) and its slots of the cache (the sequence dim over
+``dist.kv_seq``), and writes out the collectives the reference's GSPMD
+inserts: the embedding's masked lookup and the logits' all-gather over a
+vocab split on `model` (``common.py``); attention on this rank's q heads
+(``shard_heads``: wq by columns, wo by rows, then a psum over `model`;
+MLA's heads through its up-projections' columns), the kv heads of those
+q heads, prefill through K1; the dense MLP's row-split ``down`` summed
+over `model`; the MoE's expert-, tensor- or full expert-parallel mode of
+the reference's ``_moe``.  Decode writes each new slot on the rank that
+holds it; with ``sp_decode`` it attends each rank's slots and combines by
+log-sum-exp (``decode_attention_sp``, ``mla_decode_sp``), without it the
+ranks all-gather the cache and run the one-device decode on their heads,
+the function GSPMD computes.  The serving knobs are the reference's
+attributes (``sp_decode``, ``window_cache``, ``moe_full_ep``,
+``no_fsdp_experts``; ``launch/specs.py::optimized_overrides``).  Training
+on a mesh comes with ROADMAP Queue 1 item 12's remainder: ``loss``
+raises there.
 
 ``loss`` is the reference's: next-token cross entropy plus the MoE aux
 loss, each layer under activation checkpointing (the reference's
@@ -39,6 +59,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
+from repro_torch.distribution.context import NULL_CTX
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
@@ -67,21 +88,40 @@ class DecoderLM:
     """Decoder LM over a dict of stacked params; methods are pure apart
     from the in-place cache updates of ``prefill`` and ``decode``."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, dist=None):
         self.cfg = cfg
+        self.dist = dist or NULL_CTX
         self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                       else torch.float32)
         self.residual_scale = C.residual_scale(cfg)
+        tp = self.dist.tp_size
+        self.shard_heads = (cfg.mla is None and cfg.n_heads % tp == 0
+                            and (cfg.n_heads * cfg.resolved_head_dim) % tp
+                            == 0)
         self.router_mode = ("sigmoid" if cfg.moe and cfg.moe.n_experts >= 64
                             else "softmax_topk")
         # uniform static window (every layer's, from layer_scalars)
         self.static_window = (cfg.sliding_window if cfg.sliding_window and
                               not cfg.local_global_period else 0)
+        self.moe_ep = bool(cfg.moe and self.dist.active
+                           and cfg.moe.n_experts % tp == 0
+                           and cfg.moe.n_experts >= tp)
+        # serving knobs (launch/specs.py::optimized_overrides)
+        self.sp_decode = False        # sequence-parallel decode on a mesh
         # the reference's ring-buffer KV cache for sliding-window decode:
         # right only for a cache of exactly the window's slots and a
         # prompt no longer than that
         self.window_cache = False
+        self.moe_full_ep = False      # experts over (data x model)
+        self.no_fsdp_experts = False  # serving: experts whole on `data`
         self.remat_policy = None      # None | "dots" (checkpoint policy)
+
+    def full_ep_available(self):
+        cfg, dist = self.cfg, self.dist
+        if cfg.moe is None or not dist.active:
+            return False
+        n = dist.axis_size("data") * dist.axis_size("model")
+        return cfg.moe.n_experts % n == 0 and cfg.moe.n_experts >= n
 
     # ------------------------------------------------------------------ init
 
@@ -121,54 +161,129 @@ class DecoderLM:
                                device, lead=lead)),
         }
 
+    # ------------------------------------------------------- shardings (MoE)
+
+    def moe_param_specs(self, stacked: bool):
+        """The expert weights' specs as ``_moe``'s local blocks take them
+        (the reference's shard_map in_specs); the rule table cuts the
+        same blocks (FSDP entries aside)."""
+        pre = (None,) if stacked else ()
+        if self.moe_full_ep and self.full_ep_available():
+            ed = ("data", "model")
+            w = {"router": (*pre, None, None), "gate": (*pre, ed, None, None),
+                 "up": (*pre, ed, None, None), "down": (*pre, ed, None, None)}
+        elif self.moe_ep:
+            w = {"router": (*pre, None, None),
+                 "gate": (*pre, "model", None, None),
+                 "up": (*pre, "model", None, None),
+                 "down": (*pre, "model", None, None)}
+        else:
+            w = {"router": (*pre, None, None),
+                 "gate": (*pre, None, None, "model"),
+                 "up": (*pre, None, None, "model"),
+                 "down": (*pre, None, "model", None)}
+        if self.cfg.moe and self.cfg.moe.n_shared_experts:
+            w["shared"] = {"gate": (*pre, None, "model"),
+                           "up": (*pre, None, "model"),
+                           "down": (*pre, "model", None)}
+        return w
+
+    # -------------------------------------------------------------- caches
+
+    def _kv_shards(self):
+        """How many ranks the cache's sequence dim is split over."""
+        if not self.dist.active:
+            return 1
+        n = 1
+        for a in self.dist.kv_seq:
+            n *= self.dist.axis_size(a)
+        return n
+
+    def _slot0(self, S_l):
+        return A.slot_offset(S_l, self.dist) if self.dist.active else 0
+
+    def _write_prefill(self, cache_entry, new):
+        """Prefill's cache writes: slots [0, s) of the whole cache, of
+        which this rank holds [pos0, pos0 + S_l)."""
+        for key, t in new.items():
+            c = cache_entry[key]
+            S_l, s = c.shape[1], t.shape[1]
+            if s > S_l * self._kv_shards():
+                raise ValueError(f"{s} positions for a cache of "
+                                 f"{S_l * self._kv_shards()} slots")
+            pos0 = self._slot0(S_l)
+            n = min(max(s - pos0, 0), S_l)
+            c[:, :n] = t[:, pos0:pos0 + n]
+
+    def _write_slot(self, cache_entry, new, slot):
+        """Decode's write of one position into ``slot`` of the whole cache,
+        on the rank that holds it."""
+        for key, t in new.items():
+            c = cache_entry[key]
+            pos0 = self._slot0(c.shape[1])
+            if pos0 <= slot < pos0 + c.shape[1]:
+                c[:, slot - pos0] = t[:, 0]
+
+    def _whole_cache(self, c):
+        """This rank's slots of a cache entry -> every slot (decode on a
+        mesh without ``sp_decode``)."""
+        if self._kv_shards() == 1:
+            return c
+        return self.dist.comm.all_gather(c, self.dist.kv_seq, dim=1)
+
     # -------------------------------------------------------------- layers
 
     def _attention_full(self, x, ap, win, theta, positions, cache_entry):
         """Prefill (cache_entry = this layer's cache views, filled in
-        place) or a cache-free forward (cache_entry None).  MLA takes
-        ``cfg.rope_theta`` and no window, as in the reference."""
-        cfg = self.cfg
+        place) or a cache-free forward (cache_entry None), on this rank's
+        q heads.  MLA takes ``cfg.rope_theta`` and no window, as in the
+        reference."""
+        cfg, dist = self.cfg, self.dist
         if cfg.mla is not None:
-            out, c_kv, k_rope = A.mla_prefill(x, ap, cfg, positions)
+            out, c_kv, k_rope = A.mla_prefill(x, ap, cfg, positions, dist)
             if cache_entry is not None:
-                s = c_kv.shape[1]
-                cache_entry["ckv"][:, :s] = c_kv
-                cache_entry["krope"][:, :s] = k_rope
+                self._write_prefill(cache_entry, {"ckv": c_kv,
+                                                  "krope": k_rope})
             return out
         q, k, v = A.project_qkv(x, ap, cfg)
         if not cfg.no_rope:
             q = L.apply_rope(q, positions, theta)
             k = L.apply_rope(k, positions, theta)
         if cache_entry is not None:
-            s = k.shape[1]
-            cache_entry["k"][:, :s] = k
-            cache_entry["v"][:, :s] = v
-        k = A.repeat_kv(k, cfg.n_heads)
-        v = A.repeat_kv(v, cfg.n_heads)
+            self._write_prefill(cache_entry, {"k": k, "v": v})
+        h = q.shape[2]
+        h0 = A.head_offset(h, cfg.n_heads, dist)
+        k = A.repeat_kv(k, cfg.n_heads, h0, h)
+        v = A.repeat_kv(v, cfg.n_heads, h0, h)
         o = flash_ops.flash_attention(q, k, v, causal=True, window=win,
                                       softcap=cfg.attn_logit_softcap)
         b, s = x.shape[:2]
-        return o.reshape(b, s, -1) @ ap["wo"]
+        return A.out_proj(o.reshape(b, s, -1), ap["wo"], h, cfg.n_heads,
+                          dist)
 
     def _attention_decode(self, x, ap, win, theta, cache_entry, length):
-        cfg = self.cfg
+        cfg, dist = self.cfg, self.dist
+        sp = self.sp_decode and dist.active
         positions = torch.full((x.shape[0], 1), length, dtype=torch.long,
                                device=x.device)
         if cfg.mla is not None:
-            c_kv, k_rope = A.mla_latents(x, ap, cfg, positions)
-            ckv_c, krope_c = cache_entry["ckv"], cache_entry["krope"]
+            c_kv, k_rope = A.mla_latents(x, ap, cfg, positions, dist)
+            S = cache_entry["ckv"].shape[1] * self._kv_shards()
             # clamped to the last slot past the cache's end, as below
-            write_at = min(length, ckv_c.shape[1] - 1)
-            ckv_c[:, write_at] = c_kv[:, 0]
-            krope_c[:, write_at] = k_rope[:, 0]
-            return A.mla_decode(x, ap, cfg, ckv_c, krope_c, length + 1,
-                                positions)
+            self._write_slot(cache_entry, {"ckv": c_kv, "krope": k_rope},
+                             min(length, S - 1))
+            ckv_c, krope_c = cache_entry["ckv"], cache_entry["krope"]
+            if sp:
+                return A.mla_decode_sp(x, ap, cfg, ckv_c, krope_c,
+                                       length + 1, positions, dist)
+            return A.mla_decode(x, ap, cfg, self._whole_cache(ckv_c),
+                                self._whole_cache(krope_c), length + 1,
+                                positions, dist)
         q, k, v = A.project_qkv(x, ap, cfg)
         if not cfg.no_rope:
             q = L.apply_rope(q, positions, theta)
             k = L.apply_rope(k, positions, theta)
-        k_c, v_c = cache_entry["k"], cache_entry["v"]
-        S = k_c.shape[1]
+        S = cache_entry["k"].shape[1] * self._kv_shards()
         if self.window_cache:
             # ring buffer: slot length % S; keys are stored rotated, so
             # attention over the slots needs no order and no window mask
@@ -180,23 +295,66 @@ class DecoderLM:
             write_at, n_valid = min(length, S - 1), length + 1
         # in place: the counterpart of the reference's donated cache
         # buffer (jax.jit(decode, donate_argnums=(1,)))
-        k_c[:, write_at] = k[:, 0]
-        v_c[:, write_at] = v[:, 0]
-        kk = A.repeat_kv(k_c, cfg.n_heads)
-        vv = A.repeat_kv(v_c, cfg.n_heads)
-        o = A.decode_attention(q, kk, vv, n_valid, window=win,
-                               softcap=cfg.attn_logit_softcap)
-        return o.reshape(x.shape[0], 1, -1) @ ap["wo"]
+        self._write_slot(cache_entry, {"k": k, "v": v}, write_at)
+        k_c, v_c = cache_entry["k"], cache_entry["v"]
+        h = q.shape[2]
+        h0 = A.head_offset(h, cfg.n_heads, dist)
+        if sp:
+            if h < cfg.n_heads:       # every head attends this rank's slots
+                q = dist.comm.all_gather(q, dist.tp, dim=2)
+            o = A.decode_attention_sp(q, k_c, v_c, n_valid, dist,
+                                      window=win,
+                                      softcap=cfg.attn_logit_softcap
+                                      )[:, :, h0:h0 + h]
+        else:
+            kk = A.repeat_kv(self._whole_cache(k_c), cfg.n_heads, h0, h)
+            vv = A.repeat_kv(self._whole_cache(v_c), cfg.n_heads, h0, h)
+            o = A.decode_attention(q, kk, vv, n_valid, window=win,
+                                   softcap=cfg.attn_logit_softcap)
+        return A.out_proj(o.reshape(x.shape[0], 1, -1), ap["wo"], h,
+                          cfg.n_heads, dist)
 
     def _moe(self, x, mp):
-        """(y, aux loss)."""
-        return M.apply_moe(x, mp, self.cfg, router_mode=self.router_mode)
+        """(y, aux loss): one device, or the reference's mesh branch."""
+        cfg, dist = self.cfg, self.dist
+        if not dist.active:
+            return M.apply_moe(x, mp, cfg, router_mode=self.router_mode)
+        comm = dist.comm
+        all_axes = tuple(a for a in ("pod", "data", "model")
+                         if a in dist.axis_names)
+        if self.moe_full_ep and self.full_ep_available():
+            # Full EP: a few experts a rank, weights never move; tokens
+            # all-gather over `data`, outputs psum back in the model dtype
+            # and each rank keeps its batch rows.
+            has_data = "data" in dist.axis_names
+            n_local = mp["gate"].shape[0]
+            xg = comm.all_gather(x, "data", dim=0) if has_data else x
+            di = comm.axis_index("data") if has_data else 0
+            e_off = (di * dist.axis_size("model")
+                     + comm.axis_index("model")) * n_local
+            y, aux = M.apply_moe(
+                xg, mp, cfg, router_mode=self.router_mode, e_offset=e_off,
+                combine_axes=tuple(a for a in ("data", "model")
+                                   if a in dist.axis_names),
+                combine_dtype=self.dtype,
+                shared_scale=1.0 / dist.axis_size("data"), dist=dist)
+            if has_data:
+                y = y[di * x.shape[0]:(di + 1) * x.shape[0]]
+            return y, comm.pmean(aux, all_axes)
+        y, aux = M.apply_moe(x, mp, cfg, router_mode=self.router_mode,
+                             ep_axis="model" if self.moe_ep else None,
+                             tp_axis=None if self.moe_ep else "model",
+                             dist=dist)
+        return y, comm.pmean(aux, all_axes)
 
     def _ffn(self, x, fp):
-        """(y, aux loss): the MoE's, or None for a dense MLP."""
-        if self.cfg.moe is not None:
+        """(y, aux loss): the MoE's, or None for a dense MLP (a row-split
+        ``down``'s partial sums summed over `model`)."""
+        cfg = self.cfg
+        if cfg.moe is not None:
             return self._moe(x, fp)
-        return L.apply_mlp(x, fp, self.cfg.act), None
+        return C.row_sum(L.apply_mlp(x, fp, cfg.act), fp["down"].shape[-2],
+                         cfg.d_ff, self.dist), None
 
     def _layer(self, x, lp, win, theta, positions, cache_entry, length,
                mode):
@@ -260,6 +418,10 @@ class DecoderLM:
         {"xent", "aux_loss"[, "mtp"]}), every layer under activation
         checkpointing."""
         cfg = self.cfg
+        if self.dist.active:
+            raise NotImplementedError(
+                "training on a mesh: ROADMAP Queue 1 item 12's remainder "
+                "(grad_specs, FSDP gathers, the mesh path of launch/train)")
         patches = batch.get("patch_embeds")
         x = self._embed_inputs(params, batch["tokens"], patches)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -307,7 +469,7 @@ class DecoderLM:
 
     def _embed_inputs(self, params, tokens, patch_embeds=None):
         """Token embeddings, with ``patch_embeds`` (b, P, d) in front."""
-        x = C.embed(tokens, params["embed"], self.cfg)
+        x = C.embed(tokens, params["embed"], self.cfg, self.dist)
         if patch_embeds is not None:
             x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
         return x
@@ -323,7 +485,7 @@ class DecoderLM:
         x = self._run_layers(x, params, positions, cache, None,
                              "prefill")[0]
         x = L.apply_norm(x[:, -1:], params["final_norm"], self.cfg)
-        logits = C.lm_logits(x, params["embed"], self.cfg)
+        logits = C.lm_logits(x, params["embed"], self.cfg, self.dist)
         return logits, cache, positions.shape[1]
 
     def decode(self, params, cache, tokens, length):
@@ -333,23 +495,38 @@ class DecoderLM:
         x = self._embed_inputs(params, tokens)
         x = self._run_layers(x, params, None, cache, length, "decode")[0]
         x = L.apply_norm(x, params["final_norm"], self.cfg)
-        logits = C.lm_logits(x, params["embed"], self.cfg)
+        logits = C.lm_logits(x, params["embed"], self.cfg, self.dist)
         return logits, cache, length + 1
 
     # -------------------------------------------------------------- caches
 
+    def cache_specs(self):
+        """Specs matching ``init_cache``'s (whole) layout."""
+        dp = self.dist.batch_axes()
+        kv = self.dist.kv_axes()
+        if self.cfg.mla is not None:
+            return {"ckv": (None, dp, kv, None),
+                    "krope": (None, dp, kv, None)}
+        return {"k": (None, dp, kv, None, None),
+                "v": (None, dp, kv, None, None)}
+
     def init_cache(self, batch, max_len, device, extra=0):
         """Zero caches of max_len + extra slots (extra: a vision
-        prefix's patches); MLA's holds the latents."""
+        prefix's patches); MLA's holds the latents.  On a mesh, this
+        rank's block: ``batch`` is its rows, and it holds its share of the
+        slots, which must divide over ``dist.kv_seq``."""
         cfg = self.cfg
+        S, n = max_len + extra, self._kv_shards()
+        if S % n:
+            raise ValueError(f"{S} cache slots do not divide over "
+                             f"{self.dist.kv_seq} ({n} ranks)")
+        lead = (cfg.n_layers, batch, S // n)
         if cfg.mla is not None:
-            lead = (cfg.n_layers, batch, max_len + extra)
             return {"ckv": torch.zeros((*lead, cfg.mla.kv_lora_rank),
                                        dtype=self.dtype, device=device),
                     "krope": torch.zeros((*lead, cfg.mla.qk_rope_head_dim),
                                          dtype=self.dtype, device=device)}
-        shape = (cfg.n_layers, batch, max_len + extra, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
+        shape = (*lead, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=device)}
 

@@ -37,6 +37,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.whisper_tiny import N_AUDIO_FRAMES
 from repro_torch.device import resolve_device
+from repro_torch.distribution.context import NULL_CTX
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
@@ -47,10 +48,18 @@ class WhisperLM:
     """Encoder-decoder over a dict of stacked params; methods are pure
     apart from the in-place cache writes of ``prefill`` and ``decode``."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, dist=None):
         self.cfg = cfg
+        # a mesh context gives cache_specs; the forwards run on one device
+        # (on a mesh: ROADMAP Queue 1 item 12's remainder)
+        self.dist = dist or NULL_CTX
         self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                       else torch.float32)
+
+    def _one_device(self):
+        if self.dist.active:
+            raise NotImplementedError(
+                "WhisperLM on a mesh: ROADMAP Queue 1 item 12's remainder")
 
     # ------------------------------------------------------------------ init
 
@@ -87,6 +96,7 @@ class WhisperLM:
 
     def encode(self, params, frames):
         """frames (b, S_enc, d) -> the encoder output (b, S_enc, d)."""
+        self._one_device()
         cfg = self.cfg
         pos = L.sinusoidal_positions(frames.shape[1], cfg.d_model,
                                      frames.device)
@@ -210,6 +220,7 @@ class WhisperLM:
         (a Python int).  Embeds the token at position 0, as the reference
         does; writes the cache in place and returns (logits (b, 1, V),
         cache, length + 1)."""
+        self._one_device()
         x = self._embed_tokens(params, tokens)
         for l, lp in enumerate(C.unstack_layers(params["dec"],
                                                 self.cfg.n_layers)):
@@ -218,6 +229,16 @@ class WhisperLM:
         return self._logits(params, x), cache, length + 1
 
     # -------------------------------------------------------------- caches
+
+    def cache_specs(self):
+        """Specs matching ``init_cache``'s layout: the self cache's slots
+        over ``dist.kv_seq``, the cross cache's whole."""
+        dp = self.dist.batch_axes()
+        kv = self.dist.kv_axes()
+        return {"k": (None, dp, kv, None, None),
+                "v": (None, dp, kv, None, None),
+                "ck": (None, dp, None, None, None),
+                "cv": (None, dp, None, None, None)}
 
     def init_cache(self, batch, max_len, device, s_enc=None, extra=0):
         """Zero caches: self k/v of max_len + extra slots, cross ck/cv of

@@ -6,7 +6,7 @@ flattened tensor (the reference's original flat layout).
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the same
 f32 values quantize to the same bits.  The reference's error-feedback
 gradient compression (``compress_with_feedback``, ``compressed_psum``)
-belongs to the multi-device layer: ROADMAP Queue 1 item 12."""
+belongs to training on a mesh: ROADMAP Queue 1 item 12's remainder."""
 from __future__ import annotations
 
 import torch

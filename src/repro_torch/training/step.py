@@ -3,8 +3,9 @@
 One step is the model's loss and its gradient by autograd (each layer
 remat'ed inside ``model.loss``), microbatch gradient accumulation in
 ``accum_dtype``, and the optimizer's update.  One device: the
-reference's sharding arguments (``grad_specs``) belong to the
-multi-device layer, ROADMAP Queue 1 item 12.
+reference's sharding arguments (``grad_specs``) belong to training on a
+mesh, ROADMAP Queue 1 item 12's remainder (the port serves on a mesh
+since its first half).
 """
 from __future__ import annotations
 

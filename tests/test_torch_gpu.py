@@ -5,7 +5,8 @@ whisper-tiny's shapes too), the dispatchers' rules for CUDA tensors,
 DecoderLM, RWKVLM, JambaLM and WhisperLM prefill through the kernels
 (and WhisperLM's decode) against the same models on the CPU, and
 DecoderLM's, RWKVLM's, JambaLM's and WhisperLM's losses, gradients and
-train steps on the card.
+train steps on the card, and DecoderLM serving on meshes of ranks that
+share the card (gloo) and on a one-rank NCCL mesh.
 
 Every test here needs an NVIDIA GPU and skips without one.  On a machine
 with a card, from the repository root:
@@ -133,6 +134,8 @@ HOPPER_CASES = [
     ((4, 224, 1500, 6, 64), False, 0, 0.0, "plain"),
     ((4, 4, 1500, 6, 64), False, 0, 0.0, "plain"),
     ((2, 1, 1500, 6, 64), False, 0, 0.0, "plain"),
+    # a mesh rank's local heads: mistral-nemo-12b's 16 of 32 on model = 2
+    ((2, 1024, 1024, 16, 128), True, 0, 0.0, "plain"),
 ]
 # long windows, in bf16: hd 120 (h2o-danube-3-4b) and hd 128
 # (mixtral-8x7b), both on the Hopper variant, rows past the window, a
@@ -1405,6 +1408,8 @@ MLA_CASES = [
     ((1, 300, 300, 4), True, 0.0, "strided"),
     ((2, 500, 500, 4), True, 0.0, "qk-halves"),
     ((1, 300, 300, 4), True, 30.0, "plain"),
+    # a mesh rank's local heads: DeepSeek-V3's 64 of 128 on model = 2
+    ((2, 1024, 1024, 64), True, 0.0, "plain"),
 ]
 
 
@@ -1630,3 +1635,48 @@ def test_whisper_train_step_on_the_card(cuda):
     step = make_train_step(model, opt)
     params, state, m = step(params, opt.init(params), batch)
     assert math.isfinite(float(m["loss"]))
+
+
+# ------------------------------------------------------------------ mesh
+
+
+@pytest.mark.parametrize("mesh,backend", [((2, 2), "gloo"),
+                                          ((1, 1), "nccl")],
+                         ids=["2x2-gloo", "1x1-nccl"])
+def test_mesh_serving_on_the_card_matches_one_device(cuda, tmp_path, mesh,
+                                                     backend):
+    """DecoderLM's mesh path on the card (tests/torch_mesh_ranks.py, every
+    rank on card 0: gloo with its collectives staged through host memory,
+    or NCCL with one rank) against the same model on one device, on the
+    card: mistral-nemo-12b's smoke config with ``sp_decode``, and
+    DeepSeek-V3's with ``sp_decode`` and ``moe_full_ep`` (f32: 1e-4, as
+    the card-vs-CPU tests, since the ranks sum their partial products in
+    another order)."""
+    import torch_mesh_ranks as ranks
+    cases, want = {}, {}
+    gen = torch.Generator().manual_seed(1)
+    for arch, knobs in (("mistral-nemo-12b", {"sp_decode": True}),
+                        ("deepseek-v3-671b", {"sp_decode": True,
+                                              "moe_full_ep": True})):
+        cfg = get_smoke(arch).replace(dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        toks = torch.randint(1, cfg.vocab_size, (4, 12), generator=gen)
+        forced = torch.randint(1, cfg.vocab_size, (4, 4), generator=gen)
+        on_card = _to(params, cuda)
+        with torch.inference_mode():
+            logits, cache, n = model.prefill(on_card, toks.to(cuda), 24)
+            rows = [logits]
+            for i in range(4):
+                logits, cache, n = model.decode(
+                    on_card, cache, forced[:, i:i + 1].to(cuda), n)
+                rows.append(logits)
+        want[arch] = torch.cat(rows, dim=1).cpu()
+        cases[arch] = {"kind": "decoder", "arch": arch, "dtype": "float32",
+                       "moe": {}, "knobs": knobs, "params": params,
+                       "tokens": toks, "forced": forced, "max_len": 24}
+    outs = ranks.spawn(cases, mesh, tmp_path, device="cuda",
+                       backend=backend)
+    for arch in cases:
+        torch.testing.assert_close(ranks.by_rows(outs, arch, mesh),
+                                   want[arch], rtol=1e-4, atol=1e-4)

@@ -54,7 +54,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.flash_attention.checks, "
             "repro_torch.optim, repro_torch.training.step, "
             "repro_torch.checkpointing, repro_torch.data, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs, repro_torch.distribution.context, "
+            "repro_torch.distribution.collectives, "
+            "repro_torch.distribution.sharding; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")

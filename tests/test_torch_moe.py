@@ -166,15 +166,21 @@ def test_apply_moe_bf16_rounds_only_the_hidden(factor):
 
 
 def test_mesh_modes_raise_naming_the_mesh_item():
+    """The mesh modes (ported: tests/test_torch_mesh.py runs them on
+    meshes) raise without the mesh context their collectives need, and
+    name it; ``e_offset`` 0 and ``combine_dtype`` without a combine axis
+    need no collective and give the one-device result."""
     _, tcfg = cfgs()
     _, tp = moe_pair(cfgs()[0])
     _, tx = activations(1, 4, tcfg.d_model)
     for kw in ({"ep_axis": "model"}, {"tp_axis": "model"},
-               {"e_offset": 0}, {"combine_axes": ("data",)},
-               {"combine_dtype": torch.bfloat16}):
-        with pytest.raises(NotImplementedError, match="item 12"):
+               {"combine_axes": ("data",)}):
+        with pytest.raises(ValueError, match="MeshContext"):
             tM.apply_moe(tx, tp, tcfg, **kw)
-    tM.apply_moe(tx, tp, tcfg, ep_axis=None, tp_axis=None)
+    y, aux = tM.apply_moe(tx, tp, tcfg, ep_axis=None, tp_axis=None)
+    for kw in ({"e_offset": 0}, {"combine_dtype": torch.bfloat16}):
+        y2, aux2 = tM.apply_moe(tx, tp, tcfg, **kw)
+        assert torch.equal(y, y2) and torch.equal(aux, aux2)
     with pytest.raises(TypeError):
         tM.apply_moe(tx, tp, tcfg, ep_axsi="model")
 
