@@ -49,7 +49,8 @@ non-zero and prints no result:
    almost wholly past sq; the first two timed in turns with SDPA
    (general, hopper, sdpa, sdpa, hopper, general); at a mesh rank's local
    heads (mistral-nemo-12b's 16 of 32 and DeepSeek-V3's 64 of 128 MLA
-   heads, 2 rows of 1024), timed in turns with SDPA; K2 through its
+   heads, 2 rows of 1024; path j's 16 of 32, 1 row of 4096), timed in
+   turns with SDPA; K2 through its
    dispatcher, and its candidate plans (G, C, CB, double buffer) in two
    passes at the main-path shape, each case checked for the plan it
    took, and a stale chunk and a lost row group shown to fail; the
@@ -140,6 +141,23 @@ non-zero and prints no result:
    rank 0's prefill and decode times, each rank's peak memory and the
    bytes each collective moved in a decode step; then path h at 2 layers
    on a one-rank NCCL mesh, the deployment backend, held the same way;
+   then the mesh training phase (phase_mesh_train), path j:
+   mistral-nemo-12b at full width cut to 4 layers (2.433 B params)
+   trained 3 steps of 4 x 4096 tokens (the synthetic stream, seed 1) in 2
+   microbatches with grad_specs, f32 accumulators, AdamW with f32 moments
+   and the reference cell's cosine schedule: first on one device on the
+   card (kept: each step's loss and grad_norm), then on the (2, 2) gloo
+   mesh of 4 ranks sharing the card, each rank cutting its FSDP (`data`)
+   and TP (`model`) blocks of the seed-0 weights; each step's loss and
+   grad_norm on every rank within MESH_TRAIN_LIMIT of the one-device
+   run's; at the first step's params, the row-parallel psum's backward
+   left out, the `data` reduction of a gradient left out and a replicated
+   leaf counted twice, each on rank (0, 1), shown to move grad_norm far
+   past the limit; K1 on every rank the one-device step's launches,
+   forward and backward, all Hopper; rank 0's step time, each rank's peak
+   memory and the collectives' calls, bytes and host seconds by op a
+   step; then the 2-layer cut for 2 steps on a one-rank NCCL mesh, held
+   the same way;
 6. K1's backward (flash_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.flash_attention, whose backward
    launches the kernels of the route kernel_bwd.plan picks) against
@@ -149,13 +167,15 @@ non-zero and prints no result:
    view, hd 64 with a window and a softcap, hd 128 with sq != skv, and sq
    = 1000 (ragged TMA boxes), and whisper-tiny's training shapes without
    the causal mask, the cross-attention (16, 448, 1500, 6, 64) and the
-   encoder (16, 1500, 1500, 6, 64); each case checked for its route
+   encoder (16, 1500, 1500, 6, 64), and path j's local heads (1, 4096,
+   4096, 16, 128); each case checked for its route
    ("hopper": the forward's LSE, preprocess, dK/dV, dQ on TMA and wgmma;
    "general": stats, dK/dV, dQ on mma.sync); two calls bit for bit; a
    backward with D dropped, the softcap derivative dropped, a kv tile
    skipped, the LSE of the neighbouring row, the LSE in log2 units, or a
    Q/dO ring stage read one tile stale shown to fail the checks; at the
-   training shape and at hd 128, timed in turns: the Hopper backward
+   training shape, at hd 128 and at path j's local heads, timed in
+   turns: the Hopper backward
    (each kernel alone and the whole call), the general one as the
    yardstick, SDPA's backward, and K1's forward with and without the
    LSE, beside the bound;
@@ -480,6 +500,10 @@ FLASH_CASES = [
      0.0, "plain", "hopper"),
     ("mla-local-heads", (2, 1024, 1024, 64, 192, 128), torch.bfloat16, True,
      0, 0.0, "plain", "hopper"),
+    # a rank's local heads on path j (mesh_train): 1 row of 4096 a `data`
+    # rank and microbatch, mistral-nemo-12b's 16 of 32 heads a `model` rank
+    ("mesh-train-local-heads", (1, 4096, 4096, 16, 128), torch.bfloat16,
+     True, 0, 0.0, "plain", "hopper"),
 ]
 # the forward faults (checks.FWD_FAULTS) a case also shows its checks
 # can see
@@ -490,12 +514,14 @@ FLASH_FAULTS = {"danube-window-4096": ("pad-from-next-head",
 # the kernels line
 TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
                      "mixtral-window-4096", "mla-hd192", "whisper-encoder",
-                     "whisper-cross", "mesh-local-heads", "mla-local-heads")
+                     "whisper-cross", "mesh-local-heads", "mla-local-heads",
+                     "mesh-train-local-heads")
 # the timed cases whose SDPA call also runs in the turns of K1's variants
 # (general, hopper, sdpa, sdpa, hopper, general), each timed queued
 # behind a sleep of the stream: their kernels take less time than the
 # host takes to launch them
-SDPA_IN_TURNS = ("whisper-encoder", "whisper-cross", "mesh-local-heads")
+SDPA_IN_TURNS = ("whisper-encoder", "whisper-cross", "mesh-local-heads",
+                 "mesh-train-local-heads")
 # cycles of torch.cuda._sleep before a queued timing's calls (about 10 ms
 # at 1.98 GHz), more than the host takes to enqueue them
 QUEUE_SLEEP_CYCLES = 20_000_000
@@ -3121,24 +3147,25 @@ def _mesh_faults(model, params, ctx, coords, wave):
     return out
 
 
-def _mesh_rank(rank, shape, backend, paths, workdir):
-    """One rank of the mesh phase (a spawned process): joins the mesh,
-    serves each of ``paths`` ((arch, cut, faults)) and saves what it
-    returns to ``workdir/rank<r>.pt``."""
+def _mesh_rank(rank, shape, backend, paths, workdir, runner, cards):
+    """One rank of a mesh phase (a spawned process) on card ``rank %
+    cards``: joins the mesh, runs ``runner`` (the name of ``_mesh_path``,
+    serving, or of ``_mesh_train_path``) on each of ``paths`` ((arch,
+    cut, faults)) and saves what it returns to ``workdir/rank<r>.pt``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as tdist
 
     from repro_torch.distribution.collectives import Collectives
     from repro_torch.distribution.context import make_context
     from repro_torch.launch.mesh import make_smoke_mesh
-    torch.cuda.set_device(0)
+    torch.cuda.set_device(rank % cards)
     store = tdist.FileStore(str(Path(workdir) / "store"), math.prod(shape))
     mesh = make_smoke_mesh(shape, ("data", "model"), device_type="cuda",
                            backend=backend, store=store, rank=rank)
     ctx = make_context(mesh, comm=Collectives(mesh))
     out = {"backend": ctx.comm.backend, "staged": ctx.comm.stage}
     for arch, cut, faults in paths:
-        out[arch] = _mesh_path(ctx, arch, cut, faults)
+        out[arch] = globals()[runner](ctx, arch, cut, faults)
         gc.collect()
         torch.cuda.empty_cache()
     torch.save(out, Path(workdir) / f"rank{rank}.pt")
@@ -3146,18 +3173,20 @@ def _mesh_rank(rank, shape, backend, paths, workdir):
     tdist.destroy_process_group()
 
 
-def run_mesh_ranks(shape, backend, paths):
-    """Spawns the ranks of a ``shape`` mesh on ``backend``, all on card 0,
-    and joins them by MESH_DEADLINE_S; fails (stopping every rank) if one
-    fails or the deadline passes.  Returns each rank's results by its
-    (data, model) coordinates."""
+def run_mesh_ranks(shape, backend, paths, runner="_mesh_path", cards=1):
+    """Spawns the ranks of a ``shape`` mesh on ``backend``, rank r on card
+    r % ``cards`` (all on card 0 by default), and joins them by
+    MESH_DEADLINE_S; fails (stopping every rank) if one fails or the
+    deadline passes.  Returns each rank's results by its (data, model)
+    coordinates."""
     import tempfile
 
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as workdir:
         procs = [ctx.Process(target=_mesh_rank,
-                             args=(r, shape, backend, paths, workdir))
+                             args=(r, shape, backend, paths, workdir,
+                                   runner, cards))
                  for r in range(math.prod(shape))]
         for p in procs:
             p.start()
@@ -3332,6 +3361,396 @@ def phase_mesh(card):
     return launches
 
 
+# ------------------------------------------------------------- mesh train
+
+# Path j: DecoderLM trained on the (2, 2) ("data", "model") gloo mesh of
+# four ranks sharing card 0 (FSDP over `data`, TP over `model`), then on a
+# one-rank NCCL mesh.  mistral-nemo-12b at full width (d_model 5120, 32
+# q / 8 kv heads of 128, d_ff 14336, vocab 131072 untied) cut to 4 of its
+# 40 layers (2.433 B params); global batch 4 x 4096 tokens (train_4k's
+# sequence) of the synthetic stream (seed 1), the reference's microbatches
+# override at 2 with grad_specs set (its shard_grad_accum), f32
+# accumulators, AdamW with f32 moments under the reference cell's cosine
+# schedule (peak 3e-4, warmup 100, total 10000; launch/specs.py:170-175).
+MESH_TRAIN = dict(arch="mistral-nemo-12b", n_layers=4, batch=4, seq=4096,
+                  steps=3, microbatches=2)
+MESH_TRAIN_NCCL = dict(n_layers=2, steps=2)
+# Each step's loss and grad_norm on every rank against the one-device run
+# of the same cut on the card, relative.  Both runs are bf16 with f32
+# accumulators; the mesh rounds each row-parallel partial sum to bf16 and
+# sums the gradients' parts in another order (FSDP reduce-scatters, the
+# norm's psums), and the mesh serving paths' logits rows agree to ~2e-2
+# of their scale (PERF.md §5).  The loss averages 16384 tokens' errors
+# and the norm millions of entries', so both should agree to ~1e-4; the
+# limits leave room for a bias of ten times that.  A lost psum or a
+# gradient part counted twice moves them by percent.
+MESH_TRAIN_LIMIT = {"loss": 2e-3, "grad_norm": 5e-3}
+# faults on rank (0, 1) at the first step's params; every rank issues the
+# same collectives: "row-parallel psum's backward left out" (the psum that
+# ``comm.enter`` runs in the backward, before a column-split product,
+# kept to the rank's own part) and "data reduction left out" (the FSDP
+# gather's reduce-scatter, the rank keeping its own part of its block),
+# each a gradient pass through the step with an optimizer that only takes
+# the norm; "replicated leaf counted twice" (the leaves `model` does not
+# cut counted on both `model` ranks), a second norm of step 1's gradients
+MESH_TRAIN_FAULTS = ("row-parallel psum's backward left out",
+                     "data reduction left out",
+                     "replicated leaf counted twice")
+
+
+def mesh_train_config(cut):
+    from repro_torch.configs import get_config
+    return get_config(MESH_TRAIN["arch"]).replace(n_layers=cut["n_layers"])
+
+
+def mesh_train_parts(cfg, dist=None, wrap=None):
+    """(model, optimizer, step_fn, data) of path j: the reference's train
+    cell for ``cfg`` (module constants); the optimizer is AdamW, or
+    ``wrap(AdamW)``."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import AdamW, AdamWConfig, cosine
+    from repro_torch.training.step import make_train_step
+    model = build_model(cfg, dist)
+    opt = AdamW(lambda s: cosine(s, peak_lr=3e-4, warmup=100,
+                                 total=10_000), AdamWConfig())
+    if wrap is not None:
+        opt = wrap(opt)
+    specs = model.layout()[0] if dist is not None else None
+    step_fn = make_train_step(model, opt,
+                              microbatches=MESH_TRAIN["microbatches"],
+                              accum_dtype=torch.float32, grad_specs=specs)
+    data = SyntheticLMDataset(cfg.vocab_size, MESH_TRAIN["seq"],
+                              MESH_TRAIN["batch"], seed=1)
+    return model, opt, step_fn, data
+
+
+def _batch_on_card(data, step):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in data.batch_at(step).items()}
+
+
+def mesh_train_reference(cut):
+    """The one-device run of path j's cut on the card, from the weights the
+    ranks draw: each step's loss and grad_norm and K1's counts a step."""
+    ops = kernel_ops()
+    cfg = mesh_train_config(cut)
+    model, opt, step_fn, data = mesh_train_parts(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        "cuda")
+    state = opt.init(params)
+    out = {"loss": [], "grad_norm": [], "step_ms": [], "counts": []}
+    for step in range(cut["steps"]):
+        batch = _batch_on_card(data, step)
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["counts"].append(read_counts(ops))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, state
+    free_device_memory(f"path j's one-device run ({cut['n_layers']} "
+                       f"layers)")
+    return out
+
+
+class _NormOnly:
+    """An optimizer for the fault runs: the step's global norm, no update
+    (the params stay the first step's)."""
+
+    @staticmethod
+    def update(grads, state, params, mesh=None):
+        from repro_torch import tree as T
+        from repro_torch.optim import adamw
+        gsq = adamw.global_square_sum(T.leaves(grads), mesh)
+        return params, state, {"grad_norm": torch.sqrt(gsq)}
+
+
+class _NormProbe:
+    """AdamW's update, and before it, while ``norm`` is set (a function of
+    the flat gradients and the mesh, issuing the same collectives on every
+    rank), a second norm of the same gradients (``probed``)."""
+
+    def __init__(self, opt):
+        self.opt, self.norm, self.probed = opt, None, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, mesh=None):
+        from repro_torch import tree as T
+        if self.norm is not None:
+            self.probed = float(torch.sqrt(self.norm(T.leaves(grads), mesh)))
+        return self.opt.update(grads, state, params, mesh=mesh)
+
+
+def _counted_twice(tp):
+    """``adamw.global_square_sum`` with each leaf `model` does not cut
+    counted on every `model` rank (its ``tp`` copies): the same
+    collectives."""
+    def norm(flat_g, mesh):
+        from repro_torch import tree as T
+        comm, axes = mesh
+        groups = {}
+        for g, ax in zip(flat_g, T.leaves(axes)):
+            s = torch.sum(torch.square(g.float()))
+            groups[ax] = groups[ax] + s if ax in groups else s
+        return sum(comm.psum(s, ax) * (1 if "model" in ax else tp)
+                   for ax, s in groups.items())
+
+    return norm
+
+
+def _mesh_train_fault(name, comm):
+    """A context that puts fault ``name`` (one of the first two
+    MESH_TRAIN_FAULTS) on this rank; every collective still runs, on
+    every rank."""
+    from repro_torch.distribution import collectives as CL
+    stack = contextlib.ExitStack()
+    real_psum, real_scatter = comm.psum, comm.psum_scatter
+
+    class KeepOwnPsum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, axes):
+            ctx.axes = axes
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            real_psum(g, ctx.axes)
+            return g, None
+
+    class KeepOwnScatter(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, axes, dim):
+            ctx.axes, ctx.dim = axes, dim
+            return comm._all_gather(x, axes, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            real_scatter(g, ctx.axes, ctx.dim)
+            return comm._own_block(g, ctx.axes, ctx.dim), None, None
+
+    if name == MESH_TRAIN_FAULTS[0]:
+        stack.enter_context(_swapped(
+            comm, "enter", lambda x, axes: KeepOwnPsum.apply(
+                x, comm._axes(axes)) if x.requires_grad else x))
+    else:
+        real_gather = comm.all_gather
+
+        def gather(x, axes, dim):
+            axes = comm._axes(axes)
+            if x.requires_grad and all(a in CL.BATCH_AXES for a in axes):
+                return KeepOwnScatter.apply(x, axes, dim % x.dim())
+            return real_gather(x, axes, dim)
+
+        stack.enter_context(_swapped(comm, "all_gather", gather))
+    return stack
+
+
+def _mesh_train_path(ctx, arch, cut, faults):
+    """Path j on this rank: its FSDP+TP blocks (each rank in turn draws the
+    full model from seed 0 on the card and cuts them); with ``faults``,
+    the norms under MESH_TRAIN_FAULTS on rank (0, 1) at the first step's
+    params (the third from step 1's own gradients); ``cut``'s steps,
+    every kernel's counts and the collectives' bytes set to 0 before each
+    step and read after it."""
+    import torch.distributed as tdist
+
+    from repro_torch.distribution.sharding import shard_params
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training.step import make_train_step
+    ops = kernel_ops()
+    comm = ctx.comm
+    coords = (comm.axis_index("data"), comm.axis_index("model"))
+    cfg = mesh_train_config(cut)
+    model, probe, step_fn, data = mesh_train_parts(cfg, ctx, _NormProbe)
+    specs = model.layout()[0]
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(tdist.get_world_size()):
+        if r == tdist.get_rank():
+            full = build_model(cfg).init(
+                torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+            params = shard_params(full, specs, ctx, train=True)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+        tdist.barrier()
+    params_gb = sum(t.numel() * t.element_size()
+                    for t in _leaves(params)) / 1e9
+    state = probe.init(params)
+    out = {"coords": coords, "params_gb": params_gb, "faults": {},
+           "steps": []}
+    if faults:
+        norm_fn = make_train_step(model, _NormOnly(),
+                                  microbatches=MESH_TRAIN["microbatches"],
+                                  grad_specs=specs)
+        batch = _batch_on_card(data, 0)
+        for name in MESH_TRAIN_FAULTS[:2]:
+            with contextlib.ExitStack() as stack:
+                if coords == (0, 1):
+                    stack.enter_context(_mesh_train_fault(name, comm))
+                m = norm_fn(params, state, batch)[2]
+            out["faults"][name] = float(m["grad_norm"])
+            gc.collect()
+        probe.norm = (_counted_twice(ctx.tp_size) if coords == (0, 1)
+                      else adamw.global_square_sum)
+    for step in range(cut["steps"]):
+        batch = _batch_on_card(data, step)
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        comm.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        loss = float(m["loss"])                     # waits for the card
+        out["steps"].append({
+            "loss": loss, "grad_norm": float(m["grad_norm"]),
+            "step_ms": (time.perf_counter() - t0) * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "bytes": dict(comm.bytes_by_op),
+            "calls": dict(comm.calls_by_op),
+            "seconds": dict(comm.seconds_by_op),
+            "staging_s": comm.staging_seconds, "counts": read_counts(ops)})
+        if probe.norm is not None:
+            out["faults"][MESH_TRAIN_FAULTS[2]] = probe.probed
+            probe.norm = None
+    del params, state
+    return out
+
+
+def _rel(got, want):
+    return abs(got - want) / abs(want)
+
+
+def _mesh_train_check(label, outs, want, shape, card):
+    """Holds every rank's losses and norms to the one-device run's, K1's
+    launches on every rank to the one-device run's a step, all Hopper;
+    prints each step's numbers.  Returns (every kernel's counts summed
+    over ranks and steps, the worst relative errors)."""
+    lim = MESH_TRAIN_LIMIT
+    errs = {"loss": 0.0, "grad_norm": 0.0}
+    counts = []
+    for c in sorted(outs):
+        o = outs[c]["path_j"]
+        check(len(o["steps"]) == len(want["loss"]),
+              f"{label} rank {c}: {len(o['steps'])} steps")
+        for i, st in enumerate(o["steps"]):
+            for key in errs:
+                e = _rel(st[key], want[key][i])
+                errs[key] = max(errs[key], e)
+                check(math.isfinite(st[key]) and e <= lim[key],
+                      f"{label} rank {c} step {i + 1}: {key} {st[key]:.6f}, "
+                      f"one device {want[key][i]:.6f} (rel err {e:.3e}, "
+                      f"limit {lim[key]:g})")
+            check(st["counts"] == want["counts"][i],
+                  f"{label} rank {c} step {i + 1}: kernel counts "
+                  f"{st['counts']}, the one-device step's "
+                  f"{want['counts'][i]}")
+            counts.append(st["counts"])
+    r0 = outs[(0, 0)]["path_j"]
+    for i, st in enumerate(r0["steps"]):
+        peak = max(outs[c]["path_j"]["steps"][i]["peak_gb"] for c in outs)
+        print(f"[mesh_train] {label} step {i + 1}: loss {st['loss']:.6f} "
+              f"(one device {want['loss'][i]:.6f}), grad_norm "
+              f"{st['grad_norm']:.6f} ({want['grad_norm'][i]:.6f}); rank "
+              f"(0, 0) {st['step_ms']:.1f} ms (host clock; one device "
+              f"{want['step_ms'][i]:.1f} ms); peak {peak:.2f} GB a rank "
+              f"(the largest); collectives bytes {st['bytes']} "
+              f"calls {st['calls']} host seconds "
+              f"{ {k: round(v, 3) for k, v in st['seconds'].items()} } "
+              f"(of which the host copies {st['staging_s']:.3f})")
+    k1 = want["counts"][0]
+    print(f"[mesh_train] {label} on a {shape} mesh: worst rel err loss "
+          f"{errs['loss']:.3e} (limit {lim['loss']:g}), grad_norm "
+          f"{errs['grad_norm']:.3e} (limit {lim['grad_norm']:g}) over every "
+          f"rank and step; K1 a step on every rank (forward, backward "
+          f"kernel launches) {k1['launches']['flash_attention']}, by "
+          f"variant {k1['k1_by_variant']} / {k1['k1_bwd_by_variant']}; "
+          f"{r0['params_gb']:.2f} GB of params a rank | {card}")
+    check(k1["k1_by_variant"]["general"] == 0 and
+          k1["k1_bwd_by_variant"]["general"] == 0 and
+          k1["k1_by_variant"]["hopper"] > 0 and
+          k1["k1_bwd_by_variant"]["hopper"] > 0,
+          f"{label}: K1 by variant {k1['k1_by_variant']} / "
+          f"{k1['k1_bwd_by_variant']}, expected all hopper")
+    return _sum_counts(counts), errs
+
+
+def phase_mesh_train(card):
+    """Path j (MESH_TRAIN): the one-device runs of the 4- and 2-layer cuts
+    on the card, freed, then the four gloo ranks (faults, then the steps),
+    then the 2-layer cut on a one-rank NCCL mesh; each held step by step
+    to its one-device run.  Returns each mesh run's kernel counts."""
+    t_phase = time.perf_counter()
+    cut = {"n_layers": MESH_TRAIN["n_layers"], "steps": MESH_TRAIN["steps"]}
+    want = mesh_train_reference(cut)
+    want_nccl = mesh_train_reference(MESH_TRAIN_NCCL)
+    cfg = mesh_train_config(cut)
+    print(f"[mesh_train] path j: {cfg.name} cut to {cfg.n_layers} layers "
+          f"({cfg.param_counts()['total'] / 1e9:.3f} B params), "
+          f"{MESH_TRAIN['batch']} x {MESH_TRAIN['seq']} tokens a step in "
+          f"{MESH_TRAIN['microbatches']} microbatches; one device: losses "
+          f"{want['loss']}, grad_norms {want['grad_norm']}, "
+          f"{[round(t, 1) for t in want['step_ms']]} ms a step, peak "
+          f"{want['peak_gb']:.2f} GB | {card}")
+    outs = run_mesh_ranks(MESH_SHAPE, "gloo", [("path_j", cut, True)],
+                          runner="_mesh_train_path")
+    counts, errs = _mesh_train_check("gloo", outs, want, MESH_SHAPE, card)
+    faults = {}
+    for name in MESH_TRAIN_FAULTS:
+        faults[name] = max(_rel(outs[c]["path_j"]["faults"][name],
+                                want["grad_norm"][0]) for c in outs)
+    listed = ", ".join(f"{k} {e:.3e}" for k, e in faults.items())
+    print(f"[mesh_train] faults on rank (0, 1), worst rank's grad_norm rel "
+          f"err at step 1: {listed} (limit "
+          f"{MESH_TRAIN_LIMIT['grad_norm']:g})")
+    for name, e in faults.items():
+        check(e > 5 * MESH_TRAIN_LIMIT["grad_norm"],
+              f"mesh_train: {name} gives only {e:.3e}: the check cannot "
+              f"see it")
+    outs1 = run_mesh_ranks((1, 1), "nccl", [("path_j", MESH_TRAIN_NCCL,
+                                             False)],
+                           runner="_mesh_train_path")
+    check(outs1[(0, 0)]["backend"] == "nccl" and not outs1[(0, 0)]["staged"],
+          f"the one-rank mesh ran {outs1[(0, 0)]['backend']}")
+    counts1, errs1 = _mesh_train_check("nccl", outs1, want_nccl, (1, 1),
+                                       card)
+    steps = outs[(0, 0)]["path_j"]["steps"]
+    result = {"arch": cfg.name, "layers": cfg.n_layers,
+              "params_b": cfg.param_counts()["total"] / 1e9,
+              **{k: MESH_TRAIN[k] for k in ("batch", "seq",
+                                            "microbatches")},
+              "one_device": {k: want[k] for k in ("loss", "grad_norm",
+                                                  "step_ms", "peak_gb")},
+              "mesh_loss_rank0": [st["loss"] for st in steps],
+              "mesh_grad_norm_rank0": [st["grad_norm"] for st in steps],
+              "worst_rel_err": errs, "faults": faults,
+              "step_ms_rank0": [st["step_ms"] for st in steps],
+              "peak_gb_by_rank": {str(c): max(st["peak_gb"] for st in
+                                              outs[c]["path_j"]["steps"])
+                                  for c in outs},
+              "bytes_a_step_rank0": steps[-1]["bytes"],
+              "calls_a_step_rank0": steps[-1]["calls"],
+              "seconds_a_step_rank0": steps[-1]["seconds"],
+              "staging_s_a_step_rank0": steps[-1]["staging_s"],
+              "nccl": {"worst_rel_err": errs1, "step_ms": [
+                  st["step_ms"] for st in outs1[(0, 0)]["path_j"]["steps"]]},
+              "card": card}
+    print("mesh_train " + json.dumps(result))
+    print(f"[mesh_train] phase {time.perf_counter() - t_phase:.1f} s | "
+          f"{card}")
+    return {f"{cfg.name} (mesh train {MESH_SHAPE[0]}x{MESH_SHAPE[1]} gloo, "
+            f"{cfg.n_layers} layers)": counts,
+            f"{cfg.name} (mesh train 1x1 nccl, "
+            f"{MESH_TRAIN_NCCL['n_layers']} layers)": counts1}
+
+
 def phase_whisper_train(card):
     """whisper-tiny as published in bf16 from seed 0: WHISPER_TRAIN's
     steps through training.step.make_train_step with AdamW (weight decay
@@ -3467,6 +3886,9 @@ BWD_CASES = [
      0.0, 2.0, "plain", "hopper", "hopper"),
     ("whisper-encoder", (16, 1500, 1500, 6, 64), torch.bfloat16, False, 0,
      0.0, 2.0, "plain", "hopper", "hopper"),
+    # a rank's local heads on path j (mesh_train): (1, 4096, 16, 128)
+    ("mesh-train-local-heads", (1, 4096, 4096, 16, 128), torch.bfloat16,
+     True, 0, 0.0, 2.0, "plain", "hopper", "hopper"),
 ]
 # the fault each case also shows the checks can see (checks.FAULTS)
 BWD_FAULTS = {"training": ("no-delta", "skip-last-tile", "lse-neighbour-row",
@@ -3474,7 +3896,7 @@ BWD_FAULTS = {"training": ("no-delta", "skip-last-tile", "lse-neighbour-row",
               "softcap-50": ("no-softcap-derivative",),
               "hd120-window256": ("skip-first-tile",)}
 # the cases timed in turns (the training shape is the kernels line's)
-TIMED_BWD_CASES = ("training", "hd128")
+TIMED_BWD_CASES = ("training", "hd128", "mesh-train-local-heads")
 # A gradient row's error is measured against the row's scale
 # (checks.bwd_row_scales: the norm of the sum of magnitudes that makes the
 # row), held to ROW_TOL.  dS = P (dP - D) cancels as a row's softmax nears
@@ -4266,12 +4688,14 @@ def main() -> int:
         for variant, n in by_variant.items():
             flash["launches_by_variant"][variant] += n
     free_device_memory("the previous phase")
+    mesh_train_runs = phase_mesh_train(card)
+    free_device_memory("the previous phase")
     bwd = phase_flash_bwd()
     free_device_memory("the previous phase")
     wkv_bwd = phase_wkv6_bwd()
     free_device_memory("the previous phase")
     scan_bwd = phase_scan_bwd(ex2_per_s)
-    runs = {}
+    runs = dict(mesh_train_runs)
     for arch in TRAIN_PATHS:
         free_device_memory("the previous phase")
         runs[f"{arch} (train)"] = phase_train(arch, card)

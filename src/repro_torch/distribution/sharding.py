@@ -20,14 +20,22 @@ Baseline layout:
 Serving stores FSDP dims whole: ``shard_params`` cuts a dim over the axes
 its spec names, but a dim the rules give to `data` alone stays whole on
 every rank, as the reference's serving knob ``no_fsdp_experts`` keeps
-expert weights.  Only `model` and full EP's ("data", "model") cut.  The
-gathers FSDP needs come with the training slice (ROADMAP Queue 1 item
-12's remainder).
+expert weights.  Only `model` and full EP's ("data", "model") cut.
+Training (``train=True``) cuts the `data` dims too (FSDP, ZeRO-3): each
+rank stores 1/(data x model) of a leaf both axes cut, and the model
+gathers a leaf whole over `data` at each use (``fsdp_gather``, inside the
+checkpointed layer, so the recompute gathers again, as GSPMD does under
+remat); the gather's backward sums the ranks' gradients and leaves each
+its block (``collectives.py``).  ``leaf_axes`` gives the axes that cut
+each leaf, which the gradient's reduction and the clip's global norm
+read.  A dim that does not divide its axis stays whole, as the rules
+say (minicpm-2b's vocab 122753 on `model`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tree as T
 from repro_torch.distribution.context import MeshContext
 
 
@@ -175,25 +183,25 @@ def batch_specs(dist: MeshContext, batch_shapes, shard_batch=True):
     return walk(batch_shapes)
 
 
-def _cut_axes(entry):
-    """The axes a spec entry cuts its dim over: none for None and for
-    `data` alone (FSDP, stored whole while serving)."""
-    if entry is None or entry == "data":
+def cut_axes(entry, train=False):
+    """The axes a spec entry cuts its dim over: none for None, and for
+    `data` alone (FSDP) unless ``train``: serving stores it whole."""
+    if entry is None or (entry == "data" and not train):
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def shard_params(params, specs, dist: MeshContext):
+def shard_params(params, specs, dist: MeshContext, train: bool = False):
     """Each full parameter of ``params`` cut to this rank's block by its
     spec in ``specs`` (``param_specs``' tree): a dim whose entry names
-    `model` (or ("data", "model")) is cut into equal blocks over those
-    axes, the rank's block at its flattened index; other dims stay whole.
-    A cut leaf is a contiguous copy (the full tree can be freed); a leaf
-    that nothing cuts is the full one."""
+    `model` (or ("data", "model"), or with ``train`` `data` too) is cut
+    into equal blocks over those axes, the rank's block at its flattened
+    index; other dims stay whole.  A cut leaf is a contiguous copy (the
+    full tree can be freed); a leaf that nothing cuts is the full one."""
     def cut(t, spec):
         out = t
         for dim, entry in enumerate(spec):
-            axes = _cut_axes(entry)
+            axes = cut_axes(entry, train)
             if not axes:
                 continue
             n = dist.comm.axis_size(axes)
@@ -205,9 +213,32 @@ def shard_params(params, specs, dist: MeshContext):
         return out if out is t else out.clone(
             memory_format=torch.contiguous_format)
 
-    def walk(node, spec):
-        if isinstance(node, dict):
-            return {k: walk(v, spec[k]) for k, v in node.items()}
-        return cut(node, spec)
+    return T.map_tree(cut, params, specs)
 
-    return walk(params, specs)
+
+def leaf_axes(specs, names):
+    """Each leaf's tuple of the mesh axes that cut it (in mesh order
+    ``names``; () for a leaf every rank holds whole), as ``shard_params``
+    with ``train`` cuts them."""
+    def axes(spec):
+        cut = {a for entry in spec for a in cut_axes(entry, train=True)}
+        return tuple(a for a in names if a in cut)
+
+    return T.map_tree(axes, specs)
+
+
+def fsdp_gather(tree, specs, shapes, dist: MeshContext, lead: int = 0):
+    """``tree``'s leaves whole over `data`: each dim whose spec entry is
+    `data` and which this rank holds a block of (smaller than in
+    ``shapes``, the full shapes) all-gathered over `data`, with the
+    gather's backward (a reduce-scatter of the gradient); ``shapes``' leaves
+    have ``.shape`` (``DecoderLM.layout``'s meta tensors).  ``lead``: the
+    leading entries of the specs and shapes that ``tree`` lacks (a layer's
+    views of stacked leaves drop the layer dim)."""
+    def gather(t, spec, full):
+        for dim, entry in enumerate(spec[lead:]):
+            if entry == "data" and t.shape[dim] < full.shape[lead + dim]:
+                t = dist.comm.all_gather(t, "data", dim=dim)
+        return t
+
+    return T.map_tree(gather, tree, specs, shapes)

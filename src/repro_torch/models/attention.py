@@ -32,6 +32,12 @@ themselves: q from ``wq``'s (or MLA's ``wq_b``'s) columns holds this
 rank's heads, ``repeat_kv`` gives each local q head its kv head, MLA's
 column-split down-projections are all-gathered over `model` before their
 norms, and ``out_proj`` sums the heads' partial products over `model`.
+For training, every value that each rank holds whole and that enters
+the local heads' computation is marked by ``comm.enter`` (its gradient
+psum'd over `model`: ``collectives.py``): x before the column-split
+projections, the q/k norm scales, the GQA k/v (``local_kv``), MLA's
+normed latents and its k_rope, MLA's whole ``wo`` before its rows are
+sliced.
 The sequence-parallel decodes ``decode_attention_sp`` and
 ``mla_decode_sp`` attend over this rank's slots of a cache whose sequence
 dim is sharded over ``dist.kv_seq`` and combine the shards' partial
@@ -46,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import common as C
 from repro_torch.models import layers as L
 from repro_torch.models.moe import _bmm_f32   # f32 outputs, no upcast
 
@@ -80,20 +87,31 @@ def init_attention(generator, cfg, dtype, device, lead=(), cross=False):
     return p
 
 
-def project_qkv(x, p, cfg, kv_x=None):
+def project_qkv(x, p, cfg, kv_x=None, dist=None):
     """Returns q (b,s,nq,hd), k/v (b,skv,nkv,hd): k and v from ``kv_x``
     (b, skv, d) where given (cross-attention), else from x.  The head
-    counts are the weights' (this rank's q heads on a mesh)."""
+    counts are the weights' (this rank's q heads on a mesh, where x and
+    the q norm's scale enter the split product)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     kv_x = x if kv_x is None else kv_x
-    q = (x @ p["wq"]).reshape(b, s, -1, hd)
+    split = p["wq"].shape[-1] < cfg.n_heads * hd
+    q = (C.enter_split(x, split, dist) @ p["wq"]).reshape(b, s, -1, hd)
     k = (kv_x @ p["wk"]).reshape(b, kv_x.shape[1], -1, hd)
     v = (kv_x @ p["wv"]).reshape(b, kv_x.shape[1], -1, hd)
     if "q_scale" in p:
-        q = L.head_rmsnorm(q) * p["q_scale"]
+        q = L.head_rmsnorm(q) * C.enter_split(p["q_scale"], split, dist)
         k = L.head_rmsnorm(k) * p["k_scale"]
     return q, k, v
+
+
+def local_kv(k, n_heads, n_local, dist):
+    """k or v (b, s, nkv, hd), which every rank computes whole, for this
+    rank's ``n_local`` q heads (``repeat_kv``); entering the split heads'
+    computation where ``n_local < n_heads``."""
+    h0 = head_offset(n_local, n_heads, dist)
+    k = C.enter_split(k, n_local < n_heads, dist)
+    return repeat_kv(k, n_heads, h0, n_local)
 
 
 def repeat_kv(k, n_heads, head0=0, n_local=None):
@@ -127,16 +145,8 @@ def out_proj(o, wo, n_local, n_heads, dist):
         return o @ wo
     if wo.shape[0] != o.shape[-1]:
         r0 = head_offset(n_local, n_heads, dist) * (o.shape[-1] // n_local)
-        wo = wo[r0:r0 + o.shape[-1]]
+        wo = dist.comm.enter(wo, dist.tp)[r0:r0 + o.shape[-1]]
     return dist.comm.psum(o @ wo, dist.tp)
-
-
-def _gather_cols(y, width, dist):
-    """y = x @ w for a w whose ``width`` columns may be split over
-    `model` (MLA's down-projections): the whole width on every rank."""
-    if y.shape[-1] == width:
-        return y
-    return dist.comm.all_gather(y, dist.tp, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -277,8 +287,8 @@ def mla_latents(x, p, cfg, positions, dist=None):
     """The cached quantities: c_kv (b, s, r_kv) and k_rope (b, s, hd_r),
     k_rope rotated as one head with ``cfg.rope_theta``."""
     m = cfg.mla
-    kv = _gather_cols(x @ p["wkv_a"], m.kv_lora_rank + m.qk_rope_head_dim,
-                      dist)
+    kv = C.col_product(x, p["wkv_a"], m.kv_lora_rank + m.qk_rope_head_dim,
+                       dist)
     c_kv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
     c_kv = _rms(c_kv, p["kv_norm"])
     k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
@@ -290,8 +300,10 @@ def mla_queries(x, p, cfg, positions, dist=None):
     heads."""
     m = cfg.mla
     b, s, _ = x.shape
-    q_a = _gather_cols(x @ p["wq_a"], m.q_lora_rank, dist)
-    q = _rms(q_a, p["q_norm"]) @ p["wq_b"]
+    q_a = C.col_product(x, p["wq_a"], m.q_lora_rank, dist)
+    split = p["wq_b"].shape[-1] < cfg.n_heads * (m.qk_nope_head_dim
+                                                 + m.qk_rope_head_dim)
+    q = C.enter_split(_rms(q_a, p["q_norm"]), split, dist) @ p["wq_b"]
     q = q.reshape(b, s, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = (q[..., :m.qk_nope_head_dim],
                       q[..., m.qk_nope_head_dim:])
@@ -307,12 +319,14 @@ def mla_prefill(x, p, cfg, positions, dist=None):
     c_kv, k_rope = mla_latents(x, p, cfg, positions, dist)
     q_nope, q_rope = mla_queries(x, p, cfg, positions, dist)
     h = q_nope.shape[2]
-    k_nope = (c_kv @ p["wk_b"]).reshape(b, s, h, m.qk_nope_head_dim)
-    v = (c_kv @ p["wv_b"]).reshape(b, s, h, m.v_head_dim)
+    c_kv_h = C.enter_split(c_kv, h < nq, dist)
+    k_rope_h = C.enter_split(k_rope, h < nq, dist)
+    k_nope = (c_kv_h @ p["wk_b"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (c_kv_h @ p["wv_b"]).reshape(b, s, h, m.v_head_dim)
     # contiguous in the head dim, as K1 takes them: the concatenation
     # materialises the broadcast k_rope
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+    k = torch.cat([k_nope, k_rope_h[:, :, None, :].expand(
         b, s, h, m.qk_rope_head_dim)], dim=-1)
     # v at its own width: K1 computes the reference's padded call's first
     # v_head_dim columns

@@ -58,17 +58,63 @@ def embed(tokens, p, cfg, dist=None):
     return x
 
 
-def lm_logits(x, p, cfg, dist=None):
+def lm_logits(x, p, cfg, dist=None, gather=True):
     """x @ the head (the tied table's transpose, or ``lm_head``).  On a
     mesh whose rule split the vocab over `model`, this rank's columns,
-    all-gathered over `model`."""
+    all-gathered over `model` unless ``gather`` is false (the loss takes
+    them split: ``next_token_loss``)."""
     if cfg.logit_scale != 1.0:
         x = mul_scalar(x, cfg.logit_scale)
     w = p["tokens"].T if cfg.tie_embeddings else p["lm_head"]
-    logits = x @ w
     if not _vocab_split(w.shape[-1], cfg, dist):
+        return x @ w
+    logits = dist.comm.enter(x, dist.tp) @ w
+    if not gather:
         return logits
     return dist.comm.all_gather(logits, dist.tp, dim=-1)
+
+
+def next_token_loss(logits, labels, mask, cfg, dist=None):
+    """The reference's ``next_token_loss``: the mean cross entropy over
+    the batch (over the tokens ``mask`` keeps, where given).  On a mesh,
+    ``logits`` and ``labels`` are this rank's rows, and the mean is the
+    global batch's: psum of the (masked) sum over the batch axes, divided
+    by the psum of the (mask's) count, not a mean of the ranks' means.  A
+    vocab split over `model` stays split, as the reference never gathers
+    it: the local max (a pmax, no gradient), the psum of the local sums
+    of exponentials, and the label's logit from the rank whose columns
+    hold it (a psum)."""
+    if dist is None or not dist.active:
+        return L.softmax_xent(logits, labels, mask)
+    comm, lf = dist.comm, logits.float()
+    labels = labels.long()
+    if _vocab_split(lf.shape[-1], cfg, dist):
+        m = comm.pmax(lf.amax(dim=-1), dist.tp)
+        lse = m + torch.log(comm.psum(
+            torch.exp(lf - m[..., None]).sum(dim=-1), dist.tp))
+        local = labels - _vocab0(lf.shape[-1], cfg, dist)
+        inside = (local >= 0) & (local < lf.shape[-1])
+        ll = torch.gather(lf, -1, torch.where(inside, local, 0)[..., None])
+        ll = comm.psum(torch.where(inside, ll[..., 0], 0.0), dist.tp)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, labels[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return comm.psum((nll * mask).sum(), dist.dp) / torch.clamp(
+            comm.psum(mask.sum(), dist.dp), min=1.0)
+    return comm.psum(nll.sum(), dist.dp) / (nll.numel() * dist.dp_size)
+
+
+def col_product(x, w, width, dist):
+    """x @ w for a w whose ``width`` columns may be split over `model`
+    (MLA's down-projections, the MTP projection): x enters the split
+    product and its columns are all-gathered, the whole width on every
+    rank."""
+    if w.shape[-1] == width:
+        return x @ w
+    y = dist.comm.enter(x, dist.tp) @ w
+    return dist.comm.all_gather(y, dist.tp, dim=-1)
 
 
 def row_sum(y, rows, full_rows, dist):
@@ -78,6 +124,12 @@ def row_sum(y, rows, full_rows, dist):
     if not dist.active or rows == full_rows:
         return y
     return dist.comm.psum(y, dist.tp)
+
+
+def enter_split(x, split, dist):
+    """``x`` marked as entering a computation split over `model` where
+    ``split`` (``collectives.py``: its gradient is psum'd there)."""
+    return dist.comm.enter(x, dist.tp) if split else x
 
 
 def residual_scale(cfg) -> float:

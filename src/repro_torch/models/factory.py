@@ -24,5 +24,5 @@ def build_model(cfg, dist=None, long_context=False):
         return DecoderLM(cfg, dist)
     if dist is not None and dist.active:
         raise NotImplementedError(f"{type(model).__name__} on a mesh: "
-                                  f"ROADMAP Queue 1 item 12's remainder")
+                                  f"ROADMAP Queue 1 item 12, point 6")
     return model

@@ -30,6 +30,8 @@ DRAW_BLOCK = 1 << 28
 
 def _normal(generator, shape, std, dtype, device):
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:                  # shapes alone (``DecoderLM.layout``)
+        return out
     rows = out.view(-1, shape[-1])
     step = max(1, DRAW_BLOCK // shape[-1])
     for r0 in range(0, rows.shape[0], step):

@@ -31,7 +31,13 @@ each expert's hidden dim), or full expert parallelism's explicit
 ``e_offset`` with ``combine_axes``, ``combine_dtype`` and
 ``shared_scale``.  Assignments to other ranks' experts drop into the
 trash row as overflow does, in the same token-major order, and the
-combine is one psum.
+combine is one psum.  Every rank of the split routes the same tokens, so
+the routing and its aux loss are whole on each; the tokens and the gates
+enter the split experts' computation (``comm.enter``: their gradients
+are psum'd over the axis in the backward, ``collectives.py``).  A rank
+whose experts receive no token still runs every product and collective
+(the dispatch buffer's rows are zeros), so the ranks' collectives stay in
+step in the backward too.
 """
 from __future__ import annotations
 
@@ -172,8 +178,12 @@ def apply_moe(x, p, cfg, *, router_mode="softmax_topk", ep_axis=None,
     if e_offset is None:
         e_offset = 0
         if ep_axis is not None:
+            # the reference's pmean of aux over ep_axis: every rank there
+            # routed the same tokens, so the mean is the value itself
             e_offset = dist.comm.axis_index(ep_axis) * n_local
-            aux = dist.comm.pmean(aux, ep_axis)
+    if axis is not None:
+        xf = dist.comm.enter(xf, axis)
+        gates = dist.comm.enter(gates, axis)
     C = _capacity(T, m)
 
     # position of each (token, k) assignment within its expert's queue

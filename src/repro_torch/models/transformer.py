@@ -38,9 +38,23 @@ log-sum-exp (``decode_attention_sp``, ``mla_decode_sp``), without it the
 ranks all-gather the cache and run the one-device decode on their heads,
 the function GSPMD computes.  The serving knobs are the reference's
 attributes (``sp_decode``, ``window_cache``, ``moe_full_ep``,
-``no_fsdp_experts``; ``launch/specs.py::optimized_overrides``).  Training
-on a mesh comes with ROADMAP Queue 1 item 12's remainder: ``loss``
-raises there.
+``no_fsdp_experts``; ``launch/specs.py::optimized_overrides``).
+
+``loss`` trains on a mesh with the same explicit SPMD, its gradient
+carried across ranks by the collectives' backwards (``collectives.py``):
+``batch`` holds this rank's rows (`data`), and the loss is the global
+batch's mean (``common.next_token_loss``: the vocab stays split over
+`model`).  Params cut by ``sharding.shard_params(..., train=True)`` hold
+FSDP blocks over `data` too; each is gathered whole over `data` at its
+use (``sharding.fsdp_gather``: the embedding and head once, a layer's
+leaves inside its checkpointed layer, so the recompute gathers again),
+and the gather's backward leaves each rank its block's summed gradient.
+A leaf no `data` dim cuts ends with this rank's rows' part of its
+gradient, which the train step sums (``training/step.py``).  A MoE
+layer's capacity and aux loss are each `data` shard's, the aux averaged
+over `data`, as the reference's shard_map computes them
+(``src/repro/models/transformer.py:147-200``); full expert parallelism,
+a decode layout, raises.
 
 ``loss`` is the reference's: next-token cross entropy plus the MoE aux
 loss, each layer under activation checkpointing (the reference's
@@ -59,6 +73,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
+from repro_torch.distribution import sharding as S
 from repro_torch.distribution.context import NULL_CTX
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as A
@@ -188,6 +203,14 @@ class DecoderLM:
                            "down": (*pre, "model", None)}
         return w
 
+    def layout(self):
+        """(specs, full shapes) of the params: ``sharding.param_specs`` of
+        the whole model (drawn on the meta device: shapes only) under the
+        knobs set now.  Training on a mesh reads both to gather a leaf's
+        FSDP blocks."""
+        shapes = self.init(None, "meta")
+        return S.param_specs(self, shapes), shapes
+
     # -------------------------------------------------------------- caches
 
     def _kv_shards(self):
@@ -245,16 +268,15 @@ class DecoderLM:
                 self._write_prefill(cache_entry, {"ckv": c_kv,
                                                   "krope": k_rope})
             return out
-        q, k, v = A.project_qkv(x, ap, cfg)
+        q, k, v = A.project_qkv(x, ap, cfg, dist=dist)
         if not cfg.no_rope:
             q = L.apply_rope(q, positions, theta)
             k = L.apply_rope(k, positions, theta)
         if cache_entry is not None:
             self._write_prefill(cache_entry, {"k": k, "v": v})
         h = q.shape[2]
-        h0 = A.head_offset(h, cfg.n_heads, dist)
-        k = A.repeat_kv(k, cfg.n_heads, h0, h)
-        v = A.repeat_kv(v, cfg.n_heads, h0, h)
+        k = A.local_kv(k, cfg.n_heads, h, dist)
+        v = A.local_kv(v, cfg.n_heads, h, dist)
         o = flash_ops.flash_attention(q, k, v, causal=True, window=win,
                                       softcap=cfg.attn_logit_softcap)
         b, s = x.shape[:2]
@@ -279,7 +301,7 @@ class DecoderLM:
             return A.mla_decode(x, ap, cfg, self._whole_cache(ckv_c),
                                 self._whole_cache(krope_c), length + 1,
                                 positions, dist)
-        q, k, v = A.project_qkv(x, ap, cfg)
+        q, k, v = A.project_qkv(x, ap, cfg, dist=dist)
         if not cfg.no_rope:
             q = L.apply_rope(q, positions, theta)
             k = L.apply_rope(k, positions, theta)
@@ -315,7 +337,12 @@ class DecoderLM:
                           cfg.n_heads, dist)
 
     def _moe(self, x, mp):
-        """(y, aux loss): one device, or the reference's mesh branch."""
+        """(y, aux loss): one device, or the reference's mesh branch.  The
+        reference's pmean of aux over every axis is taken over the batch
+        axes: every `model` rank routes the same tokens, so its mean over
+        `model` is the value itself (and a mean there would divide the
+        gradient that ``collectives.py``'s convention gives each rank
+        whole)."""
         cfg, dist = self.cfg, self.dist
         if not dist.active:
             return M.apply_moe(x, mp, cfg, router_mode=self.router_mode)
@@ -345,7 +372,7 @@ class DecoderLM:
                              ep_axis="model" if self.moe_ep else None,
                              tp_axis=None if self.moe_ep else "model",
                              dist=dist)
-        return y, comm.pmean(aux, all_axes)
+        return y, comm.pmean(aux, dist.dp)
 
     def _ffn(self, x, fp):
         """(y, aux loss): the MoE's, or None for a dense MLP (a row-split
@@ -353,13 +380,19 @@ class DecoderLM:
         cfg = self.cfg
         if cfg.moe is not None:
             return self._moe(x, fp)
+        split = fp["down"].shape[-2] < cfg.d_ff
+        x = C.enter_split(x, split, self.dist)
         return C.row_sum(L.apply_mlp(x, fp, cfg.act), fp["down"].shape[-2],
                          cfg.d_ff, self.dist), None
 
     def _layer(self, x, lp, win, theta, positions, cache_entry, length,
-               mode):
-        """(x, aux loss) after one layer."""
+               mode, fsdp=None):
+        """(x, aux loss) after one layer.  ``fsdp``: the layers' (specs,
+        full shapes) where the layer's leaves are gathered over `data`
+        first (training on a mesh)."""
         cfg = self.cfg
+        if fsdp is not None:
+            lp = S.fsdp_gather(lp, *fsdp, self.dist, lead=1)
         h = L.apply_norm(x, lp["ln1"], cfg)
         if mode == "decode":
             attn = self._attention_decode(h, lp["attn"], win, theta,
@@ -375,20 +408,22 @@ class DecoderLM:
     # ------------------------------------------------------------- forwards
 
     def _run_layers(self, x, params, positions, cache, length, mode,
-                    remat=False):
+                    remat=False, fsdp=None):
         """(x, aux) after every layer.  mode "prefill" fills ``cache``
         from position 0, "decode" writes it at ``length``, "train" runs
         without a cache (cache None) and sums the layers' MoE aux losses
         into ``aux`` (0 for a dense model; None in the other modes, where
         nothing reads it).  With ``remat`` ("train" only) each layer runs
-        under activation checkpointing with ``remat_policy``."""
+        under activation checkpointing with ``remat_policy``; ``fsdp``:
+        ``_layer``'s."""
         win, theta = layer_scalars(self.cfg)
         layers = C.unstack_layers(params["layers"], self.cfg.n_layers)
         aux = x.new_zeros((), dtype=torch.float32) if mode == "train" \
             else None
         for l, lp in enumerate(layers):
             ce = None if cache is None else C.index_layer(cache, l)
-            args = (x, lp, win[l], theta[l], positions, ce, length, mode)
+            args = (x, lp, win[l], theta[l], positions, ce, length, mode,
+                    fsdp)
             if remat:
                 # no layer draws random numbers: no RNG state to keep
                 x, a = ckpt.checkpoint(self._layer, *args,
@@ -417,26 +452,34 @@ class DecoderLM:
         optional patch_embeds (b, P, d).  Returns (xent [+ 0.3 mtp] + aux,
         {"xent", "aux_loss"[, "mtp"]}), every layer under activation
         checkpointing."""
-        cfg = self.cfg
-        if self.dist.active:
-            raise NotImplementedError(
-                "training on a mesh: ROADMAP Queue 1 item 12's remainder "
-                "(grad_specs, FSDP gathers, the mesh path of launch/train)")
+        cfg, dist = self.cfg, self.dist
+        fsdp = None
+        if dist.active:
+            if self.moe_full_ep and self.full_ep_available():
+                raise NotImplementedError(
+                    "training with moe_full_ep: full expert parallelism is "
+                    "the reference's decode layout (launch/specs.py)")
+            specs, shapes = self.layout()
+            params = {k: (v if k == "layers" else
+                          S.fsdp_gather(v, specs[k], shapes[k], dist))
+                      for k, v in params.items()}
+            fsdp = (specs["layers"], shapes["layers"])
         patches = batch.get("patch_embeds")
         x = self._embed_inputs(params, batch["tokens"], patches)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x, aux = self._run_layers(x, params, positions, None, None,
-                                  "train", remat=True)
+                                  "train", remat=True,
+                                  **({"fsdp": fsdp} if fsdp else {}))
         x = L.apply_norm(x, params["final_norm"], cfg)
         if patches is not None:
             x = x[:, patches.shape[1]:]
-        logits = C.lm_logits(x, params["embed"], cfg)
+        logits = C.lm_logits(x, params["embed"], cfg, dist, gather=False)
         # The reference's next_token_loss: its one-hot einsum picks exactly
         # logits[label] (every other term of the sum is +-0), so
         # softmax_xent's gather gives the same bits without the (b, s, V)
         # one-hot.
-        xent = L.softmax_xent(logits, batch["labels"],
-                              batch.get("loss_mask"))
+        xent = C.next_token_loss(logits, batch["labels"],
+                                 batch.get("loss_mask"), cfg, dist)
         metrics = {"xent": xent, "aux_loss": aux}
         loss = xent
         if cfg.mtp_depth:
@@ -452,20 +495,21 @@ class DecoderLM:
         one more layer (the last layer's window and theta, no remat, its
         MoE aux loss dropped), then cross entropy against the labels
         rolled by -1 with the last two positions masked."""
-        cfg, mtp = self.cfg, params["mtp"]
+        cfg, dist, mtp = self.cfg, self.dist, params["mtp"]
         labels2 = torch.roll(batch["labels"], -1, dims=1)
-        emb_next = C.embed(labels2, params["embed"], cfg)
+        emb_next = C.embed(labels2, params["embed"], cfg, dist)
         hn = L.rmsnorm(h, mtp["norm"], cfg.norm_eps)
-        x = torch.cat([hn, emb_next], dim=-1) @ mtp["proj"]
+        x = C.col_product(torch.cat([hn, emb_next], dim=-1), mtp["proj"],
+                          cfg.d_model, dist)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         win, theta = layer_scalars(cfg)
         x, _ = self._layer(x, mtp["layer"], win[-1], theta[-1], positions,
                            None, None, "train")
-        logits = C.lm_logits(x, params["embed"], cfg)
+        logits = C.lm_logits(x, params["embed"], cfg, dist, gather=False)
         mask = torch.ones(labels2.shape, dtype=torch.float32,
                           device=labels2.device)
         mask[:, -2:] = 0.0
-        return L.softmax_xent(logits, labels2, mask)
+        return C.next_token_loss(logits, labels2, mask, cfg, dist)
 
     def _embed_inputs(self, params, tokens, patch_embeds=None):
         """Token embeddings, with ``patch_embeds`` (b, P, d) in front."""

@@ -51,7 +51,7 @@ class WhisperLM:
     def __init__(self, cfg, dist=None):
         self.cfg = cfg
         # a mesh context gives cache_specs; the forwards run on one device
-        # (on a mesh: ROADMAP Queue 1 item 12's remainder)
+        # (on a mesh: ROADMAP Queue 1 item 12, point 6)
         self.dist = dist or NULL_CTX
         self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                       else torch.float32)
@@ -59,7 +59,7 @@ class WhisperLM:
     def _one_device(self):
         if self.dist.active:
             raise NotImplementedError(
-                "WhisperLM on a mesh: ROADMAP Queue 1 item 12's remainder")
+                "WhisperLM on a mesh: ROADMAP Queue 1 item 12, point 6")
 
     # ------------------------------------------------------------------ init
 

@@ -14,6 +14,16 @@ Unlike the reference, ``update`` writes the new params and unquantized
 moments into the tensors it was given (and returns them): at minicpm-2b's
 2.7 B params a second copy would cost 5.4 GB of params and 21.8 GB of
 moments.  It runs under ``torch.no_grad``.
+
+On a mesh (``update(..., mesh=(comm, axes))``, ``training/step.py``)
+each rank updates its blocks, and the clip's global norm is the whole
+model's: each leaf's sum of squares is psum'd over the axes that cut it
+(one psum for the leaves of each set of axes) and a leaf every rank
+holds whole counts once, so ``grad_norm`` and the clip scale are the
+one-device run's (up to the order of the sums).  Decay's ``ndim >= 2``
+rule reads a block's ndim, which is its global shape's: a cut keeps
+every dim.  Quantized moments raise there (ROADMAP Queue 1 item 12,
+point 7).
 """
 from __future__ import annotations
 
@@ -61,17 +71,21 @@ class AdamW:
                 else quant.quantize(t))
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, mesh=None):
         """(params, state, {"grad_norm", "lr"}) after one step; params and
-        unquantized moments are updated in place."""
+        unquantized moments are updated in place.  ``mesh``: (the mesh's
+        ``Collectives``, each leaf's cut axes) on a mesh."""
         c = self.cfg
+        if mesh is not None and c.quantized:
+            raise NotImplementedError(
+                "quantized AdamW moments on a mesh: ROADMAP Queue 1 item "
+                "12, point 7")
         step = state["step"] + 1
         lr = self.schedule(step)
         flat_g = T.leaves(grads)
 
         # global-norm clip (f32 accumulation, in the reference's leaf order)
-        gsq = sum(torch.sum(torch.square(g.float())) for g in flat_g)
-        gnorm = torch.sqrt(gsq)
+        gnorm = torch.sqrt(global_square_sum(flat_g, mesh))
         scale = torch.clamp(c.clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         stepf = step.float()
@@ -103,6 +117,21 @@ class AdamW:
         if self.cfg.quantized:
             return self._store(new)
         return old.copy_(new)
+
+
+def global_square_sum(flat_g, mesh=None):
+    """The sum of squares of every gradient leaf (f32, in leaf order); on
+    a mesh (``(comm, axes tree)``) the whole model's: the leaves grouped
+    by the axes that cut them, each group's local sum psum'd over its
+    axes, the groups in the order their first leaves come."""
+    if mesh is None:
+        return sum(torch.sum(torch.square(g.float())) for g in flat_g)
+    comm, axes = mesh
+    groups = {}
+    for g, ax in zip(flat_g, T.leaves(axes)):
+        s = torch.sum(torch.square(g.float()))
+        groups[ax] = groups[ax] + s if ax in groups else s
+    return sum(comm.psum(s, ax) for ax, s in groups.items())
 
 
 def _unflatten(tree, values, is_leaf):

@@ -5,8 +5,8 @@ flattened tensor (the reference's original flat layout).
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the same
 f32 values quantize to the same bits.  The reference's error-feedback
-gradient compression (``compress_with_feedback``, ``compressed_psum``)
-belongs to training on a mesh: ROADMAP Queue 1 item 12's remainder."""
+int8 gradient compression (``compress_with_feedback``,
+``compressed_psum``) runs on a mesh's ``Collectives``."""
 from __future__ import annotations
 
 import torch
@@ -87,3 +87,30 @@ def dequantize(t: QTensor):
 
 def is_qtensor(x):
     return isinstance(x, QTensor)
+
+
+# ---------------------------------------------------------------------------
+# error-feedback int8 gradient compression (pure data-parallel meshes)
+
+
+def compress_with_feedback(grad, error):
+    """(int8 QTensor, new error): grad + error quantized; the residual is
+    carried to the next step (EF-SGD / 1-bit-Adam style)."""
+    target = grad.float() + error
+    q = quantize(target)
+    return q, target - dequantize(q)
+
+
+def compressed_psum(grad, error, comm, axes):
+    """int8 on the wire, as the reference models it: quantize locally,
+    psum the int32-cast payload times its scales over ``axes`` (a
+    ``Collectives``' axes), keep the quantization residual locally.
+    Returns (the sum in grad's dtype, new error).  The sum is read back
+    from the flattened blocks as the reference reads it."""
+    q, new_error = compress_with_feedback(grad, error)
+    summed = comm.psum(q.q.to(torch.int32) * q.scale, axes)
+    n = 1
+    for s in q.shape:
+        n *= s
+    out = summed.reshape(-1)[:n].reshape(q.shape)
+    return out.to(grad.dtype), new_error

@@ -206,3 +206,94 @@ def test_shard_params_cuts_blocks_that_tile_the_whole():
     with pytest.raises(ValueError, match="divide"):
         tS.shard_params({"d": torch.zeros(5, 4)}, {"d": ("model", None)},
                         SimpleNamespace(comm=comm))
+
+
+def _fake_comm(sizes, coords):
+    """axis_size and axis_index over ``sizes`` at the rank ``coords``."""
+    def names(axes):
+        return (axes,) if isinstance(axes, str) else tuple(axes)
+
+    def axis_index(axes):
+        idx = 0
+        for a in names(axes):
+            idx = idx * sizes[a] + coords[a]
+        return idx
+
+    return SimpleNamespace(
+        names=tuple(sizes),
+        axis_size=lambda axes: int(np.prod([sizes[a] for a in names(axes)])),
+        axis_index=axis_index)
+
+
+def test_shard_params_for_training_cuts_data_dims():
+    """With ``train`` the `data` dims are cut too (FSDP), each rank's
+    blocks tiling the leaf; ``leaf_axes`` names each leaf's cutting axes
+    in mesh order."""
+    sizes = {"data": 2, "model": 3}
+    full = {"a": torch.arange(2 * 6 * 12.).reshape(2, 6, 12),
+            "b": torch.arange(4 * 6.).reshape(4, 6),
+            "w": {"c": torch.arange(6 * 4.).reshape(6, 4)}}
+    specs = {"a": (None, "data", "model"), "b": ("data", None),
+             "w": {"c": ("model", "data")}}
+    assert tS.leaf_axes(specs, ("data", "model")) == {
+        "a": ("data", "model"), "b": ("data",),
+        "w": {"c": ("data", "model")}}
+    blocks = {}
+    for di, mi in itertools.product(range(2), range(3)):
+        comm = _fake_comm(sizes, {"data": di, "model": mi})
+        local = tS.shard_params(full, specs, SimpleNamespace(comm=comm),
+                                train=True)
+        assert local["a"].shape == (2, 3, 4)
+        assert local["b"].shape == (2, 6)
+        assert local["w"]["c"].shape == (2, 2)
+        assert torch.equal(local["a"],
+                           full["a"][:, 3 * di:3 * di + 3, 4 * mi:4 * mi + 4])
+        blocks[(di, mi)] = local
+    # every rank's blocks, placed by its coordinates, tile each leaf
+    rows = [torch.cat([blocks[(di, mi)]["a"] for mi in range(3)], dim=2)
+            for di in range(2)]
+    assert torch.equal(torch.cat(rows, dim=1), full["a"])
+    assert torch.equal(torch.cat([blocks[(di, 0)]["b"] for di in range(2)]),
+                       full["b"])
+    c = torch.cat([torch.cat([blocks[(di, mi)]["w"]["c"] for di in range(2)],
+                             dim=1) for mi in range(3)])
+    assert torch.equal(c, full["w"]["c"])
+
+
+def test_microbatch_rows_take_the_reference_rows():
+    """Data rank d's microbatch i holds global rows i·B/M + d·B/(M·dp)
+    onwards (the reference reshapes the global batch to (M, B/M) and
+    splits the second dim over `data`)."""
+    from repro_torch.training.step import microbatch_rows
+    batch = {"tokens": torch.arange(8)[:, None].repeat(1, 3)}
+    for d in range(2):
+        dist = SimpleNamespace(active=True, dp_size=2, dp=("data",),
+                               comm=_fake_comm({"data": 2}, {"data": d}))
+        mbs = microbatch_rows(batch, 2, dist)
+        assert [mb["tokens"][:, 0].tolist() for mb in mbs] == [
+            [2 * d, 2 * d + 1], [4 + 2 * d, 4 + 2 * d + 1]]
+    one = microbatch_rows(batch, 4, tctx.NULL_CTX)
+    assert [mb["tokens"][:, 0].tolist() for mb in one] == [
+        [0, 1], [2, 3], [4, 5], [6, 7]]
+    with pytest.raises(ValueError, match="microbatches"):
+        microbatch_rows(batch, 3, tctx.NULL_CTX)
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v3-671b"])
+def test_train_state_specs_shard_moments_as_params(arch):
+    """``train_state_specs``: the rule table's specs for the params, the
+    same for each moment, the step whole; quantized moments raise on a
+    mesh."""
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.training.step import train_state_specs
+    _, td = contexts((2, 4))
+    model = build_model(port_smoke(arch), td)
+    shapes = model.init(None, "meta")
+    pspecs, ospecs = train_state_specs(model, shapes)
+    assert pspecs == tS.param_specs(model, shapes)
+    assert ospecs == {"m": pspecs, "v": pspecs, "step": ()}
+    assert model.layout()[0] == pspecs
+    opt = AdamW(lambda s: 0.0, AdamWConfig(quantized=True))
+    small = {"w": torch.zeros(4, 256)}
+    with pytest.raises(NotImplementedError, match="item 12, point 7"):
+        train_state_specs(model, shapes, opt.init(small))

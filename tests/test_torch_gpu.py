@@ -1680,3 +1680,50 @@ def test_mesh_serving_on_the_card_matches_one_device(cuda, tmp_path, mesh,
     for arch in cases:
         torch.testing.assert_close(ranks.by_rows(outs, arch, mesh),
                                    want[arch], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,moe", [
+    ("mistral-nemo-12b", {}),
+    # no drops and no aux loss: the mesh takes both on each `data` shard
+    ("deepseek-v3-671b", {"capacity_factor": 16.0, "aux_loss_coef": 0.0})],
+    ids=["mistral", "deepseek"])
+@pytest.mark.parametrize("mesh,backend", [((2, 2), "gloo"),
+                                          ((1, 1), "nccl")],
+                         ids=["2x2-gloo", "1x1-nccl"])
+def test_mesh_training_on_the_card_matches_one_device(cuda, tmp_path, mesh,
+                                                      backend, arch, moe):
+    """DecoderLM.loss and every gradient leaf on a mesh of ranks on card 0
+    (FSDP and TP blocks, tests/torch_mesh_ranks.py's "train_loss" case:
+    the gradients summed over `data` and gathered whole) against the same
+    model's ``value_and_grad`` on one device on the card: mistral-nemo-12b's
+    smoke config and DeepSeek-V3's (MLA, MoE, MTP) in f32, a loss mask;
+    the loss within 2e-5 relative, each leaf within 1e-4 of its largest
+    |entry| (the CPU tests' limits)."""
+    import dataclasses
+
+    import torch_mesh_ranks as ranks
+    from repro_torch import tree as T
+    from repro_torch.training.step import value_and_grad
+    cfg = get_smoke(arch).replace(dtype="float32")
+    if moe:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 17), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": (torch.rand((4, 16), generator=gen) < 0.7).float()}
+    loss, _, grads = value_and_grad(model, _to(params, cuda),
+                                    _to(batch, cuda))
+    case = {"kind": "train_loss", "arch": arch, "dtype": "float32",
+            "moe": moe, "knobs": {}, "params": params, "batch": batch}
+    outs = ranks.spawn({"loss": case}, mesh, tmp_path, device="cuda",
+                       backend=backend)
+    for c, o in outs.items():
+        got = o["loss"]
+        torch.testing.assert_close(got["loss"], loss.cpu(), rtol=2e-5,
+                                   atol=0)
+        for path, g in T.flatten(grads):
+            want = g.cpu()
+            err = (got[f"g/{path}"] - want).abs().max().item()
+            assert err <= 1e-4 * want.abs().max().item(), (c, path, err)

@@ -34,11 +34,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -56,7 +51,6 @@ from repro_torch.bridge import params_from_flat  # noqa: E402
 
 import torch_mesh_ranks as ranks  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
 MESHES = [(2, 2), (1, 4)]
 MESH_IDS = ["2x2", "1x4"]
 DEADLINE_S = 240
@@ -264,61 +258,35 @@ np.savez(sys.argv[2], **out)
 """
 
 
-class JaxSP:
-    """The JAX package's SP functions on both meshes, in a subprocess with
-    4 host devices, started at once so that it runs beside the rest:
-    ``outputs()`` waits for {"2x2/sp-f32": ..., "1x4/mla": ...}."""
-
-    def __init__(self, tmp):
-        self.tmp = tmp
-        io = {"sp_names": np.array(list(SP)), "length": SP_SHAPE["length"]}
-        for name, (dtype, window, softcap) in SP.items():
-            for t, a in zip("qkv", sp_inputs(dtype)):
-                io[f"{name}/{t}"] = a
-            io[f"{name}/dtype"], io[f"{name}/window"] = dtype, window
-            io[f"{name}/softcap"] = softcap
-        x, ckv, krope, length = mla_inputs(jax_cfg("deepseek-v3-671b",
-                                                   "float32"))
-        io.update({"mla/x": x, "mla/ckv": ckv, "mla/krope": krope,
-                   "mla/length": length})
-        np.savez(tmp / "jax_in.npz", **io)
-        env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   XLA_FLAGS="--xla_force_host_platform_device_count=4",
-                   PYTHONPATH=str(ROOT / "src"))
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", textwrap.dedent(JAX_SP),
-             str(tmp / "jax_in.npz"), str(tmp / "jax_out.npz")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
-            cwd=ROOT)
-        self._out = None
-
-    def outputs(self):
-        if self._out is None:
-            try:
-                log = self.proc.communicate(timeout=DEADLINE_S)[0]
-            except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.wait()
-                pytest.fail(f"the JAX mesh run outlived {DEADLINE_S} s")
-            assert self.proc.returncode == 0, log.decode()[-4000:]
-            self._out = dict(np.load(self.tmp / "jax_out.npz"))
-        return self._out
+def start_jax_sp(tmp):
+    """The JAX package's SP functions on both meshes (``JAX_SP``, a
+    ``ranks.JaxRun``): ``outputs()`` waits for {"2x2/sp-f32": ...,
+    "1x4/mla": ...}."""
+    io = {"sp_names": np.array(list(SP)), "length": SP_SHAPE["length"]}
+    for name, (dtype, window, softcap) in SP.items():
+        for t, a in zip("qkv", sp_inputs(dtype)):
+            io[f"{name}/{t}"] = a
+        io[f"{name}/dtype"], io[f"{name}/window"] = dtype, window
+        io[f"{name}/softcap"] = softcap
+    x, ckv, krope, length = mla_inputs(jax_cfg("deepseek-v3-671b",
+                                               "float32"))
+    io.update({"mla/x": x, "mla/ckv": ckv, "mla/krope": krope,
+               "mla/length": length})
+    return ranks.JaxRun(tmp, JAX_SP, io, DEADLINE_S)
 
 
 @pytest.fixture(scope="module")
-def jax_sp(tmp_path_factory):
-    run = JaxSP(tmp_path_factory.mktemp("jax_sp"))
+def jax_sp_run(tmp_path_factory):
+    run = start_jax_sp(tmp_path_factory.mktemp("jax_sp"))
     yield run
-    if run.proc.poll() is None:
-        run.proc.kill()
-        run.proc.wait()
+    run.close()
 
 
 # -------------------------------------------------------------- the ranks
 
 
 @pytest.fixture(scope="module", params=MESHES, ids=MESH_IDS)
-def mesh_run(request, tmp_path_factory, jax_sp):
+def mesh_run(request, tmp_path_factory, jax_sp_run):
     """(mesh, every rank's outputs, the references) for one mesh."""
     mesh = request.param
     cases, refs = {}, {}
@@ -332,7 +300,7 @@ def mesh_run(request, tmp_path_factory, jax_sp):
     cases["staged"] = {**cases["mistral-sp-bf16"], "staged": True}
     tmp = tmp_path_factory.mktemp(f"mesh{mesh[0]}x{mesh[1]}")
     return mesh, ranks.spawn(cases, mesh, tmp, deadline=DEADLINE_S), refs, \
-        jax_sp
+        jax_sp_run
 
 
 def close(ref, got, dtype):
