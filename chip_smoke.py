@@ -53,12 +53,15 @@ non-zero and prints no result:
    turns with SDPA; K2 through its
    dispatcher, and its candidate plans (G, C, CB, double buffer) in two
    passes at the main-path shape, each case checked for the plan it
-   took, and a stale chunk and a lost row group shown to fail; the
+   took, and a stale chunk and a lost row group shown to fail, and at a
+   mesh rank's local heads (2, 1024, 16, 64) timed queued and back to
+   back beside its plain version and bound; the
    SFUs' ex2 rate measured on every SM, alone and beside FFMAs; K3
    through its dispatcher, and its first design (the yardstick), the
    same with ex2.approx and the serving design checked and timed in two
    passes at the main-path shape, beside its bound and its design's
-   floor;
+   floor, and at a mesh rank's local channels (2, 1024, 8192, 16) timed
+   as K2 at its local heads;
 4. main paths, each with every kernel's launch count set to 0 just
    before it and read just after, served through the port's rFaaS stack
    (ModelServer, ServeEngine, Invoker, ResourceManager, BatchSystem,
@@ -153,11 +156,30 @@ non-zero and prints no result:
    run's; at the first step's params, the row-parallel psum's backward
    left out, the `data` reduction of a gradient left out and a replicated
    leaf counted twice, each on rank (0, 1), shown to move grad_norm far
-   past the limit; K1 on every rank the one-device step's launches,
-   forward and backward, all Hopper; rank 0's step time, each rank's peak
-   memory and the collectives' calls, bytes and host seconds by op a
-   step; then the 2-layer cut for 2 steps on a one-rank NCCL mesh, held
-   the same way;
+   past the limit; every kernel's launches a step on every rank the
+   one-device step's and MESH_TRAIN's, K1's all Hopper; rank 0's step
+   time, each rank's peak memory and the collectives' calls, bytes and
+   host seconds by op a step; then the 2-layer cut for 2 steps on a
+   one-rank NCCL mesh, held the same way;
+   then the recurrent families' mesh phase (phase_mesh_ssm), on the same
+   four gloo ranks, every width as published: path k, rwkv6-1.6b at full
+   depth (16 of its 32 heads a `model` rank, K2 on them 24 times a wave),
+   and path l, Jamba's 2-layer MoE cut (layers 4-5 of a period; 8 of its
+   16 experts and 8192 of its 16384 Mamba channels a rank, K1 and K3 once
+   a wave), and path k-bf16, rwkv6-1.6b at 2 layers in its published
+   bf16, each serving path a's 8 prompts as the mesh phase does, rows and
+   Jamba's Mamba state within MESH_ROW_LIMIT of the one-device run, wo's
+   psum left out and u and w0 at head offset 0 (RWKV), in_proj cut as one
+   contiguous block and x_proj's psum left out (Jamba), each on rank (0,
+   1), shown to take the rows or the state past twice the limit;
+   then path m, rwkv6-1.6b cut to 4 layers in f32, and path n, Jamba's
+   2-layer dense cut in bf16, each trained 2 steps of 4 x 2048 tokens in
+   2 microbatches with grad_specs, each step's loss and grad_norm on
+   every rank within MESH_TRAIN_LIMIT of one device, every kernel's
+   launches a step on every rank as MESH_SSM_TRAIN says; then path m at 2
+   layers on a one-rank NCCL mesh, bit for bit with one device; it prints
+   bytes and calls by collective a decode step and a training step, each
+   rank's peak memory and the phase's wall time;
 6. K1's backward (flash_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.flash_attention, whose backward
    launches the kernels of the route kernel_bwd.plan picks) against
@@ -254,7 +276,9 @@ non-zero and prints no result:
     rFaaS-leased executors, the ledger's bill;
 12. the kernels line (K1, K1's backward, K2, K2's backward, K3, K3's
     backward, each with its launches by path, Whisper's path g and its
-    training among K1's), the card line and the result line, last.
+    training among K1's, the mesh paths' K1, K2 and K3 launches summed
+    over their ranks; K2 and K3 with their times at a mesh rank's local
+    shape), the card line and the result line, last.
 
 The Whisper phases print their own wall times.
 
@@ -269,6 +293,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1179,6 +1204,11 @@ WKV_CASES = [
     ("s100-hd24", (2, 100, 4, 24), torch.float32, False, 10.0),
     ("s33", (2, 33, 32, 64), torch.bfloat16, False, 10.0),
     ("s1024-f32-main-width", (4, 1024, 32, 64), torch.float32, False, 10.0),
+    # a mesh rank's local heads: 16 of rwkv6-1.6b's 32, the 2 rows of a
+    # `data` rank (phase mesh_ssm), in the published bf16 (path k-bf16)
+    # and in f32 (paths k and m); timed (_time_local)
+    ("mesh-local-heads", (2, 1024, 16, 64), torch.bfloat16, False, 0.0),
+    ("mesh-local-heads-f32", (2, 1024, 16, 64), torch.float32, False, 0.0),
 ]
 
 
@@ -1264,6 +1294,10 @@ def phase_wkv6():
               f"{y_ref.float().pow(2).mean().sqrt().item():.3g}), worst row "
               f"{rerr:.3e} (tol {rtol:g}); state max_abs_err {s_err:.3e}, "
               f"worst row {s_rerr:.3e} (tol {checks.STATE_ROW_TOL:g})")
+        if name.startswith("mesh-local-heads"):
+            entry[name.replace("-", "_")] = _time_local(
+                "wkv6", name, shape, lambda: wkv_ops.wkv6(*args),
+                lambda: wkv6_ref(*args), wkv_bound(shape, dtype))
         if name != "main-path":
             del args, y, S, y_ref, S_ref
             continue
@@ -1281,6 +1315,27 @@ def phase_wkv6():
         del args, y, S, y_ref, S_ref
     torch.cuda.empty_cache()
     return entry
+
+
+def _time_local(kernel, name, shape, fn, plain, bound):
+    """A kernel at a mesh rank's local shape through its dispatcher:
+    device time queued behind a sleep of the stream (its kernel alone),
+    twice, and back to back (the host's launch work included), and the
+    plain version's, beside the bound (``bound``: a bound function's
+    value).  Printed and returned for the kernels line."""
+    bound_ms, bound_by = bound[:2]
+    with torch.inference_mode():
+        queued = [time_ms(fn, iters=20, queued=True) for _ in range(2)]
+        back = time_ms(fn, iters=20)
+        plain_ms = time_ms(plain, iters=2, warmup=1)
+    print(f"[kernels] {kernel} {name} {tuple(shape)}: queued "
+          f"{', '.join(f'{t:.4f}' for t in queued)} ms "
+          f"({min(queued) / bound_ms:.2f} x bound), back to back "
+          f"{back:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), no library call")
+    return {"shape": list(shape), "ms": queued, "ms_back_to_back": back,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def _wkv_checks_can_fail(wkv6_ref, args, y_ref, S_ref, rtol, s_rtol, chunk):
@@ -1688,6 +1743,9 @@ SCAN_CASES = [
      dict(A_kind="long-memory")),
     # x's rows 1998 bytes apart: bf16 staged by plain 2-byte copies
     ("odd-di-bf16", (2, 65, 999, 16), torch.bfloat16, 10.0, {}),
+    # a mesh rank's local channels on path l: 8192 of Jamba's 16384, the 2
+    # rows of a `data` rank (phase mesh_ssm); timed (_time_local)
+    ("mesh-local-channels", (2, 1024, 8192, 16), torch.bfloat16, 0.0, {}),
 ]
 
 
@@ -1811,6 +1869,12 @@ def phase_scan(ex2_per_s, mufu_slots):
               f"{y_ref.float().pow(2).mean().sqrt().item():.3g}), worst row "
               f"{rerr:.3e} (tol {rtol:g}); state max_abs_err {h_err:.3e}, "
               f"worst row {h_rerr:.3e} (tol {checks.STATE_ROW_TOL:g})")
+        if name == "mesh-local-channels":
+            entry["mesh_local_channels"] = _time_local(
+                "selective_scan", name, shape,
+                lambda: scan_ops.selective_scan(*args),
+                lambda: selective_scan_ref(*args),
+                scan_bound(shape, dtype, ex2_per_s))
         if name != "main-path":
             del args, x, dt, A, y, h, y_ref, h_ref
             continue
@@ -2983,15 +3047,16 @@ class RouteLog:
 def mesh_reference(arch, cut):
     """The one-device run of a mesh path on the card, with the weights the
     ranks draw (seed 0): each wave's prefill logits and its forced decode
-    steps', (waves, 4, 1 + MESH_FORCED, V) f32 on the CPU, and the MoE
-    routing calls of those forwards (RouteLog)."""
+    steps', (waves, 4, 1 + MESH_FORCED, V) f32 on the CPU, the MoE
+    routing calls of those forwards (RouteLog), and each wave's Mamba
+    state after its forced steps (``mamba_state``; None without Mamba)."""
     from repro_torch.configs import get_config
     from repro_torch.models.factory import build_model
     cfg = get_config(arch).replace(**cut)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
                         "cuda")
-    out = []
+    out, states = [], []
     with torch.inference_mode(), RouteLog(4) as routes:
         for toks, forced in mesh_waves(cfg.vocab_size):
             logits, cache, length = model.prefill(params, toks.cuda(),
@@ -3002,10 +3067,27 @@ def mesh_reference(arch, cut):
                     params, cache, forced[:, i:i + 1].cuda(), length)
                 rows.append(logits[:, 0].float().cpu())
             out.append(torch.stack(rows, dim=1))
+            states.append(mamba_state(model, cache))
             del cache
     del params
     free_device_memory(f"{arch}'s one-device run")
-    return torch.stack(out), routes.calls
+    return torch.stack(out), routes.calls, states
+
+
+def mamba_state(model, cache, ctx=None):
+    """The Mamba layers' ssm state of a serving cache, (P, n_mamba, b, di,
+    N) f32 on the CPU, gathered whole over the mesh by ``cache_specs``
+    where ``ctx`` is given (every rank issues the gathers); None for a
+    model without Mamba layers."""
+    from repro_torch.distribution.sharding import unshard
+    if model.cfg.mamba is None:
+        return None
+    ssm = cache["mamba"]["ssm"]
+    if ctx is not None:
+        ssm = unshard({"ssm": ssm},
+                      {"ssm": model.cache_specs()["mamba"]["ssm"]},
+                      ctx)["ssm"]
+    return ssm.float().cpu()
 
 
 def _mesh_rows(t, ctx):
@@ -3018,7 +3100,9 @@ def _mesh_forward(model, params, ctx, toks, forced, steps):
     """One wave on this rank: prefill, then ``steps`` decode steps (the
     forced tokens first, greedy after).  Returns (logits rows (b_l, 1 +
     MESH_FORCED, V) f32 on the CPU, prefill s, decode s each, collective
-    bytes and calls of the prefill and of the sixth step)."""
+    bytes and calls of the prefill and of the sixth step, the Mamba state
+    after the forced steps gathered whole: ``mamba_state``, None without
+    Mamba or forced steps)."""
     comm = ctx.comm
     toks = _mesh_rows(toks, ctx).cuda()
     forced = _mesh_rows(forced, ctx).cuda()
@@ -3029,7 +3113,7 @@ def _mesh_forward(model, params, ctx, toks, forced, steps):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     moved = {"prefill": dict(comm.bytes_by_op)}
-    rows, decode_s = [logits[:, 0].float().cpu()], []
+    rows, decode_s, state = [logits[:, 0].float().cpu()], [], None
     for i in range(steps):
         tok = (forced[:, i:i + 1] if i < MESH_FORCED
                else logits[:, -1].argmax(-1, keepdim=True))
@@ -3041,14 +3125,17 @@ def _mesh_forward(model, params, ctx, toks, forced, steps):
         decode_s.append(time.perf_counter() - t0)
         if i < MESH_FORCED:
             rows.append(logits[:, 0].float().cpu())
+        if i == MESH_FORCED - 1:
+            state = mamba_state(model, cache, ctx)
         if i == 5:
             moved["decode_step"] = dict(comm.bytes_by_op)
             moved["decode_step_calls"] = dict(comm.calls_by_op)
-    return torch.stack(rows, dim=1), prefill_s, decode_s, moved
+    return torch.stack(rows, dim=1), prefill_s, decode_s, moved, state
 
 
-def _mesh_path(ctx, arch, cut, faults):
-    """A mesh path on this rank: its weights (each rank in turn draws the
+def _mesh_path(ctx, label, spec, faults):
+    """A mesh serving path on this rank (``spec``: its arch and cut): its
+    weights (each rank in turn draws the
     full model from seed 0 on the card, cuts its blocks and frees the
     rest, so one full copy exists at a time), a warm-up wave off the
     record, then both waves with K1's counts and the collectives' bytes
@@ -3058,23 +3145,28 @@ def _mesh_path(ctx, arch, cut, faults):
     import torch.distributed as tdist
 
     from repro_torch.configs import get_config
-    from repro_torch.distribution.sharding import param_specs, shard_params
+    from repro_torch.distribution.sharding import param_specs
     from repro_torch.launch.specs import optimized_overrides
     from repro_torch.models.factory import build_model
-    flash = kernel_ops()["flash_attention"]
+    ops = kernel_ops()
     comm = ctx.comm
     coords = (comm.axis_index("data"), comm.axis_index("model"))
-    cfg = get_config(arch).replace(**cut)
+    arch = spec["arch"]
+    cfg = get_config(arch).replace(**spec["cut"])
     model = build_model(cfg, ctx)
     for knob, value in optimized_overrides(arch, "decode_32k").items():
         setattr(model, knob, value)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    in_proj_block = None
     for r in range(tdist.get_world_size()):
         if r == tdist.get_rank():
             full = build_model(cfg).init(
                 torch.Generator(device="cuda").manual_seed(SEED), "cuda")
-            params = shard_params(full, param_specs(model, full), ctx)
+            if faults and cfg.mamba is not None:
+                in_proj_block = _contiguous_block(
+                    full["periods"]["mamba"]["in_proj"], ctx)
+            params = _cut_freeing(full, param_specs(model, full), ctx)
             del full
             gc.collect()
             torch.cuda.empty_cache()
@@ -3089,11 +3181,10 @@ def _mesh_path(ctx, arch, cut, faults):
     with torch.inference_mode():
         toks, forced = waves[0]
         _mesh_forward(model, params, ctx, toks[:, -32:], forced, 2)
-        flash.launches = 0
-        for vt in flash.launches_by_variant:
-            flash.launches_by_variant[vt] = 0
+        reset_counts(ops)
         torch.cuda.reset_peak_memory_stats()
         logits, prefill_s, decode_s, moved, routes = [], [], [], [], []
+        states = []
         for toks, forced in waves:
             with RouteLog(toks.shape[0]) as log:
                 got = _mesh_forward(model, params, ctx, toks, forced, 16)
@@ -3103,17 +3194,22 @@ def _mesh_path(ctx, arch, cut, faults):
             prefill_s.append(got[1])
             decode_s += got[2]
             moved.append(got[3])
-        k1 = dict(flash.launches_by_variant)
+            states.append(got[4])
+        counts = read_counts(ops)
         out = {"coords": coords, "logits": torch.stack(logits),
                "prefill_ms": [t * 1e3 for t in prefill_s],
                "decode_ms": float(np.median(decode_s)) * 1e3,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                "init_peak_gb": init_peak_gb, "params_gb": params_gb,
-               "init_s": init_s, "k1": k1, "k1_launches": flash.launches,
-               "moved": moved[-1], "routes": routes, "faults": {}}
-        if faults:
+               "init_s": init_s, "k1": counts["k1_by_variant"],
+               "counts": counts, "moved": moved[-1], "routes": routes,
+               "states": states, "faults": {}}
+        if faults and cfg.mamba is None and cfg.rwkv is None:
             out["faults"] = _mesh_faults(model, params, ctx, coords,
                                          waves[0])
+        elif faults:
+            out["faults"] = _mesh_ssm_faults(model, params, ctx, coords,
+                                             waves[0], in_proj_block)
     del params
     return out
 
@@ -3123,7 +3219,8 @@ def _mesh_faults(model, params, ctx, coords, wave):
     still takes part in every collective (no rank waits): "wrong shard"
     (its wq block's heads rolled by one), "missing psum" (it keeps its
     own partial sums), "missing pmax" (it keeps its own maxima in the SP
-    decode's combine).  Returns each fault's logits rows."""
+    decode's combine).  Returns each fault's logits rows (and None for
+    its state)."""
     comm, hd = ctx.comm, model.cfg.resolved_head_dim
     faulty = coords == (0, 1)
     rolled = {**params, "layers": {**params["layers"], "attn": {
@@ -3142,30 +3239,109 @@ def _mesh_faults(model, params, ctx, coords, wave):
             for attr, fn in patches.items():
                 if faulty:
                     stack.enter_context(_swapped(comm, attr, fn))
-            out[name] = _mesh_forward(model, p if faulty else params, ctx,
-                                      toks, forced, MESH_FORCED)[0]
+            got = _mesh_forward(model, p if faulty else params, ctx, toks,
+                                forced, MESH_FORCED)
+            out[name] = {"logits": got[0], "state": got[4]}
+    return out
+
+
+def _cut_freeing(full, specs, ctx, train=False):
+    """``sharding.shard_params`` leaf by leaf, each full leaf dropped from
+    ``full`` once its block is cut: the drawing rank's peak is the full
+    model and one block, not the full model and all of its blocks."""
+    from repro_torch.distribution.sharding import shard_params
+    out = {}
+    for key in list(full):
+        if isinstance(full[key], dict):
+            out[key] = _cut_freeing(full[key], specs[key], ctx, train)
+        else:
+            out[key] = shard_params(full[key], specs[key], ctx, train)
+        del full[key]
+    return out
+
+
+def _contiguous_block(in_proj, ctx):
+    """This rank's block of Mamba's in_proj (.., d, 2 di) cut as one
+    contiguous block of its 2 di columns over `model` (the layout fault:
+    ``sharding.Parts`` cuts x's and z's halves each)."""
+    n = in_proj.shape[-1] // ctx.tp_size
+    return in_proj.narrow(-1, ctx.comm.axis_index(ctx.tp) * n, n).clone()
+
+
+def _mesh_ssm_faults(model, params, ctx, coords, wave, in_proj_block):
+    """Wave 0 again under each of the recurrent paths' faults, on rank (0,
+    1) alone; every rank takes part in every collective.  RWKV: "wo's psum
+    left out" (the rank keeps its own partial sums of the time mix's
+    row-split output projection), "u and w0 at head offset 0" (the 1-D
+    leaves it holds whole sliced at channel 0, not at its heads).  Jamba:
+    "in_proj cut as one contiguous block" (its block of the 2 di columns,
+    x's second half then z's, where ``sharding.Parts`` gives it x's and
+    z's second halves), "x_proj's psum left out" (its own partial (dt, B,
+    C) projections).  Returns each fault's logits rows and Mamba state
+    (``_mesh_forward``)."""
+    from repro_torch.models import common as C
+    cfg = model.cfg
+    real_sum = C.row_sum
+
+    def keep_own(width):
+        def row_sum(y, rows, full_rows, dist):
+            out = real_sum(y, rows, full_rows, dist)
+            return y if y.shape[-1] == width else out
+        return row_sum
+
+    if cfg.rwkv is not None:
+        runs = {"wo's psum left out": (params, {
+                    "row_sum": keep_own(cfg.d_model)}),
+                "u and w0 at head offset 0": (params, {
+                    "local_block": lambda t, n, dist: t[..., :n]})}
+    else:
+        mamba = {**params["periods"]["mamba"], "in_proj": in_proj_block}
+        contiguous = {**params, "periods": {**params["periods"],
+                                            "mamba": mamba}}
+        width = cfg.mamba.dt_rank + 2 * cfg.mamba.d_state
+        runs = {"in_proj cut as one contiguous block": (contiguous, {}),
+                "x_proj's psum left out": (params, {
+                    "row_sum": keep_own(width)})}
+    faulty = coords == (0, 1)
+    out = {}
+    toks, forced = wave
+    for name, (p, patches) in runs.items():
+        with contextlib.ExitStack() as stack:
+            for attr, fn in patches.items():
+                if faulty:
+                    stack.enter_context(_swapped(C, attr, fn))
+            got = _mesh_forward(model, p if faulty else params, ctx, toks,
+                                forced, MESH_FORCED)
+            out[name] = {"logits": got[0], "state": got[4]}
     return out
 
 
 def _mesh_rank(rank, shape, backend, paths, workdir, runner, cards):
     """One rank of a mesh phase (a spawned process) on card ``rank %
     cards``: joins the mesh, runs ``runner`` (the name of ``_mesh_path``,
-    serving, or of ``_mesh_train_path``) on each of ``paths`` ((arch,
-    cut, faults)) and saves what it returns to ``workdir/rank<r>.pt``."""
+    serving, or of ``_mesh_train_path``) on each of ``paths`` ((label,
+    spec, faults)) and saves what it returns to ``workdir/rank<r>.pt``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as tdist
 
     from repro_torch.distribution.collectives import Collectives
     from repro_torch.distribution.context import make_context
     from repro_torch.launch.mesh import make_smoke_mesh
+    # four processes share the card: memory a rank frees (the full model
+    # it drew) goes back to the card, not to blocks its allocator keeps
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    # f32 products in full f32, as main() sets them for the parent's runs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(rank % cards)
     store = tdist.FileStore(str(Path(workdir) / "store"), math.prod(shape))
     mesh = make_smoke_mesh(shape, ("data", "model"), device_type="cuda",
                            backend=backend, store=store, rank=rank)
     ctx = make_context(mesh, comm=Collectives(mesh))
     out = {"backend": ctx.comm.backend, "staged": ctx.comm.stage}
-    for arch, cut, faults in paths:
-        out[arch] = globals()[runner](ctx, arch, cut, faults)
+    for label, spec, faults in paths:
+        out[label] = globals()[runner](ctx, label, spec, faults)
         gc.collect()
         torch.cuda.empty_cache()
     torch.save(out, Path(workdir) / f"rank{rank}.pt")
@@ -3240,28 +3416,47 @@ def _routing_near_ties(want_routes, got_routes, shape, n_moe):
     return differ, differ & near
 
 
-def _mesh_check(arch, layers, outs, want, shape, backend, card):
-    """Holds a path's rows on the mesh to the one-device run and its K1
-    launches to ``layers`` a wave on every rank, all Hopper; prints its
-    numbers and returns them.  With MoE layers, a row may pass the limit
-    only where the two runs' router took other experts for its token at
-    a near tie (RouteLog): both runs round the router's logits to bf16,
-    and roundings elsewhere can turn such a tie."""
+def mesh_state_err(got, want):
+    """The worst batch row's max |got - want| / max |want| of a Mamba
+    state (P, n_mamba, b, di, N)."""
+    return mesh_row_err(got.movedim(2, 0).flatten(1),
+                        want.movedim(2, 0).flatten(1))
+
+
+def _mesh_check(label, spec, outs, want, shape, backend, card):
+    """Holds a serving path's rows on the mesh (``spec``: its arch, cut
+    and ``per_wave``, {kernel: launches a wave}, K1 once a layer by
+    default), and its Mamba state after the forced steps where it has
+    one, within MESH_ROW_LIMIT of the one-device run; each of its faults
+    past twice the limit in the rows or the state; its kernels' launches
+    on every rank to ``per_wave``, K1's all Hopper, K2's under
+    kernel.plan's choice, K3's in serving mode; prints its numbers and
+    returns them.  With MoE layers, a row may pass the limit only where
+    the two runs' router took other experts for its token at a near tie
+    (RouteLog): both runs round the router's logits to bf16, and
+    roundings elsewhere can turn such a tie."""
     from repro_torch.configs import get_config
-    want, want_routes = want
+    want, want_routes, want_states = want
+    arch = spec["arch"]
+    cfg = get_config(arch).replace(**spec["cut"])
+    layers = cfg.n_layers
+    per_wave = spec.get("per_wave", {"flash_attention": layers})
     blocks = []
     for di in range(shape[0]):
-        first = outs[(di, 0)][arch]["logits"]
+        first = outs[(di, 0)][label]["logits"]
         for mi in range(1, shape[1]):
-            check(torch.equal(outs[(di, mi)][arch]["logits"], first),
-                  f"mesh {arch}: ranks ({di}, 0) and ({di}, {mi}) disagree")
+            check(torch.equal(outs[(di, mi)][label]["logits"], first),
+                  f"mesh {label}: ranks ({di}, 0) and ({di}, {mi}) "
+                  f"disagree")
         blocks.append(first)
     got = torch.cat(blocks, dim=1)
     errs = mesh_row_errs(got, want)
-    r0 = outs[(0, 0)][arch]
-    cfg = get_config(arch)
-    n_moe = sum(map(cfg.replace(n_layers=layers).layer_is_moe,
-                    range(layers))) if cfg.moe else 0
+    r0 = outs[(0, 0)][label]
+    state_errs = []
+    if want_states[0] is not None:
+        state_errs = [mesh_state_err(g, w)
+                      for g, w in zip(r0["states"], want_states)]
+    n_moe = sum(map(cfg.layer_is_moe, range(layers))) if cfg.moe else 0
     differ = near = torch.zeros(errs.shape, dtype=torch.bool)
     if n_moe:
         check(len(r0["routes"]) == len(want_routes),
@@ -3273,7 +3468,8 @@ def _mesh_check(arch, layers, outs, want, shape, backend, card):
     bad = over & ~near
     err = errs[~(over & near)].max().item()
     waves = want.shape[0]
-    print(f"[mesh] {arch} ({layers} layers of {cfg.n_layers}) on a {shape} "
+    print(f"[mesh] {label}: {arch} ({layers} layers of "
+          f"{get_config(arch).n_layers}, {cfg.dtype}) on a {shape} "
           f"('data', 'model') mesh over {backend} (staged through the "
           f"host: {outs[(0, 0)]['staged']}): worst logits row err "
           f"{err:.3e} of the row's largest |logit| against the one-device "
@@ -3284,46 +3480,67 @@ def _mesh_check(arch, layers, outs, want, shape, backend, card):
              f"ties; {int((over & near).sum())} rows past the limit, each "
              f"at a near tie: errs "
              f"{[round(e, 3) for e in errs[over & near].tolist()]}"
-             if n_moe else ""))
-    print(f"[mesh] {arch} {backend}: rank (0, 0) prefill per wave "
+             if n_moe else "")
+          + (f"; Mamba state after the forced steps, worst row err "
+             f"{', '.join(f'{e:.3e}' for e in state_errs)} (each wave)"
+             if state_errs else ""))
+    print(f"[mesh] {label} {backend}: rank (0, 0) prefill per wave "
           f"{[round(t, 1) for t in r0['prefill_ms']]} ms, decode step "
           f"median {r0['decode_ms']:.1f} ms (host clock, synchronised); "
           f"weights drawn and cut in {r0['init_s']:.1f} s | {card}")
+    expect = expected_counts({k: (n * waves, 0) for k, n in per_wave.items()},
+                             kernel_ops(), k3_mode="serving")
     for c in sorted(outs):
-        o = outs[c][arch]
-        print(f"[mesh] {arch} {backend} rank {c}: {o['params_gb']:.2f} GB "
+        o = outs[c][label]
+        got = o["counts"]
+        print(f"[mesh] {label} {backend} rank {c}: {o['params_gb']:.2f} GB "
               f"of weights, peak {o['peak_gb']:.2f} GB serving "
               f"({o['init_peak_gb']:.2f} GB drawing the full model to cut "
-              f"it); K1 launches by variant {o['k1']}; bytes moved in a "
-              f"decode step {o['moved']['decode_step']} (calls "
+              f"it); launches {got['launches']}, K1 by variant "
+              f"{got['k1_by_variant']}, K2 by plan {got['k2_by_plan']}, K3 "
+              f"by mode {got['k3_by_mode']}; bytes moved in a decode step "
+              f"{o['moved']['decode_step']} (calls "
               f"{o['moved']['decode_step_calls']}), in the last prefill "
               f"{o['moved']['prefill']}")
-        check(o["k1"] == {"hopper": layers * waves, "general": 0},
-              f"mesh {arch} rank {c}: K1 launches {o['k1']}, expected "
-              f"{layers * waves} hopper")
+        check(got == expect, f"mesh {label} rank {c}: kernel counts {got}, "
+                             f"expected {expect}")
     check(math.isfinite(err) and not bad.any(),
-          f"mesh {arch} {backend}: rows {bad.nonzero().tolist()} past "
+          f"mesh {label} {backend}: rows {bad.nonzero().tolist()} past "
           f"{MESH_ROW_LIMIT:g} (errs {errs[bad].tolist()}) without a "
           f"routing near tie")
+    check(all(e <= MESH_ROW_LIMIT for e in state_errs),
+          f"mesh {label} {backend}: Mamba state err {state_errs} past "
+          f"{MESH_ROW_LIMIT:g}")
     faults = {}
-    for name in outs[(0, 0)][arch]["faults"]:
-        faults[name] = max(mesh_row_err(
-            outs[(0, mi)][arch]["faults"][name], want[0, :2])
-            for mi in range(shape[1]))
+    for name, run in r0["faults"].items():
+        rows = max(mesh_row_err(outs[(0, mi)][label]["faults"][name]
+                                ["logits"], want[0, :2])
+                   for mi in range(shape[1]))
+        state = (mesh_state_err(run["state"], want_states[0])
+                 if run["state"] is not None else None)
+        faults[name] = {"rows": rows, "state": state}
     if faults:
-        print(f"[mesh] {arch} faults on rank (0, 1), wave 0, worst logits "
-              f"row err: {', '.join(f'{k} {e:.3e}' for k, e in faults.items())}"
-              f" (limit {MESH_ROW_LIMIT:g})")
-        for name, e in faults.items():
-            check(e > 2 * MESH_ROW_LIMIT, f"mesh {arch}: {name} gives only "
-                                          f"{e:.3e}: the check cannot see it")
+        print(f"[mesh] {label} faults on rank (0, 1), wave 0, worst logits "
+              f"row err / Mamba state err: "
+              + ", ".join(f"{k} {f['rows']:.3e} / "
+                          + ("-" if f["state"] is None
+                             else f"{f['state']:.3e}")
+                          for k, f in faults.items())
+              + f" (limit {MESH_ROW_LIMIT:g}, a fault must pass twice it)")
+        for name, f in faults.items():
+            e = max(f["rows"], f["state"] or 0.0)
+            check(e > 2 * MESH_ROW_LIMIT,
+                  f"mesh {label}: {name} gives only {e:.3e}: the check "
+                  f"cannot see it")
     return {"worst_row": err, "near_tie_rows_past_limit":
             errs[over & near].tolist(), "routing_differs": int(differ.sum()),
-            "faults": faults,
+            "state_errs": state_errs, "faults": faults,
             "prefill_ms_rank0": r0["prefill_ms"],
             "decode_ms_rank0": r0["decode_ms"],
-            "k1_by_rank": {str(c): outs[c][arch]["k1"] for c in outs},
-            "peak_gb_by_rank": {str(c): outs[c][arch]["peak_gb"]
+            "k1_by_rank": {str(c): outs[c][label]["k1"] for c in outs},
+            "launches_by_rank": {str(c): outs[c][label]["counts"]["launches"]
+                                 for c in outs},
+            "peak_gb_by_rank": {str(c): outs[c][label]["peak_gb"]
                                 for c in outs},
             "decode_step_bytes_rank0": r0["moved"]["decode_step"]}
 
@@ -3337,21 +3554,24 @@ def phase_mesh(card):
     builds come first (phase_build); each one-device run is freed before
     the ranks start.  Returns the mesh paths' K1 launches and results."""
     t_phase = time.perf_counter()
+    specs = {arch: dict(arch=arch, cut=cut)
+             for arch, cut in MESH_PATHS.items()}
     wants = {arch: mesh_reference(arch, cut)
              for arch, cut in MESH_PATHS.items()}
     first = next(iter(MESH_PATHS))
-    paths = [(arch, cut, arch == first) for arch, cut in MESH_PATHS.items()]
+    paths = [(arch, spec, arch == first) for arch, spec in specs.items()]
     outs = run_mesh_ranks(MESH_SHAPE, "gloo", paths)
-    results = {arch: _mesh_check(arch, MESH_PATHS[arch]["n_layers"], outs,
-                                 want, MESH_SHAPE, "gloo", card)
+    results = {arch: _mesh_check(arch, specs[arch], outs, want,
+                                 MESH_SHAPE, "gloo", card)
                for arch, want in wants.items()}
     arch, cut = MESH_NCCL
+    spec = dict(arch=arch, cut=cut)
     want = mesh_reference(arch, cut)
-    outs1 = run_mesh_ranks((1, 1), "nccl", [(arch, cut, False)])
+    outs1 = run_mesh_ranks((1, 1), "nccl", [(arch, spec, False)])
     check(outs1[(0, 0)]["backend"] == "nccl" and not outs1[(0, 0)]["staged"],
           f"the one-rank mesh ran {outs1[(0, 0)]['backend']}")
-    results[f"{arch} nccl"] = _mesh_check(arch, cut["n_layers"], outs1,
-                                          want, (1, 1), "nccl", card)
+    results[f"{arch} nccl"] = _mesh_check(arch, spec, outs1, want, (1, 1),
+                                          "nccl", card)
     print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s | {card}")
     print("mesh " + json.dumps(results))
     launches = {f"{a} (mesh {MESH_SHAPE[0]}x{MESH_SHAPE[1]} gloo)":
@@ -3367,14 +3587,21 @@ def phase_mesh(card):
 # four ranks sharing card 0 (FSDP over `data`, TP over `model`), then on a
 # one-rank NCCL mesh.  mistral-nemo-12b at full width (d_model 5120, 32
 # q / 8 kv heads of 128, d_ff 14336, vocab 131072 untied) cut to 4 of its
-# 40 layers (2.433 B params); global batch 4 x 4096 tokens (train_4k's
-# sequence) of the synthetic stream (seed 1), the reference's microbatches
-# override at 2 with grad_specs set (its shard_grad_accum), f32
-# accumulators, AdamW with f32 moments under the reference cell's cosine
-# schedule (peak 3e-4, warmup 100, total 10000; launch/specs.py:170-175).
-MESH_TRAIN = dict(arch="mistral-nemo-12b", n_layers=4, batch=4, seq=4096,
-                  steps=3, microbatches=2)
-MESH_TRAIN_NCCL = dict(n_layers=2, steps=2)
+# 40 layers (2.433 B params), 3 steps (the NCCL run: 2 layers, 2 steps);
+# global batch 4 x 4096 tokens (train_4k's sequence) of the synthetic
+# stream (seed 1), the reference's microbatches override at 2 with
+# grad_specs set (its shard_grad_accum), f32 accumulators, AdamW with f32
+# moments under the reference cell's cosine schedule (peak 3e-4, warmup
+# 100, total 10000; launch/specs.py:170-175).  Kernel launches a step on
+# every rank, (forward, backward): K1 4 a layer (2 microbatches, each
+# forward and its checkpointed recompute) and 2 backward calls a layer (6
+# launches).  A mesh training path is such a spec: its arch, cut and
+# config replacements, batch shape, steps and kernels (``expected_counts``).
+MESH_TRAIN = dict(arch="mistral-nemo-12b", cut=dict(n_layers=4),
+                  shape=dict(batch=4, seq=4096, microbatches=2), steps=3,
+                  kernels={"flash_attention": (16, 24)})
+MESH_TRAIN_NCCL = dict(MESH_TRAIN, cut=dict(n_layers=2), steps=2,
+                       kernels={"flash_attention": (8, 12)})
 # Each step's loss and grad_norm on every rank against the one-device run
 # of the same cut on the card, relative.  Both runs are bf16 with f32
 # accumulators; the mesh rounds each row-parallel partial sum to bf16 and
@@ -3398,15 +3625,23 @@ MESH_TRAIN_FAULTS = ("row-parallel psum's backward left out",
                      "replicated leaf counted twice")
 
 
-def mesh_train_config(cut):
+def mesh_train_config(spec):
+    """(config, shape) of a mesh training path's spec (MESH_TRAIN,
+    MESH_SSM_TRAIN): its arch with its cut, replacements and MoE offset,
+    and its batch shape."""
     from repro_torch.configs import get_config
-    return get_config(MESH_TRAIN["arch"]).replace(n_layers=cut["n_layers"])
+    cfg = get_config(spec["arch"]).replace(**spec["cut"],
+                                           **spec.get("replace", {}))
+    if "moe_offset" in spec:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, layer_offset=spec["moe_offset"]))
+    return cfg, spec["shape"]
 
 
-def mesh_train_parts(cfg, dist=None, wrap=None):
-    """(model, optimizer, step_fn, data) of path j: the reference's train
-    cell for ``cfg`` (module constants); the optimizer is AdamW, or
-    ``wrap(AdamW)``."""
+def mesh_train_parts(cfg, shape, dist=None, wrap=None):
+    """(model, optimizer, step_fn, data) of a mesh training path: the
+    reference's train cell for ``cfg`` at ``shape``'s batch, sequence and
+    microbatches; the optimizer is AdamW, or ``wrap(AdamW)``."""
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.models.factory import build_model
     from repro_torch.optim import AdamW, AdamWConfig, cosine
@@ -3418,10 +3653,10 @@ def mesh_train_parts(cfg, dist=None, wrap=None):
         opt = wrap(opt)
     specs = model.layout()[0] if dist is not None else None
     step_fn = make_train_step(model, opt,
-                              microbatches=MESH_TRAIN["microbatches"],
+                              microbatches=shape["microbatches"],
                               accum_dtype=torch.float32, grad_specs=specs)
-    data = SyntheticLMDataset(cfg.vocab_size, MESH_TRAIN["seq"],
-                              MESH_TRAIN["batch"], seed=1)
+    data = SyntheticLMDataset(cfg.vocab_size, shape["seq"], shape["batch"],
+                              seed=1)
     return model, opt, step_fn, data
 
 
@@ -3430,18 +3665,20 @@ def _batch_on_card(data, step):
             for k, v in data.batch_at(step).items()}
 
 
-def mesh_train_reference(cut):
-    """The one-device run of path j's cut on the card, from the weights the
-    ranks draw: each step's loss and grad_norm and K1's counts a step."""
+def mesh_train_reference(spec):
+    """The one-device run of a mesh training path's spec on the card, from
+    the weights the ranks draw: each step's loss and grad_norm and every
+    kernel's counts a step."""
     ops = kernel_ops()
-    cfg = mesh_train_config(cut)
-    model, opt, step_fn, data = mesh_train_parts(cfg)
+    cfg, shape = mesh_train_config(spec)
+    model, opt, step_fn, data = mesh_train_parts(cfg, shape)
     torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
                         "cuda")
     state = opt.init(params)
-    out = {"loss": [], "grad_norm": [], "step_ms": [], "counts": []}
-    for step in range(cut["steps"]):
+    out = {"loss": [], "grad_norm": [], "step_ms": [], "counts": [],
+           "params_b": sum(t.numel() for t in _leaves(params)) / 1e9}
+    for step in range(spec["steps"]):
         batch = _batch_on_card(data, step)
         torch.cuda.synchronize()
         reset_counts(ops)
@@ -3453,8 +3690,8 @@ def mesh_train_reference(cut):
         out["counts"].append(read_counts(ops))
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del params, state
-    free_device_memory(f"path j's one-device run ({cut['n_layers']} "
-                       f"layers)")
+    free_device_memory(f"{cfg.name}'s one-device training run "
+                       f"({cfg.n_layers} layers)")
     return out
 
 
@@ -3490,17 +3727,14 @@ class _NormProbe:
 
 def _counted_twice(tp):
     """``adamw.global_square_sum`` with each leaf `model` does not cut
-    counted on every `model` rank (its ``tp`` copies): the same
-    collectives."""
+    counted on every `model` rank (its ``tp`` copies: the leaf scaled by
+    sqrt(tp)), through the same collectives."""
     def norm(flat_g, mesh):
         from repro_torch import tree as T
-        comm, axes = mesh
-        groups = {}
-        for g, ax in zip(flat_g, T.leaves(axes)):
-            s = torch.sum(torch.square(g.float()))
-            groups[ax] = groups[ax] + s if ax in groups else s
-        return sum(comm.psum(s, ax) * (1 if "model" in ax else tp)
-                   for ax, s in groups.items())
+        from repro_torch.optim import adamw
+        scaled = [g if "model" in ax else g * math.sqrt(tp)
+                  for g, ax in zip(flat_g, T.leaves(mesh[1]))]
+        return adamw.global_square_sum(scaled, mesh)
 
     return norm
 
@@ -3552,31 +3786,32 @@ def _mesh_train_fault(name, comm):
     return stack
 
 
-def _mesh_train_path(ctx, arch, cut, faults):
-    """Path j on this rank: its FSDP+TP blocks (each rank in turn draws the
-    full model from seed 0 on the card and cuts them); with ``faults``,
-    the norms under MESH_TRAIN_FAULTS on rank (0, 1) at the first step's
-    params (the third from step 1's own gradients); ``cut``'s steps,
+def _mesh_train_path(ctx, label, spec, faults):
+    """A mesh training path on this rank (its ``spec``: MESH_TRAIN,
+    MESH_SSM_TRAIN): its FSDP+TP blocks (each rank in turn draws the full
+    model from seed 0 on the card and cuts them); with ``faults`` (path
+    j), the norms under MESH_TRAIN_FAULTS on rank (0, 1) at the first
+    step's params (the third from step 1's own gradients); the spec's steps,
     every kernel's counts and the collectives' bytes set to 0 before each
     step and read after it."""
     import torch.distributed as tdist
 
-    from repro_torch.distribution.sharding import shard_params
     from repro_torch.models.factory import build_model
     from repro_torch.optim import adamw
     from repro_torch.training.step import make_train_step
     ops = kernel_ops()
     comm = ctx.comm
     coords = (comm.axis_index("data"), comm.axis_index("model"))
-    cfg = mesh_train_config(cut)
-    model, probe, step_fn, data = mesh_train_parts(cfg, ctx, _NormProbe)
+    cfg, shape = mesh_train_config(spec)
+    model, probe, step_fn, data = mesh_train_parts(cfg, shape, ctx,
+                                                   _NormProbe)
     specs = model.layout()[0]
     torch.cuda.reset_peak_memory_stats()
     for r in range(tdist.get_world_size()):
         if r == tdist.get_rank():
             full = build_model(cfg).init(
                 torch.Generator(device="cuda").manual_seed(SEED), "cuda")
-            params = shard_params(full, specs, ctx, train=True)
+            params = _cut_freeing(full, specs, ctx, train=True)
             del full
             gc.collect()
             torch.cuda.empty_cache()
@@ -3588,7 +3823,7 @@ def _mesh_train_path(ctx, arch, cut, faults):
            "steps": []}
     if faults:
         norm_fn = make_train_step(model, _NormOnly(),
-                                  microbatches=MESH_TRAIN["microbatches"],
+                                  microbatches=shape["microbatches"],
                                   grad_specs=specs)
         batch = _batch_on_card(data, 0)
         for name in MESH_TRAIN_FAULTS[:2]:
@@ -3600,7 +3835,7 @@ def _mesh_train_path(ctx, arch, cut, faults):
             gc.collect()
         probe.norm = (_counted_twice(ctx.tp_size) if coords == (0, 1)
                       else adamw.global_square_sum)
-    for step in range(cut["steps"]):
+    for step in range(spec["steps"]):
         batch = _batch_on_card(data, step)
         torch.cuda.synchronize()
         reset_counts(ops)
@@ -3628,16 +3863,18 @@ def _rel(got, want):
     return abs(got - want) / abs(want)
 
 
-def _mesh_train_check(label, outs, want, shape, card):
-    """Holds every rank's losses and norms to the one-device run's, K1's
-    launches on every rank to the one-device run's a step, all Hopper;
-    prints each step's numbers.  Returns (every kernel's counts summed
-    over ranks and steps, the worst relative errors)."""
+def _mesh_train_check(label, outs, want, shape, card, path, kernels):
+    """Holds every rank's losses and norms to the one-device run's, every
+    kernel's launches on every rank to the one-device run's a step and to
+    ``kernels`` ({kernel: (forward, backward) launches a step};
+    ``expected_counts``); prints each step's numbers.  Returns (every
+    kernel's counts summed over ranks and steps, the worst relative
+    errors)."""
     lim = MESH_TRAIN_LIMIT
     errs = {"loss": 0.0, "grad_norm": 0.0}
     counts = []
     for c in sorted(outs):
-        o = outs[c]["path_j"]
+        o = outs[c][path]
         check(len(o["steps"]) == len(want["loss"]),
               f"{label} rank {c}: {len(o['steps'])} steps")
         for i, st in enumerate(o["steps"]):
@@ -3653,9 +3890,9 @@ def _mesh_train_check(label, outs, want, shape, card):
                   f"{st['counts']}, the one-device step's "
                   f"{want['counts'][i]}")
             counts.append(st["counts"])
-    r0 = outs[(0, 0)]["path_j"]
+    r0 = outs[(0, 0)][path]
     for i, st in enumerate(r0["steps"]):
-        peak = max(outs[c]["path_j"]["steps"][i]["peak_gb"] for c in outs)
+        peak = max(outs[c][path]["steps"][i]["peak_gb"] for c in outs)
         print(f"[mesh_train] {label} step {i + 1}: loss {st['loss']:.6f} "
               f"(one device {want['loss'][i]:.6f}), grad_norm "
               f"{st['grad_norm']:.6f} ({want['grad_norm'][i]:.6f}); rank "
@@ -3669,39 +3906,39 @@ def _mesh_train_check(label, outs, want, shape, card):
     print(f"[mesh_train] {label} on a {shape} mesh: worst rel err loss "
           f"{errs['loss']:.3e} (limit {lim['loss']:g}), grad_norm "
           f"{errs['grad_norm']:.3e} (limit {lim['grad_norm']:g}) over every "
-          f"rank and step; K1 a step on every rank (forward, backward "
-          f"kernel launches) {k1['launches']['flash_attention']}, by "
-          f"variant {k1['k1_by_variant']} / {k1['k1_bwd_by_variant']}; "
-          f"{r0['params_gb']:.2f} GB of params a rank | {card}")
-    check(k1["k1_by_variant"]["general"] == 0 and
-          k1["k1_bwd_by_variant"]["general"] == 0 and
-          k1["k1_by_variant"]["hopper"] > 0 and
-          k1["k1_bwd_by_variant"]["hopper"] > 0,
-          f"{label}: K1 by variant {k1['k1_by_variant']} / "
-          f"{k1['k1_bwd_by_variant']}, expected all hopper")
+          f"rank and step; kernel launches a step on every rank (forward, "
+          f"backward) {k1['launches']}, K1 by variant "
+          f"{k1['k1_by_variant']} / {k1['k1_bwd_by_variant']}, K2 by plan "
+          f"{k1['k2_by_plan']} / route {k1['k2_bwd_by_route']}, K3 by mode "
+          f"{k1['k3_by_mode']}; {r0['params_gb']:.2f} GB of params a rank "
+          f"| {card}")
+    expect = expected_counts(kernels, kernel_ops())
+    check(k1 == expect, f"{label}: kernel counts a step {k1}, expected "
+                        f"{expect}")
     return _sum_counts(counts), errs
 
 
 def phase_mesh_train(card):
-    """Path j (MESH_TRAIN): the one-device runs of the 4- and 2-layer cuts
-    on the card, freed, then the four gloo ranks (faults, then the steps),
-    then the 2-layer cut on a one-rank NCCL mesh; each held step by step
-    to its one-device run.  Returns each mesh run's kernel counts."""
+    """Path j (MESH_TRAIN): the one-device runs of MESH_TRAIN's and
+    MESH_TRAIN_NCCL's cuts on the card, freed, then the four gloo ranks
+    (faults, then the steps), then MESH_TRAIN_NCCL on a one-rank NCCL
+    mesh; each held step by step to its one-device run.  Returns each
+    mesh run's kernel counts."""
     t_phase = time.perf_counter()
-    cut = {"n_layers": MESH_TRAIN["n_layers"], "steps": MESH_TRAIN["steps"]}
-    want = mesh_train_reference(cut)
+    want = mesh_train_reference(MESH_TRAIN)
     want_nccl = mesh_train_reference(MESH_TRAIN_NCCL)
-    cfg = mesh_train_config(cut)
+    cfg, shape = mesh_train_config(MESH_TRAIN)
     print(f"[mesh_train] path j: {cfg.name} cut to {cfg.n_layers} layers "
           f"({cfg.param_counts()['total'] / 1e9:.3f} B params), "
-          f"{MESH_TRAIN['batch']} x {MESH_TRAIN['seq']} tokens a step in "
-          f"{MESH_TRAIN['microbatches']} microbatches; one device: losses "
+          f"{shape['batch']} x {shape['seq']} tokens a step in "
+          f"{shape['microbatches']} microbatches; one device: losses "
           f"{want['loss']}, grad_norms {want['grad_norm']}, "
           f"{[round(t, 1) for t in want['step_ms']]} ms a step, peak "
           f"{want['peak_gb']:.2f} GB | {card}")
-    outs = run_mesh_ranks(MESH_SHAPE, "gloo", [("path_j", cut, True)],
+    outs = run_mesh_ranks(MESH_SHAPE, "gloo", [("path_j", MESH_TRAIN, True)],
                           runner="_mesh_train_path")
-    counts, errs = _mesh_train_check("gloo", outs, want, MESH_SHAPE, card)
+    counts, errs = _mesh_train_check("gloo", outs, want, MESH_SHAPE, card,
+                                     "path_j", MESH_TRAIN["kernels"])
     faults = {}
     for name in MESH_TRAIN_FAULTS:
         faults[name] = max(_rel(outs[c]["path_j"]["faults"][name],
@@ -3714,18 +3951,17 @@ def phase_mesh_train(card):
         check(e > 5 * MESH_TRAIN_LIMIT["grad_norm"],
               f"mesh_train: {name} gives only {e:.3e}: the check cannot "
               f"see it")
-    outs1 = run_mesh_ranks((1, 1), "nccl", [("path_j", MESH_TRAIN_NCCL,
-                                             False)],
+    outs1 = run_mesh_ranks((1, 1), "nccl",
+                           [("path_j", MESH_TRAIN_NCCL, False)],
                            runner="_mesh_train_path")
     check(outs1[(0, 0)]["backend"] == "nccl" and not outs1[(0, 0)]["staged"],
           f"the one-rank mesh ran {outs1[(0, 0)]['backend']}")
     counts1, errs1 = _mesh_train_check("nccl", outs1, want_nccl, (1, 1),
-                                       card)
+                                       card, "path_j",
+                                       MESH_TRAIN_NCCL["kernels"])
     steps = outs[(0, 0)]["path_j"]["steps"]
     result = {"arch": cfg.name, "layers": cfg.n_layers,
-              "params_b": cfg.param_counts()["total"] / 1e9,
-              **{k: MESH_TRAIN[k] for k in ("batch", "seq",
-                                            "microbatches")},
+              "params_b": cfg.param_counts()["total"] / 1e9, **shape,
               "one_device": {k: want[k] for k in ("loss", "grad_norm",
                                                   "step_ms", "peak_gb")},
               "mesh_loss_rank0": [st["loss"] for st in steps],
@@ -3748,7 +3984,173 @@ def phase_mesh_train(card):
     return {f"{cfg.name} (mesh train {MESH_SHAPE[0]}x{MESH_SHAPE[1]} gloo, "
             f"{cfg.n_layers} layers)": counts,
             f"{cfg.name} (mesh train 1x1 nccl, "
-            f"{MESH_TRAIN_NCCL['n_layers']} layers)": counts1}
+            f"{MESH_TRAIN_NCCL['cut']['n_layers']} layers)": counts1}
+
+
+# ------------------------------------------------------------- mesh ssm
+
+# Phase mesh_ssm: RWKVLM and JambaLM on MESH_SHAPE's ("data", "model")
+# gloo mesh of four ranks sharing card 0, as phase mesh has them, every
+# width as published.  Path k: rwkv6-1.6b at full depth (24 layers, 1.60 B
+# params; 16 of its 32 heads a `model` rank, K2 on them); path l: Jamba's
+# 2-layer MoE cut (DECODE_CUTS: layers 4-5 of a period, attention + MLP,
+# then Mamba + MoE with all 16 experts, 8 a `model` rank; 11.9 B params;
+# 8192 of its 16384 Mamba channels a rank, K3 on them), at the published
+# capacity factor.  Path a's traffic as phase mesh serves it, the knobs of
+# optimized_overrides(arch, "decode_32k"); each logits row, and Jamba's
+# Mamba state after the forced steps, within MESH_ROW_LIMIT of the same
+# model's one-device run on the card.  Path k serves in f32: rwkv6-1.6b's
+# forward at random init amplifies rounding about 1.15x a layer, so one
+# device's bf16 rows are 0.24-0.38 of their scale from its own f32 rows at
+# 24 layers (PERF.md §6), and two bf16 runs that round in other places
+# (the mesh's partial sums) cannot agree within the limit; K2 takes the
+# same plan in f32.  Path k-bf16 holds the published dtype on the mesh at
+# 2 layers, where one device's bf16 rows are 1.4-1.7e-2 of their scale
+# from its f32 rows.  A fault must take its rows or the state past twice
+# the limit: at init Jamba's Mamba output is small beside the residual,
+# so x_proj's psum left out on one rank moves path l's rows by about 0.1
+# of their scale, and its Mamba state by O(1).
+F32 = {"dtype": "float32"}
+MESH_SSM_SERVE = {
+    "path_k": dict(arch="rwkv6-1.6b", cut=F32, per_wave={"wkv6": 24}),
+    "path_k_bf16": dict(arch="rwkv6-1.6b", cut=dict(n_layers=2),
+                        per_wave={"wkv6": 2}),
+    "path_l": dict(arch=JAMBA, cut=DECODE_CUTS[JAMBA],
+                   per_wave={"flash_attention": 1, "selective_scan": 1}),
+}
+# the paths that also run the faults
+MESH_SSM_FAULTS = ("path_k", "path_l")
+# Paths m and n: training on the same mesh (FSDP over `data`, TP over
+# `model`), as path j: MESH_SSM_TRAIN_SHAPE's steps of the synthetic
+# stream (seed 1) in 2 microbatches with grad_specs, f32 accumulators,
+# AdamW with f32 moments under the reference cell's cosine schedule.
+# Path m: rwkv6-1.6b cut to 4 of its 24 layers (0.49 B params); path n:
+# Jamba's 2-layer dense cut (TRAIN_PATHS: attention + MLP, then Mamba +
+# MLP; 2.845 B).  Each step's loss and grad_norm on every rank within
+# MESH_TRAIN_LIMIT of the one-device run's; kernel launches a step on
+# every rank, (forward, backward): K2 16 and 8 backward calls (16
+# launches, "hopper"); K1 4 and 2 calls (6 launches), K3 4 in training
+# mode and 2 calls (4 launches).  Then path m at 2 layers on a one-rank
+# NCCL mesh, its losses and norms bit for bit with one device's.  Path m
+# trains in f32: rwkv6-1.6b's bf16 gradients at init are dominated by
+# their roundings (14.5x their f32 norm, PERF.md §7), so two bf16 runs
+# that round in other places (the mesh's partial sums) cannot agree on
+# grad_norm; K2 takes the same plan and backward route in f32.  It takes
+# 4 layers, not 8: at 8 layers on this stream even f32's gradient is
+# chaotic at init (one device's own grad_norm moves 13% when its batch is
+# cut into 2 microbatches instead of 1; at 4 layers 3.6e-6; PERF.md §6).
+MESH_SSM_TRAIN_SHAPE = dict(batch=4, seq=2048, microbatches=2)
+MESH_SSM_TRAIN = {
+    "path_m": dict(arch="rwkv6-1.6b", cut=dict(n_layers=4), replace=F32,
+                   shape=MESH_SSM_TRAIN_SHAPE, steps=2,
+                   kernels={"wkv6": (16, 16)}),
+    "path_n": dict(arch=JAMBA, cut=DECODE_CUTS[JAMBA], moe_offset=2,
+                   shape=MESH_SSM_TRAIN_SHAPE, steps=2,
+                   kernels={"flash_attention": (4, 6),
+                            "selective_scan": (4, 4)}),
+}
+MESH_SSM_NCCL = dict(MESH_SSM_TRAIN["path_m"], cut=dict(n_layers=2),
+                     kernels={"wkv6": (8, 8)})
+
+
+def phase_mesh_ssm(card):
+    """Paths k-n: serving (``mesh_ssm_serve``), then training
+    (``mesh_ssm_train``).  Prints both halves' results and the phase's
+    wall time; returns each mesh run's kernel counts, summed over its
+    ranks, by label."""
+    t_phase = time.perf_counter()
+    results, runs = mesh_ssm_serve(card)
+    more, more_runs = mesh_ssm_train(card)
+    results.update(more)
+    runs.update(more_runs)
+    wall = time.perf_counter() - t_phase
+    results["phase_s"] = wall
+    print("mesh_ssm " + json.dumps(results))
+    print(f"[mesh_ssm] phase {wall:.1f} s | {card}")
+    return runs
+
+
+def mesh_ssm_serve(card):
+    """Paths k, k-bf16 and l: the one-device runs on the card (freed),
+    then the four gloo ranks, the four faults on rank (0, 1) shown to
+    fail the limit.  Returns (results, kernel counts by label)."""
+    wants = {label: mesh_reference(spec["arch"], spec["cut"])
+             for label, spec in MESH_SSM_SERVE.items()}
+    outs = run_mesh_ranks(MESH_SHAPE, "gloo",
+                          [(label, spec, label in MESH_SSM_FAULTS)
+                           for label, spec in MESH_SSM_SERVE.items()])
+    results, runs = {}, {}
+    for label, want in wants.items():
+        spec = MESH_SSM_SERVE[label]
+        results[label] = _mesh_check(label, spec, outs, want, MESH_SHAPE,
+                                     "gloo", card)
+        runs[f"{spec['arch']} ({label}, mesh {MESH_SHAPE[0]}x"
+             f"{MESH_SHAPE[1]} gloo)"] = \
+            _sum_counts(outs[c][label]["counts"] for c in outs)
+    return results, runs
+
+
+def mesh_ssm_train(card):
+    """Paths m and n: the one-device runs on the card (freed), the four
+    gloo ranks, then path m at 2 layers on a one-rank NCCL mesh, bit for
+    bit with one device.  Returns (results, kernel counts by label)."""
+    train_wants = {name: mesh_train_reference(spec)
+                   for name, spec in MESH_SSM_TRAIN.items()}
+    want_nccl = mesh_train_reference(MESH_SSM_NCCL)
+    for name, spec in MESH_SSM_TRAIN.items():
+        cfg = mesh_train_config(spec)[0]
+        w = train_wants[name]
+        print(f"[mesh_ssm] {name}: {cfg.name} cut to {cfg.n_layers} layers "
+              f"in {cfg.dtype} ({w['params_b']:.3f} B params), "
+              f"{MESH_SSM_TRAIN_SHAPE}; one device: losses {w['loss']}, "
+              f"grad_norms {w['grad_norm']}, "
+              f"{[round(t, 1) for t in w['step_ms']]} ms a step, peak "
+              f"{w['peak_gb']:.2f} GB | {card}")
+    outs = run_mesh_ranks(MESH_SHAPE, "gloo",
+                          [(name, spec, False)
+                           for name, spec in MESH_SSM_TRAIN.items()],
+                          runner="_mesh_train_path")
+    results, runs = {}, {}
+    for name, spec in MESH_SSM_TRAIN.items():
+        counts, errs = _mesh_train_check(f"{name} gloo", outs,
+                                         train_wants[name], MESH_SHAPE,
+                                         card, path=name,
+                                         kernels=spec["kernels"])
+        steps = outs[(0, 0)][name]["steps"]
+        results[name] = {
+            "arch": spec["arch"], "cut": spec["cut"],
+            "worst_rel_err": errs,
+            "one_device": {k: train_wants[name][k] for k in
+                           ("loss", "grad_norm", "step_ms", "peak_gb")},
+            "step_ms_rank0": [st["step_ms"] for st in steps],
+            "peak_gb_by_rank": {str(c): max(st["peak_gb"] for st in
+                                            outs[c][name]["steps"])
+                                for c in outs},
+            "bytes_a_step_rank0": steps[-1]["bytes"],
+            "calls_a_step_rank0": steps[-1]["calls"]}
+        runs[f"{spec['arch']} (mesh train {MESH_SHAPE[0]}x{MESH_SHAPE[1]} "
+             f"gloo, {spec['cut']['n_layers']} layers)"] = counts
+    outs1 = run_mesh_ranks((1, 1), "nccl", [("path_m", MESH_SSM_NCCL, False)],
+                           runner="_mesh_train_path")
+    check(outs1[(0, 0)]["backend"] == "nccl" and not outs1[(0, 0)]["staged"],
+          f"the one-rank mesh ran {outs1[(0, 0)]['backend']}")
+    counts1, _ = _mesh_train_check("path_m nccl", outs1, want_nccl, (1, 1),
+                                   card, path="path_m",
+                                   kernels=MESH_SSM_NCCL["kernels"])
+    got = outs1[(0, 0)]["path_m"]["steps"]
+    same = all(st["loss"] == want_nccl["loss"][i]
+               and st["grad_norm"] == want_nccl["grad_norm"][i]
+               for i, st in enumerate(got))
+    print(f"[mesh_ssm] path_m at {MESH_SSM_NCCL['cut']['n_layers']} layers "
+          f"on a one-rank NCCL mesh: losses and grad_norms bit for bit with "
+          f"one device: {same}")
+    check(same, "mesh_ssm: the one-rank NCCL mesh's losses or norms differ "
+                "from one device's")
+    runs[f"rwkv6-1.6b (mesh train 1x1 nccl, "
+         f"{MESH_SSM_NCCL['cut']['n_layers']} layers)"] = counts1
+    results["path_m nccl"] = {"bit_for_bit": same, "step_ms": [
+        st["step_ms"] for st in got]}
+    return results, runs
 
 
 def phase_whisper_train(card):
@@ -4256,11 +4658,11 @@ def read_counts(ops):
             "k3_by_mode": dict(ops["selective_scan"].launches_by_mode)}
 
 
-def expected_counts(kernels, ops):
+def expected_counts(kernels, ops, k3_mode="training"):
     """``read_counts``' value for a run whose kernels launch ``kernels``
     ({name: (forward, backward)}) times: every K1 launch "hopper", every
     K2 forward under kernel.plan's choice and backward on "hopper", every
-    K3 forward in training mode, no other kernel."""
+    K3 forward in ``k3_mode``, no other kernel."""
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     k1 = kernels.get("flash_attention", (0, 0))
     k2 = kernels.get("wkv6", (0, 0))
@@ -4271,7 +4673,7 @@ def expected_counts(kernels, ops):
             "k2_by_plan": ({_plan_name(*wkv_kernel.PLAN): k2[0]}
                            if k2[0] else {}),
             "k2_bwd_by_route": {"hopper": k2[1], "general": 0},
-            "k3_by_mode": {"serving": 0, "training": k3[0]}}
+            "k3_by_mode": {"serving": 0, "training": 0, k3_mode: k3[0]}}
 
 
 def phase_train(arch, card):
@@ -4689,6 +5091,8 @@ def main() -> int:
             flash["launches_by_variant"][variant] += n
     free_device_memory("the previous phase")
     mesh_train_runs = phase_mesh_train(card)
+    free_device_memory("the previous phase")
+    mesh_train_runs.update(phase_mesh_ssm(card))
     free_device_memory("the previous phase")
     bwd = phase_flash_bwd()
     free_device_memory("the previous phase")

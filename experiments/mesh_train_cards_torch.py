@@ -46,16 +46,16 @@ def main():
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd
     with ThreadPoolExecutor(2) as pool:
         list(pool.map(lambda m: m.build(), (kernel, kernel_bwd)))
-    cut = {"n_layers": cs.MESH_TRAIN["n_layers"],
-           "steps": cs.MESH_TRAIN["steps"]}
-    want = cs.mesh_train_reference(cut)
+    want = cs.mesh_train_reference(cs.MESH_TRAIN)
     print(f"[cards] one device (card 0): losses {want['loss']}, grad_norms "
           f"{want['grad_norm']}, {[round(t, 1) for t in want['step_ms']]} "
           f"ms a step, peak {want['peak_gb']:.2f} GB")
-    outs = cs.run_mesh_ranks(cs.MESH_SHAPE, "nccl", [("path_j", cut, True)],
+    outs = cs.run_mesh_ranks(cs.MESH_SHAPE, "nccl",
+                             [("path_j", cs.MESH_TRAIN, True)],
                              runner="_mesh_train_path", cards=CARDS)
     _, errs = cs._mesh_train_check(f"nccl on {CARDS} cards", outs, want,
-                                   cs.MESH_SHAPE, cards[0])
+                                   cs.MESH_SHAPE, cards[0], "path_j",
+                                   cs.MESH_TRAIN["kernels"])
     faults = {name: max(cs._rel(outs[c]["path_j"]["faults"][name],
                                 want["grad_norm"][0]) for c in outs)
               for name in cs.MESH_TRAIN_FAULTS}

@@ -30,6 +30,13 @@ its block (``collectives.py``).  ``leaf_axes`` gives the axes that cut
 each leaf, which the gradient's reduction and the clip's global norm
 read.  A dim that does not divide its axis stays whole, as the rules
 say (minicpm-2b's vocab 122753 on `model`).
+
+Mamba's ``in_proj`` (d, 2 di) holds x's columns, then z's.  A contiguous
+cut of its columns over `model` would give one rank all of x and the
+other all of z, so its spec entry is ``Parts("model", 2)``: each half is
+cut over `model` and a rank holds its block of x's columns, then its
+block of z's (``shard_params``; ``unshard`` puts them back), the layout
+its gradient and its AdamW moments keep.
 """
 from __future__ import annotations
 
@@ -39,8 +46,26 @@ from repro_torch import tree as T
 from repro_torch.distribution.context import MeshContext
 
 
+class Parts(str):
+    """A spec entry for a dim made of ``parts`` equal parts side by side,
+    each cut over the axis it names (module docstring).  It is that axis
+    name, so the rest of the spec machinery reads it as one."""
+
+    def __new__(cls, axis, parts):
+        entry = super().__new__(cls, axis)
+        entry.parts = parts
+        return entry
+
+
 def _axis_size(dist, name):
     return dist.axis_size(name) if dist.active else 1
+
+
+def local_width(n, dist):
+    """The width a rank holds of a dim of ``n`` that the rules give to
+    `model`: n / tp where it divides (``make_rules``' ``m``), else n."""
+    tp = dist.tp_size if dist is not None and dist.active else 1
+    return n // tp if n % tp == 0 and n >= tp else n
 
 
 def make_rules(model):
@@ -102,7 +127,9 @@ def make_rules(model):
                                               "dt_proj", "A_log",
                                               "out_proj")):
             core = {
-                "in_proj": (d(shape[-2]), m(shape[-1])),
+                "in_proj": (d(shape[-2]),
+                            Parts("model", 2) if m(shape[-1])
+                            else None),
                 "conv_w": (None, m(shape[-1])),
                 "x_proj": (m(shape[-2]), None),
                 "dt_proj": (None, m(shape[-1])),
@@ -205,15 +232,41 @@ def shard_params(params, specs, dist: MeshContext, train: bool = False):
             if not axes:
                 continue
             n = dist.comm.axis_size(axes)
-            if t.shape[dim] % n:
+            parts = getattr(entry, "parts", 1)
+            if t.shape[dim] % (n * parts):
                 raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
-                                 f"divide over {axes} ({n})")
-            size = t.shape[dim] // n
-            out = out.narrow(dim, dist.comm.axis_index(axes) * size, size)
+                                 f"divide over {axes} ({n}) in {parts} "
+                                 f"parts")
+            size = t.shape[dim] // (n * parts)
+            i = dist.comm.axis_index(axes)
+            out = torch.cat([out.narrow(dim, (q * n + i) * size, size)
+                             for q in range(parts)], dim=dim)
         return out if out is t else out.clone(
             memory_format=torch.contiguous_format)
 
     return T.map_tree(cut, params, specs)
+
+
+def unshard(tree, specs, dist: MeshContext, train: bool = True):
+    """``shard_params``' inverse: each cut dim of every leaf all-gathered
+    over its axes (no gradient) and its parts put back in order, the full
+    leaves on every rank.  Also for a cache, cut by ``cache_specs``."""
+    def gather(t, spec):
+        t = t.detach()
+        for dim, entry in enumerate(spec):
+            axes = cut_axes(entry, train)
+            if not axes:
+                continue
+            t = dist.comm.all_gather(t, axes, dim=dim)
+            parts = getattr(entry, "parts", 1)
+            if parts > 1:
+                n, size = dist.comm.axis_size(axes), t.shape[dim]
+                t = t.unflatten(dim, (n, parts, size // (n * parts))
+                                ).transpose(dim, dim + 1).flatten(
+                                    dim, dim + 2)
+        return t
+
+    return T.map_tree(gather, tree, specs)
 
 
 def leaf_axes(specs, names):

@@ -121,9 +121,22 @@ def row_sum(y, rows, full_rows, dist):
     """y = x @ w where w holds ``rows`` of its ``full_rows`` input rows:
     a row-split w's partial products summed over ``dist.tp`` (Megatron's
     one all-reduce a block), else y."""
-    if not dist.active or rows == full_rows:
+    if rows == full_rows or not dist.active:
         return y
     return dist.comm.psum(y, dist.tp)
+
+
+def local_block(t, n_local, dist):
+    """The rank's ``n_local`` entries of the last dim of a leaf every rank
+    holds whole, for a computation split over `model` by channels (RWKV's
+    ``w0``, ``u`` and ``ln_scale`` at the rank's heads, Mamba's
+    ``conv_b``, ``dt_bias`` and ``D`` at its channels): the block at the
+    rank's `model` index, ``t`` entering the split (its gradient psum'd
+    over `model`).  ``t`` itself where it holds ``n_local``."""
+    if t.shape[-1] == n_local:
+        return t
+    c0 = dist.comm.axis_index(dist.tp) * n_local
+    return dist.comm.enter(t, dist.tp)[..., c0:c0 + n_local]
 
 
 def enter_split(x, split, dist):

@@ -19,6 +19,18 @@ prefill and decode write it in place.
 layers' aux losses, each period under activation checkpointing (the
 reference's ``jax.checkpoint`` of the scanned period, with no policy).
 On the card its gradient runs through K1's and K3's backward kernels.
+
+``JambaLM(cfg, dist, long_context)`` serves and trains on a ("data",
+"model") mesh as ``DecoderLM`` does (explicit SPMD; ``transformer.py``):
+the attention layer is the parent's (this rank's q heads through K1, kv
+replicated; Jamba has no RoPE), the MoE layers the parent's ``_moe``
+(EP where the experts divide `model`; capacity and aux each `data`
+shard's), the dense MLP the parent's ``_mlp`` (``down`` summed over
+`model`), and each Mamba layer runs on the rank's di/tp channels
+(``mamba.py``).  ``loss`` gathers a period's FSDP leaves over `data`
+inside its checkpointed period.  The cache on a mesh (``cache_specs``):
+the attention's k/v with the rank's rows and its slots over
+``dist.kv_seq``, the Mamba states with the rank's rows and channels.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
+from repro_torch.distribution import sharding as S
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
 from repro_torch.models import layers as L
@@ -35,11 +48,14 @@ from repro_torch.models.transformer import DecoderLM
 
 
 class JambaLM(DecoderLM):
-    """Reuses DecoderLM's attention, MoE, embedding, ``loss``, ``prefill``
-    and ``decode``; replaces the layer stack with the hybrid periods."""
+    """Reuses DecoderLM's attention, MoE, MLP, embedding, ``loss``,
+    ``prefill`` and ``decode``; replaces the layer stack with the hybrid
+    periods."""
 
-    def __init__(self, cfg, long_context=False):
-        super().__init__(cfg)
+    STACK = "periods"
+
+    def __init__(self, cfg, dist=None, long_context=False):
+        super().__init__(cfg, dist)
         self.period = cfg.attn_layer_period
         if cfg.n_layers % self.period:
             raise ValueError(f"{cfg.n_layers} layers are not whole periods "
@@ -85,12 +101,16 @@ class JambaLM(DecoderLM):
 
     # ------------------------------------------------------------- forward
 
-    def _period_block(self, x, pp, positions, ce, length, mode):
+    def _period_block(self, x, pp, positions, ce, length, mode, fsdp=None):
         """(x, aux) after one period.  ``ce`` holds this period's cache
         views, written in place (None: a cache-free forward from a zero
         state).  aux: in "train" the sum of the period's MoE aux losses
-        in layer order (an f32 0 without MoE layers), else None."""
+        in layer order (an f32 0 without MoE layers), else None.
+        ``fsdp``: the periods' (specs, full shapes) where the period's
+        leaves are gathered over `data` first (training on a mesh)."""
         cfg = self.cfg
+        if fsdp is not None:
+            pp = S.fsdp_gather(pp, *fsdp, self.dist, lead=1)
         aux = x.new_zeros((), dtype=torch.float32) if mode == "train" \
             else None
         mi = moei = mlpi = 0
@@ -109,7 +129,7 @@ class JambaLM(DecoderLM):
             else:
                 st = None if ce is None else C.index_layer(ce["mamba"], mi)
                 o, new = MB.apply_mamba(h, C.index_layer(pp["mamba"], mi),
-                                        cfg, st)
+                                        cfg, st, self.dist)
                 if st is not None:
                     st["ssm"].copy_(new["ssm"])
                     st["conv"].copy_(new["conv"])
@@ -122,13 +142,13 @@ class JambaLM(DecoderLM):
                     aux = aux + a
                 moei += 1
             else:
-                y = L.apply_mlp(h, C.index_layer(pp["mlp"], mlpi), cfg.act)
+                y = self._mlp(h, C.index_layer(pp["mlp"], mlpi))
                 mlpi += 1
             x = x + y
         return x, aux
 
     def _run_layers(self, x, params, positions, cache, length, mode,
-                    remat=False):
+                    remat=False, fsdp=None):
         """As ``DecoderLM._run_layers``, a period at a time: "prefill"
         fills ``cache``, "decode" writes it at ``length``, "train" runs
         without one and sums the periods' aux losses (None in the other
@@ -136,13 +156,13 @@ class JambaLM(DecoderLM):
         activation checkpointing with no policy, whatever
         ``remat_policy`` says: the reference's ``JambaLM._run_layers``
         checkpoints each period without one, so the whole period is
-        recomputed in the backward."""
+        recomputed in the backward.  ``fsdp``: ``_period_block``'s."""
         aux = x.new_zeros((), dtype=torch.float32) if mode == "train" \
             else None
         for p in range(self.n_periods):
             ce = None if cache is None else C.index_layer(cache, p)
             args = (x, C.index_layer(params["periods"], p), positions, ce,
-                    length, mode)
+                    length, mode, fsdp)
             if remat:
                 # no layer draws random numbers: no RNG state to keep
                 x, a = ckpt.checkpoint(self._period_block, *args,
@@ -161,13 +181,29 @@ class JambaLM(DecoderLM):
         ``patch_embeds`` and drops it."""
         return super().prefill(params, tokens, max_len)
 
+    def cache_specs(self):
+        """Specs matching ``init_cache``'s (whole) layout: the
+        reference's (``src/repro/models/hybrid.py:174-183``)."""
+        dp = self.dist.batch_axes()
+        kv = self.dist.kv_axes()
+        return {"attn": {"k": (None, dp, kv, None, None),
+                         "v": (None, dp, kv, None, None)},
+                "mamba": {"ssm": (None, None, dp, "model", None),
+                          "conv": (None, None, dp, None, "model")}}
+
     def init_cache(self, batch, max_len, device, extra=0):
+        """Zero caches; on a mesh, this rank's block: ``batch`` is its
+        rows, and it holds its share of the attention's slots (which must
+        divide over ``dist.kv_seq``) and its Mamba channels."""
         cfg = self.cfg
         mc = cfg.mamba
-        di = mc.expand * cfg.d_model
+        di = S.local_width(mc.expand * cfg.d_model, self.dist)
         P, nm = self.n_periods, self.n_mamba
-        kv = (P, batch, max_len + extra, cfg.n_kv_heads,
-              cfg.resolved_head_dim)
+        slots, n = max_len + extra, self._kv_shards()
+        if slots % n:
+            raise ValueError(f"{slots} cache slots do not divide over "
+                             f"{self.dist.kv_seq} ({n} ranks)")
+        kv = (P, batch, slots // n, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {
             "attn": {"k": torch.zeros(kv, dtype=self.dtype, device=device),
                      "v": torch.zeros(kv, dtype=self.dtype, device=device)},

@@ -12,6 +12,18 @@ path, as in the reference.  What the reference does, kept here:
     ``D`` are f32 parameters;
   * softplus: ``jax.nn.softplus`` has no threshold and ``F.softplus``
     returns x above 20, equal within 2e-9 there.
+
+On a mesh (``dist`` active; ``sharding.py``'s rules) each rank computes
+its di/tp channels.  ``in_proj`` holds the rank's block of x's columns,
+then its block of z's (``sharding.Parts``: a contiguous cut of the 2 di
+columns would give one rank x and the other z); ``conv_w`` and ``A_log``
+are cut over di, and ``conv_b``, ``dt_bias`` and ``D`` are sliced at the
+rank's first channel (``common.local_block``).  ``x_proj``, split by
+rows, gives partial (dt, B, C) projections, summed over `model`; the sum
+enters the split ``dt_proj`` (split by columns) and the scan.  K3 runs on
+the local channels, and ``out_proj``, split by rows, is summed over
+`model`.  The state holds the local channels: ``ssm`` (b, di/tp, N),
+``conv`` (b, K-1, di/tp).
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.models import common as C
 from repro_torch.models import layers as L
 
 
@@ -64,37 +77,46 @@ def _causal_conv(x, w, b, conv_state):
     return y + b, new_state
 
 
-def apply_mamba(x, p, cfg, state=None):
+def apply_mamba(x, p, cfg, state=None, dist=None):
     """x (b, s, d).  state = {'ssm': (b, di, N) f32, 'conv': (b, K-1, di)}
-    or None (zeros).  Returns y (b, s, d), new state (fresh tensors; the
-    caller copies them where it keeps the state)."""
+    (this rank's channels on a mesh) or None (zeros).  Returns y (b, s,
+    d), new state (fresh tensors; the caller copies them where it keeps
+    the state)."""
     m, di, dtr = _dims(cfg)
     b, s, _ = x.shape
+    di_l = p["in_proj"].shape[-1] // 2      # this rank's channels
     if state is None:
-        state = init_state(cfg, b, x.device)
-    xz = x @ p["in_proj"]
-    xin, z = xz[..., :di], xz[..., di:]
-    xc, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"],
+        state = init_state(cfg, b, x.device, di_l)
+    xz = C.enter_split(x, di_l < di, dist) @ p["in_proj"]
+    xin, z = xz[..., :di_l], xz[..., di_l:]
+    xc, conv_state = _causal_conv(xin, p["conv_w"],
+                                  C.local_block(p["conv_b"], di_l, dist),
                                   state["conv"])
     xc = L.silu(xc)
-    proj = xc @ p["x_proj"]
-    dt = F.softplus(proj[..., :dtr] @ p["dt_proj"] + p["dt_bias"].float())
+    proj = C.row_sum(xc @ p["x_proj"], p["x_proj"].shape[-2], di, dist)
+    proj = C.enter_split(proj, di_l < di, dist)
+    dt_bias = C.local_block(p["dt_bias"], di_l, dist)
+    dt = F.softplus(proj[..., :dtr] @ p["dt_proj"] + dt_bias.float())
     B = proj[..., dtr:dtr + m.d_state]
-    C = proj[..., dtr + m.d_state:]
+    C_ = proj[..., dtr + m.d_state:]
     A = -torch.exp(p["A_log"])
+    D = C.local_block(p["D"], di_l, dist)
     if s == 1:
         y, ssm = scan_ops.selective_scan_step(
-            xc[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], p["D"], state["ssm"])
+            xc[:, 0], dt[:, 0], A, B[:, 0], C_[:, 0], D, state["ssm"])
         y = y[:, None]
     else:
-        y, ssm = scan_ops.selective_scan(xc, dt, A, B, C, p["D"],
-                                         state["ssm"])
+        y, ssm = scan_ops.selective_scan(xc, dt, A, B, C_, D, state["ssm"])
     y = y * L.silu(z)
-    return y @ p["out_proj"], {"ssm": ssm, "conv": conv_state}
+    out = C.row_sum(y @ p["out_proj"], p["out_proj"].shape[-2], di, dist)
+    return out, {"ssm": ssm, "conv": conv_state}
 
 
-def init_state(cfg, batch, device):
+def init_state(cfg, batch, device, channels=None):
+    """A zero state of ``channels`` channels (this rank's on a mesh; all
+    di by default)."""
     m, di, _ = _dims(cfg)
+    di = channels or di
     return {
         "ssm": torch.zeros((batch, di, m.d_state), dtype=torch.float32,
                            device=device),

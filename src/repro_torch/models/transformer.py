@@ -103,6 +103,8 @@ class DecoderLM:
     """Decoder LM over a dict of stacked params; methods are pure apart
     from the in-place cache updates of ``prefill`` and ``decode``."""
 
+    STACK = "layers"          # the params' key of the stacked layers
+
     def __init__(self, cfg, dist=None):
         self.cfg = cfg
         self.dist = dist or NULL_CTX
@@ -377,13 +379,18 @@ class DecoderLM:
     def _ffn(self, x, fp):
         """(y, aux loss): the MoE's, or None for a dense MLP (a row-split
         ``down``'s partial sums summed over `model`)."""
-        cfg = self.cfg
-        if cfg.moe is not None:
+        if self.cfg.moe is not None:
             return self._moe(x, fp)
+        return self._mlp(x, fp), None
+
+    def _mlp(self, x, fp):
+        """The dense MLP; on a mesh a row-split ``down``'s partial sums
+        summed over `model`."""
+        cfg = self.cfg
         split = fp["down"].shape[-2] < cfg.d_ff
         x = C.enter_split(x, split, self.dist)
         return C.row_sum(L.apply_mlp(x, fp, cfg.act), fp["down"].shape[-2],
-                         cfg.d_ff, self.dist), None
+                         cfg.d_ff, self.dist)
 
     def _layer(self, x, lp, win, theta, positions, cache_entry, length,
                mode, fsdp=None):
@@ -460,10 +467,10 @@ class DecoderLM:
                     "training with moe_full_ep: full expert parallelism is "
                     "the reference's decode layout (launch/specs.py)")
             specs, shapes = self.layout()
-            params = {k: (v if k == "layers" else
+            params = {k: (v if k == self.STACK else
                           S.fsdp_gather(v, specs[k], shapes[k], dist))
                       for k, v in params.items()}
-            fsdp = (specs["layers"], shapes["layers"])
+            fsdp = (specs[self.STACK], shapes[self.STACK])
         patches = batch.get("patch_embeds")
         x = self._embed_inputs(params, batch["tokens"], patches)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]

@@ -121,17 +121,21 @@ class AdamW:
 
 def global_square_sum(flat_g, mesh=None):
     """The sum of squares of every gradient leaf (f32, in leaf order); on
-    a mesh (``(comm, axes tree)``) the whole model's: the leaves grouped
-    by the axes that cut them, each group's local sum psum'd over its
-    axes, the groups in the order their first leaves come."""
-    if mesh is None:
-        return sum(torch.sum(torch.square(g.float())) for g in flat_g)
-    comm, axes = mesh
-    groups = {}
-    for g, ax in zip(flat_g, T.leaves(axes)):
-        s = torch.sum(torch.square(g.float()))
-        groups[ax] = groups[ax] + s if ax in groups else s
-    return sum(comm.psum(s, ax) for ax, s in groups.items())
+    a mesh (``(comm, axes tree)``) the whole model's: each leaf's local
+    sum psum'd over the axes that cut it (one psum a set of axes, of its
+    leaves' sums stacked), then the leaves' sums added in leaf order, as
+    one device adds them (a one-rank mesh gives its bits)."""
+    sums = [torch.sum(torch.square(g.float())) for g in flat_g]
+    if mesh is not None:
+        comm, axes = mesh
+        groups = {}
+        for i, ax in enumerate(T.leaves(axes)):
+            groups.setdefault(ax, []).append(i)
+        for ax, idx in groups.items():
+            summed = comm.psum(torch.stack([sums[i] for i in idx]), ax)
+            for j, i in enumerate(idx):
+                sums[i] = summed[j]
+    return sum(sums)
 
 
 def _unflatten(tree, values, is_leaf):

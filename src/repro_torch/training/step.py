@@ -49,7 +49,7 @@ def make_train_step(model, optimizer, *, microbatches: int = 1,
     (``sharding.param_specs``), on a mesh the reduction's form (module
     docstring).  The optimizer updates params and state in place
     (``AdamW.update``)."""
-    dist = getattr(model, "dist", NULL_CTX)      # RWKVLM, WhisperLM: none
+    dist = getattr(model, "dist", NULL_CTX)      # WhisperLM: none
 
     def step(params, opt_state, batch):
         layout = _MeshLayout(model, params, grad_specs) if dist.active \

@@ -194,3 +194,28 @@ def _moments_close(got, want, quantized):
         step = np.abs(g.q.numpy().astype(np.int32)
                       - np.asarray(w.q).astype(np.int32))
         assert step.max() <= 1
+
+
+def test_mesh_square_sum_adds_leaves_in_one_devices_order():
+    """On a mesh the clip's square sum psums each set of axes' leaf sums
+    (one psum a set) and adds the leaves in leaf order, as one device
+    does: with psums that return their operand (a one-rank mesh) the bits
+    are one device's, and every psum sees its own set's leaves."""
+    from types import SimpleNamespace
+
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(3)
+    shapes = [(3, 5), (7,), (2, 4, 3), (11,), (6, 2)]
+    flat = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in shapes]
+    axes = {"a": ("data", "model"), "b": (), "c": ("model",), "d": (),
+            "e": ("data", "model")}
+    seen = []
+
+    def psum(x, ax):
+        seen.append((ax, x.shape[0]))
+        return x.clone()
+
+    got = adamw.global_square_sum(flat, (SimpleNamespace(psum=psum), axes))
+    assert torch.equal(got, adamw.global_square_sum(flat))
+    assert seen == [(("data", "model"), 2), ((), 2), (("model",), 1)]

@@ -1,6 +1,7 @@
-"""The ranks of the port's mesh tests (``tests/test_torch_mesh.py`` and
-``tests/test_torch_mesh_train.py`` on the CPU, ``tests/test_torch_gpu.py``
-on the card).  ``spawn`` runs one process a rank:
+"""The ranks of the port's mesh tests (``tests/test_torch_mesh.py``,
+``tests/test_torch_mesh_train.py`` and ``tests/test_torch_mesh_ssm.py``
+on the CPU, ``tests/test_torch_gpu.py`` on the card).  ``spawn`` runs
+one process a rank:
 
     python tests/torch_mesh_ranks.py RANK SHAPE AXES STORE INPUTS OUTPUT \
         DEVICE BACKEND
@@ -11,7 +12,12 @@ case of INPUTS (a ``torch.save``'d dict written by the test, with full
 weights and inputs) on this rank's shards, and ``torch.save``s this
 rank's outputs to OUTPUT.  Serving cases run under
 ``torch.inference_mode``, training cases (``TRAINING``) with autograd.
-It imports torch and the port only, never JAX.
+It imports torch and the port only, never JAX.  ``spawn(...,
+f64=True)`` starts each rank through ``F64_BOOT``: every float32 the port
+names, and ``Tensor.float``, mean float64 in the rank's process, set
+before the port is imported, and every float input arrives in float64,
+so the port's f32 code runs in f64 (a witness beside the reference run
+the same way).
 """
 from __future__ import annotations
 
@@ -35,10 +41,21 @@ from repro_torch.distribution import sharding as S
 from repro_torch.distribution.sharding import param_specs, shard_params
 from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models import attention as A
+from repro_torch.models import common as C
 from repro_torch.models.factory import build_model
 from repro_torch.optim import AdamW, AdamWConfig, cosine, quant
 from repro_torch.training import step as train_step
 from repro_torch.training.pipeline import gpipe_forward
+
+# set by F64_BOOT before this module is imported
+F64 = torch.float32 is torch.float64
+F64_BOOT = """
+import runpy, sys, torch
+torch.float32 = torch.float64
+torch.Tensor.float = torch.Tensor.double
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
 
 
 def rows(t, ctx):
@@ -152,14 +169,64 @@ class _Capture:
 def whole(tree, specs, ctx):
     """``shard_params(..., train=True)``'s inverse: every cut dim of each
     leaf all-gathered back over its axes, the full leaves on every rank."""
-    def gather(t, spec):
-        for dim, entry in enumerate(spec):
-            axes = S.cut_axes(entry, train=True)
-            if axes:
-                t = ctx.comm.all_gather(t.detach(), axes, dim=dim)
-        return t
+    return S.unshard(tree, specs, ctx)
 
-    return T.map_tree(gather, tree, specs)
+
+# Faults of the recurrent serving cases (``run_ssm_serve``): "in-proj-
+# contiguous" (every rank cuts Mamba's in_proj as one contiguous block of
+# its 2 di columns), "offset-0" (every rank slices the 1-D leaves it holds
+# whole, RWKV's w0 and u among them, at offset 0), ("keep-own-row-sum",
+# width) (rank (0, 1) keeps its own partial sums of the row-split
+# products of ``width`` output columns: RWKV's wo at d_model, Mamba's
+# x_proj at dt_rank + 2 d_state; every rank still takes part in the psum)
+SSM_FAULTS = ("in-proj-contiguous", "offset-0", "keep-own-row-sum")
+
+
+@contextlib.contextmanager
+def _ssm_fault(fault, coords):
+    name = fault[0] if isinstance(fault, (tuple, list)) else fault
+    real_block, real_sum = C.local_block, C.row_sum
+    if name == "offset-0":
+        C.local_block = lambda t, n, dist: t[..., :n]
+    elif name == "keep-own-row-sum" and coords == (0, 1):
+        width = int(fault[1])
+
+        def row_sum(y, rows, full_rows, dist):
+            out = real_sum(y, rows, full_rows, dist)
+            return y if y.shape[-1] == width else out
+
+        C.row_sum = row_sum
+    try:
+        yield
+    finally:
+        C.local_block, C.row_sum = real_block, real_sum
+
+
+def run_ssm_serve(case, ctx):
+    """RWKVLM or JambaLM on this rank's shards: prefill, then the forced
+    decode steps; the logits rows ("logits") and the state gathered whole
+    ("state/<path>"), with ``case["fault"]`` where given."""
+    model = model_for(case, ctx)
+    specs = param_specs(model, case["params"])
+    fault = case.get("fault")
+    if fault == "in-proj-contiguous":
+        specs = T.map_tree(lambda sp: tuple(
+            "model" if getattr(e, "parts", 1) > 1 else e for e in sp),
+            specs)
+    params = shard_params(case["params"], specs, ctx)
+    coords = tuple(ctx.comm.axis_index(a) for a in ctx.comm.names)
+    with _ssm_fault(fault, coords):
+        logits, cache, length = model.prefill(
+            params, rows(case["tokens"], ctx), case["max_len"])
+        out = [logits]
+        for tok in case["forced"].unbind(1):
+            logits, cache, length = model.decode(
+                params, cache, rows(tok[:, None], ctx), length)
+            out.append(logits)
+    res = {"logits": torch.cat(out, dim=1)}
+    for path, t in T.flatten(S.unshard(cache, model.cache_specs(), ctx)):
+        res[f"state/{path}"] = t
+    return res
 
 
 def run_train_loss(case, ctx):
@@ -227,7 +294,8 @@ def run_compressed_psum(case, ctx):
 
 
 RUN = {"sp_decode": run_sp_decode, "mla_sp": run_mla_sp, "moe": run_moe,
-       "decoder": run_decoder, "train_loss": run_train_loss,
+       "decoder": run_decoder, "ssm_serve": run_ssm_serve,
+       "train_loss": run_train_loss,
        "train_step": run_train_step, "gpipe": run_gpipe,
        "compressed_psum": run_compressed_psum}
 TRAINING = ("train_loss", "train_step")
@@ -236,7 +304,11 @@ TRAINING = ("train_loss", "train_step")
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if F64 and tree.is_floating_point():
+        return tree.to(device, torch.float64)
+    return tree.to(device)
 
 
 def _cpu(out):
@@ -276,9 +348,10 @@ def main(argv):
 
 
 def spawn(cases, mesh, tmp, *, device="cpu", backend="gloo", deadline=240,
-          axes=("data", "model")):
+          axes=("data", "model"), f64=False):
     """Runs every case on the ranks of ``mesh`` (a shape; dims ``axes``;
-    one process a rank, all on card 0 where ``device`` is "cuda");
+    one process a rank, all on card 0 where ``device`` is "cuda"; in f64
+    with ``f64``: the module docstring);
     returns each rank's outputs keyed by its coordinates.  Raises if a
     rank fails or the ranks outlive ``deadline`` seconds (then every rank
     is stopped)."""
@@ -287,9 +360,10 @@ def spawn(cases, mesh, tmp, *, device="cpu", backend="gloo", deadline=240,
     torch.save(cases, tmp / "in.pt")
     src = Path(__file__).resolve().parents[1] / "src"
     env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1")
+    boot = ["-c", F64_BOOT] if f64 else []
     world = math.prod(mesh)
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), "x".join(map(str, mesh)),
+        [sys.executable, *boot, __file__, str(r), "x".join(map(str, mesh)),
          ",".join(axes), str(tmp / "store"), str(tmp / "in.pt"),
          str(tmp / f"out{r}.pt"), device, backend],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
