@@ -50,6 +50,9 @@ non-zero and prints no result:
    (general, hopper, sdpa, sdpa, hopper, general); at a mesh rank's local
    heads (mistral-nemo-12b's 16 of 32 and DeepSeek-V3's 64 of 128 MLA
    heads, 2 rows of 1024; path j's 16 of 32, 1 row of 4096), timed in
+   turns with SDPA; at the local shapes of phase mesh_wq (whisper-tiny's
+   encoder (2, 1500, 1500, 6, 64) and cross-attention (2, 224, 1500),
+   mixtral-8x7b's 16 of 32 heads, 1 row of 2048, window 4096), timed in
    turns with SDPA; K2 through its
    dispatcher, and its candidate plans (G, C, CB, double buffer) in two
    passes at the main-path shape, each case checked for the plan it
@@ -180,6 +183,26 @@ non-zero and prints no result:
    layers on a one-rank NCCL mesh, bit for bit with one device; it prints
    bytes and calls by collective a decode step and a training step, each
    rank's peak memory and the phase's wall time;
+   then phase mesh_wq (phase_mesh_wq) on the same four gloo ranks: path
+   o, whisper-tiny as published (WhisperLM in the reference's layout:
+   every `model` rank runs K1 on all 6 heads of its rows, the MLP split
+   over `model`, the vocab of 51865 whole, the self cache's slots over
+   `model`) serving path g's 8 requests in 2 waves (2 rows a `data`
+   rank, 1500 frames each, 4 forced then greedy tokens), each logits row
+   and the caches gathered whole within MESH_ROW_LIMIT of the one-device
+   run, the MLP's psum left out (rank (0, 1)) and the self cache's slots
+   written and read at offset 0 (every rank) shown to fail, K1 12
+   launches a rank and wave, all Hopper; path p, whisper-tiny trained 2
+   steps of 16 x 448 tokens with frames (2 microbatches, grad_specs, f32
+   moments); path q, mixtral-8x7b cut to 1 layer at full width (1.71 B
+   params) trained 2 steps of 4 x 2048 with int8 AdamW moments and bf16
+   accumulators, the reference's setting above 30 B params: each step's
+   loss and grad_norm within MESH_TRAIN_LIMIT of one device, the
+   lm_head's block scales (62.5 blocks a `model` rank: quantized on the
+   whole row after a gather) within MESH_QUANT_SCALE_LIMIT of one
+   device's, each rank's columns quantized on their own shown to fail,
+   the bytes the moments' gathers bring a rank; K1's launches a rank and
+   step as MESH_WHISPER_TRAIN and MESH_QUANT_TRAIN say, all Hopper;
 6. K1's backward (flash_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.flash_attention, whose backward
    launches the kernels of the route kernel_bwd.plan picks) against
@@ -189,15 +212,16 @@ non-zero and prints no result:
    view, hd 64 with a window and a softcap, hd 128 with sq != skv, and sq
    = 1000 (ragged TMA boxes), and whisper-tiny's training shapes without
    the causal mask, the cross-attention (16, 448, 1500, 6, 64) and the
-   encoder (16, 1500, 1500, 6, 64), and path j's local heads (1, 4096,
-   4096, 16, 128); each case checked for its route
+   encoder (16, 1500, 1500, 6, 64), path j's local heads (1, 4096,
+   4096, 16, 128) and path q's (1, 2048, 2048, 16, 128), window 4096;
+   each case checked for its route
    ("hopper": the forward's LSE, preprocess, dK/dV, dQ on TMA and wgmma;
    "general": stats, dK/dV, dQ on mma.sync); two calls bit for bit; a
    backward with D dropped, the softcap derivative dropped, a kv tile
    skipped, the LSE of the neighbouring row, the LSE in log2 units, or a
    Q/dO ring stage read one tile stale shown to fail the checks; at the
-   training shape, at hd 128 and at path j's local heads, timed in
-   turns: the Hopper backward
+   training shape, at hd 128 and at paths j's and q's local heads, timed
+   in turns: the Hopper backward
    (each kernel alone and the whole call), the general one as the
    yardstick, SDPA's backward, and K1's forward with and without the
    LSE, beside the bound;
@@ -529,6 +553,16 @@ FLASH_CASES = [
     # rank and microbatch, mistral-nemo-12b's 16 of 32 heads a `model` rank
     ("mesh-train-local-heads", (1, 4096, 4096, 16, 128), torch.bfloat16,
      True, 0, 0.0, "plain", "hopper"),
+    # a rank's local shapes on paths o and q (phase mesh_wq): whisper-tiny's
+    # 2 rows a `data` rank with all 6 heads (the encoder, the cross-
+    # attention of 224-token prompts); mixtral-8x7b's 1 row of 2048 and 16
+    # of 32 heads, its window 4096 past the row (the causal mask)
+    ("mesh-whisper-encoder", (2, 1500, 1500, 6, 64), torch.bfloat16, False,
+     0, 0.0, "plain", "hopper"),
+    ("mesh-whisper-cross", (2, 224, 1500, 6, 64), torch.bfloat16, False, 0,
+     0.0, "plain", "hopper"),
+    ("mesh-mixtral-local-heads", (1, 2048, 2048, 16, 128), torch.bfloat16,
+     True, 4096, 0.0, "plain", "hopper"),
 ]
 # the forward faults (checks.FWD_FAULTS) a case also shows its checks
 # can see
@@ -540,13 +574,15 @@ FLASH_FAULTS = {"danube-window-4096": ("pad-from-next-head",
 TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
                      "mixtral-window-4096", "mla-hd192", "whisper-encoder",
                      "whisper-cross", "mesh-local-heads", "mla-local-heads",
-                     "mesh-train-local-heads")
+                     "mesh-train-local-heads", "mesh-whisper-encoder",
+                     "mesh-whisper-cross", "mesh-mixtral-local-heads")
 # the timed cases whose SDPA call also runs in the turns of K1's variants
 # (general, hopper, sdpa, sdpa, hopper, general), each timed queued
 # behind a sleep of the stream: their kernels take less time than the
 # host takes to launch them
 SDPA_IN_TURNS = ("whisper-encoder", "whisper-cross", "mesh-local-heads",
-                 "mesh-train-local-heads")
+                 "mesh-train-local-heads", "mesh-whisper-encoder",
+                 "mesh-whisper-cross", "mesh-mixtral-local-heads")
 # cycles of torch.cuda._sleep before a queued timing's calls (about 10 ms
 # at 1.98 GHz), more than the host takes to enqueue them
 QUEUE_SLEEP_CYCLES = 20_000_000
@@ -949,7 +985,7 @@ def phase_flash():
             check(torch.equal(out[..., 128:], torch.zeros_like(
                 out[..., 128:])), f"flash_attention {name}: the padded "
                                   f"columns of o are not zero")
-        if window >= 1024:
+        if 1024 <= window < shape[2]:   # a window past skv masks nothing
             _window_checks_can_fail(plain, q, k, v, ref, rtol, name)
         for fault in FLASH_FAULTS.get(name, ()):
             _forward_fault_fails(checks, plain, q, k, v, ref, tol, rtol,
@@ -1119,7 +1155,9 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                         **kw), queued=queued)))
             del lse
         if sdpa_turns["sdpa"]:
-            check(not kw["window"], f"{name}: SDPA in turns takes no window")
+            # is_causal is the window's mask where the window passes skv
+            check(not kw["window"] or kw["window"] >= k.shape[1],
+                  f"{name}: SDPA in turns takes no window")
             library_ms = float(np.mean(sdpa_turns["sdpa-dv"]
                                        or sdpa_turns["sdpa"]))
         elif kw["window"]:
@@ -3096,20 +3134,26 @@ def _mesh_rows(t, ctx):
     return t[ctx.comm.axis_index(ctx.dp) * n:][:n]
 
 
-def _mesh_forward(model, params, ctx, toks, forced, steps):
-    """One wave on this rank: prefill, then ``steps`` decode steps (the
+def _mesh_forward(model, params, ctx, toks, forced, steps, frames=None,
+                  max_len=SHORT_TRAFFIC[1], state_fn=None):
+    """One wave on this rank: prefill (with this rank's rows of
+    ``frames`` where given: Whisper's), then ``steps`` decode steps (the
     forced tokens first, greedy after).  Returns (logits rows (b_l, 1 +
     MESH_FORCED, V) f32 on the CPU, prefill s, decode s each, collective
-    bytes and calls of the prefill and of the sixth step, the Mamba state
-    after the forced steps gathered whole: ``mamba_state``, None without
-    Mamba or forced steps)."""
+    bytes and calls of the prefill and of the sixth step, the state after
+    the forced steps: ``state_fn(model, cache, ctx)``, by default the
+    Mamba state gathered whole, ``mamba_state``, None without Mamba or
+    forced steps)."""
     comm = ctx.comm
+    state_fn = state_fn or mamba_state
     toks = _mesh_rows(toks, ctx).cuda()
     forced = _mesh_rows(forced, ctx).cuda()
+    extra = ({} if frames is None
+             else {"frames": _mesh_rows(frames, ctx).cuda()})
     comm.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache, length = model.prefill(params, toks, SHORT_TRAFFIC[1])
+    logits, cache, length = model.prefill(params, toks, max_len, **extra)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     moved = {"prefill": dict(comm.bytes_by_op)}
@@ -3126,7 +3170,7 @@ def _mesh_forward(model, params, ctx, toks, forced, steps):
         if i < MESH_FORCED:
             rows.append(logits[:, 0].float().cpu())
         if i == MESH_FORCED - 1:
-            state = mamba_state(model, cache, ctx)
+            state = state_fn(model, cache, ctx)
         if i == 5:
             moved["decode_step"] = dict(comm.bytes_by_op)
             moved["decode_step_calls"] = dict(comm.calls_by_op)
@@ -3418,7 +3462,12 @@ def _routing_near_ties(want_routes, got_routes, shape, n_moe):
 
 def mesh_state_err(got, want):
     """The worst batch row's max |got - want| / max |want| of a Mamba
-    state (P, n_mamba, b, di, N)."""
+    state (P, n_mamba, b, di, N), or of each of Whisper's caches ({k, v,
+    ck, cv}: (L, b, slots, h, hd)), the worst of them."""
+    if isinstance(want, dict):
+        return max(mesh_row_err(got[k].movedim(1, 0).flatten(1).float(),
+                                w.movedim(1, 0).flatten(1).float())
+                   for k, w in want.items())
     return mesh_row_err(got.movedim(2, 0).flatten(1),
                         want.movedim(2, 0).flatten(1))
 
@@ -3481,7 +3530,8 @@ def _mesh_check(label, spec, outs, want, shape, backend, card):
              f"at a near tie: errs "
              f"{[round(e, 3) for e in errs[over & near].tolist()]}"
              if n_moe else "")
-          + (f"; Mamba state after the forced steps, worst row err "
+          + (f"; {spec.get('state', 'Mamba state')} after the forced "
+             f"steps, worst row err "
              f"{', '.join(f'{e:.3e}' for e in state_errs)} (each wave)"
              if state_errs else ""))
     print(f"[mesh] {label} {backend}: rank (0, 0) prefill per wave "
@@ -3509,8 +3559,8 @@ def _mesh_check(label, spec, outs, want, shape, backend, card):
           f"{MESH_ROW_LIMIT:g} (errs {errs[bad].tolist()}) without a "
           f"routing near tie")
     check(all(e <= MESH_ROW_LIMIT for e in state_errs),
-          f"mesh {label} {backend}: Mamba state err {state_errs} past "
-          f"{MESH_ROW_LIMIT:g}")
+          f"mesh {label} {backend}: {spec.get('state', 'Mamba state')} err "
+          f"{state_errs} past {MESH_ROW_LIMIT:g}")
     faults = {}
     for name, run in r0["faults"].items():
         rows = max(mesh_row_err(outs[(0, mi)][label]["faults"][name]
@@ -3520,8 +3570,9 @@ def _mesh_check(label, spec, outs, want, shape, backend, card):
                  if run["state"] is not None else None)
         faults[name] = {"rows": rows, "state": state}
     if faults:
-        print(f"[mesh] {label} faults on rank (0, 1), wave 0, worst logits "
-              f"row err / Mamba state err: "
+        print(f"[mesh] {label} faults on rank (0, 1) (the self cache's "
+              f"slots: on every rank), wave 0, worst logits row err / "
+              f"{spec.get('state', 'Mamba state')} err: "
               + ", ".join(f"{k} {f['rows']:.3e} / "
                           + ("-" if f["state"] is None
                              else f"{f['state']:.3e}")
@@ -3627,59 +3678,100 @@ MESH_TRAIN_FAULTS = ("row-parallel psum's backward left out",
 
 def mesh_train_config(spec):
     """(config, shape) of a mesh training path's spec (MESH_TRAIN,
-    MESH_SSM_TRAIN): its arch with its cut, replacements and MoE offset,
-    and its batch shape."""
+    MESH_SSM_TRAIN, MESH_WHISPER_TRAIN, MESH_QUANT_TRAIN): its arch with
+    its cut, replacements, MoE offset and MoE replacements, and its batch
+    shape."""
     from repro_torch.configs import get_config
     cfg = get_config(spec["arch"]).replace(**spec["cut"],
                                            **spec.get("replace", {}))
     if "moe_offset" in spec:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, layer_offset=spec["moe_offset"]))
+    if "moe" in spec:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **spec["moe"]))
     return cfg, spec["shape"]
 
 
-def mesh_train_parts(cfg, shape, dist=None, wrap=None):
+def mesh_train_parts(cfg, shape, dist=None, wrap=None, spec=None):
     """(model, optimizer, step_fn, data) of a mesh training path: the
     reference's train cell for ``cfg`` at ``shape``'s batch, sequence and
-    microbatches; the optimizer is AdamW, or ``wrap(AdamW)``."""
+    microbatches; the optimizer is AdamW, or ``wrap(AdamW)``, with int8
+    moments where ``spec`` says ``quantized`` and the accumulators in its
+    ``accum`` dtype (f32 by default)."""
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.models.factory import build_model
     from repro_torch.optim import AdamW, AdamWConfig, cosine
     from repro_torch.training.step import make_train_step
+    spec = spec or {}
     model = build_model(cfg, dist)
     opt = AdamW(lambda s: cosine(s, peak_lr=3e-4, warmup=100,
-                                 total=10_000), AdamWConfig())
+                                 total=10_000),
+                AdamWConfig(quantized=spec.get("quantized", False)))
     if wrap is not None:
         opt = wrap(opt)
     specs = model.layout()[0] if dist is not None else None
     step_fn = make_train_step(model, opt,
                               microbatches=shape["microbatches"],
-                              accum_dtype=torch.float32, grad_specs=specs)
+                              accum_dtype=getattr(torch, spec.get(
+                                  "accum", "float32")),
+                              grad_specs=specs)
     data = SyntheticLMDataset(cfg.vocab_size, shape["seq"], shape["batch"],
                               seed=1)
     return model, opt, step_fn, data
 
 
-def _batch_on_card(data, step):
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
-            for k, v in data.batch_at(step).items()}
+def _batch_on_card(data, step, cfg):
+    """The stream's batch ``step`` on the card; for Whisper with its
+    frames (N(0, 1), seeded by the step on the CPU, so every rank and the
+    one-device run draw the same)."""
+    from repro_torch.configs.whisper_tiny import N_AUDIO_FRAMES
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in data.batch_at(step).items()}
+    if cfg.is_encdec:
+        gen = torch.Generator().manual_seed(SEED + 11 + step)
+        batch["frames"] = torch.randn(
+            (batch["tokens"].shape[0], N_AUDIO_FRAMES, cfg.d_model),
+            generator=gen).cuda()
+    return batch
+
+
+def _leaf_scales(state, leaf, plans=None, ctx=None):
+    """The block scales of ``leaf`` (a key path) of each quantized moment,
+    (rows, blocks) f32 on the CPU: on a mesh gathered whole by the plan's
+    ``q`` spec (every rank gathers; rank (0, 0) keeps them)."""
+    from repro_torch.distribution.sharding import unshard
+    out = {}
+    for key in ("m", "v"):
+        qt = state[key]
+        for k in leaf:
+            qt = qt[k]
+        scale = qt.scale
+        if plans is not None:
+            plan = plans
+            for k in leaf:
+                plan = plan[k]
+            scale = unshard(scale, plan.qspec, ctx)
+        out[key] = scale[..., 0].float().cpu()
+    return out
 
 
 def mesh_train_reference(spec):
     """The one-device run of a mesh training path's spec on the card, from
     the weights the ranks draw: each step's loss and grad_norm and every
-    kernel's counts a step."""
+    kernel's counts a step; with ``spec["scales_of"]``, that leaf's block
+    scales of each quantized moment after each step."""
     ops = kernel_ops()
     cfg, shape = mesh_train_config(spec)
-    model, opt, step_fn, data = mesh_train_parts(cfg, shape)
+    model, opt, step_fn, data = mesh_train_parts(cfg, shape, spec=spec)
     torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
                         "cuda")
     state = opt.init(params)
     out = {"loss": [], "grad_norm": [], "step_ms": [], "counts": [],
+           "scales": [],
            "params_b": sum(t.numel() for t in _leaves(params)) / 1e9}
     for step in range(spec["steps"]):
-        batch = _batch_on_card(data, step)
+        batch = _batch_on_card(data, step, cfg)
         torch.cuda.synchronize()
         reset_counts(ops)
         t0 = time.perf_counter()
@@ -3688,6 +3780,8 @@ def mesh_train_reference(spec):
         out["grad_norm"].append(float(m["grad_norm"]))
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["counts"].append(read_counts(ops))
+        if "scales_of" in spec:
+            out["scales"].append(_leaf_scales(state, spec["scales_of"]))
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del params, state
     free_device_memory(f"{cfg.name}'s one-device training run "
@@ -3714,9 +3808,10 @@ class _NormProbe:
 
     def __init__(self, opt):
         self.opt, self.norm, self.probed = opt, None, None
+        self.cfg = opt.cfg           # make_train_step reads its moments
 
-    def init(self, params):
-        return self.opt.init(params)
+    def init(self, params, plans=None):
+        return self.opt.init(params, plans=plans)
 
     def update(self, grads, state, params, mesh=None):
         from repro_torch import tree as T
@@ -3788,23 +3883,29 @@ def _mesh_train_fault(name, comm):
 
 def _mesh_train_path(ctx, label, spec, faults):
     """A mesh training path on this rank (its ``spec``: MESH_TRAIN,
-    MESH_SSM_TRAIN): its FSDP+TP blocks (each rank in turn draws the full
-    model from seed 0 on the card and cuts them); with ``faults`` (path
-    j), the norms under MESH_TRAIN_FAULTS on rank (0, 1) at the first
-    step's params (the third from step 1's own gradients); the spec's steps,
-    every kernel's counts and the collectives' bytes set to 0 before each
-    step and read after it."""
+    MESH_SSM_TRAIN, MESH_WQ_TRAIN): its FSDP+TP blocks (each rank in turn
+    draws the full model from seed 0 on the card and cuts them); with
+    ``faults`` (path j), the norms under MESH_TRAIN_FAULTS on rank (0, 1)
+    at the first step's params (the third from step 1's own gradients);
+    the spec's steps, every kernel's counts and the collectives' bytes set
+    to 0 before each step and read after it, and the bytes the quantized
+    moments' gathers brought.  With ``spec["scales_of"]`` (path q), that
+    leaf's block scales of each moment after each step, gathered whole,
+    and after step 1 the scales of the fault MESH_QUANT_FAULT: the f32
+    moments this rank stored quantized on their own (this rank's columns
+    as if they were the whole leaf), gathered by rows over `data` and by
+    blocks over `model`."""
     import torch.distributed as tdist
 
     from repro_torch.models.factory import build_model
-    from repro_torch.optim import adamw
+    from repro_torch.optim import adamw, quant
     from repro_torch.training.step import make_train_step
     ops = kernel_ops()
     comm = ctx.comm
     coords = (comm.axis_index("data"), comm.axis_index("model"))
     cfg, shape = mesh_train_config(spec)
     model, probe, step_fn, data = mesh_train_parts(cfg, shape, ctx,
-                                                   _NormProbe)
+                                                   _NormProbe, spec)
     specs = model.layout()[0]
     torch.cuda.reset_peak_memory_stats()
     for r in range(tdist.get_world_size()):
@@ -3818,14 +3919,14 @@ def _mesh_train_path(ctx, label, spec, faults):
         tdist.barrier()
     params_gb = sum(t.numel() * t.element_size()
                     for t in _leaves(params)) / 1e9
-    state = probe.init(params)
+    state = probe.init(params, plans=step_fn.plans)
     out = {"coords": coords, "params_gb": params_gb, "faults": {},
            "steps": []}
     if faults:
         norm_fn = make_train_step(model, _NormOnly(),
                                   microbatches=shape["microbatches"],
                                   grad_specs=specs)
-        batch = _batch_on_card(data, 0)
+        batch = _batch_on_card(data, 0, cfg)
         for name in MESH_TRAIN_FAULTS[:2]:
             with contextlib.ExitStack() as stack:
                 if coords == (0, 1):
@@ -3835,8 +3936,21 @@ def _mesh_train_path(ctx, label, spec, faults):
             gc.collect()
         probe.norm = (_counted_twice(ctx.tp_size) if coords == (0, 1)
                       else adamw.global_square_sum)
+    stored, capturing = [], [True]
+    if "scales_of" in spec:
+        plan = step_fn.plans
+        for k in spec["scales_of"]:
+            plan = plan[k]
+        real_store = plan.store
+
+        def store(x):
+            if capturing[0]:         # step 1's m, then its v
+                stored.append(x.clone())
+            return real_store(x)
+
+        plan.store = store
     for step in range(spec["steps"]):
-        batch = _batch_on_card(data, step)
+        batch = _batch_on_card(data, step, cfg)
         torch.cuda.synchronize()
         reset_counts(ops)
         comm.reset()
@@ -3851,7 +3965,23 @@ def _mesh_train_path(ctx, label, spec, faults):
             "bytes": dict(comm.bytes_by_op),
             "calls": dict(comm.calls_by_op),
             "seconds": dict(comm.seconds_by_op),
-            "staging_s": comm.staging_seconds, "counts": read_counts(ops)})
+            "staging_s": comm.staging_seconds, "counts": read_counts(ops),
+            "moment_gather_bytes": probe.opt.gathered_bytes})
+        if "scales_of" in spec:
+            scales = _leaf_scales(state, spec["scales_of"], step_fn.plans,
+                                  ctx)
+            out["steps"][-1]["scales"] = scales if coords == (0, 0) else None
+        if stored:
+            capturing[0] = False
+            local = {key: quant.quantize(x).scale for key, x in
+                     zip(("m", "v"), stored)}
+            stored.clear()
+            fault = {key: comm.all_gather(comm.all_gather(
+                t, "data", dim=0), "model", dim=-2)[..., 0].float().cpu()
+                for key, t in local.items()}
+            out["faults"][MESH_QUANT_FAULT] = (fault if coords == (0, 0)
+                                               else None)
+            del local
         if probe.norm is not None:
             out["faults"][MESH_TRAIN_FAULTS[2]] = probe.probed
             probe.norm = None
@@ -4153,6 +4283,368 @@ def mesh_ssm_train(card):
     return results, runs
 
 
+# ------------------------------------------- mesh Whisper, int8 moments
+
+# Phase mesh_wq: WhisperLM and AdamW's int8 moments on MESH_SHAPE's
+# ("data", "model") gloo mesh of four ranks sharing card 0, in the
+# reference's layout (whisper.py's docstring: every `model` rank runs K1
+# on all 6 heads of its rows, the MLP split over `model`, the vocab of
+# 51865 whole).  Path o: whisper-tiny as published, path g's 8 requests
+# (seed 0, prompts of 4-224 tokens, 1500 frames each, N(0, 1) from a
+# seed on the CPU) in 2 waves of 4 (2 rows a `data` rank), max_len 448
+# (224 self-cache slots a `model` rank), 4 forced then greedy tokens to
+# MESH_WHISPER_STEPS; each logits row of the prefill and the forced
+# steps, and each batch row of the k, v, ck, cv caches gathered whole by
+# cache_specs after them, within MESH_ROW_LIMIT of the one-device run on
+# the card; two faults, the MLP's psum left out on rank (0, 1) and the
+# self cache's slot block written and read at offset 0 on every rank,
+# each past twice the limit; K1 12 launches a rank and wave (4 encoder at
+# (2, 1500, 1500, 6, 64), 4 causal self-attention, 4 cross-attention at
+# (2, <= 224, 1500)), all Hopper.
+MESH_WHISPER_SERVE = dict(arch=WHISPER, cut={}, state="caches",
+                          per_wave={"flash_attention": 12})
+MESH_WHISPER_STEPS = 8
+# Path p: whisper-tiny trained there (FSDP over `data`, the MLP over
+# `model`): 2 steps of 16 x 448 tokens (the synthetic stream, seed 1)
+# with 16 x 1500 frames (N(0, 1), seeded by the step), 2 microbatches,
+# grad_specs, f32 accumulators and AdamW moments (36.4 M params, under
+# the reference's 30 B threshold), the reference cell's cosine; each
+# step's loss and grad_norm on every rank within MESH_TRAIN_LIMIT of one
+# device.  K1 a rank and step: 20 forward launches a microbatch (4
+# encoder, the decoder's 8 twice: its forward and recompute) and 12
+# backward calls (36 launches), all "hopper".
+MESH_WHISPER_TRAIN = dict(arch=WHISPER, cut={},
+                          shape=dict(batch=16, seq=448, microbatches=2),
+                          steps=2, kernels={"flash_attention": (40, 72)})
+# Path q: mixtral-8x7b cut to 1 of its 32 layers at full width (8 experts
+# of 4096 x 14336, 4 a `model` rank; 32 q / 8 kv heads of 128, window
+# 4096; vocab 32000 untied; 1.71 B params) trained with the reference's
+# setting for the 46.7 B model (QUANTIZED_OPT_THRESHOLD: int8 moments,
+# shape-preserving blocks; bf16 accumulators), cosine, 2 steps of 4 x
+# 2048 tokens in 2 microbatches with grad_specs; each step's loss and
+# grad_norm within MESH_TRAIN_LIMIT of one device on the card.  The
+# reference's MoE on a mesh takes its capacity from each `data` shard's
+# tokens (ROADMAP Queue 3), so at the published capacity factor 1.25 a
+# shard and one device drop other tokens (the first probe: grad_norm
+# 8.7e-3 apart at step 1, before any update); path q runs at capacity
+# factor 4 (= n_experts / top_k: every token's slot, no drop on either
+# side), as the CPU tests hold MoE configs without drops.  Its
+# lm_head (4096, 32000) holds 16000 columns a `model` rank, 62.5 of the
+# reference's 125 blocks of 256: the unaligned case, whose block scales
+# (m's and v's, gathered whole) are held to one device's after each step
+# within MESH_QUANT_SCALE_LIMIT, and whose fault, each rank quantizing
+# its 16000 columns on their own, must land past twice it.  K1 a rank
+# and step: 4 forward launches at (1, 2048, 2048, 16, 128) and 2
+# backward calls (6 launches).
+MESH_QUANT_TRAIN = dict(arch=MIXTRAL, cut=dict(n_layers=1),
+                        moe=dict(capacity_factor=4.0),
+                        shape=dict(batch=4, seq=2048, microbatches=2),
+                        steps=2, quantized=True, accum="bfloat16",
+                        scales_of=("embed", "lm_head"),
+                        kernels={"flash_attention": (4, 6)})
+# Block scales of the bf16 moments on the mesh against one device's, each
+# block's difference over the leaf's largest scale (as the CPU tests hold
+# them): the gradient's entries differ by about a bf16 rounding of their
+# partial sums (each `data` rank's rounded, then reduce-scattered in
+# bf16), so the largest entries of m by about 4e-3 of their size and of
+# v (their square) by 8e-3.  A block whose entries nearly cancel between
+# the two `data` ranks' halves (an lm_head column no label hits: p_v
+# times the sum of h over the tokens) may differ by more than its own
+# size, and is small beside the leaf's largest (the first probe: 2.3
+# times a block's own scale at step 1).  A block quantized on the wrong
+# columns takes another set's largest entry: a label column's, or not.
+MESH_QUANT_SCALE_LIMIT = 2e-2
+MESH_QUANT_FAULT = "each rank's columns quantized on their own"
+
+
+def whisper_waves(cfg):
+    """Path g's 8 requests in waves of 4, each left-padded with token 0 to
+    its longest, MESH_FORCED teacher-forced tokens a request, and 1500
+    frames a request (N(0, 1) from seed SEED + 3 on the CPU): [(tokens,
+    forced, frames)] on the CPU."""
+    from repro_torch.configs.whisper_tiny import N_AUDIO_FRAMES
+    spec = WHISPER_SERVE
+    (lo, hi), n = spec["prompt"], spec["requests"]
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size,
+                            size=int(rng.integers(lo, hi + 1)))
+               for _ in range(n)]
+    forced = np.random.default_rng(SEED + 29).integers(
+        1, cfg.vocab_size, (n, MESH_FORCED))
+    frames = torch.randn((n, N_AUDIO_FRAMES, cfg.d_model),
+                         generator=torch.Generator().manual_seed(SEED + 3))
+    waves = []
+    for w0 in range(0, n, spec["batch"]):
+        wave = prompts[w0:w0 + spec["batch"]]
+        toks = np.zeros((len(wave), max(map(len, wave))), np.int64)
+        for i, p in enumerate(wave):
+            toks[i, toks.shape[1] - len(p):] = p
+        waves.append((torch.from_numpy(toks),
+                      torch.from_numpy(forced[w0:w0 + len(wave)]),
+                      frames[w0:w0 + len(wave)]))
+    return waves
+
+
+def whisper_caches(model, cache, ctx=None):
+    """Whisper's caches {k, v, ck, cv}, bf16 on the CPU, gathered whole by
+    ``cache_specs`` on a mesh (every rank gathers; rank (0, 0) keeps
+    them, the others return None)."""
+    from repro_torch.distribution.sharding import unshard
+    if ctx is not None:
+        cache = unshard(cache, model.cache_specs(), ctx)
+        if (ctx.comm.axis_index("data"), ctx.comm.axis_index("model")) \
+                != (0, 0):
+            return None
+    return {k: v.cpu() for k, v in cache.items()}
+
+
+def whisper_mesh_reference():
+    """Path o's one-device run on the card from the weights the ranks
+    draw: each wave's prefill and forced steps' logits rows, (waves, 4,
+    1 + MESH_FORCED, V) f32 on the CPU, no routes, and each wave's caches
+    after its forced steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.factory import build_model
+    cfg = get_config(WHISPER)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        "cuda")
+    out, states = [], []
+    with torch.inference_mode():
+        for toks, forced, frames in whisper_waves(cfg):
+            logits, cache, length = model.prefill(
+                params, toks.cuda(), WHISPER_SERVE["max_len"],
+                frames=frames.cuda())
+            rows = [logits[:, 0].float().cpu()]
+            for i in range(MESH_FORCED):
+                logits, cache, length = model.decode(
+                    params, cache, forced[:, i:i + 1].cuda(), length)
+                rows.append(logits[:, 0].float().cpu())
+            out.append(torch.stack(rows, dim=1))
+            states.append(whisper_caches(model, cache))
+            del cache
+    del params
+    free_device_memory(f"{WHISPER}'s one-device run")
+    return torch.stack(out), [], states
+
+
+def _mesh_whisper_path(ctx, label, spec, faults):
+    """Path o on this rank: whisper-tiny's blocks (each rank in turn draws
+    the model from seed 0 on the card and cuts them by the serving rules),
+    a warm-up wave off the record, both waves with the counts and the
+    collectives' bytes set to 0 before and read after, then with
+    ``faults`` wave 0 again under each of them.  Returns what
+    ``_mesh_check`` reads."""
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distribution.sharding import param_specs
+    from repro_torch.models import attention as A
+    from repro_torch.models import common as C
+    from repro_torch.models.factory import build_model
+    ops = kernel_ops()
+    comm = ctx.comm
+    coords = (comm.axis_index("data"), comm.axis_index("model"))
+    cfg = get_config(spec["arch"]).replace(**spec["cut"])
+    model = build_model(cfg, ctx)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for r in range(tdist.get_world_size()):
+        if r == tdist.get_rank():
+            full = build_model(cfg).init(
+                torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+            params = _cut_freeing(full, param_specs(model, full), ctx)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+        tdist.barrier()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params_gb = sum(t.numel() * t.element_size()
+                    for t in _leaves(params)) / 1e9
+    waves = whisper_waves(cfg)
+    kw = dict(max_len=WHISPER_SERVE["max_len"], state_fn=whisper_caches)
+    with torch.inference_mode():
+        toks, forced, frames = waves[0]
+        _mesh_forward(model, params, ctx, toks[:, -8:], forced, 2,
+                      frames=frames, **kw)
+        reset_counts(ops)
+        torch.cuda.reset_peak_memory_stats()
+        logits, prefill_s, decode_s, moved, states = [], [], [], [], []
+        for toks, forced, frames in waves:
+            got = _mesh_forward(model, params, ctx, toks, forced,
+                                MESH_WHISPER_STEPS, frames=frames, **kw)
+            logits.append(got[0])
+            prefill_s.append(got[1])
+            decode_s += got[2]
+            moved.append(got[3])
+            states.append(got[4])
+        counts = read_counts(ops)
+        out = {"coords": coords, "logits": torch.stack(logits),
+               "prefill_ms": [t * 1e3 for t in prefill_s],
+               "decode_ms": float(np.median(decode_s)) * 1e3,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "init_peak_gb": init_peak_gb, "params_gb": params_gb,
+               "init_s": init_s, "k1": counts["k1_by_variant"],
+               "counts": counts, "moved": moved[-1], "routes": [],
+               "states": states, "faults": {}}
+        if faults:
+            real_sum = C.row_sum
+
+            def keep_own(y, rows, full_rows, dist):
+                return (real_sum(y, rows, full_rows, dist), y)[1]
+
+            runs = {"MLP psum left out": (
+                        C, "row_sum", keep_own, coords == (0, 1)),
+                    "self cache slots at offset 0": (
+                        A.SlotCache, "_slot0", lambda self, S_l: 0, True)}
+            toks, forced, frames = waves[0]
+            for name, (obj, attr, fn, here) in runs.items():
+                with contextlib.ExitStack() as stack:
+                    if here:
+                        stack.enter_context(_swapped(obj, attr, fn))
+                    got = _mesh_forward(model, params, ctx, toks, forced,
+                                        MESH_FORCED, frames=frames, **kw)
+                out["faults"][name] = {"logits": got[0], "state": got[4]}
+    del params
+    return out
+
+
+def phase_mesh_wq(card):
+    """Paths o, p and q (MESH_WHISPER_SERVE, MESH_WHISPER_TRAIN,
+    MESH_QUANT_TRAIN): the one-device runs on the card (freed), then the
+    four gloo ranks for each, held as their comments say.  Prints each
+    path's numbers and the phase's wall time; returns each mesh run's
+    kernel counts, summed over its ranks, by label."""
+    t_phase = time.perf_counter()
+    results, runs = {}, {}
+    want = whisper_mesh_reference()
+    outs = run_mesh_ranks(MESH_SHAPE, "gloo",
+                          [("path_o", MESH_WHISPER_SERVE, True)],
+                          runner="_mesh_whisper_path")
+    results["path_o"] = _mesh_check("path_o", MESH_WHISPER_SERVE, outs,
+                                    want, MESH_SHAPE, "gloo", card)
+    runs[f"{WHISPER} (path_o, mesh {MESH_SHAPE[0]}x{MESH_SHAPE[1]} "
+         f"gloo)"] = _sum_counts(outs[c]["path_o"]["counts"] for c in outs)
+    del outs, want
+    for name, spec in (("path_p", MESH_WHISPER_TRAIN),
+                       ("path_q", MESH_QUANT_TRAIN)):
+        results[name], counts = mesh_wq_train(name, spec, card)
+        runs[f"{spec['arch']} ({name}, mesh train {MESH_SHAPE[0]}x"
+             f"{MESH_SHAPE[1]} gloo, {results[name]['layers']} "
+             f"layers)"] = counts
+    wall = time.perf_counter() - t_phase
+    results["phase_s"] = wall
+    print("mesh_wq " + json.dumps(results))
+    print(f"[mesh_wq] phase {wall:.1f} s | {card}")
+    return runs
+
+
+def mesh_wq_train(name, spec, card):
+    """Path p or q: the one-device run on the card (freed), then the four
+    gloo ranks, each step held to it (``_mesh_train_check``; path q's
+    block scales and its fault too).  Returns (results, the mesh run's
+    kernel counts)."""
+    from repro_torch.configs import get_config
+    cfg, shape = mesh_train_config(spec)
+    want = mesh_train_reference(spec)
+    print(f"[mesh_wq] {name}: {cfg.name} cut to {cfg.n_layers} layers "
+          f"of {get_config(spec['arch']).n_layers} in {cfg.dtype} "
+          f"({want['params_b']:.3f} B params), {shape}, "
+          f"{'int8' if spec.get('quantized') else 'f32'} moments, "
+          f"{spec.get('accum', 'float32')} accumulators; one device: "
+          f"losses {want['loss']}, grad_norms {want['grad_norm']}, "
+          f"{[round(t, 1) for t in want['step_ms']]} ms a step, peak "
+          f"{want['peak_gb']:.2f} GB | {card}")
+    outs = run_mesh_ranks(MESH_SHAPE, "gloo", [(name, spec, False)],
+                          runner="_mesh_train_path")
+    counts, errs = _mesh_train_check(f"{name} gloo", outs, want,
+                                     MESH_SHAPE, card, path=name,
+                                     kernels=spec["kernels"])
+    steps = outs[(0, 0)][name]["steps"]
+    result = {
+        "arch": spec["arch"], "layers": cfg.n_layers, **shape,
+        "params_b": want["params_b"], "worst_rel_err": errs,
+        "one_device": {k: want[k] for k in
+                       ("loss", "grad_norm", "step_ms", "peak_gb")},
+        "step_ms_rank0": [st["step_ms"] for st in steps],
+        "peak_gb_by_rank": {str(c): max(st["peak_gb"] for st in
+                                        outs[c][name]["steps"])
+                            for c in outs},
+        "bytes_a_step_rank0": steps[-1]["bytes"],
+        "calls_a_step_rank0": steps[-1]["calls"],
+        "seconds_a_step_rank0": steps[-1]["seconds"],
+        "moment_gather_bytes_by_rank": {
+            str(c): outs[c][name]["steps"][-1]["moment_gather_bytes"]
+            for c in outs}}
+    if "scales_of" in spec:
+        result.update(_quant_scales_check(name, spec, outs, want, cfg,
+                                          card))
+    del outs, want
+    free_device_memory(name)
+    return result, counts
+
+
+def _quant_scales_check(name, spec, outs, want, cfg, card):
+    """Path q's block scales: each step's, gathered on the mesh, against
+    one device's, block by block, each difference over the leaf's largest
+    scale (the convention of ``tests/test_torch_mesh_quant.py``); the
+    fault's (each rank's columns quantized on their own, step 1) against
+    the reference's blocks its columns fall in, the same way.  Also
+    prints each step's worst difference relative to its own block's
+    scale.  Returns the worst errors."""
+    steps = outs[(0, 0)][name]["steps"]
+    errs, own = [], []
+    for i, st in enumerate(steps):
+        e, o = {}, {}
+        for key, w in want["scales"][i].items():
+            diff = (st["scales"][key] - w).abs()
+            e[key] = (diff.max() / w.max()).item()
+            o[key] = (diff / w).max().item()
+        errs.append(e)
+        own.append(o)
+        check(all(math.isfinite(v) and v <= MESH_QUANT_SCALE_LIMIT
+                  for v in e.values()),
+              f"{name} step {i + 1}: block scales' worst err {e} of the "
+              f"leaf's largest scale, past {MESH_QUANT_SCALE_LIMIT:g}")
+    fault = outs[(0, 0)][name]["faults"][MESH_QUANT_FAULT]
+    cols = cfg.vocab_size // MESH_SHAPE[1]          # a `model` rank's
+    per_rank = -(-cols // 256)
+    worst = {}
+    for key, f in fault.items():
+        ref = want["scales"][0][key]
+        e = 0.0
+        for r in range(MESH_SHAPE[1]):
+            for b in range(per_rank):
+                c0 = r * cols + 256 * b
+                c1 = min(c0 + 256, (r + 1) * cols)
+                got = f[:, r * per_rank + b]
+                for j in range(c0 // 256, (c1 - 1) // 256 + 1):
+                    e = max(e, (got - ref[:, j]).abs().max().item())
+        worst[key] = e / ref.max().item()
+    listed = "; ".join(", ".join(f"{k} {v:.3e}" for k, v in e.items())
+                       for e in errs)
+    listed_own = "; ".join(", ".join(f"{k} {v:.3e}" for k, v in o.items())
+                           for o in own)
+    gathered = [outs[c][name]["steps"][-1]["moment_gather_bytes"] / 1e9
+                for c in sorted(outs)]
+    print(f"[mesh_wq] {name}: {'/'.join(spec['scales_of'])}'s block scales "
+          f"({tuple(want['scales'][0]['m'].shape)} blocks of 256) on the "
+          f"mesh against one device, worst difference over the leaf's "
+          f"largest scale a step: {listed} (limit "
+          f"{MESH_QUANT_SCALE_LIMIT:g}); over the block's own scale: "
+          f"{listed_own}; {MESH_QUANT_FAULT} at step 1: "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in worst.items())} (must "
+          f"pass {2 * MESH_QUANT_SCALE_LIMIT:g}); the moments' gathers "
+          f"brought {gathered} GB a rank in the last step | {card}")
+    for key, e in worst.items():
+        check(e > 2 * MESH_QUANT_SCALE_LIMIT,
+              f"{name}: {MESH_QUANT_FAULT} gives only {e:.3e} on {key}: the "
+              f"check cannot see it")
+    return {"scale_err_by_step": errs, "scale_own_rel_err_by_step": own,
+            "fault_scale_err": worst}
+
+
 def phase_whisper_train(card):
     """whisper-tiny as published in bf16 from seed 0: WHISPER_TRAIN's
     steps through training.step.make_train_step with AdamW (weight decay
@@ -4291,6 +4783,10 @@ BWD_CASES = [
     # a rank's local heads on path j (mesh_train): (1, 4096, 16, 128)
     ("mesh-train-local-heads", (1, 4096, 4096, 16, 128), torch.bfloat16,
      True, 0, 0.0, 2.0, "plain", "hopper", "hopper"),
+    # a rank's local heads on path q (phase mesh_wq): mixtral-8x7b's
+    # (1, 2048, 16, 128), its window 4096 past the row
+    ("mesh-mixtral-local-heads", (1, 2048, 2048, 16, 128), torch.bfloat16,
+     True, 4096, 0.0, 2.0, "plain", "hopper", "hopper"),
 ]
 # the fault each case also shows the checks can see (checks.FAULTS)
 BWD_FAULTS = {"training": ("no-delta", "skip-last-tile", "lse-neighbour-row",
@@ -4298,7 +4794,8 @@ BWD_FAULTS = {"training": ("no-delta", "skip-last-tile", "lse-neighbour-row",
               "softcap-50": ("no-softcap-derivative",),
               "hd120-window256": ("skip-first-tile",)}
 # the cases timed in turns (the training shape is the kernels line's)
-TIMED_BWD_CASES = ("training", "hd128", "mesh-train-local-heads")
+TIMED_BWD_CASES = ("training", "hd128", "mesh-train-local-heads",
+                   "mesh-mixtral-local-heads")
 # A gradient row's error is measured against the row's scale
 # (checks.bwd_row_scales: the norm of the sum of magnitudes that makes the
 # row), held to ROW_TOL.  dS = P (dP - D) cancels as a row's softmax nears
@@ -5093,6 +5590,8 @@ def main() -> int:
     mesh_train_runs = phase_mesh_train(card)
     free_device_memory("the previous phase")
     mesh_train_runs.update(phase_mesh_ssm(card))
+    free_device_memory("the previous phase")
+    mesh_train_runs.update(phase_mesh_wq(card))
     free_device_memory("the previous phase")
     bwd = phase_flash_bwd()
     free_device_memory("the previous phase")

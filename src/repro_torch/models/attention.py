@@ -391,6 +391,54 @@ def slot_offset(S_l, dist):
     return dist.comm.axis_index(dist.kv_seq) * S_l
 
 
+class SlotCache:
+    """A model's cache writes and reads where each rank of a mesh holds
+    its block of the cache's slots (dim 1, cut over ``dist.kv_seq``);
+    one device holds them all.  Mixed into ``DecoderLM`` and
+    ``WhisperLM``, which set ``self.dist``."""
+
+    def _kv_shards(self):
+        """How many ranks the cache's sequence dim is split over."""
+        if not self.dist.active:
+            return 1
+        n = 1
+        for a in self.dist.kv_seq:
+            n *= self.dist.axis_size(a)
+        return n
+
+    def _slot0(self, S_l):
+        return slot_offset(S_l, self.dist) if self.dist.active else 0
+
+    def _write_prefill(self, cache_entry, new):
+        """Prefill's cache writes: slots [0, s) of the whole cache, of
+        which this rank holds [pos0, pos0 + S_l)."""
+        for key, t in new.items():
+            c = cache_entry[key]
+            S_l, s = c.shape[1], t.shape[1]
+            if s > S_l * self._kv_shards():
+                raise ValueError(f"{s} positions for a cache of "
+                                 f"{S_l * self._kv_shards()} slots")
+            pos0 = self._slot0(S_l)
+            n = min(max(s - pos0, 0), S_l)
+            c[:, :n] = t[:, pos0:pos0 + n]
+
+    def _write_slot(self, cache_entry, new, slot):
+        """Decode's write of one position into ``slot`` of the whole cache,
+        on the rank that holds it."""
+        for key, t in new.items():
+            c = cache_entry[key]
+            pos0 = self._slot0(c.shape[1])
+            if pos0 <= slot < pos0 + c.shape[1]:
+                c[:, slot - pos0] = t[:, 0]
+
+    def _whole_cache(self, c):
+        """This rank's slots of a cache entry -> every slot (decode on a
+        mesh without ``sp_decode``)."""
+        if self._kv_shards() == 1:
+            return c
+        return self.dist.comm.all_gather(c, self.dist.kv_seq, dim=1)
+
+
 def _lse_combine(m_l, l_l, o_l, dist):
     """The shards' partial softmaxes, each (max m_l, sum l_l, unnormalised
     output o_l with one more trailing dim), combined over ``dist.kv_seq``:

@@ -126,6 +126,16 @@ def row_sum(y, rows, full_rows, dist):
     return dist.comm.psum(y, dist.tp)
 
 
+def mlp(x, p, cfg, dist):
+    """The dense MLP (``layers.apply_mlp``); on a mesh whose rule split it
+    over `model`, ``gate``/``up`` hold the rank's columns and ``down``
+    their rows: x enters the split product and the partial sums are
+    summed over `model` (``row_sum``)."""
+    rows = p["down"].shape[-2]
+    x = enter_split(x, rows < cfg.d_ff, dist)
+    return row_sum(L.apply_mlp(x, p, cfg.act), rows, cfg.d_ff, dist)
+
+
 def local_block(t, n_local, dist):
     """The rank's ``n_local`` entries of the last dim of a leaf every rank
     holds whole, for a computation split over `model` by channels (RWKV's

@@ -12,16 +12,12 @@ def build_model(cfg, dist=None, long_context=False):
     (mistral-nemo, gemma3, minicpm, internvl2's language model, mixtral,
     DeepSeek-V3 with its MLA and multi-token prediction), RWKV6, Jamba,
     and Whisper's encoder-decoder (``cfg.is_encdec``).  ``dist``: a mesh
-    context (``distribution/context.py``), on which ``DecoderLM``,
-    ``RWKVLM`` and ``JambaLM`` serve and train; ``WhisperLM`` raises on
-    an active one."""
+    context (``distribution/context.py``), on which every family serves
+    and trains."""
     if cfg.rwkv is not None:
         return RWKVLM(cfg, dist)
     if cfg.mamba is not None and cfg.attn_layer_period:
         return JambaLM(cfg, dist, long_context=long_context)
     if not cfg.is_encdec:
         return DecoderLM(cfg, dist)
-    if dist is not None and dist.active:
-        raise NotImplementedError("WhisperLM on a mesh: ROADMAP Queue 1 "
-                                  "item 12, point 6b")
-    return WhisperLM(cfg)
+    return WhisperLM(cfg, dist)

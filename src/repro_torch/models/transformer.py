@@ -99,7 +99,7 @@ def layer_scalars(cfg):
     return win, theta
 
 
-class DecoderLM:
+class DecoderLM(A.SlotCache):
     """Decoder LM over a dict of stacked params; methods are pure apart
     from the in-place cache updates of ``prefill`` and ``decode``."""
 
@@ -212,49 +212,6 @@ class DecoderLM:
         FSDP blocks."""
         shapes = self.init(None, "meta")
         return S.param_specs(self, shapes), shapes
-
-    # -------------------------------------------------------------- caches
-
-    def _kv_shards(self):
-        """How many ranks the cache's sequence dim is split over."""
-        if not self.dist.active:
-            return 1
-        n = 1
-        for a in self.dist.kv_seq:
-            n *= self.dist.axis_size(a)
-        return n
-
-    def _slot0(self, S_l):
-        return A.slot_offset(S_l, self.dist) if self.dist.active else 0
-
-    def _write_prefill(self, cache_entry, new):
-        """Prefill's cache writes: slots [0, s) of the whole cache, of
-        which this rank holds [pos0, pos0 + S_l)."""
-        for key, t in new.items():
-            c = cache_entry[key]
-            S_l, s = c.shape[1], t.shape[1]
-            if s > S_l * self._kv_shards():
-                raise ValueError(f"{s} positions for a cache of "
-                                 f"{S_l * self._kv_shards()} slots")
-            pos0 = self._slot0(S_l)
-            n = min(max(s - pos0, 0), S_l)
-            c[:, :n] = t[:, pos0:pos0 + n]
-
-    def _write_slot(self, cache_entry, new, slot):
-        """Decode's write of one position into ``slot`` of the whole cache,
-        on the rank that holds it."""
-        for key, t in new.items():
-            c = cache_entry[key]
-            pos0 = self._slot0(c.shape[1])
-            if pos0 <= slot < pos0 + c.shape[1]:
-                c[:, slot - pos0] = t[:, 0]
-
-    def _whole_cache(self, c):
-        """This rank's slots of a cache entry -> every slot (decode on a
-        mesh without ``sp_decode``)."""
-        if self._kv_shards() == 1:
-            return c
-        return self.dist.comm.all_gather(c, self.dist.kv_seq, dim=1)
 
     # -------------------------------------------------------------- layers
 
@@ -385,12 +342,8 @@ class DecoderLM:
 
     def _mlp(self, x, fp):
         """The dense MLP; on a mesh a row-split ``down``'s partial sums
-        summed over `model`."""
-        cfg = self.cfg
-        split = fp["down"].shape[-2] < cfg.d_ff
-        x = C.enter_split(x, split, self.dist)
-        return C.row_sum(L.apply_mlp(x, fp, cfg.act), fp["down"].shape[-2],
-                         cfg.d_ff, self.dist)
+        summed over `model` (``common.mlp``)."""
+        return C.mlp(x, fp, self.cfg, self.dist)
 
     def _layer(self, x, lp, win, theta, positions, cache_entry, length,
                mode, fsdp=None):

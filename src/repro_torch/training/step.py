@@ -23,7 +23,11 @@ forms:
 Either way a leaf that no `data` dim cuts ends with this rank's rows'
 part of its gradient and is psum'd over `data` after the last
 microbatch.  The optimizer's clip takes the global norm over the mesh
-(``AdamW.update(..., mesh=)``).
+(``AdamW.update(..., mesh=)``).  With quantized moments each rank holds
+the reference's blocks of each moment that ``train_state_specs`` gives
+it; the step's ``plans`` (one ``quant.MomentPlan`` a leaf, made once
+with the step) say how, and ``AdamW.init(params, plans=step.plans)``
+makes their zeros.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from repro_torch import tree as T
 from repro_torch.distribution import sharding as S
 from repro_torch.distribution.context import NULL_CTX
 from repro_torch.optim import quant
+from repro_torch.optim.adamw import MeshUpdate
 
 
 def make_train_step(model, optimizer, *, microbatches: int = 1,
@@ -48,12 +53,15 @@ def make_train_step(model, optimizer, *, microbatches: int = 1,
     ``jax.value_and_grad``'s do.  ``grad_specs``: the params' specs tree
     (``sharding.param_specs``), on a mesh the reduction's form (module
     docstring).  The optimizer updates params and state in place
-    (``AdamW.update``)."""
-    dist = getattr(model, "dist", NULL_CTX)      # WhisperLM: none
+    (``AdamW.update``).  On a mesh the step's layout (specs, shapes, cut
+    axes and, for quantized moments, ``plans``) is read once, here."""
+    dist = getattr(model, "dist", NULL_CTX)
+    layout = _MeshLayout(model, grad_specs, optimizer) if dist.active \
+        else None
 
     def step(params, opt_state, batch):
-        layout = _MeshLayout(model, params, grad_specs) if dist.active \
-            else None
+        if layout is not None:
+            layout.check(params)
         mbs = microbatch_rows(batch, microbatches, dist)
         work = params
         if layout is not None and grad_specs is None:
@@ -79,11 +87,12 @@ def make_train_step(model, optimizer, *, microbatches: int = 1,
         mesh = None
         if layout is not None:
             grads = layout.reduce(grads, params, whole=grad_specs is None)
-            mesh = (dist.comm, layout.axes)
+            mesh = MeshUpdate(dist.comm, layout.axes, layout.plans)
         params, opt_state, om = optimizer.update(grads, opt_state, params,
                                                  mesh=mesh)
         return params, opt_state, {**metrics, "loss": loss, **om}
 
+    step.plans = layout.plans if layout is not None else None
     return step
 
 
@@ -110,19 +119,27 @@ def microbatch_rows(batch, microbatches, dist):
 
 class _MeshLayout:
     """What the step on a mesh reads of the params: the full specs and
-    shapes (``DecoderLM.layout``), each leaf's cut axes, and whether its
-    blocks are the training cut's."""
+    shapes (``model.layout``), each leaf's cut axes, with quantized
+    moments each leaf's ``quant.MomentPlan``, and whether the params'
+    blocks are the training cut's (``check``)."""
 
-    def __init__(self, model, params, grad_specs):
+    def __init__(self, model, grad_specs, optimizer):
         dist = model.dist
         specs, shapes = model.layout()
         if grad_specs is not None:
             specs = grad_specs
         self.dist, self.full = dist, (specs, shapes)
         self.axes = S.leaf_axes(specs, dist.comm.names)
+        cfg = getattr(optimizer, "cfg", None)
+        self.plans = (quant.moment_plans(specs, shapes, dist,
+                                         cfg.flat_moments)
+                      if getattr(cfg, "quantized", False) else None)
+
+    def check(self, params):
+        specs, shapes = self.full
         for path, p in T.flatten(params):
             want = _local_shape(_at(shapes, path).shape, _at(specs, path),
-                                dist)
+                                self.dist)
             if tuple(p.shape) != want:
                 raise ValueError(
                     f"param {path}: {tuple(p.shape)}, the training cut is "
@@ -164,20 +181,25 @@ def _at(tree, path):
 
 def train_state_specs(model, params_shapes, opt_state=None):
     """(param specs, {"m", "v", "step"} specs): the counterpart of the
-    reference's ``train_state_shardings``; each moment shards as its
-    param, the step whole.  Quantized moments on a mesh raise (ROADMAP
-    Queue 1 item 12, point 7: their blocks of 256 along a shard's last
-    dim give the reference's bits only where that dim is a multiple of
-    256)."""
+    reference's ``train_state_shardings``; each f32 moment shards as its
+    param, the step whole.  A quantized moment of ``opt_state`` (from
+    ``AdamW.init``, on the full shapes or a rank's blocks: its ``shape``
+    is the whole leaf's) gets a ``QTensor`` of the spec of its ``q`` and
+    of its ``scale`` (``quant.moment_spec``)."""
     pspecs = S.param_specs(model, params_shapes)
-    if opt_state is not None and model.dist.active and any(
-            quant.is_qtensor(v) for v in T.leaves(
-                {"m": opt_state["m"], "v": opt_state["v"]},
-                quant.is_qtensor)):
-        raise NotImplementedError(
-            "quantized AdamW moments on a mesh: ROADMAP Queue 1 item 12, "
-            "point 7")
-    return pspecs, {"m": pspecs, "v": pspecs, "step": ()}
+    if opt_state is None:
+        return pspecs, {"m": pspecs, "v": pspecs, "step": ()}
+
+    def moment(leaf, pspec):
+        if not quant.is_qtensor(leaf):
+            return pspec
+        flat = leaf.q.dim() == 2 and len(leaf.shape) != 1
+        spec = quant.moment_spec(leaf.shape, pspec, model.dist, flat)
+        return quant.QTensor(spec, spec, leaf.shape)
+
+    return pspecs, {"m": T.map_tree(moment, opt_state["m"], pspecs),
+                    "v": T.map_tree(moment, opt_state["v"], pspecs),
+                    "step": ()}
 
 
 def value_and_grad(model, params, batch):

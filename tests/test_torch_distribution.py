@@ -57,19 +57,17 @@ def models(arch, shape, knobs):
     jm = jax_build(get_smoke(arch), jd)
     for k, v in knobs.items():
         setattr(jm, k, v)
-    cfg = port_smoke(arch)
-    if not cfg.is_encdec:
-        tm = build_model(cfg, td)
-        for k, v in knobs.items():
-            setattr(tm, k, v)
-        for attr in ("shard_heads", "moe_ep"):
-            if hasattr(jm, attr):                # not RWKVLM
-                assert getattr(tm, attr) == getattr(jm, attr), attr
-        if hasattr(jm, "full_ep_available"):
-            assert tm.full_ep_available() == jm.full_ep_available()
-    else:   # WhisperLM: not on a mesh in the port yet
-        tm = SimpleNamespace(cfg=cfg, dist=td, **{
-            a: getattr(jm, a) for a in KNOB_ATTRS if hasattr(jm, a)})
+    tm = build_model(port_smoke(arch), td)
+    for k, v in knobs.items():
+        setattr(tm, k, v)
+    for attr in ("shard_heads", "moe_ep"):
+        if hasattr(jm, attr):                # not RWKVLM, not WhisperLM
+            assert getattr(tm, attr) == getattr(jm, attr), attr
+    for attr in KNOB_ATTRS:
+        if not hasattr(jm, attr):
+            assert not hasattr(tm, attr), attr
+    if hasattr(jm, "full_ep_available"):
+        assert tm.full_ep_available() == jm.full_ep_available()
     return jm, tm
 
 
@@ -284,9 +282,10 @@ def test_microbatch_rows_take_the_reference_rows():
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v3-671b"])
 def test_train_state_specs_shard_moments_as_params(arch):
     """``train_state_specs``: the rule table's specs for the params, the
-    same for each moment, the step whole; quantized moments raise on a
-    mesh."""
-    from repro_torch.optim import AdamW, AdamWConfig
+    same for each f32 moment, the step whole; a quantized moment's ``q``
+    and ``scale`` take ``quant.moment_spec``'s (held to the reference's
+    ``train_state_shardings`` in ``tests/test_torch_mesh_quant.py``)."""
+    from repro_torch.optim import AdamW, AdamWConfig, quant
     from repro_torch.training.step import train_state_specs
     _, td = contexts((2, 4))
     model = build_model(port_smoke(arch), td)
@@ -295,7 +294,14 @@ def test_train_state_specs_shard_moments_as_params(arch):
     assert pspecs == tS.param_specs(model, shapes)
     assert ospecs == {"m": pspecs, "v": pspecs, "step": ()}
     assert model.layout()[0] == pspecs
-    opt = AdamW(lambda s: 0.0, AdamWConfig(quantized=True))
-    small = {"w": torch.zeros(4, 256)}
-    with pytest.raises(NotImplementedError, match="item 12, point 7"):
-        train_state_specs(model, shapes, opt.init(small))
+    for flat in (False, True):
+        opt = AdamW(lambda s: 0.0, AdamWConfig(quantized=True,
+                                               flat_moments=flat))
+        _, qspecs = train_state_specs(model, shapes, opt.init(shapes))
+        tok = qspecs["m"]["embed"]["tokens"]
+        assert quant.is_qtensor(tok) and tok.q == tok.scale
+        # 64 columns: one block, which `data` = 2 does not divide; flat,
+        # 512 x 64 entries in 128 blocks over `data`
+        want = ("data", None) if flat else (
+            pspecs["embed"]["tokens"][0], None, None)
+        assert tok.q == want, (flat, tok.q)

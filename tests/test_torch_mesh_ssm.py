@@ -39,8 +39,8 @@ Held:
   as one contiguous block (every rank), the psum of RWKV's ``wo`` left
   out on rank (0, 1), K2's ``u`` and ``w0`` taken at head offset 0 (every
   rank), the psum of Mamba's ``x_proj`` left out on rank (0, 1);
-* ``build_model`` on an active mesh, and the cache specs against the
-  reference's.
+* ``build_model`` on an active mesh (WhisperLM's too), and the cache
+  specs against the reference's.
 
 Limits, as the existing mesh tests hold ``DecoderLM``
 (``tests/test_torch_mesh.py``, ``tests/test_torch_mesh_train.py``):
@@ -72,6 +72,7 @@ from repro_torch.distribution import context as tctx  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
 from repro_torch.models.hybrid import JambaLM  # noqa: E402
 from repro_torch.models.rwkv_lm import RWKVLM  # noqa: E402
+from repro_torch.models.whisper import WhisperLM  # noqa: E402
 
 import torch_mesh_ranks as ranks  # noqa: E402
 from test_torch_mesh_train import (  # noqa: E402
@@ -423,8 +424,8 @@ def test_a_fault_fails_the_limit(run, fault):
 
 
 def test_build_model_on_an_active_mesh():
-    """RWKVLM and JambaLM build on an active mesh; WhisperLM raises,
-    citing its ROADMAP point."""
+    """RWKVLM, JambaLM and WhisperLM build on an active mesh (Whisper's
+    mesh runs: ``tests/test_torch_mesh_whisper.py``)."""
     td = tctx.make_context(SimpleNamespace(shape=(2, 2),
                                            mesh_dim_names=("data", "model")))
     rw = build_model(port_smoke(RWKV), td)
@@ -432,8 +433,8 @@ def test_build_model_on_an_active_mesh():
     assert type(rw) is RWKVLM and rw.dist is td and rw.n_local_heads == 2
     assert type(jb) is JambaLM and jb.dist is td and jb.long_context
     assert jb.shard_heads and jb.moe_ep
-    with pytest.raises(NotImplementedError, match="item 12, point 6b"):
-        build_model(port_smoke("whisper-tiny"), td)
+    wh = build_model(port_smoke("whisper-tiny"), td)
+    assert type(wh) is WhisperLM and wh.dist is td
 
 
 @pytest.mark.parametrize("kv_seq", [None, ("data", "model")])

@@ -1,5 +1,6 @@
 """The ranks of the port's mesh tests (``tests/test_torch_mesh.py``,
-``tests/test_torch_mesh_train.py`` and ``tests/test_torch_mesh_ssm.py``
+``tests/test_torch_mesh_train.py``, ``tests/test_torch_mesh_ssm.py``,
+``tests/test_torch_mesh_whisper.py`` and ``tests/test_torch_mesh_quant.py``
 on the CPU, ``tests/test_torch_gpu.py`` on the card).  ``spawn`` runs
 one process a rank:
 
@@ -172,20 +173,24 @@ def whole(tree, specs, ctx):
     return S.unshard(tree, specs, ctx)
 
 
-# Faults of the recurrent serving cases (``run_ssm_serve``): "in-proj-
-# contiguous" (every rank cuts Mamba's in_proj as one contiguous block of
-# its 2 di columns), "offset-0" (every rank slices the 1-D leaves it holds
-# whole, RWKV's w0 and u among them, at offset 0), ("keep-own-row-sum",
-# width) (rank (0, 1) keeps its own partial sums of the row-split
-# products of ``width`` output columns: RWKV's wo at d_model, Mamba's
-# x_proj at dt_rank + 2 d_state; every rank still takes part in the psum)
-SSM_FAULTS = ("in-proj-contiguous", "offset-0", "keep-own-row-sum")
+# Faults of the serving cases (``run_serve``): "in-proj-contiguous" (every
+# rank cuts Mamba's in_proj as one contiguous block of its 2 di columns),
+# "offset-0" (every rank slices the 1-D leaves it holds whole, RWKV's w0
+# and u among them, at offset 0), ("keep-own-row-sum", width) (rank (0,
+# 1) keeps its own partial sums of the row-split products of ``width``
+# output columns: RWKV's wo at d_model, Mamba's x_proj at dt_rank + 2
+# d_state, Whisper's MLP at d_model; every rank still takes part in the
+# psum), "slot-offset-0" (every rank writes and reads its block of the
+# self-attention cache's slots as if it held slots 0 onwards)
+SSM_FAULTS = ("in-proj-contiguous", "offset-0", "keep-own-row-sum",
+              "slot-offset-0")
 
 
 @contextlib.contextmanager
 def _ssm_fault(fault, coords):
     name = fault[0] if isinstance(fault, (tuple, list)) else fault
     real_block, real_sum = C.local_block, C.row_sum
+    real_slot0 = A.SlotCache._slot0
     if name == "offset-0":
         C.local_block = lambda t, n, dist: t[..., :n]
     elif name == "keep-own-row-sum" and coords == (0, 1):
@@ -196,16 +201,21 @@ def _ssm_fault(fault, coords):
             return y if y.shape[-1] == width else out
 
         C.row_sum = row_sum
+    elif name == "slot-offset-0":
+        A.SlotCache._slot0 = lambda self, S_l: 0
     try:
         yield
     finally:
         C.local_block, C.row_sum = real_block, real_sum
+        A.SlotCache._slot0 = real_slot0
 
 
-def run_ssm_serve(case, ctx):
-    """RWKVLM or JambaLM on this rank's shards: prefill, then the forced
-    decode steps; the logits rows ("logits") and the state gathered whole
-    ("state/<path>"), with ``case["fault"]`` where given."""
+def run_serve(case, ctx):
+    """RWKVLM, JambaLM or WhisperLM (``case["frames"]``: the encoder's
+    input, its rows cut like the tokens') on this rank's shards: prefill,
+    then the forced decode steps; the logits rows ("logits") and the state
+    or cache, gathered whole ("state/<path>"), with ``case["fault"]``
+    where given."""
     model = model_for(case, ctx)
     specs = param_specs(model, case["params"])
     fault = case.get("fault")
@@ -215,9 +225,11 @@ def run_ssm_serve(case, ctx):
             specs)
     params = shard_params(case["params"], specs, ctx)
     coords = tuple(ctx.comm.axis_index(a) for a in ctx.comm.names)
+    extra = ({"frames": rows(case["frames"], ctx)} if "frames" in case
+             else {})
     with _ssm_fault(fault, coords):
         logits, cache, length = model.prefill(
-            params, rows(case["tokens"], ctx), case["max_len"])
+            params, rows(case["tokens"], ctx), case["max_len"], **extra)
         out = [logits]
         for tok in case["forced"].unbind(1):
             logits, cache, length = model.decode(
@@ -274,6 +286,92 @@ def run_train_step(case, ctx):
     return out
 
 
+def _local_plans(plans):
+    """The fault of the quantized moments: every leaf's plan quantizes
+    this rank's shard on its own (blocks of 256 from its first entry, as
+    if it were the whole leaf)."""
+    for plan in T.leaves(plans):
+        width = (math.prod(plan.local_shape) if plan.flat
+                 else plan.local_shape[-1])
+        plan.aligned, plan.b0 = True, 0
+        plan.b1 = -(-width // quant.BLOCK)
+
+
+def _recording(plans):
+    """Wraps each plan's ``store``: {path: [each f32 moment it stored]}
+    (a leaf's m, then its v, each step)."""
+    seen = {}
+    for path, plan in T.flatten(plans):
+        def store(x, _real=plan.store, _path=path):
+            seen.setdefault(_path, []).append(x.clone())
+            return _real(x)
+        plan.store = store
+    return seen
+
+
+def run_quant_step(case, ctx):
+    """``make_train_step`` steps with AdamW's quantized moments
+    (``case["flat"]``: the flat layout) on the global batches of
+    ``case["batches"]``, the plans of ``case["fault"]`` where given.
+    Returns each step's loss and grad_norm ("loss/i", "grad_norm/i") and,
+    after step i, gathered whole: the params ("p/i/<path>") and for each
+    moment ("m", "v") each entry's
+    int8 value ("mq/i/<path>") and block scale ("ms/i/<path>"), the f32
+    moment the step stored ("pre/m/i/<path>"); after the last step the
+    params ("p/"), each moment dequantized ("m/<path>") and its stored
+    blocks gathered by the plan's ``q`` spec ("mblk/<path>/q",
+    "/scale"; not under a fault), and the bytes the plans' gathers
+    brought in the last step ("gathered_bytes")."""
+    model = model_for(case, ctx)
+    specs, _ = model.layout()
+    params = shard_params(case["params"], specs, ctx, train=True)
+    opt = AdamW(lambda s: cosine(s, peak_lr=case["peak_lr"], warmup=2,
+                                 total=10),
+                AdamWConfig(quantized=True, flat_moments=case["flat"]))
+    step = train_step.make_train_step(
+        model, opt, microbatches=case["microbatches"], grad_specs=specs)
+    fault = case.get("fault")
+    if fault == "local-quantize":
+        _local_plans(step.plans)
+    seen = _recording(step.plans)
+    plans = dict(T.flatten(step.plans))
+    state = opt.init(params, plans=step.plans)
+    out = {}
+
+    def gathered(plan, q, scale, shape):
+        return S.unshard(plan.load(quant.QTensor(q, scale, shape)),
+                         plan.pspec, ctx)
+
+    for i, batch in enumerate(case["batches"]):
+        params, state, metrics = step(params, state, batch)
+        out[f"loss/{i}"] = metrics["loss"]
+        out[f"grad_norm/{i}"] = metrics["grad_norm"]
+        bytes_i = opt.gathered_bytes
+        for path, t in T.flatten(whole(params, specs, ctx)):
+            out[f"p/{i}/{path}"] = t
+        for j, key in enumerate(("m", "v")):
+            for path, qt in T.flatten(state[key], quant.is_qtensor):
+                plan = plans[path]
+                out[f"{key}q/{i}/{path}"] = gathered(
+                    plan, qt.q, torch.ones_like(qt.scale), qt.shape)
+                out[f"{key}s/{i}/{path}"] = gathered(
+                    plan, torch.ones_like(qt.q), qt.scale, qt.shape)
+                out[f"pre/{key}/{i}/{path}"] = S.unshard(
+                    seen[path][2 * i + j], plan.pspec, ctx)
+    out["gathered_bytes"] = torch.tensor(bytes_i)
+    for path, t in T.flatten(whole(params, specs, ctx)):
+        out[f"p/{path}"] = t
+    for key in ("m", "v"):
+        for path, qt in T.flatten(state[key], quant.is_qtensor):
+            plan = plans[path]
+            out[f"{key}/{path}"] = gathered(plan, qt.q, qt.scale, qt.shape)
+            if fault is None:
+                out[f"{key}blk/{path}/q"] = S.unshard(qt.q, plan.qspec, ctx)
+                out[f"{key}blk/{path}/scale"] = S.unshard(
+                    qt.scale, plan.qspec, ctx)
+    return out
+
+
 def run_gpipe(case, ctx):
     comm = ctx.comm
     s = comm.axis_index(case["axis"])
@@ -294,11 +392,11 @@ def run_compressed_psum(case, ctx):
 
 
 RUN = {"sp_decode": run_sp_decode, "mla_sp": run_mla_sp, "moe": run_moe,
-       "decoder": run_decoder, "ssm_serve": run_ssm_serve,
-       "train_loss": run_train_loss,
-       "train_step": run_train_step, "gpipe": run_gpipe,
-       "compressed_psum": run_compressed_psum}
-TRAINING = ("train_loss", "train_step")
+       "decoder": run_decoder, "ssm_serve": run_serve,
+       "whisper_serve": run_serve, "train_loss": run_train_loss,
+       "train_step": run_train_step, "quant_step": run_quant_step,
+       "gpipe": run_gpipe, "compressed_psum": run_compressed_psum}
+TRAINING = ("train_loss", "train_step", "quant_step")
 
 
 def _to(tree, device):
