@@ -53,7 +53,10 @@ non-zero and prints no result:
    turns with SDPA; at the local shapes of phase mesh_wq (whisper-tiny's
    encoder (2, 1500, 1500, 6, 64) and cross-attention (2, 224, 1500),
    mixtral-8x7b's 16 of 32 heads, 1 row of 2048, window 4096), timed in
-   turns with SDPA; K2 through its
+   turns with SDPA; at gemma3-4b's prefill waves (4, 2048, 2048, 8, 256)
+   with a local layer's window 1024 and a global layer's none, on the
+   general variant (no Hopper instantiation at hd 256), timed in turns
+   with SDPA (a boolean band mask for the window); K2 through its
    dispatcher, and its candidate plans (G, C, CB, double buffer) in two
    passes at the main-path shape, each case checked for the plan it
    took, and a stale chunk and a lost row group shown to fail, and at a
@@ -71,13 +74,15 @@ non-zero and prints no result:
    Ledger) at full width in bf16 with seeded random weights: 8 requests,
    batch 4, 16 new tokens each; prompts of 256-1024 tokens and max_len
    2048 (a-c), 4097-6144 tokens and max_len 6160 (d, e: past the
-   4096-token window); each checks that every request gets its tokens,
-   every logit is finite and each of its kernels ran as often per
-   prefill wave as the path has layers that run it (and no other kernel
-   ran), every K1 launch through the Hopper variant; the device memory
-   of the path before is freed first; it prints
-   the peak memory and the decode step's time beside the least time to
-   read the weights a step reads:
+   4096-token window), 1025-2048 tokens and max_len 2064 (r: past the
+   1024-token window of gemma3-4b's local layers); each checks that
+   every request gets its tokens, every logit is finite and each of its
+   kernels ran as often per prefill wave as the path has layers that run
+   it (and no other kernel ran), every K1 launch through the Hopper
+   variant (path r's through the general one, K1_VARIANT); the device
+   memory of the path before is freed first; it prints the peak memory
+   and the decode step's time beside the least time to read the weights
+   a step reads:
    a. mistral-nemo-12b (40 layers, d_model 5120): K1 40 times a wave;
    b. rwkv6-1.6b (24 layers, d_model 2048): K2 24 times a wave, every
       launch under kernel.plan's (G, C, CB);
@@ -97,7 +102,11 @@ non-zero and prints no result:
       kv_lora 512, nope/rope/v 128/64/128, 256 experts top-8 of 2048
       plus 1 shared, vocab 129280 untied), 24.87 B params: MLA prefill
       through K1 at q·k 192 and v 128, twice a wave, Hopper variant;
-      absorbed decode against the latent cache.
+      absorbed decode against the latent cache;
+   r. gemma3-4b as published (34 layers, d_model 2560, 8 heads of 256
+      over 4 KV heads, geglu, vocab 262144 tied, 3.88 B params): K1 34
+      times a wave (29 local layers with window 1024, 5 global), every
+      launch on the general variant (hd 256).
    g. whisper-tiny as published (4 + 4 layers, d_model 384, 6 heads of
       64, vocab 51865 tied, 36.44 M params), driven at its model entry
       points (prefill with frames, decode), not through the engine: the
@@ -214,17 +223,27 @@ non-zero and prints no result:
    the causal mask, the cross-attention (16, 448, 1500, 6, 64) and the
    encoder (16, 1500, 1500, 6, 64), path j's local heads (1, 4096,
    4096, 16, 128) and path q's (1, 2048, 2048, 16, 128), window 4096;
+   above hd 128 on the general route: gemma3-4b's training shape (2,
+   2048, 2048, 8, 256) with a local layer's window 1024 and a global
+   layer's none, DeepSeek-V3's MLA wave (4, 1024, 1024, 128) at q·k 192
+   with v, o and dO at 128 columns unpadded (its forward on the Hopper
+   MlaTile, no LSE; the stats kernel recomputes it), hd 256 in f32, with
+   a softcap and as an expanded GQA view;
    each case checked for its route
    ("hopper": the forward's LSE, preprocess, dK/dV, dQ on TMA and wgmma;
    "general": stats, dK/dV, dQ on mma.sync); two calls bit for bit; a
    backward with D dropped, the softcap derivative dropped, a kv tile
    skipped, the LSE of the neighbouring row, the LSE in log2 units, or a
-   Q/dO ring stage read one tile stale shown to fail the checks; at the
+   Q/dO ring stage read one tile stale, or dK's and dV's columns past 128
+   dropped (gemma's global shape) shown to fail the checks; at the
    training shape, at hd 128 and at paths j's and q's local heads, timed
    in turns: the Hopper backward
    (each kernel alone and the whole call), the general one as the
    yardstick, SDPA's backward, and K1's forward with and without the
-   LSE, beside the bound;
+   LSE, beside the bound; at gemma's global shape and MLA's wave the
+   general backward in turns with SDPA's backward, each of its kernels,
+   the forward and the plain version, beside the bound and the design's
+   floor;
 7. K2's backward (wkv6_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.wkv6, whose backward launches the
    backward kernel on the route kernel_bwd.plan picked before the forward,
@@ -262,7 +281,8 @@ non-zero and prints no result:
    forward with and without checkpoints, the plain backward, beside the
    bound (scan_bwd_bound);
 9. train, each path of TRAIN_PATHS in bf16 through
-   repro_torch.launch.train, 6 steps of 4 x 2048 tokens, every loss
+   repro_torch.launch.train, 6 steps of 4 x 2048 tokens (but gemma3-4b's
+   4 of 2 x 2048), every loss
    finite, counts set to 0 before each step and read after it, no plain
    version called, one step profiled by kernel group:
    a. minicpm-2b (40 layers, d_model 2304, 2.72 B params) with WSD: K1
@@ -287,6 +307,10 @@ non-zero and prints no result:
       and 16 x 1500 frames: K1 20 forward launches (4 encoder, 8 decoder
       twice: the forward and its recompute) and 12 backward calls (36
       launches) a step, all "hopper", no stats kernel;
+   e. gemma3-4b as published (3.88 B params) with cosine, 4 steps of 2 x
+      2048 (4 x 2048 would pass the card with its 262144-wide logits): K1
+      68 forward launches and 34 backward calls (102 launches: stats,
+      dK/dV, dQ) a step, all on the "general" route;
    then a 2-layer cut of minicpm-2b at full width, whose gradients under
    remat policy None and "dots" equal those without remat, bit for bit;
 10. jamba_moe_grad: the 2-layer MoE cut of jamba-1.5-large-398b
@@ -335,6 +359,7 @@ DANUBE = "h2o-danube-3-4b"
 MIXTRAL = "mixtral-8x7b"
 INTERNVL = "internvl2-76b"
 DEEPSEEK = "deepseek-v3-671b"
+GEMMA = "gemma3-4b"
 # Depth cuts of the published configs; every width stays as published.
 # Jamba's main path: layers 4-7 of a period (one attention layer, then
 # three Mamba layers, MoE on the 2nd and 4th).  Mixtral's: its first 8
@@ -425,12 +450,19 @@ MAIN_PATHS = {"mistral-nemo-12b": {"flash_attention": 40},
               JAMBA: {"flash_attention": 1, "selective_scan": 3},
               DANUBE: {"flash_attention": 24},
               MIXTRAL: {"flash_attention": 8},
-              DEEPSEEK: {"flash_attention": 2}}
+              DEEPSEEK: {"flash_attention": 2},
+              GEMMA: {"flash_attention": 34}}
+# the K1 variant every launch of a path takes (forward, and the backward's
+# route in training) where it is not "hopper": gemma3-4b's hd 256, which
+# no Hopper instantiation takes
+K1_VARIANT = {GEMMA: "general"}
 # each main path's traffic: prompt lengths drawn from seed 0 in [lo, hi]
 # and max_len; the sliding-window paths' prompts all pass their 4096-token
-# window, so it bites in prefill and in every decode step
+# window (gemma3-4b's, its local layers' 1024-token one), so it bites in
+# prefill and in every decode step
 SHORT_TRAFFIC = ((256, 1024), 2048)
-TRAFFIC = {DANUBE: ((4097, 6144), 6160), MIXTRAL: ((4097, 6144), 6160)}
+TRAFFIC = {DANUBE: ((4097, 6144), 6160), MIXTRAL: ((4097, 6144), 6160),
+           GEMMA: ((1025, 2048), 2064)}
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor cores
               torch.float32: 67e12}            # CUDA cores, no TF32
@@ -563,6 +595,13 @@ FLASH_CASES = [
      0.0, "plain", "hopper"),
     ("mesh-mixtral-local-heads", (1, 2048, 2048, 16, 128), torch.bfloat16,
      True, 4096, 0.0, "plain", "hopper"),
+    # a prefill wave of gemma3-4b (path r): 4 prompts padded to 2048, its 8
+    # heads of 256, a local layer's window 1024 and a global layer's none;
+    # the general variant (no Hopper instantiation at hd 256)
+    ("gemma-local-wave", (4, 2048, 2048, 8, 256), torch.bfloat16, True,
+     1024, 0.0, "plain", "general"),
+    ("gemma-global-wave", (4, 2048, 2048, 8, 256), torch.bfloat16, True, 0,
+     0.0, "plain", "general"),
 ]
 # the forward faults (checks.FWD_FAULTS) a case also shows its checks
 # can see
@@ -575,7 +614,8 @@ TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
                      "mixtral-window-4096", "mla-hd192", "whisper-encoder",
                      "whisper-cross", "mesh-local-heads", "mla-local-heads",
                      "mesh-train-local-heads", "mesh-whisper-encoder",
-                     "mesh-whisper-cross", "mesh-mixtral-local-heads")
+                     "mesh-whisper-cross", "mesh-mixtral-local-heads",
+                     "gemma-local-wave", "gemma-global-wave")
 # the timed cases whose SDPA call also runs in the turns of K1's variants
 # (general, hopper, sdpa, sdpa, hopper, general), each timed queued
 # behind a sleep of the stream: their kernels take less time than the
@@ -926,6 +966,17 @@ def flash_bound(shape, dtype, causal, window):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def sdpa_mask(q, skv, kw):
+    """SDPA's mask for K1's arguments: a boolean band where the window
+    bites (SDPA then takes another backend than is_causal's), else the
+    causal flag."""
+    if kw["window"] and kw["window"] < skv:
+        i = torch.arange(q.shape[1], device=q.device)[:, None]
+        j = torch.arange(skv, device=q.device)[None, :]
+        return dict(attn_mask=(i >= j) & (i - j < kw["window"]))
+    return dict(is_causal=kw["causal"])
+
+
 def flash_plain(shape, kw):
     """The plain version a K1 case is held to: ``attention_ref``, which
     builds the (sq, skv) f32 scores, or, where those would pass 4 GiB
@@ -1097,8 +1148,8 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
     Hopper one at a head dim with a training mode (the Hopper backward's,
     ``kernel_bwd.HOPPER_HEAD_DIMS``), its serving instantiation against
     its training mode (the LSE written; without, with, with, without);
-    SDPA on the same inputs (in those turns for the general variant; with
-    a boolean band mask for a window); and the plain version.  Prints
+    SDPA on the same inputs (in those turns for the general variant;
+    ``sdpa_mask``'s band where a window bites); and the plain version.  Prints
     them beside the bound (and, where v is narrower, the padded
     function's) and returns the kernels-line numbers (``ms`` is that of
     ``variant``, the one the dispatcher takes; ``library_ms`` SDPA's on
@@ -1108,8 +1159,8 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
     narrow = dv < hd
     vp = F.pad(v, (0, hd - dv)) if narrow else v
     qt, kt, vt_, vpt = (t.transpose(1, 2) for t in (q, k, v, vp))
-    sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt,
-                             is_causal=kw["causal"])
+    mask = sdpa_mask(q, k.shape[1], kw)
+    sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, **mask)
     sdpa_dv = narrow
     if narrow:
         try:
@@ -1155,18 +1206,10 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
                         **kw), queued=queued)))
             del lse
         if sdpa_turns["sdpa"]:
-            # is_causal is the window's mask where the window passes skv
-            check(not kw["window"] or kw["window"] >= k.shape[1],
-                  f"{name}: SDPA in turns takes no window")
             library_ms = float(np.mean(sdpa_turns["sdpa-dv"]
                                        or sdpa_turns["sdpa"]))
-        elif kw["window"]:
-            i = torch.arange(q.shape[1], device=q.device)[:, None]
-            j = torch.arange(k.shape[1], device=q.device)[None, :]
-            band = (i >= j) & (i - j < kw["window"])
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt_, attn_mask=band), iters=3)
-            del band
+        elif "attn_mask" in mask:
+            library_ms = time_ms(lambda: sdpa(vt_), iters=3)
         else:
             library_ms = time_ms(lambda: sdpa(vt_))
         plain_ms = time_ms(plain, iters=3)
@@ -1175,7 +1218,7 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
             ("hopper", functools.partial(flash_kernel.flash_attention_cuda,
                                          q, k, v, "hopper", **kw)),
             ("sdpa", functools.partial(sdpa, vpt)))} if queued else None
-    del vp, vpt
+    del vp, vpt, mask, sdpa
     ms_by_variant = {u: float(np.mean([t for w, t in turns if w == u]))
                      for u in dict(turns)}
     ms = ms_by_variant[variant]
@@ -2432,6 +2475,8 @@ def phase_main_path(arch, card, profile):
                                 size=int(rng.integers(lo, hi + 1)))
                    for _ in range(n_req)]
         window = getattr(model, "static_window", 0)
+        if cfg.local_global_period:     # gemma3's local layers
+            window = cfg.local_window
         if window:
             check(min(map(len, prompts)) > window,
                   f"a prompt within the {window}-token window")
@@ -2484,13 +2529,15 @@ def phase_main_path(arch, card, profile):
           "a request got the wrong number of tokens")
     check(probe.nonfinite == 0, f"{probe.nonfinite} non-finite logits")
     want = {name: MAIN_PATHS[arch].get(name, 0) * waves for name in ops}
-    # every K1 launch of a main path takes the Hopper variant
+    # every K1 launch of a main path takes the Hopper variant, but where
+    # K1_VARIANT says otherwise
+    k1_variant = K1_VARIANT.get(arch, "hopper")
     want["flash_attention_by_variant"] = {
-        "hopper": want["flash_attention"], "general": 0}
+        "hopper": 0, "general": 0, k1_variant: want["flash_attention"]}
     if want["flash_attention"]:
         print(f"[main] {arch}: K1 launches by variant "
               f"{launches['flash_attention_by_variant']} (expected all "
-              f"'hopper')")
+              f"{k1_variant!r})")
     # every K2 launch takes kernel.plan's (G, C, CB) for the model's head dim
     want["wkv6_by_plan"] = {}
     if want["wkv6"]:
@@ -4741,9 +4788,10 @@ def phase_whisper_train(card):
 
 # ------------------------------------------------ K1's backward, training
 
-# name, (b, sq, skv, h, hd), dtype, causal, window, softcap, q/k scale,
-# layout, the route kernel_bwd.plan must pick and the forward variant
-# kernel.plan must pick (hd 120: the Hopper forward, the general
+# name, (b, sq, skv, h, hd[, dv]) (dv: v's, o's and dO's columns where
+# fewer than hd), dtype, causal, window, softcap, q/k scale, layout, the
+# route kernel_bwd.plan must pick and the forward variant kernel.plan must
+# pick (hd 120 and MLA's (192, 128): the Hopper forward, the general
 # backward); the first is the training shape (minicpm-2b, batch 4 x 2048)
 BWD_CASES = [
     ("training", (4, 2048, 2048, 36, 64), torch.bfloat16, True, 0, 0.0,
@@ -4787,15 +4835,36 @@ BWD_CASES = [
     # (1, 2048, 16, 128), its window 4096 past the row
     ("mesh-mixtral-local-heads", (1, 2048, 2048, 16, 128), torch.bfloat16,
      True, 4096, 0.0, 2.0, "plain", "hopper", "hopper"),
+    # gemma3-4b's training step (2 x 2048, 8 heads of 256): a local
+    # layer's window 1024 and a global layer; general forward and backward
+    ("gemma-local-hd256", (2, 2048, 2048, 8, 256), torch.bfloat16, True,
+     1024, 0.0, 2.0, "plain", "general", "general"),
+    ("gemma-global-hd256", (2, 2048, 2048, 8, 256), torch.bfloat16, True, 0,
+     0.0, 2.0, "plain", "general", "general"),
+    # a prefill wave of DeepSeek-V3's MLA with v at its 128 columns, not
+    # padded: the Hopper forward (MlaTile, no LSE), the general backward
+    # (its stats kernel recomputes the LSE)
+    ("mla-192-128", (4, 1024, 1024, 128, 192, 128), torch.bfloat16, True, 0,
+     0.0, 2.0, "plain", "general", "hopper"),
+    # hd 256 in f32 (32-row tiles), with a softcap, and k and v one KV head
+    # seen as all 8 (stride 0 over heads)
+    ("f32-hd256", (1, 300, 300, 2, 256), torch.float32, True, 0, 0.0, 2.0,
+     "plain", "general", "general"),
+    ("softcap-30-hd256", (2, 512, 512, 4, 256), torch.bfloat16, True, 0,
+     30.0, 6.0, "plain", "general", "general"),
+    ("gqa-view-hd256", (2, 1024, 1024, 8, 256), torch.bfloat16, True, 0,
+     0.0, 2.0, "gqa-view", "general", "general"),
 ]
 # the fault each case also shows the checks can see (checks.FAULTS)
 BWD_FAULTS = {"training": ("no-delta", "skip-last-tile", "lse-neighbour-row",
                            "lse-log2", "stale-q-stage"),
               "softcap-50": ("no-softcap-derivative",),
-              "hd120-window256": ("skip-first-tile",)}
+              "hd120-window256": ("skip-first-tile",),
+              "gemma-global-hd256": ("dkdv-past-128-dropped",)}
 # the cases timed in turns (the training shape is the kernels line's)
 TIMED_BWD_CASES = ("training", "hd128", "mesh-train-local-heads",
-                   "mesh-mixtral-local-heads")
+                   "mesh-mixtral-local-heads", "gemma-global-hd256",
+                   "mla-192-128")
 # A gradient row's error is measured against the row's scale
 # (checks.bwd_row_scales: the norm of the sum of magnitudes that makes the
 # row), held to ROW_TOL.  dS = P (dP - D) cancels as a row's softmax nears
@@ -4824,6 +4893,10 @@ TRAIN_PATHS = {
                          attn_layer_offset=0), moe_offset=2,
                 kernels={"flash_attention": (2, 3),
                          "selective_scan": (2, 2)}),
+    # full width and depth (3.88 B params); 2 x 2048, since 4 x 2048 with
+    # its 262144-wide logits would pass the card; K1 on "general"
+    GEMMA: dict(batch=2, seq=2048, steps=4,
+                kernels={"flash_attention": (68, 102)}),
 }
 # The MoE cut's gradient (phase jamba_moe_grad): DECODE_CUTS[JAMBA]
 # (attention + MLP, then Mamba + MoE with all 16 experts) in bf16, one
@@ -4850,33 +4923,34 @@ KERNEL_GROUPS = (
 
 def _bwd_inputs(shape, dtype, qk_scale, layout, gen):
     """q, k, v, dO for a backward case, on the card in ``dtype``."""
-    b, sq, skv, h, hd = shape
+    b, sq, skv, h, hd, dv = flash_dims(shape)
 
-    def randn(s, scale, heads=h):
-        if layout == "strided":       # (b, h, s, hd) storage
-            x = torch.randn((b, heads, s, hd), generator=gen, device="cuda")
+    def randn(s, scale, heads=h, d=hd):
+        if layout == "strided":       # (b, h, s, d) storage
+            x = torch.randn((b, heads, s, d), generator=gen, device="cuda")
             x = x.transpose(1, 2)
         else:
-            x = torch.randn((b, s, heads, hd), generator=gen, device="cuda")
+            x = torch.randn((b, s, heads, d), generator=gen, device="cuda")
         return (x * scale).to(dtype)
 
-    q, do = randn(sq, qk_scale), randn(sq, 1.0)
+    q, do = randn(sq, qk_scale), randn(sq, 1.0, d=dv)
     if layout == "gqa-view":
         k = randn(skv, qk_scale, 1).expand(b, skv, h, hd)
-        v = randn(skv, 1.0, 1).expand(b, skv, h, hd)
+        v = randn(skv, 1.0, 1, dv).expand(b, skv, h, dv)
     else:
-        k, v = randn(skv, qk_scale), randn(skv, 1.0)
+        k, v = randn(skv, qk_scale), randn(skv, 1.0, d=dv)
     return q, k, v, do
 
 
 def bwd_bound(shape, dtype, causal, window):
     """Least time for the backward: its bytes (q, k, v, o, dO read once;
-    dq, dk, dv written once) over HBM bandwidth, or 5 products of 2 hd
-    FLOPs per unmasked (query, key) pair over the dtype's peak, whichever
-    is larger.  Returns (ms, "bytes" | "operations", pairs)."""
-    b, sq, skv, h, hd = shape
+    dq, dk, dv written once) over HBM bandwidth, or the 5 products per
+    unmasked (query, key) pair (S, dQ, dK of 2 hd FLOPs; dP, dV of 2 dv)
+    over the dtype's peak, whichever is larger.  Returns (ms, "bytes" |
+    "operations", pairs)."""
+    b, sq, skv, h, hd, dv = flash_dims(shape)
     size = torch.finfo(dtype).bits // 8
-    nbytes = (4 * b * sq * h * hd + 4 * b * skv * h * hd) * size
+    nbytes = (b * sq + b * skv) * h * (2 * hd + 2 * dv) * size
     i = np.arange(sq)[:, None]
     j = np.arange(skv)[None, :]
     mask = np.ones((sq, skv), bool)
@@ -4886,7 +4960,7 @@ def bwd_bound(shape, dtype, causal, window):
         mask &= i - j < window
     pairs = int(mask.sum()) * b * h
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 10 * hd * pairs / PEAK_FLOPS[dtype]
+    t_ops = (6 * hd + 4 * dv) * pairs / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", pairs)
 
@@ -4959,9 +5033,11 @@ def phase_flash_bwd():
         del f32, ref, scales
         torch.cuda.empty_cache()
         if name in TIMED_BWD_CASES:
-            timed[name] = {"max_abs_err": max_abs, **_time_flash_bwd(
-                kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape, dtype,
-                kw, name)}
+            timing = (_time_flash_bwd if route == "hopper"
+                      else _time_flash_bwd_general)
+            timed[name] = {"route": route, "max_abs_err": max_abs,
+                           **timing(kernel_bwd, attention_bwd_ref, q, k, v,
+                                    o, do, shape, dtype, kw, name)}
         if name == "training":
             entry = {
                 "name": "flash_attention_bwd", "route": "cuda",
@@ -5005,8 +5081,6 @@ def _time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape,
     and the plain version; beside the bound and the Hopper design's
     floor.  Returns the kernels-line numbers (``ms`` is the Hopper call's,
     the one the training path takes)."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     lse = flash_kernel.lse_buffer(q)
     with torch.no_grad():
@@ -5031,17 +5105,7 @@ def _time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape,
                      for with_lse in (False, True, True, False)]
         plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw),
                            iters=2, warmup=1)
-    qt, kt, vt_ = (t.transpose(1, 2).detach().requires_grad_()
-                   for t in (q, k, v))
-    dot = do.transpose(1, 2)
-
-    def fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt_,
-                                              is_causal=kw["causal"])
-
-    def fwd_bwd():
-        torch.autograd.grad(fwd(), (qt, kt, vt_), dot)
-
+    fwd, fwd_bwd, _ = _sdpa_grad(q, k, v, do, kw, name)
     sdpa = [time_ms(fwd), time_ms(fwd_bwd), time_ms(fwd_bwd), time_ms(fwd)]
     sdpa_fwd_ms = (sdpa[0] + sdpa[3]) / 2
     library_ms = (sdpa[1] + sdpa[2]) / 2 - sdpa_fwd_ms
@@ -5076,6 +5140,104 @@ def _time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape,
             "floor_ms": floor_ms, "ms_by_variant": ms_by_variant,
             "ms_turns": turns, "kernel_ms": kernel_ms,
             "forward_ms": fwd_ms, "sdpa_forward_ms": sdpa_fwd_ms}
+
+
+def _sdpa_grad(q, k, v, do, kw, name):
+    """SDPA's forward, and its forward and backward through autograd, on
+    (b, h, s, d) copies of q, k, v that record a gradient (``sdpa_mask``'s
+    mask; v at its own columns, or zero-padded to hd where SDPA refuses
+    that), for timing its backward as their difference.  Returns (fwd,
+    fwd_bwd, how v went in)."""
+    import torch.nn.functional as F
+    hd, dv = q.shape[3], v.shape[3]
+    mask = sdpa_mask(q, k.shape[1], kw)
+    qt, kt, vt_ = (t.transpose(1, 2).detach().requires_grad_()
+                   for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt_, **mask)
+
+    how = "as is"
+    try:
+        with torch.no_grad():
+            fwd()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        how = f"zero-padded to {hd}"
+        print(f"[flash_bwd] {name}: SDPA refuses v at {dv} columns beside "
+              f"q and k at {hd}: {e}")
+        vt_ = F.pad(v, (0, hd - dv)).transpose(1, 2).detach()
+        vt_.requires_grad_()
+        dot = F.pad(do, (0, hd - dv)).transpose(1, 2)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt_), dot)
+
+    return fwd, fwd_bwd, how
+
+
+def _time_flash_bwd_general(kernel_bwd, attention_bwd_ref, q, k, v, o, do,
+                            shape, dtype, kw, name):
+    """The general backward, through the kernel module (no launch
+    counted; its arguments prepared once): the whole call in turns with
+    SDPA's backward through autograd (general, sdpa, sdpa, general; SDPA's
+    forward timed around them and taken off; v at its own columns, or
+    zero-padded to hd where SDPA refuses that; a boolean band mask where a
+    window bites), its kernels (stats alone, then stats with dK/dV and
+    with dQ, each less stats), the forward on the variant kernel.plan
+    picks, and the plain version; beside the bound and the design's
+    floor (its products: S three times, dP twice, each twice in dK/dV and
+    dQ above hd 128 in bf16).  Returns the kernels-line numbers (``ms``
+    is the general call's)."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    hd, dv = flash_dims(shape)[4:]
+
+    def call(kernels=None):
+        return kernel_bwd.launcher(q, k, v, o, do, "general",
+                                   kernels=kernels, **kw)[0]
+
+    fwd, fwd_bwd, sdpa_v = _sdpa_grad(q, k, v, do, kw, name)
+    # q, k, v, o and dO need no gradient: only SDPA's copies record one
+    whole = call()
+    turns, sdpa = [("general", time_ms(whole))], [time_ms(fwd)]
+    sdpa += [time_ms(fwd_bwd), time_ms(fwd_bwd)]
+    sdpa.append(time_ms(fwd))
+    turns.append(("general", time_ms(whole)))
+    stats_ms = time_ms(call(("stats",)))
+    kernel_ms = {"stats": stats_ms,
+                 **{kn: time_ms(call(("stats", kn))) - stats_ms
+                    for kn in ("dkdv", "dq")}}
+    variant = flash_kernel.plan(q, k, v)
+    fwd_ms = time_ms(lambda: flash_kernel.flash_attention_cuda(
+        q, k, v, variant, **kw))
+    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw),
+                       iters=2, warmup=1)
+    del fwd, fwd_bwd
+    sdpa_fwd_ms = (sdpa[0] + sdpa[3]) / 2
+    library_ms = (sdpa[1] + sdpa[2]) / 2 - sdpa_fwd_ms
+    ms = float(np.mean([t for _, t in turns]))
+    bound_ms, bound_by, pairs = bwd_bound(shape, dtype, kw["causal"],
+                                          kw["window"])
+    split = 2 if dtype == torch.bfloat16 and hd > 128 else 1
+    design_flops = (6 * hd + 2 * dv + 2 * split * (2 * hd + 2 * dv)) * pairs
+    floor_ms = design_flops / PEAK_FLOPS[dtype] * 1e3
+    print(f"[flash_bwd] {name}: general in turns with sdpa "
+          f"{', '.join(f'{t:.4f}' for _, t in turns)} ms; kernels alone "
+          f"{', '.join(f'{u} {t:.4f}' for u, t in kernel_ms.items())} ms; "
+          f"forward ({variant}) {fwd_ms:.4f} ms; plain {plain_ms:.4f} ms, "
+          f"sdpa backward {library_ms:.4f} ms (v {sdpa_v}; forward "
+          f"{sdpa_fwd_ms:.4f}, forward + backward {sdpa[1]:.4f}, "
+          f"{sdpa[2]:.4f}); bound {bound_ms:.4f} ms ({bound_by}; {pairs} "
+          f"unmasked pairs), the design's floor {floor_ms:.4f} ms "
+          f"({design_flops / 1e9:.1f} GFLOP); general / bound "
+          f"{ms / bound_ms:.2f}, general / sdpa {ms / library_ms:.2f}, "
+          f"{design_flops / ms / 1e9:.1f} TFLOP/s of the design's products")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "floor_ms": floor_ms, "ms_turns": turns, "kernel_ms": kernel_ms,
+            "forward_ms": {variant: fwd_ms}, "sdpa_forward_ms": sdpa_fwd_ms,
+            "sdpa_v": sdpa_v}
 
 
 def _count_plain_calls():
@@ -5155,18 +5317,21 @@ def read_counts(ops):
             "k3_by_mode": dict(ops["selective_scan"].launches_by_mode)}
 
 
-def expected_counts(kernels, ops, k3_mode="training"):
+def expected_counts(kernels, ops, k3_mode="training", k1_variant="hopper"):
     """``read_counts``' value for a run whose kernels launch ``kernels``
-    ({name: (forward, backward)}) times: every K1 launch "hopper", every
-    K2 forward under kernel.plan's choice and backward on "hopper", every
-    K3 forward in ``k3_mode``, no other kernel."""
+    ({name: (forward, backward)}) times: every K1 launch, forward and
+    backward, on ``k1_variant``, every K2 forward under kernel.plan's
+    choice and backward on "hopper", every K3 forward in ``k3_mode``, no
+    other kernel."""
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     k1 = kernels.get("flash_attention", (0, 0))
     k2 = kernels.get("wkv6", (0, 0))
     k3 = kernels.get("selective_scan", (0, 0))
     return {"launches": {k: tuple(kernels.get(k, (0, 0))) for k in ops},
-            "k1_by_variant": {"hopper": k1[0], "general": 0},
-            "k1_bwd_by_variant": {"hopper": k1[1], "general": 0},
+            "k1_by_variant": {"hopper": 0, "general": 0,
+                              k1_variant: k1[0]},
+            "k1_bwd_by_variant": {"hopper": 0, "general": 0,
+                                  k1_variant: k1[1]},
             "k2_by_plan": ({_plan_name(*wkv_kernel.PLAN): k2[0]}
                            if k2[0] else {}),
             "k2_bwd_by_route": {"hopper": k2[1], "general": 0},
@@ -5209,7 +5374,8 @@ def phase_train(arch, card):
     records = out["records"]
     losses = [r["loss"] for r in records]
     params = sum(t.numel() for t in _leaves(out["params"]))
-    want = expected_counts(spec["kernels"], ops)
+    k1_variant = K1_VARIANT.get(arch, "hopper")
+    want = expected_counts(spec["kernels"], ops, k1_variant=k1_variant)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = float(np.median([r["step_ms"] for r in records[1:]]))
     tok_s = shape["batch"] * shape["seq"] / step_ms * 1e3
@@ -5235,7 +5401,7 @@ def phase_train(arch, card):
     if arch == "minicpm-2b":
         _embedding_backward_is_deterministic(out)
     kernels = profile_train_step(out, shape)
-    if k1:
+    if k1 and k1_variant == "hopper":
         check(kernels is None or "bwd_stats" not in kernels,
               f"train: a stats kernel ran on the hopper route: {kernels}")
     result = {"arch": arch, **shape, "layers": cfg.n_layers,

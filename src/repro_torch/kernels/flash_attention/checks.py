@@ -18,7 +18,10 @@ limits.
 * "stale-q-stage": in dK and dV, every q tile of the Hopper dK/dV ring
   (``kernel_bwd.HOPPER_RING_ROWS``) but the first read with the Q, dO,
   LSE and D of the tile before it (masks still by its own rows), as a
-  ring stage waited on with a stale phase would hold.
+  ring stage waited on with a stale phase would hold;
+* "dkdv-past-128-dropped": dK's and dV's columns from 128 on zero (hd >
+  128), as a backward whose warps owned the first 128 columns of a row
+  alone (the design up to hd 128) would leave them unwritten.
 
 And what the forward's checks must be able to see at a head dim that is
 no multiple of the Hopper forward's 64-column TMA box (hd 120), or that
@@ -47,7 +50,7 @@ from repro_torch.kernels.flash_attention.ref import attention_lse, scores
 
 FAULTS = ("no-delta", "no-softcap-derivative", "skip-last-tile",
           "skip-first-tile", "lse-neighbour-row", "lse-log2",
-          "stale-q-stage")
+          "stale-q-stage", "dkdv-past-128-dropped")
 TILE = 64    # the kernel's q and kv tile rows
 FWD_FAULTS = ("pad-from-next-head", "second-box-dropped",
               "third-box-dropped")
@@ -75,6 +78,15 @@ def attention_bwd_faulty(q, k, v, o, do, fault, *, causal=True, window=0,
         raise ValueError(f"no fault {fault!r}; one of {FAULTS}")
     scale = 1.0 / math.sqrt(q.shape[3])
     kw = dict(causal=causal, window=window, softcap=softcap)
+    if fault == "dkdv-past-128-dropped":
+        if q.shape[3] <= 128:
+            raise ValueError(f"hd {q.shape[3]} has no columns past 128: "
+                             f"{fault} cannot happen")
+        dq, dk, dv = _grads(q, k, v, o, do, scale, kw,
+                            attention_lse(q, k, **kw)[..., None])
+        dk[..., 128:] = 0
+        dv[..., 128:] = 0
+        return dq, dk, dv
     lse = None
     if fault in ("lse-neighbour-row", "lse-log2", "stale-q-stage"):
         lse = attention_lse(q, k, **kw)[..., None]           # (b, h, sq, 1)

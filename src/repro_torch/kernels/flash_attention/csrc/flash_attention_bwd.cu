@@ -5,54 +5,70 @@
 // The TPU side has no backward kernel: the reference trains through the
 // jnp twin of `flash_attention_pallas` (src/repro/models/attention.py,
 // `flash_attention`), differentiated by JAX.  This computes that gradient
-// for the port's K1, with the forward's contract: q (b, sq, h, hd), k/v
-// (b, skv, h, hd) with GQA heads already repeated, scale 1/sqrt(hd), an
-// optional tanh softcap, a causal mask aligned from position 0, a sliding
-// window, the finite -1e30 mask value, f32 statistics, gradients in q's
-// type.  With S the masked scores, P = softmax(S) and o, dO the forward's
-// output and its gradient:
+// for the port's K1, with the forward's contract: q (b, sq, h, hd), k
+// (b, skv, h, hd) and v (b, skv, h, dv) with dv <= hd and GQA heads
+// already repeated, scale 1/sqrt(hd), an optional tanh softcap, a causal
+// mask aligned from position 0, a sliding window, the finite -1e30 mask
+// value, f32 statistics, gradients in q's type.  With S the masked
+// scores, P = softmax(S) and o, dO (b, sq, h, dv) the forward's output
+// and its gradient:
 //   D = rowsum(dO * o), dS = P (dO V^T - D) (times 1 - tanh^2(s / c)
 //   under a softcap), dV = P^T dO, dQ = dS K scale, dK = dS^T Q scale.
+// D, dP = dO V^T and dV run over v's dv columns, S, dQ and dK over hd.
 //
 // Two variants, three kernels each, launched in order on the caller's
 // stream; kernel_bwd.py::plan picks one before the forward runs, and
 // neither falls back to the other.
 //
-// General variant (the first design; f32, hd up to 128, any strides with
-// head-dim stride 1):
-//   (a) stats: one block per (64-row q tile, head, batch); recomputes each
-//       row's log-sum-exp over the kv tiles the forward visits, and D, in
-//       f32, into (b, h, sq) scratch;
-//   (b) dK/dV: one block per (64-row kv tile, head, batch); walks the q
-//       tiles that see its kv tile (the forward's causal and window tile
+// General variant (the first design; f32, any hd <= 256 and dv <= hd,
+// any strides with head-dim stride 1):
+//   (a) stats: one block per (q tile, head, batch); recomputes each row's
+//       log-sum-exp over the kv tiles the forward visits, and D, in f32,
+//       into (b, h, sq) scratch;
+//   (b) dK/dV: one block per (kv tile, head, batch); walks the q tiles
+//       that see its kv tile (the forward's causal and window tile
 //       skipping, turned around), recomputes S and P = exp(S - LSE), and
 //       accumulates dV and dK in registers;
 //   (c) dQ: one block per (q tile, head, batch); walks the kv tiles and
 //       accumulates dQ in registers.
 // Each output element is written by one thread, once.  bf16 products
-// through mma.sync m16n8k16 with f32 accumulators from 4 warps (each
-// owning 16 rows), tiles loaded between barriers with no overlap; f32
-// through FMAs on the CUDA cores (TF32 would not hold f32 to its
-// tolerance).  Head dims up to 128, padded to 16/32/64/128 lanes in
-// shared memory (zero-filled, masked on store), so hd 120 works.
-// q/k/v/o/dO are read through their strides, so expanded GQA views need
-// no copy.  The scale: f32 scales q in shared memory before its products,
-// as the twin does; bf16 scales the f32 product afterwards (q scaled in
-// bf16 would round; for a power-of-two scale, as at hd 64, the two agree
-// exactly).
+// through mma.sync m16n8k16 with f32 accumulators from warps each owning
+// 16 rows of a 64-row tile, tiles loaded between barriers with no
+// overlap; f32 through FMAs on the CUDA cores (TF32 would not hold f32 to
+// its tolerance).  Head dims padded to 16/32/64/128/192/256 lanes in
+// shared memory (HDP, zero-filled, masked on store), so hd 120 works; v's
+// to DVP, which is HDP but at MLA's (192, 128), where it is 128 (v's
+// columns past dv zero-filled otherwise).  q/k/v/o/dO are read through
+// their strides, so expanded GQA views need no copy.  The scale: f32
+// scales q in shared memory before its products, as the twin does; bf16
+// scales the f32 product afterwards (q scaled in bf16 would round; for a
+// power-of-two scale, as at hd 64, the two agree exactly).
+//
+// Above hd 128 (gemma3's 256, MLA's 192) the accumulators of the first
+// design no longer fit: a bf16 warp's 16 kv rows of dK and dV at hd 256
+// are 256 f32 registers a lane before S^T and dP^T, and f32's four
+// transposed 64-row tiles of 256 lanes are 278 KB of shared memory.  So:
+//   - bf16 runs twice the warps (col_split 2): the two warps of a 16-row
+//     slice each recompute its S and dP (S^T and dP^T in (b)) and own one
+//     half of the columns of its dK and dV (of dQ in (c)), which halves
+//     the accumulators (dK, dV at hd 256: 128 registers a lane, as at hd
+//     128) and puts 8 warps on the SM that one block's 135 KB of tiles
+//     fills.  S and dP cost twice their products, a simple form chosen
+//     over one that shares P^T and dS^T through shared memory;
+//   - f32 takes 32-row tiles (f32_rows), 157 KB at hd 256 in (b).
 //
 // Hopper variant (bf16, hd 64 or 128, strides TMA reads: every training
-// call of the dense decoders): FlashAttention-3's schedule on TMA, an
-// mbarrier ring and wgmma, with LSE from the forward's training mode;
-// described above its code, below.
+// call of the dense decoders at those head dims): FlashAttention-3's
+// schedule on TMA, an mbarrier ring and wgmma, with LSE from the
+// forward's training mode; described above its code, below.
 //
 // What bounds it: 5 products of 2 hd FLOPs per unmasked (query, key)
 // pair are the function's least (S, dP, dV, dK, dQ): at the training
 // shape (4, 2048, 36, 64) bf16 causal 193 GFLOP, 0.196 ms at 989 TFLOP/s,
 // above its 302 MB of q/k/v/o/dO/dq/dk/dv (0.090 ms).  The general
-// variant computes 10 (S in all three kernels, dP in two); the Hopper one
-// 7 (S and dP in both of its product kernels), a floor of 0.274 ms.
-// Measured times stand in PERF.md.
+// variant computes 8 (S in all three kernels, dP in two), 12 with
+// col_split 2; the Hopper one 7 (S and dP in both of its product
+// kernels), a floor of 0.274 ms.  Measured times stand in PERF.md.
 //
 // Built with nvcc into a shared library with a plain C interface, loaded
 // with ctypes; each entry point returns a cudaError_t (the Hopper one
@@ -67,8 +83,8 @@
 
 namespace {
 
-constexpr int BQ = 64;           // query rows per tile
-constexpr int BK = 64;           // key/value rows per tile
+constexpr int BQ = 64;           // query rows per bf16 tile
+constexpr int BK = 64;           // key/value rows per bf16 tile
 constexpr float NEG_INF = -1e30f;
 
 struct Params {
@@ -83,6 +99,7 @@ struct Params {
   float* lse;     // (b, h, sq) f32 scratch
   float* delta;   // (b, h, sq) f32 scratch
   int b, sq, skv, h, hd;
+  int hdv;        // columns of v, o, dO and dv (<= hd)
   // (batch, seq, head) element strides of q, k, v, o, dO, dq, dk, dv
   long long s[8][3];
   float scale, softcap;
@@ -111,17 +128,18 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// The kv tiles that hold an unmasked key for some row of the q tile at q0
-// (the forward's kv_tile_range).
+// The kv tiles (of R rows) that hold an unmasked key for some row of the
+// q tile (of R rows) at q0 (the forward's kv_tile_range).
+template <int R>
 __device__ __forceinline__ void kv_tile_range(const Params& p, int q0,
                                               int* begin, int* end) {
-  const int q_last = min(q0 + BQ, p.sq) - 1;
-  int kt_end = (p.skv + BK - 1) / BK;
-  if (p.causal) kt_end = min(kt_end, q_last / BK + 1);
+  const int q_last = min(q0 + R, p.sq) - 1;
+  int kt_end = (p.skv + R - 1) / R;
+  if (p.causal) kt_end = min(kt_end, q_last / R + 1);
   int kt_begin = 0;
   if (p.window > 0) {
     const int lo = q0 - p.window + 1;
-    if (lo > 0) kt_begin = lo / BK;
+    if (lo > 0) kt_begin = lo / R;
   }
   *begin = kt_begin;
   *end = kt_end;
@@ -130,14 +148,15 @@ __device__ __forceinline__ void kv_tile_range(const Params& p, int q0,
 // The q tiles that hold a row with an unmasked key in the kv tile at k0:
 // causal rows start at k0; a window ends them at the tile's last key +
 // window - 1.
+template <int R>
 __device__ __forceinline__ void q_tile_range(const Params& p, int k0,
                                              int* begin, int* end) {
-  int qt_end = (p.sq + BQ - 1) / BQ;
+  int qt_end = (p.sq + R - 1) / R;
   if (p.window > 0) {
-    const int k_last = min(k0 + BK, p.skv) - 1;
-    qt_end = min(qt_end, (k_last + p.window - 1) / BQ + 1);
+    const int k_last = min(k0 + R, p.skv) - 1;
+    qt_end = min(qt_end, (k_last + p.window - 1) / R + 1);
   }
-  *begin = p.causal ? k0 / BQ : 0;
+  *begin = p.causal ? k0 / R : 0;
   *end = qt_end;
 }
 
@@ -165,19 +184,20 @@ __device__ __forceinline__ long long stat_base(const Params& p, int bb,
   return (static_cast<long long>(bb) * p.h + hh) * p.sq;
 }
 
-// D = rowsum(dO * o) of the q tile at q0, one warp a row.
-template <typename T>
+// D = rowsum(dO * o) over v's columns of the R-row q tile at q0, one warp
+// a row.
+template <typename T, int R>
 __device__ void tile_delta(const Params& p, int q0, int bb, int hh) {
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const T* og = slice<T>(p, p.o, O, bb, hh);
   const T* dg = slice<T>(p, p.dout, DO, bb, hh);
   float* out = p.delta + stat_base(p, bb, hh);
-  for (int i = threadIdx.x >> 5; i < BQ; i += warps) {
+  for (int i = threadIdx.x >> 5; i < R; i += warps) {
     const int row = q0 + i;
     if (row >= p.sq) break;
     float acc = 0.f;
-    for (int d = lane; d < p.hd; d += 32)
+    for (int d = lane; d < p.hdv; d += 32)
       acc = fmaf(to_f(og[row * p.s[O][1] + d]),
                  to_f(dg[row * p.s[DO][1] + d]), acc);
 #pragma unroll
@@ -189,91 +209,130 @@ __device__ void tile_delta(const Params& p, int q0, int bb, int hh) {
 
 // ------------------------------------------------------------ f32 path
 //
-// 256 threads as a 16 x 16 grid; thread (ty, tx) owns a 4 x 4 block of
-// each 64 x 64 score tile (rows ty*4.., columns tx*4..) and 4 rows x
-// HDP/16 columns (tx + 16c) of its gradient tile.  Tiles are staged
-// transposed (d-major, row stride TS) so the score loop reads float4s.
+// 256 threads as a 16 x 16 grid; with tiles of R rows (64, or 32 above hd
+// 128, f32_rows), thread (ty, tx) owns an RB x RB block (RB = R / 16) of
+// each R x R score tile (rows ty*RB.., columns tx*RB..) and RB rows x
+// W/16 columns (tx + 16c) of its gradient tile of W columns.  Tiles are
+// staged transposed (d-major, row stride R + 4) so the score loop reads
+// RB floats at once.
 
 constexpr int FMA_THREADS = 256;
-constexpr int TS = 64 + 4;        // stride of transposed tiles
 
-// rows [row0, row0 + 64) of a (seq, hd) slice, times `mul`, into a
-// transposed tile dst[d * TS + i]; rows past `nrows`, lanes past hd zero
 template <int HDP>
+__host__ __device__ constexpr int f32_rows() { return HDP <= 128 ? 64 : 32; }
+
+template <int R>
+__host__ __device__ constexpr int tstride() { return R + 4; }
+
+// RB consecutive floats (16-byte or 8-byte aligned) into v
+template <int RB>
+__device__ __forceinline__ void load_rb(const float* ptr, float v[RB]) {
+  if constexpr (RB == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(ptr);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(ptr);
+    v[0] = x.x, v[1] = x.y;
+  }
+}
+
+template <int RB>
+__device__ __forceinline__ void store_rb(float* ptr, const float v[RB]) {
+  if constexpr (RB == 4)
+    *reinterpret_cast<float4*>(ptr) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(ptr) = make_float2(v[0], v[1]);
+}
+
+// rows [row0, row0 + R) of a (seq, W) slice, times `mul`, into a
+// transposed tile dst[d * TS + i]; rows past `nrows`, lanes past `w` zero
+template <int W, int R>
 __device__ __forceinline__ void load_t_f32(float* dst, const float* src,
                                            long long ss, int row0, int nrows,
-                                           int hd, float mul) {
-  for (int e = threadIdx.x; e < 64 * HDP; e += FMA_THREADS) {
-    const int i = e / HDP, d = e % HDP;
+                                           int w, float mul) {
+  constexpr int TS = tstride<R>();
+  for (int e = threadIdx.x; e < R * W; e += FMA_THREADS) {
+    const int i = e / W, d = e % W;
     const int row = row0 + i;
-    dst[d * TS + i] = (row < nrows && d < hd) ? src[row * ss + d] * mul : 0.f;
+    dst[d * TS + i] = (row < nrows && d < w) ? src[row * ss + d] * mul : 0.f;
   }
 }
 
-// c[r][j] = sum_d a[d][ty*4 + r] * b[d][tx*4 + j] over transposed tiles
-template <int HDP>
+// c[r][j] = sum_d a[d][ty*RB + r] * b[d][tx*RB + j] over transposed tiles
+// of W lanes
+template <int W, int R>
 __device__ __forceinline__ void tile_dot_f32(const float* a, const float* b,
-                                             int ty, int tx, float c[4][4]) {
+                                             int ty, int tx,
+                                             float c[R / 16][R / 16]) {
+  constexpr int RB = R / 16, TS = tstride<R>();
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < RB; ++r)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[r][j] = 0.f;
+    for (int j = 0; j < RB; ++j) c[r][j] = 0.f;
 #pragma unroll 8
-  for (int d = 0; d < HDP; ++d) {
-    const float4 x = *reinterpret_cast<const float4*>(a + d * TS + ty * 4);
-    const float4 y = *reinterpret_cast<const float4*>(b + d * TS + tx * 4);
-    const float xv[4] = {x.x, x.y, x.z, x.w};
-    const float yv[4] = {y.x, y.y, y.z, y.w};
+  for (int d = 0; d < W; ++d) {
+    float xv[RB], yv[RB];
+    load_rb<RB>(a + d * TS + ty * RB, xv);
+    load_rb<RB>(b + d * TS + tx * RB, yv);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < RB; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[r][j] = fmaf(xv[r], yv[j], c[r][j]);
+      for (int j = 0; j < RB; ++j) c[r][j] = fmaf(xv[r], yv[j], c[r][j]);
   }
 }
 
-// c[r][j] of the 4 x 4 block, transposed into m[(tx*4 + j) * TS + ty*4 + r]
-__device__ __forceinline__ void store_t_f32(float* m, const float c[4][4],
+// c[r][j] of the RB x RB block, transposed into
+// m[(tx*RB + j) * TS + ty*RB + r]
+template <int R>
+__device__ __forceinline__ void store_t_f32(float* m,
+                                            const float c[R / 16][R / 16],
                                             int ty, int tx) {
+  constexpr int RB = R / 16, TS = tstride<R>();
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(m + (tx * 4 + j) * TS + ty * 4) =
-        make_float4(c[0][j], c[1][j], c[2][j], c[3][j]);
+  for (int j = 0; j < RB; ++j) {
+    float col[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) col[r] = c[r][j];
+    store_rb<RB>(m + (tx * RB + j) * TS + ty * RB, col);
+  }
 }
 
-// acc[r][c] += sum_i m[i][ty*4 + r] * x[tx + 16c][i]: m is (64 x TS) with
-// the contracted index first, x a transposed (HDP x TS) tile
-template <int HDP>
+// acc[r][c] += sum_i m[i][ty*RB + r] * x[tx + 16c][i]: m is (R x TS) with
+// the contracted index first, x a transposed (W x TS) tile
+template <int W, int R>
 __device__ __forceinline__ void tile_acc_f32(const float* m, const float* x,
                                              int ty, int tx,
-                                             float acc[4][HDP / 16]) {
+                                             float acc[R / 16][W / 16]) {
+  constexpr int RB = R / 16, TS = tstride<R>();
 #pragma unroll 4
-  for (int i = 0; i < 64; ++i) {
-    const float4 mi = *reinterpret_cast<const float4*>(m + i * TS + ty * 4);
-    const float mv[4] = {mi.x, mi.y, mi.z, mi.w};
+  for (int i = 0; i < R; ++i) {
+    float mv[RB];
+    load_rb<RB>(m + i * TS + ty * RB, mv);
 #pragma unroll
-    for (int c = 0; c < HDP / 16; ++c) {
+    for (int c = 0; c < W / 16; ++c) {
       const float xv = x[(tx + 16 * c) * TS + i];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(mv[r], xv, acc[r][c]);
+      for (int r = 0; r < RB; ++r) acc[r][c] = fmaf(mv[r], xv, acc[r][c]);
     }
   }
 }
 
-// rows [row0, row0 + 64) of an output slice from acc[r][c] (row ty*4 + r,
-// column tx + 16c), times `mul`
-template <int HDP>
+// rows [row0, row0 + R) of an output slice from acc[r][c] (row ty*RB + r,
+// column tx + 16c; columns past `w` not stored), times `mul`
+template <int W, int R>
 __device__ __forceinline__ void store_rows_f32(float* dst, long long ss,
-                                               int row0, int nrows, int hd,
-                                               const float acc[4][HDP / 16],
+                                               int row0, int nrows, int w,
+                                               const float acc[R / 16][W / 16],
                                                int ty, int tx, float mul) {
+  constexpr int RB = R / 16;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = row0 + ty * 4 + r;
+  for (int r = 0; r < RB; ++r) {
+    const int row = row0 + ty * RB + r;
     if (row >= nrows) continue;
 #pragma unroll
-    for (int c = 0; c < HDP / 16; ++c) {
+    for (int c = 0; c < W / 16; ++c) {
       const int col = tx + 16 * c;
-      if (col < hd) dst[row * ss + col] = acc[r][c] * mul;
+      if (col < w) dst[row * ss + col] = acc[r][c] * mul;
     }
   }
 }
@@ -281,37 +340,38 @@ __device__ __forceinline__ void store_rows_f32(float* dst, long long ss,
 template <int HDP>
 __global__ void __launch_bounds__(FMA_THREADS)
     bwd_stats_f32(const Params p) {
+  constexpr int R = f32_rows<HDP>(), RB = R / 16, TS = tstride<R>();
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);
   float* kt = qt + HDP * TS;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
   const int hh = blockIdx.y, bb = blockIdx.z;
-  load_t_f32<HDP>(qt, slice<float>(p, p.q, Q, bb, hh), p.s[Q][1], q0, p.sq,
-                  p.hd, p.scale);
+  load_t_f32<HDP, R>(qt, slice<float>(p, p.q, Q, bb, hh), p.s[Q][1], q0,
+                     p.sq, p.hd, p.scale);
   const float* kg = slice<float>(p, p.k, K, bb, hh);
   int kt_begin, kt_end;
-  kv_tile_range(p, q0, &kt_begin, &kt_end);
-  float m[4], l[4];
+  kv_tile_range<R>(p, q0, &kt_begin, &kt_end);
+  float m[RB], l[RB];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < RB; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
   }
   for (int t = kt_begin; t < kt_end; ++t) {
-    const int k0 = t * BK;
+    const int k0 = t * R;
     __syncthreads();
-    load_t_f32<HDP>(kt, kg, p.s[K][1], k0, p.skv, p.hd, 1.f);
+    load_t_f32<HDP, R>(kt, kg, p.s[K][1], k0, p.skv, p.hd, 1.f);
     __syncthreads();
-    float s[4][4];
-    tile_dot_f32<HDP>(qt, kt, ty, tx, s);
+    float s[RB][RB];
+    tile_dot_f32<HDP, R>(qt, kt, ty, tx, s);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qp = q0 + ty * 4 + r;
+    for (int r = 0; r < RB; ++r) {
+      const int qp = q0 + ty * RB + r;
       float mx = NEG_INF, g;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[r][j] = masked_score(p, s[r][j], qp, k0 + tx * 4 + j, &g);
+      for (int j = 0; j < RB; ++j) {
+        s[r][j] = masked_score(p, s[r][j], qp, k0 + tx * RB + j, &g);
         mx = fmaxf(mx, s[r][j]);
       }
 #pragma unroll
@@ -320,7 +380,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
       const float m_new = fmaxf(m[r], mx);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) rs += expf(s[r][j] - m_new);
+      for (int j = 0; j < RB; ++j) rs += expf(s[r][j] - m_new);
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -330,157 +390,166 @@ __global__ void __launch_bounds__(FMA_THREADS)
   }
   if (tx == 0) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty * 4 + r;
+    for (int r = 0; r < RB; ++r) {
+      const int row = q0 + ty * RB + r;
       if (row < p.sq) p.lse[stat_base(p, bb, hh) + row] = m[r] + logf(l[r]);
     }
   }
-  tile_delta<float>(p, q0, bb, hh);
+  tile_delta<float, R>(p, q0, bb, hh);
 }
 
-template <int HDP>
+template <int HDP, int DVP>
 __global__ void __launch_bounds__(FMA_THREADS)
     bwd_dkdv_f32(const Params p) {
-  constexpr int NC = HDP / 16;
+  constexpr int R = f32_rows<HDP>(), RB = R / 16, TS = tstride<R>();
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);
   float* vt = kt + HDP * TS;
-  float* qt = vt + HDP * TS;     // q scaled
+  float* qt = vt + DVP * TS;     // q scaled
   float* dt = qt + HDP * TS;     // dO
-  float* pt = dt + HDP * TS;     // P^T, then dS^T: [q i][kv j]
-  float* st = pt + 64 * TS;
-  float* lse_s = st + 64 * TS;
-  float* dl_s = lse_s + BQ;
+  float* pt = dt + DVP * TS;     // P^T, then dS^T: [q i][kv j]
+  float* st = pt + R * TS;
+  float* lse_s = st + R * TS;
+  float* dl_s = lse_s + R;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int k0 = blockIdx.x * BK;   // causal: the first kv tiles see most
+  const int k0 = blockIdx.x * R;   // causal: the first kv tiles see most
   const int hh = blockIdx.y, bb = blockIdx.z;
-  load_t_f32<HDP>(kt, slice<float>(p, p.k, K, bb, hh), p.s[K][1], k0, p.skv,
-                  p.hd, 1.f);
-  load_t_f32<HDP>(vt, slice<float>(p, p.v, V, bb, hh), p.s[V][1], k0, p.skv,
-                  p.hd, 1.f);
+  load_t_f32<HDP, R>(kt, slice<float>(p, p.k, K, bb, hh), p.s[K][1], k0,
+                     p.skv, p.hd, 1.f);
+  load_t_f32<DVP, R>(vt, slice<float>(p, p.v, V, bb, hh), p.s[V][1], k0,
+                     p.skv, p.hdv, 1.f);
   const float* qg = slice<float>(p, p.q, Q, bb, hh);
   const float* dg = slice<float>(p, p.dout, DO, bb, hh);
   const long long base = stat_base(p, bb, hh);
   int qt_begin, qt_end;
-  q_tile_range(p, k0, &qt_begin, &qt_end);
-  float dk[4][NC], dv[4][NC];
+  q_tile_range<R>(p, k0, &qt_begin, &qt_end);
+  float dk[RB][HDP / 16], dv[RB][DVP / 16];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < RB; ++r) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.f;
+    for (int c = 0; c < HDP / 16; ++c) dk[r][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DVP / 16; ++c) dv[r][c] = 0.f;
+  }
   for (int it = qt_begin; it < qt_end; ++it) {
-    const int q0 = it * BQ;
+    const int q0 = it * R;
     __syncthreads();
-    load_t_f32<HDP>(qt, qg, p.s[Q][1], q0, p.sq, p.hd, p.scale);
-    load_t_f32<HDP>(dt, dg, p.s[DO][1], q0, p.sq, p.hd, 1.f);
-    for (int e = threadIdx.x; e < BQ; e += FMA_THREADS) {
+    load_t_f32<HDP, R>(qt, qg, p.s[Q][1], q0, p.sq, p.hd, p.scale);
+    load_t_f32<DVP, R>(dt, dg, p.s[DO][1], q0, p.sq, p.hdv, 1.f);
+    for (int e = threadIdx.x; e < R; e += FMA_THREADS) {
       const bool in = q0 + e < p.sq;
       lse_s[e] = in ? p.lse[base + q0 + e] : 0.f;
       dl_s[e] = in ? p.delta[base + q0 + e] : 0.f;
     }
     __syncthreads();
-    // S^T (kv rows ty*4 + r, q columns tx*4 + j), then dP^T
-    float s[4][4], dp[4][4];
-    tile_dot_f32<HDP>(kt, qt, ty, tx, s);
-    tile_dot_f32<HDP>(vt, dt, ty, tx, dp);
+    // S^T (kv rows ty*RB + r, q columns tx*RB + j), then dP^T
+    float s[RB][RB], dp[RB][RB];
+    tile_dot_f32<HDP, R>(kt, qt, ty, tx, s);
+    tile_dot_f32<DVP, R>(vt, dt, ty, tx, dp);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < RB; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = tx * 4 + j;
+      for (int j = 0; j < RB; ++j) {
+        const int qi = tx * RB + j;
         float g;
         const float x =
-            masked_score(p, s[r][j], q0 + qi, k0 + ty * 4 + r, &g);
+            masked_score(p, s[r][j], q0 + qi, k0 + ty * RB + r, &g);
         const float pr = expf(x - lse_s[qi]);
         s[r][j] = pr;
         dp[r][j] = pr * (dp[r][j] - dl_s[qi]) * g;
       }
-    store_t_f32(pt, s, ty, tx);
-    store_t_f32(st, dp, ty, tx);
+    store_t_f32<R>(pt, s, ty, tx);
+    store_t_f32<R>(st, dp, ty, tx);
     __syncthreads();
-    tile_acc_f32<HDP>(pt, dt, ty, tx, dv);   // dV += P^T dO
-    tile_acc_f32<HDP>(st, qt, ty, tx, dk);   // dK += dS^T (q scale)
+    tile_acc_f32<DVP, R>(pt, dt, ty, tx, dv);   // dV += P^T dO
+    tile_acc_f32<HDP, R>(st, qt, ty, tx, dk);   // dK += dS^T (q scale)
   }
-  store_rows_f32<HDP>(slice_out<float>(p, p.dk, DK, bb, hh), p.s[DK][1], k0,
-                      p.skv, p.hd, dk, ty, tx, 1.f);
-  store_rows_f32<HDP>(slice_out<float>(p, p.dv, DV, bb, hh), p.s[DV][1], k0,
-                      p.skv, p.hd, dv, ty, tx, 1.f);
+  store_rows_f32<HDP, R>(slice_out<float>(p, p.dk, DK, bb, hh), p.s[DK][1],
+                         k0, p.skv, p.hd, dk, ty, tx, 1.f);
+  store_rows_f32<DVP, R>(slice_out<float>(p, p.dv, DV, bb, hh), p.s[DV][1],
+                         k0, p.skv, p.hdv, dv, ty, tx, 1.f);
 }
 
-template <int HDP>
+template <int HDP, int DVP>
 __global__ void __launch_bounds__(FMA_THREADS)
     bwd_dq_f32(const Params p) {
-  constexpr int NC = HDP / 16;
+  constexpr int R = f32_rows<HDP>(), RB = R / 16, TS = tstride<R>();
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // q scaled
   float* dt = qt + HDP * TS;                     // dO
-  float* kt = dt + HDP * TS;
+  float* kt = dt + DVP * TS;
   float* vt = kt + HDP * TS;
-  float* st = vt + HDP * TS;                     // dS^T: [kv j][q i]
+  float* st = vt + DVP * TS;                     // dS^T: [kv j][q i]
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;  // longest tiles first
   const int hh = blockIdx.y, bb = blockIdx.z;
-  load_t_f32<HDP>(qt, slice<float>(p, p.q, Q, bb, hh), p.s[Q][1], q0, p.sq,
-                  p.hd, p.scale);
-  load_t_f32<HDP>(dt, slice<float>(p, p.dout, DO, bb, hh), p.s[DO][1], q0,
-                  p.sq, p.hd, 1.f);
+  load_t_f32<HDP, R>(qt, slice<float>(p, p.q, Q, bb, hh), p.s[Q][1], q0,
+                     p.sq, p.hd, p.scale);
+  load_t_f32<DVP, R>(dt, slice<float>(p, p.dout, DO, bb, hh), p.s[DO][1],
+                     q0, p.sq, p.hdv, 1.f);
   const float* kg = slice<float>(p, p.k, K, bb, hh);
   const float* vg = slice<float>(p, p.v, V, bb, hh);
   const long long base = stat_base(p, bb, hh);
-  float lse_r[4], dl_r[4];
+  float lse_r[RB], dl_r[RB];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
+  for (int r = 0; r < RB; ++r) {
+    const int row = q0 + ty * RB + r;
     lse_r[r] = row < p.sq ? p.lse[base + row] : 0.f;
     dl_r[r] = row < p.sq ? p.delta[base + row] : 0.f;
   }
   int kt_begin, kt_end;
-  kv_tile_range(p, q0, &kt_begin, &kt_end);
-  float dq[4][NC];
+  kv_tile_range<R>(p, q0, &kt_begin, &kt_end);
+  float dq[RB][HDP / 16];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < RB; ++r)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dq[r][c] = 0.f;
+    for (int c = 0; c < HDP / 16; ++c) dq[r][c] = 0.f;
   for (int t = kt_begin; t < kt_end; ++t) {
-    const int k0 = t * BK;
+    const int k0 = t * R;
     __syncthreads();
-    load_t_f32<HDP>(kt, kg, p.s[K][1], k0, p.skv, p.hd, 1.f);
-    load_t_f32<HDP>(vt, vg, p.s[V][1], k0, p.skv, p.hd, 1.f);
+    load_t_f32<HDP, R>(kt, kg, p.s[K][1], k0, p.skv, p.hd, 1.f);
+    load_t_f32<DVP, R>(vt, vg, p.s[V][1], k0, p.skv, p.hdv, 1.f);
     __syncthreads();
-    // S (q rows ty*4 + r, kv columns tx*4 + j), then dP
-    float s[4][4], dp[4][4];
-    tile_dot_f32<HDP>(qt, kt, ty, tx, s);
-    tile_dot_f32<HDP>(dt, vt, ty, tx, dp);
+    // S (q rows ty*RB + r, kv columns tx*RB + j), then dP
+    float s[RB][RB], dp[RB][RB];
+    tile_dot_f32<HDP, R>(qt, kt, ty, tx, s);
+    tile_dot_f32<DVP, R>(dt, vt, ty, tx, dp);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < RB; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RB; ++j) {
         float g;
-        const float x =
-            masked_score(p, s[r][j], q0 + ty * 4 + r, k0 + tx * 4 + j, &g);
+        const float x = masked_score(p, s[r][j], q0 + ty * RB + r,
+                                     k0 + tx * RB + j, &g);
         dp[r][j] = expf(x - lse_r[r]) * (dp[r][j] - dl_r[r]) * g;
       }
-    store_t_f32(st, dp, ty, tx);
+    store_t_f32<R>(st, dp, ty, tx);
     __syncthreads();
-    tile_acc_f32<HDP>(st, kt, ty, tx, dq);   // dQ += dS K
+    tile_acc_f32<HDP, R>(st, kt, ty, tx, dq);   // dQ += dS K
   }
-  store_rows_f32<HDP>(slice_out<float>(p, p.dq, DQ, bb, hh), p.s[DQ][1], q0,
-                      p.sq, p.hd, dq, ty, tx, p.scale);
+  store_rows_f32<HDP, R>(slice_out<float>(p, p.dq, DQ, bb, hh), p.s[DQ][1],
+                         q0, p.sq, p.hd, dq, ty, tx, p.scale);
 }
 
 // ----------------------------------------------------------- bf16 path
 //
-// 128 threads, 4 warps, each owning 16 rows of the block's tile (q rows in
-// (a) and (c), kv rows in (b)).  mma.sync m16n8k16 fragments as in the
-// forward's general variant: a thread holds rows g and g + 8 (g = lane /
-// 4) at columns t*2, t*2 + 1 (t = lane % 4) of each 8-column n-tile.  A
-// product whose B operand has the contracted index along rows (P^T dO,
-// dS^T Q, dS K) reads B with ldmatrix.trans; the others read it as stored.
+// 4 warps each owning 16 rows of the block's 64-row tile (q rows in (a)
+// and (c), kv rows in (b)); above hd 128, 8 warps in (b) and (c), the two
+// warps of a 16-row slice each owning half of its gradient's columns
+// (col_split).  mma.sync m16n8k16 fragments as in the forward's general
+// variant: a thread holds rows g and g + 8 (g = lane / 4) at columns t*2,
+// t*2 + 1 (t = lane % 4) of each 8-column n-tile.  A product whose B
+// operand has the contracted index along rows (P^T dO, dS^T Q, dS K)
+// reads B with ldmatrix.trans; the others read it as stored.
 
 constexpr int MMA_THREADS = 128;
 
+// warps a 16-row slice of dK/dV (of dQ) is split across by columns
 template <int HDP>
-__host__ __device__ constexpr int mma_ld() { return HDP + 8; }  // smem row
+__host__ __device__ constexpr int col_split() { return HDP <= 128 ? 1 : 2; }
+
+template <int W>
+__host__ __device__ constexpr int mma_ld() { return W + 8; }  // smem row
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* ptr) {
   return *reinterpret_cast<const uint32_t*>(ptr);
@@ -513,40 +582,41 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "r"(addr));
 }
 
-// rows [row0, row0 + 64) of a (seq, hd) slice with row stride `ss` into a
-// padded smem tile; rows past `nrows` and lanes past `hd` are zero.
-template <int HDP>
+// rows [row0, row0 + 64) of a (seq, w) slice with row stride `ss` into a
+// padded smem tile of W lanes; rows past `nrows` and lanes past `w` are
+// zero.
+template <int W>
 __device__ __forceinline__ void load_tile_bf16(
     __nv_bfloat16* dst, const __nv_bfloat16* src, long long ss, int row0,
-    int nrows, int hd, bool vec) {
-  constexpr int LD = mma_ld<HDP>();
+    int nrows, int w, bool vec) {
+  constexpr int LD = mma_ld<W>();
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  if (vec) {   // 8 lanes per 16-byte chunk; hd % 8 == 0 here
-    constexpr int CPR = HDP / 8;   // chunks per row
-    for (int c = threadIdx.x; c < 64 * CPR; c += MMA_THREADS) {
+  if (vec) {   // 8 lanes per 16-byte chunk; w % 8 == 0 here
+    constexpr int CPR = W / 8;   // chunks per row
+    for (int c = threadIdx.x; c < 64 * CPR; c += blockDim.x) {
       const int i = c / CPR, d = (c % CPR) * 8;
       const int row = row0 + i;
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (row < nrows && d < hd)
+      if (row < nrows && d < w)
         x = *reinterpret_cast<const uint4*>(src + row * ss + d);
       *reinterpret_cast<uint4*>(dst + i * LD + d) = x;
     }
   } else {
-    for (int e = threadIdx.x; e < 64 * HDP; e += MMA_THREADS) {
-      const int i = e / HDP, d = e % HDP;
+    for (int e = threadIdx.x; e < 64 * W; e += blockDim.x) {
+      const int i = e / W, d = e % W;
       const int row = row0 + i;
-      dst[i * LD + d] = (row < nrows && d < hd) ? src[row * ss + d] : zero;
+      dst[i * LD + d] = (row < nrows && d < w) ? src[row * ss + d] : zero;
     }
   }
 }
 
 // c (this warp's 16 rows x 64 columns) = A B^T, where A's rows are rows
-// `r0`.. of tile a and B's are the 64 rows of tile b, both (rows, hd)
-template <int HDP>
+// `r0`.. of tile a and B's are the 64 rows of tile b, both (rows, W)
+template <int W>
 __device__ __forceinline__ void mma_abt(float c[8][4],
                                         const __nv_bfloat16* a,
                                         const __nv_bfloat16* b, int r0) {
-  constexpr int LD = mma_ld<HDP>();
+  constexpr int LD = mma_ld<W>();
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -554,7 +624,7 @@ __device__ __forceinline__ void mma_abt(float c[8][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
+  for (int kk = 0; kk < W / 16; ++kk) {
     const __nv_bfloat16* pa = a + (r0 + g) * LD + kk * 16 + t * 2;
     const uint32_t af[4] = {ld_u32(pa), ld_u32(pa + 8 * LD), ld_u32(pa + 8),
                             ld_u32(pa + 8 * LD + 8)};
@@ -566,14 +636,14 @@ __device__ __forceinline__ void mma_abt(float c[8][4],
   }
 }
 
-// acc (this warp's 16 rows x HDP) += M X, where M (16 x 64) is held in
-// score-fragment form (c[n] of mma_abt) and X is a (64, hd) tile whose
-// rows are the contracted index
-template <int HDP>
-__device__ __forceinline__ void mma_acc(float acc[HDP / 8][4],
+// acc (this warp's 16 rows x NC columns) += M X, where M (16 x 64) is
+// held in score-fragment form (c[n] of mma_abt) and X is NC columns, from
+// x on, of a (64, W) tile whose rows are the contracted index
+template <int W, int NC>
+__device__ __forceinline__ void mma_acc(float acc[NC / 8][4],
                                         const float m[8][4],
                                         const __nv_bfloat16* x) {
-  constexpr int LD = mma_ld<HDP>();
+  constexpr int LD = mma_ld<W>();
   const int lane = threadIdx.x & 31;
   const int mi = lane >> 3;    // the 8x8 matrix this lane addresses
 #pragma unroll
@@ -585,7 +655,7 @@ __device__ __forceinline__ void mma_acc(float acc[HDP / 8][4],
     const __nv_bfloat16* row =
         x + (16 * j + (mi & 1) * 8 + (lane & 7)) * LD + (mi >> 1) * 8;
 #pragma unroll
-    for (int np = 0; np < HDP / 16; ++np) {
+    for (int np = 0; np < NC / 16; ++np) {
       uint32_t b[4];
       ldmatrix_x4_trans(b, row + np * 16);
       mma_bf16(acc[2 * np], a, b[0], b[1]);
@@ -594,13 +664,13 @@ __device__ __forceinline__ void mma_acc(float acc[HDP / 8][4],
   }
 }
 
-// rows r0 + g and r0 + g + 8 of acc into rows [row0, ...) of an output
-// slice, times `mul`
-template <int HDP>
+// rows r0 + g and r0 + g + 8 of acc (NC columns) into rows [row0, ...) of
+// an output slice, times `mul`; columns past `w` are not stored
+template <int NC>
 __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst,
                                                 long long ss, int row0,
-                                                int nrows, int hd,
-                                                const float acc[HDP / 8][4],
+                                                int nrows, int w,
+                                                const float acc[NC / 8][4],
                                                 int r0, float mul) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -609,11 +679,11 @@ __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst,
     const int row = row0 + r0 + g + half * 8;
     if (row >= nrows) continue;
 #pragma unroll
-    for (int n = 0; n < HDP / 8; ++n)
+    for (int n = 0; n < NC / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = n * 8 + t * 2 + e;
-        if (col < hd)
+        if (col < w)
           dst[row * ss + col] = __float2bfloat16(acc[n][half * 2 + e] * mul);
       }
   }
@@ -635,7 +705,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
                       p.s[Q][1], q0, p.sq, p.hd, vec);
   const __nv_bfloat16* kg = slice<__nv_bfloat16>(p, p.k, K, bb, hh);
   int kt_begin, kt_end;
-  kv_tile_range(p, q0, &kt_begin, &kt_end);
+  kv_tile_range<BQ>(p, q0, &kt_begin, &kt_end);
   const int r0 = warp * 16;
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};
@@ -680,20 +750,21 @@ __global__ void __launch_bounds__(MMA_THREADS)
         p.lse[stat_base(p, bb, hh) + row] = m[half] + logf(l[half]);
     }
   }
-  tile_delta<__nv_bfloat16>(p, q0, bb, hh);
+  tile_delta<__nv_bfloat16, BQ>(p, q0, bb, hh);
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(MMA_THREADS)
+template <int HDP, int DVP>
+__global__ void __launch_bounds__(MMA_THREADS * col_split<HDP>())
     bwd_dkdv_bf16(const Params p) {
-  constexpr int LD = mma_ld<HDP>();
-  constexpr int NT_O = HDP / 8;
+  constexpr int LDK = mma_ld<HDP>(), LDV = mma_ld<DVP>();
+  constexpr int CS = col_split<HDP>();
+  constexpr int NK = HDP / CS, NV = DVP / CS;   // a warp's columns
   extern __shared__ float4 smem4[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* vs = ks + BK * LD;
-  __nv_bfloat16* qs = vs + BK * LD;
-  __nv_bfloat16* ds = qs + BQ * LD;    // dO
-  float* lse_s = reinterpret_cast<float*>(ds + BQ * LD);
+  __nv_bfloat16* vs = ks + BK * LDK;
+  __nv_bfloat16* qs = vs + BK * LDV;
+  __nv_bfloat16* ds = qs + BQ * LDK;    // dO
+  float* lse_s = reinterpret_cast<float*>(ds + BQ * LDV);
   float* dl_s = lse_s + BQ;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -702,25 +773,29 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const bool vec = p.vec != 0;
   load_tile_bf16<HDP>(ks, slice<__nv_bfloat16>(p, p.k, K, bb, hh),
                       p.s[K][1], k0, p.skv, p.hd, vec);
-  load_tile_bf16<HDP>(vs, slice<__nv_bfloat16>(p, p.v, V, bb, hh),
-                      p.s[V][1], k0, p.skv, p.hd, vec);
+  load_tile_bf16<DVP>(vs, slice<__nv_bfloat16>(p, p.v, V, bb, hh),
+                      p.s[V][1], k0, p.skv, p.hdv, vec);
   const __nv_bfloat16* qg = slice<__nv_bfloat16>(p, p.q, Q, bb, hh);
   const __nv_bfloat16* dg = slice<__nv_bfloat16>(p, p.dout, DO, bb, hh);
   const long long base = stat_base(p, bb, hh);
   int qt_begin, qt_end;
-  q_tile_range(p, k0, &qt_begin, &qt_end);
-  const int r0 = warp * 16;   // this warp's kv rows
-  float dk[NT_O][4], dv[NT_O][4];
+  q_tile_range<BQ>(p, k0, &qt_begin, &qt_end);
+  const int r0 = (warp & 3) * 16;   // this warp's kv rows
+  const int part = warp >> 2;       // and its share of the columns
+  float dk[NK / 8][4], dv[NV / 8][4];
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    for (int n = 0; n < NK / 8; ++n) dk[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NV / 8; ++n) dv[n][e] = 0.f;
+  }
   for (int it = qt_begin; it < qt_end; ++it) {
     const int q0 = it * BQ;
     __syncthreads();
     load_tile_bf16<HDP>(qs, qg, p.s[Q][1], q0, p.sq, p.hd, vec);
-    load_tile_bf16<HDP>(ds, dg, p.s[DO][1], q0, p.sq, p.hd, vec);
-    for (int e = threadIdx.x; e < BQ; e += MMA_THREADS) {
+    load_tile_bf16<DVP>(ds, dg, p.s[DO][1], q0, p.sq, p.hdv, vec);
+    for (int e = threadIdx.x; e < BQ; e += blockDim.x) {
       const bool in = q0 + e < p.sq;
       lse_s[e] = in ? p.lse[base + q0 + e] : 0.f;
       dl_s[e] = in ? p.delta[base + q0 + e] : 0.f;
@@ -728,7 +803,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     __syncthreads();
     float s[8][4], dp[8][4];
     mma_abt<HDP>(s, ks, qs, r0);    // S^T = K Q^T
-    mma_abt<HDP>(dp, vs, ds, r0);   // dP^T = V dO^T
+    mma_abt<DVP>(dp, vs, ds, r0);   // dP^T = V dO^T
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -741,25 +816,28 @@ __global__ void __launch_bounds__(MMA_THREADS)
         s[n][e] = pr;                                    // P^T
         dp[n][e] = pr * (dp[n][e] - dl_s[qi]) * gc;      // dS^T
       }
-    mma_acc<HDP>(dv, s, ds);    // dV += P^T dO
-    mma_acc<HDP>(dk, dp, qs);   // dK += dS^T Q
+    mma_acc<DVP, NV>(dv, s, ds + part * NV);    // dV += P^T dO
+    mma_acc<HDP, NK>(dk, dp, qs + part * NK);   // dK += dS^T Q
   }
-  store_rows_bf16<HDP>(slice_out<__nv_bfloat16>(p, p.dk, DK, bb, hh),
-                       p.s[DK][1], k0, p.skv, p.hd, dk, r0, p.scale);
-  store_rows_bf16<HDP>(slice_out<__nv_bfloat16>(p, p.dv, DV, bb, hh),
-                       p.s[DV][1], k0, p.skv, p.hd, dv, r0, 1.f);
+  store_rows_bf16<NK>(
+      slice_out<__nv_bfloat16>(p, p.dk, DK, bb, hh) + part * NK,
+      p.s[DK][1], k0, p.skv, p.hd - part * NK, dk, r0, p.scale);
+  store_rows_bf16<NV>(
+      slice_out<__nv_bfloat16>(p, p.dv, DV, bb, hh) + part * NV,
+      p.s[DV][1], k0, p.skv, p.hdv - part * NV, dv, r0, 1.f);
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(MMA_THREADS)
+template <int HDP, int DVP>
+__global__ void __launch_bounds__(MMA_THREADS * col_split<HDP>())
     bwd_dq_bf16(const Params p) {
-  constexpr int LD = mma_ld<HDP>();
-  constexpr int NT_O = HDP / 8;
+  constexpr int LDK = mma_ld<HDP>(), LDV = mma_ld<DVP>();
+  constexpr int CS = col_split<HDP>();
+  constexpr int NQ = HDP / CS;    // a warp's columns
   extern __shared__ float4 smem4[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* ds = qs + BQ * LD;    // dO
-  __nv_bfloat16* ks = ds + BQ * LD;
-  __nv_bfloat16* vs = ks + BK * LD;
+  __nv_bfloat16* ds = qs + BQ * LDK;    // dO
+  __nv_bfloat16* ks = ds + BQ * LDV;
+  __nv_bfloat16* vs = ks + BK * LDK;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest tiles first
@@ -767,11 +845,12 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const bool vec = p.vec != 0;
   load_tile_bf16<HDP>(qs, slice<__nv_bfloat16>(p, p.q, Q, bb, hh),
                       p.s[Q][1], q0, p.sq, p.hd, vec);
-  load_tile_bf16<HDP>(ds, slice<__nv_bfloat16>(p, p.dout, DO, bb, hh),
-                      p.s[DO][1], q0, p.sq, p.hd, vec);
+  load_tile_bf16<DVP>(ds, slice<__nv_bfloat16>(p, p.dout, DO, bb, hh),
+                      p.s[DO][1], q0, p.sq, p.hdv, vec);
   const __nv_bfloat16* kg = slice<__nv_bfloat16>(p, p.k, K, bb, hh);
   const __nv_bfloat16* vg = slice<__nv_bfloat16>(p, p.v, V, bb, hh);
-  const int r0 = warp * 16;   // this warp's q rows
+  const int r0 = (warp & 3) * 16;   // this warp's q rows
+  const int part = warp >> 2;       // and its share of the columns
   const long long base = stat_base(p, bb, hh);
   float lse_r[2], dl_r[2];
 #pragma unroll
@@ -781,21 +860,21 @@ __global__ void __launch_bounds__(MMA_THREADS)
     dl_r[half] = row < p.sq ? p.delta[base + row] : 0.f;
   }
   int kt_begin, kt_end;
-  kv_tile_range(p, q0, &kt_begin, &kt_end);
-  float dq[NT_O][4];
+  kv_tile_range<BQ>(p, q0, &kt_begin, &kt_end);
+  float dq[NQ / 8][4];
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n)
+  for (int n = 0; n < NQ / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
     load_tile_bf16<HDP>(ks, kg, p.s[K][1], k0, p.skv, p.hd, vec);
-    load_tile_bf16<HDP>(vs, vg, p.s[V][1], k0, p.skv, p.hd, vec);
+    load_tile_bf16<DVP>(vs, vg, p.s[V][1], k0, p.skv, p.hdv, vec);
     __syncthreads();
     float s[8][4], dp[8][4];
     mma_abt<HDP>(s, qs, ks, r0);    // S = Q K^T
-    mma_abt<HDP>(dp, ds, vs, r0);   // dP = dO V^T
+    mma_abt<DVP>(dp, ds, vs, r0);   // dP = dO V^T
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -807,10 +886,11 @@ __global__ void __launch_bounds__(MMA_THREADS)
         const float x = masked_score(p, s[n][e] * p.scale, qp, kp, &gc);
         dp[n][e] = expf(x - lse_r[half]) * (dp[n][e] - dl_r[half]) * gc;
       }
-    mma_acc<HDP>(dq, dp, ks);   // dQ += dS K
+    mma_acc<HDP, NQ>(dq, dp, ks + part * NQ);   // dQ += dS K
   }
-  store_rows_bf16<HDP>(slice_out<__nv_bfloat16>(p, p.dq, DQ, bb, hh),
-                       p.s[DQ][1], q0, p.sq, p.hd, dq, r0, p.scale);
+  store_rows_bf16<NQ>(
+      slice_out<__nv_bfloat16>(p, p.dq, DQ, bb, hh) + part * NQ,
+      p.s[DQ][1], q0, p.sq, p.hd - part * NQ, dq, r0, p.scale);
 }
 
 // ------------------------------------------------------------- launch
@@ -827,58 +907,66 @@ cudaError_t launch_one(Kern kernel, dim3 grid, int threads, int smem,
 
 // `which`: a mask of the kernels to launch (1 stats, 2 dK/dV, 4 dQ), all
 // three on the training path; one alone is for timing and for the tests.
-template <int HDP>
+template <int HDP, int DVP>
 cudaError_t launch_f32(const Params& p, int which, cudaStream_t stream) {
+  constexpr int R = f32_rows<HDP>(), TS = tstride<R>();
   const int f = static_cast<int>(sizeof(float));
-  const dim3 qgrid((p.sq + BQ - 1) / BQ, p.h, p.b);
-  const dim3 kgrid((p.skv + BK - 1) / BK, p.h, p.b);
+  const dim3 qgrid((p.sq + R - 1) / R, p.h, p.b);
+  const dim3 kgrid((p.skv + R - 1) / R, p.h, p.b);
   cudaError_t err = cudaSuccess;
   if (which & 1)
     err = launch_one(bwd_stats_f32<HDP>, qgrid, FMA_THREADS,
                      2 * HDP * TS * f, stream, p);
   if (err == cudaSuccess && (which & 2))
-    err = launch_one(bwd_dkdv_f32<HDP>, kgrid, FMA_THREADS,
-                     (4 * HDP * TS + 2 * 64 * TS + 2 * BQ) * f, stream, p);
+    err = launch_one(bwd_dkdv_f32<HDP, DVP>, kgrid, FMA_THREADS,
+                     (2 * (HDP + DVP) * TS + 2 * R * TS + 2 * R) * f, stream,
+                     p);
   if (err == cudaSuccess && (which & 4))
-    err = launch_one(bwd_dq_f32<HDP>, qgrid, FMA_THREADS,
-                     (4 * HDP * TS + 64 * TS) * f, stream, p);
+    err = launch_one(bwd_dq_f32<HDP, DVP>, qgrid, FMA_THREADS,
+                     (2 * (HDP + DVP) * TS + R * TS) * f, stream, p);
   return err;
 }
 
-template <int HDP>
+template <int HDP, int DVP>
 cudaError_t launch_bf16(const Params& p, int which, cudaStream_t stream) {
-  const int tile = 64 * mma_ld<HDP>() * 2;   // bytes of one bf16 tile
+  // bytes of one 64-row bf16 tile of q/k and of v/dO
+  const int tk = 64 * mma_ld<HDP>() * 2, tv = 64 * mma_ld<DVP>() * 2;
+  const int threads = MMA_THREADS * col_split<HDP>();
   const dim3 qgrid((p.sq + BQ - 1) / BQ, p.h, p.b);
   const dim3 kgrid((p.skv + BK - 1) / BK, p.h, p.b);
   cudaError_t err = cudaSuccess;
   if (which & 1)
-    err = launch_one(bwd_stats_bf16<HDP>, qgrid, MMA_THREADS, 2 * tile,
+    err = launch_one(bwd_stats_bf16<HDP>, qgrid, MMA_THREADS, 2 * tk,
                      stream, p);
   if (err == cudaSuccess && (which & 2))
-    err = launch_one(bwd_dkdv_bf16<HDP>, kgrid, MMA_THREADS,
-                     4 * tile + 2 * BQ * static_cast<int>(sizeof(float)),
+    err = launch_one(bwd_dkdv_bf16<HDP, DVP>, kgrid, threads,
+                     2 * (tk + tv) + 2 * BQ * static_cast<int>(sizeof(float)),
                      stream, p);
   if (err == cudaSuccess && (which & 4))
-    err = launch_one(bwd_dq_bf16<HDP>, qgrid, MMA_THREADS, 4 * tile, stream,
-                     p);
+    err = launch_one(bwd_dq_bf16<HDP, DVP>, qgrid, threads, 2 * (tk + tv),
+                     stream, p);
   return err;
 }
 
+template <bool BF16, int HDP, int DVP>
+cudaError_t launch_dims(const Params& p, int which, cudaStream_t stream) {
+  return BF16 ? launch_bf16<HDP, DVP>(p, which, stream)
+              : launch_f32<HDP, DVP>(p, which, stream);
+}
+
+// HDP: hd padded to 16/32/64/128/192/256 lanes; DVP: HDP, or 128 at HDP
+// 192 where v has at most 128 columns (MLA).
 template <bool BF16>
 cudaError_t launch_for_head_dim(const Params& p, int which,
                                 cudaStream_t stream) {
-  if (p.hd <= 16)
-    return BF16 ? launch_bf16<16>(p, which, stream)
-                : launch_f32<16>(p, which, stream);
-  if (p.hd <= 32)
-    return BF16 ? launch_bf16<32>(p, which, stream)
-                : launch_f32<32>(p, which, stream);
-  if (p.hd <= 64)
-    return BF16 ? launch_bf16<64>(p, which, stream)
-                : launch_f32<64>(p, which, stream);
-  if (p.hd <= 128)
-    return BF16 ? launch_bf16<128>(p, which, stream)
-                : launch_f32<128>(p, which, stream);
+  if (p.hd <= 16) return launch_dims<BF16, 16, 16>(p, which, stream);
+  if (p.hd <= 32) return launch_dims<BF16, 32, 32>(p, which, stream);
+  if (p.hd <= 64) return launch_dims<BF16, 64, 64>(p, which, stream);
+  if (p.hd <= 128) return launch_dims<BF16, 128, 128>(p, which, stream);
+  if (p.hd <= 192)
+    return p.hdv <= 128 ? launch_dims<BF16, 192, 128>(p, which, stream)
+                        : launch_dims<BF16, 192, 192>(p, which, stream);
+  if (p.hd <= 256) return launch_dims<BF16, 256, 256>(p, which, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -2001,10 +2089,11 @@ cudaError_t launch_preprocess(const void* o, const void* dout, float* delta,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for every tensor.  q/k/v/o/dout are
-// read, dq/dk/dv written (shapes of q, k, v); lse and delta are (b, h, sq)
-// f32 scratch.  strides: 24 element strides, the (batch, seq, head)
-// strides of q, k, v, o, dout, dq, dk, dv in that order; the head-dim
-// stride of each must be 1.  hd <= 128.  which: the kernels to launch (1
+// read, dq/dk/dv written (shapes of q, k, v); q and k have hd columns, v,
+// o, dout and dv hdv; lse and delta are (b, h, sq) f32 scratch.  strides:
+// 24 element strides, the (batch, seq, head) strides of q, k, v, o, dout,
+// dq, dk, dv in that order; the head-dim stride of each must be 1.  hd <=
+// 256, 1 <= hdv <= hd.  which: the kernels to launch (1
 // stats, 2 dK/dV, 4 dQ; 7 for a whole backward).  Returns a cudaError_t
 // (0 = every kernel asked for launched).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
@@ -2012,11 +2101,12 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, float* lse, float* delta,
                                    int dtype, int b, int sq, int skv, int h,
-                                   int hd, const long long* strides,
+                                   int hd, int hdv,
+                                   const long long* strides,
                                    float scale, int causal, int window,
                                    float softcap, int which, void* stream) {
-  if (b < 1 || sq < 1 || skv < 1 || hd < 1 || hd > 128 ||
-      (window > 0 && sq > skv + window - 1))
+  if (b < 1 || sq < 1 || skv < 1 || hd < 1 || hd > 256 || hdv < 1 ||
+      hdv > hd || (window > 0 && sq > skv + window - 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -2034,13 +2124,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.skv = skv;
   p.h = h;
   p.hd = hd;
+  p.hdv = hdv;
   for (int i = 0; i < 8; ++i)
     for (int j = 0; j < 3; ++j) p.s[i][j] = strides[3 * i + j];
   p.scale = scale;
   p.softcap = softcap;
   p.causal = causal;
   p.window = window;
-  p.vec = hd % 8 == 0 && aligned16(q, p.s[Q]) && aligned16(k, p.s[K]) &&
+  p.vec = hd % 8 == 0 && hdv % 8 == 0 && aligned16(q, p.s[Q]) && aligned16(k, p.s[K]) &&
           aligned16(v, p.s[V]) && aligned16(dout, p.s[DO]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

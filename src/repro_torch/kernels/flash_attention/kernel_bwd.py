@@ -25,13 +25,17 @@ tensor-map encode or launch raises):
   and V, S, dP and dQ as wgmma.  Streamed tiles of 128 rows
   (``HOPPER_RING_ROWS``), 64 for dK/dV at hd 128.  7 products of 2 hd
   FLOPs per unmasked pair.
-* ``"general"``: everything else (f32, hd up to 128 but 64 and 128 in
-  bf16, strides TMA refuses): hd 120 too, though its forward takes the
-  forward's Hopper variant.  The first design: (a) stats, each row's LSE
-  (a third S = Q K^T) and D; (b) dK/dV per 64-row kv tile; (c) dQ per
+* ``"general"``: everything else (f32, any hd up to 256 but 64 and 128
+  in bf16, v narrower than q and k, strides TMA refuses): hd 120 and
+  MLA's (192, 128) too, though their forwards take the forward's Hopper
+  variant (no LSE).  The first design: (a) stats, each row's LSE (a
+  third S = Q K^T) and D; (b) dK/dV per 64-row kv tile; (c) dQ per
   64-row q tile; bf16 through mma.sync, f32 through FMAs on the CUDA
-  cores, tiles loaded between barriers.  8 products a pair in (b) and (c)
-  and 2 in stats.
+  cores, tiles loaded between barriers.  Above hd 128 bf16 runs two warps
+  a 16-row slice, each owning half the gradient's columns (S and dP
+  computed by both), and f32 takes 32-row tiles.  7 products a pair in
+  (b) and (c) and 1 in stats; 11 in (b) and (c) above hd 128 in bf16.
+  D, dP and dV run over v's dv columns.
 
 What bounds it on an H100 at the training shape, (4, 2048, 36, 64) bf16
 causal (minicpm-2b): 302.1 M unmasked pairs a call.  The function needs
@@ -57,7 +61,11 @@ from repro_torch.kernels.flash_attention import kernel
 
 NAME = "flash_attention_bwd"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+# the general variant's head dims padded in shared memory (q·k's HDP,
+# v's DVP), as the source's launch_for_head_dim instantiates them
+GENERAL_HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
+                     (192, 192), (256, 256))
 VARIANTS = ("hopper", "general")
 # the kernels a call of each variant launches, in order
 KERNELS = {"hopper": ("preprocess", "dkdv", "dq"),
@@ -89,7 +97,7 @@ def library():
     tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.flash_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + tail)
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + tail)
     lib.flash_attention_bwd_hopper.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 5
         + tail)
@@ -106,13 +114,14 @@ def plan(q, k, v, o=None) -> str:
     stride-0 heads and a (b, h, s, hd) storage included) at a head dim of
     ``HOPPER_HEAD_DIMS`` (64, 128) and o, if given, is bf16 TMA can read
     (the forward's own o always is); "general" for everything else, hd
-    120 included, whose forward still takes the Hopper variant (serving
-    instantiation, no LSE).  dO never changes the route: one TMA
-    refuses is copied to contiguous by the caller (``dout_ok``,
-    ``ops._FlashAttention``).  Works on tensors of any device, the meta
-    device included."""
+    120 and MLA's (192, 128) included, whose forwards still take the
+    Hopper variant (serving instantiations, no LSE), and every hd above
+    128.  dO never changes the route: one TMA refuses is copied to
+    contiguous by the caller (``dout_ok``, ``ops._FlashAttention``).
+    Works on tensors of any device, the meta device included."""
     hopper = (kernel.plan(q, k, v) == "hopper"
               and q.shape[3] in HOPPER_HEAD_DIMS
+              and v.shape[3] == q.shape[3]
               and (o is None or (o.dtype == torch.bfloat16
                                  and kernel._tma_ok(o))))
     return "hopper" if hopper else "general"
@@ -126,17 +135,18 @@ def dout_ok(do) -> bool:
 
 def _check(q, k, v, o, do):
     b, sq, h, hd = q.shape
-    skv = k.shape[1]
+    skv, dv = k.shape[1], v.shape[3]
     tensors = (q, k, v, o, do)
     if (any(t.device != q.device or t.dtype != q.dtype
             or t.stride(3) != 1 for t in tensors)
             or q.device.type != "cuda" or q.dtype not in DTYPES
-            or hd > MAX_HEAD_DIM or o.shape != q.shape
-            or do.shape != q.shape or k.shape != (b, skv, h, hd)
-            or v.shape != k.shape):
+            or hd > MAX_HEAD_DIM or not 1 <= dv <= hd
+            or k.shape != (b, skv, h, hd) or v.shape != (b, skv, h, dv)
+            or o.shape != (b, sq, h, dv) or do.shape != o.shape):
         raise ValueError(
-            f"flash_attention_bwd takes q/o/do (b, sq, h, hd <= "
-            f"{MAX_HEAD_DIM}), k/v (b, skv, h, hd), one CUDA device and "
+            f"flash_attention_bwd takes q (b, sq, h, hd <= {MAX_HEAD_DIM}), "
+            f"k (b, skv, h, hd), v (b, skv, h, dv <= hd), o/do (b, sq, h, "
+            f"dv), one CUDA device and "
             f"dtype of {list(DTYPES)}, head-dim stride 1; got "
             f"{[(tuple(t.shape), t.dtype, t.device.type) for t in tensors]}")
 
@@ -174,11 +184,13 @@ def launcher(q, k, v, o, do, variant, *, lse=None, causal=True, window=0,
     skv = k.shape[1]
     if variant == "hopper":
         if (q.dtype != torch.bfloat16 or hd not in HOPPER_HEAD_DIMS
-                or lse is None or not kernel.lse_fits(lse, q)):
+                or v.shape[3] != hd or lse is None
+                or not kernel.lse_fits(lse, q)):
             raise ValueError(
-                f"the hopper backward takes bf16 hd in "
+                f"the hopper backward takes bf16 hd = dv in "
                 f"{HOPPER_HEAD_DIMS} and the forward's lse "
-                f"(kernel.lse_buffer); got {q.dtype}, hd {hd}, lse "
+                f"(kernel.lse_buffer); got {q.dtype}, hd {hd}, dv "
+                f"{v.shape[3]}, lse "
                 f"{None if lse is None else tuple(lse.shape)}")
         delta = torch.empty_like(lse)
     else:
@@ -202,7 +214,8 @@ def launcher(q, k, v, o, do, variant, *, lse=None, causal=True, window=0,
         args = (*ptrs, lse.shape[2], b, sq, skv, h, hd, *tail, stream)
     else:
         fn = library().flash_attention_bwd
-        args = (*ptrs, DTYPES[q.dtype], b, sq, skv, h, hd, *tail, stream)
+        args = (*ptrs, DTYPES[q.dtype], b, sq, skv, h, hd, v.shape[3],
+                *tail, stream)
 
     def run():
         err = fn(*args)
@@ -222,10 +235,11 @@ def launcher(q, k, v, o, do, variant, *, lse=None, causal=True, window=0,
 def flash_attention_bwd_cuda(q, k, v, o, do, variant, *, lse=None,
                              causal=True, window=0, softcap=0.0):
     """Launches ``variant``'s three kernels on the current stream and
-    returns (dq, dk, dv), contiguous, in the dtypes of q, k, v.  q/o/do are
-    (b, sq, h, hd) and k/v (b, skv, h, hd) on one card, in one dtype of
-    ``DTYPES``, hd at most ``MAX_HEAD_DIM``, head-dim stride 1; "hopper"
-    also needs bf16, hd 64 or 128, strides TMA reads and the forward's
-    ``lse``.  Else it raises."""
+    returns (dq, dk, dv), contiguous, in the dtypes of q, k, v.  q is (b,
+    sq, h, hd), k (b, skv, h, hd), v (b, skv, h, dv) and o/do (b, sq, h,
+    dv) with dv <= hd, on one card, in one dtype of ``DTYPES``, hd at most
+    ``MAX_HEAD_DIM``, head-dim stride 1; "hopper" also needs bf16, dv = hd
+    of 64 or 128, strides TMA reads and the forward's ``lse``.  Else it
+    raises."""
     return launch(q, k, v, o, do, variant, lse=lse, causal=causal,
                   window=window, softcap=softcap)[:3]

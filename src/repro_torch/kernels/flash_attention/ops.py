@@ -16,10 +16,10 @@ recomputed under activation checkpointing recomputes it too).
 
 v may be narrower than q and k (dv < hd: MLA's v at 128 columns beside
 q·k's 192).  The function is then the TPU kernel's on v zero-padded to hd,
-o its first dv columns; both kernels compute it without the padding.
-K1's backward kernels take one head dim, so a CUDA call that needs a
-gradient with dv < hd pads v and slices o around ``_FlashAttention`` as
-differentiable torch ops: the reference's own arithmetic.
+o its first dv columns; the forward and the backward kernels compute it
+without the padding (the backward's "general" route takes every hd up to
+256 and every dv <= hd, so MLA's forward keeps the Hopper variant under a
+gradient too).
 
 Counts: ``launches`` counts forward kernel launches and nothing else (a
 layer recomputed under activation checkpointing launches again, and
@@ -78,7 +78,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     of hd).  Same contract as the TPU kernel: the causal mask aligns q and
     k from position 0.  Every row must have a key to attend to: a window
     with sq > skv + window - 1 raises.  Differentiable on both devices; on
-    the card up to head dim ``kernel_bwd.MAX_HEAD_DIM``."""
+    the card up to head dim ``kernel.MAX_HEAD_DIM`` (256), the backward
+    (``kernel_bwd.MAX_HEAD_DIM``, 256) taking every dv <= hd."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -100,15 +101,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
               softcap=float(softcap))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.shape[3] > kernel_bwd.MAX_HEAD_DIM:
-            raise NotImplementedError(
-                f"flash attention's backward kernel takes head dims up to "
-                f"{kernel_bwd.MAX_HEAD_DIM}, not {q.shape[3]}: ROADMAP Queue "
-                f"2, 'K1 backward hd > 128'")
-        dv = v.shape[3]
-        if dv < q.shape[3]:      # the backward kernels take one head dim
-            v = torch.nn.functional.pad(v, (0, q.shape[3] - dv))
-            return _FlashAttention.apply(q, k, v, kw)[..., :dv]
         return _FlashAttention.apply(q, k, v, kw)
     return _forward(q, k, v, kw)
 

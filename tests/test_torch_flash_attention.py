@@ -533,6 +533,104 @@ def test_bwd_ref_matches_jax_grad_of_the_twin(shape, causal, window,
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
 
 
+def test_dkdv_past_128_fault_exceeds_the_limits():
+    """Columns 128.. of dK and dV dropped (the half a backward that kept
+    hd 128's column ownership would never write) move dk and dv far past
+    the f32 limit and leave dq alone; below hd 129 the fault cannot
+    happen."""
+    shape = (1, 96, 96, 2, 136)
+    _, (q, k, v, do) = bwd_inputs(shape, seed=5)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    o = attention_ref(q, k, v, **kw)
+    good = attention_bwd_ref(q, k, v, o, do, **kw)
+    bad = tchecks.attention_bwd_faulty(q, k, v, o, do,
+                                       "dkdv-past-128-dropped", **kw)
+    scales = tchecks.bwd_row_scales(q, k, v, o, do, **kw)
+    torch.testing.assert_close(bad[0], good[0], **BWD_TOL)
+    for g in (1, 2):
+        assert tchecks.grad_row_err(bad[g], good[g], scales[g]) > 0.1
+    with pytest.raises(ValueError, match="no columns past 128"):
+        tchecks.attention_bwd_faulty(q[..., :128], k[..., :128],
+                                     v[..., :128], o[..., :128],
+                                     do[..., :128], "dkdv-past-128-dropped")
+
+
+# above hd 128, K1's backward on the card splits each 16-row slice's
+# columns across two warps (bf16) or takes 32-row tiles (f32): the
+# gradient it is held to on the card (autograd through ref.py) against
+# jax.grad of the reference's twin.  (b, s, h, hd), causal, window,
+# softcap, GQA: KV heads repeated to h on both sides
+BWD_WIDE_GRID = [
+    ((1, 48, 2, 256), True, 0, 0.0, 1),
+    ((1, 48, 2, 256), True, 16, 0.0, 1),
+    ((1, 48, 2, 256), True, 0, 30.0, 1),
+    ((1, 48, 4, 256), True, 0, 0.0, 2),
+]
+
+
+def _twin_grads(q, k, v, do, kv_heads, dv=None, **kw):
+    """jax.grad of the reference twin contracted with dO, at GQA's
+    unrepeated k and v (repeated to q's heads inside); with ``dv``, v is
+    zero-padded to hd and o sliced back to dv, as the reference's
+    mla_prefill does."""
+    rep = q.shape[2] // kv_heads
+
+    def f(a, b, c):
+        b, c = (jnp.repeat(t, rep, axis=2) for t in (b, c))
+        if dv is not None:
+            c = jnp.pad(c, ((0, 0), (0, 0), (0, 0), (0, a.shape[3] - dv)))
+        o = jA.flash_attention(a, b, c, block_kv=32, **kw)
+        return jnp.sum(o[..., :c.shape[3] if dv is None else dv] * do)
+
+    return jax_grad(f, argnums=(0, 1, 2))(q, k, v)
+
+
+def _port_grads(q, k, v, do, kv_heads, **kw):
+    """Autograd through the port's dispatcher on the CPU (ref.py's plain
+    version), KV heads repeated as the model repeats them."""
+    rep = q.shape[2] // kv_heads
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    kk, vv = (t.repeat_interleave(rep, dim=2) for t in leaves[1:])
+    o = tops.flash_attention(leaves[0], kk, vv, **kw)
+    return torch.autograd.grad(o, leaves, torch.from_numpy(do))
+
+
+@pytest.mark.parametrize("shape,causal,window,softcap,kv_heads",
+                         BWD_WIDE_GRID)
+def test_plain_grads_at_hd256_match_jax_grad_of_the_twin(shape, causal,
+                                                         window, softcap,
+                                                         kv_heads):
+    b, s, h, hd = shape
+    rng = np.random.default_rng(21)
+    q = rng.uniform(-1, 1, shape).astype(np.float32)
+    k, v = (rng.uniform(-1, 1, (b, s, kv_heads, hd)).astype(np.float32)
+            for _ in "kv")
+    do = rng.uniform(-1, 1, shape).astype(np.float32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = _twin_grads(q, k, v, do, kv_heads, **kw)
+    got = _port_grads(q, k, v, do, kv_heads, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_grads_with_v_at_128_beside_192_match_jax_grad(causal):
+    """MLA's (192, 128): the port's v unpadded; the reference's v
+    zero-padded to 192 and o sliced back to 128."""
+    rng = np.random.default_rng(22)
+    q, k = (rng.uniform(-1, 1, (1, 40, 2, 192)).astype(np.float32)
+            for _ in "qk")
+    v = rng.uniform(-1, 1, (1, 40, 2, 128)).astype(np.float32)
+    do = rng.uniform(-1, 1, (1, 40, 2, 128)).astype(np.float32)
+    want = _twin_grads(q, k, v, do, 2, dv=128, causal=causal)
+    got = _port_grads(q, k, v, do, 2, causal=causal)
+    assert got[2].shape == (1, 40, 2, 128)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5)
+
+
 @pytest.mark.parametrize("fault,kw", [
     ("no-delta", {}),
     ("no-softcap-derivative", dict(softcap=2.0)),
@@ -681,14 +779,15 @@ def test_visited_tiles_mirror_the_kernel():
     assert begin[130].item() == (128 - 70 + 1) // 64 and end[130] == 3
     src = tKB.SOURCE.read_text()
     assert "constexpr int BQ = 64;" in src and tchecks.TILE == 64
-    assert "if (lo > 0) kt_begin = lo / BK;" in src
+    assert "kv_tile_range<BQ>(p, q0, &kt_begin, &kt_end);" in src
+    assert "if (lo > 0) kt_begin = lo / R;" in src
 
 
 def test_bwd_build_is_its_own_library_and_lazy():
     path = tKB.SOURCE
     assert path.name == "flash_attention_bwd.cu" and path != tK.SOURCE
     assert tKB.library.cache_info().currsize == 0
-    assert tKB.MAX_HEAD_DIM == 128
+    assert tKB.MAX_HEAD_DIM == 256
     assert tuple(tKB.KERNELS) == tKB.VARIANTS == tuple(
         tops.launches_bwd_by_variant)
     assert all(len(ks) == 3 for ks in tKB.KERNELS.values())
@@ -714,7 +813,8 @@ def test_bwd_cuda_rejects_what_it_does_not_take():
     ("gqa-view", "hopper"), ("f32", "general"), ("hd120", "general"),
     ("hd32", "general"), ("head-stride-not-16-bytes", "general"),
     ("o-f32", "general"), ("o-seq-stride-not-16-bytes", "general"),
-    ("do-refused", "hopper"),
+    ("do-refused", "hopper"), ("hd192", "general"), ("hd256", "general"),
+    ("mla-192-128", "general"),
 ])
 def test_bwd_plan_routes(case, route):
     """kernel_bwd.plan on meta tensors: "hopper" where the forward takes
@@ -733,6 +833,9 @@ def test_bwd_plan_routes(case, route):
         assert k.stride(2) == 0
     elif case == "f32":
         q = k = v = meta((b, s, h, hd), dtype=torch.float32)
+    elif case == "mla-192-128":
+        q = k = meta((b, s, h, 192))
+        v = meta((b, s, h, 128))
     elif case.startswith("hd"):
         q = k = v = meta((b, s, h, int(case[2:])))
     elif case == "head-stride-not-16-bytes":
@@ -745,9 +848,11 @@ def test_bwd_plan_routes(case, route):
         do = meta((b, s, h, hd), (s * h * hd * 2, h * hd * 2, hd * 2, 2))
         assert not tKB.dout_ok(do)
     assert tKB.plan(q, k, v, o) == route
-    if route == "hopper" or case == "hd120":
-        # hd 120: the Hopper forward (no LSE), the general backward
+    if route == "hopper" or case in ("hd120", "mla-192-128"):
+        # hd 120, MLA: the Hopper forward (no LSE), the general backward
         assert tK.plan(q, k, v) == "hopper"
+    if case in ("hd192", "hd256"):
+        assert tK.plan(q, k, v) == "general"
 
 
 def test_bwd_plan_mirrors_the_kernel_source():
@@ -782,6 +887,55 @@ def test_bwd_plan_mirrors_the_kernel_source():
     fwd = tK.SOURCE.read_text()
     assert "template <class T, bool SOFTCAP, bool LSE>" in fwd
     assert "(m[h] + log2f(l[h])) / LOG2E" in fwd
+
+
+def test_bwd_general_head_dims_mirror_the_kernel_source():
+    """The general backward's instantiations (launch_for_head_dim) are
+    the ones kernel_bwd states, f32 takes 32-row tiles and bf16 splits
+    columns above hd 128, and its entry takes every hd up to
+    MAX_HEAD_DIM with dv <= hd."""
+    import re
+    src = tKB.SOURCE.read_text()
+    general = src[:src.index("namespace hopper {")]
+    body = general[general.index("cudaError_t launch_for_head_dim("):]
+    pairs = tuple((int(a), int(b)) for a, b in re.findall(
+        r"launch_dims<BF16, (\d+), (\d+)>", body))
+    assert pairs == tKB.GENERAL_HEAD_DIMS
+    assert max(hd for hd, _ in pairs) == tKB.MAX_HEAD_DIM
+    assert "return HDP <= 128 ? 64 : 32;" in general    # f32 tile rows
+    assert "return HDP <= 128 ? 1 : 2;" in general
+    assert "if (p.hd <= 192)\n    return p.hdv <= 128" in body
+    entry = src[src.index('extern "C" int flash_attention_bwd('):]
+    assert "hd > %d || hdv < 1 ||\n      hdv > hd" % tKB.MAX_HEAD_DIM in entry
+
+
+def test_function_hands_mla_v_unpadded_to_the_general_backward(monkeypatch):
+    """MLA's (192, 128) under a gradient: _FlashAttention takes v at its
+    128 columns, the forward on kernel.plan's "hopper" (no LSE), the
+    backward on "general" with v, o and dO at 128 columns, dv at 128."""
+    calls = _stand_ins(monkeypatch)
+    fwd_variants = []
+    forward = tK.flash_attention_cuda
+
+    def record(q, k, v, variant, **kw):
+        fwd_variants.append((variant, kw["lse"] is not None, v.shape[3]))
+        return forward(q, k, v, variant, **kw)
+
+    monkeypatch.setattr(tK, "flash_attention_cuda", record)
+    rng = np.random.default_rng(23)
+    q, k = (torch.from_numpy(rng.uniform(-1, 1, (1, 40, 2, 192))
+                             .astype(np.float32)).bfloat16().requires_grad_()
+            for _ in "qk")
+    v = torch.from_numpy(rng.uniform(-1, 1, (1, 40, 2, 128)).astype(
+        np.float32)).bfloat16().requires_grad_()
+    o = tops._FlashAttention.apply(q, k, v, dict(causal=True, window=0,
+                                                 softcap=0.0))
+    assert o.shape == (1, 40, 2, 128) and o.grad_fn.route == "general"
+    o.backward(torch.ones_like(o))
+    assert fwd_variants == [("hopper", False, 128)]
+    (call,) = calls
+    assert call["variant"] == "general" and call["lse"] is None
+    assert v.grad.shape == (1, 40, 2, 128)
 
 
 def test_lse_buffer_rows_are_padded():

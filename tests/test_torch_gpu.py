@@ -189,22 +189,28 @@ def test_kernel_matches_plain(cuda, shape, causal, window, softcap, layout,
 
 
 def test_cuda_grad_raises(cuda):
-    """A gradient the backward kernel does not take (head dim past 128)
-    raises before any launch; one it takes launches the backward kernel
-    and counts its three kernels."""
-    q, k, v = _qkv(1, 16, 16, 1, 256, torch.float32)
+    """A gradient past the kernels' head dims (257, past the forward's
+    256) raises before any launch; one at hd 256 launches the forward and
+    the backward's three kernels, its gradients those of
+    attention_bwd_ref row by row."""
+    q, k, v = _qkv(1, 16, 16, 1, 257, torch.float32)
     q.requires_grad_(True)
     before = (ops.launches, ops.launches_bwd)
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(ValueError, match="head dim 257"):
         ops.flash_attention(q, k, v)
     assert (ops.launches, ops.launches_bwd) == before
-    with torch.no_grad():
-        ops.flash_attention(q, k, v)
-    q, k, v = _qkv(1, 16, 16, 1, 16, torch.float32)
-    q.requires_grad_(True)
-    ops.flash_attention(q, k, v).sum().backward()
-    assert ops.launches_bwd == before[1] + len(kernel_bwd.KERNELS["general"])
-    assert q.grad is not None
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 80, 80, 2, 256,
+                                                 torch.float32, seed=2))
+    o = ops.flash_attention(q, k, v)
+    do = torch.randn_like(o)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    assert (ops.launches, ops.launches_bwd) == (
+        before[0] + 1, before[1] + len(kernel_bwd.KERNELS["general"]))
+    f32 = [t.detach() for t in (q, k, v, o, do)]
+    ref = attention_bwd_ref(*f32)
+    scales = flash_checks.bwd_row_scales(*f32)
+    for a, r, m in zip(got, ref, scales):
+        assert flash_checks.grad_row_err(a, r, m) <= ROW_TOL[torch.float32]
 
 
 @pytest.mark.parametrize("entry", ["forward", "backward"])
@@ -1156,6 +1162,10 @@ BWD_CASES = [
     ((1, 300, 300, 2, 120), True, 100, 0.0, "plain"),
     ((1, 96, 96, 2, 64), True, 0, 30.0, "plain"),
     ((1, 1, 1, 1, 32), True, 0, 0.0, "plain"),
+    # above hd 128: two warps a 16-row slice in bf16, 32-row tiles in f32
+    ((2, 200, 200, 4, 256), True, 0, 0.0, "plain"),
+    ((1, 150, 150, 2, 192), True, 40, 0.0, "strided"),
+    ((1, 96, 160, 2, 200), False, 0, 30.0, "plain"),
 ]
 @pytest.mark.parametrize("shape,causal,window,softcap,layout,dtype", [
     pytest.param(*case, dtype, id=f"bwd{i}-{name}")
@@ -1456,6 +1466,43 @@ def test_general_with_narrower_v_equals_padded_v(cuda, hd, dv, dtype):
     assert not padded[..., dv:].any()
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd,dv", [(192, 128), (256, 200), (120, 64),
+                                   (24, 16)])
+def test_bwd_with_narrower_v_matches_plain(cuda, hd, dv, dtype):
+    """The general backward takes v, o and dO at dv < hd columns as they
+    are (MLA's (192, 128) on its own instantiation, the rest with v's
+    columns zero-filled in shared memory): dq, dk, dv against
+    attention_bwd_ref row by row, dv at its dv columns; two calls
+    bit-identical.  Through ops, the forward keeps kernel.plan's variant
+    (the Hopper MlaTile at (192, 128) in bf16) and v is not padded."""
+    q, k, v = _qkv(2, 300, 300, 4, hd, dtype, seed=14, dv=dv)
+    do = torch.randn((2, 300, 4, dv), generator=torch.Generator(
+        device="cuda").manual_seed(15), device="cuda").to(dtype)
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v)
+        f32 = [t.float() for t in (q, k, v, o, do)]
+        ref = attention_bwd_ref(*f32)
+        scales = flash_checks.bwd_row_scales(*f32)
+        got = kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do, "general")
+        again = kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do,
+                                                    "general")
+    for a, b, r, m, t in zip(got, again, ref, scales, (q, k, v)):
+        assert a.shape == t.shape and torch.equal(a, b)
+        assert flash_checks.grad_row_err(a, r, m) <= ROW_TOL[dtype]
+    fwd = dict(ops.launches_by_variant)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves)
+    assert out.grad_fn.route == "general"
+    assert ops.launches_by_variant == {
+        **fwd, kernel.plan(q, k, v): fwd[kernel.plan(q, k, v)] + 1}
+    assert torch.equal(out.detach(), o)
+    grads = torch.autograd.grad(out, leaves, do)
+    for a, b in zip(grads, got):
+        assert torch.equal(a, b)
 
 
 def test_mla_prefill_decode_on_the_card_match_cpu(cuda):

@@ -42,6 +42,7 @@ from repro_torch.kernels.flash_attention.checks import \
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_ref)
 from repro_torch.models import moe as tM  # noqa: E402
+from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.models.factory import build_model as torch_build  # noqa: E402
 from repro_torch.optim import AdamW, AdamWConfig, cosine  # noqa: E402
 from repro_torch.training.step import (make_train_step,  # noqa: E402
@@ -133,6 +134,28 @@ def test_loss_and_grads_match_reference(arch, seq, mask):
     assert set(jgrads) == {p for p, _ in T.flatten(grads)}
     for path, g in T.flatten(grads):
         assert g.dtype == torch.float32 and g.shape == jgrads[path].shape
+    ratios = grad_ratios(jgrads, grads)
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+def gemma_hd256_cut(cfg):
+    """gemma3-4b's smoke config at its published head dim 256, cut to 2
+    layers: a local one (window 16) and a global one."""
+    return cfg.replace(head_dim=256, n_layers=2, local_global_period=2)
+
+
+def test_gemma_hd256_cut_loss_and_grads_match_reference():
+    """gemma3-4b's smoke config at head dim 256 (K1's backward above 128
+    on the card), one local and one global layer, 40 tokens past the
+    window 16: loss and every gradient leaf against the reference."""
+    jm, jp, tm, tp = pair("gemma3-4b", gemma_hd256_cut)
+    assert tm.cfg.head_dim == 256
+    assert tT.layer_scalars(tm.cfg)[0] == [16, 0]
+    batch = batch_np(jm.cfg, 2, 40)
+    jloss, _, jgrads = jax_value_and_grad(jm, jp, batch)
+    loss, _, grads = value_and_grad(tm, tp, to_torch(batch))
+    np.testing.assert_allclose(loss.item(), jloss, rtol=LOSS_RTOL)
+    assert set(jgrads) == {p for p, _ in T.flatten(grads)}
     ratios = grad_ratios(jgrads, grads)
     assert max(ratios.values()) <= 1.0, ratios
 
