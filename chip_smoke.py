@@ -55,8 +55,12 @@ non-zero and prints no result:
    mixtral-8x7b's 16 of 32 heads, 1 row of 2048, window 4096), timed in
    turns with SDPA; at gemma3-4b's prefill waves (4, 2048, 2048, 8, 256)
    with a local layer's window 1024 and a global layer's none, on the
-   general variant (no Hopper instantiation at hd 256), timed in turns
-   with SDPA (a boolean band mask for the window); K2 through its
+   Hopper variant (Hd256Tile: 64-row kv tiles, one Q buffer), its
+   training mode's o bit for bit and its LSE within f32's limit of
+   attention_lse (and at a small softcapped case), the fourth TMA box
+   dropped, a lost kv tile and a 64-row stage read stale shown to fail,
+   timed queued in turns with the general variant and SDPA (a boolean
+   band mask for the window), and without and with the LSE; K2 through its
    dispatcher, and its candidate plans (G, C, CB, double buffer) in two
    passes at the main-path shape, each case checked for the plan it
    took, and a stale chunk and a lost row group shown to fail, and at a
@@ -79,7 +83,7 @@ non-zero and prints no result:
    every request gets its tokens, every logit is finite and each of its
    kernels ran as often per prefill wave as the path has layers that run
    it (and no other kernel ran), every K1 launch through the Hopper
-   variant (path r's through the general one, K1_VARIANT); the device
+   variant (path r's too, at hd 256: K1_VARIANT); the device
    memory of the path before is freed first; it prints the peak memory
    and the decode step's time beside the least time to read the weights
    a step reads:
@@ -106,7 +110,7 @@ non-zero and prints no result:
    r. gemma3-4b as published (34 layers, d_model 2560, 8 heads of 256
       over 4 KV heads, geglu, vocab 262144 tied, 3.88 B params): K1 34
       times a wave (29 local layers with window 1024, 5 global), every
-      launch on the general variant (hd 256).
+      launch on the Hopper variant (Hd256Tile).
    g. whisper-tiny as published (4 + 4 layers, d_model 384, 6 heads of
       64, vocab 51865 tied, 36.44 M params), driven at its model entry
       points (prefill with frames, decode), not through the engine: the
@@ -225,17 +229,20 @@ non-zero and prints no result:
    4096, 16, 128) and path q's (1, 2048, 2048, 16, 128), window 4096;
    above hd 128 on the general route: gemma3-4b's training shape (2,
    2048, 2048, 8, 256) with a local layer's window 1024 and a global
-   layer's none, DeepSeek-V3's MLA wave (4, 1024, 1024, 128) at q·k 192
-   with v, o and dO at 128 columns unpadded (its forward on the Hopper
-   MlaTile, no LSE; the stats kernel recomputes it), hd 256 in f32, with
-   a softcap and as an expanded GQA view;
-   each case checked for its route
+   layer's none (the Hopper forward in training mode; the general route
+   reads its LSE, its stats kernel computing D alone), DeepSeek-V3's MLA
+   wave (4, 1024, 1024, 128) at q·k 192 with v, o and dO at 128 columns
+   unpadded (its forward on the Hopper MlaTile, no LSE; the stats kernel
+   recomputes it), hd 256 in f32, with a softcap and as an expanded GQA
+   view (bf16: the forward's LSE read);
+   each case checked for its route and for where its LSE came from
    ("hopper": the forward's LSE, preprocess, dK/dV, dQ on TMA and wgmma;
    "general": stats, dK/dV, dQ on mma.sync); two calls bit for bit; a
    backward with D dropped, the softcap derivative dropped, a kv tile
    skipped, the LSE of the neighbouring row, the LSE in log2 units, or a
    Q/dO ring stage read one tile stale, or dK's and dV's columns past 128
-   dropped (gemma's global shape) shown to fail the checks; at the
+   dropped (gemma's global shape, with the LSE of the neighbouring row and
+   in log2 units there too) shown to fail the checks; at the
    training shape, at hd 128 and at paths j's and q's local heads, timed
    in turns: the Hopper backward
    (each kernel alone and the whole call), the general one as the
@@ -243,7 +250,9 @@ non-zero and prints no result:
    LSE, beside the bound; at gemma's global shape and MLA's wave the
    general backward in turns with SDPA's backward, each of its kernels,
    the forward and the plain version, beside the bound and the design's
-   floor;
+   floor, and at gemma's the call and its stats kernel reading the
+   forward's LSE and recomputing it in turns, the forward without and
+   with it;
 7. K2's backward (wkv6_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.wkv6, whose backward launches the
    backward kernel on the route kernel_bwd.plan picked before the forward,
@@ -309,8 +318,10 @@ non-zero and prints no result:
       launches) a step, all "hopper", no stats kernel;
    e. gemma3-4b as published (3.88 B params) with cosine, 4 steps of 2 x
       2048 (4 x 2048 would pass the card with its 262144-wide logits): K1
-      68 forward launches and 34 backward calls (102 launches: stats,
-      dK/dV, dQ) a step, all on the "general" route;
+      68 forward launches a step on the Hopper variant in training mode
+      and 34 backward calls (102 launches: stats, dK/dV, dQ) on the
+      "general" route, each reading its forward's LSE (every path's
+      backward calls do: none recomputes it);
    then a 2-layer cut of minicpm-2b at full width, whose gradients under
    remat policy None and "dots" equal those without remat, bit for bit;
 10. jamba_moe_grad: the 2-layer MoE cut of jamba-1.5-large-398b
@@ -452,10 +463,11 @@ MAIN_PATHS = {"mistral-nemo-12b": {"flash_attention": 40},
               MIXTRAL: {"flash_attention": 8},
               DEEPSEEK: {"flash_attention": 2},
               GEMMA: {"flash_attention": 34}}
-# the K1 variant every launch of a path takes (forward, and the backward's
-# route in training) where it is not "hopper": gemma3-4b's hd 256, which
-# no Hopper instantiation takes
-K1_VARIANT = {GEMMA: "general"}
+# the K1 forward variant and backward route every launch of a path takes,
+# where they are not both "hopper": gemma3-4b's hd 256 takes the Hopper
+# forward (Hd256Tile; in training mode it writes the LSE) and the general
+# backward, which reads that LSE
+K1_VARIANT = {GEMMA: ("hopper", "general")}
 # each main path's traffic: prompt lengths drawn from seed 0 in [lo, hi]
 # and max_len; the sliding-window paths' prompts all pass their 4096-token
 # window (gemma3-4b's, its local layers' 1024-token one), so it bites in
@@ -500,7 +512,7 @@ FLASH_CASES = [
     ("minicpm-hd12", (2, 100, 100, 6, 12), torch.float32, True, 0, 0.0,
      "plain", "general"),
     ("softcap-hd256", (1, 96, 96, 2, 256), torch.bfloat16, True, 0, 30.0,
-     "plain", "general"),
+     "plain", "hopper"),
     ("ragged-noncausal", (1, 64, 192, 2, 64), torch.float32, False, 0, 0.0,
      "plain", "general"),
     ("strided-gemma-hd16", (2, 130, 130, 4, 16), torch.float32, True, 16,
@@ -597,17 +609,24 @@ FLASH_CASES = [
      True, 4096, 0.0, "plain", "hopper"),
     # a prefill wave of gemma3-4b (path r): 4 prompts padded to 2048, its 8
     # heads of 256, a local layer's window 1024 and a global layer's none;
-    # the general variant (no Hopper instantiation at hd 256)
+    # the Hopper variant (Hd256Tile: 64-row kv tiles, one Q buffer)
     ("gemma-local-wave", (4, 2048, 2048, 8, 256), torch.bfloat16, True,
-     1024, 0.0, "plain", "general"),
+     1024, 0.0, "plain", "hopper"),
     ("gemma-global-wave", (4, 2048, 2048, 8, 256), torch.bfloat16, True, 0,
-     0.0, "plain", "general"),
+     0.0, "plain", "hopper"),
 ]
 # the forward faults (checks.FWD_FAULTS) a case also shows its checks
 # can see
 FLASH_FAULTS = {"danube-window-4096": ("pad-from-next-head",
                                        "second-box-dropped"),
-                "mla-hd192": ("third-box-dropped",)}
+                "mla-hd192": ("third-box-dropped",),
+                "gemma-global-wave": ("fourth-box-dropped",)}
+# the cases whose checks are also shown to see a lost kv tile and a ring
+# stage read stale, by the rows of their kv tiles: (the tile's rows, how
+# many rows back a stale read lands).  The main path's 128-row tiles
+# (read as the tile before); hd 256's 64-row tiles (read as the tile two
+# before: what the same stage of a two-stage ring held a round earlier)
+STALE_STAGE = {"main-path": (128, 128), "gemma-global-wave": (64, 128)}
 # the cases timed beside the main-path case, each under its own key of
 # the kernels line
 TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
@@ -622,7 +641,8 @@ TIMED_FLASH_CASES = ("jamba-64-heads", "danube-window-4096",
 # host takes to launch them
 SDPA_IN_TURNS = ("whisper-encoder", "whisper-cross", "mesh-local-heads",
                  "mesh-train-local-heads", "mesh-whisper-encoder",
-                 "mesh-whisper-cross", "mesh-mixtral-local-heads")
+                 "mesh-whisper-cross", "mesh-mixtral-local-heads",
+                 "gemma-local-wave", "gemma-global-wave")
 # cycles of torch.cuda._sleep before a queued timing's calls (about 10 ms
 # at 1.98 GHz), more than the host takes to enqueue them
 QUEUE_SLEEP_CYCLES = 20_000_000
@@ -1041,6 +1061,11 @@ def phase_flash():
         for fault in FLASH_FAULTS.get(name, ()):
             _forward_fault_fails(checks, plain, q, k, v, ref, tol, rtol,
                                  name, fault)
+        if name in STALE_STAGE:
+            _lost_and_stale_fail(plain, q, k, v, ref, rtol, name,
+                                 *STALE_STAGE[name])
+        if variant == "hopper" and shape[4] == 256:
+            _lse_holds(flash_kernel, q, k, v, out, kw, name)
         if name in TIMED_FLASH_CASES:
             timed[name] = {"variant": variant, "max_abs_err": err,
                            **_time_flash(flash_kernel, F, q, k, v, shape,
@@ -1049,29 +1074,6 @@ def phase_flash():
         if name != "main-path":
             del q, k, v, out, ref
             continue
-        # The checks can fail here: the plain version with the values of
-        # one middle kv tile zeroed (what a kernel that lost the tile
-        # would return), and with kv rows [512, 640) replaced by rows
-        # [384, 512) (what a ring stage read with a stale phase would
-        # hold), must each be far outside the row limit.
-        with torch.inference_mode():
-            v_lost = v.clone()
-            v_lost[:, 512:576] = 0
-            lost = row_err(plain(q, k, v_lost), ref)
-            del v_lost
-            k_stale, v_stale = k.clone(), v.clone()
-            k_stale[:, 512:640] = k[:, 384:512]
-            v_stale[:, 512:640] = v[:, 384:512]
-            stale = row_err(plain(q, k_stale, v_stale), ref)
-            del k_stale, v_stale
-        print(f"[kernels] flash_attention main-path: a lost kv tile "
-              f"[512, 576) gives worst row rel err {lost:.3e}; a stale "
-              f"stage (kv [512, 640) read as [384, 512)) {stale:.3e} (limit "
-              f"{rtol:g})")
-        check(lost > 10 * rtol, f"a lost kv tile gives only {lost:.3e}: "
-                                f"the check cannot see it")
-        check(stale > 10 * rtol, f"a stale stage gives only {stale:.3e}: "
-                                 f"the check cannot see it")
         entry = {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -1088,6 +1090,65 @@ def phase_flash():
         entry[name.replace("-", "_")] = numbers
     torch.cuda.empty_cache()
     return entry
+
+
+def _lost_and_stale_fail(plain, q, k, v, ref, rtol, name, tile, back):
+    """The checks can fail here: the plain version with the values of
+    kv rows [512, 576) zeroed (what a kernel that lost a 64-row tile
+    would return), and with the ``tile`` kv rows from 512 replaced by
+    those ``back`` rows before them (what a ring stage read with a stale
+    phase would hold), must each be far outside the row limit."""
+    lo, hi = 512, 512 + tile
+    with torch.inference_mode():
+        v_lost = v.clone()
+        v_lost[:, 512:576] = 0
+        lost = row_err(plain(q, k, v_lost), ref)
+        del v_lost
+        k_stale, v_stale = k.clone(), v.clone()
+        k_stale[:, lo:hi] = k[:, lo - back:hi - back]
+        v_stale[:, lo:hi] = v[:, lo - back:hi - back]
+        stale = row_err(plain(q, k_stale, v_stale), ref)
+        del k_stale, v_stale
+    print(f"[kernels] flash_attention {name}: a lost kv tile [512, 576) "
+          f"gives worst row rel err {lost:.3e}; a stale stage of {tile} "
+          f"rows (kv [{lo}, {hi}) read as [{lo - back}, {hi - back})) "
+          f"{stale:.3e} (limit {rtol:g})")
+    check(lost > 10 * rtol, f"{name}: a lost kv tile gives only "
+                            f"{lost:.3e}: the check cannot see it")
+    check(stale > 10 * rtol, f"{name}: a stale stage gives only "
+                             f"{stale:.3e}: the check cannot see it")
+
+
+def _lse_holds(flash_kernel, q, k, v, out, kw, name):
+    """The Hopper forward's training mode at hd 256: its o bit for bit
+    the serving call's, its LSE within f32's limit (2e-5 + 2e-5 |lse|:
+    the products are exact on both sides, only the sums' order differs)
+    of ``attention_lse`` on the same inputs, and so within bf16's too;
+    rows past sq unwritten."""
+    from repro_torch.kernels.flash_attention.ref import attention_lse
+    lse = flash_kernel.lse_buffer(q).fill_(7.0)
+    sq = q.shape[1]
+    with torch.inference_mode():
+        o_t = flash_kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse,
+                                                **kw)
+        want = attention_lse(q, k, **kw)
+    got = lse[..., :sq]
+    err = (got - want).abs().max().item()
+    excess = {str(dt)[6:]: ((got - want).abs() - TOL[dt]
+                            - TOL[dt] * want.abs()).max().item()
+              for dt in (torch.float32, torch.bfloat16)}
+    same = torch.equal(o_t, out)
+    print(f"[kernels] flash_attention {name}: training mode's LSE max abs "
+          f"err {err:.3e} against attention_lse, past f32's limit (2e-5 + "
+          f"2e-5 |lse|) by {excess['float32']:.3e}, past bf16's by "
+          f"{excess['bfloat16']:.3e}; its o and the serving o "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    check(math.isfinite(err) and excess["float32"] <= 0,
+          f"{name}: the LSE errs {err:.3e}, past f32's limit")
+    check(same, f"{name}: training mode's o differs from serving's")
+    check(bool((lse[..., sq:] == 7.0).all()),
+          f"{name}: the LSE's rows past sq were written")
+    del lse, o_t, want
 
 
 def _window_checks_can_fail(plain, q, k, v, ref, rtol, name):
@@ -1145,16 +1206,15 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
     with SDPA on v as it is where SDPA takes it (hopper, general, sdpa,
     sdpa-dv, sdpa-dv, sdpa, general, hopper); else the general one in
     turns with SDPA (general, sdpa, sdpa, general); where it takes the
-    Hopper one at a head dim with a training mode (the Hopper backward's,
-    ``kernel_bwd.HOPPER_HEAD_DIMS``), its serving instantiation against
-    its training mode (the LSE written; without, with, with, without);
+    Hopper one at a head dim with a training mode
+    (``kernel.LSE_HEAD_DIMS``), its serving instantiation against its
+    training mode (the LSE written; without, with, with, without);
     SDPA on the same inputs (in those turns for the general variant;
     ``sdpa_mask``'s band where a window bites); and the plain version.  Prints
     them beside the bound (and, where v is narrower, the padded
     function's) and returns the kernels-line numbers (``ms`` is that of
     ``variant``, the one the dispatcher takes; ``library_ms`` SDPA's on
     the same inputs, on padded v only where SDPA refuses them)."""
-    from repro_torch.kernels.flash_attention import kernel_bwd
     _, _, _, _, hd, dv = flash_dims(shape)
     narrow = dv < hd
     vp = F.pad(v, (0, hd - dv)) if narrow else v
@@ -1197,7 +1257,7 @@ def _time_flash(flash_kernel, F, q, k, v, shape, dtype, kw, name, variant,
         turns = [(u, t) for u, t in in_turns if not u.startswith("sdpa")]
         sdpa_turns = {u: [t for w, t in in_turns if w == u]
                       for u in ("sdpa", "sdpa-dv")}
-        if variant == "hopper" and q.shape[3] in kernel_bwd.HOPPER_HEAD_DIMS:
+        if variant == "hopper" and q.shape[3] in flash_kernel.LSE_HEAD_DIMS:
             lse = flash_kernel.lse_buffer(q)
             for with_lse in (False, True, True, False):
                 lse_turns.append((with_lse, time_ms(
@@ -2531,7 +2591,7 @@ def phase_main_path(arch, card, profile):
     want = {name: MAIN_PATHS[arch].get(name, 0) * waves for name in ops}
     # every K1 launch of a main path takes the Hopper variant, but where
     # K1_VARIANT says otherwise
-    k1_variant = K1_VARIANT.get(arch, "hopper")
+    k1_variant = K1_VARIANT.get(arch, ("hopper", "hopper"))[0]
     want["flash_attention_by_variant"] = {
         "hopper": 0, "general": 0, k1_variant: want["flash_attention"]}
     if want["flash_attention"]:
@@ -4791,8 +4851,10 @@ def phase_whisper_train(card):
 # name, (b, sq, skv, h, hd[, dv]) (dv: v's, o's and dO's columns where
 # fewer than hd), dtype, causal, window, softcap, q/k scale, layout, the
 # route kernel_bwd.plan must pick and the forward variant kernel.plan must
-# pick (hd 120 and MLA's (192, 128): the Hopper forward, the general
-# backward); the first is the training shape (minicpm-2b, batch 4 x 2048)
+# pick (hd 120 and MLA's (192, 128): the Hopper forward without an LSE,
+# the general backward recomputing it; bf16 hd 256: the Hopper forward in
+# training mode, the general backward reading its LSE); the first is the
+# training shape (minicpm-2b, batch 4 x 2048)
 BWD_CASES = [
     ("training", (4, 2048, 2048, 36, 64), torch.bfloat16, True, 0, 0.0,
      2.0, "plain", "hopper", "hopper"),
@@ -4836,11 +4898,12 @@ BWD_CASES = [
     ("mesh-mixtral-local-heads", (1, 2048, 2048, 16, 128), torch.bfloat16,
      True, 4096, 0.0, 2.0, "plain", "hopper", "hopper"),
     # gemma3-4b's training step (2 x 2048, 8 heads of 256): a local
-    # layer's window 1024 and a global layer; general forward and backward
+    # layer's window 1024 and a global layer; the Hopper forward (its LSE)
+    # and the general backward
     ("gemma-local-hd256", (2, 2048, 2048, 8, 256), torch.bfloat16, True,
-     1024, 0.0, 2.0, "plain", "general", "general"),
+     1024, 0.0, 2.0, "plain", "general", "hopper"),
     ("gemma-global-hd256", (2, 2048, 2048, 8, 256), torch.bfloat16, True, 0,
-     0.0, 2.0, "plain", "general", "general"),
+     0.0, 2.0, "plain", "general", "hopper"),
     # a prefill wave of DeepSeek-V3's MLA with v at its 128 columns, not
     # padded: the Hopper forward (MlaTile, no LSE), the general backward
     # (its stats kernel recomputes the LSE)
@@ -4851,16 +4914,18 @@ BWD_CASES = [
     ("f32-hd256", (1, 300, 300, 2, 256), torch.float32, True, 0, 0.0, 2.0,
      "plain", "general", "general"),
     ("softcap-30-hd256", (2, 512, 512, 4, 256), torch.bfloat16, True, 0,
-     30.0, 6.0, "plain", "general", "general"),
+     30.0, 6.0, "plain", "general", "hopper"),
     ("gqa-view-hd256", (2, 1024, 1024, 8, 256), torch.bfloat16, True, 0,
-     0.0, 2.0, "gqa-view", "general", "general"),
+     0.0, 2.0, "gqa-view", "general", "hopper"),
 ]
 # the fault each case also shows the checks can see (checks.FAULTS)
 BWD_FAULTS = {"training": ("no-delta", "skip-last-tile", "lse-neighbour-row",
                            "lse-log2", "stale-q-stage"),
               "softcap-50": ("no-softcap-derivative",),
               "hd120-window256": ("skip-first-tile",),
-              "gemma-global-hd256": ("dkdv-past-128-dropped",)}
+              # the general route reading the forward's LSE
+              "gemma-global-hd256": ("dkdv-past-128-dropped",
+                                     "lse-neighbour-row", "lse-log2")}
 # the cases timed in turns (the training shape is the kernels line's)
 TIMED_BWD_CASES = ("training", "hd128", "mesh-train-local-heads",
                    "mesh-mixtral-local-heads", "gemma-global-hd256",
@@ -4974,6 +5039,7 @@ def phase_flash_bwd():
     at ``TIMED_BWD_CASES`` the kernels called directly for the timings.
     Returns the kernels-line entry (the training shape's numbers)."""
     from repro_torch.kernels.flash_attention import checks
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import kernel_bwd
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
@@ -4985,6 +5051,7 @@ def phase_flash_bwd():
         kw = dict(causal=causal, window=window, softcap=softcap)
         before = dict(flash_ops.launches_bwd_by_variant)
         before_fwd = dict(flash_ops.launches_by_variant)
+        before_lse = dict(flash_ops.bwd_calls_by_lse)
         o, got = _flash_grads(flash_ops, q, k, v, do, kw)
         again = _flash_grads(flash_ops, q, k, v, do, kw)[1]
         torch.cuda.synchronize()
@@ -4999,6 +5066,15 @@ def phase_flash_bwd():
         want = {vt: 2 if vt == forward else 0 for vt in took}
         check(took == want, f"flash_bwd {name}: forward launches by variant "
                             f"{took}, expected {want}")
+        # where the forward writes an LSE (every Hopper route, and hd 256
+        # in bf16), each backward call reads it
+        lse_from = ("forward" if flash_kernel.writes_lse(q, k, v)
+                    else "recomputed")
+        took = {u: n - before_lse[u]
+                for u, n in flash_ops.bwd_calls_by_lse.items()}
+        want = {u: 2 if u == lse_from else 0 for u in took}
+        check(took == want, f"flash_bwd {name}: backward calls by the LSE's "
+                            f"source {took}, expected {want}")
         with torch.no_grad():
             f32 = [t.float() for t in (q, k, v, o, do)]
             ref = attention_bwd_ref(*f32, **kw)
@@ -5012,7 +5088,8 @@ def phase_flash_bwd():
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         print(f"[flash_bwd] {name} {tuple(shape)} {str(dtype)[6:]} "
               f"causal={causal} window={window} softcap={softcap} "
-              f"{layout}, forward {forward}, route {route}: worst row rel "
+              f"{layout}, forward {forward}, route {route}, LSE "
+              f"{lse_from}: worst row rel "
               f"err {', '.join(f'{g} {e:.3e}' for g, e in errs.items())} "
               f"(limit {rtol:g}, against each row's scale; against its norm "
               f"{raw:.3e}), max_abs_err {max_abs:.3e}; two calls "
@@ -5180,22 +5257,33 @@ def _sdpa_grad(q, k, v, do, kw, name):
 def _time_flash_bwd_general(kernel_bwd, attention_bwd_ref, q, k, v, o, do,
                             shape, dtype, kw, name):
     """The general backward, through the kernel module (no launch
-    counted; its arguments prepared once): the whole call in turns with
-    SDPA's backward through autograd (general, sdpa, sdpa, general; SDPA's
-    forward timed around them and taken off; v at its own columns, or
-    zero-padded to hd where SDPA refuses that; a boolean band mask where a
-    window bites), its kernels (stats alone, then stats with dK/dV and
-    with dQ, each less stats), the forward on the variant kernel.plan
-    picks, and the plain version; beside the bound and the design's
-    floor (its products: S three times, dP twice, each twice in dK/dV and
-    dQ above hd 128 in bf16).  Returns the kernels-line numbers (``ms``
-    is the general call's)."""
+    counted; its arguments prepared once) as the training path calls it,
+    reading the forward's LSE where the forward writes one (hd 256): the
+    whole call in turns with SDPA's backward through autograd (general,
+    sdpa, sdpa, general; SDPA's forward timed around them and taken off;
+    v at its own columns, or zero-padded to hd where SDPA refuses that; a
+    boolean band mask where a window bites), its kernels (stats alone,
+    then stats with dK/dV and with dQ, each less stats), the forward on
+    the variant kernel.plan picks, and the plain version; where the
+    forward writes an LSE, also the call and its stats kernel recomputing
+    it (with, without, without, with) and the forward without and with
+    it; beside the bound and the design's floor (its products: S three
+    times, twice with the forward's LSE, dP twice, each twice in dK/dV
+    and dQ above hd 128 in bf16).  Returns the kernels-line numbers
+    (``ms`` is the general call's as the training path takes it)."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     hd, dv = flash_dims(shape)[4:]
+    variant = flash_kernel.plan(q, k, v)
+    lse = None
+    if flash_kernel.writes_lse(q, k, v):
+        lse = flash_kernel.lse_buffer(q)
+        with torch.no_grad():
+            flash_kernel.flash_attention_cuda(q, k, v, variant, lse=lse, **kw)
 
-    def call(kernels=None):
+    def call(kernels=None, with_lse=True):
         return kernel_bwd.launcher(q, k, v, o, do, "general",
-                                   kernels=kernels, **kw)[0]
+                                   kernels=kernels,
+                                   lse=lse if with_lse else None, **kw)[0]
 
     fwd, fwd_bwd, sdpa_v = _sdpa_grad(q, k, v, do, kw, name)
     # q, k, v, o and dO need no gradient: only SDPA's copies record one
@@ -5208,9 +5296,25 @@ def _time_flash_bwd_general(kernel_bwd, attention_bwd_ref, q, k, v, o, do,
     kernel_ms = {"stats": stats_ms,
                  **{kn: time_ms(call(("stats", kn))) - stats_ms
                     for kn in ("dkdv", "dq")}}
-    variant = flash_kernel.plan(q, k, v)
-    fwd_ms = time_ms(lambda: flash_kernel.flash_attention_cuda(
-        q, k, v, variant, **kw))
+
+    def forward(with_lse):
+        return lambda: flash_kernel.flash_attention_cuda(
+            q, k, v, variant, lse=lse if with_lse else None, **kw)
+
+    fwd_ms = {variant: time_ms(forward(False))}
+    lse_turns = []
+    if lse is not None:
+        runs = {(part, w): call(kernels, w)
+                for part, kernels in (("call", None), ("stats", ("stats",)))
+                for w in (True, False)}
+        lse_turns = [((part, w), time_ms(runs[part, w]))
+                     for part in ("call", "stats")
+                     for w in (True, False, False, True)]
+        fwd_turns = [(w, time_ms(forward(w)))
+                     for w in (False, True, True, False)]
+        fwd_ms = {f"{variant}{'_with_lse' if w else ''}":
+                  float(np.mean([t for u, t in fwd_turns if u == w]))
+                  for w in (False, True)}
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw),
                        iters=2, warmup=1)
     del fwd, fwd_bwd
@@ -5220,12 +5324,21 @@ def _time_flash_bwd_general(kernel_bwd, attention_bwd_ref, q, k, v, o, do,
     bound_ms, bound_by, pairs = bwd_bound(shape, dtype, kw["causal"],
                                           kw["window"])
     split = 2 if dtype == torch.bfloat16 and hd > 128 else 1
-    design_flops = (6 * hd + 2 * dv + 2 * split * (2 * hd + 2 * dv)) * pairs
+    s_products = 4 if lse is not None else 6    # S in stats too, or not
+    design_flops = (s_products * hd + 2 * dv
+                    + 2 * split * (2 * hd + 2 * dv)) * pairs
     floor_ms = design_flops / PEAK_FLOPS[dtype] * 1e3
-    print(f"[flash_bwd] {name}: general in turns with sdpa "
-          f"{', '.join(f'{t:.4f}' for _, t in turns)} ms; kernels alone "
+    by_lse = {f"{part}_{'forward_lse' if w else 'recomputed'}":
+              float(np.mean([t for u, t in lse_turns if u == (part, w)]))
+              for part in ("call", "stats") for w in (True, False)
+              } if lse_turns else None
+    print(f"[flash_bwd] {name}: general (LSE "
+          f"{'the forward' if lse is not None else 'recomputed'}'s) in "
+          f"turns with sdpa {', '.join(f'{t:.4f}' for _, t in turns)} ms; "
+          f"kernels alone "
           f"{', '.join(f'{u} {t:.4f}' for u, t in kernel_ms.items())} ms; "
-          f"forward ({variant}) {fwd_ms:.4f} ms; plain {plain_ms:.4f} ms, "
+          f"forward {', '.join(f'{u} {t:.4f}' for u, t in fwd_ms.items())}"
+          f" ms; plain {plain_ms:.4f} ms, "
           f"sdpa backward {library_ms:.4f} ms (v {sdpa_v}; forward "
           f"{sdpa_fwd_ms:.4f}, forward + backward {sdpa[1]:.4f}, "
           f"{sdpa[2]:.4f}); bound {bound_ms:.4f} ms ({bound_by}; {pairs} "
@@ -5233,11 +5346,19 @@ def _time_flash_bwd_general(kernel_bwd, attention_bwd_ref, q, k, v, o, do,
           f"({design_flops / 1e9:.1f} GFLOP); general / bound "
           f"{ms / bound_ms:.2f}, general / sdpa {ms / library_ms:.2f}, "
           f"{design_flops / ms / 1e9:.1f} TFLOP/s of the design's products")
+    if lse_turns:
+        print(f"[flash_bwd] {name}: the forward's LSE read / recomputed, in "
+              f"turns: " + ", ".join(
+                  f"{part} {'read' if w else 'recomputed'} {t:.4f}"
+                  for (part, w), t in lse_turns)
+              + f" ms; forward without / with the LSE in turns "
+              f"{', '.join(f'{t:.4f}' for _, t in fwd_turns)} ms")
+    del lse
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "floor_ms": floor_ms, "ms_turns": turns, "kernel_ms": kernel_ms,
-            "forward_ms": {variant: fwd_ms}, "sdpa_forward_ms": sdpa_fwd_ms,
-            "sdpa_v": sdpa_v}
+            "forward_ms": fwd_ms, "sdpa_forward_ms": sdpa_fwd_ms,
+            "sdpa_v": sdpa_v, **({"ms_by_lse": by_lse} if by_lse else {})}
 
 
 def _count_plain_calls():
@@ -5295,7 +5416,8 @@ def reset_counts(ops):
         m.launches = 0
         if hasattr(m, "launches_bwd"):
             m.launches_bwd = 0
-    for counts in (flash.launches_by_variant, flash.launches_bwd_by_variant):
+    for counts in (flash.launches_by_variant, flash.launches_bwd_by_variant,
+                   flash.bwd_calls_by_lse):
         for variant in counts:
             counts[variant] = 0
     wkv.launches_by_plan.clear()
@@ -5304,25 +5426,30 @@ def reset_counts(ops):
 
 
 def read_counts(ops):
-    """Every kernel's (forward, backward) launches, K1's by variant, K2's
-    by plan and route, and K3's forward by mode."""
+    """Every kernel's (forward, backward) launches, K1's by variant (and
+    its backward calls by where their LSE came from), K2's by plan and
+    route, and K3's forward by mode."""
     flash, wkv = ops["flash_attention"], ops["wkv6"]
     return {"launches": {k: (m.launches, getattr(m, "launches_bwd", 0))
                          for k, m in ops.items()},
             "k1_by_variant": dict(flash.launches_by_variant),
             "k1_bwd_by_variant": dict(flash.launches_bwd_by_variant),
+            "k1_bwd_by_lse": dict(flash.bwd_calls_by_lse),
             "k2_by_plan": {_plan_name(*pl): c
                            for pl, c in wkv.launches_by_plan.items()},
             "k2_bwd_by_route": dict(wkv.launches_bwd_by_route),
             "k3_by_mode": dict(ops["selective_scan"].launches_by_mode)}
 
 
-def expected_counts(kernels, ops, k3_mode="training", k1_variant="hopper"):
+def expected_counts(kernels, ops, k3_mode="training", k1_variant="hopper",
+                    k1_route="hopper"):
     """``read_counts``' value for a run whose kernels launch ``kernels``
-    ({name: (forward, backward)}) times: every K1 launch, forward and
-    backward, on ``k1_variant``, every K2 forward under kernel.plan's
-    choice and backward on "hopper", every K3 forward in ``k3_mode``, no
-    other kernel."""
+    ({name: (forward, backward)}) times: every K1 forward launch on
+    ``k1_variant``, every K1 backward launch on ``k1_route``, every K1
+    backward call reading its forward's LSE (none recomputing it), every
+    K2 forward under kernel.plan's choice and backward on "hopper", every
+    K3 forward in ``k3_mode``, no other kernel."""
+    from repro_torch.kernels.flash_attention import kernel_bwd
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     k1 = kernels.get("flash_attention", (0, 0))
     k2 = kernels.get("wkv6", (0, 0))
@@ -5331,7 +5458,9 @@ def expected_counts(kernels, ops, k3_mode="training", k1_variant="hopper"):
             "k1_by_variant": {"hopper": 0, "general": 0,
                               k1_variant: k1[0]},
             "k1_bwd_by_variant": {"hopper": 0, "general": 0,
-                                  k1_variant: k1[1]},
+                                  k1_route: k1[1]},
+            "k1_bwd_by_lse": {"forward": k1[1] // len(
+                kernel_bwd.KERNELS[k1_route]), "recomputed": 0},
             "k2_by_plan": ({_plan_name(*wkv_kernel.PLAN): k2[0]}
                            if k2[0] else {}),
             "k2_bwd_by_route": {"hopper": k2[1], "general": 0},
@@ -5374,8 +5503,9 @@ def phase_train(arch, card):
     records = out["records"]
     losses = [r["loss"] for r in records]
     params = sum(t.numel() for t in _leaves(out["params"]))
-    k1_variant = K1_VARIANT.get(arch, "hopper")
-    want = expected_counts(spec["kernels"], ops, k1_variant=k1_variant)
+    k1_variant, k1_route = K1_VARIANT.get(arch, ("hopper", "hopper"))
+    want = expected_counts(spec["kernels"], ops, k1_variant=k1_variant,
+                           k1_route=k1_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = float(np.median([r["step_ms"] for r in records[1:]]))
     tok_s = shape["batch"] * shape["seq"] / step_ms * 1e3
@@ -5401,7 +5531,7 @@ def phase_train(arch, card):
     if arch == "minicpm-2b":
         _embedding_backward_is_deterministic(out)
     kernels = profile_train_step(out, shape)
-    if k1 and k1_variant == "hopper":
+    if k1 and k1_route == "hopper":
         check(kernels is None or "bwd_stats" not in kernels,
               f"train: a stats kernel ran on the hopper route: {kernels}")
     result = {"arch": arch, **shape, "layers": cfg.n_layers,
@@ -5416,13 +5546,14 @@ def phase_train(arch, card):
 def _sum_counts(runs):
     """``read_counts``' values of several runs, summed key by key."""
     out = {"launches": {}, "k1_by_variant": {}, "k1_bwd_by_variant": {},
-           "k2_by_plan": {}, "k2_bwd_by_route": {}, "k3_by_mode": {}}
+           "k1_bwd_by_lse": {}, "k2_by_plan": {}, "k2_bwd_by_route": {},
+           "k3_by_mode": {}}
     for run in runs:
         for k, (f, b) in run["launches"].items():
             f0, b0 = out["launches"].get(k, (0, 0))
             out["launches"][k] = (f0 + f, b0 + b)
-        for part in ("k1_by_variant", "k1_bwd_by_variant", "k2_by_plan",
-                     "k2_bwd_by_route", "k3_by_mode"):
+        for part in ("k1_by_variant", "k1_bwd_by_variant", "k1_bwd_by_lse",
+                     "k2_by_plan", "k2_bwd_by_route", "k3_by_mode"):
             for key, c in run[part].items():
                 out[part][key] = out[part].get(key, 0) + c
     return out
@@ -5781,6 +5912,7 @@ def main() -> int:
     for entry in bwd_entries.values():
         entry["launches"], entry["launches_by_path"] = 0, {}
     bwd["launches_by_variant"] = {"hopper": 0, "general": 0}
+    bwd["calls_by_lse"] = {"forward": 0, "recomputed": 0}
     wkv_bwd["launches_by_route"] = {"hopper": 0, "general": 0}
     for path, got in runs.items():
         for name, (fwd_n, bwd_n) in got["launches"].items():
@@ -5794,6 +5926,8 @@ def main() -> int:
             flash["launches_by_variant"][vt] += c
         for vt, c in got["k1_bwd_by_variant"].items():
             bwd["launches_by_variant"][vt] += c
+        for src, c in got["k1_bwd_by_lse"].items():
+            bwd["calls_by_lse"][src] += c
         by_plan = entries["wkv6"]["launches_by_plan"]
         for pl, c in got["k2_by_plan"].items():
             by_plan[pl] = by_plan.get(pl, 0) + c

@@ -25,9 +25,9 @@ limits.
 
 And what the forward's checks must be able to see at a head dim that is
 no multiple of the Hopper forward's 64-column TMA box (hd 120), or that
-takes three boxes a row (MLA's q·k 192), as inputs on which the plain
-forward returns what the faulty kernel would (``forward_fault_inputs``,
-``FWD_FAULTS``):
+takes three boxes a row (MLA's q·k 192) or four (gemma3's 256), as
+inputs on which the plain forward returns what the faulty kernel would
+(``forward_fault_inputs``, ``FWD_FAULTS``):
 
 * "pad-from-next-head": the padding columns hd..127 of q and k read from
   head h + 1's first columns (zeros for the last head), as a tensor map
@@ -37,7 +37,10 @@ forward returns what the faulty kernel would (``forward_fault_inputs``,
   leave them;
 * "third-box-dropped": columns 128..hd-1 of q and k zero (hd > 128), as
   a producer that loaded two boxes of each q and k row (v's count) would
-  leave them.
+  leave them;
+* "fourth-box-dropped": columns 192..255 of q, k and v zero (hd 256), as
+  a producer that loaded three boxes a row (MLA's q·k count) would leave
+  them.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ FAULTS = ("no-delta", "no-softcap-derivative", "skip-last-tile",
           "stale-q-stage", "dkdv-past-128-dropped")
 TILE = 64    # the kernel's q and kv tile rows
 FWD_FAULTS = ("pad-from-next-head", "second-box-dropped",
-              "third-box-dropped")
+              "third-box-dropped", "fourth-box-dropped")
 BOX = 64     # columns of the Hopper forward's TMA box
 
 
@@ -183,6 +186,14 @@ def forward_fault_inputs(q, k, v, fault):
     hd = q.shape[3]
     hdp = -(-hd // BOX) * BOX
     q, k, v = (t.float() for t in (q, k, v))
+    if fault == "fourth-box-dropped":
+        if hd <= 3 * BOX:
+            raise ValueError(f"hd {hd} takes at most three boxes: {fault} "
+                             f"cannot happen")
+        q, k, v = (t.clone() for t in (q, k, v))
+        for t in (q, k, v):
+            t[..., 3 * BOX:] = 0
+        return q, k, v
     if fault == "third-box-dropped":
         if hd <= 2 * BOX:
             raise ValueError(f"hd {hd} takes at most two boxes: {fault} "

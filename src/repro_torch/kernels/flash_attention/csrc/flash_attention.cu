@@ -18,9 +18,10 @@
 // variants; kernel.py::plan picks one before launch from the dtype, the
 // head dim and the strides, and neither falls back to the other.
 //
-// Hopper variant (bf16, hd 64, 120 or 128, or q/k at 192 with v/o at 128
-// (MLA), TMA-compatible strides: every serving call; hd 120 is stored and
-// multiplied at 128 columns, the last 8 of them zeros that TMA writes).
+// Hopper variant (bf16, hd 64, 120, 128 or 256, or q/k at 192 with v/o at
+// 128 (MLA), TMA-compatible strides: every serving call; hd 120 is stored
+// and multiplied at 128 columns, the last 8 of them zeros that TMA
+// writes; hd 256 runs 64-row kv tiles and one Q buffer).
 // Persistent blocks, one per SM, each
 // with a producer warpgroup and two consumer warpgroups of 64 query rows;
 // units of 128 query rows are handed out by an atomic counter, longest
@@ -38,7 +39,8 @@
 // the softmax is not wholly hidden behind them.  Details above its code,
 // below.  Training mode, a separate instantiation the serving calls never
 // run: the epilogue also writes each row's log-sum-exp, which the
-// backward's Hopper variant (flash_attention_bwd.cu) reads.
+// backward (flash_attention_bwd.cu) reads: its Hopper variant at hd 64
+// and 128, its general one at hd 256.
 //
 // General variant (every other call: f32, bf16 with other head dims or
 // strides TMA refuses).  Shared by its two paths:
@@ -551,7 +553,8 @@ bool aligned16(const void* ptr, long long sb, long long ss, long long sh) {
 // "full" barrier (the TMA bytes landed) and an "empty" one that every
 // consumer thread arrives on once the product that read it has completed
 // (K after S, V after P V).  A third stage measured no faster, and does
-// not fit beside the second Q tile.
+// not fit beside the second Q tile.  (MLA and hd 256 take one Q tile and
+// other kv tiles: below.)
 //
 // MLA (DeepSeek-V3's prefill: q and k 192 columns, 128 nope + 64 rope; v
 // and o 128) is the function of v zero-padded to 192 columns with o's
@@ -566,6 +569,18 @@ bool aligned16(const void* ptr, long long sb, long long ss, long long sh) {
 // buffers and 64-row kv tiles (S m64n64, P half as wide) in three stages
 // (216 KB), is timed beside it by experiments/time_flash_mla_tiles_torch.py
 // (PERF.md).
+//
+// hd 256 (gemma3-4b: 8 heads of 256, serving and training) takes
+// Hd256Tile: 64-row kv tiles, one Q buffer, two stages, 192 KB.  A Q tile
+// alone is 64 KB, so 128-row K and V tiles in two stages (256 KB) do not
+// fit beside it; and a consumer thread's O is 128 f32 registers, beside
+// which S and P of 64 keys (32 + 16) fit the 232 of CONSUMER_REGS, those
+// of 128 keys (64 + 32) do not.  S = Q K^T is m64n64k16 over 16 k steps
+// across four 64-column boxes; P V is m64n256k16 with V read MN-major
+// over four boxes (LBO = BK x 128 bytes).  With one Q buffer the next
+// unit's Q loads once this unit's last S has landed, as MlaTile's does.
+// Its training mode writes the LSE that the general backward reads at
+// hd 256 (kernel_bwd.py), in place of recomputing it.
 //
 // Tiles are TMA boxes of 64 columns (128 bytes, the widest swizzle) by
 // 128 rows, swizzled 128B; hd 128 is two boxes side by side, each box
@@ -666,6 +681,12 @@ using SquareTile = Tile<HD, HD, 128, 2, 2>;
 // two Q buffers and 64-row kv tiles in three stages (216 KB) measured
 // slower (PERF.md, experiments/time_flash_mla_tiles_torch.py).
 using MlaTile = Tile<192, 128, 128, 1, 2>;
+// hd 256 (gemma3): 64-row kv tiles, one Q buffer, two stages (64 + 2 x
+// (32 + 32) = 192 KB).  128-row kv tiles would need 320 KB with one Q
+// buffer, and a consumer thread's O alone is 128 f32 registers: beside
+// it S (32) and P (16) fit the 232 of CONSUMER_REGS, S and P of 128 keys
+// (64 and 32) would not.
+using Hd256Tile = Tile<256, 256, 64, 1, 2>;
 
 struct Params {
   __nv_bfloat16* o;
@@ -906,6 +927,66 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 256, f32) += A (64 x 16, bf16 in registers) B (16 x 256), B
+// from shared memory MN-major over four 64-column boxes (hd 256's P V).
+__device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // S = Q K^T's product at N = BK keys (both operands from shared memory)
 // and P V's at N = HDVP columns (P from registers).
 template <int N>
@@ -933,6 +1014,13 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
   wgmma_rs_m64n128(d, a, db);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n256(d, a, db);
 }
 
 template <>
@@ -1058,7 +1146,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
 
 // S = Q K^T for this consumer's 64 rows and one K stage: HDP / 16 k steps;
 // each moves 32 bytes along a 128-byte box row, and every 4th starts the
-// next 64-column box (the 5th the second, the 9th the third at hd 192).
+// next 64-column box (the 5th the second, the 9th the third at hd 192,
+// the 13th the fourth at hd 256).
 template <class T>
 __device__ __forceinline__ void qk_product(float (&sacc)[T::BK / 2],
                                            uint32_t q_rows, uint32_t k_tile) {
@@ -1074,7 +1163,8 @@ __device__ __forceinline__ void qk_product(float (&sacc)[T::BK / 2],
 }
 
 // O += P V for one V stage: BK / 16 k steps of 16 kv rows (2048 bytes);
-// the V tile's 64-column boxes lie BK x 128 bytes apart.
+// the V tile's 64-column boxes lie BK x 128 bytes apart (LBO), two of
+// them at hd 128, four at hd 256 (m64n256k16).
 template <class T>
 __device__ __forceinline__ void pv_product(float (&o)[T::HDVP / 2],
                                            const uint32_t (&pa)[T::BK / 16][4],
@@ -1519,15 +1609,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The Hopper variant, bf16 only: (hd, dv) (64, 64), (120, 120), (128, 128)
-// or (192, 128) (MLA: q and k 192 columns, v and o 128); q/k/v 16-byte
-// aligned with (batch, seq, head) strides that are multiples of 8
+// The Hopper variant, bf16 only: (hd, dv) (64, 64), (120, 120), (128, 128),
+// (192, 128) (MLA: q and k 192 columns, v and o 128) or (256, 256); q/k/v
+// 16-byte aligned with (batch, seq, head) strides that are multiples of 8
 // elements; o contiguous.  strides as above.  lse: null (serving), or
-// (training mode, hd = dv = 64 or 128 only: the Hopper backward takes no
-// other) f32 (b, h, lse_stride) with lse_stride >= sq, where each row's
-// log-sum-exp is written.  counter: one int in device memory, 0.  Returns
-// a cudaError_t (0 = launched), or 1000 + the CUresult of a tensor map
-// that failed to encode, or 2000 if libcuda has no cuTensorMapEncodeTiled.
+// (training mode, hd = dv = 64, 128 or 256 only: the head dims a main
+// path trains at) f32 (b, h, lse_stride) with lse_stride >= sq, where
+// each row's log-sum-exp is written.  counter: one int in device memory,
+// 0.  Returns a cudaError_t (0 = launched), or 1000 + the CUresult of a
+// tensor map that failed to encode, or 2000 if libcuda has no
+// cuTensorMapEncodeTiled.
 extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
                                           const void* v, void* o, int b,
                                           int sq, int skv, int h, int hd,
@@ -1536,7 +1627,8 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
                                           int window, float softcap,
                                           float* lse, long long lse_stride,
                                           int* counter, void* stream) {
-  const bool square = hd == dv && (hd == 64 || hd == 120 || hd == 128);
+  const bool square =
+      hd == dv && (hd == 64 || hd == 120 || hd == 128 || hd == 256);
   const bool training = square && hd != 120;
   if (!(square || (hd == 192 && dv == 128)) || (lse != nullptr && !training))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1553,7 +1645,9 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
   hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (encode == nullptr) return 2000;
   // kv rows of a K or V box: the tile's
-  const int bk = hd == 192 ? hopper::MlaTile::BK : hopper::SquareTile<128>::BK;
+  const int bk = hd == 192   ? hopper::MlaTile::BK
+                 : hd == 256 ? hopper::Hd256Tile::BK
+                             : hopper::SquareTile<128>::BK;
   CUtensorMap mq, mk, mv;
   CUresult res = hopper::make_map(&mq, encode, q, b, sq, h, hd, strides[0],
                                   strides[1], strides[2], hopper::BQ);
@@ -1588,6 +1682,7 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
   p.cap_in = softcap != 0.f ? scale / softcap : 0.f;
   p.cap_out = softcap * hopper::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using hopper::Hd256Tile;
   using hopper::SquareTile;
   cudaError_t err;
   if (hd == 64)
@@ -1600,6 +1695,10 @@ extern "C" int flash_attention_fwd_hopper(const void* q, const void* k,
   else if (hd == 192)   // serving only
     err = hopper::launch_serving<hopper::MlaTile>(mq, mk, mv, p, b, softcap,
                                                   s);
+  else if (hd == 256)
+    err = softcap != 0.f
+              ? hopper::launch_lse<Hd256Tile, true>(mq, mk, mv, p, b, s)
+              : hopper::launch_lse<Hd256Tile, false>(mq, mk, mv, p, b, s);
   else
     err = softcap != 0.f
               ? hopper::launch_lse<SquareTile<128>, true>(mq, mk, mv, p, b, s)

@@ -24,7 +24,9 @@
 // any strides with head-dim stride 1):
 //   (a) stats: one block per (q tile, head, batch); recomputes each row's
 //       log-sum-exp over the kv tiles the forward visits, and D, in f32,
-//       into (b, h, sq) scratch;
+//       into (b, h, ls) scratch; where the caller hands it the forward's
+//       LSE (bf16 at hd 256, whose Hopper forward has a training mode),
+//       it computes D alone and (b), (c) read the forward's LSE;
 //   (b) dK/dV: one block per (kv tile, head, batch); walks the q tiles
 //       that see its kv tile (the forward's causal and window tile
 //       skipping, turned around), recomputes S and P = exp(S - LSE), and
@@ -67,8 +69,9 @@
 // shape (4, 2048, 36, 64) bf16 causal 193 GFLOP, 0.196 ms at 989 TFLOP/s,
 // above its 302 MB of q/k/v/o/dO/dq/dk/dv (0.090 ms).  The general
 // variant computes 8 (S in all three kernels, dP in two), 12 with
-// col_split 2; the Hopper one 7 (S and dP in both of its product
-// kernels), a floor of 0.274 ms.  Measured times stand in PERF.md.
+// col_split 2, 11 with the forward's LSE at hd 256 (no S in stats); the
+// Hopper one 7 (S and dP in both of its product kernels), a floor of
+// 0.274 ms.  Measured times stand in PERF.md.
 //
 // Built with nvcc into a shared library with a plain C interface, loaded
 // with ctypes; each entry point returns a cudaError_t (the Hopper one
@@ -96,8 +99,10 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  float* lse;     // (b, h, sq) f32 scratch
-  float* delta;   // (b, h, sq) f32 scratch
+  float* lse;     // (b, h, ls) f32: scratch, or the forward's (lse_in)
+  float* delta;   // (b, h, ls) f32 scratch
+  long long ls;   // row stride of lse and delta, at least sq
+  int lse_in;     // lse holds the forward's: stats computes D alone
   int b, sq, skv, h, hd;
   int hdv;        // columns of v, o, dO and dv (<= hd)
   // (batch, seq, head) element strides of q, k, v, o, dO, dq, dk, dv
@@ -178,10 +183,10 @@ __device__ __forceinline__ float masked_score(const Params& p, float x,
   return ok ? x : NEG_INF;
 }
 
-// Offset of (batch, head) in the (b, h, sq) statistics.
+// Offset of (batch, head) in the (b, h, ls) statistics.
 __device__ __forceinline__ long long stat_base(const Params& p, int bb,
                                                int hh) {
-  return (static_cast<long long>(bb) * p.h + hh) * p.sq;
+  return (static_cast<long long>(bb) * p.h + hh) * p.ls;
 }
 
 // D = rowsum(dO * o) over v's columns of the R-row q tile at q0, one warp
@@ -689,17 +694,16 @@ __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst,
   }
 }
 
+// Each row's LSE of the q tile at q0, recomputed: a third S = Q K^T over
+// the kv tiles the forward visits.
 template <int HDP>
-__global__ void __launch_bounds__(MMA_THREADS)
-    bwd_stats_bf16(const Params p) {
+__device__ void stats_lse_bf16(const Params& p, int q0, int bb, int hh) {
   constexpr int LD = mma_ld<HDP>();
   extern __shared__ float4 smem4[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* ks = qs + BQ * LD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int hh = blockIdx.y, bb = blockIdx.z;
   const bool vec = p.vec != 0;
   load_tile_bf16<HDP>(qs, slice<__nv_bfloat16>(p, p.q, Q, bb, hh),
                       p.s[Q][1], q0, p.sq, p.hd, vec);
@@ -750,6 +754,17 @@ __global__ void __launch_bounds__(MMA_THREADS)
         p.lse[stat_base(p, bb, hh) + row] = m[half] + logf(l[half]);
     }
   }
+}
+
+// Each row's LSE and D.  LSE_IN: the caller handed the forward's LSE (its
+// training mode, at hd 256), so the S loop and the LSE store are skipped
+// and D alone is written.
+template <int HDP, bool LSE_IN>
+__global__ void __launch_bounds__(MMA_THREADS)
+    bwd_stats_bf16(const Params p) {
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  if constexpr (!LSE_IN) stats_lse_bf16<HDP>(p, q0, bb, hh);
   tile_delta<__nv_bfloat16, BQ>(p, q0, bb, hh);
 }
 
@@ -936,8 +951,10 @@ cudaError_t launch_bf16(const Params& p, int which, cudaStream_t stream) {
   const dim3 kgrid((p.skv + BK - 1) / BK, p.h, p.b);
   cudaError_t err = cudaSuccess;
   if (which & 1)
-    err = launch_one(bwd_stats_bf16<HDP>, qgrid, MMA_THREADS, 2 * tk,
-                     stream, p);
+    err = p.lse_in ? launch_one(bwd_stats_bf16<HDP, true>, qgrid,
+                                MMA_THREADS, 0, stream, p)
+                   : launch_one(bwd_stats_bf16<HDP, false>, qgrid,
+                                MMA_THREADS, 2 * tk, stream, p);
   if (err == cudaSuccess && (which & 2))
     err = launch_one(bwd_dkdv_bf16<HDP, DVP>, kgrid, threads,
                      2 * (tk + tv) + 2 * BQ * static_cast<int>(sizeof(float)),
@@ -2090,7 +2107,10 @@ cudaError_t launch_preprocess(const void* o, const void* dout, float* delta,
 
 // dtype: 0 = float32, 1 = bfloat16, for every tensor.  q/k/v/o/dout are
 // read, dq/dk/dv written (shapes of q, k, v); q and k have hd columns, v,
-// o, dout and dv hdv; lse and delta are (b, h, sq) f32 scratch.  strides:
+// o, dout and dv hdv; lse and delta are (b, h, ls) f32, ls >= sq: both
+// scratch the stats kernel writes, or (lse_in, bf16 only) lse the
+// forward's training-mode log-sum-exp, which the stats kernel then does
+// not recompute (it writes delta alone).  strides:
 // 24 element strides, the (batch, seq, head) strides of q, k, v, o, dout,
 // dq, dk, dv in that order; the head-dim stride of each must be 1.  hd <=
 // 256, 1 <= hdv <= hd.  which: the kernels to launch (1
@@ -2100,13 +2120,15 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, float* lse, float* delta,
+                                   long long ls, int lse_in,
                                    int dtype, int b, int sq, int skv, int h,
                                    int hd, int hdv,
                                    const long long* strides,
                                    float scale, int causal, int window,
                                    float softcap, int which, void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || hd < 1 || hd > 256 || hdv < 1 ||
-      hdv > hd || (window > 0 && sq > skv + window - 1))
+      hdv > hd || (window > 0 && sq > skv + window - 1) || ls < sq ||
+      (lse_in && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -2119,6 +2141,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.dv = dv;
   p.lse = lse;
   p.delta = delta;
+  p.ls = ls;
+  p.lse_in = lse_in;
   p.b = b;
   p.sq = sq;
   p.skv = skv;

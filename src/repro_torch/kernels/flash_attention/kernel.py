@@ -22,8 +22,8 @@ dim and the strides (a dispatch by shape; neither is a fallback for the
 other, and a failed build, tensor-map encode or launch raises):
 
 * ``"hopper"``: bf16 with (hd, dv) in ``HOPPER_HEAD_DIM_PAIRS`` and
-  strides TMA takes (every serving call).  Persistent blocks of one
-  producer warpgroup, which streams Q, K and V by TMA into double-buffered
+  strides TMA takes (every call of the main paths).  Persistent blocks of
+  one producer warpgroup, which streams Q, K and V by TMA into double-buffered
   shared memory guarded by mbarriers, and two consumer warpgroups of 64
   query rows each, which take turns at S = Q K^T and O += P V as wgmma (P
   from registers) and run the softmax in the log2 domain, with masks only
@@ -35,7 +35,11 @@ other, and a failed build, tensor-map encode or launch raises):
   epilogue stores only the first 120 columns of O.  MLA's (192, 128)
   multiplies q·k over three 64-column boxes a row and P V at hd 128's
   width, with one Q buffer so that its tiles fit in shared memory (serving
-  only).
+  only).  hd 256 (gemma3-4b) takes 64-row kv tiles and one Q buffer: a
+  128 x 256 Q tile is 64 KB, so 128-row K and V tiles in two stages
+  would need 320 KB of the 227 a block has, and a consumer thread's O
+  at 256 columns is 128 f32 registers, beside which only a 64-key S and P
+  fit; S = Q K^T runs over four 64-column boxes, P V as m64n256k16.
 * ``"general"``: everything else (f32, other head dims up to 256, any dv
   <= hd, bf16 strides TMA refuses).  bf16 goes through mma.sync
   tensor-core products from 4 warps, f32 through FMAs on the CUDA cores
@@ -43,12 +47,13 @@ other, and a failed build, tensor-map encode or launch raises):
   between barriers, without overlap.  It is what every call took before
   the Hopper variant was added.
 
-Training mode (``lse``, Hopper variant at hd 64 and 128 only, the head
-dims of the Hopper backward): the same kernel, a separate instantiation,
-also writes each row's log-sum-exp (natural log units, the
-scale and softcap folded in) for the backward's Hopper variant
-(``kernel_bwd.py``), which then needs no third S = Q K^T.  Serving passes
-no buffer and runs the instantiation it ran before.
+Training mode (``lse``, Hopper variant at hd = dv in ``LSE_HEAD_DIMS``,
+64, 128 and 256, the head dims the main paths train at): the same
+kernel, a separate instantiation, also writes each row's log-sum-exp
+(natural log units, the scale and softcap folded in) for the backward
+(``kernel_bwd.py``), which then needs no third S = Q K^T: its Hopper
+variant at hd 64 and 128, its general one at hd 256.  Serving passes no
+buffer and runs the instantiation it ran before.
 
 Both skip tiles above the causal diagonal or before the window (half the
 work at s = 1024) and schedule the longest q tiles first.  Measured times
@@ -77,8 +82,14 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("hopper", "general")
 # (q·k head dim, v/o head dim) pairs of the Hopper variant; (192, 128) is
 # deepseek-v3-671b's MLA prefill (128 nope + 64 rope, v 128)
-HOPPER_HEAD_DIM_PAIRS = ((64, 64), (120, 120), (128, 128), (192, 128))
+HOPPER_HEAD_DIM_PAIRS = ((64, 64), (120, 120), (128, 128), (192, 128),
+                         (256, 256))
 HOPPER_HEAD_DIMS = tuple(dict.fromkeys(hd for hd, _ in HOPPER_HEAD_DIM_PAIRS))
+# head dims (hd = dv) at which the Hopper variant has a training mode
+# (writes the LSE): those of the Hopper backward (64, 128) and gemma3's
+# 256, whose general backward reads it; not hd 120 or MLA's (192, 128),
+# which no main path trains at
+LSE_HEAD_DIMS = (64, 128, 256)
 HOPPER_BQ = 128   # query rows of a Hopper unit of work
 # rows of a (batch, head) in an LSE buffer: sq rounded up to this, so that
 # the backward's 64- and 128-row slices of it are whole and 16-byte aligned
@@ -133,7 +144,8 @@ def plan(q, k, v) -> str:
     """Which variant a call takes, from what the tensors are (dtype, head
     dims, strides, alignment), before any launch: "hopper" for bf16 with
     (hd, dv) in ``HOPPER_HEAD_DIM_PAIRS`` (64, 64), (120, 120), (128, 128),
-    (192, 128) whose q/k/v TMA can read and
+    (192, 128), (256, 256) whose q/k/v TMA can read (an expanded GQA
+    view's stride-0 heads included) and
     whose units of work (q tiles x batch x heads) an int counts; "general"
     for everything else.  hd 120's head stride of 240 bytes is a multiple
     of 16, so h2o-danube-3-4b's contiguous q/k/v (and a (b, s, h, 128)
@@ -145,6 +157,13 @@ def plan(q, k, v) -> str:
               and -(-sq // HOPPER_BQ) * b * h < 2 ** 31
               and all(_tma_ok(t) for t in (q, k, v)))
     return "hopper" if hopper else "general"
+
+
+def writes_lse(q, k, v) -> bool:
+    """Whether a call's forward writes an LSE in training mode: it takes
+    the Hopper variant at hd = dv in ``LSE_HEAD_DIMS``."""
+    return (plan(q, k, v) == "hopper" and q.shape[3] in LSE_HEAD_DIMS
+            and v.shape[3] == q.shape[3])
 
 
 def lse_buffer(q):
@@ -172,9 +191,8 @@ def flash_attention_cuda(q, k, v, variant, *, causal=True, window=0,
     checked device, dtype and shapes and chosen the variant (``plan``); the
     Hopper variant raises on what it does not take rather than run
     another.  ``lse``: a ``lse_buffer(q)`` into which the Hopper variant
-    also writes each row's log-sum-exp (training mode, at the Hopper
-    backward's head dims, ``kernel_bwd.HOPPER_HEAD_DIMS``, with dv = hd);
-    the general variant takes none."""
+    also writes each row's log-sum-exp (training mode, at hd = dv in
+    ``LSE_HEAD_DIMS``); the general variant takes none."""
     if variant not in VARIANTS:
         raise ValueError(f"no flash attention variant {variant!r}")
     b, sq, h, hd = q.shape
@@ -182,14 +200,9 @@ def flash_attention_cuda(q, k, v, variant, *, causal=True, window=0,
         raise ValueError(f"lse must be a contiguous f32 (b, h, rows) buffer "
                          f"from lse_buffer(q) for the hopper variant; got "
                          f"{variant!r}, {tuple(lse.shape)} {lse.dtype}")
-    if lse is not None:
-        # kernel_bwd imports this module: only a training call reads it
-        from repro_torch.kernels.flash_attention import kernel_bwd
-        if hd not in kernel_bwd.HOPPER_HEAD_DIMS or v.shape[3] != hd:
-            raise ValueError(
-                f"the hopper forward writes an lse only at hd = dv in "
-                f"{kernel_bwd.HOPPER_HEAD_DIMS} (the hopper backward's), "
-                f"not ({hd}, {v.shape[3]})")
+    if lse is not None and (hd not in LSE_HEAD_DIMS or v.shape[3] != hd):
+        raise ValueError(f"the hopper forward writes an lse only at hd = "
+                         f"dv in {LSE_HEAD_DIMS}, not ({hd}, {v.shape[3]})")
     skv, dv = k.shape[1], v.shape[3]
     o = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(

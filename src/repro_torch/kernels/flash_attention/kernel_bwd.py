@@ -28,13 +28,16 @@ tensor-map encode or launch raises):
 * ``"general"``: everything else (f32, any hd up to 256 but 64 and 128
   in bf16, v narrower than q and k, strides TMA refuses): hd 120 and
   MLA's (192, 128) too, though their forwards take the forward's Hopper
-  variant (no LSE).  The first design: (a) stats, each row's LSE (a
-  third S = Q K^T) and D; (b) dK/dV per 64-row kv tile; (c) dQ per
-  64-row q tile; bf16 through mma.sync, f32 through FMAs on the CUDA
-  cores, tiles loaded between barriers.  Above hd 128 bf16 runs two warps
-  a 16-row slice, each owning half the gradient's columns (S and dP
-  computed by both), and f32 takes 32-row tiles.  7 products a pair in
-  (b) and (c) and 1 in stats; 11 in (b) and (c) above hd 128 in bf16.
+  variant (no LSE), and hd 256 (gemma3-4b), whose Hopper forward writes
+  the LSE in training mode.  The first design: (a) stats, each row's LSE
+  (a third S = Q K^T) and D, or D alone where the caller hands it the
+  forward's LSE (bf16, ``lse``); (b) dK/dV per 64-row kv tile; (c) dQ
+  per 64-row q tile, both reading the LSE; bf16 through mma.sync, f32
+  through FMAs on the CUDA cores, tiles loaded between barriers.  Above
+  hd 128 bf16 runs two warps a 16-row slice, each owning half the
+  gradient's columns (S and dP computed by both), and f32 takes 32-row
+  tiles.  7 products a pair in (b) and (c) and 1 in stats (none with the
+  forward's LSE); 11 in (b) and (c) above hd 128 in bf16.
   D, dP and dV run over v's dv columns.
 
 What bounds it on an H100 at the training shape, (4, 2048, 36, 64) bf16
@@ -75,10 +78,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # tile by kernel and head dim (its DkdvCfg / DqCfg::RING): 128 where the
 # accumulators fit a consumer's registers, 64 for dK/dV at hd 128
 HOPPER_UNIT_ROWS = 128
-# the Hopper backward's head dims, and so those at which the forward's
-# Hopper variant has a training mode (writes the LSE): that variant also
-# takes hd 120, whose backward stays on the general variant (no main path
-# trains at hd 120)
+# the Hopper backward's head dims; the forward's training mode
+# (``kernel.LSE_HEAD_DIMS``) also takes 256, whose backward is general
 HOPPER_HEAD_DIMS = (64, 128)
 HOPPER_RING_ROWS = {"dkdv": {64: 128, 128: 64}, "dq": {64: 128, 128: 128}}
 
@@ -97,7 +98,8 @@ def library():
     tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.flash_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + tail)
+        [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+        + tail)
     lib.flash_attention_bwd_hopper.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 5
         + tail)
@@ -116,8 +118,10 @@ def plan(q, k, v, o=None) -> str:
     (the forward's own o always is); "general" for everything else, hd
     120 and MLA's (192, 128) included, whose forwards still take the
     Hopper variant (serving instantiations, no LSE), and every hd above
-    128.  dO never changes the route: one TMA refuses is copied to
-    contiguous by the caller (``dout_ok``, ``ops._FlashAttention``).
+    128: at hd 256 the forward's Hopper variant writes the LSE
+    (``kernel.writes_lse``), which the general route then reads.  dO
+    never changes the route: one TMA refuses is copied to contiguous by
+    the caller (``dout_ok``, ``ops._FlashAttention``).
     Works on tensors of any device, the meta device included."""
     hopper = (kernel.plan(q, k, v) == "hopper"
               and q.shape[3] in HOPPER_HEAD_DIMS
@@ -157,9 +161,9 @@ def launch(q, k, v, o, do, variant, *, lse=None, causal=True, window=0,
     default) of ``variant`` on the current stream.  Returns (dq, dk, dv,
     lse, delta): the gradients, contiguous, in the dtypes of q, k, v, and
     the (b, h, rows) f32 statistics (the general variant's stats kernel
-    writes both, the Hopper one reads the forward's ``lse`` and writes
-    delta).  A tensor a skipped kernel would have written is left
-    unwritten."""
+    writes both unless it is handed the forward's ``lse``, bf16 only; the
+    Hopper one always reads the forward's ``lse`` and writes delta).  A
+    tensor a skipped kernel would have written is left unwritten."""
     run, outs = launcher(q, k, v, o, do, variant, lse=lse, causal=causal,
                          window=window, softcap=softcap, kernels=kernels)
     run()
@@ -182,6 +186,7 @@ def launcher(q, k, v, o, do, variant, *, lse=None, causal=True, window=0,
     which = sum(1 << KERNELS[variant].index(n) for n in set(names))
     b, sq, h, hd = q.shape
     skv = k.shape[1]
+    lse_in = lse is not None
     if variant == "hopper":
         if (q.dtype != torch.bfloat16 or hd not in HOPPER_HEAD_DIMS
                 or v.shape[3] != hd or lse is None
@@ -192,12 +197,14 @@ def launcher(q, k, v, o, do, variant, *, lse=None, causal=True, window=0,
                 f"(kernel.lse_buffer); got {q.dtype}, hd {hd}, dv "
                 f"{v.shape[3]}, lse "
                 f"{None if lse is None else tuple(lse.shape)}")
-        delta = torch.empty_like(lse)
-    else:
-        if lse is not None:
-            raise ValueError("the general backward computes its own lse")
+    elif lse_in and (q.dtype != torch.bfloat16
+                     or not kernel.lse_fits(lse, q)):
+        raise ValueError(f"the general backward reads a forward's lse in "
+                         f"bf16 only, from kernel.lse_buffer; got {q.dtype}, "
+                         f"lse {tuple(lse.shape)} {lse.dtype}")
+    elif not lse_in:
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        delta = torch.empty_like(lse)
+    delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
     tensors = (q, k, v, o, do, dq, dk, dv)
@@ -214,8 +221,8 @@ def launcher(q, k, v, o, do, variant, *, lse=None, causal=True, window=0,
         args = (*ptrs, lse.shape[2], b, sq, skv, h, hd, *tail, stream)
     else:
         fn = library().flash_attention_bwd
-        args = (*ptrs, DTYPES[q.dtype], b, sq, skv, h, hd, v.shape[3],
-                *tail, stream)
+        args = (*ptrs, lse.shape[2], int(lse_in), DTYPES[q.dtype], b, sq,
+                skv, h, hd, v.shape[3], *tail, stream)
 
     def run():
         err = fn(*args)
@@ -239,7 +246,8 @@ def flash_attention_bwd_cuda(q, k, v, o, do, variant, *, lse=None,
     sq, h, hd), k (b, skv, h, hd), v (b, skv, h, dv) and o/do (b, sq, h,
     dv) with dv <= hd, on one card, in one dtype of ``DTYPES``, hd at most
     ``MAX_HEAD_DIM``, head-dim stride 1; "hopper" also needs bf16, dv = hd
-    of 64 or 128, strides TMA reads and the forward's ``lse``.  Else it
-    raises."""
+    of 64 or 128, strides TMA reads and the forward's ``lse``; "general"
+    reads the forward's ``lse`` where it is given one (bf16), else
+    recomputes it.  Else it raises."""
     return launch(q, k, v, o, do, variant, lse=lse, causal=causal,
                   window=window, softcap=softcap)[:3]

@@ -11,8 +11,11 @@ forward kernel has two variants; ``kernel.plan`` picks one before launch
 from dtype, head dim and strides.  So does the backward:
 ``kernel_bwd.plan`` picks its route when the forward runs, since only the
 forward's Hopper variant, in training mode, writes the log-sum-exp the
-Hopper backward reads (saved with ``save_for_backward``, so a layer
-recomputed under activation checkpointing recomputes it too).
+Hopper backward reads.  Wherever the forward writes one
+(``kernel.writes_lse``: the Hopper variant at hd 64, 128 and 256) it is
+saved with ``save_for_backward`` (so a layer recomputed under activation
+checkpointing recomputes it too) and handed to the backward on either
+route: at hd 256 the general route reads it instead of recomputing it.
 
 v may be narrower than q and k (dv < hd: MLA's v at 128 columns beside
 q·k's 192).  The function is then the TPU kernel's on v zero-padded to hd,
@@ -28,8 +31,10 @@ variant each took; ``launches_bwd`` counts backward kernel launches,
 three a call of either variant (``kernel_bwd.KERNELS``: preprocess, dK/dV
 and dQ for "hopper"; stats, dK/dV and dQ for "general");
 ``launches_bwd_by_variant`` counts the same launches by variant;
-``bwd_dout_copies`` counts the dOs the Hopper route copied because TMA
-could not read them.
+``bwd_calls_by_lse`` counts backward calls by where their LSE came from
+("forward": the forward's training mode; "recomputed": the general
+stats kernel's third S = Q K^T); ``bwd_dout_copies`` counts the dOs the
+Hopper route copied because TMA could not read them.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ launches = 0
 launches_by_variant = dict.fromkeys(kernel.VARIANTS, 0)
 launches_bwd = 0
 launches_bwd_by_variant = dict.fromkeys(kernel_bwd.VARIANTS, 0)
+bwd_calls_by_lse = {"forward": 0, "recomputed": 0}
 bwd_dout_copies = 0
 
 
@@ -117,14 +123,17 @@ def _forward(q, k, v, kw, lse=None):
 class _FlashAttention(torch.autograd.Function):
     """Forward and backward kernels of one CUDA call, on the route
     ``kernel_bwd.plan`` picks before the forward.  Saves q, k, v (as the
-    views they are) and the output, and on the "hopper" route the
-    forward's LSE."""
+    views they are) and the output, and the forward's LSE wherever it
+    writes one (always on the "hopper" route, at hd 256 on the "general"
+    one)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw):
         ctx.route = kernel_bwd.plan(q, k, v)
         ctx.kw = kw
-        if ctx.route == "hopper":
+        # the Hopper route needs the LSE; the general one reads it where
+        # the forward writes one anyway
+        if ctx.route == "hopper" or kernel.writes_lse(q, k, v):
             lse = kernel.lse_buffer(q)
             out = _forward(q, k, v, kw, lse=lse)
             ctx.save_for_backward(q, k, v, out, lse)
@@ -148,4 +157,5 @@ class _FlashAttention(torch.autograd.Function):
         n = len(kernel_bwd.KERNELS[ctx.route])
         launches_bwd += n
         launches_bwd_by_variant[ctx.route] += n
+        bwd_calls_by_lse["forward" if lse else "recomputed"] += 1
         return dq, dk, dv, None

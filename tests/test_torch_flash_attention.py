@@ -277,6 +277,8 @@ def test_plan_of_the_models_own_qkv_is_hopper(arch):
     "f32-k",
 ])
 def test_plan_picks_general_for_what_tma_or_wgmma_refuse(case):
+    """hd 256 with v narrower than q and k has no Hopper instantiation
+    (the Hopper variant takes (256, 256) alone)."""
     b, s, h, hd = 2, 64, 4, 128
     q = k = v = meta((b, s, h, hd))
     if case == "f32":
@@ -287,6 +289,8 @@ def test_plan_picks_general_for_what_tma_or_wgmma_refuse(case):
         else:
             n = int(case[2:])
             q = k = v = meta((b, s, h, n))
+            if n == 256:
+                v = meta((b, s, h, 128))
     elif case == "head-stride-not-16-bytes":      # 132 x 2 bytes a head
         q = meta((b, s, h, hd), (s * h * 132, h * 132, 132, 1))
     elif case == "seq-stride-not-16-bytes":
@@ -315,15 +319,27 @@ def test_plan_mirrors_the_kernel_source():
     hopper = src[src.index("namespace hopper {"):]
     assert "constexpr int BQ = %d;" % tK.HOPPER_BQ in hopper
     # the Hopper entry takes exactly HOPPER_HEAD_DIM_PAIRS; training mode
-    # (an lse) at hd = dv = 64 and 128 alone
-    assert ("const bool square = hd == dv && (hd == 64 || hd == 120 || "
-            "hd == 128);") in hopper
+    # (an lse) at hd = dv in LSE_HEAD_DIMS (64, 128, 256) alone
+    assert ("const bool square =\n      hd == dv && (hd == 64 || hd == 120 "
+            "|| hd == 128 || hd == 256);") in hopper
     assert "const bool training = square && hd != 120;" in hopper
     assert ("if (!(square || (hd == 192 && dv == 128)) || (lse != nullptr "
             "&& !training))") in hopper
     assert tK.HOPPER_HEAD_DIM_PAIRS == ((64, 64), (120, 120), (128, 128),
-                                        (192, 128))
-    assert tK.HOPPER_HEAD_DIMS == (64, 120, 128, 192)
+                                        (192, 128), (256, 256))
+    assert tK.HOPPER_HEAD_DIMS == (64, 120, 128, 192, 256)
+    assert tK.LSE_HEAD_DIMS == (64, 128, 256)
+    assert set(tK.LSE_HEAD_DIMS) == {hd for hd, dv in tK.HOPPER_HEAD_DIM_PAIRS
+                                     if hd == dv and hd != 120}
+    # hd 256: 64-row kv tiles, one Q buffer, two stages; its K and V
+    # boxes take the tile's rows; serving and training, softcap both ways
+    assert "using Hd256Tile = Tile<256, 256, 64, 1, 2>;" in hopper
+    assert ": hd == 256 ? hopper::Hd256Tile::BK" in hopper
+    assert "using hopper::Hd256Tile;" in hopper
+    for cap in ("true", "false"):
+        assert f"hopper::launch_lse<Hd256Tile, {cap}>" in hopper
+    assert "void wgmma_rs<256>(float (&d)[128]," in hopper
+    assert "m64n256k16.f32.bf16.bf16" in hopper
     # hd 120 and MLA's (192, 128): the serving instantiations only, both
     # with and without a softcap, padded to whole TMA boxes
     assert "hopper::launch_serving<SquareTile<120>>" in hopper
@@ -670,17 +686,18 @@ def test_stale_stage_fault_touches_only_dk_dv():
 
 
 # (hd, dv) at which chip_smoke.py shows each forward fault: hd 120's
-# partial box, MLA's third q/k box
+# partial box, MLA's third q/k box, hd 256's fourth box
 FWD_FAULT_DIMS = {"pad-from-next-head": (120, 120),
                   "second-box-dropped": (120, 120),
-                  "third-box-dropped": (192, 128)}
+                  "third-box-dropped": (192, 128),
+                  "fourth-box-dropped": (256, 256)}
 
 
 @pytest.mark.parametrize("fault", tchecks.FWD_FAULTS)
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (64, 0.0), (0, 30.0)])
 def test_forward_faults_exceed_the_limits(fault, window, softcap):
     """Each forward fault chip_smoke.py holds the Hopper forward against
-    (at hd 120, or at MLA's (192, 128)) fails the elementwise check and
+    (at hd 120, MLA's (192, 128) or hd 256) fails the elementwise check and
     lands far past the row limit (bf16's 1e-2, as on the card), on peaked
     inputs as there."""
     rng = np.random.default_rng(8)
@@ -726,6 +743,9 @@ def test_forward_faults_need_a_partial_box():
         tchecks.forward_fault_inputs(q, k, v, "second-box-dropped")
     with pytest.raises(ValueError, match="at most two boxes"):
         tchecks.forward_fault_inputs(q, k, v, "third-box-dropped")
+    _, (q, k, v) = qkv((1, 16, 2, 192))
+    with pytest.raises(ValueError, match="at most three boxes"):
+        tchecks.forward_fault_inputs(q, k, v, "fourth-box-dropped")
     with pytest.raises(ValueError, match="no forward fault"):
         tchecks.forward_fault_inputs(q, k, v, "lost-tile")
 
@@ -848,10 +868,16 @@ def test_bwd_plan_routes(case, route):
         do = meta((b, s, h, hd), (s * h * hd * 2, h * hd * 2, hd * 2, 2))
         assert not tKB.dout_ok(do)
     assert tKB.plan(q, k, v, o) == route
-    if route == "hopper" or case in ("hd120", "mla-192-128"):
-        # hd 120, MLA: the Hopper forward (no LSE), the general backward
+    if route == "hopper" or case in ("hd120", "mla-192-128", "hd256"):
+        # hd 120, MLA: the Hopper forward (no LSE), the general backward;
+        # hd 256: the Hopper forward in training mode, whose LSE the
+        # general backward reads
         assert tK.plan(q, k, v) == "hopper"
-    if case in ("hd192", "hd256"):
+    if route == "hopper" or case == "hd256":
+        assert tK.writes_lse(q, k, v)
+    elif case in ("f32", "hd120", "hd32", "hd192", "mla-192-128"):
+        assert not tK.writes_lse(q, k, v)
+    if case == "hd192":
         assert tK.plan(q, k, v) == "general"
 
 
@@ -887,6 +913,18 @@ def test_bwd_plan_mirrors_the_kernel_source():
     fwd = tK.SOURCE.read_text()
     assert "template <class T, bool SOFTCAP, bool LSE>" in fwd
     assert "(m[h] + log2f(l[h])) / LOG2E" in fwd
+    # the general route reads the forward's LSE where it is handed one:
+    # stats computes D alone, every kernel reads lse and delta through
+    # the buffer's row stride
+    general = src[:src.index("namespace hopper {")]
+    assert "template <int HDP, bool LSE_IN>" in general
+    assert "if constexpr (!LSE_IN) stats_lse_bf16<HDP>(p, q0, bb, hh);" \
+        in general
+    assert ("err = p.lse_in ? launch_one(bwd_stats_bf16<HDP, true>, qgrid,"
+            in general)
+    assert "return (static_cast<long long>(bb) * p.h + hh) * p.ls;" in general
+    entry = src[src.index('extern "C" int flash_attention_bwd('):]
+    assert "ls < sq ||\n      (lse_in && dtype != 1))" in entry
 
 
 def test_bwd_general_head_dims_mirror_the_kernel_source():
@@ -980,14 +1018,27 @@ def _jax_twin_scores(q, k, *, causal, window, softcap):
     return jnp.where(mask[None, None], s, jA.NEG_INF)
 
 
-@pytest.mark.parametrize("shape,causal,window,softcap", BWD_GRID)
+# BWD_GRID, and hd 256 (gemma3-4b, whose Hopper forward writes the LSE
+# the general backward reads) with a window, a softcap and GQA: a sixth
+# entry of the shape, 1 KV head seen as all of q's (an expanded view, as
+# the model hands K1)
+LSE_GRID = BWD_GRID + [((1, 70, 70, 2, 256), True, 16, 0.0),
+                       ((1, 48, 48, 2, 256), True, 0, 30.0),
+                       ((1, 40, 40, 4, 256, 1), True, 0, 0.0)]
+
+
+@pytest.mark.parametrize("shape,causal,window,softcap", LSE_GRID)
 def test_attention_lse_matches_jax_logsumexp_of_the_twin(shape, causal,
                                                          window, softcap):
     """ref.attention_lse, what the forward's training mode writes and the
-    Hopper backward reads, against jax.nn.logsumexp of the reference
-    twin's masked, capped scores (f32, 2e-5)."""
+    backward reads, against jax.nn.logsumexp of the reference twin's
+    masked, capped scores (f32, 2e-5)."""
+    shape, kv_heads = shape[:5], shape[5:]
     (jq, jk, _, _), (q, k, _, _) = bwd_inputs(shape, seed=11)
     q, k, jq, jk = q * 4, k * 4, jq * 4, jk * 4     # peaked rows
+    if kv_heads:
+        jk = jnp.repeat(jk[:, :, :1], shape[3], axis=2)
+        k = k[:, :, :1].expand(k.shape)
     kw = dict(causal=causal, window=window, softcap=softcap)
     want = jax_logsumexp(_jax_twin_scores(jq, jk, **kw), axis=-1)
     got = attention_lse(q, k, **kw)
@@ -1026,15 +1077,18 @@ def _stand_ins(monkeypatch):
 @pytest.mark.parametrize("dtype,hd,route", [
     ("bfloat16", 64, "hopper"), ("bfloat16", 128, "hopper"),
     ("float32", 64, "general"), ("bfloat16", 32, "general"),
-    ("bfloat16", 120, "general"),
+    ("bfloat16", 120, "general"), ("bfloat16", 256, "general"),
 ])
-def test_function_saves_lse_exactly_on_the_hopper_route(monkeypatch, dtype,
-                                                        hd, route):
+def test_function_saves_lse_wherever_the_forward_writes_one(monkeypatch,
+                                                             dtype, hd,
+                                                             route):
     """_FlashAttention saves the forward's LSE through save_for_backward
-    when kernel_bwd.plan says "hopper", and hands it to the backward;
-    on the "general" route it saves none (hd 120: the forward still
-    takes its Hopper variant, without an LSE).  Launches count by
-    route."""
+    wherever its forward writes one (kernel.writes_lse: the Hopper
+    variant at hd 64, 128 and 256) and hands it to the backward: on the
+    "hopper" route, and on the "general" one at hd 256.  Elsewhere it
+    saves none (hd 120: the forward still takes its Hopper variant,
+    without an LSE).  Launches count by route, calls by where their LSE
+    came from."""
     calls = _stand_ins(monkeypatch)
     fwd_variants = []
     forward = tK.flash_attention_cuda
@@ -1047,16 +1101,19 @@ def test_function_saves_lse_exactly_on_the_hopper_route(monkeypatch, dtype,
     _, (q, k, v) = qkv((2, 40, 3, hd), dtype=dtype, seed=4)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     kw = dict(causal=True, window=0, softcap=0.0)
+    writes = route == "hopper" or hd == 256
+    assert tK.writes_lse(q, k, v) == writes
     before = dict(tops.launches_bwd_by_variant)
+    by_lse = dict(tops.bwd_calls_by_lse)
     o = tops._FlashAttention.apply(q, k, v, kw)
     saved = o.grad_fn.saved_tensors
     assert o.grad_fn.route == route
-    assert len(saved) == (5 if route == "hopper" else 4)
+    assert len(saved) == (5 if writes else 4)
     o.backward(torch.ones_like(o))
     (call,) = calls
     assert call["variant"] == route
-    assert fwd_variants == [(tK.plan(q, k, v), route == "hopper")]
-    if route == "hopper":
+    assert fwd_variants == [(tK.plan(q, k, v), writes)]
+    if writes:
         lse = saved[4]
         assert lse.shape == (2, 3, tK.LSE_ROW_ALIGN)
         assert call["lse"] is lse
@@ -1064,6 +1121,8 @@ def test_function_saves_lse_exactly_on_the_hopper_route(monkeypatch, dtype,
     else:
         assert call["lse"] is None
     assert tops.launches_bwd_by_variant[route] - before[route] == 3
+    source = "forward" if writes else "recomputed"
+    assert tops.bwd_calls_by_lse == {**by_lse, source: by_lse[source] + 1}
 
 
 def test_function_copies_a_dout_tma_refuses(monkeypatch):

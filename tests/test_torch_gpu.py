@@ -31,6 +31,8 @@ from repro_torch.kernels.flash_attention import kernel_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_ref)
+from repro_torch.kernels.flash_attention.ref import \
+    attention_lse as ref_lse  # noqa: E402
 from repro_torch.kernels.mamba_scan import checks as scan_checks  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
@@ -136,6 +138,13 @@ HOPPER_CASES = [
     ((2, 1, 1500, 6, 64), False, 0, 0.0, "plain"),
     # a mesh rank's local heads: mistral-nemo-12b's 16 of 32 on model = 2
     ((2, 1024, 1024, 16, 128), True, 0, 0.0, "plain"),
+    # hd 256 (gemma3-4b: 64-row kv tiles, one Q buffer, four TMA boxes a
+    # row): a ragged wave, sq != skv without the causal mask, a window
+    # that is no multiple of a kv tile, a (b, h, s, hd) storage
+    ((2, 333, 333, 4, 256), True, 0, 0.0, "plain"),
+    ((1, 200, 333, 4, 256), False, 0, 0.0, "plain"),
+    ((2, 700, 700, 2, 256), True, 257, 0.0, "plain"),
+    ((1, 300, 300, 4, 256), True, 0, 0.0, "strided"),
 ]
 # long windows, in bf16: hd 120 (h2o-danube-3-4b) and hd 128
 # (mixtral-8x7b), both on the Hopper variant, rows past the window, a
@@ -165,8 +174,8 @@ def test_kernel_matches_plain(cuda, shape, causal, window, softcap, layout,
                               dtype):
     q, k, v = _qkv(*shape, dtype, layout=layout)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    # the Hopper variant takes every bf16 call with hd 64, 120 or 128 here
-    # (v at hd, (hd, hd) in kernel.HOPPER_HEAD_DIM_PAIRS)
+    # the Hopper variant takes every bf16 call with hd 64, 120, 128 or 256
+    # here (v at hd, (hd, hd) in kernel.HOPPER_HEAD_DIM_PAIRS)
     variant = ("hopper" if dtype == torch.bfloat16
                and (shape[4], shape[4]) in kernel.HOPPER_HEAD_DIM_PAIRS
                else "general")
@@ -280,6 +289,10 @@ def test_hopper_variant_raises_on_what_it_does_not_take(cuda):
         kernel.flash_attention_cuda(q, k, v, "hopper",
                                     lse=kernel.lse_buffer(q))
     q, k, v = _qkv(1, 64, 64, 2, 192, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernel.flash_attention_cuda(q, k, v, "hopper")
+    # nor (256, 128): hd 256 is Hd256Tile's, v at 256 columns
+    q, k, v = _qkv(1, 64, 64, 2, 256, torch.bfloat16, dv=128)
     with pytest.raises(RuntimeError, match="CUDA error"):
         kernel.flash_attention_cuda(q, k, v, "hopper")
     assert ops.launches == before
@@ -1175,8 +1188,9 @@ def test_bwd_kernel_matches_plain(cuda, shape, causal, window, softcap,
                                   layout, dtype):
     """dq, dk, dv of each backward variant that takes the call (the
     general one always, the Hopper one where kernel_bwd.plan picks it,
-    with the forward's LSE) against attention_bwd_ref on f32 copies, row
-    by row at the forward's limits against each row's scale
+    with the forward's LSE; at hd 256 in bf16 the general one again,
+    reading the forward's LSE) against attention_bwd_ref on f32 copies,
+    row by row at the forward's limits against each row's scale
     (checks.bwd_row_scales, as chip_smoke.py); two calls bit-identical.
     hd 120 in bf16: the Hopper forward and the general backward."""
     q, k, v = _qkv(*shape, dtype, layout=layout, seed=3)
@@ -1190,19 +1204,21 @@ def test_bwd_kernel_matches_plain(cuda, shape, causal, window, softcap,
     do = torch.randn(q.shape, generator=torch.Generator(
         device="cuda").manual_seed(4), device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    variants = ["general"]
+    # (variant, reads the forward's LSE): the general one always without
+    # it, and with it where the forward writes one (hd 256 in bf16)
+    variants = [("general", False)]
     with torch.no_grad():
         o = ops.flash_attention(q, k, v, **kw)
         lse = None
-        if kernel_bwd.plan(q, k, v, o) == "hopper":
-            variants.append("hopper")
+        if kernel.writes_lse(q, k, v):
             lse = kernel.lse_buffer(q)
             kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse, **kw)
+            variants.append((kernel_bwd.plan(q, k, v, o), True))
         f32 = [t.float() for t in (q, k, v, o, do)]
         ref = attention_bwd_ref(*f32, **kw)
         scales = flash_checks.bwd_row_scales(*f32, **kw)
-        for variant in variants:
-            lv = lse if variant == "hopper" else None
+        for variant, with_lse in variants:
+            lv = lse if with_lse else None
             got = kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do,
                                                       variant, lse=lv, **kw)
             again = kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, do,
@@ -1262,8 +1278,19 @@ def test_hopper_bwd_matches_plain(cuda, shape, causal, window, softcap,
         assert flash_checks.grad_row_err(a, r, m) <= ROW_TOL[torch.bfloat16]
 
 
+# the forward's training mode at hd 256 (Hd256Tile), whose LSE the
+# general backward reads: a ragged wave, a softcap, a window that is no
+# multiple of a kv tile, sq != skv without the causal mask
+LSE_HD256_CASES = [
+    ((2, 333, 333, 4, 256), True, 0, 0.0, 2.0),
+    ((1, 300, 300, 4, 256), True, 0, 30.0, 6.0),
+    ((2, 700, 700, 2, 256), True, 257, 0.0, 2.0),
+    ((1, 200, 333, 4, 256), False, 0, 0.0, 2.0),
+]
+
+
 @pytest.mark.parametrize("shape,causal,window,softcap,qk_scale",
-                         HOPPER_BWD_CASES)
+                         HOPPER_BWD_CASES + LSE_HD256_CASES)
 def test_forward_lse_matches_the_stats_kernel(cuda, shape, causal, window,
                                               softcap, qk_scale):
     """The forward's training-mode LSE against the general backward's
@@ -1281,6 +1308,81 @@ def test_forward_lse_matches_the_stats_kernel(cuda, shape, causal, window,
                                   kernels=("stats",), **kw)[3]
     got = lse[..., :shape[1]]
     torch.testing.assert_close(got, stats, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,causal,window,softcap,qk_scale",
+                         LSE_HD256_CASES)
+@pytest.mark.parametrize("gqa", [False, True])
+def test_forward_lse_at_hd256_matches_plain(cuda, shape, causal, window,
+                                            softcap, qk_scale, gqa):
+    """The Hopper forward's LSE at hd 256 (k and v contiguous, or one KV
+    head seen as all of q's) against attention_lse on the same bf16
+    inputs, within 2e-5 + 2e-5 |lse| (f32 statistics; the products are
+    exact on both sides, only their sums' order differs); its rows past
+    sq stay unwritten."""
+    q, k, v = _qkv(*shape, torch.bfloat16, seed=13)
+    q, k = q * (qk_scale / 2), k * (qk_scale / 2)
+    if gqa:
+        k, v = (t[:, :, :1].expand(t.shape) for t in (k, v))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    assert kernel.plan(q, k, v) == "hopper" and kernel.writes_lse(q, k, v)
+    lse = kernel.lse_buffer(q).fill_(7.0)
+    with torch.no_grad():
+        kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse, **kw)
+        want = ref_lse(q, k, **kw)
+    torch.testing.assert_close(lse[..., :shape[1]], want, rtol=2e-5,
+                               atol=2e-5)
+    assert (lse[..., shape[1]:] == 7.0).all()
+
+
+def test_hd256_gradient_reads_the_forward_lse(cuda):
+    """A bf16 call at hd 256 that needs a gradient: the forward on the
+    Hopper variant in training mode (the LSE saved), the backward on the
+    general route's three kernels reading that LSE (counted under
+    "forward", none recomputed), its gradients those of
+    attention_bwd_ref row by row, and the same bits as the general
+    backward handed the same LSE directly."""
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 300, 300, 4, 256,
+                                                 torch.bfloat16, seed=14))
+    kw = dict(causal=True, window=100, softcap=0.0)
+    fwd = dict(ops.launches_by_variant)
+    bwd = dict(ops.launches_bwd_by_variant)
+    by_lse = dict(ops.bwd_calls_by_lse)
+    o = ops.flash_attention(q, k, v, **kw)
+    assert o.grad_fn.route == "general"
+    lse = o.grad_fn.saved_tensors[4]
+    do = torch.randn_like(o)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    assert ops.launches_by_variant == {**fwd, "hopper": fwd["hopper"] + 1}
+    assert ops.launches_bwd_by_variant == {
+        **bwd, "general": bwd["general"] + len(kernel_bwd.KERNELS["general"])}
+    assert ops.bwd_calls_by_lse == {**by_lse,
+                                    "forward": by_lse["forward"] + 1}
+    qd, kd, vd, od = (t.detach() for t in (q, k, v, o))
+    want = kernel_bwd.flash_attention_bwd_cuda(qd, kd, vd, od, do,
+                                               "general", lse=lse, **kw)
+    f32 = [t.float() for t in (qd, kd, vd, od, do)]
+    ref = attention_bwd_ref(*f32, **kw)
+    scales = flash_checks.bwd_row_scales(*f32, **kw)
+    for a, w, r, m in zip(got, want, ref, scales):
+        assert torch.equal(a, w)
+        assert flash_checks.grad_row_err(a, r, m) <= ROW_TOL[torch.bfloat16]
+
+
+def test_general_bwd_takes_a_forward_lse_in_bf16_only(cuda):
+    """The general backward refuses a forward's LSE in f32 (its stats
+    kernel has no D-only form there) or not from lse_buffer, before any
+    launch."""
+    q, k, v = _qkv(1, 64, 64, 2, 256, torch.float32)
+    o = attention_ref(q, k, v)
+    with pytest.raises(ValueError, match="bf16 only"):
+        kernel_bwd.flash_attention_bwd_cuda(q, k, v, o, o, "general",
+                                            lse=kernel.lse_buffer(q))
+    qb, kb, vb, ob = (t.bfloat16() for t in (q, k, v, o))
+    with pytest.raises(ValueError, match="bf16 only"):
+        kernel_bwd.flash_attention_bwd_cuda(
+            qb, kb, vb, ob, ob, "general",
+            lse=torch.empty((1, 2, 64), device="cuda"))
 
 
 def test_hopper_bwd_copies_a_dout_tma_refuses(cuda):
