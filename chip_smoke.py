@@ -83,7 +83,7 @@ non-zero and prints no result:
    every request gets its tokens, every logit is finite and each of its
    kernels ran as often per prefill wave as the path has layers that run
    it (and no other kernel ran), every K1 launch through the Hopper
-   variant (path r's too, at hd 256: K1_VARIANT); the device
+   variant (path r's too, at hd 256); the device
    memory of the path before is freed first; it prints the peak memory
    and the decode step's time beside the least time to read the weights
    a step reads:
@@ -227,32 +227,36 @@ non-zero and prints no result:
    the causal mask, the cross-attention (16, 448, 1500, 6, 64) and the
    encoder (16, 1500, 1500, 6, 64), path j's local heads (1, 4096,
    4096, 16, 128) and path q's (1, 2048, 2048, 16, 128), window 4096;
-   above hd 128 on the general route: gemma3-4b's training shape (2,
-   2048, 2048, 8, 256) with a local layer's window 1024 and a global
-   layer's none (the Hopper forward in training mode; the general route
-   reads its LSE, its stats kernel computing D alone), DeepSeek-V3's MLA
-   wave (4, 1024, 1024, 128) at q·k 192 with v, o and dO at 128 columns
-   unpadded (its forward on the Hopper MlaTile, no LSE; the stats kernel
-   recomputes it), hd 256 in f32, with a softcap and as an expanded GQA
-   view (bf16: the forward's LSE read);
+   above hd 128: gemma3-4b's training shape (2, 2048, 2048, 8, 256)
+   with a local layer's window 1024 and a global layer's none, hd 256
+   with a softcap and as an expanded GQA view (the Hopper forward in
+   training mode, the Hopper route reading its LSE: 64-row units, the
+   consumers splitting the gradients' columns and exchanging P and dS);
+   on the general route DeepSeek-V3's MLA wave (4, 1024, 1024, 128) at
+   q·k 192 with v, o and dO at 128 columns unpadded (its forward on the
+   Hopper MlaTile, no LSE; the stats kernel recomputes it), hd 256 in
+   f32, and hd 256 in bf16 with q's head stride one TMA refuses (the
+   general forward; the stats kernel recomputes the LSE); at every hd-256
+   case of the Hopper route also the general route reading the same
+   forward's LSE (its stats kernel computing D alone), held to the same
+   limits;
    each case checked for its route and for where its LSE came from
    ("hopper": the forward's LSE, preprocess, dK/dV, dQ on TMA and wgmma;
    "general": stats, dK/dV, dQ on mma.sync); two calls bit for bit; a
    backward with D dropped, the softcap derivative dropped, a kv tile
    skipped, the LSE of the neighbouring row, the LSE in log2 units, or a
-   Q/dO ring stage read one tile stale, or dK's and dV's columns past 128
-   dropped (gemma's global shape, with the LSE of the neighbouring row and
-   in log2 units there too) shown to fail the checks; at the
-   training shape, at hd 128 and at paths j's and q's local heads, timed
-   in turns: the Hopper backward
-   (each kernel alone and the whole call), the general one as the
-   yardstick, SDPA's backward, and K1's forward with and without the
-   LSE, beside the bound; at gemma's global shape and MLA's wave the
-   general backward in turns with SDPA's backward, each of its kernels,
-   the forward and the plain version, beside the bound and the design's
-   floor, and at gemma's the call and its stats kernel reading the
-   forward's LSE and recomputing it in turns, the forward without and
-   with it;
+   Q/dO ring stage read one tile stale, or (gemma's global shape, with
+   the stale stage and both LSE faults there too) dK's and dV's columns
+   past 128 dropped or the half of P and dS the other consumer hands over
+   taken from the tile before, shown to fail the checks; at the training
+   shape, at hd 128, at paths j's and q's local heads and at gemma's
+   local and global shapes, timed in turns: the Hopper backward (each
+   kernel alone and the whole call), the general one as the yardstick
+   (at hd 256 reading the same LSE), SDPA's backward, and K1's forward
+   with and without the LSE, beside the bound and the Hopper design's
+   7-product floor; at MLA's wave the general backward in turns with
+   SDPA's backward, each of its kernels, the forward and the plain
+   version, beside the bound and the design's floor;
 7. K2's backward (wkv6_bwd): the gradients the training path takes
    (torch.autograd.grad through ops.wkv6, whose backward launches the
    backward kernel on the route kernel_bwd.plan picked before the forward,
@@ -319,8 +323,8 @@ non-zero and prints no result:
    e. gemma3-4b as published (3.88 B params) with cosine, 4 steps of 2 x
       2048 (4 x 2048 would pass the card with its 262144-wide logits): K1
       68 forward launches a step on the Hopper variant in training mode
-      and 34 backward calls (102 launches: stats, dK/dV, dQ) on the
-      "general" route, each reading its forward's LSE (every path's
+      and 34 backward calls (102 launches: preprocess, dK/dV, dQ) on the
+      "hopper" route, each reading its forward's LSE (every path's
       backward calls do: none recomputes it);
    then a 2-layer cut of minicpm-2b at full width, whose gradients under
    remat policy None and "dots" equal those without remat, bit for bit;
@@ -463,11 +467,6 @@ MAIN_PATHS = {"mistral-nemo-12b": {"flash_attention": 40},
               MIXTRAL: {"flash_attention": 8},
               DEEPSEEK: {"flash_attention": 2},
               GEMMA: {"flash_attention": 34}}
-# the K1 forward variant and backward route every launch of a path takes,
-# where they are not both "hopper": gemma3-4b's hd 256 takes the Hopper
-# forward (Hd256Tile; in training mode it writes the LSE) and the general
-# backward, which reads that LSE
-K1_VARIANT = {GEMMA: ("hopper", "general")}
 # each main path's traffic: prompt lengths drawn from seed 0 in [lo, hi]
 # and max_len; the sliding-window paths' prompts all pass their 4096-token
 # window (gemma3-4b's, its local layers' 1024-token one), so it bites in
@@ -2589,15 +2588,13 @@ def phase_main_path(arch, card, profile):
           "a request got the wrong number of tokens")
     check(probe.nonfinite == 0, f"{probe.nonfinite} non-finite logits")
     want = {name: MAIN_PATHS[arch].get(name, 0) * waves for name in ops}
-    # every K1 launch of a main path takes the Hopper variant, but where
-    # K1_VARIANT says otherwise
-    k1_variant = K1_VARIANT.get(arch, ("hopper", "hopper"))[0]
+    # every K1 launch of a main path takes the Hopper variant
     want["flash_attention_by_variant"] = {
-        "hopper": 0, "general": 0, k1_variant: want["flash_attention"]}
+        "hopper": want["flash_attention"], "general": 0}
     if want["flash_attention"]:
         print(f"[main] {arch}: K1 launches by variant "
               f"{launches['flash_attention_by_variant']} (expected all "
-              f"{k1_variant!r})")
+              f"'hopper')")
     # every K2 launch takes kernel.plan's (G, C, CB) for the model's head dim
     want["wkv6_by_plan"] = {}
     if want["wkv6"]:
@@ -4852,9 +4849,8 @@ def phase_whisper_train(card):
 # fewer than hd), dtype, causal, window, softcap, q/k scale, layout, the
 # route kernel_bwd.plan must pick and the forward variant kernel.plan must
 # pick (hd 120 and MLA's (192, 128): the Hopper forward without an LSE,
-# the general backward recomputing it; bf16 hd 256: the Hopper forward in
-# training mode, the general backward reading its LSE); the first is the
-# training shape (minicpm-2b, batch 4 x 2048)
+# the general backward recomputing it); the first is the training shape
+# (minicpm-2b, batch 4 x 2048)
 BWD_CASES = [
     ("training", (4, 2048, 2048, 36, 64), torch.bfloat16, True, 0, 0.0,
      2.0, "plain", "hopper", "hopper"),
@@ -4899,11 +4895,11 @@ BWD_CASES = [
      True, 4096, 0.0, 2.0, "plain", "hopper", "hopper"),
     # gemma3-4b's training step (2 x 2048, 8 heads of 256): a local
     # layer's window 1024 and a global layer; the Hopper forward (its LSE)
-    # and the general backward
+    # and the Hopper backward's column split
     ("gemma-local-hd256", (2, 2048, 2048, 8, 256), torch.bfloat16, True,
-     1024, 0.0, 2.0, "plain", "general", "hopper"),
+     1024, 0.0, 2.0, "plain", "hopper", "hopper"),
     ("gemma-global-hd256", (2, 2048, 2048, 8, 256), torch.bfloat16, True, 0,
-     0.0, 2.0, "plain", "general", "hopper"),
+     0.0, 2.0, "plain", "hopper", "hopper"),
     # a prefill wave of DeepSeek-V3's MLA with v at its 128 columns, not
     # padded: the Hopper forward (MlaTile, no LSE), the general backward
     # (its stats kernel recomputes the LSE)
@@ -4914,22 +4910,30 @@ BWD_CASES = [
     ("f32-hd256", (1, 300, 300, 2, 256), torch.float32, True, 0, 0.0, 2.0,
      "plain", "general", "general"),
     ("softcap-30-hd256", (2, 512, 512, 4, 256), torch.bfloat16, True, 0,
-     30.0, 6.0, "plain", "general", "hopper"),
+     30.0, 6.0, "plain", "hopper", "hopper"),
     ("gqa-view-hd256", (2, 1024, 1024, 8, 256), torch.bfloat16, True, 0,
-     0.0, 2.0, "gqa-view", "general", "hopper"),
+     0.0, 2.0, "gqa-view", "hopper", "hopper"),
+    # q's heads 260 elements apart (520 bytes, no multiple of 16): TMA
+    # refuses it, so the call takes the general forward and the general
+    # backward's bf16 <256, 256> kernels, its stats kernel recomputing the
+    # LSE (q read a lane at a time)
+    ("head-stride-refused-hd256", (2, 300, 300, 4, 256), torch.bfloat16,
+     True, 0, 0.0, 2.0, "padded-q-heads", "general", "general"),
 ]
 # the fault each case also shows the checks can see (checks.FAULTS)
 BWD_FAULTS = {"training": ("no-delta", "skip-last-tile", "lse-neighbour-row",
                            "lse-log2", "stale-q-stage"),
               "softcap-50": ("no-softcap-derivative",),
               "hd120-window256": ("skip-first-tile",),
-              # the general route reading the forward's LSE
-              "gemma-global-hd256": ("dkdv-past-128-dropped",
+              # the Hopper route at hd 256: its 64-row ring, its column
+              # halves and their hand-off, the forward's LSE
+              "gemma-global-hd256": ("stale-q-stage", "stale-exchanged-half",
+                                     "dkdv-past-128-dropped",
                                      "lse-neighbour-row", "lse-log2")}
 # the cases timed in turns (the training shape is the kernels line's)
 TIMED_BWD_CASES = ("training", "hd128", "mesh-train-local-heads",
-                   "mesh-mixtral-local-heads", "gemma-global-hd256",
-                   "mla-192-128")
+                   "mesh-mixtral-local-heads", "gemma-local-hd256",
+                   "gemma-global-hd256", "mla-192-128")
 # A gradient row's error is measured against the row's scale
 # (checks.bwd_row_scales: the norm of the sum of magnitudes that makes the
 # row), held to ROW_TOL.  dS = P (dP - D) cancels as a row's softmax nears
@@ -4959,7 +4963,7 @@ TRAIN_PATHS = {
                 kernels={"flash_attention": (2, 3),
                          "selective_scan": (2, 2)}),
     # full width and depth (3.88 B params); 2 x 2048, since 4 x 2048 with
-    # its 262144-wide logits would pass the card; K1 on "general"
+    # its 262144-wide logits would pass the card; K1 on "hopper" at hd 256
     GEMMA: dict(batch=2, seq=2048, steps=4,
                 kernels={"flash_attention": (68, 102)}),
 }
@@ -4999,6 +5003,8 @@ def _bwd_inputs(shape, dtype, qk_scale, layout, gen):
         return (x * scale).to(dtype)
 
     q, do = randn(sq, qk_scale), randn(sq, 1.0, d=dv)
+    if layout == "padded-q-heads":   # q's heads hd + 4 elements apart
+        q = torch.nn.functional.pad(q, (0, 4))[..., :hd]
     if layout == "gqa-view":
         k = randn(skv, qk_scale, 1).expand(b, skv, h, hd)
         v = randn(skv, 1.0, 1, dv).expand(b, skv, h, dv)
@@ -5066,8 +5072,8 @@ def phase_flash_bwd():
         want = {vt: 2 if vt == forward else 0 for vt in took}
         check(took == want, f"flash_bwd {name}: forward launches by variant "
                             f"{took}, expected {want}")
-        # where the forward writes an LSE (every Hopper route, and hd 256
-        # in bf16), each backward call reads it
+        # where the forward writes an LSE (every Hopper route), each
+        # backward call reads it
         lse_from = ("forward" if flash_kernel.writes_lse(q, k, v)
                     else "recomputed")
         took = {u: n - before_lse[u]
@@ -5107,6 +5113,10 @@ def phase_flash_bwd():
                   f"row rel err {worst:.3e} (limit {rtol:g})")
             check(worst > 10 * rtol, f"flash_bwd {name}: {fault} gives only "
                                      f"{worst:.3e}: the check cannot see it")
+        if route == "hopper" and flash_dims(shape)[4] > 128:
+            _check_general_with_lse(flash_kernel, kernel_bwd, checks, q, k,
+                                    v, o, do, kw, ref, scales, rtol, name,
+                                    got)
         del f32, ref, scales
         torch.cuda.empty_cache()
         if name in TIMED_BWD_CASES:
@@ -5136,6 +5146,39 @@ def phase_flash_bwd():
     return entry
 
 
+def _check_general_with_lse(flash_kernel, kernel_bwd, checks, q, k, v, o,
+                            do, kw, ref, scales, rtol, name, hopper):
+    """The general backward at a bf16 hd-256 call the Hopper route takes,
+    reading the Hopper forward's LSE as the Hopper route does (its stats
+    kernel computing D alone): the yardstick ``_time_flash_bwd`` times,
+    held to the plain backward row by row at ``rtol``, two calls bit for
+    bit; printed beside how far its gradients lie from the Hopper route's
+    (``hopper``).  Called through the kernel modules (no launch
+    counted)."""
+    lse = flash_kernel.lse_buffer(q)
+    with torch.no_grad():
+        flash_kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse, **kw)
+        got, again = (kernel_bwd.flash_attention_bwd_cuda(
+            q, k, v, o, do, "general", lse=lse, **kw) for _ in range(2))
+        errs = {g: checks.grad_row_err(a, r, m) for g, a, r, m in
+                zip(("dq", "dk", "dv"), got, ref, scales)}
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    apart = ", ".join(
+        f"{g} {(a != h).float().mean().item():.3%} of elements differ, by "
+        f"at most {(a.float() - h.float()).abs().max().item():.3e}"
+        for g, a, h in zip(("dq", "dk", "dv"), got, hopper))
+    print(f"[flash_bwd] {name}: the general route reading the forward's "
+          f"LSE: worst row rel err "
+          f"{', '.join(f'{g} {e:.3e}' for g, e in errs.items())} (limit "
+          f"{rtol:g}); two calls {'bit-identical' if same else 'DIFFER'}; "
+          f"against the hopper route's gradients {apart}")
+    check(all(math.isfinite(e) and e <= rtol for e in errs.values()),
+          f"flash_bwd {name}: the general route reading the forward's LSE: "
+          f"worst rows {errs} past {rtol:g}")
+    check(same, f"flash_bwd {name}: the general route reading the "
+                f"forward's LSE: two calls differ")
+
+
 def _flash_grads(flash_ops, q, k, v, do, kw):
     """(o, (dq, dk, dv)) through ops.flash_attention and autograd, as the
     training path takes them: the forward kernel, then the backward
@@ -5152,7 +5195,9 @@ def _time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape,
     """In turns, through the kernel modules (no launch counted; the
     backward's arguments prepared once, so no host time between its
     launches): the Hopper backward and the general one, whole (hopper,
-    general, general, hopper), each Hopper kernel alone (twice), K1's forward
+    general, general, hopper; above hd 128 the general one reads the same
+    LSE, as its route did there before the Hopper one took hd 256), each
+    Hopper kernel alone (twice), K1's forward
     without and with the LSE (without, with, with, without), SDPA's
     backward through autograd (forward + backward, minus the forward),
     and the plain version; beside the bound and the Hopper design's
@@ -5160,13 +5205,15 @@ def _time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape,
     the one the training path takes)."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     lse = flash_kernel.lse_buffer(q)
+    hd = shape[4]
     with torch.no_grad():
         flash_kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse, **kw)
 
         def call(variant, kernels=None):
             return kernel_bwd.launcher(
                 q, k, v, o, do, variant, kernels=kernels,
-                lse=lse if variant == "hopper" else None, **kw)[0]
+                lse=lse if variant == "hopper" or hd > 128 else None,
+                **kw)[0]
 
         call("hopper", ("preprocess",))()   # D for dK/dV and dQ alone
         turns = [(vt, time_ms(call(vt)))
@@ -5196,7 +5243,6 @@ def _time_flash_bwd(kernel_bwd, attention_bwd_ref, q, k, v, o, do, shape,
     ms = ms_by_variant["hopper"]
     bound_ms, bound_by, pairs = bwd_bound(shape, dtype, kw["causal"],
                                           kw["window"])
-    hd = shape[4]
     floor_ms = 14 * hd * pairs / PEAK_FLOPS[dtype] * 1e3
     print(f"[flash_bwd] {name}: in turns "
           f"{', '.join(f'{u} {t:.4f}' for u, t in turns)} ms; hopper "
@@ -5257,33 +5303,24 @@ def _sdpa_grad(q, k, v, do, kw, name):
 def _time_flash_bwd_general(kernel_bwd, attention_bwd_ref, q, k, v, o, do,
                             shape, dtype, kw, name):
     """The general backward, through the kernel module (no launch
-    counted; its arguments prepared once) as the training path calls it,
-    reading the forward's LSE where the forward writes one (hd 256): the
-    whole call in turns with SDPA's backward through autograd (general,
-    sdpa, sdpa, general; SDPA's forward timed around them and taken off;
-    v at its own columns, or zero-padded to hd where SDPA refuses that; a
-    boolean band mask where a window bites), its kernels (stats alone,
-    then stats with dK/dV and with dQ, each less stats), the forward on
-    the variant kernel.plan picks, and the plain version; where the
-    forward writes an LSE, also the call and its stats kernel recomputing
-    it (with, without, without, with) and the forward without and with
-    it; beside the bound and the design's floor (its products: S three
-    times, twice with the forward's LSE, dP twice, each twice in dK/dV
-    and dQ above hd 128 in bf16).  Returns the kernels-line numbers
-    (``ms`` is the general call's as the training path takes it)."""
+    counted; its arguments prepared once) as the training path calls it:
+    the whole call in turns with SDPA's backward through autograd
+    (general, sdpa, sdpa, general; SDPA's forward timed around them and
+    taken off; v at its own columns, or zero-padded to hd where SDPA
+    refuses that; a boolean band mask where a window bites), its kernels
+    (stats alone, then stats with dK/dV and with dQ, each less stats),
+    the forward on the variant kernel.plan picks, and the plain version;
+    beside the bound and the design's floor (its products: S three times,
+    dP twice, each twice in dK/dV and dQ above hd 128 in bf16).  Returns
+    the kernels-line numbers (``ms`` is the general call's as the
+    training path takes it)."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     hd, dv = flash_dims(shape)[4:]
     variant = flash_kernel.plan(q, k, v)
-    lse = None
-    if flash_kernel.writes_lse(q, k, v):
-        lse = flash_kernel.lse_buffer(q)
-        with torch.no_grad():
-            flash_kernel.flash_attention_cuda(q, k, v, variant, lse=lse, **kw)
 
-    def call(kernels=None, with_lse=True):
+    def call(kernels=None):
         return kernel_bwd.launcher(q, k, v, o, do, "general",
-                                   kernels=kernels,
-                                   lse=lse if with_lse else None, **kw)[0]
+                                   kernels=kernels, **kw)[0]
 
     fwd, fwd_bwd, sdpa_v = _sdpa_grad(q, k, v, do, kw, name)
     # q, k, v, o and dO need no gradient: only SDPA's copies record one
@@ -5296,25 +5333,8 @@ def _time_flash_bwd_general(kernel_bwd, attention_bwd_ref, q, k, v, o, do,
     kernel_ms = {"stats": stats_ms,
                  **{kn: time_ms(call(("stats", kn))) - stats_ms
                     for kn in ("dkdv", "dq")}}
-
-    def forward(with_lse):
-        return lambda: flash_kernel.flash_attention_cuda(
-            q, k, v, variant, lse=lse if with_lse else None, **kw)
-
-    fwd_ms = {variant: time_ms(forward(False))}
-    lse_turns = []
-    if lse is not None:
-        runs = {(part, w): call(kernels, w)
-                for part, kernels in (("call", None), ("stats", ("stats",)))
-                for w in (True, False)}
-        lse_turns = [((part, w), time_ms(runs[part, w]))
-                     for part in ("call", "stats")
-                     for w in (True, False, False, True)]
-        fwd_turns = [(w, time_ms(forward(w)))
-                     for w in (False, True, True, False)]
-        fwd_ms = {f"{variant}{'_with_lse' if w else ''}":
-                  float(np.mean([t for u, t in fwd_turns if u == w]))
-                  for w in (False, True)}
+    fwd_ms = {variant: time_ms(lambda: flash_kernel.flash_attention_cuda(
+        q, k, v, variant, **kw))}
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw),
                        iters=2, warmup=1)
     del fwd, fwd_bwd
@@ -5324,18 +5344,10 @@ def _time_flash_bwd_general(kernel_bwd, attention_bwd_ref, q, k, v, o, do,
     bound_ms, bound_by, pairs = bwd_bound(shape, dtype, kw["causal"],
                                           kw["window"])
     split = 2 if dtype == torch.bfloat16 and hd > 128 else 1
-    s_products = 4 if lse is not None else 6    # S in stats too, or not
-    design_flops = (s_products * hd + 2 * dv
-                    + 2 * split * (2 * hd + 2 * dv)) * pairs
+    design_flops = (6 * hd + 2 * dv + 2 * split * (2 * hd + 2 * dv)) * pairs
     floor_ms = design_flops / PEAK_FLOPS[dtype] * 1e3
-    by_lse = {f"{part}_{'forward_lse' if w else 'recomputed'}":
-              float(np.mean([t for u, t in lse_turns if u == (part, w)]))
-              for part in ("call", "stats") for w in (True, False)
-              } if lse_turns else None
-    print(f"[flash_bwd] {name}: general (LSE "
-          f"{'the forward' if lse is not None else 'recomputed'}'s) in "
-          f"turns with sdpa {', '.join(f'{t:.4f}' for _, t in turns)} ms; "
-          f"kernels alone "
+    print(f"[flash_bwd] {name}: general (LSE recomputed) in turns with sdpa "
+          f"{', '.join(f'{t:.4f}' for _, t in turns)} ms; kernels alone "
           f"{', '.join(f'{u} {t:.4f}' for u, t in kernel_ms.items())} ms; "
           f"forward {', '.join(f'{u} {t:.4f}' for u, t in fwd_ms.items())}"
           f" ms; plain {plain_ms:.4f} ms, "
@@ -5346,19 +5358,11 @@ def _time_flash_bwd_general(kernel_bwd, attention_bwd_ref, q, k, v, o, do,
           f"({design_flops / 1e9:.1f} GFLOP); general / bound "
           f"{ms / bound_ms:.2f}, general / sdpa {ms / library_ms:.2f}, "
           f"{design_flops / ms / 1e9:.1f} TFLOP/s of the design's products")
-    if lse_turns:
-        print(f"[flash_bwd] {name}: the forward's LSE read / recomputed, in "
-              f"turns: " + ", ".join(
-                  f"{part} {'read' if w else 'recomputed'} {t:.4f}"
-                  for (part, w), t in lse_turns)
-              + f" ms; forward without / with the LSE in turns "
-              f"{', '.join(f'{t:.4f}' for _, t in fwd_turns)} ms")
-    del lse
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "floor_ms": floor_ms, "ms_turns": turns, "kernel_ms": kernel_ms,
             "forward_ms": fwd_ms, "sdpa_forward_ms": sdpa_fwd_ms,
-            "sdpa_v": sdpa_v, **({"ms_by_lse": by_lse} if by_lse else {})}
+            "sdpa_v": sdpa_v}
 
 
 def _count_plain_calls():
@@ -5441,12 +5445,11 @@ def read_counts(ops):
             "k3_by_mode": dict(ops["selective_scan"].launches_by_mode)}
 
 
-def expected_counts(kernels, ops, k3_mode="training", k1_variant="hopper",
-                    k1_route="hopper"):
+def expected_counts(kernels, ops, k3_mode="training"):
     """``read_counts``' value for a run whose kernels launch ``kernels``
-    ({name: (forward, backward)}) times: every K1 forward launch on
-    ``k1_variant``, every K1 backward launch on ``k1_route``, every K1
-    backward call reading its forward's LSE (none recomputing it), every
+    ({name: (forward, backward)}) times: every K1 forward launch on the
+    Hopper variant, every K1 backward launch on the "hopper" route, every
+    K1 backward call reading its forward's LSE (none recomputing it), every
     K2 forward under kernel.plan's choice and backward on "hopper", every
     K3 forward in ``k3_mode``, no other kernel."""
     from repro_torch.kernels.flash_attention import kernel_bwd
@@ -5455,12 +5458,10 @@ def expected_counts(kernels, ops, k3_mode="training", k1_variant="hopper",
     k2 = kernels.get("wkv6", (0, 0))
     k3 = kernels.get("selective_scan", (0, 0))
     return {"launches": {k: tuple(kernels.get(k, (0, 0))) for k in ops},
-            "k1_by_variant": {"hopper": 0, "general": 0,
-                              k1_variant: k1[0]},
-            "k1_bwd_by_variant": {"hopper": 0, "general": 0,
-                                  k1_route: k1[1]},
+            "k1_by_variant": {"hopper": k1[0], "general": 0},
+            "k1_bwd_by_variant": {"hopper": k1[1], "general": 0},
             "k1_bwd_by_lse": {"forward": k1[1] // len(
-                kernel_bwd.KERNELS[k1_route]), "recomputed": 0},
+                kernel_bwd.KERNELS["hopper"]), "recomputed": 0},
             "k2_by_plan": ({_plan_name(*wkv_kernel.PLAN): k2[0]}
                            if k2[0] else {}),
             "k2_bwd_by_route": {"hopper": k2[1], "general": 0},
@@ -5503,9 +5504,7 @@ def phase_train(arch, card):
     records = out["records"]
     losses = [r["loss"] for r in records]
     params = sum(t.numel() for t in _leaves(out["params"]))
-    k1_variant, k1_route = K1_VARIANT.get(arch, ("hopper", "hopper"))
-    want = expected_counts(spec["kernels"], ops, k1_variant=k1_variant,
-                           k1_route=k1_route)
+    want = expected_counts(spec["kernels"], ops)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = float(np.median([r["step_ms"] for r in records[1:]]))
     tok_s = shape["batch"] * shape["seq"] / step_ms * 1e3
@@ -5531,7 +5530,7 @@ def phase_train(arch, card):
     if arch == "minicpm-2b":
         _embedding_backward_is_deterministic(out)
     kernels = profile_train_step(out, shape)
-    if k1 and k1_route == "hopper":
+    if k1:
         check(kernels is None or "bwd_stats" not in kernels,
               f"train: a stats kernel ran on the hopper route: {kernels}")
     result = {"arch": arch, **shape, "layers": cfg.n_layers,

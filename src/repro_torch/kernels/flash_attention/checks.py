@@ -21,7 +21,17 @@ limits.
   ring stage waited on with a stale phase would hold;
 * "dkdv-past-128-dropped": dK's and dV's columns from 128 on zero (hd >
   128), as a backward whose warps owned the first 128 columns of a row
-  alone (the design up to hd 128) would leave them unwritten.
+  alone (the design up to hd 128), or a Hopper consumer that never wrote
+  its column half at hd 256, would leave them unwritten;
+* "stale-exchanged-half": the Hopper backward's hand-off at hd 256, where
+  consumer c owns the gradients' columns 128 c .. 128 c + 127 and
+  computes P and dS for half of each streamed 64-row tile (rows 32 c ..
+  32 c + 31), the other half coming from the other consumer through
+  shared memory: every half that comes from the other consumer taken
+  from the tile before (64 rows earlier; the first tile's as it should
+  be), as a missing or misplaced named barrier, or a wrong exchange
+  buffer, would give.  In dK and dV the halves are of the q rows, in dQ
+  of the kv rows.
 
 And what the forward's checks must be able to see at a head dim that is
 no multiple of the Hopper forward's 64-column TMA box (hd 120), or that
@@ -53,7 +63,7 @@ from repro_torch.kernels.flash_attention.ref import attention_lse, scores
 
 FAULTS = ("no-delta", "no-softcap-derivative", "skip-last-tile",
           "skip-first-tile", "lse-neighbour-row", "lse-log2",
-          "stale-q-stage", "dkdv-past-128-dropped")
+          "stale-q-stage", "dkdv-past-128-dropped", "stale-exchanged-half")
 TILE = 64    # the kernel's q and kv tile rows
 FWD_FAULTS = ("pad-from-next-head", "second-box-dropped",
               "third-box-dropped", "fourth-box-dropped")
@@ -90,6 +100,11 @@ def attention_bwd_faulty(q, k, v, o, do, fault, *, causal=True, window=0,
         dk[..., 128:] = 0
         dv[..., 128:] = 0
         return dq, dk, dv
+    if fault == "stale-exchanged-half":
+        if q.shape[3] <= 128:
+            raise ValueError(f"hd {q.shape[3]} splits no columns: {fault} "
+                             f"cannot happen")
+        return _stale_exchange(q, k, v, o, do, scale, kw)
     lse = None
     if fault in ("lse-neighbour-row", "lse-log2", "stale-q-stage"):
         lse = attention_lse(q, k, **kw)[..., None]           # (b, h, sq, 1)
@@ -122,6 +137,44 @@ def attention_bwd_faulty(q, k, v, o, do, fault, *, causal=True, window=0,
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq, dk, dv
+
+
+def _stale_source(n, c, device):
+    """For each of n rows, the row consumer c reads its P and dS from:
+    the row 64 earlier where the other consumer's half of a 64-row tile
+    (rows 32 (1 - c) .. of it) comes stale, else the row itself."""
+    rows = torch.arange(n, device=device)
+    ring = HOPPER_RING_ROWS["dkdv"][256]
+    other = (rows % ring) // (ring // 2) == 1 - c
+    return torch.where(other & (rows >= ring), rows - ring, rows)
+
+
+def _stale_exchange(q, k, v, o, do, scale, kw):
+    """(dq, dk, dv) with "stale-exchanged-half": column half c of dK and
+    dV from P and dS whose q rows in the other consumer's half come from
+    the q tile before, column half c of dQ from dS whose kv rows in the
+    other consumer's half come from the kv tile before."""
+    s, t = scores(q, k, **kw)
+    p = torch.softmax(s, dim=-1)                       # (b, h, sq, skv)
+    dof, qf, kf = do.float(), q.float(), k.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    d = (dof * o.float()).sum(dim=-1).transpose(1, 2)[..., None]
+    ds = p * (dp - d)
+    if t is not None:
+        ds = ds * (1 - t * t)
+    dq, dk, dv = (torch.zeros(x.shape, device=x.device)
+                  for x in (q, k, v))
+    for c in (0, 1):
+        cols = slice(128 * c, 128 * c + 128)
+        src = _stale_source(q.shape[1], c, q.device)
+        dv[..., cols] = torch.einsum("bhqk,bqhd->bkhd", p[:, :, src],
+                                     dof[..., cols])
+        dk[..., cols] = torch.einsum("bhqk,bqhd->bkhd", ds[:, :, src],
+                                     qf[..., cols]) * scale
+        src = _stale_source(k.shape[1], c, q.device)
+        dq[..., cols] = torch.einsum("bhqk,bkhd->bqhd", ds[..., src],
+                                     kf[..., cols]) * scale
     return dq, dk, dv
 
 

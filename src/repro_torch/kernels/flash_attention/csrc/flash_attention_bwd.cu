@@ -998,28 +998,40 @@ bool aligned16(const void* ptr, const long long* s) {
 // atomics): three kernels, launched in order by
 // flash_attention_bwd_hopper.  (b) and (c) are persistent: one block per
 // SM walks its share of the units in a fixed order (unit i of block j is
-// j + i x grid), so two calls give the same bits.
+// j + i x grid, mirrored on odd passes, the units zigzagging in a group,
+// so that the blocks' loads stay even: `unit_of`, `unit_at`), so two
+// calls give the same bits.
 //   (a) preprocess: D = rowsum(dO * o) in f32 into (b, h, ls), 0 on rows
 //       past sq; LSE comes from the forward's training mode, not from a
 //       third S = Q K^T.
-//   (b) dK/dV: a unit is a kv tile of 128 rows (UNIT_ROWS) of one (batch,
-//       head); its q tiles (DkdvCfg::RING rows) are the ones the causal
-//       and window masks let see it (the general variant's tile
-//       skipping, turned into the unit's q range).
-//   (c) dQ: a unit is a q tile of 128 rows; its kv tiles (DqCfg::RING
-//       rows) those the forward visits.
+//   (b) dK/dV: a unit is a kv tile of DkdvCfg::UNIT rows (128, 64 at hd
+//       256) of one (batch, head); its q tiles (DkdvCfg::RING rows) are
+//       the ones the causal and window masks let see it (the general
+//       variant's tile skipping, turned into the unit's q range).
+//   (c) dQ: a unit is a q tile of DqCfg::UNIT rows; its kv tiles
+//       (DqCfg::RING rows) those the forward visits.
 // Block: 3 warpgroups.  Warpgroup 0 is the producer: after giving up
 // registers (setmaxnreg) one thread issues every TMA load.  Warpgroups 1
-// and 2 are consumers, each owning 64 of the unit's 128 rows, with 240
-// registers a thread.  Shared memory: the unit's two tiles (K and V in
-// (b), Q and dO in (c)), loaded once a unit into one of UBUFS buffers
-// (two where shared memory allows, so the next unit's land while this
-// one's last tiles run); a ring of STAGES stages of
-// the streamed pair (Q and dO with their LSE and D values in (b), K and
-// V in (c)), each stage with a "full" barrier (the TMA bytes landed)
-// and an "empty" one every consumer thread arrives on once the products
-// that read it completed; each unit buffer has the same pair.  A unit's
-// tiles are released before its epilogue.
+// and 2 are consumers, each owning 64 of the unit's 128 rows at every
+// column, with 240 registers a thread.  At hd 256 (SPLIT) a consumer's
+// 64 rows x 256 columns of dK and dV would take 256 f32 registers a
+// thread, and a 128-row unit with a 2-stage ring 256 KB of shared memory,
+// so the unit has 64 rows and the consumers split the columns instead:
+// consumer c owns columns 128 c .. 128 c + 127 of dK and dV (of dQ in
+// (c)) at every row, computes S and dP for half of the streamed tile's
+// rows (m64n32 products), and the two hand each other their bf16 halves
+// of P^T and dS^T (of dS in (c)) through a 64 x 64 tile in shared memory
+// (two buffers by tile) and a named barrier, before the column halves'
+// products read them with both operands in shared memory: still 7
+// products a pair, none recomputed.  Shared memory: the unit's two tiles
+// (K and V in (b), Q and dO in (c)), loaded once a unit into one of UBUFS
+// buffers (two where shared memory allows, so the next unit's land while
+// this one's last tiles run); a ring of STAGES stages of the streamed
+// pair (Q and dO with their LSE and D values in (b), K and V in (c)),
+// each stage with a "full" barrier (the TMA bytes landed) and an "empty"
+// one every consumer thread arrives on once the products that read it
+// completed; each unit buffer has the same pair.  A unit's tiles are
+// released before its epilogue.
 // Products, all wgmma with f32 accumulators, 7 of 2 hd FLOPs per unmasked
 // pair:
 //   (b) S^T = K Q^T and dP^T = V dO^T (m64nRINGk16, both operands from
@@ -1028,19 +1040,30 @@ bool aligned16(const void* ptr, const long long* s) {
 //       in registers; dV += P^T dO and dK += dS^T Q with P^T and dS^T
 //       from registers (rounded to bf16) and dO, Q read MN-major;
 //   (c) S = Q K^T, dP = dO V^T, then dQ += dS K (K read MN-major).
+// At hd 256 S^T and dP^T (S and dP) are m64n32k16 on the consumer's 32
+// rows of the streamed tile, and the column halves' products m64n128k16
+// with P^T and dS^T (dS) read from the exchanged tile, K-major.
 // Masks: only on the tiles that cross the causal diagonal, the window's
 // edge or the end of q (in (b): rows past sq hold TMA's zeros and an
 // unwritten LSE, so their P is masked to 0) or of kv (in (c)); a masked
 // pair's P and dS are 0, as exp(-1e30 - LSE) is in the forward.  Rows of
 // the unit past sq or skv are computed and never stored.
 // Tiles are TMA boxes of 64 columns (128 bytes) x rows, swizzled 128B,
-// as the forward's (hd 128 is two boxes side by side); the wgmma
-// descriptors are the forward's (K-major: SBO 1024, 32 bytes a k step;
-// MN-major: SBO 1024, LBO the distance between the two boxes, 2048 bytes
-// a k step of 16 rows).  Streamed tiles are 128 rows (m64n128 products,
-// half the ring handshakes of 64-row ones) where the accumulators fit in
-// a consumer's 240 registers; dK/dV at hd 128 streams 64-row tiles (S^T,
-// dP^T, dK and dV of 128 columns would take 256).
+// as the forward's (hd 128 is two boxes side by side, hd 256 four); the
+// wgmma descriptors are the forward's (K-major: SBO 1024, 32 bytes a k
+// step; MN-major: SBO 1024, LBO the distance between two boxes, 2048
+// bytes a k step of 16 rows).  Streamed tiles are 128 rows (m64n128
+// products, half the ring handshakes of 64-row ones) where the
+// accumulators fit in a consumer's 240 registers; dK/dV at hd 128
+// streams 64-row tiles (S^T, dP^T, dK and dV of 128 columns would take
+// 256), and hd 256 64-row ones in both kernels (two 64 KB stages beside
+// the 64 KB unit and the 32 KB of exchanged tiles: 226 KB in (b)).
+// The exchanged tile is written by plain stores into the 128B swizzle
+// TMA would give it (16-byte chunk j of row r at chunk j ^ (r % 8)),
+// made visible to wgmma by fence.proxy.async, then bar.sync 1, 256 (the
+// consumers alone).  Buffer i % 2 is written again at tile i + 2 only
+// after both consumers passed tile i + 1's barrier, which each reaches
+// after its tile-i products completed: one barrier a tile suffices.
 // Phase bits: the i-th ring tile of the block uses stage i % STAGES in
 // round i / STAGES; its consumers wait with parity (i / STAGES) & 1, the
 // producer on the empty barrier with the opposite parity; the j-th unit
@@ -1051,7 +1074,7 @@ bool aligned16(const void* ptr, const long long* s) {
 namespace hopper {
 
 constexpr int THREADS = 384;
-constexpr int UNIT_ROWS = 128;           // rows of a unit: 2 consumers x 64
+constexpr int UNIT_ROWS = 128;           // the most rows of a unit (Cfg::UNIT)
 constexpr int BOX = 64;                  // columns of a TMA box
 constexpr int BOX_ROW_BYTES = BOX * 2;   // 128: the swizzle width
 constexpr int PRODUCER_REGS = 24;        // 128 x 24 + 256 x 240 <= 65536
@@ -1059,42 +1082,66 @@ constexpr int CONSUMER_REGS = 240;
 constexpr int PRE_THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 // bytes of the streamed operands of the (batch, head) pairs whose units
-// run together, so that they stay in L2 (the forward's choice)
-constexpr long long GROUP_BYTES = 8ll << 20;
+// run together, so that they stay in L2: twice the forward's 8 MB, since
+// the balanced order (`unit_of`, `unit_at`) wants more pairs a group (on
+// an H100, 8 MB groups took 1.27x as long at gemma3-4b's global layer and
+// at path j's local heads; experiments/time_flash_bwd_hd256_torch.py)
+constexpr long long GROUP_BYTES = 16ll << 20;
 
-// Rows of a streamed tile (RING), ring stages, and buffers of a unit's
-// own tiles (UBUFS: with 2, the next unit's land while this one's last
-// tiles run), by kernel and head dim, as shared memory allows.
+// Rows of a unit (UNIT) and of a streamed tile (RING), ring stages,
+// buffers of a unit's own tiles (UBUFS: with 2, the next unit's land while
+// this one's last tiles run), whether the consumers split the gradient's
+// columns (SPLIT), the 64 x 64 tiles a consumer hands the other a streamed
+// tile (XCH: P^T and dS^T in (b), dS in (c)), by kernel and head dim, as
+// shared memory and registers allow.
 template <int HD>
 struct DkdvCfg {
+  static constexpr bool SPLIT = HD == 256;
+  static constexpr int UNIT = SPLIT ? 64 : 128;
   static constexpr int RING = HD == 64 ? 128 : 64;
   static constexpr int STAGES = HD == 64 ? 3 : 2;
-  static constexpr int UBUFS = 2;
+  static constexpr int UBUFS = SPLIT ? 1 : 2;
+  static constexpr int XCH = SPLIT ? 2 : 0;
 };
 
 template <int HD>
 struct DqCfg {
-  static constexpr int RING = 128;
+  static constexpr bool SPLIT = HD == 256;
+  static constexpr int UNIT = SPLIT ? 64 : 128;
+  static constexpr int RING = SPLIT ? 64 : 128;
   static constexpr int STAGES = HD == 64 ? 3 : 2;
   static constexpr int UBUFS = HD == 64 ? 2 : 1;   // 192 KB at hd 128
+  static constexpr int XCH = SPLIT ? 1 : 0;
 };
 
 template <int HD, typename Cfg>
 struct Smem {
   static constexpr int NB = HD / BOX;                   // boxes per row
-  static constexpr int UNIT_TILE = UNIT_ROWS * HD * 2;  // K or V / Q or dO
+  static constexpr int UNIT_TILE = Cfg::UNIT * HD * 2;  // K or V / Q or dO
   static constexpr int RING_TILE = Cfg::RING * HD * 2;
   static constexpr int RING_OFF = Cfg::UBUFS * 2 * UNIT_TILE;
-  // LSE and D: RING each a ring stage in (b), 128 each a unit buffer in (c)
-  static constexpr int VEC_OFF = RING_OFF + Cfg::STAGES * 2 * RING_TILE;
+  // the exchanged tiles, UNIT x RING bf16 (one 128B-swizzled box), XCH a
+  // buffer, two buffers (the next tile's are written while the other
+  // consumer may still read this one's)
+  static constexpr int XCH_TILE = Cfg::UNIT * Cfg::RING * 2;
+  static constexpr int XCH_OFF = RING_OFF + Cfg::STAGES * 2 * RING_TILE;
+  // LSE and D: RING each a ring stage in (b), UNIT each a unit buffer in
+  // (c)
+  static constexpr int VEC_OFF = XCH_OFF + 2 * Cfg::XCH * XCH_TILE;
   static constexpr int VEC_RING = Cfg::STAGES * 2 * Cfg::RING * 4;
-  static constexpr int VEC_UNIT = Cfg::UBUFS * 2 * UNIT_ROWS * 4;
+  static constexpr int VEC_UNIT = Cfg::UBUFS * 2 * Cfg::UNIT * 4;
   static constexpr int VEC_BYTES = VEC_RING > VEC_UNIT ? VEC_RING : VEC_UNIT;
   // barriers: unit full and unit empty x UBUFS, then full and empty x
   // STAGES
   static constexpr int BAR_OFF = VEC_OFF + VEC_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (2 * Cfg::UBUFS + 2 * Cfg::STAGES)
                                + 1024;                  // alignment slack
+  static_assert(BYTES <= 232448, "past the 227 KB a block may use");
+  static_assert(Cfg::UNIT <= UNIT_ROWS && UNIT_ROWS % Cfg::UNIT == 0 &&
+                    UNIT_ROWS % Cfg::RING == 0,
+                "the LSE's rows (a multiple of UNIT_ROWS) end on a tile");
+  static_assert(!Cfg::SPLIT || (Cfg::UNIT == 64 && Cfg::RING == BOX),
+                "an exchanged tile is 64 rows of one box");
 };
 
 struct Params {
@@ -1236,8 +1283,27 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 32, f32) (+)= A (64 x 16) B (16 x 32), both from shared memory
+// through descriptors, K-major; scale_d = 0 zeroes D first.
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), both from shared
-// memory through descriptors, K-major; scale_d = 0 zeroes D first.
+// memory through descriptors, A K-major, B K-major or (TRANS_B = 1)
+// MN-major; scale_d = 0 zeroes D first.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
                                                 uint64_t db, int scale_d) {
   asm volatile(
@@ -1251,7 +1317,7 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -1268,12 +1334,18 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_ss_m64n32(d, da, db, scale_d);
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
@@ -1366,21 +1438,68 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
 }
 
 // acc (64 x N) = A B^T over hd: A's 64 rows start at `a_rows` inside a
-// unit tile (boxes of UNIT_ROWS rows), B is a ring tile (boxes of N
-// rows); HD / 16 k steps of 32 bytes along a 128-byte box row, every 4th
-// on the next 64-column box.
-template <int HD, int N>
+// unit tile (boxes of A_ROWS rows), B's N rows at `b_rows` inside a ring
+// tile (boxes of B_ROWS rows); HD / 16 k steps of 32 bytes along a
+// 128-byte box row, every 4th on the next 64-column box.  A row offset
+// that is a multiple of 8 keeps the swizzle's phase.
+template <int HD, int N, int A_ROWS, int B_ROWS>
 __device__ __forceinline__ void ss_product(float (&acc)[N / 2],
-                                           uint32_t a_rows, uint32_t b_tile) {
+                                           uint32_t a_rows, uint32_t b_rows) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     const uint64_t da = sw128_desc(
-        a_rows + (kk / 4) * UNIT_ROWS * BOX_ROW_BYTES + off, 16, 1024);
+        a_rows + (kk / 4) * A_ROWS * BOX_ROW_BYTES + off, 16, 1024);
     const uint64_t db = sw128_desc(
-        b_tile + (kk / 4) * N * BOX_ROW_BYTES + off, 16, 1024);
+        b_rows + (kk / 4) * B_ROWS * BOX_ROW_BYTES + off, 16, 1024);
     wgmma_ss<N>(acc, da, db, kk > 0);
   }
+}
+
+// acc (64 x 128) += A X: A a 64 x K bf16 tile in shared memory (one
+// 128B-swizzled box, K-major: the exchanged tile), X the 128 columns of a
+// tile of K rows starting at `x_cols` (two 64-column boxes), read
+// MN-major as rs_product reads it; K / 16 k steps.
+template <int K>
+__device__ __forceinline__ void xs_product(float (&acc)[64], uint32_t a_tile,
+                                           uint32_t x_cols) {
+#pragma unroll
+  for (int jj = 0; jj < K / 16; ++jj)
+    wgmma_ss_m64n128<1>(acc, sw128_desc(a_tile + jj * 32, 16, 1024),
+                        sw128_desc(x_cols + jj * 16 * BOX_ROW_BYTES,
+                                   K * BOX_ROW_BYTES, 1024),
+                        1);
+}
+
+// This thread's share of a 64 x 32 accumulator, rounded to bf16, into
+// columns col0 .. col0 + 31 of a 64 x 64 tile in shared memory at `tile`
+// (1024-byte aligned, K-major, swizzled 128B as TMA would write it: the
+// 16-byte chunk j of row r at chunk j ^ (r % 8)).  Element 4j + 2h + e
+// is at row 16 warp + g + 8h, column col0 + 8j + 2t + e; the 32 lanes
+// of a store hit 32 distinct banks.
+__device__ __forceinline__ void store_exchanged(uint32_t tile,
+                                                const float (&a)[16],
+                                                int warp, int g, int t,
+                                                int col0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + g + 8 * h;
+      const int chunk = (col0 / 8 + j) ^ (row % 8);
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                       tile + row * BOX_ROW_BYTES + chunk * 16 + 4 * t),
+                   "r"(pack_bf16(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]))
+                   : "memory");
+    }
+}
+
+// The two consumer warpgroups meet (named barrier 1 of 256 threads; the
+// producer's never arrive), each having made its stores to the exchanged
+// tile visible to the other's wgmma (the async proxy) first.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
 // acc (64 x HD) += A X, A (64 x K) in registers as K / 16 k steps of 16,
@@ -1568,8 +1687,10 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ss,
 
 // Units are numbered group by group (a group is `p.group` (batch, head)
 // pairs, chosen on the host so that their streamed operands stay in L2),
-// inside a group tile by tile; the caller turns the tile number around
-// where that puts the longest units first.
+// inside a group tile by tile, zigzag: the tiles go 0, n - 1, 1, n - 2,
+// ..., the longest and the shortest unit (under a causal mask) in turns;
+// the caller turns the tile number around where that puts the longest
+// units first.
 __device__ __forceinline__ void unit_of(const Params& p, int w, int n_t,
                                         int* tile, int* bh) {
   const int n_bh = p.b * p.h;
@@ -1578,7 +1699,22 @@ __device__ __forceinline__ void unit_of(const Params& p, int w, int n_t,
   const int size = min(p.group, n_bh - first);
   const int idx = w - group * p.group * n_t;
   *bh = first + idx % size;
-  *tile = idx / size;
+  const int r = idx / size;
+  *tile = r & 1 ? n_t - 1 - r / 2 : r / 2;
+}
+
+// The unit this block takes in its k-th pass over the units: unit
+// blockIdx.x + k gridDim.x, on odd passes the block's mirror image,
+// gridDim.x - 1 - blockIdx.x + k gridDim.x (a snake), so that the block
+// that took a pass's first unit takes the next pass's last.  A causal
+// mask's units of 1 .. n tiles leave the most loaded block 1.91x the mean
+// tiles in plain pass order at gemma3-4b's (2, 2048, 8, 256) and at path
+// j's (1, 4096, 16, 128); zigzag and snake together 1.03x, and the call
+// 0.62x and 0.58x the time on an H100 (kernel_bwd.block_loads mirrors
+// this order; experiments/time_flash_bwd_hd256_torch.py times both).
+__device__ __forceinline__ int unit_at(int k) {
+  const int pos = k & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  return k * gridDim.x + pos;
 }
 
 struct DkdvUnit {
@@ -1586,25 +1722,25 @@ struct DkdvUnit {
 };
 
 // A dK/dV unit, the first kv tiles (which the causal mask lets the most q
-// rows see) first; its 64-row q tiles are those with a row that has an
-// unmasked key in the kv tile (the general variant's q_tile_range):
+// rows see) first; its q tiles (C::RING rows) are those with a row that
+// has an unmasked key in the kv tile (the general variant's q_tile_range):
 // causal rows start at k0; a window ends them at the tile's last key +
 // window - 1.  Empty when causal kv rows lie past every q row (skv > sq).
-template <int RING>
+template <typename C>
 __device__ __forceinline__ DkdvUnit dkdv_unit(const Params& p, int w,
                                               int n_kt) {
   DkdvUnit u;
   int kt;
   unit_of(p, w, n_kt, &kt, &u.bh);
-  u.k0 = kt * UNIT_ROWS;
+  u.k0 = kt * C::UNIT;
   u.hh = u.bh % p.h;
   u.bb = u.bh / p.h;
-  u.qt_end = (p.sq + RING - 1) / RING;
+  u.qt_end = (p.sq + C::RING - 1) / C::RING;
   if (p.window > 0) {
-    const int k_last = min(u.k0 + UNIT_ROWS, p.skv) - 1;
-    u.qt_end = min(u.qt_end, (k_last + p.window - 1) / RING + 1);
+    const int k_last = min(u.k0 + C::UNIT, p.skv) - 1;
+    u.qt_end = min(u.qt_end, (k_last + p.window - 1) / C::RING + 1);
   }
-  u.qt_begin = p.causal ? u.k0 / RING : 0;
+  u.qt_begin = p.causal ? u.k0 / C::RING : 0;
   return u;
 }
 
@@ -1612,22 +1748,22 @@ struct DqUnit {
   int q0, hh, bb, bh, kt_begin, kt_end;
 };
 
-// A dQ unit, the last q tiles first; its 64-row kv tiles are those the
-// forward visits for the same rows.
-template <int RING>
+// A dQ unit, the last q tiles first; its kv tiles (C::RING rows) are
+// those the forward visits for the same rows.
+template <typename C>
 __device__ __forceinline__ DqUnit dq_unit(const Params& p, int w, int n_qt) {
   DqUnit u;
   int i;
   unit_of(p, w, n_qt, &i, &u.bh);
-  u.q0 = (n_qt - 1 - i) * UNIT_ROWS;
+  u.q0 = (n_qt - 1 - i) * C::UNIT;
   u.hh = u.bh % p.h;
   u.bb = u.bh / p.h;
-  const int q_last = min(u.q0 + UNIT_ROWS, p.sq) - 1;
-  u.kt_end = (p.skv + RING - 1) / RING;
-  if (p.causal) u.kt_end = min(u.kt_end, q_last / RING + 1);
+  const int q_last = min(u.q0 + C::UNIT, p.sq) - 1;
+  u.kt_end = (p.skv + C::RING - 1) / C::RING;
+  if (p.causal) u.kt_end = min(u.kt_end, q_last / C::RING + 1);
   u.kt_begin = 0;
   if (p.window > 0 && u.q0 - p.window + 1 > 0)
-    u.kt_begin = (u.q0 - p.window + 1) / RING;
+    u.kt_begin = (u.q0 - p.window + 1) / C::RING;
   return u;
 }
 
@@ -1673,12 +1809,15 @@ __global__ void __launch_bounds__(PRE_THREADS)
   if (part == 0 && r < rows) delta[(bb * h + hh) * ls + row] = acc;
 }
 
-// (b) dK and dV, one kv tile of 128 rows a unit.  The producer loads the
-// unit's K and V once it has work, then every q tile's Q, dO, LSE and D
-// into the ring.  Each consumer, per q tile: S^T and dP^T (two wgmma
+// (b) dK and dV, one kv tile of C::UNIT rows a unit.  The producer loads
+// the unit's K and V once it has work, then every q tile's Q, dO, LSE and
+// D into the ring.  Each consumer, per q tile: S^T and dP^T (two wgmma
 // groups), P^T and dS^T in registers, then dV += P^T dO and dK += dS^T
-// Q, and the stage goes back to the producer.  The unit's K and V go back
-// before the epilogue (dK x scale and dV stored as bf16).
+// Q, and the stage goes back to the producer.  At hd 256 (C::SPLIT) a
+// consumer computes S^T and dP^T at its 32 of the tile's q rows, hands
+// the other its half of P^T and dS^T through shared memory, and adds both
+// halves' products into its 128 columns of dK and dV.  The unit's K and V
+// go back before the epilogue (dK x scale and dV stored as bf16).
 template <int HD, bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS, 1)
     bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -1687,6 +1826,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                            const __grid_constant__ CUtensorMap map_do,
                            const Params p) {
   using C = DkdvCfg<HD>;
+  constexpr int UNIT = C::UNIT;
   constexpr int RING = C::RING;
   constexpr int STAGES = C::STAGES;
   constexpr int UBUFS = C::UBUFS;
@@ -1699,13 +1839,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto q_s = [&](int s) { return base + L::RING_OFF + s * 2 * L::RING_TILE; };
   auto do_s = [&](int s) { return q_s(s) + L::RING_TILE; };
   auto vec_s = [&](int s) { return base + L::VEC_OFF + s * 2 * RING * 4; };
+  // P^T, then dS^T, of exchange buffer x
+  auto xch_s = [&](int x) { return base + L::XCH_OFF + x * 2 * L::XCH_TILE; };
   auto unit_full = [&](int ub) { return bars + 8 * ub; };
   auto unit_empty = [&](int ub) { return bars + 8 * (UBUFS + ub); };
   auto full = [&](int s) { return bars + 8 * (2 * UBUFS + s); };
   auto empty = [&](int s) { return bars + 8 * (2 * UBUFS + STAGES + s); };
   const float* vec = reinterpret_cast<const float*>(
       smem_raw + (base - smem_u32(smem_raw)) + L::VEC_OFF);
-  const int n_kt = (p.skv + UNIT_ROWS - 1) / UNIT_ROWS;
+  const int n_kt = (p.skv + UNIT - 1) / UNIT;
   const int n_units = n_kt * p.b * p.h;
 
   if (threadIdx.x == 0) {
@@ -1726,17 +1868,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
       uint32_t it = 0, u = 0;   // ring tiles and units with work so far
-      for (int w = blockIdx.x; w < n_units; w += gridDim.x) {
-        const DkdvUnit wk = dkdv_unit<RING>(p, w, n_kt);
+      for (int k = 0, w; (w = unit_at(k)) < n_units; ++k) {
+        const DkdvUnit wk = dkdv_unit<C>(p, w, n_kt);
         if (wk.qt_begin >= wk.qt_end) continue;
         const int ub = u % UBUFS;
         mbar_wait(unit_empty(ub), ((u / UBUFS) & 1) ^ 1);
         mbar_expect_tx(unit_full(ub), 2 * L::UNIT_TILE);
 #pragma unroll
         for (int b = 0; b < L::NB; ++b) {
-          tma_load(k_s(ub) + b * UNIT_ROWS * BOX_ROW_BYTES, &map_k, b * BOX,
+          tma_load(k_s(ub) + b * UNIT * BOX_ROW_BYTES, &map_k, b * BOX,
                    wk.hh, wk.k0, wk.bb, unit_full(ub));
-          tma_load(v_s(ub) + b * UNIT_ROWS * BOX_ROW_BYTES, &map_v, b * BOX,
+          tma_load(v_s(ub) + b * UNIT * BOX_ROW_BYTES, &map_v, b * BOX,
                    wk.hh, wk.k0, wk.bb, unit_full(ub));
         }
         ++u;
@@ -1766,41 +1908,64 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int g = lane / 4;
     const int t = lane % 4;
     const float none[2] = {0.f, 0.f};
+    // SPLIT: the unit's every row, the gradients' columns 128 c ..; else
+    // the unit's rows 64 c .., every column
+    constexpr int COLS = C::SPLIT ? 128 : HD;  // a consumer's dK, dV columns
+    constexpr int N = C::SPLIT ? 32 : RING;    // its q columns of S^T
+    // the q rows of a tile this consumer's S^T columns stand for
+    const int qc = C::SPLIT ? 32 * c : 0;
+    // its first row's bytes into a unit tile
+    const uint32_t own = C::SPLIT ? 0 : 64 * c * BOX_ROW_BYTES;
     uint32_t it = 0, u = 0;
-    for (int w = blockIdx.x; w < n_units; w += gridDim.x) {
-      const DkdvUnit wk = dkdv_unit<RING>(p, w, n_kt);
+    for (int k = 0, w; (w = unit_at(k)) < n_units; ++k) {
+      const DkdvUnit wk = dkdv_unit<C>(p, w, n_kt);
       const int n_tiles = max(wk.qt_end - wk.qt_begin, 0);
-      const int row0 = wk.k0 + 64 * c + 16 * warp + g;   // this thread's kv
+      const int row0 = wk.k0 + (C::SPLIT ? 0 : 64 * c) + 16 * warp + g;
       const int ub = u % UBUFS;
-      const uint32_t k_rows = k_s(ub) + 64 * c * BOX_ROW_BYTES;
-      const uint32_t v_rows = v_s(ub) + 64 * c * BOX_ROW_BYTES;
-      float dk[HD / 2], dv[HD / 2];
+      const uint32_t k_rows = k_s(ub) + own;
+      const uint32_t v_rows = v_s(ub) + own;
+      float dk[COLS / 2], dv[COLS / 2];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+      for (int i = 0; i < COLS / 2; ++i) dk[i] = dv[i] = 0.f;
       if (n_tiles > 0) mbar_wait(unit_full(ub), (u / UBUFS) & 1);
       for (int i = 0; i < n_tiles; ++i) {
         const uint32_t n = it + i;
         const int s = n % STAGES;
         const int q0 = (wk.qt_begin + i) * RING;
-        float sacc[RING / 2], dpacc[RING / 2];
+        float sacc[N / 2], dpacc[N / 2];
         mbar_wait(full(s), (n / STAGES) & 1);
         wgmma_fence();
-        ss_product<HD, RING>(sacc, k_rows, q_s(s));    // S^T = K Q^T
+        ss_product<HD, N, UNIT, RING>(sacc, k_rows,   // S^T = K Q^T
+                                      q_s(s) + qc * BOX_ROW_BYTES);
         wgmma_commit();
-        ss_product<HD, RING>(dpacc, v_rows, do_s(s));  // dP^T = V dO^T
+        ss_product<HD, N, UNIT, RING>(dpacc, v_rows,  // dP^T = V dO^T
+                                      do_s(s) + qc * BOX_ROW_BYTES);
         wgmma_commit();
         const bool mask = q0 + RING > p.sq ||
-                          (p.causal && q0 < wk.k0 + UNIT_ROWS - 1) ||
+                          (p.causal && q0 < wk.k0 + UNIT - 1) ||
                           (p.window > 0 && q0 + RING - 1 - wk.k0 >= p.window);
-        const float* lse_col = vec + s * 2 * RING;
-        tile_grads<true, SOFTCAP, RING>(mask, sacc, dpacc, p, row0, q0, t,
-                                        lse_col, lse_col + RING, none, none);
-        uint32_t pa[RING / 16][4], da[RING / 16][4];
-        pack_frags<RING>(pa, sacc);
-        pack_frags<RING>(da, dpacc);
-        wgmma_fence();
-        rs_product<HD, RING>(dv, pa, do_s(s));   // dV += P^T dO
-        rs_product<HD, RING>(dk, da, q_s(s));    // dK += dS^T Q
+        const float* lse_col = vec + s * 2 * RING + qc;
+        tile_grads<true, SOFTCAP, N>(mask, sacc, dpacc, p, row0, q0 + qc, t,
+                                     lse_col, lse_col + RING, none, none);
+        if constexpr (C::SPLIT) {
+          // this consumer's halves of P^T and dS^T into buffer n % 2; once
+          // both are in, dV_c += P^T dO[:, c] and dK_c += dS^T Q[:, c]
+          const uint32_t xp = xch_s(n % 2);
+          store_exchanged(xp, sacc, warp, g, t, qc);
+          store_exchanged(xp + L::XCH_TILE, dpacc, warp, g, t, qc);
+          consumers_sync();
+          wgmma_fence();
+          xs_product<RING>(dv, xp, do_s(s) + 2 * c * RING * BOX_ROW_BYTES);
+          xs_product<RING>(dk, xp + L::XCH_TILE,
+                           q_s(s) + 2 * c * RING * BOX_ROW_BYTES);
+        } else {
+          uint32_t pa[RING / 16][4], da[RING / 16][4];
+          pack_frags<RING>(pa, sacc);
+          pack_frags<RING>(da, dpacc);
+          wgmma_fence();
+          rs_product<HD, RING>(dv, pa, do_s(s));   // dV += P^T dO
+          rs_product<HD, RING>(dk, da, q_s(s));    // dK += dS^T Q
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv);
@@ -1812,18 +1977,22 @@ __global__ void __launch_bounds__(THREADS, 1)
         ++u;
       }
       it += n_tiles;
-      store_rows<HD>(p.dk + wk.bb * p.dk_sb + wk.hh * p.dk_sh, p.dk_ss, row0,
-                     p.skv, t, dk, p.scale);
-      store_rows<HD>(p.dv + wk.bb * p.dv_sb + wk.hh * p.dv_sh, p.dv_ss, row0,
-                     p.skv, t, dv, 1.f);
+      const int col = C::SPLIT ? 128 * c : 0;
+      store_rows<COLS>(p.dk + wk.bb * p.dk_sb + wk.hh * p.dk_sh + col,
+                       p.dk_ss, row0, p.skv, t, dk, p.scale);
+      store_rows<COLS>(p.dv + wk.bb * p.dv_sb + wk.hh * p.dv_sh + col,
+                       p.dv_ss, row0, p.skv, t, dv, 1.f);
     }
   }
 }
 
-// (c) dQ, one q tile of 128 rows a unit.  The producer loads the unit's
-// Q, dO, LSE and D, then every kv tile's K and V into the ring.  Each
-// consumer, per kv tile: S and dP (two wgmma groups), dS in registers,
-// dQ += dS K, and the stage goes back.  Epilogue: dQ x scale as bf16.
+// (c) dQ, one q tile of C::UNIT rows a unit.  The producer loads the
+// unit's Q, dO, LSE and D, then every kv tile's K and V into the ring.
+// Each consumer, per kv tile: S and dP (two wgmma groups), dS in
+// registers, dQ += dS K, and the stage goes back.  At hd 256 (C::SPLIT) a
+// consumer computes S and dP at its 32 of the tile's kv rows, hands the
+// other its half of dS through shared memory, and adds the whole dS K
+// into its 128 columns of dQ.  Epilogue: dQ x scale as bf16.
 template <int HD, bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS, 1)
     bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -1832,6 +2001,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                          const __grid_constant__ CUtensorMap map_do,
                          const Params p) {
   using C = DqCfg<HD>;
+  constexpr int UNIT = C::UNIT;
   constexpr int RING = C::RING;
   constexpr int STAGES = C::STAGES;
   constexpr int UBUFS = C::UBUFS;
@@ -1843,14 +2013,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto do_s = [&](int ub) { return q_s(ub) + L::UNIT_TILE; };
   auto k_s = [&](int s) { return base + L::RING_OFF + s * 2 * L::RING_TILE; };
   auto v_s = [&](int s) { return k_s(s) + L::RING_TILE; };
-  auto vec_s = [&](int ub) { return base + L::VEC_OFF + ub * 2 * UNIT_ROWS * 4; };
+  auto vec_s = [&](int ub) { return base + L::VEC_OFF + ub * 2 * UNIT * 4; };
+  auto xch_s = [&](int x) { return base + L::XCH_OFF + x * L::XCH_TILE; };
   auto unit_full = [&](int ub) { return bars + 8 * ub; };
   auto unit_empty = [&](int ub) { return bars + 8 * (UBUFS + ub); };
   auto full = [&](int s) { return bars + 8 * (2 * UBUFS + s); };
   auto empty = [&](int s) { return bars + 8 * (2 * UBUFS + STAGES + s); };
   const float* vec = reinterpret_cast<const float*>(
       smem_raw + (base - smem_u32(smem_raw)) + L::VEC_OFF);
-  const int n_qt = (p.sq + UNIT_ROWS - 1) / UNIT_ROWS;
+  const int n_qt = (p.sq + UNIT - 1) / UNIT;
   const int n_units = n_qt * p.b * p.h;
 
   if (threadIdx.x == 0) {
@@ -1871,21 +2042,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
       uint32_t it = 0, u = 0;
-      for (int w = blockIdx.x; w < n_units; w += gridDim.x, ++u) {
-        const DqUnit wk = dq_unit<RING>(p, w, n_qt);
+      for (int k = 0, w; (w = unit_at(k)) < n_units; ++k, ++u) {
+        const DqUnit wk = dq_unit<C>(p, w, n_qt);
         const int ub = u % UBUFS;
         mbar_wait(unit_empty(ub), ((u / UBUFS) & 1) ^ 1);
-        mbar_expect_tx(unit_full(ub), 2 * L::UNIT_TILE + 2 * UNIT_ROWS * 4);
+        mbar_expect_tx(unit_full(ub), 2 * L::UNIT_TILE + 2 * UNIT * 4);
 #pragma unroll
         for (int b = 0; b < L::NB; ++b) {
-          tma_load(q_s(ub) + b * UNIT_ROWS * BOX_ROW_BYTES, &map_q, b * BOX,
+          tma_load(q_s(ub) + b * UNIT * BOX_ROW_BYTES, &map_q, b * BOX,
                    wk.hh, wk.q0, wk.bb, unit_full(ub));
-          tma_load(do_s(ub) + b * UNIT_ROWS * BOX_ROW_BYTES, &map_do, b * BOX,
+          tma_load(do_s(ub) + b * UNIT * BOX_ROW_BYTES, &map_do, b * BOX,
                    wk.hh, wk.q0, wk.bb, unit_full(ub));
         }
         const long long off = wk.bh * p.ls + wk.q0;
-        bulk_load(vec_s(ub), p.lse + off, UNIT_ROWS * 4, unit_full(ub));
-        bulk_load(vec_s(ub) + UNIT_ROWS * 4, p.delta + off, UNIT_ROWS * 4,
+        bulk_load(vec_s(ub), p.lse + off, UNIT * 4, unit_full(ub));
+        bulk_load(vec_s(ub) + UNIT * 4, p.delta + off, UNIT * 4,
                   unit_full(ub));
         for (int kt = wk.kt_begin; kt < wk.kt_end; ++kt, ++it) {
           const int s = it % STAGES;
@@ -1909,46 +2080,65 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int warp = (threadIdx.x % 128) / 32;
     const int g = lane / 4;
     const int t = lane % 4;
-    const int r = 64 * c + 16 * warp + g;   // this thread's row in the unit
+    // SPLIT: the unit's every row, dQ's columns 128 c ..; else the unit's
+    // rows 64 c .., every column
+    constexpr int COLS = C::SPLIT ? 128 : HD;  // a consumer's dQ columns
+    constexpr int N = C::SPLIT ? 32 : RING;    // its kv columns of S
+    const int r = (C::SPLIT ? 0 : 64 * c) + 16 * warp + g;   // its unit row
+    // the kv rows of the tile this consumer's S columns stand for
+    const int kc = C::SPLIT ? 32 * c : 0;
+    // its first row's bytes into a unit tile
+    const uint32_t own = C::SPLIT ? 0 : 64 * c * BOX_ROW_BYTES;
     uint32_t it = 0, u = 0;
-    for (int w = blockIdx.x; w < n_units; w += gridDim.x, ++u) {
-      const DqUnit wk = dq_unit<RING>(p, w, n_qt);
+    for (int k = 0, w; (w = unit_at(k)) < n_units; ++k, ++u) {
+      const DqUnit wk = dq_unit<C>(p, w, n_qt);
       const int n_tiles = wk.kt_end - wk.kt_begin;   // >= 1
       const int ub = u % UBUFS;
-      const uint32_t q_rows = q_s(ub) + 64 * c * BOX_ROW_BYTES;
-      const uint32_t do_rows = do_s(ub) + 64 * c * BOX_ROW_BYTES;
-      const float* uvec = vec + ub * 2 * UNIT_ROWS;
+      const uint32_t q_rows = q_s(ub) + own;
+      const uint32_t do_rows = do_s(ub) + own;
+      const float* uvec = vec + ub * 2 * UNIT;
       mbar_wait(unit_full(ub), (u / UBUFS) & 1);
       float l2[2], d[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         l2[h] = uvec[r + 8 * h] * LOG2E;
-        d[h] = uvec[UNIT_ROWS + r + 8 * h];
+        d[h] = uvec[UNIT + r + 8 * h];
       }
-      float dq[HD / 2];
+      float dq[COLS / 2];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+      for (int i = 0; i < COLS / 2; ++i) dq[i] = 0.f;
       for (int i = 0; i < n_tiles; ++i) {
         const uint32_t n = it + i;
         const int s = n % STAGES;
         const int k0 = (wk.kt_begin + i) * RING;
-        float sacc[RING / 2], dpacc[RING / 2];
+        float sacc[N / 2], dpacc[N / 2];
         mbar_wait(full(s), (n / STAGES) & 1);
         wgmma_fence();
-        ss_product<HD, RING>(sacc, q_rows, k_s(s));    // S = Q K^T
+        ss_product<HD, N, UNIT, RING>(sacc, q_rows,    // S = Q K^T
+                                      k_s(s) + kc * BOX_ROW_BYTES);
         wgmma_commit();
-        ss_product<HD, RING>(dpacc, do_rows, v_s(s));  // dP = dO V^T
+        ss_product<HD, N, UNIT, RING>(dpacc, do_rows,  // dP = dO V^T
+                                      v_s(s) + kc * BOX_ROW_BYTES);
         wgmma_commit();
         const bool mask = k0 + RING > p.skv ||
                           (p.causal && k0 + RING - 1 > wk.q0) ||
-                          (p.window > 0 &&
-                           wk.q0 + UNIT_ROWS - 1 - k0 >= p.window);
-        tile_grads<false, SOFTCAP, RING>(mask, sacc, dpacc, p, wk.q0 + r, k0,
-                                         t, nullptr, nullptr, l2, d);
-        uint32_t da[RING / 16][4];
-        pack_frags<RING>(da, dpacc);
-        wgmma_fence();
-        rs_product<HD, RING>(dq, da, k_s(s));    // dQ += dS K
+                          (p.window > 0 && wk.q0 + UNIT - 1 - k0 >= p.window);
+        tile_grads<false, SOFTCAP, N>(mask, sacc, dpacc, p, wk.q0 + r,
+                                      k0 + kc, t, nullptr, nullptr, l2, d);
+        if constexpr (C::SPLIT) {
+          // this consumer's half of dS into buffer n % 2; once both are
+          // in, dQ_c += dS K[:, c]
+          const uint32_t xd = xch_s(n % 2);
+          store_exchanged(xd, dpacc, warp, g, t, kc);
+          consumers_sync();
+          wgmma_fence();
+          xs_product<RING>(dq, xd, k_s(s) + 2 * c * RING * BOX_ROW_BYTES);
+        } else {
+          uint32_t da[RING / 16][4];
+          pack_frags<RING>(da, dpacc);
+          wgmma_fence();
+          rs_product<HD, RING>(dq, da, k_s(s));    // dQ += dS K
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -1956,8 +2146,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       mbar_arrive(unit_empty(ub));
       it += n_tiles;
-      store_rows<HD>(p.dq + wk.bb * p.dq_sb + wk.hh * p.dq_sh, p.dq_ss,
-                     wk.q0 + r, p.sq, t, dq, p.scale);
+      store_rows<COLS>(p.dq + wk.bb * p.dq_sb + wk.hh * p.dq_sh +
+                           (C::SPLIT ? 128 * c : 0),
+                       p.dq_ss, wk.q0 + r, p.sq, t, dq, p.scale);
     }
   }
 }
@@ -2034,14 +2225,14 @@ cudaError_t launch_persistent(Kern kernel, const Maps& m, const Params& p,
 }
 
 // The tensor maps of (b) or (c): its streamed operands (`ring` rows a
-// box) and its unit's (UNIT_ROWS); `dkdv` streams Q and dO past K and V,
-// else K and V past Q and dO.  Returns 1000 + the CUresult of a map that
-// failed to encode, else 0.
+// box) and its unit's (`unit` rows); `dkdv` streams Q and dO past K and
+// V, else K and V past Q and dO.  Returns 1000 + the CUresult of a map
+// that failed to encode, else 0.
 int make_maps(Maps* m, EncodeTiledFn encode, const void* const* ptrs,
               const long long* strides, int b, int sq, int skv, int h,
-              int hd, bool dkdv, int ring) {
-  const int q_rows = dkdv ? ring : UNIT_ROWS;
-  const int kv_rows = dkdv ? UNIT_ROWS : ring;
+              int hd, bool dkdv, int ring, int unit) {
+  const int q_rows = dkdv ? ring : unit;
+  const int kv_rows = dkdv ? unit : ring;
   const struct {
     CUtensorMap* map;
     int which;   // q, k, v, o, dout
@@ -2063,25 +2254,23 @@ int launch(EncodeTiledFn encode, const void* const* ptrs,
   const int n_bh = p.b * p.h;
   Maps m;
   if (which & 2) {
-    constexpr int RING = DkdvCfg<HD>::RING;
+    using C = DkdvCfg<HD>;
     const int bad = make_maps(&m, encode, ptrs, strides, p.b, p.sq, p.skv,
-                              p.h, hd, true, RING);
+                              p.h, hd, true, C::RING, C::UNIT);
     if (bad) return bad;
     const cudaError_t err = launch_persistent(
         bwd_dkdv_hopper_kernel<HD, SOFTCAP>, m, p,
-        (p.skv + UNIT_ROWS - 1) / UNIT_ROWS * n_bh,
-        Smem<HD, DkdvCfg<HD>>::BYTES, stream);
+        (p.skv + C::UNIT - 1) / C::UNIT * n_bh, Smem<HD, C>::BYTES, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (which & 4) {
-    constexpr int RING = DqCfg<HD>::RING;
+    using C = DqCfg<HD>;
     const int bad = make_maps(&m, encode, ptrs, strides, p.b, p.sq, p.skv,
-                              p.h, hd, false, RING);
+                              p.h, hd, false, C::RING, C::UNIT);
     if (bad) return bad;
     const cudaError_t err = launch_persistent(
         bwd_dq_hopper_kernel<HD, SOFTCAP>, m, p,
-        (p.sq + UNIT_ROWS - 1) / UNIT_ROWS * n_bh,
-        Smem<HD, DqCfg<HD>>::BYTES, stream);
+        (p.sq + C::UNIT - 1) / C::UNIT * n_bh, Smem<HD, C>::BYTES, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -2168,7 +2357,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The Hopper variant, bf16 only: hd 64 or 128; q/k/v/o/dout 16-byte
+// The Hopper variant, bf16 only: hd 64, 128 or 256; q/k/v/o/dout 16-byte
 // aligned with (batch, seq, head) strides that are multiples of 8
 // elements (kernel_bwd.py::plan); dq/dk/dv with even strides.  lse: the
 // forward's training-mode log-sum-exp, (b, h, ls) f32; delta: (b, h, ls)
@@ -2184,17 +2373,16 @@ extern "C" int flash_attention_bwd_hopper(
     float* delta, long long ls, int b, int sq, int skv, int h, int hd,
     const long long* strides, float scale, int causal, int window,
     float softcap, int which, void* stream) {
-  if ((hd != 64 && hd != 128) || b < 1 || sq < 1 || skv < 1 ||
+  if ((hd != 64 && hd != 128 && hd != 256) || b < 1 || sq < 1 || skv < 1 ||
       ls % hopper::UNIT_ROWS != 0 || ls < sq ||
       (window > 0 && sq > skv + window - 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (which & 1) {
-    const cudaError_t err =
-        hd == 64 ? hopper::launch_preprocess<64>(o, dout, delta, strides, b,
-                                                 sq, h, ls, s)
-                 : hopper::launch_preprocess<128>(o, dout, delta, strides, b,
-                                                  sq, h, ls, s);
+    const auto pre = hd == 64    ? hopper::launch_preprocess<64>
+                     : hd == 128 ? hopper::launch_preprocess<128>
+                                 : hopper::launch_preprocess<256>;
+    const cudaError_t err = pre(o, dout, delta, strides, b, sq, h, ls, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if ((which & 6) == 0) return 0;
@@ -2232,16 +2420,19 @@ extern "C" int flash_attention_bwd_hopper(
   // (batch, head) pairs a group: their Q and dO (streamed by (b)), or K
   // and V (streamed by (c)), together about GROUP_BYTES
   const long long streamed = 4ll * std::max(sq, skv) * hd;
-  p.group = static_cast<int>(
-      std::max(1ll, std::min(static_cast<long long>(b) * h,
-                             hopper::GROUP_BYTES / streamed)));
+  p.group = static_cast<int>(std::max(
+      1ll, std::min(static_cast<long long>(b) * h,
+                    hopper::GROUP_BYTES / streamed)));
   p.scale = scale;
   p.scale_log2 = scale * hopper::LOG2E;
   p.cap_in = softcap != 0.f ? scale / softcap : 0.f;
   p.cap_out = softcap * hopper::LOG2E;
-  const auto run = hd == 64 ? (softcap != 0.f ? hopper::launch<64, true>
-                                               : hopper::launch<64, false>)
-                            : (softcap != 0.f ? hopper::launch<128, true>
-                                              : hopper::launch<128, false>);
+  const bool cap = softcap != 0.f;
+  const auto run =
+      hd == 64    ? (cap ? hopper::launch<64, true> : hopper::launch<64, false>)
+      : hd == 128 ? (cap ? hopper::launch<128, true>
+                         : hopper::launch<128, false>)
+                  : (cap ? hopper::launch<256, true>
+                         : hopper::launch<256, false>);
   return run(encode, ptrs, strides, hd, p, which, s);
 }

@@ -13,23 +13,30 @@ same bits); ``plan`` picks one before the forward (a dispatch by dtype,
 head dim and strides; neither is a fallback for the other, and a failed
 tensor-map encode or launch raises):
 
-* ``"hopper"``: bf16 with hd 64 or 128 (``HOPPER_HEAD_DIMS``) whose
-  q/k/v/o TMA can read (every training call of the dense decoders).  Its
-  forward ran K1's Hopper variant in training mode, which wrote each
-  row's log-sum-exp.
+* ``"hopper"``: bf16 with hd = dv of 64, 128 or 256
+  (``HOPPER_HEAD_DIMS``) whose q/k/v/o TMA can read (every training call
+  of the dense decoders, gemma3-4b's at hd 256 included).  Its forward
+  ran K1's Hopper variant in training mode, which wrote each row's
+  log-sum-exp.
   FlashAttention-3's schedule: (a) preprocess, D = rowsum(dO * o); (b)
-  dK/dV, one persistent unit per 128-row kv tile, a producer warp
-  streaming Q, dO, LSE and D by TMA into a 3-stage mbarrier ring, two
-  consumer warpgroups computing S^T, dP^T, dV and dK as wgmma (P^T and
-  dS^T from registers); (c) dQ, one unit per 128-row q tile, streaming K
-  and V, S, dP and dQ as wgmma.  Streamed tiles of 128 rows
-  (``HOPPER_RING_ROWS``), 64 for dK/dV at hd 128.  7 products of 2 hd
-  FLOPs per unmasked pair.
-* ``"general"``: everything else (f32, any hd up to 256 but 64 and 128
-  in bf16, v narrower than q and k, strides TMA refuses): hd 120 and
-  MLA's (192, 128) too, though their forwards take the forward's Hopper
-  variant (no LSE), and hd 256 (gemma3-4b), whose Hopper forward writes
-  the LSE in training mode.  The first design: (a) stats, each row's LSE
+  dK/dV, one persistent unit per kv tile (``HOPPER_UNIT_ROWS``), a
+  producer warp streaming Q, dO, LSE and D by TMA into a 2- or 3-stage
+  mbarrier ring, two consumer warpgroups computing S^T, dP^T, dV and dK
+  as wgmma (P^T and dS^T from registers); (c) dQ, one unit per q tile,
+  streaming K and V, S, dP and dQ as wgmma.  Streamed tiles of 128 rows
+  (``HOPPER_RING_ROWS``), 64 for dK/dV at hd 128.  At hd 256 a
+  consumer's 64 rows of dK and dV at every column would take 256 f32
+  registers and a 128-row unit with its ring 256 KB of shared memory, so
+  units and streamed tiles have 64 rows and the consumers split the
+  gradients' columns: each computes S and dP at half the streamed tile's
+  rows (m64n32 products), the two exchange their bf16 halves of P^T and
+  dS^T (dS in (c)) through a 64 x 64 tile in shared memory and a named
+  barrier, and each adds both halves' products into its 128 columns.
+  7 products of 2 hd FLOPs per unmasked pair at every head dim.
+* ``"general"``: everything else (f32, bf16 at a head dim other than
+  64, 128 and 256, v narrower than q and k, strides TMA refuses): hd 120
+  and MLA's (192, 128) too, though their forwards take the forward's
+  Hopper variant (no LSE).  The first design: (a) stats, each row's LSE
   (a third S = Q K^T) and D, or D alone where the caller hands it the
   forward's LSE (bf16, ``lse``); (b) dK/dV per 64-row kv tile; (c) dQ
   per 64-row q tile, both reading the LSE; bf16 through mma.sync, f32
@@ -38,14 +45,17 @@ tensor-map encode or launch raises):
   gradient's columns (S and dP computed by both), and f32 takes 32-row
   tiles.  7 products a pair in (b) and (c) and 1 in stats (none with the
   forward's LSE); 11 in (b) and (c) above hd 128 in bf16.
-  D, dP and dV run over v's dv columns.
+  D, dP and dV run over v's dv columns.  At bf16 hd 256 it stays the
+  yardstick the Hopper route is timed against, reading the same LSE.
 
 What bounds it on an H100 at the training shape, (4, 2048, 36, 64) bf16
 causal (minicpm-2b): 302.1 M unmasked pairs a call.  The function needs
 5 products a pair (S, dP, dV, dK, dQ), 193.4 GFLOP, 0.196 ms at 989
 TFLOP/s, above its 302 MB of reads and writes (0.090 ms); the Hopper
-design's own floor, 7 products, is 270.7 GFLOP, 0.274 ms.  Measured
-times stand in PERF.md.
+design's own floor, 7 products, is 270.7 GFLOP, 0.274 ms.  At gemma3-4b's
+global layer, (2, 2048, 8, 256) causal: 33.6 M pairs, 5 products 85.9
+GFLOP (0.0869 ms), 7 products 120.3 GFLOP (0.1217 ms).  Measured times
+stand in PERF.md.
 
 Built at first use with nvcc (``kernels/_build.py``) into
 ``build/repro_torch/``, keyed by a hash of the source, and loaded with
@@ -74,14 +84,20 @@ VARIANTS = ("hopper", "general")
 KERNELS = {"hopper": ("preprocess", "dkdv", "dq"),
            "general": ("stats", "dkdv", "dq")}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# rows of a Hopper unit (the kernel's UNIT_ROWS), and of a streamed (ring)
-# tile by kernel and head dim (its DkdvCfg / DqCfg::RING): 128 where the
-# accumulators fit a consumer's registers, 64 for dK/dV at hd 128
-HOPPER_UNIT_ROWS = 128
-# the Hopper backward's head dims; the forward's training mode
-# (``kernel.LSE_HEAD_DIMS``) also takes 256, whose backward is general
-HOPPER_HEAD_DIMS = (64, 128)
-HOPPER_RING_ROWS = {"dkdv": {64: 128, 128: 64}, "dq": {64: 128, 128: 128}}
+# the Hopper backward's head dims: the forward's training mode's
+# (``kernel.LSE_HEAD_DIMS``)
+HOPPER_HEAD_DIMS = (64, 128, 256)
+# rows of a Hopper unit by head dim (the kernel's DkdvCfg / DqCfg::UNIT,
+# the same in both kernels: 128, 64 at hd 256, where the consumers split
+# the gradients' columns), and of a streamed (ring) tile by kernel and
+# head dim (its DkdvCfg / DqCfg::RING): 128 where the accumulators fit a
+# consumer's registers, 64 for dK/dV at hd 128 and for both at hd 256
+HOPPER_UNIT_ROWS = {64: 128, 128: 128, 256: 64}
+HOPPER_RING_ROWS = {"dkdv": {64: 128, 128: 64, 256: 64},
+                    "dq": {64: 128, 128: 128, 256: 64}}
+# the streamed bytes of a group of (batch, head) pairs whose units run
+# together (the kernel's GROUP_BYTES)
+HOPPER_GROUP_BYTES = 16 << 20
 
 
 def build() -> Path:
@@ -114,14 +130,12 @@ def plan(q, k, v, o=None) -> str:
     backward reads): "hopper" where the forward takes its Hopper variant
     (``kernel.plan``: bf16, q/k/v TMA can read, an expanded GQA view's
     stride-0 heads and a (b, h, s, hd) storage included) at a head dim of
-    ``HOPPER_HEAD_DIMS`` (64, 128) and o, if given, is bf16 TMA can read
-    (the forward's own o always is); "general" for everything else, hd
-    120 and MLA's (192, 128) included, whose forwards still take the
-    Hopper variant (serving instantiations, no LSE), and every hd above
-    128: at hd 256 the forward's Hopper variant writes the LSE
-    (``kernel.writes_lse``), which the general route then reads.  dO
-    never changes the route: one TMA refuses is copied to contiguous by
-    the caller (``dout_ok``, ``ops._FlashAttention``).
+    ``HOPPER_HEAD_DIMS`` (64, 128, 256) with v as wide as q and k, and o,
+    if given, is bf16 TMA can read (the forward's own o always is);
+    "general" for everything else, hd 120 and MLA's (192, 128) included,
+    whose forwards still take the Hopper variant (serving instantiations,
+    no LSE).  dO never changes the route: one TMA refuses is copied to
+    contiguous by the caller (``dout_ok``, ``ops._FlashAttention``).
     Works on tensors of any device, the meta device included."""
     hopper = (kernel.plan(q, k, v) == "hopper"
               and q.shape[3] in HOPPER_HEAD_DIMS
@@ -129,6 +143,51 @@ def plan(q, k, v, o=None) -> str:
               and (o is None or (o.dtype == torch.bfloat16
                                  and kernel._tma_ok(o))))
     return "hopper" if hopper else "general"
+
+
+def block_loads(b, sq, skv, h, hd, *, causal=True, window=0, kernel="dkdv",
+                n_sm=132, balance=True):
+    """The streamed tiles each persistent block of the Hopper backward's
+    dK/dV (``kernel`` "dkdv") or dQ ("dq") kernel works through, in the
+    source's order of units (``unit_of``, ``unit_at``, ``dkdv_unit``,
+    ``dq_unit``): zigzag in a group and a snake over the passes, or
+    (``balance`` false) the units in plain pass order in groups of half
+    the bytes, the order the source had before.  A list of one count a
+    block, for a check of the balance without a card."""
+    unit, ring = HOPPER_UNIT_ROWS[hd], HOPPER_RING_ROWS[kernel][hd]
+    n_bh = b * h
+    streamed = 4 * max(sq, skv) * hd
+    group_bytes = HOPPER_GROUP_BYTES if balance else HOPPER_GROUP_BYTES // 2
+    group = max(1, min(n_bh, group_bytes // streamed))
+    n_t = -(-(skv if kernel == "dkdv" else sq) // unit)
+    n_units = n_t * n_bh
+    grid = min(n_units, n_sm)
+
+    def tiles(w):
+        first = w // (group * n_t) * group
+        r = (w - first * n_t) // min(group, n_bh - first)
+        if balance:
+            r = n_t - 1 - r // 2 if r & 1 else r // 2
+        if kernel == "dkdv":
+            k0 = r * unit
+            end = -(-sq // ring)
+            if window:
+                end = min(end, (min(k0 + unit, skv) - 1 + window - 1) // ring
+                          + 1)
+            return max(end - (k0 // ring if causal else 0), 0)
+        q0 = (n_t - 1 - r) * unit
+        end = -(-skv // ring)
+        if causal:
+            end = min(end, (min(q0 + unit, sq) - 1) // ring + 1)
+        begin = (q0 - window + 1) // ring if window and q0 - window + 1 > 0 \
+            else 0
+        return end - begin
+
+    loads = [0] * grid
+    for w in range(n_units):
+        k, pos = divmod(w, grid)
+        loads[grid - 1 - pos if balance and k & 1 else pos] += tiles(w)
+    return loads
 
 
 def dout_ok(do) -> bool:
@@ -246,8 +305,8 @@ def flash_attention_bwd_cuda(q, k, v, o, do, variant, *, lse=None,
     sq, h, hd), k (b, skv, h, hd), v (b, skv, h, dv) and o/do (b, sq, h,
     dv) with dv <= hd, on one card, in one dtype of ``DTYPES``, hd at most
     ``MAX_HEAD_DIM``, head-dim stride 1; "hopper" also needs bf16, dv = hd
-    of 64 or 128, strides TMA reads and the forward's ``lse``; "general"
-    reads the forward's ``lse`` where it is given one (bf16), else
-    recomputes it.  Else it raises."""
+    of 64, 128 or 256, strides TMA reads and the forward's ``lse``;
+    "general" reads the forward's ``lse`` where it is given one (bf16),
+    else recomputes it.  Else it raises."""
     return launch(q, k, v, o, do, variant, lse=lse, causal=causal,
                   window=window, softcap=softcap)[:3]

@@ -11,11 +11,12 @@ forward kernel has two variants; ``kernel.plan`` picks one before launch
 from dtype, head dim and strides.  So does the backward:
 ``kernel_bwd.plan`` picks its route when the forward runs, since only the
 forward's Hopper variant, in training mode, writes the log-sum-exp the
-Hopper backward reads.  Wherever the forward writes one
-(``kernel.writes_lse``: the Hopper variant at hd 64, 128 and 256) it is
-saved with ``save_for_backward`` (so a layer recomputed under activation
-checkpointing recomputes it too) and handed to the backward on either
-route: at hd 256 the general route reads it instead of recomputing it.
+Hopper backward reads.  A call on the "hopper" route (bf16 at hd = dv
+of 64, 128 or 256, q/k/v TMA can read: exactly the calls whose forward
+writes one, ``kernel.writes_lse``) saves it with ``save_for_backward``
+(so a layer recomputed under activation checkpointing recomputes it too)
+and hands it to the backward; the "general" route's stats kernel
+recomputes it.
 
 v may be narrower than q and k (dv < hd: MLA's v at 128 columns beside
 q·k's 192).  The function is then the TPU kernel's on v zero-padded to hd,
@@ -123,17 +124,14 @@ def _forward(q, k, v, kw, lse=None):
 class _FlashAttention(torch.autograd.Function):
     """Forward and backward kernels of one CUDA call, on the route
     ``kernel_bwd.plan`` picks before the forward.  Saves q, k, v (as the
-    views they are) and the output, and the forward's LSE wherever it
-    writes one (always on the "hopper" route, at hd 256 on the "general"
-    one)."""
+    views they are) and the output, and on the "hopper" route the
+    forward's LSE."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw):
         ctx.route = kernel_bwd.plan(q, k, v)
         ctx.kw = kw
-        # the Hopper route needs the LSE; the general one reads it where
-        # the forward writes one anyway
-        if ctx.route == "hopper" or kernel.writes_lse(q, k, v):
+        if ctx.route == "hopper":
             lse = kernel.lse_buffer(q)
             out = _forward(q, k, v, kw, lse=lse)
             ctx.save_for_backward(q, k, v, out, lse)

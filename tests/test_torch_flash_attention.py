@@ -655,12 +655,17 @@ def test_plain_grads_with_v_at_128_beside_192_match_jax_grad(causal):
     ("lse-neighbour-row", {}),
     ("lse-log2", {}),
     ("stale-q-stage", {}),
+    # the Hopper backward's hand-off at hd 256, with and without a softcap
+    ("stale-exchanged-half", dict(hd=256)),
+    ("stale-exchanged-half", dict(hd=256, softcap=30.0)),
+    ("stale-q-stage", dict(hd=256)),
 ])
 def test_bwd_faults_exceed_the_limits(fault, kw):
     """Each fault chip_smoke.py holds the kernel against moves the
     gradient far past the f32 limit."""
     assert fault in tchecks.FAULTS
-    shape = (1, 160, 160, 2, 16)
+    kw = dict(kw)
+    shape = (1, 160, 160, 2, kw.pop("hd", 16))
     _, (q, k, v, do) = bwd_inputs(shape, seed=5)
     q, k = q * 4, k * 4            # scores past the softcap's linear range
     kw = dict(dict(causal=True, window=0, softcap=0.0), **kw)
@@ -674,15 +679,48 @@ def test_bwd_faults_exceed_the_limits(fault, kw):
 
 
 def test_stale_stage_fault_touches_only_dk_dv():
-    """The stale ring stage is one of dK/dV's: dq stays the plain one."""
-    _, (q, k, v, do) = bwd_inputs((1, 160, 160, 2, 16), seed=5)
+    """The stale ring stage is one of dK/dV's: dq stays the plain one.
+    It is as stale as the ring's rows (128 at hd 64, 64 at hd 128 and
+    256): dK/dV of the first ``ring`` q rows alone are the plain ones,
+    of ``ring`` + 8 rows no longer."""
     kw = dict(causal=True, window=0, softcap=0.0)
+    _, (q, k, v, do) = bwd_inputs((1, 160, 160, 2, 16), seed=5)
     o = attention_ref(q, k, v, **kw)
     good = attention_bwd_ref(q, k, v, o, do, **kw)
     bad = tchecks.attention_bwd_faulty(q, k, v, o, do, "stale-q-stage",
                                        **kw)
     torch.testing.assert_close(bad[0], good[0], **BWD_TOL)
     assert not torch.allclose(bad[1], good[1], **BWD_TOL)
+    for hd, ring in ((64, 128), (128, 64), (256, 64)):
+        assert tKB.HOPPER_RING_ROWS["dkdv"][hd] == ring
+        _, (q, k, v, do) = bwd_inputs((1, 160, 160, 2, hd), seed=5)
+        o = attention_ref(q, k, v, **kw)
+        for n, same in ((ring, True), (ring + 8, False)):
+            args = (q[:, :n], k, v, o[:, :n], do[:, :n])
+            good = attention_bwd_ref(*args, **kw)
+            bad = tchecks.attention_bwd_faulty(*args, "stale-q-stage", **kw)
+            torch.testing.assert_close(bad[0], good[0], **BWD_TOL)
+            assert torch.allclose(bad[2], good[2], **BWD_TOL) == same
+
+
+def test_stale_exchange_fault_is_the_hand_off_of_hd256():
+    """"stale-exchanged-half" moves every gradient (the exchange is in
+    both kernels), only from the second 64-row tile on: with 64 q and kv
+    rows every half comes from the first tile, as it should; below hd 129
+    no columns are split and it cannot happen."""
+    kw = dict(causal=True, window=0, softcap=0.0)
+    for n, same in ((64, True), (160, False)):
+        _, (q, k, v, do) = bwd_inputs((1, n, n, 2, 256), seed=6)
+        o = attention_ref(q, k, v, **kw)
+        good = attention_bwd_ref(q, k, v, o, do, **kw)
+        bad = tchecks.attention_bwd_faulty(q, k, v, o, do,
+                                           "stale-exchanged-half", **kw)
+        for b, g in zip(bad, good):
+            assert torch.allclose(b, g, **BWD_TOL) == same
+    with pytest.raises(ValueError, match="splits no columns"):
+        tchecks.attention_bwd_faulty(q[..., :128], k[..., :128],
+                                     v[..., :128], o[..., :128],
+                                     do[..., :128], "stale-exchanged-half")
 
 
 # (hd, dv) at which chip_smoke.py shows each forward fault: hd 120's
@@ -833,8 +871,10 @@ def test_bwd_cuda_rejects_what_it_does_not_take():
     ("gqa-view", "hopper"), ("f32", "general"), ("hd120", "general"),
     ("hd32", "general"), ("head-stride-not-16-bytes", "general"),
     ("o-f32", "general"), ("o-seq-stride-not-16-bytes", "general"),
-    ("do-refused", "hopper"), ("hd192", "general"), ("hd256", "general"),
-    ("mla-192-128", "general"),
+    ("do-refused", "hopper"), ("hd192", "general"), ("hd256", "hopper"),
+    ("mla-192-128", "general"), ("gqa-view-hd256", "hopper"),
+    ("strided-hd256", "hopper"), ("f32-hd256", "general"),
+    ("head-stride-refused-hd256", "general"), ("v128-beside-hd256", "general"),
 ])
 def test_bwd_plan_routes(case, route):
     """kernel_bwd.plan on meta tensors: "hopper" where the forward takes
@@ -851,6 +891,20 @@ def test_bwd_plan_routes(case, route):
     elif case == "gqa-view":
         k = v = meta((b, s, 1, hd)).expand(b, s, h, hd)
         assert k.stride(2) == 0
+    elif case == "gqa-view-hd256":       # one KV head seen as all 8
+        q = meta((2, s, 8, 256))
+        k = v = meta((2, s, 1, 256)).expand(2, s, 8, 256)
+        assert k.stride(2) == 0
+    elif case == "strided-hd256":
+        q = k = v = meta((2, 8, s, 256)).transpose(1, 2)
+    elif case == "f32-hd256":
+        q = k = v = meta((2, s, 8, 256), dtype=torch.float32)
+    elif case == "head-stride-refused-hd256":   # 260 elements, 520 bytes
+        q = meta((2, s, 8, 256), (s * 8 * 260, 8 * 260, 260, 1))
+        k = v = meta((2, s, 8, 256))
+    elif case == "v128-beside-hd256":
+        q = k = meta((2, s, 8, 256))
+        v = meta((2, s, 8, 128))
     elif case == "f32":
         q = k = v = meta((b, s, h, hd), dtype=torch.float32)
     elif case == "mla-192-128":
@@ -868,14 +922,14 @@ def test_bwd_plan_routes(case, route):
         do = meta((b, s, h, hd), (s * h * hd * 2, h * hd * 2, hd * 2, 2))
         assert not tKB.dout_ok(do)
     assert tKB.plan(q, k, v, o) == route
-    if route == "hopper" or case in ("hd120", "mla-192-128", "hd256"):
-        # hd 120, MLA: the Hopper forward (no LSE), the general backward;
-        # hd 256: the Hopper forward in training mode, whose LSE the
-        # general backward reads
+    if route == "hopper" or case in ("hd120", "mla-192-128"):
+        # hd 120, MLA: the Hopper forward (no LSE), the general backward
         assert tK.plan(q, k, v) == "hopper"
-    if route == "hopper" or case == "hd256":
+    if route == "hopper":
+        # the Hopper forward in training mode, whose LSE the backward reads
         assert tK.writes_lse(q, k, v)
-    elif case in ("f32", "hd120", "hd32", "hd192", "mla-192-128"):
+    elif case not in ("o-f32", "o-seq-stride-not-16-bytes"):
+        # no LSE to read: the general route's stats kernel recomputes it
         assert not tK.writes_lse(q, k, v)
     if case == "hd192":
         assert tK.plan(q, k, v) == "general"
@@ -886,21 +940,42 @@ def test_bwd_plan_mirrors_the_kernel_source():
     the ones the Hopper backward's source instantiates."""
     src = tKB.SOURCE.read_text()
     hopper = src[src.index("namespace hopper {"):]
-    assert "constexpr int UNIT_ROWS = %d;" % tKB.HOPPER_UNIT_ROWS in hopper
+    units = tKB.HOPPER_UNIT_ROWS
+    assert "constexpr int UNIT_ROWS = %d;" % max(units.values()) in hopper
     ring = tKB.HOPPER_RING_ROWS
-    assert ("struct DkdvCfg {\n  static constexpr int RING = HD == 64 ? "
-            "%d : %d;" % (ring["dkdv"][64], ring["dkdv"][128])) in hopper
+    # hd 256 splits the gradients' columns between the consumers, with
+    # 64-row units and streamed tiles (the others' 128-row units)
+    split = ("static constexpr bool SPLIT = HD == 256;\n"
+             "  static constexpr int UNIT = SPLIT ? %d : %d;"
+             % (units[256], units[128]))
+    assert units[64] == units[128]
+    assert ("struct DkdvCfg {\n  " + split + "\n  static constexpr int RING"
+            " = HD == 64 ? %d : %d;" % (ring["dkdv"][64], ring["dkdv"][128])
+            ) in hopper
+    assert ring["dkdv"][256] == ring["dkdv"][128]
     assert ring["dq"][64] == ring["dq"][128]
-    assert ("struct DqCfg {\n  static constexpr int RING = %d;"
-            % ring["dq"][64]) in hopper
+    assert ("struct DqCfg {\n  " + split + "\n  static constexpr int RING"
+            " = SPLIT ? %d : %d;" % (ring["dq"][256], ring["dq"][64])
+            ) in hopper
     assert all(tK.LSE_ROW_ALIGN % r == 0 for rows in ring.values()
                for r in rows.values())
-    assert tK.LSE_ROW_ALIGN % tKB.HOPPER_UNIT_ROWS == 0
+    assert all(tK.LSE_ROW_ALIGN % r == 0 for r in units.values())
+    # the exchanged tile is one 64 x 64 box; units, rings and the launch
+    # take their rows from the config
+    assert ("static_assert(!Cfg::SPLIT || (Cfg::UNIT == 64 && Cfg::RING == "
+            "BOX),") in hopper
+    assert hopper.count("(p.skv + C::UNIT - 1) / C::UNIT * n_bh") == 1
+    assert hopper.count("(p.sq + C::UNIT - 1) / C::UNIT * n_bh") == 1
+    assert "hd, true, C::RING, C::UNIT);" in hopper
+    assert "hd, false, C::RING, C::UNIT);" in hopper
+    assert "UNIT_ROWS" not in hopper[hopper.index("struct Params {"):
+                                     hopper.index("}  // namespace hopper")]
     entry = src[src.index('extern "C" int flash_attention_bwd_hopper'):]
-    assert "if ((hd != 64 && hd != 128)" in entry
+    assert "if ((hd != 64 && hd != 128 && hd != 256)" in entry
     assert "ls % hopper::UNIT_ROWS != 0" in entry
-    assert tKB.HOPPER_HEAD_DIMS == (64, 128)
-    assert set(tKB.HOPPER_HEAD_DIMS) == set(tKB.HOPPER_RING_ROWS["dkdv"])
+    assert tKB.HOPPER_HEAD_DIMS == (64, 128, 256) == tK.LSE_HEAD_DIMS
+    assert (set(tKB.HOPPER_HEAD_DIMS) == set(ring["dkdv"]) == set(ring["dq"])
+            == set(units))
     for hd in tKB.HOPPER_HEAD_DIMS:
         assert f"hopper::launch<{hd}, true>" in entry
         assert f"hopper::launch<{hd}, false>" in entry
@@ -925,6 +1000,62 @@ def test_bwd_plan_mirrors_the_kernel_source():
     assert "return (static_cast<long long>(bb) * p.h + hh) * p.ls;" in general
     entry = src[src.index('extern "C" int flash_attention_bwd('):]
     assert "ls < sq ||\n      (lse_in && dtype != 1))" in entry
+
+
+def test_bwd_block_loads_mirror_the_kernel_source():
+    """kernel_bwd.block_loads follows the source's order of units at
+    every head dim: the group's streamed bytes, the zigzag in a group and
+    the snake over the passes."""
+    src = tKB.SOURCE.read_text()
+    hopper = src[src.index("namespace hopper {"):]
+    assert ("constexpr long long GROUP_BYTES = %dll << 20;"
+            % (tKB.HOPPER_GROUP_BYTES >> 20)) in hopper
+    assert ("std::min(static_cast<long long>(b) * h,\n"
+            "                    hopper::GROUP_BYTES / streamed)") in hopper
+    assert "*tile = r & 1 ? n_t - 1 - r / 2 : r / 2;" in hopper
+    assert ("const int pos = k & 1 ? gridDim.x - 1 - blockIdx.x : "
+            "blockIdx.x;") in hopper
+    assert hopper.count("(w = unit_at(k)) < n_units") == 4
+    assert hopper.count("unit_of(p, w, ") == 2
+
+
+# (b, s, h, hd), window, the busiest block's share of the mean in plain
+# pass order: gemma3-4b's training shape (a global and a local layer),
+# path j's local heads and minicpm-2b's training shape, causal
+BALANCE_CASES = [((2, 2048, 8, 256), 0, 1.906),
+                 ((2, 2048, 8, 256), 1024, 1.375),
+                 ((1, 4096, 16, 128), 0, 1.906),
+                 ((4, 2048, 36, 64), 0, 1.24)]
+
+
+@pytest.mark.parametrize("shape,window,plain", BALANCE_CASES)
+@pytest.mark.parametrize("which", ["dkdv", "dq"])
+def test_bwd_units_at_hd256_are_balanced(shape, window, plain, which):
+    """The Hopper backward's most loaded block works through at most
+    1.06x the mean of the streamed tiles at gemma3-4b's training shape
+    (2, 2048, 8, 256), at path j's local heads and at minicpm-2b's
+    training shape, causal, where plain pass order gave it up to 1.91x;
+    every tile of the mask is counted once."""
+    b, s, h, hd = shape
+    loads = tKB.block_loads(b, s, s, h, hd, window=window, kernel=which)
+    assert len(loads) == 132
+    unit = tKB.HOPPER_UNIT_ROWS[hd]
+    ring = tKB.HOPPER_RING_ROWS[which][hd]
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    seen = (i >= j) & ((i - j < window) if window else True)
+    # a unit's streamed tiles: the ring tiles its rows' mask reaches
+    if which == "dkdv":
+        tiles = seen.reshape(s // ring, ring, s // unit, unit).any(
+            axis=(1, 3)).sum()
+    else:
+        tiles = seen.reshape(s // unit, unit, s // ring, ring).any(
+            axis=(1, 3)).sum()
+    assert sum(loads) == b * h * tiles
+    assert max(loads) <= 1.06 * np.mean(loads)
+    old = tKB.block_loads(b, s, s, h, hd, window=window, kernel=which,
+                          balance=False)
+    assert sum(old) == sum(loads)
+    assert max(old) / np.mean(old) == pytest.approx(plain, abs=5e-4)
 
 
 def test_bwd_general_head_dims_mirror_the_kernel_source():
@@ -1077,18 +1208,17 @@ def _stand_ins(monkeypatch):
 @pytest.mark.parametrize("dtype,hd,route", [
     ("bfloat16", 64, "hopper"), ("bfloat16", 128, "hopper"),
     ("float32", 64, "general"), ("bfloat16", 32, "general"),
-    ("bfloat16", 120, "general"), ("bfloat16", 256, "general"),
+    ("bfloat16", 120, "general"), ("bfloat16", 256, "hopper"),
 ])
 def test_function_saves_lse_wherever_the_forward_writes_one(monkeypatch,
                                                              dtype, hd,
                                                              route):
     """_FlashAttention saves the forward's LSE through save_for_backward
     wherever its forward writes one (kernel.writes_lse: the Hopper
-    variant at hd 64, 128 and 256) and hands it to the backward: on the
-    "hopper" route, and on the "general" one at hd 256.  Elsewhere it
-    saves none (hd 120: the forward still takes its Hopper variant,
-    without an LSE).  Launches count by route, calls by where their LSE
-    came from."""
+    variant at hd 64, 128 and 256) and hands it to the backward, which
+    takes the "hopper" route at each of them.  Elsewhere it saves none
+    (hd 120: the forward still takes its Hopper variant, without an LSE).
+    Launches count by route, calls by where their LSE came from."""
     calls = _stand_ins(monkeypatch)
     fwd_variants = []
     forward = tK.flash_attention_cuda
@@ -1101,7 +1231,7 @@ def test_function_saves_lse_wherever_the_forward_writes_one(monkeypatch,
     _, (q, k, v) = qkv((2, 40, 3, hd), dtype=dtype, seed=4)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     kw = dict(causal=True, window=0, softcap=0.0)
-    writes = route == "hopper" or hd == 256
+    writes = route == "hopper"
     assert tK.writes_lse(q, k, v) == writes
     before = dict(tops.launches_bwd_by_variant)
     by_lse = dict(tops.bwd_calls_by_lse)

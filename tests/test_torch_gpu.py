@@ -1188,8 +1188,8 @@ def test_bwd_kernel_matches_plain(cuda, shape, causal, window, softcap,
                                   layout, dtype):
     """dq, dk, dv of each backward variant that takes the call (the
     general one always, the Hopper one where kernel_bwd.plan picks it,
-    with the forward's LSE; at hd 256 in bf16 the general one again,
-    reading the forward's LSE) against attention_bwd_ref on f32 copies,
+    with the forward's LSE, and the general one again reading that LSE)
+    against attention_bwd_ref on f32 copies,
     row by row at the forward's limits against each row's scale
     (checks.bwd_row_scales, as chip_smoke.py); two calls bit-identical.
     hd 120 in bf16: the Hopper forward and the general backward."""
@@ -1205,7 +1205,8 @@ def test_bwd_kernel_matches_plain(cuda, shape, causal, window, softcap,
         device="cuda").manual_seed(4), device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
     # (variant, reads the forward's LSE): the general one always without
-    # it, and with it where the forward writes one (hd 256 in bf16)
+    # it, and where the forward writes one the general one and the route
+    # plan picks with it
     variants = [("general", False)]
     with torch.no_grad():
         o = ops.flash_attention(q, k, v, **kw)
@@ -1213,7 +1214,9 @@ def test_bwd_kernel_matches_plain(cuda, shape, causal, window, softcap,
         if kernel.writes_lse(q, k, v):
             lse = kernel.lse_buffer(q)
             kernel.flash_attention_cuda(q, k, v, "hopper", lse=lse, **kw)
-            variants.append((kernel_bwd.plan(q, k, v, o), True))
+            variants.append(("general", True))
+            if kernel_bwd.plan(q, k, v, o) == "hopper":
+                variants.append(("hopper", True))
         f32 = [t.float() for t in (q, k, v, o, do)]
         ref = attention_bwd_ref(*f32, **kw)
         scales = flash_checks.bwd_row_scales(*f32, **kw)
@@ -1231,8 +1234,8 @@ def test_bwd_kernel_matches_plain(cuda, shape, causal, window, softcap,
 
 
 # (b, sq, skv, h, hd), causal, window, softcap, q/k scale: the Hopper
-# backward's cases (bf16, hd 64 and 128): a window with a softcap, sq !=
-# skv without the causal mask, sq not a multiple of a tile, skv > sq
+# backward's cases (bf16, hd 64, 128 and 256): a window with a softcap,
+# sq != skv without the causal mask, sq not a multiple of a tile, skv > sq
 # causal (kv tiles no q row sees), a tile of one row
 HOPPER_BWD_CASES = [
     ((2, 512, 512, 8, 64), True, 256, 30.0, 6.0),
@@ -1244,6 +1247,16 @@ HOPPER_BWD_CASES = [
     # the encoder
     ((16, 448, 1500, 6, 64), False, 0, 0.0, 2.0),
     ((16, 1500, 1500, 6, 64), False, 0, 0.0, 2.0),
+    # hd 256 (gemma3-4b's training): 64-row units and streamed tiles, the
+    # consumers splitting the gradients' columns; a ragged causal wave,
+    # sq != skv without the causal mask, skv > sq causal, a last tile of
+    # one row, a window that is no multiple of a tile, a softcap
+    ((2, 333, 333, 4, 256), True, 0, 0.0, 2.0),
+    ((1, 200, 333, 4, 256), False, 0, 0.0, 2.0),
+    ((1, 200, 456, 4, 256), True, 0, 0.0, 2.0),
+    ((1, 65, 65, 2, 256), True, 0, 0.0, 2.0),
+    ((2, 700, 700, 2, 256), True, 257, 0.0, 2.0),
+    ((1, 300, 300, 4, 256), True, 0, 30.0, 6.0),
 ]
 
 
@@ -1256,9 +1269,29 @@ def test_hopper_bwd_matches_plain(cuda, shape, causal, window, softcap,
     attention_bwd_ref, row by row; two calls bit-identical."""
     q, k, v = _qkv(*shape, torch.bfloat16, seed=8)
     q, k = q * (qk_scale / 2), k * (qk_scale / 2)
+    _hopper_bwd_matches_plain(q, k, v, dict(causal=causal, window=window,
+                                            softcap=softcap))
+
+
+@pytest.mark.parametrize("layout", ["gqa-view", "strided"])
+def test_hopper_bwd_at_hd256_reads_views(cuda, layout):
+    """The Hopper backward at hd 256 on the views TMA reads without a
+    copy: one KV head seen as all 8 (stride-0 heads), and a (b, h, s, hd)
+    storage; as test_hopper_bwd_matches_plain."""
+    q, k, v = _qkv(2, 300, 300, 8, 256, torch.bfloat16,
+                   layout="plain" if layout == "gqa-view" else layout,
+                   seed=14)
+    if layout == "gqa-view":
+        k, v = (t[:, :, :1].expand(t.shape) for t in (k, v))
+    _hopper_bwd_matches_plain(q, k, v, dict(causal=True, window=0,
+                                            softcap=0.0))
+
+
+def _hopper_bwd_matches_plain(q, k, v, kw):
+    """The Hopper backward through ops.flash_attention and autograd
+    against attention_bwd_ref, row by row; two calls bit-identical."""
     do = torch.randn(q.shape, generator=torch.Generator(
         device="cuda").manual_seed(9), device="cuda").bfloat16()
-    kw = dict(causal=causal, window=window, softcap=softcap)
     assert kernel_bwd.plan(q, k, v) == "hopper"
 
     def grads():
@@ -1279,7 +1312,7 @@ def test_hopper_bwd_matches_plain(cuda, shape, causal, window, softcap,
 
 
 # the forward's training mode at hd 256 (Hd256Tile), whose LSE the
-# general backward reads: a ragged wave, a softcap, a window that is no
+# backward reads: a ragged wave, a softcap, a window that is no
 # multiple of a kv tile, sq != skv without the causal mask
 LSE_HD256_CASES = [
     ((2, 333, 333, 4, 256), True, 0, 0.0, 2.0),
@@ -1338,10 +1371,11 @@ def test_forward_lse_at_hd256_matches_plain(cuda, shape, causal, window,
 def test_hd256_gradient_reads_the_forward_lse(cuda):
     """A bf16 call at hd 256 that needs a gradient: the forward on the
     Hopper variant in training mode (the LSE saved), the backward on the
-    general route's three kernels reading that LSE (counted under
+    Hopper route's three kernels reading that LSE (counted under
     "forward", none recomputed), its gradients those of
-    attention_bwd_ref row by row, and the same bits as the general
-    backward handed the same LSE directly."""
+    attention_bwd_ref row by row, and the same bits as the Hopper
+    backward handed the same LSE directly; the general backward handed
+    it, its yardstick, within the same limits."""
     q, k, v = (t.requires_grad_() for t in _qkv(2, 300, 300, 4, 256,
                                                  torch.bfloat16, seed=14))
     kw = dict(causal=True, window=100, softcap=0.0)
@@ -1349,24 +1383,27 @@ def test_hd256_gradient_reads_the_forward_lse(cuda):
     bwd = dict(ops.launches_bwd_by_variant)
     by_lse = dict(ops.bwd_calls_by_lse)
     o = ops.flash_attention(q, k, v, **kw)
-    assert o.grad_fn.route == "general"
+    assert o.grad_fn.route == "hopper"
     lse = o.grad_fn.saved_tensors[4]
     do = torch.randn_like(o)
     got = torch.autograd.grad(o, (q, k, v), do)
     assert ops.launches_by_variant == {**fwd, "hopper": fwd["hopper"] + 1}
     assert ops.launches_bwd_by_variant == {
-        **bwd, "general": bwd["general"] + len(kernel_bwd.KERNELS["general"])}
+        **bwd, "hopper": bwd["hopper"] + len(kernel_bwd.KERNELS["hopper"])}
     assert ops.bwd_calls_by_lse == {**by_lse,
                                     "forward": by_lse["forward"] + 1}
     qd, kd, vd, od = (t.detach() for t in (q, k, v, o))
     want = kernel_bwd.flash_attention_bwd_cuda(qd, kd, vd, od, do,
-                                               "general", lse=lse, **kw)
+                                               "hopper", lse=lse, **kw)
+    general = kernel_bwd.flash_attention_bwd_cuda(qd, kd, vd, od, do,
+                                                  "general", lse=lse, **kw)
     f32 = [t.float() for t in (qd, kd, vd, od, do)]
     ref = attention_bwd_ref(*f32, **kw)
     scales = flash_checks.bwd_row_scales(*f32, **kw)
-    for a, w, r, m in zip(got, want, ref, scales):
+    for a, w, y, r, m in zip(got, want, general, ref, scales):
         assert torch.equal(a, w)
         assert flash_checks.grad_row_err(a, r, m) <= ROW_TOL[torch.bfloat16]
+        assert flash_checks.grad_row_err(y, r, m) <= ROW_TOL[torch.bfloat16]
 
 
 def test_general_bwd_takes_a_forward_lse_in_bf16_only(cuda):
